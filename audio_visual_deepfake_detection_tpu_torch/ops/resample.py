@@ -1,0 +1,63 @@
+"""Temporal resampling along a time axis (JAX ``ops/resample.py:30-189``).
+
+``nearest_resample_time`` picks source index ``floor(j * in / out)`` (torch
+``F.interpolate(mode='nearest')``); ``linear_resample_time`` is
+``F.interpolate(mode='linear', align_corners=False)`` with the source
+coordinates computed in float32 exactly like the JAX package.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+
+def _linear_coords(in_len: int, out_len: int):
+    scale = np.float32(in_len) / np.float32(out_len)
+    coords = (np.arange(out_len, dtype=np.float32) + np.float32(0.5)) * scale \
+        - np.float32(0.5)
+    coords = np.clip(coords, 0.0, in_len - 1)
+    idx0 = np.floor(coords).astype(np.int64)
+    idx1 = np.minimum(idx0 + 1, in_len - 1).astype(np.int64)
+    frac = (coords - idx0).astype(np.float32)
+    return idx0, idx1, frac
+
+
+_linear_coords_cached = functools.lru_cache(maxsize=256)(_linear_coords)
+
+
+def linear_resample_time(x: torch.Tensor, out_len: int, axis: int = -2) -> torch.Tensor:
+    in_len = x.shape[axis]
+    if in_len == out_len:
+        return x
+    idx0, idx1, frac = _linear_coords_cached(in_len, out_len)
+    dev = x.device
+    x0 = torch.index_select(x, axis, torch.from_numpy(idx0).to(dev))
+    x1 = torch.index_select(x, axis, torch.from_numpy(idx1).to(dev))
+    shape = [1] * x.ndim
+    shape[axis] = out_len
+    f = torch.from_numpy(frac).to(dev, x.dtype).reshape(shape)
+    return x0 * (1.0 - f) + x1 * f
+
+
+def nearest_resample_time(x: torch.Tensor, out_len: int, axis: int = -2) -> torch.Tensor:
+    in_len = x.shape[axis]
+    if in_len == out_len:
+        return x
+    ax = axis % x.ndim
+    if out_len % in_len == 0:
+        return torch.repeat_interleave(x, out_len // in_len, dim=ax)
+    if in_len % out_len == 0:
+        idx = [slice(None)] * x.ndim
+        idx[ax] = slice(0, in_len, in_len // out_len)
+        return x[tuple(idx)]
+    idx = np.floor(np.arange(out_len, dtype=np.float64) * in_len / out_len)
+    idx = np.minimum(idx, in_len - 1).astype(np.int64)
+    return torch.index_select(x, ax, torch.from_numpy(idx).to(x.device))
+
+
+def downsample_mask(mask: torch.Tensor, out_len: int) -> torch.Tensor:
+    """Nearest-neighbour resize of a (B, T) bool mask."""
+    return nearest_resample_time(mask, out_len, axis=-1)

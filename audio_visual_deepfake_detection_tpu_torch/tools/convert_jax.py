@@ -1,0 +1,144 @@
+"""Carry the JAX package's flax parameters into the port (jax-free).
+
+``state_dict_from_flax(params)`` takes the flax tree as nested dicts of
+numpy arrays (with or without the leading ``params`` collection) and returns
+a state dict under the original torch repo's names, in torch layouts:
+
+- Conv1d ``(out, in/g, k)``        <- flax ``(k, in/g, out)``
+- 1x1 Conv1d ``(out, in, 1)``      <- flax dense ``(in, out)`` (attention
+  q/k/v/proj, the MLP, the interpolator's ``conv0``)
+- Linear ``(out, in)``             <- flax dense ``(in, out)``
+- LayerNorm / layer scale ``(C,)``, head scales ``()``
+
+The names are the ones the JAX package's ``tools/convert_torch.py::_ref_name``
+maps to, so ``convert_state_dict(state_dict_from_flax(p), p)`` returns ``p``
+bit for bit, and a reference checkpoint loads into the port by name.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+
+def _flatten(tree, prefix=()):
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            yield from _flatten(value, prefix + (key,))
+        else:
+            yield prefix + (key,), value
+
+
+def _wb(leaf: str) -> str:
+    return "weight" if leaf == "kernel" else "bias"
+
+
+def _block(prefix: str, rest: Tuple[str, ...]) -> Tuple[str, str]:
+    name, leaf = rest[0], rest[-1]
+    if name in ("ln1", "ln2", "lnq", "lnk", "lnv"):
+        return f"{prefix}.{name}.{leaf}", "vec"
+    if name in ("drop_path_attn", "drop_path_mlp"):
+        return f"{prefix}.{name}.scale", "vec"
+    if name in ("mlp_fc1", "mlp_fc2"):
+        idx = 0 if name == "mlp_fc1" else 3
+        return f"{prefix}.mlp.{idx}.{_wb(leaf)}", "conv1x1" if leaf == "kernel" else "vec"
+    if name == "attn":
+        sub = rest[1]
+        if sub in ("query_conv", "key_conv", "value_conv"):
+            return f"{prefix}.attn.{sub}.conv.weight", "conv"
+        if sub in ("query_norm", "key_norm", "value_norm"):
+            return f"{prefix}.attn.{sub}.{leaf}", "vec"
+        if sub in ("query", "key", "value", "proj"):
+            return f"{prefix}.attn.{sub}.{_wb(leaf)}", \
+                "conv1x1" if leaf == "kernel" else "vec"
+    raise KeyError(f"unmapped block param {prefix} {rest}")
+
+
+def torch_name(path: Tuple[str, ...]) -> Tuple[str, str]:
+    """flax path (no ``params`` head) -> (reference name, layout kind)."""
+    p, leaf = path, path[-1]
+    conv = "conv" if leaf == "kernel" else "vec"
+    if p[0] == "interpolator":
+        name = p[1]
+        if re.fullmatch(r"down_\d", name):
+            return f"interpolator.contraction.{name}.conv_block.conv.{_wb(leaf)}", conv
+        if name == "cls_conv0":
+            return "interpolator.conv0.0.weight", "conv1x1"
+        if name == "cls_fc1":
+            return "interpolator.conv1.weight", "linear"
+        if name == "cls_ln":
+            return f"interpolator.bn1.{leaf}", "vec"
+        if name == "cls_fc2":
+            return f"interpolator.conv2.{_wb(leaf)}", "linear" if leaf == "kernel" else "vec"
+    elif p[0] == "backbone":
+        name = p[1]
+        if name == "embed":
+            m = re.fullmatch(r"embd_(\d+)", p[2])
+            if m:
+                return f"backbone.embd.{m.group(1)}.conv.{_wb(leaf)}", conv
+            m = re.fullmatch(r"embd_norm_(\d+)", p[2])
+            if m:
+                return f"backbone.embd_norm.{m.group(1)}.{leaf}", "vec"
+        if name == "res_self_attn":
+            return _block("backbone.resselfattention", p[2:])
+        m = re.fullmatch(r"(stem|branch|lh_branch|hh_branch)_(\d+)", name)
+        if m:
+            return _block(f"backbone.{m.group(1)}.{m.group(2)}", p[2:])
+    elif p[0] == "neck":
+        for pat, ref in ((r"lateral_(\d+)", "lateral_convs"),
+                         (r"fpn_conv_(\d+)", "fpn_convs")):
+            m = re.fullmatch(pat, p[1])
+            if m:
+                return f"neck.{ref}.{m.group(1)}.conv.{_wb(leaf)}", conv
+        m = re.fullmatch(r"fpn_norm_(\d+)", p[1])
+        if m:
+            return f"neck.fpn_norms.{m.group(1)}.{leaf}", "vec"
+    elif p[0] in ("cls_head", "reg_head"):
+        m = re.fullmatch(r"head_(\d+)", p[1])
+        if m:
+            return f"{p[0]}.head.{m.group(1)}.conv.{_wb(leaf)}", conv
+        m = re.fullmatch(r"norm_(\d+)", p[1])
+        if m:
+            return f"{p[0]}.norm.{m.group(1)}.{leaf}", "vec"
+        if p[1] in ("cls_head", "offset_head"):
+            return f"{p[0]}.{p[1]}.conv.{_wb(leaf)}", conv
+        m = re.fullmatch(r"scale_(\d+)", p[1])
+        if m:
+            return f"reg_head.scale.{m.group(1)}.scale", "vec"
+    raise KeyError(f"unmapped param {path}")
+
+
+_LAYOUT = {
+    "conv": lambda w: np.transpose(w, (2, 1, 0)),          # (k, in/g, out) -> (out, in/g, k)
+    "conv1x1": lambda w: np.transpose(w)[:, :, None],      # (in, out) -> (out, in, 1)
+    "linear": np.transpose,                                # (in, out) -> (out, in)
+    "vec": lambda w: w,
+}
+
+
+def state_dict_from_flax(params: Dict) -> Dict[str, torch.Tensor]:
+    """Flax tree of the whole localizer -> torch state dict."""
+    if set(params) == {"params"}:
+        params = params["params"]
+    out = {}
+    for path, value in _flatten(params):
+        name, kind = torch_name(path)
+        out[name] = _tensor(kind, value)
+    return out
+
+
+def block_state_dict_from_flax(params: Dict) -> Dict[str, torch.Tensor]:
+    """Flax subtree of one TransformerBlock -> its state dict, names relative
+    to the block (``lnq.weight``, ``attn.query_conv.conv.weight``, ...)."""
+    out = {}
+    for path, value in _flatten(params):
+        name, kind = _block("", path)
+        out[name[1:]] = _tensor(kind, value)
+    return out
+
+
+def _tensor(kind: str, value) -> torch.Tensor:
+    return torch.from_numpy(np.array(_LAYOUT[kind](np.asarray(value, np.float32))))
