@@ -30,7 +30,8 @@
 // k/v rows, each of which needs +-1 conv rows). In bf16 the six products
 // run on the tensor cores (mma.sync m16n8k16, f32 accumulate, A fragments
 // from shared memory, B fragments straight from L2); in f32 they are a
-// register-tiled FMA loop, to keep full f32 precision. Not yet done: wgmma,
+// register-tiled FMA loop, to keep full f32 precision. Both read the dense
+// weights in torch's (out, in) layout, K-contiguous. Not yet done: wgmma,
 // TMA-staged weights, larger tiles (shared memory caps a tile at 16 rows
 // with f32 intermediates), more than one block per SM.
 // Dense attention (window -1, T=24 at production) takes the whole sequence
@@ -53,8 +54,10 @@ constexpr int NWARP = NT / 32;
 constexpr int LD = C + 8;
 constexpr int LDH = 4 * C + 8;  // MLP hidden row stride
 constexpr int TQ_BAND = 16;     // query rows per block, banded attention
-constexpr int DENSE_MAX_T = 32; // whole-sequence rows, dense attention (one
-                                // key per lane), if shared memory allows
+constexpr int BAND_MAX_W = 8;   // largest half window, banded attention
+constexpr int DENSE_MAX_T = 31; // whole-sequence rows, dense attention: one
+                                // key per lane, and 32 rows would need more
+                                // than SMEM_MAX (static_assert below)
 constexpr int SMEM_MAX = 232448;  // dynamic shared memory a block may use
 constexpr float LN_EPS = 1e-5f;
 constexpr float NEG_INF = -1e30f;
@@ -93,9 +96,10 @@ struct Params {
   const void* xo;       // (B, T, C) other stream (ds_self: odd rows)
   const uint8_t* mask;  // (B, T) bool
   const float* vecs;    // (22, C) packed vectors
+  // dense weights, (out, in) row-major in the compute dtype
   const void* wq; const void* wk; const void* wv; const void* wp;  // (C, C)
-  const void* wf1;      // (C, 4C)
-  const void* wf2;      // (4C, C)
+  const void* wf1;      // (4C, C)
+  const void* wf2;      // (C, 4C)
   const float* fc1b;    // (4C,)
   void* out;            // (B, T, C)
   int T, w, mode, tq;   // w: half window (0 = dense); tq: query rows per block
@@ -175,13 +179,15 @@ __device__ __forceinline__ float gelu(float x) {
   return 0.5f * x * (1.f + erf_rational(x * 0.7071067811865476f));
 }
 
-// out[m, n] = sum_k A[m, k] W[k, n] for m < M, n < N; A in shared memory
-// (row stride lda), W (K, N) row-major in global memory. Thread t owns rows
-// m0 + t/64 + 4i and columns n0 + t%64 + 64j (i, j < 4): a warp shares its
-// rows (A is a broadcast) and reads 32 consecutive W columns (coalesced).
-template <typename T, typename Epi>
-__device__ __forceinline__ void gemm(const float* A, int lda, int M, int K,
-                                     const T* __restrict__ W, int N, Epi epi) {
+// f32 products, register-tiled FMA: out[m, n] = sum_k A[m, k] Wt[n, k] for
+// m < M, n < N; A in shared memory (row stride lda), Wt (N, K) row-major in
+// global memory. Thread t owns rows m0 + t/64 + 4i and columns n0 + t%64 + 64j
+// (i, j < 4): a warp shares its rows (A is a broadcast) and each thread reads
+// its W rows four k at a time (float4), summing k in order.
+template <typename Epi>
+__device__ __forceinline__ void gemm_fma(const float* A, int lda, int M, int K,
+                                         const float* __restrict__ Wt, int N,
+                                         Epi epi) {
   const int rg = threadIdx.x >> 6;
   const int c0 = threadIdx.x & 63;
   for (int n0 = 0; n0 < N; n0 += 256) {
@@ -194,18 +200,25 @@ __device__ __forceinline__ void gemm(const float* A, int lda, int M, int K,
 #pragma unroll
         for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
       }
-      const T* wcol = W + n0 + c0;
-#pragma unroll 4
-      for (int k = 0; k < K; ++k) {
-        float wv[4], av[4];
+      const float* wrow[4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) wv[j] = Num<T>::load(wcol, (size_t)k * N + 64 * j);
+      for (int j = 0; j < 4; ++j) wrow[j] = Wt + (size_t)(n0 + c0 + 64 * j) * K;
+      for (int k = 0; k < K; k += 4) {
+        float4 wv[4], av[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) av[i] = arow[i][k];
+        for (int j = 0; j < 4; ++j) wv[j] = __ldg(reinterpret_cast<const float4*>(wrow[j] + k));
+#pragma unroll
+        for (int i = 0; i < 4; ++i) av[i] = *reinterpret_cast<const float4*>(arow[i] + k);
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
+          for (int j = 0; j < 4; ++j) {
+            float a = acc[i][j];
+            a = fmaf(av[i].x, wv[j].x, a);
+            a = fmaf(av[i].y, wv[j].y, a);
+            a = fmaf(av[i].z, wv[j].z, a);
+            acc[i][j] = fmaf(av[i].w, wv[j].w, a);
+          }
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -221,7 +234,7 @@ __device__ __forceinline__ void gemm(const float* A, int lda, int M, int K,
 
 // bf16 products on the tensor cores: out[m, n] = sum_k A[m, k] Wt[n, k],
 // A in shared memory (f32 holding bf16 values, so the conversion is exact),
-// Wt (N, K) bf16 in global memory (the wrapper passes W transposed). Warp w
+// Wt (N, K) bf16 in global memory (K-contiguous: the mma B fragments). Warp w
 // owns columns [w N/8, (w+1) N/8) in chunks of 32 (four n8 tiles) and all
 // rows in passes of 32 (two m16 tiles); mma.sync m16n8k16, f32 accumulate.
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -298,20 +311,20 @@ __device__ __forceinline__ void gemm_mma(const float* A, int lda, int M, int K,
   }
 }
 
-// Products of the block: tensor cores in bf16, register-tiled FMA in f32
-// (full f32 precision; W then comes (K, N) row-major).
+// Products of the block, W (N, K) in both dtypes: tensor cores in bf16,
+// register-tiled FMA in f32 (full f32 precision).
 template <typename T, typename Epi>
 __device__ __forceinline__ void block_gemm(const float* A, int lda, int M, int K,
                                            const void* W, int N, Epi epi) {
   if constexpr (Num<T>::kBf16)
     gemm_mma(A, lda, M, K, static_cast<const __nv_bfloat16*>(W), N, epi);
   else
-    gemm<T>(A, lda, M, K, static_cast<const T*>(W), N, epi);
+    gemm_fma(A, lda, M, K, static_cast<const float*>(W), N, epi);
 }
 
 struct Layout {   // shared-memory carve-up, in floats
-  int hw, nkv, nin, mask_f, r1_f, r2_f;
-  __host__ __device__ Layout(int tq, int w) {
+  int hw = 0, nkv = 0, nin = 0, mask_f = 0, r1_f = 0, r2_f = 0;
+  __host__ __device__ constexpr Layout(int tq, int w) {
     hw = w > 0 ? w : 0;
     nkv = tq + 2 * hw;          // k/v rows (query tile + halo)
     nin = nkv + 2;              // input rows (+-1 for the depthwise conv)
@@ -321,15 +334,17 @@ struct Layout {   // shared-memory carve-up, in floats
     r1_f = r1_f > c ? r1_f : c;
     r2_f = (tq + 2 * nkv) * LD;
   }
-  __host__ __device__ int bytes() const { return 4 * (mask_f + r1_f + r2_f); }
+  __host__ __device__ constexpr int bytes() const { return 4 * (mask_f + r1_f + r2_f); }
 };
+static_assert(Layout(DENSE_MAX_T, 0).bytes() <= SMEM_MAX, "dense tile over SMEM_MAX");
+static_assert(Layout(TQ_BAND, BAND_MAX_W).bytes() <= SMEM_MAX, "band tile over SMEM_MAX");
 
 template <typename T>
 __global__ void __launch_bounds__(NT)
 fused_block_kernel(Params p) {
   using N = Num<T>;
   constexpr bool BF16 = N::kBf16;
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int T_ = p.T, TQ = p.tq, mode = p.mode;
   const Layout lay(TQ, p.w);
   const int hw = lay.hw, NKV = lay.nkv, NIN = lay.nin;
@@ -448,7 +463,7 @@ fused_block_kernel(Params p) {
     if (hw > 0) {
       // banded: scores in the compute dtype (rounded products, f32 sum),
       // -1e4 penalty on masked keys, -1e30 outside the sequence, f32 softmax
-      float sc[2 * 8 + 1];
+      float sc[2 * BAND_MAX_W + 1];
       float mx = -CUDART_INF_F;
       const float pen = N::rnd(-NEG_PENALTY);
       for (int d = -hw; d <= hw; ++d) {
@@ -576,18 +591,18 @@ int launch(const Params& p, int B, cudaStream_t stream) {
 extern "C" {
 
 // Dynamic shared memory (bytes) a launch needs, or -1 if the shape is not
-// supported (dense attention above DENSE_MAX_T rows).
+// supported (dense attention above DENSE_MAX_T rows, a half window above
+// BAND_MAX_W).
 int avdd_fused_block_smem(int T, int w, int mode, int dtype) {
   (void)mode; (void)dtype;
-  if ((w <= 0 && T > DENSE_MAX_T) || w > 8) return -1;
-  const int bytes = Layout(tile_rows(T, w), w).bytes();
-  return bytes <= SMEM_MAX ? bytes : -1;
+  if ((w <= 0 && T > DENSE_MAX_T) || w > BAND_MAX_W) return -1;
+  return Layout(tile_rows(T, w), w).bytes();
 }
 
 // Launch on `stream`; returns cudaGetLastError() (0 = launched).
 // dtype: 0 float32, 1 bfloat16. mode: 0 self, 1 qv_k, 2 kv, 3 ds_self.
-// Weights: float32 (in, out) row-major; bfloat16 (out, in) row-major (the
-// transpose, K-contiguous for the mma B fragments).
+// Dense weights: (out, in) row-major in the compute dtype (torch's Linear
+// layout), for both dtypes.
 int avdd_fused_block(const void* x, const void* xo, const void* mask,
                      const void* vecs, const void* wq, const void* wk,
                      const void* wv, const void* wp, const void* wf1,

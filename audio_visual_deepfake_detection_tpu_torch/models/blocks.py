@@ -86,10 +86,20 @@ class TransformerBlock(nn.Module):
         self.mlp = nn.Sequential(nn.Conv1d(n_embd, 4 * n_embd, 1), nn.GELU(),
                                  nn.Identity(), nn.Conv1d(4 * n_embd, n_embd, 1))
         self.drop_path_mlp = AffineDropPath(n_embd)
+        self._packed = {}   # dtype -> (parameter signature, kernel inputs)
 
     def packed(self, dtype):
-        return _fused.pack_block_params(dict(self.named_parameters()),
-                                        self.n_embd, self.cross, dtype)
+        """The fused op's inputs in ``dtype``, packed once and reused while
+        the parameters stay as they are. The signature holds each parameter's
+        storage and version counter, so an in-place update (``load_state_dict``,
+        an optimizer step) or a move to another device or dtype repacks."""
+        params = dict(self.named_parameters())
+        sig = tuple((p.device, p.data_ptr(), p._version) for p in params.values())
+        hit = self._packed.get(dtype)
+        if hit is None or hit[0] != sig:
+            hit = (sig, _fused.pack_block_params(params, self.n_embd, self.cross, dtype))
+            self._packed[dtype] = hit
+        return hit[1]
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
                 xo: Optional[torch.Tensor] = None, mode: Optional[str] = None):

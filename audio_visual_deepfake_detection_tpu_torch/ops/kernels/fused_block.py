@@ -123,7 +123,8 @@ def _ln_plain(x: torch.Tensor, cdtype) -> torch.Tensor:
 def block_math(x, xo, mrow, coefs, vecs, wq, wk, wv, wp, wf1, wf2, fc1b,
                *, n_head: int, w_overlap: int, mode: str) -> torch.Tensor:
     """Plain PyTorch version of the kernel on (B, T, C) inputs; ``mrow`` is
-    the (B, T, 1) f32 mask, ``coefs`` the (B, 2) droppath coefficients."""
+    the (B, T, 1) f32 mask, ``coefs`` the (B, 2) droppath coefficients, the
+    dense weights ``(out, in)`` as ``pack_block_params`` makes them."""
     w = w_overlap
     cdtype = x.dtype
     b, t, c = x.shape
@@ -140,8 +141,8 @@ def block_math(x, xo, mrow, coefs, vecs, wq, wk, wv, wp, wf1, wf2, fc1b,
     def ln(xx, row_w, row_b):
         return _ln_plain(xx, cdtype) * rows(row_w) + rows(row_b)
 
-    def cdot(a, m):
-        return torch.matmul(a.float(), m.float()).to(cdtype)
+    def cdot(a, m):             # a @ m.T, m (out, in)
+        return torch.matmul(a.float(), m.float().t()).to(cdtype)
 
     def dwconv(xx, row0):
         xf = xx.float()
@@ -249,16 +250,17 @@ def pack_block_params(sd, n_embd: int, cross: bool, dtype):
     ``(vecs, wq, wk, wv, wp, wf1, wf2, fc1b)``.
 
     The post-conv LN affines and the ln2 affine are folded into the adjacent
-    dense weights: ``LN_aff(y) @ W + b == LN_plain(y) @ (g * W) + (b_ln @ W + b)``.
-    Dense weights come out as ``(in, out)`` in ``dtype``; vectors in f32."""
+    dense weights: ``LN_aff(y) @ W.T + b == LN_plain(y) @ (W * g).T + (W @ b_ln + b)``.
+    Dense weights keep torch's ``(out, in)`` layout, the one the kernel reads
+    for both dtypes, and come out in ``dtype``; vectors in f32."""
     c = n_embd
 
     def vec(name):
         return sd[name].detach().float().reshape(c)
 
-    def dense_w(name):          # torch (out, in[, 1]) -> (in, out) f32
+    def dense_w(name):          # torch (out, in[, 1]) -> (out, in) f32
         w = sd[name].detach().float()
-        return (w[..., 0] if w.ndim == 3 else w).t()
+        return w[..., 0] if w.ndim == 3 else w
 
     if cross:
         lnq = (vec("lnq.weight"), vec("lnq.bias"))
@@ -273,8 +275,8 @@ def pack_block_params(sd, n_embd: int, cross: bool, dtype):
     def fold(norm, lin_w, lin_b):
         wf = dense_w(lin_w)
         g, bl = vec(f"{norm}.weight"), vec(f"{norm}.bias")
-        return ((g[:, None] * wf).to(dtype).contiguous(),
-                bl @ wf + sd[lin_b].detach().float().reshape(-1))
+        return ((wf * g[None, :]).to(dtype).contiguous(),
+                wf @ bl + sd[lin_b].detach().float().reshape(-1))
 
     wq, q_bias = fold("attn.query_norm", "attn.query.weight", "attn.query.bias")
     wk, k_bias = fold("attn.key_norm", "attn.key.weight", "attn.key.bias")
@@ -318,8 +320,8 @@ def _validate(x, xo, mask, vecs, wq, wk, wv, wp, wf1, wf2, fc1b, mode):
     _check("vecs", vecs, (NUM_VEC_ROWS, c), torch.float32, dev)
     for name, wt in (("wq", wq), ("wk", wk), ("wv", wv), ("wp", wp)):
         _check(name, wt, (c, c), dt, dev)
-    _check("wf1", wf1, (c, 4 * c), dt, dev)
-    _check("wf2", wf2, (4 * c, c), dt, dev)
+    _check("wf1", wf1, (4 * c, c), dt, dev)
+    _check("wf2", wf2, (c, 4 * c), dt, dev)
     _check("fc1b", fc1b, (1, 4 * c), torch.float32, dev)
 
 
@@ -361,9 +363,6 @@ def _launch(x, xo, mask, vecs, wq, wk, wv, wp, wf1, wf2, fc1b, *, n_head,
     out = torch.empty_like(x)
     if b == 0 or t == 0:
         return out
-    if dcode == 1:   # the tensor-core products read W as (out, in)
-        wq, wk, wv, wp, wf1, wf2 = (w_.t().contiguous()
-                                    for w_ in (wq, wk, wv, wp, wf1, wf2))
     ptr = lambda a: ctypes.c_void_p(a.data_ptr())  # noqa: E731
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream

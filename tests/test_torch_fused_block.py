@@ -67,6 +67,13 @@ def _setup(rng, mode, window):
     return block, p, x, xo, mask, kw
 
 
+def _torch_layout(jpacked):
+    """JAX packed inputs as numpy, dense weights (in, out) -> the port's
+    (out, in)."""
+    return [np.array(a, np.float32).T if i in range(1, 7) else np.array(a, np.float32)
+            for i, a in enumerate(jpacked)]
+
+
 def _kernel_args(mode, x, xo, mask):
     if mode == "ds_self":
         return x[:, 0::2], x[:, 1::2], mask[:, 0::2]
@@ -82,10 +89,11 @@ def test_block_math_and_packing_match_jax(rng, mode, window, dtype):
     tdt = getattr(torch, dtype)
     jpacked = jfb.pack_block_params(p, C, CROSS[mode], jdt)
     tpacked = tfb.pack_block_params(block_state_dict_from_flax(p), C, CROSS[mode], tdt)
-    # packing: identical folds up to f32 rounding of the bias matvecs
-    for a, b in zip(jpacked, tpacked):
-        np.testing.assert_allclose(b.float().numpy(), np.asarray(a, np.float32),
-                                   rtol=1e-6, atol=1e-6)
+    # packing: identical folds up to f32 rounding of the bias matvecs; the
+    # port keeps the dense weights (out, in)
+    jnp_packed = _torch_layout(jpacked)
+    for a, b in zip(jnp_packed, tpacked):
+        np.testing.assert_allclose(b.float().numpy(), a, rtol=1e-6, atol=1e-6)
 
     xa, xb, m = _kernel_args(mode, x, xo, mask)
     mrow = m.astype(np.float32)[..., None]
@@ -94,8 +102,8 @@ def test_block_math_and_packing_match_jax(rng, mode, window, dtype):
                          jnp.asarray(coefs), *jpacked, n_head=H,
                          w_overlap=window // 2, mode=mode)
     # same packed inputs on both sides: the comparison is the block math alone
-    tin = [torch.from_numpy(np.array(a, np.float32)).to(
-        torch.float32 if i in (0, 7) else tdt) for i, a in enumerate(jpacked)]
+    tin = [torch.from_numpy(np.ascontiguousarray(a)).to(
+        torch.float32 if i in (0, 7) else tdt) for i, a in enumerate(jnp_packed)]
     got = tfb.block_math(torch.from_numpy(xa).to(tdt), torch.from_numpy(xb).to(tdt),
                          torch.from_numpy(mrow), torch.from_numpy(coefs), *tin,
                          n_head=H, w_overlap=window // 2, mode=mode)
@@ -151,3 +159,26 @@ def test_cpu_tensor_takes_plain_version_without_launch(rng):
                          mode="self")
     assert tfb.LAUNCHES == 0
     assert torch.equal(y, ref)
+
+
+def test_block_packs_once_and_repacks_after_parameter_update(rng):
+    _, p, x, _, mask, _ = _setup(rng, "self", 7)
+    ours = TransformerBlock(C, H, window_size=7)
+    ours.load_state_dict(block_state_dict_from_flax(p), strict=True)
+    tx, tm = torch.from_numpy(x), torch.from_numpy(mask)
+    first = ours.packed(torch.float32)
+    assert ours.packed(torch.float32) is first
+    with torch.no_grad():
+        before, _ = ours(tx, tm)
+        ours.drop_path_mlp.scale.mul_(2.0)          # in place: repacks
+        after, _ = ours(tx, tm)
+    assert ours.packed(torch.float32) is not first
+    sd = block_state_dict_from_flax(p)
+    sd["drop_path_mlp.scale"] = sd["drop_path_mlp.scale"] * 2.0
+    fresh = TransformerBlock(C, H, window_size=7)
+    fresh.load_state_dict(sd, strict=True)
+    with torch.no_grad():
+        assert torch.equal(after, fresh(tx, tm)[0])
+        assert not torch.equal(before, after)
+        ours.load_state_dict(block_state_dict_from_flax(p), strict=True)
+        assert torch.equal(ours(tx, tm)[0], before)
