@@ -8,13 +8,15 @@ card (sm_90). It keeps the JAX package's layout and module names:
     ops/           masked convs, norms, resamples, PE, batched soft-NMS
     ops/kernels/   hand-written CUDA kernels with their plain-torch versions
     models/        blocks, HRLR backbone, FPN, heads, points, AVLocalizer
+    frontends/     MViT-v2 video encoder, chunking and resize, FeatureExtractor
     infer/         decode + postprocess, inference fn, LocalizerService
     tools/         weight conversion from the JAX package's flax trees
     csrc/          CUDA C++ sources, built with nvcc at first use
 
 Public tensors keep JAX's ``(B, T, C)`` layout. Parameter names are the
-original torch repo's state-dict names, so the JAX package's
-``tools/convert_torch.py`` maps between the two.
+original torch repo's state-dict names (torchvision's for MViT), so the JAX
+package's ``tools/convert_torch.py`` and ``convert_mvit_torch`` map between
+the two.
 
 Importing the package never imports ``jax``.
 """

@@ -18,9 +18,11 @@ KERNEL_CAPABILITY = (9, 0)
 
 
 def set_numerics() -> None:
-    """Full-precision float32 on the card: TF32 off for cuBLAS and cuDNN."""
+    """Full-precision float32 on the card: TF32 off for cuBLAS and cuDNN;
+    bf16 products reduce in f32 (no reduced-precision split-K sums)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 @functools.lru_cache(maxsize=None)

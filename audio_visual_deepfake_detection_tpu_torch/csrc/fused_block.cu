@@ -34,8 +34,17 @@
 // weights in torch's (out, in) layout, K-contiguous. Not yet done: wgmma,
 // TMA-staged weights, larger tiles (shared memory caps a tile at 16 rows
 // with f32 intermediates), more than one block per SM.
-// Dense attention (window -1, T=24 at production) takes the whole sequence
-// in one thread block, up to DENSE_MAX_T rows.
+// Dense attention (window -1, T=24 at production) takes one of two paths:
+// - T <= DENSE_MAX_T (31): the whole sequence in one thread block, one key
+//   per lane (one launch);
+// - any longer T (over-length eval inputs, e.g. T = 48 for a 1536-step
+//   video): two launches over tiles of TQ_BAND query rows. Phase 1 computes
+//   each tile's k and v rows (LN, conv, LN, dense; the same arithmetic as the
+//   whole-sequence path) into a (B, T, 2C) scratch in the compute dtype,
+//   whose values are already rounded to it. Phase 2 computes the tile's q
+//   and attends each (row, head) warp to all T keys from the scratch in
+//   three passes (row max, sum of exps, P.V), recomputing the scores, so the
+//   rounding points of block_math stay and shared memory does not grow with T.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -57,7 +66,8 @@ constexpr int TQ_BAND = 16;     // query rows per block, banded attention
 constexpr int BAND_MAX_W = 8;   // largest half window, banded attention
 constexpr int DENSE_MAX_T = 31; // whole-sequence rows, dense attention: one
                                 // key per lane, and 32 rows would need more
-                                // than SMEM_MAX (static_assert below)
+                                // than SMEM_MAX (static_assert below); longer
+                                // T takes the tiled two-phase path
 constexpr int SMEM_MAX = 232448;  // dynamic shared memory a block may use
 constexpr float LN_EPS = 1e-5f;
 constexpr float NEG_INF = -1e30f;
@@ -70,6 +80,9 @@ enum {
   ROW_SCALE_ATTN = 19, ROW_FC2_BIAS = 20, ROW_SCALE_MLP = 21
 };
 enum { MODE_SELF = 0, MODE_QV_K = 1, MODE_KV = 2, MODE_DS_SELF = 3 };
+// PHASE_WHOLE: one launch does everything; PHASE_KV / PHASE_ATTN: the two
+// launches of the tiled dense path
+enum { PHASE_WHOLE = 0, PHASE_KV = 1, PHASE_ATTN = 2 };
 
 template <typename T> struct Num;
 template <> struct Num<float> {
@@ -102,7 +115,9 @@ struct Params {
   const void* wf2;      // (C, 4C)
   const float* fc1b;    // (4C,)
   void* out;            // (B, T, C)
+  void* kv;             // (B, T, 2C) k | v scratch of the tiled dense path
   int T, w, mode, tq;   // w: half window (0 = dense); tq: query rows per block
+  int phase;
 };
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -402,7 +417,7 @@ fused_block_kernel(Params p) {
   float* PQ = R2;
   float* PK = R2 + TQ * LD;
   float* PV = R2 + (TQ + NKV) * LD;
-  const int ntask = TQ + 2 * NKV;
+  const int ntask = p.phase == PHASE_ATTN ? TQ : TQ + 2 * NKV;
   for (int task = warp; task < ntask; task += NWARP) {
     int which, i;                          // 0 q, 1 k, 2 v; kv-local row i
     if (task < TQ) { which = 0; i = task + hw; }
@@ -437,20 +452,34 @@ fused_block_kernel(Params p) {
   float* Kd = R1 + TQ * LD;
   float* Vd = R1 + (TQ + NKV) * LD;
   const float qscale = N::rnd(1.f / sqrtf((float)D));
-  block_gemm<T>(PQ, LD, TQ, C, p.wq, C,
-          [&](int m, int n, float acc) {
-            const float q = N::rnd(N::rnd(acc) + N::rnd(vecs[ROW_Q_BIAS * C + n]));
-            Qd[m * LD + n] = N::rnd(q * qscale);
-          });
-  block_gemm<T>(PK, LD, NKV, C, p.wk, C,
-          [&](int m, int n, float acc) {
-            Kd[m * LD + n] = N::rnd(N::rnd(acc) + N::rnd(vecs[ROW_K_BIAS * C + n]));
-          });
-  block_gemm<T>(PV, LD, NKV, C, p.wv, C,
-          [&](int m, int n, float acc) {
-            Vd[m * LD + n] = N::rnd(N::rnd(acc) + N::rnd(vecs[ROW_V_BIAS * C + n]));
-          });
+  if (p.phase != PHASE_KV)
+    block_gemm<T>(PQ, LD, TQ, C, p.wq, C,
+            [&](int m, int n, float acc) {
+              const float q = N::rnd(N::rnd(acc) + N::rnd(vecs[ROW_Q_BIAS * C + n]));
+              Qd[m * LD + n] = N::rnd(q * qscale);
+            });
+  if (p.phase != PHASE_ATTN) {
+    block_gemm<T>(PK, LD, NKV, C, p.wk, C,
+            [&](int m, int n, float acc) {
+              Kd[m * LD + n] = N::rnd(N::rnd(acc) + N::rnd(vecs[ROW_K_BIAS * C + n]));
+            });
+    block_gemm<T>(PV, LD, NKV, C, p.wv, C,
+            [&](int m, int n, float acc) {
+              Vd[m * LD + n] = N::rnd(N::rnd(acc) + N::rnd(vecs[ROW_V_BIAS * C + n]));
+            });
+  }
   __syncthreads();
+  if (p.phase == PHASE_KV) {   // k | v rows of this tile (hw = 0: row i = seq r0 + i)
+    T* kvb = static_cast<T*>(p.kv) + (size_t)b * T_ * 2 * C;
+    for (int idx = threadIdx.x; idx < TQ * C; idx += NT) {
+      const int i = idx / C, c = idx % C;
+      if (r0 + i < T_) {
+        N::store(kvb, (size_t)(r0 + i) * 2 * C + c, Kd[i * LD + c]);
+        N::store(kvb, (size_t)(r0 + i) * 2 * C + C + c, Vd[i * LD + c]);
+      }
+    }
+    return;
+  }
 
   // ---- 4. attention: one warp per (query row, head), lane owns 2 channels
   float* CTX = R2;
@@ -486,8 +515,34 @@ fused_block_kernel(Params p) {
         oa = N::rnd(oa + N::rnd(pr * Vd[kk * LD + ca]));
         ob = N::rnd(ob + N::rnd(pr * Vd[kk * LD + cb]));
       }
+    } else if (p.phase == PHASE_ATTN) {
+      // dense, tiled: all T keys from the scratch, three passes over them
+      // (scores recomputed bit for bit); -1e30 fill on invalid keys, values
+      // masked, f32 softmax
+      const T* kvb = static_cast<const T*>(p.kv) + (size_t)b * T_ * 2 * C;
+      const uint8_t* mrow = p.mask + (size_t)b * T_;
+      const float fill = N::rnd(NEG_INF);
+      auto score = [&](int j) {
+        const size_t r = (size_t)j * 2 * C;
+        const float v = N::rnd(warp_sum(qa * N::load(kvb, r + ca) + qb * N::load(kvb, r + cb)));
+        return mrow[j] ? v : fill;
+      };
+      float mx = -CUDART_INF_F;
+      for (int j = 0; j < T_; ++j) mx = fmaxf(mx, score(j));
+      float den = 0.f;
+      for (int j = 0; j < T_; ++j) den += expf(score(j) - mx);
+      float sa = 0.f, sb = 0.f;
+      for (int j = 0; j < T_; ++j) {
+        const float pj = N::rnd(expf(score(j) - mx) / den);
+        const float mj = mrow[j] ? 1.f : 0.f;
+        const size_t r = (size_t)j * 2 * C + C;
+        sa += pj * N::rnd(N::load(kvb, r + ca) * mj);
+        sb += pj * N::rnd(N::load(kvb, r + cb) * mj);
+      }
+      oa = N::rnd(sa);
+      ob = N::rnd(sb);
     } else {
-      // dense (whole sequence, T <= 32): lane j keeps the score of key j;
+      // dense (whole sequence, T <= 31): lane j keeps the score of key j;
       // -1e30 fill on invalid keys, values masked, f32 softmax
       float mine = -CUDART_INF_F;
       const float fill = N::rnd(NEG_INF);
@@ -569,10 +624,10 @@ fused_block_kernel(Params p) {
           });
 }
 
-int tile_rows(int T, int w) { return w > 0 ? TQ_BAND : T; }
+int tile_rows(int T, int w, int tiled) { return (w > 0 || tiled) ? TQ_BAND : T; }
 
 template <typename T>
-int launch(const Params& p, int B, cudaStream_t stream) {
+int launch(Params p, int B, cudaStream_t stream) {
   const int bytes = Layout(p.tq, p.w).bytes();
   static int configured = 0;    // largest dynamic smem size set so far
   if (bytes > configured) {
@@ -582,6 +637,15 @@ int launch(const Params& p, int B, cudaStream_t stream) {
     configured = bytes;
   }
   dim3 grid((p.T + p.tq - 1) / p.tq, B);
+  if (p.phase == PHASE_WHOLE) {
+    fused_block_kernel<T><<<grid, NT, bytes, stream>>>(p);
+    return (int)cudaGetLastError();
+  }
+  p.phase = PHASE_KV;
+  fused_block_kernel<T><<<grid, NT, bytes, stream>>>(p);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  p.phase = PHASE_ATTN;
   fused_block_kernel<T><<<grid, NT, bytes, stream>>>(p);
   return (int)cudaGetLastError();
 }
@@ -591,26 +655,28 @@ int launch(const Params& p, int B, cudaStream_t stream) {
 extern "C" {
 
 // Dynamic shared memory (bytes) a launch needs, or -1 if the shape is not
-// supported (dense attention above DENSE_MAX_T rows, a half window above
-// BAND_MAX_W).
-int avdd_fused_block_smem(int T, int w, int mode, int dtype) {
-  (void)mode; (void)dtype;
-  if ((w <= 0 && T > DENSE_MAX_T) || w > BAND_MAX_W) return -1;
-  return Layout(tile_rows(T, w), w).bytes();
+// supported (a half window above BAND_MAX_W, or the whole-sequence dense
+// path above DENSE_MAX_T rows). tiled: dense attention on the two-phase path.
+int avdd_fused_block_smem(int T, int w, int tiled, int dtype) {
+  (void)dtype;
+  if (w > BAND_MAX_W || (w <= 0 && !tiled && T > DENSE_MAX_T)) return -1;
+  return Layout(tile_rows(T, w, tiled), w).bytes();
 }
 
 // Launch on `stream`; returns cudaGetLastError() (0 = launched).
 // dtype: 0 float32, 1 bfloat16. mode: 0 self, 1 qv_k, 2 kv, 3 ds_self.
 // Dense weights: (out, in) row-major in the compute dtype (torch's Linear
-// layout), for both dtypes.
+// layout), for both dtypes. Dense attention (w = 0) with tiled = 1 takes the
+// two-phase path and needs kv, a (B, T, 2C) scratch in the compute dtype.
 int avdd_fused_block(const void* x, const void* xo, const void* mask,
                      const void* vecs, const void* wq, const void* wk,
                      const void* wv, const void* wp, const void* wf1,
-                     const void* wf2, const void* fc1b, void* out,
+                     const void* wf2, const void* fc1b, void* out, void* kv,
                      int B, int T, int c, int n_head, int w, int mode,
-                     int dtype, void* stream) {
-  if (c != C || n_head != NH || avdd_fused_block_smem(T, w, mode, dtype) < 0 ||
-      mode < 0 || mode > 3 || B <= 0 || T <= 0)
+                     int tiled, int dtype, void* stream) {
+  tiled = (w <= 0 && tiled) ? 1 : 0;
+  if (c != C || n_head != NH || avdd_fused_block_smem(T, w, tiled, dtype) < 0 ||
+      mode < 0 || mode > 3 || B <= 0 || T <= 0 || (tiled && !kv))
     return (int)cudaErrorInvalidValue;
   Params p;
   p.x = x; p.xo = xo ? xo : x;
@@ -619,7 +685,9 @@ int avdd_fused_block(const void* x, const void* xo, const void* mask,
   p.wq = wq; p.wk = wk; p.wv = wv; p.wp = wp; p.wf1 = wf1; p.wf2 = wf2;
   p.fc1b = static_cast<const float*>(fc1b);
   p.out = out;
-  p.T = T; p.w = w > 0 ? w : 0; p.mode = mode; p.tq = tile_rows(T, w);
+  p.kv = kv;
+  p.T = T; p.w = w > 0 ? w : 0; p.mode = mode; p.tq = tile_rows(T, w, tiled);
+  p.phase = tiled ? PHASE_KV : PHASE_WHOLE;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch<float>(p, B, s);
   if (dtype == 1) return launch<__nv_bfloat16>(p, B, s);

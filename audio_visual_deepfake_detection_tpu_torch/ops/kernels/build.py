@@ -1,7 +1,8 @@
 """Build the package's CUDA sources with nvcc and load them through ctypes.
 
 Route: ``nvcc -gencode arch=compute_90a,code=sm_90a -shared`` over
-``csrc/*.cu`` into one shared library with a plain C interface (no PyTorch
+``csrc/*.cu`` (K1 fused_block, K2 patch_embed, K3 mvit_attention, K4
+mvit_block) into one shared library with a plain C interface (no PyTorch
 headers, so a build takes seconds). The library lands in ``build/kernels/``
 at the repository root, in a file named by a hash of the sources and flags,
 so an edited source rebuilds and an unchanged one loads at once. The build
@@ -21,8 +22,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+COMPILE_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo"]
+LINK_FLAGS = ARCH + ["-shared"]
 
 _lock = threading.Lock()
 _lib = None
@@ -48,7 +50,7 @@ def _sources():
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -56,20 +58,31 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the sources unless the hashed library already exists."""
+    """Compile the sources unless the hashed library already exists: one
+    nvcc per source, all started together, then one link."""
     global BUILD_SECONDS, BUILD_LOG
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
-           *map(str, _sources())]
+    tag = f"{os.getpid()}.tmp"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in _sources()]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_LOG = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{BUILD_LOG}")
+    procs = [subprocess.Popen([nvcc_path(), *COMPILE_FLAGS, "-Xptxas", "-v", "-c",
+                               "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(_sources(), objs)]
+    logs = [f"[{src.name}]\n{proc.communicate()[0]}" for src, proc in zip(_sources(), procs)]
+    BUILD_LOG = "\n".join(logs)
+    if any(proc.returncode for proc in procs):
+        raise RuntimeError(f"nvcc failed:\n{BUILD_LOG}")
+    tmp = out.with_suffix(f".{tag}")
+    link = subprocess.run([nvcc_path(), *LINK_FLAGS, "-o", str(tmp), *map(str, objs)],
+                          capture_output=True, text=True)
+    for obj in objs:
+        obj.unlink()
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
     os.replace(tmp, out)          # atomic: concurrent builders agree
     BUILD_SECONDS = time.perf_counter() - t0
     return out
@@ -85,10 +98,23 @@ def load() -> ctypes.CDLL:
             lib.avdd_fused_block.restype = i
             lib.avdd_fused_block.argtypes = [
                 p, p, p, p, p, p, p, p, p, p, p, p,   # tensors + out
-                i, i, i, i, i, i, i,                   # B T C H w mode dtype
+                p,                                     # k|v scratch (tiled dense)
+                i, i, i, i, i, i, i, i,                # B T C H w mode tiled dtype
                 p,                                     # stream
             ]
             lib.avdd_fused_block_smem.restype = i
             lib.avdd_fused_block_smem.argtypes = [i, i, i, i]
+            lib.avdd_patch_embed.restype = i
+            lib.avdd_patch_embed.argtypes = [p, p, p, p, i, i, i, i, p]
+            q = ctypes.c_longlong
+            lib.avdd_pooled_attention.restype = i
+            lib.avdd_pooled_attention.argtypes = [
+                p, p, p, p, p, p,                      # q k v band rel out
+                i, i, i, i, i, i, i,                   # B nh nq nk d T S
+                q, q, q, q, q, q,                      # q and out strides
+                ctypes.c_float, i, i, p,               # scale flags dtype stream
+            ]
+            lib.avdd_msblock.restype = i
+            lib.avdd_msblock.argtypes = [p] * 21 + [i] * 7 + [p]
             _lib = lib
     return _lib

@@ -45,6 +45,10 @@ NUM_VEC_ROWS = 22
 
 MODES = {"self": 0, "qv_k": 1, "kv": 2, "ds_self": 3}
 KERNEL_CHANNELS, KERNEL_HEADS = 256, 4
+# Dense attention up to this many rows keeps the whole sequence in one
+# thread block (one launch); longer sequences take the tiled two-phase path
+# (two launches, a (B, T, 2C) k|v scratch). chip_smoke.py times both at T=24.
+DENSE_WHOLE_MAX_T = 31
 
 # kernel launches since the last reset (CPU calls and plain runs never count)
 LAUNCHES = 0
@@ -353,23 +357,24 @@ def _launch(x, xo, mask, vecs, wq, wk, wv, wp, wf1, wf2, fc1b, *, n_head,
         raise ValueError(f"fused block kernel is built for C={KERNEL_CHANNELS}, "
                          f"{KERNEL_HEADS} heads; got C={c}, {n_head} heads")
     w = max(w_overlap, 0)
+    tiled = int(w == 0 and t > DENSE_WHOLE_MAX_T)
     lib = load()
     dcode = 0 if x.dtype == torch.float32 else 1
-    if lib.avdd_fused_block_smem(t, w, MODES[mode], dcode) < 0:
-        raise ValueError(f"fused block kernel: unsupported T={t} with window "
-                         f"half-width {w_overlap} (dense attention keeps the "
-                         f"whole sequence in shared memory, at most 31 rows; "
-                         f"banded takes w <= 8)")
+    if lib.avdd_fused_block_smem(t, w, tiled, dcode) < 0:
+        raise ValueError(f"fused block kernel: unsupported window half-width "
+                         f"{w_overlap} (banded attention takes w <= 8)")
     out = torch.empty_like(x)
     if b == 0 or t == 0:
         return out
+    kv = torch.empty((b, t, 2 * c), dtype=x.dtype, device=x.device) if tiled else None
     ptr = lambda a: ctypes.c_void_p(a.data_ptr())  # noqa: E731
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.avdd_fused_block(
             ptr(x), ptr(x if xo is None else xo), ptr(mask), ptr(vecs), ptr(wq),
             ptr(wk), ptr(wv), ptr(wp), ptr(wf1), ptr(wf2), ptr(fc1b), ptr(out),
-            b, t, c, n_head, w, MODES[mode], dcode, ctypes.c_void_p(stream))
+            ctypes.c_void_p(kv.data_ptr() if tiled else 0),
+            b, t, c, n_head, w, MODES[mode], tiled, dcode, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"fused block kernel launch failed: CUDA error {err}")
     LAUNCHES += 1

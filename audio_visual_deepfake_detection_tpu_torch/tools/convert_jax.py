@@ -13,6 +13,10 @@ a state dict under the original torch repo's names, in torch layouts:
 The names are the ones the JAX package's ``tools/convert_torch.py::_ref_name``
 maps to, so ``convert_state_dict(state_dict_from_flax(p), p)`` returns ``p``
 bit for bit, and a reference checkpoint loads into the port by name.
+
+``mvit_state_dict_from_flax`` does the same for the MViT-v2 video encoder,
+under torchvision's names (Conv3d ``(out, in/g, kt, kh, kw)`` <- flax
+``(kt, kh, kw, in/g, out)``), the inverse of the JAX ``convert_mvit_torch``.
 """
 
 from __future__ import annotations
@@ -115,6 +119,8 @@ _LAYOUT = {
     "conv": lambda w: np.transpose(w, (2, 1, 0)),          # (k, in/g, out) -> (out, in/g, k)
     "conv1x1": lambda w: np.transpose(w)[:, :, None],      # (in, out) -> (out, in, 1)
     "linear": np.transpose,                                # (in, out) -> (out, in)
+    "conv3d": lambda w: np.transpose(w, (4, 3, 0, 1, 2)),  # (kt, kh, kw, in/g, out) -> (out, in/g, kt, kh, kw)
+    "flat": lambda w: np.reshape(w, (-1,)),                # class token (1, 1, C) -> (C,)
     "vec": lambda w: w,
 }
 
@@ -142,3 +148,50 @@ def block_state_dict_from_flax(params: Dict) -> Dict[str, torch.Tensor]:
 
 def _tensor(kind: str, value) -> torch.Tensor:
     return torch.from_numpy(np.array(_LAYOUT[kind](np.asarray(value, np.float32))))
+
+
+def _mvit_name(path: Tuple[str, ...]) -> Tuple[str, str]:
+    """MViT flax path -> (torchvision name, layout kind)."""
+    name, leaf = path[0], path[-1]
+    ln_leaf = "weight" if leaf == "scale" else "bias"
+    if name == "conv_proj":
+        return f"conv_proj.{_wb(leaf)}", "conv3d" if leaf == "kernel" else "vec"
+    if name == "class_token":
+        return "pos_encoding.class_token", "flat"
+    if name == "norm":
+        return f"norm.{ln_leaf}", "vec"
+    m = re.fullmatch(r"block_(\d+)", name)
+    if m:
+        pre = f"blocks.{m.group(1)}"
+        sub = path[1]
+        if sub in ("norm1", "norm2"):
+            return f"{pre}.{sub}.{ln_leaf}", "vec"
+        if sub in ("project", "mlp_fc1", "mlp_fc2"):
+            ref = {"project": "project", "mlp_fc1": "mlp.0", "mlp_fc2": "mlp.3"}[sub]
+            return f"{pre}.{ref}.{_wb(leaf)}", "linear" if leaf == "kernel" else "vec"
+        if sub == "attn":
+            mod = path[2]
+            if mod in ("qkv", "proj"):
+                ref = "qkv" if mod == "qkv" else "project"
+                return f"{pre}.attn.{ref}.{_wb(leaf)}", \
+                    "linear" if leaf == "kernel" else "vec"
+            if mod in ("pool_q", "pool_k", "pool_v"):
+                if path[3] == "pool":
+                    return f"{pre}.attn.{mod}.pool.weight", "conv3d"
+                return f"{pre}.attn.{mod}.norm_act.0.{ln_leaf}", "vec"
+            if mod in ("rel_pos_h", "rel_pos_w", "rel_pos_t"):
+                return f"{pre}.attn.{mod}", "vec"
+    raise KeyError(f"unmapped MViT param {path}")
+
+
+def mvit_state_dict_from_flax(params: Dict) -> Dict[str, torch.Tensor]:
+    """Flax tree of a JAX ``MViTVideoEncoder`` -> state dict under
+    torchvision's names, the ones ``convert_mvit_torch`` reads, so
+    ``convert_mvit_torch(mvit_state_dict_from_flax(p), p)`` returns ``p``."""
+    if set(params) == {"params"}:
+        params = params["params"]
+    out = {}
+    for path, value in _flatten(params):
+        name, kind = _mvit_name(path)
+        out[name] = _tensor(kind, value)
+    return out

@@ -4,24 +4,40 @@
     python3 chip_smoke.py
 
 Phases (any failure exits nonzero):
-1. build   - nvcc-builds the port's CUDA sources into build/kernels/ and
-             prints the toolchain and the card's name and power limit;
-2. kernels - the fused transformer-block kernel against its plain PyTorch
+1. build   - nvcc-builds the port's CUDA sources (one nvcc per source, in
+             parallel) into build/kernels/, prints ptxas's registers, shared
+             memory and spills per kernel, the toolchain and the card's name
+             and power limit;
+2. kernels - the fused transformer-block kernel K1 against its plain PyTorch
              version (block_math), both on the card, for every production
              (mode, T, attention) combination of the HRLR backbone at the
              service batch B=16, f32 (atol 1e-4) and bf16 (atol = rtol =
              2e-2), with partial masks and O(1) layer scales / LN affines;
-3. serve   - a production-width LocalizerService (3072-d input, T=768,
+3. dense   - K1 in dense mode at T = 24, 31 (whole-sequence path) and 32,
+             48, 100 (tiled path), f32 and bf16; a production-width f32
+             localizer forward at T = 1536 on the card against the CPU;
+4. serve   - a production-width LocalizerService (3072-d input, T=768,
              C=256, 4 heads, windows (7,7,7,7,7,-1), bf16, seeded weights)
              answers requests of varied valid length; every forward must
              launch the block kernel 18 times; then f32 on 2 videos, the
              card's kernel path against the same model's plain path on the
              CPU (scores 1e-4, segments 1e-3, video_cls 2e-4);
-4. timing  - the kernel and its plain version per production shape at B=16
-             and B=512 (bf16), their outputs held to each other (atol = rtol
-             = 2e-2), the host cost of packing the block weights, service
-             latency at batch 16, localizer-only videos/s at B=512 bf16 (the
-             program of bench.py::measure_ours).
+5. mvit    - K2 (patch embed), K3 (pooled attention), K4 (whole
+             MultiscaleBlock) against their plain versions at every
+             production shape of mvit_v2_b at 512 frames, B = 2 chunks (one
+             with a zero tail), f32 (atol 1e-4, rtol 5e-4) and bf16;
+6. video   - MViT-v2-b at full width and depth, bf16, through
+             FeatureExtractor.video_chunks_features on 16 uint8 chunks of
+             512 frames: shape, finiteness, each kernel's launch count; f32 on
+             a 32-frame chunk, card against the CPU plain path;
+7. video -> detections - 16 videos of 240 frames: video features, 240
+             rows, resample to 768, concat with random audio stand-ins, the
+             production localizer; every video gets a detection;
+8. timing  - K1 per production shape at B=16 and B=512 (bf16), packing
+             cost, service latency at batch 16, localizer-only videos/s at
+             B=512 bf16 (the program of bench.py::measure_ours); K2-K4 and
+             K1's dense paths against their plain versions; MViT-v2-b
+             chunks/s at 16 and 64 chunks, back stages per chunk and batched.
 
 The card's name and power limit, then a JSON object with the kernels'
 launches, errors and times, are the two lines before the last; the last
@@ -147,7 +163,7 @@ def phase_build():
     log(f"build: {took:.2f} s (nvcc ran: {build.BUILD_SECONDS is not None}) "
         f"-> {build.library_path().name}")
     for line in build.BUILD_LOG.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
+        if any(k in line for k in ("entry function", "registers", "spill")):
             log(f"  ptxas: {line.strip()}")
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} nvcc [{nvcc}] triton {triton_v}")
@@ -462,8 +478,8 @@ def pack_cost(model, smi):
     return out
 
 
-def profile_forward(run, forward_ms, smi):
-    """Device time by kernel over one B=512 forward (torch.profiler, CUPTI).
+def profile_forward(run, forward_ms, smi, label="one B=512 forward", top_n=12):
+    """Device time by kernel over one forward (torch.profiler, CUPTI).
     Informational: a profiler that sees no device time is reported, not
     failed on."""
     import torch
@@ -483,14 +499,523 @@ def profile_forward(run, forward_ms, smi):
     kernels = [e for e in events if e.device_type == DeviceType.CUDA]
     dev = lambda e: getattr(e, "self_device_time_total", 0.0)  # noqa: E731
     total_us = sum(dev(e) for e in kernels)
-    top = sorted(kernels, key=dev, reverse=True)[:12]
-    log(f"profile, one B=512 forward: kernels busy {total_us / 1e3:.2f} ms of "
+    top = sorted(kernels, key=dev, reverse=True)[:top_n]
+    log(f"profile, {label}: kernels busy {total_us / 1e3:.2f} ms of "
         f"{forward_ms:.2f} ms wall, {len(kernels)} kernel names ({smi})")
     rows = []
     for e in top:
         rows.append(dict(name=e.key[:90], device_ms=dev(e) / 1e3, calls=e.count))
         log(f"  {dev(e) / 1e3:9.3f} ms  {e.count:6d} calls  {e.key[:90]}")
     return dict(device_ms=total_us / 1e3, forward_ms=forward_ms, top=rows)
+
+
+# ------------------------------------------------------ K1 dense repair
+
+DENSE_TS = (24, 31, 32, 48, 100)   # T >= 32 raised before the tiled path
+
+
+def phase_k1_dense(dev="cuda", b=5):
+    """K1 in dense mode (ds_self, window -1) against block_math at T = 24,
+    31 (whole-sequence path) and 32, 48, 100 (tiled two-phase path), f32 and
+    bf16, lengths full, 3/4, 1/3, one row and none."""
+    import torch
+
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for t in DENSE_TS:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, xo, mask, packed = block_case("ds_self", t, -1, b, dtype, dev, seed=t)
+            got = run_block("kernel", x, xo, mask, packed, "ds_self", -1)
+            ref = run_block("plain", x, xo, mask, packed, "ds_self", -1)
+            sync(dev)
+            err, ok, n_over = compare(got, ref)
+            name = str(dtype).split(".")[-1]
+            worst[name] = max(worst[name], err)
+            log(f"K1 dense B={b} ds_self T={t:3d} {name:8s} max|d|={err:.3e} "
+                f"beyond atol+rtol: {n_over} {'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                fail(f"K1 dense disagrees with block_math: T={t} {name}")
+    REPORT["k1_dense"] = worst
+    return worst
+
+
+def phase_long_forward(dev="cuda", arch=PROD, t=1536):
+    """A production-width f32 localizer forward at T = 1536 (coarsest level
+    48 rows, the tiled dense path) through build_inference_fn on the card,
+    held against the same model's plain path on the CPU."""
+    import torch
+    from audio_visual_deepfake_detection_tpu_torch.core.config import ArchConfig, TestConfig
+    from audio_visual_deepfake_detection_tpu_torch.infer import build_inference_fn
+    from audio_visual_deepfake_detection_tpu_torch.models import build_localizer
+    from audio_visual_deepfake_detection_tpu_torch.ops.kernels import fused_block as fb
+
+    cfg = ArchConfig(**arch, compute_dtype="float32")
+    tcfg = TestConfig(**dict(BENCH_TEST, min_score=0.001))
+    model = perturb(build_localizer(cfg, seed=0), 1)
+    fn = build_inference_fn(cfg, tcfg)
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((2, t, cfg.input_dim), dtype=np.float32)
+    mask = np.ones((2, t), bool)
+    mask[1, (3 * t) // 5:] = False
+    x *= mask[..., None]
+    meta = [np.full(2, v, np.float32) for v in (25.0, t / 25.0, 1.0, 1.0)]
+    cpu = [a.numpy() for a in fn(model, x, mask, *meta)]
+    fb.reset_launches()
+    gpu = [a.cpu().numpy() for a in fn(model.to(dev), x, mask, *meta)]
+    n_blocks = 1 + cfg.arch[1] + 3 * cfg.arch[2]
+    if fb.LAUNCHES != n_blocks:
+        fail(f"T={t} forward launched the block kernel {fb.LAUNCHES} times")
+    errs = {}
+    for i in range(2):
+        kc, kg = int(cpu[3][i].sum()), int(gpu[3][i].sum())
+        if kc != kg or kc == 0:
+            fail(f"T={t} video {i}: {kg} detections on the card vs {kc} on the CPU")
+        errs[f"scores_{i}"] = float(np.abs(gpu[1][i][:kc] - cpu[1][i][:kc]).max())
+        errs[f"segments_{i}"] = float(np.abs(gpu[0][i][:kc] - cpu[0][i][:kc]).max())
+        if errs[f"scores_{i}"] > 1e-4 or errs[f"segments_{i}"] > 1e-3:
+            fail(f"T={t} video {i}: card vs CPU differ {errs}")
+    errs["video_cls"] = float(np.abs(gpu[4] - cpu[4]).max())
+    if errs["video_cls"] > 2e-4:
+        fail(f"T={t} video_cls differ {errs}")
+    log(f"localizer f32 T={t} (coarsest level {t // 32} rows): card vs CPU plain {errs}")
+    REPORT["long_forward"] = errs
+
+
+# ------------------------------------------------------------ MViT kernels
+
+# K4 geometries of mvit_v2_b at 512 frames: (S grid, C, heads, blocks)
+MSBLOCK_SHAPES = [((4, 4), 192, 2, 2), ((2, 2), 384, 4, 15), ((1, 1), 768, 8, 1)]
+# K3 call shapes: (name, B*heads, Ng, d, band in the compute dtype, blocks)
+K3_SHAPES = [("blocks 0-1", 2, 512 * 64, 96, False, 2),
+             ("block 23", 16, 512, 32, True, 1)]
+VIDEO_T = 512
+
+
+def check_bf16(got, ref):
+    """compare()'s bf16 rule, else the JAX package's distributional rule
+    (median |d| < 0.005 std(ref), max |d| < 0.1 std(ref),
+    tests/test_mvit_block_fused.py:86-92). Returns (max |d|, ok, rule)."""
+    import torch
+
+    err, ok, _ = compare(got, ref)
+    if ok:
+        return err, True, "atol=rtol=2e-2"
+    g, r = got.float(), ref.float()
+    if not torch.isfinite(g).all():
+        return float("inf"), False, "non-finite"
+    d = (g - r).abs()
+    std = r.std().item()
+    ok = d.median().item() < 0.005 * std and d.max().item() < 0.1 * std
+    return err, ok, f"distributional (median {d.median().item():.2e}, std {std:.2e})"
+
+
+def check_f32(got, ref, atol=1e-4, rtol=5e-4):
+    import torch
+
+    g, r = got.float(), ref.float()
+    if not torch.isfinite(g).all():
+        return float("inf"), False
+    d = (g - r).abs()
+    return d.max().item(), bool((d <= atol + rtol * r.abs()).all())
+
+
+def randomize_block(blk, seed):
+    """Seeded weights at O(1) activations: Linear weights ~ N(0, 1/fan_in),
+    pool taps ~ N(0, 1/27), LN affines 1 + 0.2 N, biases and rel-pos tables
+    0.1 N, so every branch of the block shows in its output."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, prm in blk.named_parameters():
+            if name.endswith("bias") or "rel_pos" in name:
+                val = 0.1 * torch.randn(prm.shape, generator=g)
+            elif prm.dim() == 1:
+                val = 1 + 0.2 * torch.randn(prm.shape, generator=g)
+            else:
+                val = torch.randn(prm.shape, generator=g) * prm[0].numel() ** -0.5
+            prm.copy_(val)
+    return blk
+
+
+def msblock_case(grid_hw, c, nh, dtype, dev, b=2, seed=0):
+    """A K4 block at production width; chunk 1's last quarter of time steps
+    are zero tokens (a zero-padded tail chunk)."""
+    import torch
+    from audio_visual_deepfake_detection_tpu_torch.frontends.mvit import (
+        MSBlockConfig, MultiscaleBlock)
+
+    hs, ws = grid_hw
+    t = VIDEO_T
+    cfg = MSBlockConfig(nh, c, c, (3, 3, 3), (3, 3, 3), (1, 1, 1), (1, hs, ws))
+    blk = randomize_block(MultiscaleBlock(cfg, (t, hs, ws)), seed).to(dev)
+    g = torch.Generator().manual_seed(seed + 1)
+    x = torch.randn((b, 1 + t * hs * ws, c), generator=g)
+    if b > 1:
+        x[1, 1 + (3 * t // 4) * hs * ws:] = 0
+    return blk, x.to(dev, dtype)
+
+
+def run_msblock(which, blk, x, t, grid_hw, nh):
+    from audio_visual_deepfake_detection_tpu_torch.ops.kernels import mvit_block as k4
+
+    p = blk.packed(x.dtype)
+    if which == "kernel":
+        return k4.fused_multiscale_block(x, p, t=t, grid_hw=grid_hw, n_head=nh)
+    return k4.msblock_math(x, p, t=t, grid_hw=grid_hw, n_head=nh)
+
+
+def k3_case(bh, ng, d, band_cd, dtype, dev, seed=0):
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn((bh, n, d), generator=g).to(dev, dtype)
+               for n in (ng, VIDEO_T + 1, VIDEO_T + 1))
+    band = torch.randn((bh, ng, VIDEO_T), generator=g).to(dev)
+    return q, k, v, band.to(dtype) if band_cd else band
+
+
+def run_k3(which, q, k, v, band):
+    from audio_visual_deepfake_detection_tpu_torch.ops.kernels import mvit_attention as k3
+
+    fn = k3.fused_pooled_attention if which == "kernel" else k3.pooled_attention_math
+    return fn(q, k, v, band, scale=q.shape[-1] ** -0.5)
+
+
+def patch_case(dtype, dev, b=2, seed=0):
+    import torch
+
+    t = VIDEO_T
+    g = torch.Generator().manual_seed(seed)
+    video = torch.rand((b, t, 96, 96, 3), generator=g)
+    video[1, (3 * t) // 4:] = 0          # zero-padded tail frames
+    w = torch.randn((96, 3, 3, 15, 15), generator=g) * 2025 ** -0.5
+    bias = 0.1 * torch.randn(96, generator=g)
+    return video.to(dev), w.to(dev), bias.to(dev), dtype
+
+
+def run_patch(which, video, w, bias, dtype):
+    from audio_visual_deepfake_detection_tpu_torch.ops.kernels import patch_embed as k2
+
+    fn = k2.fused_patch_embed if which == "kernel" else k2.patch_embed_math
+    return fn(video, w, bias, dtype)
+
+
+def mvit_cases(dev="cuda"):
+    """(kernel, label, blocks per chunk-forward, case builder, runner) for
+    every production shape of K2-K4 at B = 2 chunks."""
+    cases = [("patch_embed", "B=2 T=512 96x96x3 -> 8x8x96", 1,
+              lambda dt: patch_case(dt, dev), run_patch)]
+    for name, bh, ng, d, band_cd, n in K3_SHAPES:
+        cases.append(("pooled_attention", f"{name}: BH={bh} Ng={ng} Nk=513 d={d}", n,
+                      lambda dt, a=(bh, ng, d, band_cd): k3_case(*a, dt, dev), run_k3))
+    for hw, c, nh, n in MSBLOCK_SHAPES:
+        s = hw[0] * hw[1]
+        cases.append(("multiscale_block", f"S={s} C={c} heads={nh}", n,
+                      lambda dt, a=(hw, c, nh): msblock_case(*a, dt, dev),
+                      lambda which, blk, x, a=(hw, nh): run_msblock(
+                          which, blk, x, VIDEO_T, a[0], a[1])))
+    return cases
+
+
+def phase_mvit_kernels(dev="cuda"):
+    """K2, K3, K4 against their plain versions on the card at every
+    production shape, B = 2 chunks (one with a zero tail), f32 (atol 1e-4,
+    rtol 5e-4) and bf16 (check_bf16)."""
+    import torch
+
+    worst, rows = {}, []
+    for kname, label, _, make, run in mvit_cases(dev):
+        for dtype in (torch.float32, torch.bfloat16):
+            args = make(dtype)
+            got, ref = run("kernel", *args), run("plain", *args)
+            sync(dev)
+            dname = str(dtype).split(".")[-1]
+            if dtype == torch.float32:
+                err, ok = check_f32(got, ref)
+                rule = "atol 1e-4 rtol 5e-4"
+            else:
+                err, ok, rule = check_bf16(got, ref)
+            w = worst.setdefault(kname, {"float32": 0.0, "bfloat16": 0.0})
+            w[dname] = max(w[dname], err)
+            rows.append(dict(kernel=kname, shape=label, dtype=dname, max_abs_err=err,
+                             ok=ok, rule=rule))
+            log(f"{kname} vs plain {label} {dname:8s} max|d|={err:.3e} [{rule}] "
+                f"{'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                REPORT["mvit_kernels"] = rows
+                fail(f"{kname} disagrees with its plain version: {label} {dname}")
+            del args, got, ref
+        torch.cuda.empty_cache()
+    REPORT["mvit_kernels"] = rows
+    return worst
+
+
+# ------------------------------------------------------------ video slice
+
+def video_launches(n_chunks, group, batched_back, n_k4=18, n_k3_front=2, n_k3_back=1):
+    """Launches of one hybrid_apply call of mvit_v2_b: the patch embed and
+    the two K3 front blocks once per chunk group, then the 18 K4 blocks and
+    the K3 block 23 once per group (batched back) or per chunk."""
+    groups = -(-n_chunks // group) if n_chunks > group else 1
+    backs = groups if batched_back else n_chunks
+    return {"patch_embed": groups, "pooled_attention": n_k3_front * groups + n_k3_back * backs,
+            "multiscale_block": n_k4 * backs}
+
+
+def reset_video_counts():
+    from audio_visual_deepfake_detection_tpu_torch.ops.kernels import (
+        mvit_attention, mvit_block, patch_embed)
+
+    for m in (patch_embed, mvit_attention, mvit_block):
+        m.reset_launches()
+
+
+def video_counts():
+    from audio_visual_deepfake_detection_tpu_torch.ops.kernels import (
+        mvit_attention, mvit_block, patch_embed)
+
+    return {"patch_embed": patch_embed.LAUNCHES, "pooled_attention": mvit_attention.LAUNCHES,
+            "multiscale_block": mvit_block.LAUNCHES}
+
+
+def video_model(dtype, temporal_size=VIDEO_T, seed=0):
+    from audio_visual_deepfake_detection_tpu_torch.frontends.mvit import init_mvit, mvit_v2_b
+
+    return init_mvit(mvit_v2_b(temporal_size=temporal_size, dtype=dtype), seed, perturb=True)
+
+
+def phase_video(dev="cuda", n_chunks=16, smi=""):
+    """The video slice's main path: MViT-v2-b at full width and depth, bf16,
+    through FeatureExtractor.video_chunks_features on uint8 chunks; then f32
+    on one 32-frame chunk, card against the CPU plain path."""
+    import torch
+    from audio_visual_deepfake_detection_tpu_torch.frontends import pipeline
+
+    ex = pipeline.FeatureExtractor(video_model=video_model(torch.bfloat16), device=dev)
+    rng = np.random.default_rng(5)
+    chunks = rng.integers(0, 256, (n_chunks, VIDEO_T, 96, 96, 3), dtype=np.uint8)
+    chunks[-1, VIDEO_T // 2:] = 0                    # a zero-padded tail chunk
+    sync(dev)
+    reset_video_counts()
+    t0 = time.perf_counter()
+    feats = ex.video_chunks_features(chunks)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    counts = video_counts()
+    expect = video_launches(n_chunks, pipeline.FRONT_CHUNK_GROUP, ex.batched_back)
+    if torch.device(dev).type != "cuda":
+        expect = {k: 0 for k in expect}
+    log(f"video: {n_chunks} uint8 chunks x {VIDEO_T} frames -> {feats.shape} bf16 in "
+        f"{wall:.2f} s (first call), launches {counts} (expected {expect}) ({smi})")
+    if feats.shape != (n_chunks, VIDEO_T, 256) or not np.isfinite(feats).all():
+        fail(f"video features {feats.shape}, finite={np.isfinite(feats).all()}")
+    if counts != expect:
+        fail(f"video kernel launches {counts}, expected {expect}")
+
+    # f32, one short chunk: the card's kernels vs the CPU plain path
+    m32 = video_model(torch.float32, temporal_size=32, seed=1)
+    clip = rng.integers(0, 256, (1, 32, 96, 96, 3), dtype=np.uint8)
+    cpu = pipeline.FeatureExtractor(video_model=m32, device="cpu").video_chunks_features(clip)
+    reset_video_counts()
+    gpu = pipeline.FeatureExtractor(video_model=m32, device=dev).video_chunks_features(clip)
+    c32 = video_counts()
+    d = np.abs(gpu - cpu)
+    ok = bool((d <= 1e-4 + 5e-4 * np.abs(cpu)).all())
+    log(f"video f32, 1 chunk x 32 frames: card vs CPU plain max|d|={d.max():.3e} "
+        f"(atol 1e-4 rtol 5e-4) {'ok' if ok else 'MISMATCH'}, launches {c32}")
+    if not ok:
+        fail("video f32 card vs CPU plain path differ")
+    REPORT["video"] = dict(chunks=n_chunks, first_call_s=wall, launches=counts,
+                           f32_max_abs_err=float(d.max()), f32_launches=c32)
+    return ex, counts
+
+
+def phase_video_detections(ex, model, cfg, dev="cuda", n_videos=16, n_frames=240, smi=""):
+    """16 videos of 9.6 s (240 frames, one zero-padded chunk each) -> video
+    features -> 240 rows -> linear resample to 768, concat with random
+    BYOL-A (119 x 2048) and Emotion2Vec (479 x 768) stand-ins resampled to
+    768 -> the production localizer (K1) -> detections."""
+    import torch
+    from audio_visual_deepfake_detection_tpu_torch.core.config import TestConfig
+    from audio_visual_deepfake_detection_tpu_torch.frontends import pipeline
+    from audio_visual_deepfake_detection_tpu_torch.frontends.video import chunk_video
+    from audio_visual_deepfake_detection_tpu_torch.infer import build_inference_fn
+    from audio_visual_deepfake_detection_tpu_torch.ops.kernels import fused_block as fb
+    from audio_visual_deepfake_detection_tpu_torch.ops.resample import linear_resample_time
+
+    byola_rows, emo_rows = 119, 479
+    rng = np.random.default_rng(7)
+    chunks = np.concatenate([chunk_video(rng.integers(0, 256, (n_frames, 96, 96, 3),
+                                                      dtype=np.uint8), VIDEO_T)[0]
+                             for _ in range(n_videos)])
+    by = torch.from_numpy(rng.standard_normal((n_videos, byola_rows, 2048), dtype=np.float32))
+    emo = torch.from_numpy(rng.standard_normal((n_videos, emo_rows, 768), dtype=np.float32))
+    fn = build_inference_fn(cfg, TestConfig(**dict(BENCH_TEST, min_score=0.001)))
+    seq = cfg.max_seq_len
+    sync(dev)
+    reset_video_counts()
+    fb.reset_launches()
+    t0 = time.perf_counter()
+    v = ex.video_chunks_features_device(chunks)[:, :n_frames]
+    feats = torch.cat([linear_resample_time(v.float(), seq),
+                       linear_resample_time(by.to(dev), seq),
+                       linear_resample_time(emo.to(dev), seq)], dim=-1)
+    mask = torch.ones((n_videos, seq), dtype=torch.bool, device=dev)
+    meta = [torch.full((n_videos,), x, device=dev) for x in (25.0, 9.6, 0.3125, 0.3125)]
+    segs, scores, _, valid, vcls = fn(model, feats, mask, *meta)
+    n_det = valid.sum(1).cpu().numpy()
+    sync(dev)
+    wall = time.perf_counter() - t0
+    counts, k1 = video_counts(), fb.LAUNCHES
+    n_blocks = 1 + cfg.arch[1] + 3 * cfg.arch[2]
+    expect = video_launches(n_videos, pipeline.FRONT_CHUNK_GROUP, ex.batched_back)
+    if torch.device(dev).type != "cuda":
+        n_blocks, expect = 0, {k: 0 for k in expect}
+    log(f"video -> detections: {n_videos} videos of {n_frames} frames, feats "
+        f"{tuple(feats.shape)}, detections per video min {n_det.min()} max {n_det.max()}, "
+        f"K1 launches {k1}, video launches {counts}, wall {wall:.3f} s ({smi})")
+    if n_det.min() < 1 or not torch.isfinite(vcls).all():
+        fail("a video got no detection or a non-finite logit")
+    if k1 != n_blocks or counts != expect:
+        fail(f"launches K1 {k1} (expected {n_blocks}), video {counts} (expected {expect})")
+    REPORT["video_detections"] = dict(videos=n_videos, wall_s=wall,
+                                      detections=n_det.tolist(), k1_launches=k1,
+                                      video_launches=counts)
+    return wall
+
+
+def mvit_breakdown(model, x_u8, smi):
+    """CUDA-event time of each stage of one batched MViT-v2-b forward (the
+    patch embed, each block with its route, the final LN and mean) after a
+    warm-up forward: where the encoder's time goes, layer by layer."""
+    import torch
+
+    def routes():
+        thw = model.patch_grid(x_u8.shape)
+        out = []
+        for blk in model.blocks:
+            k4 = blk.fused_geometry_ok(thw, 1 + thw[0] * thw[1] * thw[2])
+            out.append("K4" if k4 else "eager" if max(blk.cfg.stride_q) > 1 else "K3")
+            thw = tuple((a + st - 1) // st for a, st in zip(thw, blk.cfg.stride_q))
+        return out
+
+    def forward(record):
+        x = x_u8.float() * np.float32(1.0 / 255.0)
+        thw = model.patch_grid(x.shape)
+        stages = [("patch embed", lambda t: (model.embed(x), thw))]
+        for i, blk in enumerate(model.blocks):
+            stages.append((f"block {i}", blk.__call__))
+        names, marks = [], []
+        tok = None
+        for name, fn in stages:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            tok, thw = fn(tok) if name == "patch embed" else fn(tok, thw)
+            end.record()
+            names.append(name)
+            marks.append((start, end))
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        model.encode_back(tok, thw, len(model.blocks))
+        end.record()
+        names.append("final LN + mean")
+        marks.append((start, end))
+        torch.cuda.synchronize()
+        return names, [s.elapsed_time(e) for s, e in marks] if record else None
+
+    with torch.no_grad():
+        forward(False)
+        names, ms = forward(True)
+    route = ["K2"] + routes() + ["eager"]
+    total = sum(ms)
+    log(f"MViT-v2-b bf16 breakdown, {x_u8.shape[0]} chunks batched: {total:.2f} ms ({smi})")
+    rows = []
+    for name, r, t in zip(names, route, ms):
+        rows.append(dict(stage=name, route=r, ms=t))
+        log(f"  {name:16s} {r:5s} {t:9.3f} ms  {100 * t / total:5.1f}%")
+    by_route = {}
+    for row in rows:
+        by_route[row["route"]] = by_route.get(row["route"], 0.0) + row["ms"]
+    log(f"  by route: " + ", ".join(f"{k} {v:.2f} ms" for k, v in by_route.items()))
+    return dict(total_ms=total, stages=rows, by_route=by_route)
+
+
+def phase_mvit_timing(smi, dev="cuda"):
+    """Each new kernel against its plain version per production shape (CUDA
+    events, plain / kernel / kernel / plain), K1's tiled dense path at T=48
+    and both dense paths at T=24, then MViT-v2-b chunks/s (bf16) at 16 and
+    64 chunks with the back stages per chunk and batched."""
+    import torch
+    from audio_visual_deepfake_detection_tpu_torch.frontends import pipeline
+    from audio_visual_deepfake_detection_tpu_torch.ops.kernels import fused_block as fb
+
+    per_shape, totals = [], {}
+    for kname, label, n_blocks, make, run in mvit_cases(dev):
+        args = make(torch.bfloat16)
+        ms = {}
+        for which in ("plain", "kernel", "kernel", "plain"):
+            ms.setdefault(which, []).append(cuda_ms(lambda: run(which, *args), 3, warmup=1))
+        k_ms, p_ms = min(ms["kernel"]), min(ms["plain"])
+        tot = totals.setdefault(kname, [0.0, 0.0])
+        tot[0] += k_ms * n_blocks
+        tot[1] += p_ms * n_blocks
+        per_shape.append(dict(kernel=kname, shape=label, blocks=n_blocks, kernel_ms=k_ms,
+                              plain_ms=p_ms))
+        log(f"time {kname} {label} bf16: kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms "
+            f"(x{n_blocks} per forward) ({smi})")
+        del args
+        torch.cuda.empty_cache()
+
+    dense = {}
+    for t, whole_max in ((48, 31), (24, 31), (24, 0)):
+        x, xo, mask, packed = block_case("ds_self", t, -1, 512, torch.bfloat16, dev, seed=t)
+        fb.DENSE_WHOLE_MAX_T = whole_max
+        try:
+            k_ms = cuda_ms(lambda: run_block("kernel", x, xo, mask, packed, "ds_self", -1), 10)
+        finally:
+            fb.DENSE_WHOLE_MAX_T = 31
+        p_ms = cuda_ms(lambda: run_block("plain", x, xo, mask, packed, "ds_self", -1), 10)
+        path = "tiled" if t > whole_max else "whole"
+        dense[f"T={t} {path}"] = dict(kernel_ms=k_ms, plain_ms=p_ms)
+        log(f"time K1 dense ds_self B=512 T={t} ({path} path) bf16: kernel {k_ms:.4f} ms "
+            f"plain {p_ms:.4f} ms ({smi})")
+
+    rates = {}
+    rng = np.random.default_rng(9)
+    ex = pipeline.FeatureExtractor(video_model=video_model(torch.bfloat16), device=dev)
+    for n in (16, 64):
+        x = torch.from_numpy(rng.integers(0, 256, (n, VIDEO_T, 96, 96, 3),
+                                          dtype=np.uint8)).to(dev)
+        for batched in (False, True):
+            ex.batched_back = batched
+            torch.cuda.reset_peak_memory_stats()
+            ex.video_chunks_features_device(x)          # warm-up
+            runs = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ex.video_chunks_features_device(x)
+                torch.cuda.synchronize()
+                runs.append(n / (time.perf_counter() - t0))
+            key = f"{n} chunks, batched_back={batched}"
+            rates[key] = max(runs)
+            log(f"MViT-v2-b bf16 {key}: {max(runs):.2f} chunks/s (runs "
+                f"{[round(r, 2) for r in runs]}, peak mem "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB) ({smi})")
+            torch.cuda.empty_cache()
+        del x
+    x = torch.from_numpy(rng.integers(0, 256, (16, VIDEO_T, 96, 96, 3), dtype=np.uint8)).to(dev)
+    ex.batched_back = pipeline.BATCHED_BACK
+    breakdown = mvit_breakdown(ex.video_model, x, smi)
+    profile = profile_forward(lambda: ex.video_chunks_features_device(x),
+                              16e3 / rates[f"16 chunks, batched_back={ex.batched_back}"], smi,
+                              label="one 16-chunk MViT-v2-b forward, bf16", top_n=25)
+    REPORT["mvit_timing"] = dict(per_shape=per_shape, totals=totals, k1_dense=dense,
+                                 chunks_per_s=rates, profile=profile, breakdown=breakdown,
+                                 card=smi)
+    return totals, rates
 
 
 def main():
@@ -510,9 +1035,16 @@ def main():
     t_start = time.perf_counter()
     smi = phase_build()
     worst = phase_kernels()
+    dense_worst = phase_k1_dense()
+    phase_long_forward()
     model, cfg = phase_serve()
     serve_launches = REPORT["serve"]["launches"]
+    mvit_worst = phase_mvit_kernels()
+    ex, video_launched = phase_video(smi=smi)
+    phase_video_detections(ex, model, cfg, smi=smi)
+    del ex
     totals, worst_timed = phase_timing(model, cfg, smi)
+    mvit_totals, _ = phase_mvit_timing(smi)
     for mod in ("jax", "audio_visual_deepfake_detection_tpu"):
         if mod in sys.modules:
             fail(f"{mod} was imported")
@@ -520,22 +1052,42 @@ def main():
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     with open(os.path.join(REPO, "build", "chip_smoke_report.json"), "w") as f:
         json.dump(REPORT, f, indent=1)
-    log(smi)
-    log(json.dumps({"kernels": [{
+    src = "audio_visual_deepfake_detection_tpu_torch/csrc/"
+    pallas = "audio_visual_deepfake_detection_tpu/ops/pallas/"
+    kernels = [{
         "name": "fused_transformer_block",
         "route": "cuda",
-        "source": "audio_visual_deepfake_detection_tpu_torch/csrc/fused_block.cu",
-        "replaces": "audio_visual_deepfake_detection_tpu/ops/pallas/fused_block.py:473",
+        "source": src + "fused_block.cu",
+        "replaces": pallas + "fused_block.py:473",
         "launches": serve_launches,
-        "max_abs_err": worst["float32"],
-        "max_abs_err_bf16": max(worst["bfloat16"], worst_timed),
+        "max_abs_err": max(worst["float32"], dense_worst["float32"]),
+        "max_abs_err_bf16": max(worst["bfloat16"], worst_timed, dense_worst["bfloat16"]),
         "tolerance": {"float32": F32_ATOL, "bfloat16": BF16_TOL},
         "ms": totals[16][0],
         "plain_ms": totals[16][1],
         "ms_b512": totals[512][0],
         "plain_ms_b512": totals[512][1],
         "note": "ms = sum over the 18 blocks of one forward at B=16 bf16",
-    }]}))
+    }]
+    for name, file, line in (("patch_embed", "patch_embed", 140),
+                             ("pooled_attention", "mvit_attention", 72),
+                             ("multiscale_block", "mvit_block", 313)):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": src + file + ".cu",
+            "replaces": f"{pallas}{file}.py:{line}",
+            "launches": video_launched[name],
+            "max_abs_err": mvit_worst[name]["float32"],
+            "max_abs_err_bf16": mvit_worst[name]["bfloat16"],
+            "tolerance": {"float32": "atol 1e-4 rtol 5e-4",
+                          "bfloat16": "atol=rtol=2e-2 or distributional"},
+            "ms": mvit_totals[name][0],
+            "plain_ms": mvit_totals[name][1],
+            "note": "ms = sum over one 2-chunk mvit_v2_b forward's launches, bf16",
+        })
+    log(smi)
+    log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
