@@ -624,6 +624,12 @@ fused_block_kernel(Params p) {
           });
 }
 
+// Dense attention takes the tiled two-phase path above DENSE_MAX_T rows, or
+// at any T when force_tiled is set (used only to time the two paths).
+int dense_tiled(int T, int w, int force_tiled) {
+  return (w <= 0 && (force_tiled || T > DENSE_MAX_T)) ? 1 : 0;
+}
+
 int tile_rows(int T, int w, int tiled) { return (w > 0 || tiled) ? TQ_BAND : T; }
 
 template <typename T>
@@ -655,27 +661,27 @@ int launch(Params p, int B, cudaStream_t stream) {
 extern "C" {
 
 // Dynamic shared memory (bytes) a launch needs, or -1 if the shape is not
-// supported (a half window above BAND_MAX_W, or the whole-sequence dense
-// path above DENSE_MAX_T rows). tiled: dense attention on the two-phase path.
-int avdd_fused_block_smem(int T, int w, int tiled, int dtype) {
+// supported (a half window above BAND_MAX_W).
+int avdd_fused_block_smem(int T, int w, int force_tiled, int dtype) {
   (void)dtype;
-  if (w > BAND_MAX_W || (w <= 0 && !tiled && T > DENSE_MAX_T)) return -1;
-  return Layout(tile_rows(T, w, tiled), w).bytes();
+  if (w > BAND_MAX_W) return -1;
+  return Layout(tile_rows(T, w, dense_tiled(T, w, force_tiled)), w).bytes();
 }
 
 // Launch on `stream`; returns cudaGetLastError() (0 = launched).
 // dtype: 0 float32, 1 bfloat16. mode: 0 self, 1 qv_k, 2 kv, 3 ds_self.
 // Dense weights: (out, in) row-major in the compute dtype (torch's Linear
-// layout), for both dtypes. Dense attention (w = 0) with tiled = 1 takes the
-// two-phase path and needs kv, a (B, T, 2C) scratch in the compute dtype.
+// layout), for both dtypes. Dense attention (w = 0) picks its path here
+// (dense_tiled); the tiled path needs kv, a (B, T, 2C) scratch in the
+// compute dtype, so the caller passes one for every dense launch.
 int avdd_fused_block(const void* x, const void* xo, const void* mask,
                      const void* vecs, const void* wq, const void* wk,
                      const void* wv, const void* wp, const void* wf1,
                      const void* wf2, const void* fc1b, void* out, void* kv,
                      int B, int T, int c, int n_head, int w, int mode,
-                     int tiled, int dtype, void* stream) {
-  tiled = (w <= 0 && tiled) ? 1 : 0;
-  if (c != C || n_head != NH || avdd_fused_block_smem(T, w, tiled, dtype) < 0 ||
+                     int force_tiled, int dtype, void* stream) {
+  const int tiled = dense_tiled(T, w, force_tiled);
+  if (c != C || n_head != NH || avdd_fused_block_smem(T, w, force_tiled, dtype) < 0 ||
       mode < 0 || mode > 3 || B <= 0 || T <= 0 || (tiled && !kv))
     return (int)cudaErrorInvalidValue;
   Params p;

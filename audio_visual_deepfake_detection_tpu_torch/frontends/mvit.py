@@ -33,8 +33,8 @@ from torch import nn
 from ..ops.kernels import mvit_attention as _k3
 from ..ops.kernels import mvit_block as _k4
 from ..ops.kernels import patch_embed as _k2
-from ..ops.kernels.mvit_block import (dense, fmatmul, gelu, layer_norm, softmax_pv,
-                                      token_pool, toeplitz_band)
+from ..ops.mvit_math import (dense, fmatmul, gelu, layer_norm, softmax_pv, token_pool,
+                             toeplitz_band)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -23,15 +23,14 @@ from .video import bilinear_resize_video, chunk_video
 
 # Chunks run in groups of this many (the tail group zero-padded): the front
 # stages (patch embed + blocks[:split]) batched across the group, then the
-# back stages batched across it too (BATCHED_BACK). The group bounds peak
-# device memory for long videos: MViT-v2-b in bf16 peaks at 14.1 GiB with
-# groups of 32 chunks on an H100 80GB (chip_smoke.py, 64 chunks).
-FRONT_CHUNK_GROUP = 32
-# Measured on an H100 (700 W) by chip_smoke.py, MViT-v2-b bf16, 64 chunks:
-# batched back stages 91.85 chunks/s against 31.43 one chunk at a time (the
+# back stages batched across it too. The group bounds peak device memory for
+# long videos: MViT-v2-b in bf16 peaks at 14.1 GiB with groups of 32 chunks
+# on an H100 80GB (chip_smoke.py, 64 chunks). The back stages always run
+# batched: on an H100 (700 W), MViT-v2-b bf16, 64 chunks, chip_smoke.py
+# measured 91.85 chunks/s batched against 31.43 one chunk at a time (the
 # per-chunk launches leave the card idle). The JAX default (per chunk) was a
 # TPU measurement.
-BATCHED_BACK = True
+FRONT_CHUNK_GROUP = 32
 
 CACHE_DIR_NAMES = {"video": "align_video", "byola": "content_audio",
                    "emotion": "emotion_audio"}
@@ -48,8 +47,7 @@ class FeatureExtractor:
 
     def __init__(self, video_model: Optional[MViTVideoEncoder] = None,
                  video_chunk: int = 512, seed: int = 0,
-                 compute_dtype: str = "float32", device=None,
-                 batched_back: Optional[bool] = None):
+                 compute_dtype: str = "float32", device=None):
         dtype = getattr(torch, compute_dtype)
         if video_model is None:
             video_model = init_mvit(mvit_v2_b(dtype=dtype), seed, perturb=False)
@@ -57,7 +55,6 @@ class FeatureExtractor:
             next(video_model.parameters()).device
         self.video_model = video_model.to(self.device).eval()
         self.video_chunk = video_chunk
-        self.batched_back = BATCHED_BACK if batched_back is None else batched_back
 
     def video_features(self, frames: np.ndarray) -> np.ndarray:
         """(T, H, W, 3) -> (T, D). uint8 frames are normalized /255, float
@@ -85,7 +82,7 @@ class FeatureExtractor:
         if tuple(x.shape[2:4]) != (96, 96):
             x = bilinear_resize_video(x, (96, 96))
         return hybrid_apply(self.video_model, x, front_group=FRONT_CHUNK_GROUP,
-                            batched_back=self.batched_back)
+                            batched_back=True)
 
     def byola_features(self, wav):
         raise NotImplementedError(_AUDIO_TODO.format("BYOL-A"))

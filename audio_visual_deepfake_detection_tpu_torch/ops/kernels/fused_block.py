@@ -45,10 +45,6 @@ NUM_VEC_ROWS = 22
 
 MODES = {"self": 0, "qv_k": 1, "kv": 2, "ds_self": 3}
 KERNEL_CHANNELS, KERNEL_HEADS = 256, 4
-# Dense attention up to this many rows keeps the whole sequence in one
-# thread block (one launch); longer sequences take the tiled two-phase path
-# (two launches, a (B, T, 2C) k|v scratch). chip_smoke.py times both at T=24.
-DENSE_WHOLE_MAX_T = 31
 
 # kernel launches since the last reset (CPU calls and plain runs never count)
 LAUNCHES = 0
@@ -348,7 +344,11 @@ def fused_transformer_block(x, xo, mask, vecs, wq, wk, wv, wp, wf1, wf2, fc1b,
 
 
 def _launch(x, xo, mask, vecs, wq, wk, wv, wp, wf1, wf2, fc1b, *, n_head,
-            w_overlap, mode):
+            w_overlap, mode, force_tiled=False):
+    """Launch K1. Dense attention (``w_overlap <= 0``) keeps the whole
+    sequence in one thread block up to 31 rows and takes the tiled two-phase
+    path above (the kernel decides); ``force_tiled`` sends any T to the tiled
+    path, so that the two can be timed against each other."""
     global LAUNCHES
     from .build import load
 
@@ -357,24 +357,25 @@ def _launch(x, xo, mask, vecs, wq, wk, wv, wp, wf1, wf2, fc1b, *, n_head,
         raise ValueError(f"fused block kernel is built for C={KERNEL_CHANNELS}, "
                          f"{KERNEL_HEADS} heads; got C={c}, {n_head} heads")
     w = max(w_overlap, 0)
-    tiled = int(w == 0 and t > DENSE_WHOLE_MAX_T)
     lib = load()
     dcode = 0 if x.dtype == torch.float32 else 1
-    if lib.avdd_fused_block_smem(t, w, tiled, dcode) < 0:
+    if lib.avdd_fused_block_smem(t, w, int(force_tiled), dcode) < 0:
         raise ValueError(f"fused block kernel: unsupported window half-width "
                          f"{w_overlap} (banded attention takes w <= 8)")
     out = torch.empty_like(x)
     if b == 0 or t == 0:
         return out
-    kv = torch.empty((b, t, 2 * c), dtype=x.dtype, device=x.device) if tiled else None
+    # the (B, T, 2C) k|v scratch of the tiled dense path, should it be taken
+    kv = torch.empty((b, t, 2 * c), dtype=x.dtype, device=x.device) if w == 0 else None
     ptr = lambda a: ctypes.c_void_p(a.data_ptr())  # noqa: E731
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.avdd_fused_block(
             ptr(x), ptr(x if xo is None else xo), ptr(mask), ptr(vecs), ptr(wq),
             ptr(wk), ptr(wv), ptr(wp), ptr(wf1), ptr(wf2), ptr(fc1b), ptr(out),
-            ctypes.c_void_p(kv.data_ptr() if tiled else 0),
-            b, t, c, n_head, w, MODES[mode], tiled, dcode, ctypes.c_void_p(stream))
+            ctypes.c_void_p(0 if kv is None else kv.data_ptr()),
+            b, t, c, n_head, w, MODES[mode], int(force_tiled), dcode,
+            ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"fused block kernel launch failed: CUDA error {err}")
     LAUNCHES += 1

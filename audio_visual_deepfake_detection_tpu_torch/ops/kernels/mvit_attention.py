@@ -26,7 +26,7 @@ import ctypes
 import torch
 
 from ...core.runtime import use_kernel
-from .mvit_block import fmatmul, softmax_pv
+from ..mvit_math import fmatmul, softmax_pv
 
 MAX_HEAD_DIM = 128
 

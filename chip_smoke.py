@@ -802,7 +802,7 @@ def phase_video(dev="cuda", n_chunks=16, smi=""):
     sync(dev)
     wall = time.perf_counter() - t0
     counts = video_counts()
-    expect = video_launches(n_chunks, pipeline.FRONT_CHUNK_GROUP, ex.batched_back)
+    expect = video_launches(n_chunks, pipeline.FRONT_CHUNK_GROUP, True)
     if torch.device(dev).type != "cuda":
         expect = {k: 0 for k in expect}
     log(f"video: {n_chunks} uint8 chunks x {VIDEO_T} frames -> {feats.shape} bf16 in "
@@ -819,10 +819,17 @@ def phase_video(dev="cuda", n_chunks=16, smi=""):
     reset_video_counts()
     gpu = pipeline.FeatureExtractor(video_model=m32, device=dev).video_chunks_features(clip)
     c32 = video_counts()
+    e32 = video_launches(1, pipeline.FRONT_CHUNK_GROUP, True)
+    if torch.device(dev).type != "cuda":
+        e32 = {k: 0 for k in e32}
     d = np.abs(gpu - cpu)
     ok = bool((d <= 1e-4 + 5e-4 * np.abs(cpu)).all())
     log(f"video f32, 1 chunk x 32 frames: card vs CPU plain max|d|={d.max():.3e} "
-        f"(atol 1e-4 rtol 5e-4) {'ok' if ok else 'MISMATCH'}, launches {c32}")
+        f"(atol 1e-4 rtol 5e-4) {'ok' if ok else 'MISMATCH'}, launches {c32} "
+        f"(expected {e32})")
+    # without the kernels this would hold the plain path against itself
+    if c32 != e32:
+        fail(f"video f32 kernel launches {c32}, expected {e32}")
     if not ok:
         fail("video f32 card vs CPU plain path differ")
     REPORT["video"] = dict(chunks=n_chunks, first_call_s=wall, launches=counts,
@@ -868,7 +875,7 @@ def phase_video_detections(ex, model, cfg, dev="cuda", n_videos=16, n_frames=240
     wall = time.perf_counter() - t0
     counts, k1 = video_counts(), fb.LAUNCHES
     n_blocks = 1 + cfg.arch[1] + 3 * cfg.arch[2]
-    expect = video_launches(n_videos, pipeline.FRONT_CHUNK_GROUP, ex.batched_back)
+    expect = video_launches(n_videos, pipeline.FRONT_CHUNK_GROUP, True)
     if torch.device(dev).type != "cuda":
         n_blocks, expect = 0, {k: 0 for k in expect}
     log(f"video -> detections: {n_videos} videos of {n_frames} frames, feats "
@@ -948,36 +955,38 @@ def phase_mvit_timing(smi, dev="cuda"):
     and both dense paths at T=24, then MViT-v2-b chunks/s (bf16) at 16 and
     64 chunks with the back stages per chunk and batched."""
     import torch
-    from audio_visual_deepfake_detection_tpu_torch.frontends import pipeline
+    from audio_visual_deepfake_detection_tpu_torch.frontends import mvit, pipeline
     from audio_visual_deepfake_detection_tpu_torch.ops.kernels import fused_block as fb
 
     per_shape, totals = [], {}
     for kname, label, n_blocks, make, run in mvit_cases(dev):
         args = make(torch.bfloat16)
+        # the plain K4 time swings from run to run (46.7-90.4 ms per forward
+        # across otherwise equal runs): take the median of 8 interleaved
+        # rounds each, and keep the spread
         ms = {}
-        for which in ("plain", "kernel", "kernel", "plain"):
+        for which in ("plain", "kernel", "kernel", "plain") * 4:
             ms.setdefault(which, []).append(cuda_ms(lambda: run(which, *args), 3, warmup=1))
-        k_ms, p_ms = min(ms["kernel"]), min(ms["plain"])
+        k_ms, p_ms = float(np.median(ms["kernel"])), float(np.median(ms["plain"]))
         tot = totals.setdefault(kname, [0.0, 0.0])
         tot[0] += k_ms * n_blocks
         tot[1] += p_ms * n_blocks
         per_shape.append(dict(kernel=kname, shape=label, blocks=n_blocks, kernel_ms=k_ms,
-                              plain_ms=p_ms))
-        log(f"time {kname} {label} bf16: kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms "
-            f"(x{n_blocks} per forward) ({smi})")
+                              plain_ms=p_ms, kernel_range=[min(ms["kernel"]), max(ms["kernel"])],
+                              plain_range=[min(ms["plain"]), max(ms["plain"])]))
+        log(f"time {kname} {label} bf16, median of 8: kernel {k_ms:.4f} ms "
+            f"[{min(ms['kernel']):.4f}, {max(ms['kernel']):.4f}]  plain {p_ms:.4f} ms "
+            f"[{min(ms['plain']):.4f}, {max(ms['plain']):.4f}] (x{n_blocks} per forward) ({smi})")
         del args
         torch.cuda.empty_cache()
 
     dense = {}
-    for t, whole_max in ((48, 31), (24, 31), (24, 0)):
+    for t, force_tiled in ((48, False), (24, False), (24, True)):
         x, xo, mask, packed = block_case("ds_self", t, -1, 512, torch.bfloat16, dev, seed=t)
-        fb.DENSE_WHOLE_MAX_T = whole_max
-        try:
-            k_ms = cuda_ms(lambda: run_block("kernel", x, xo, mask, packed, "ds_self", -1), 10)
-        finally:
-            fb.DENSE_WHOLE_MAX_T = 31
+        k_ms = cuda_ms(lambda: fb._launch(x, xo, mask, *packed, n_head=4, w_overlap=-1,
+                                          mode="ds_self", force_tiled=force_tiled), 10)
         p_ms = cuda_ms(lambda: run_block("plain", x, xo, mask, packed, "ds_self", -1), 10)
-        path = "tiled" if t > whole_max else "whole"
+        path = "tiled" if t > 31 or force_tiled else "whole"
         dense[f"T={t} {path}"] = dict(kernel_ms=k_ms, plain_ms=p_ms)
         log(f"time K1 dense ds_self B=512 T={t} ({path} path) bf16: kernel {k_ms:.4f} ms "
             f"plain {p_ms:.4f} ms ({smi})")
@@ -985,18 +994,29 @@ def phase_mvit_timing(smi, dev="cuda"):
     rates = {}
     rng = np.random.default_rng(9)
     ex = pipeline.FeatureExtractor(video_model=video_model(torch.bfloat16), device=dev)
+
+    def features(x, batched):
+        """The extractor's path (back stages batched), or the same chunks
+        with the back stages run one chunk at a time."""
+        if batched:
+            return ex.video_chunks_features_device(x)
+        xf = x.float() * np.float32(1.0 / 255.0)
+        return mvit.hybrid_apply(ex.video_model, xf, front_group=pipeline.FRONT_CHUNK_GROUP,
+                                 batched_back=False)
+
     for n in (16, 64):
         x = torch.from_numpy(rng.integers(0, 256, (n, VIDEO_T, 96, 96, 3),
                                           dtype=np.uint8)).to(dev)
         for batched in (False, True):
-            ex.batched_back = batched
             torch.cuda.reset_peak_memory_stats()
-            ex.video_chunks_features_device(x)          # warm-up
+            with torch.no_grad():
+                features(x, batched)                    # warm-up
             runs = []
             for _ in range(2):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                ex.video_chunks_features_device(x)
+                with torch.no_grad():
+                    features(x, batched)
                 torch.cuda.synchronize()
                 runs.append(n / (time.perf_counter() - t0))
             key = f"{n} chunks, batched_back={batched}"
@@ -1007,10 +1027,9 @@ def phase_mvit_timing(smi, dev="cuda"):
             torch.cuda.empty_cache()
         del x
     x = torch.from_numpy(rng.integers(0, 256, (16, VIDEO_T, 96, 96, 3), dtype=np.uint8)).to(dev)
-    ex.batched_back = pipeline.BATCHED_BACK
     breakdown = mvit_breakdown(ex.video_model, x, smi)
     profile = profile_forward(lambda: ex.video_chunks_features_device(x),
-                              16e3 / rates[f"16 chunks, batched_back={ex.batched_back}"], smi,
+                              16e3 / rates["16 chunks, batched_back=True"], smi,
                               label="one 16-chunk MViT-v2-b forward, bf16", top_n=25)
     REPORT["mvit_timing"] = dict(per_shape=per_shape, totals=totals, k1_dense=dense,
                                  chunks_per_s=rates, profile=profile, breakdown=breakdown,
