@@ -1,10 +1,12 @@
-"""Jax-free static configs over the JAX package's YAML dicts.
+"""Static configs and the YAML loader (JAX ``core/config.py``).
 
 ``ArchConfig`` / ``TestConfig`` mirror ``models/meta_arch.py::ArchConfig``
-and ``infer/decode.py::TestConfig`` of the JAX package field for field, so
-one loaded YAML dict configures both packages. The YAML loader itself
-(``core/config.py::load_config``) is jax-free host code of the JAX package
-and is imported only when a dict has to be read.
+and ``infer/decode.py::TestConfig`` of the JAX package field for field, and
+``load_config`` is this package's own copy of the JAX package's loader (YAML
+values win, a defaults tree fills the gaps, dataset dims and train/test
+configs are propagated into ``config['model']``), so one YAML file
+configures both packages and gives the same dict. Nothing here imports the
+JAX package.
 
 The port covers the production localizer, ``av_recovery_norecon`` with the
 HRLR backbone and the FPN neck. Anything else raises NotImplementedError
@@ -13,9 +15,12 @@ naming the ROADMAP item that will port it.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 from typing import Any, Dict, Tuple
+
+import yaml
 
 _LATER = "queue 1 item 10 of ROADMAP.md ('The rest')"
 
@@ -111,17 +116,172 @@ class TestConfig:
     ext_score_file: str | None = None
 
 
-def load_config(path: str) -> Dict[str, Any]:
-    """The JAX package's YAML loader (defaults tree + propagation)."""
-    from audio_visual_deepfake_detection_tpu.core.config import load_config as _load
+def default_config() -> Dict[str, Any]:
+    return {
+        "init_rand_seed": 1234567891,
+        "dataset_name": "deepfake_video_audioEmoBYOLA",
+        "train_split": ("train",),
+        "val_split": ("dev",),
+        "test_split": ("test",),
+        "model_name": "AVLocPointTransformerRecoveryNoNormNorecon",
+        "dataset": {
+            "feat_stride": 1,
+            "num_frames": 1,
+            "default_fps": None,
+            "video_feat_folder": None,
+            "audio_feat_folder": None,
+            "audio_byola_feat_folder": None,
+            "audio_emo_feat_folder": None,
+            "train_txt": None,
+            "json_folder": None,
+            "test_folder": None,
+            "file_prefix": None,
+            "file_ext": ".npy",
+            "audio_file_ext": ".npy",
+            "video_input_dim": 256,
+            "audio_input_dim": 2816,
+            "input_dim": 0,
+            "num_classes": 1,
+            "downsample_rate": 0,
+            "max_seq_len": 768,
+            "trunc_thresh": 0.5,
+            "crop_ratio": None,
+            "force_upsampling": True,
+            # maximum number of GT segments per sample (static padding)
+            "max_gt_segments": 32,
+        },
+        "loader": {
+            "batch_size": 8,
+            "num_workers": 4,
+        },
+        "model": {
+            "backbone_type": "convHRLRFullResSelfAttTransformerRevised",
+            "fpn_type": "fpn",
+            "backbone_arch": (2, 2, 5),
+            "scale_factor": 2,
+            "regression_range": [(0, 4), (4, 8), (8, 16), (16, 32), (32, 64), (64, 10000)],
+            "n_head": 4,
+            "n_mha_win_size": [7, 7, 7, 7, 7, -1],
+            "embd_kernel_size": 3,
+            "embd_dim": 256,
+            "embd_with_ln": True,
+            "fpn_dim": 256,
+            "fpn_with_ln": True,
+            "fpn_start_level": 0,
+            "head_dim": 256,
+            "head_kernel_size": 3,
+            "head_num_layers": 3,
+            "head_with_ln": True,
+            "max_buffer_len_factor": 1.0,
+            "use_abs_pe": True,
+            "use_rel_pe": False,
+        },
+        "train_cfg": {
+            "center_sample": "radius",
+            "center_sample_radius": 1.5,
+            "loss_weight": 1.0,
+            "cls_prior_prob": 0.01,
+            "init_loss_norm": 2000,
+            "clip_grad_l2norm": -1,
+            "head_empty_cls": [],
+            "dropout": 0.0,
+            "droppath": 0.1,
+            "label_smoothing": 0.0,
+        },
+        "test_cfg": {
+            "pre_nms_thresh": 0.001,
+            "pre_nms_topk": 5000,
+            "iou_threshold": 0.1,
+            "min_score": 0.01,
+            "max_seg_num": 1000,
+            "nms_method": "soft",
+            "nms_sigma": 0.5,
+            "duration_thresh": 0.05,
+            "multiclass_nms": True,
+            "ext_score_file": None,
+            "voting_thresh": 0.75,
+            # TPU extension (not in the reference DEFAULTS): pre-NMS top-K
+            # preselect for serving latency; 0 = reference behavior
+            "nms_pre_topk": 0,
+        },
+        "opt": {
+            "type": "AdamW",
+            "momentum": 0.9,
+            "weight_decay": 0.0,
+            "learning_rate": 1e-3,
+            "epochs": 30,
+            "warmup": True,
+            "warmup_epochs": 5,
+            "schedule_type": "cosine",
+            "schedule_steps": [],
+            "schedule_gamma": 0.1,
+            "eta_min": 1e-8,
+        },
+        "output_folder": "./runs",
+        "tpu": {
+            # data-parallel mesh axis size; -1 = all local devices
+            "dp_size": -1,
+            "compute_dtype": "float32",   # float32 | bfloat16
+            "remat": False,               # backbone activation checkpointing
+            "remat_policy": "",           # "" | dots | dots_no_batch
+            "prefetch": 2,
+        },
+    }
 
-    return _load(path)
+
+def _merge_defaults(defaults: Dict, target: Dict) -> None:
+    """Fill missing keys from defaults (YAML wins, like config.py:137-143)."""
+    for key, val in defaults.items():
+        if key in target:
+            if isinstance(val, dict) and isinstance(target[key], dict):
+                _merge_defaults(val, target[key])
+        else:
+            target[key] = copy.deepcopy(val)
+
+
+def _propagate(config: Dict) -> Dict:
+    """Copy dataset dims + train/test cfg into model (config.py:149-157)."""
+    model = config["model"]
+    ds = config["dataset"]
+    model["video_input_dim"] = ds["video_input_dim"]
+    model["audio_input_dim"] = ds["audio_input_dim"]
+    model["num_classes"] = ds["num_classes"]
+    model["max_seq_len"] = ds["max_seq_len"]
+    model["train_cfg"] = config["train_cfg"]
+    model["test_cfg"] = config["test_cfg"]
+    return config
+
+
+def load_config(path: str) -> Dict[str, Any]:
+    with open(path, "r") as f:
+        config = yaml.safe_load(f)
+    if config is None:  # empty / comments-only file -> pure defaults
+        config = {}
+    if not isinstance(config, dict):
+        raise ValueError(
+            f"config file {path!r} must be a YAML mapping, got "
+            f"{type(config).__name__}")
+    _merge_defaults(default_config(), config)
+    return _propagate(config)
+
+
+# reference model_name -> our variant tag
+MODEL_NAME_TO_VARIANT = {
+    "AVLocPointTransformerRecoveryNoNormNorecon": "av_recovery_norecon",
+    "AVLocPointTransformerRecoveryNoNorm": "av_recovery",
+    "AVLocPointTransformerRecoveryNoNormNoreconTHE": "av_recovery_the",
+    "AVLocPointTransformer": "plain",
+    "LocPointTransformer": "plain",
+}
+
+BACKBONE_NAME_MAP = {
+    "convHRLRFullResSelfAttTransformerRevised": "hrlr",
+    "convTransformer": "convTransformer",
+    "conv": "conv",
+}
 
 
 def arch_config_from(config: Dict) -> ArchConfig:
-    from audio_visual_deepfake_detection_tpu.core.config import (
-        BACKBONE_NAME_MAP, MODEL_NAME_TO_VARIANT)
-
     m = config["model"]
     tc = config["train_cfg"]
     win = m["n_mha_win_size"]

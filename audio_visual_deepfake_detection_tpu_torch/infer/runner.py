@@ -1,5 +1,5 @@
 """Batched inference: forward + decode + soft-NMS on the model's device
-(JAX ``infer/runner.py:31-60, 156-171``)."""
+(JAX ``infer/runner.py:31-171``)."""
 
 from __future__ import annotations
 
@@ -47,6 +47,66 @@ def build_inference_fn(cfg: ArchConfig, test_cfg: TestConfig):
         return segs, scores, cls_idxs, valid, out["cls_scores"]
 
     return fn
+
+
+def build_online_inference_fn(cfg: ArchConfig, test_cfg: TestConfig,
+                              ds_feat_stride: float, ds_num_frames: float):
+    """Inference with the per-stream linear resample on the device (JAX
+    ``build_online_inference_fn``): the input carries the raw ragged streams
+    zero-padded to a cap plus their row counts; resample to ``max_seq_len``,
+    concat and the stride arithmetic run on the model's device.
+
+    Returns fn(model, streams, rows, duration) -> (segs, scores, cls, valid,
+    video_cls); ``streams`` is a tuple of (B, T_cap_s, C_s) arrays or
+    tensors, ``rows`` a matching tuple of (B,) valid row counts; stream 0 is
+    the video stream (fps = video_rows / duration)."""
+    from ..ops.resample import linear_resample_dynamic
+
+    @torch.inference_mode()
+    def fn(model, streams, rows, duration):
+        dev = next(model.parameters()).device
+        rows = [_as_tensor(r, dev) for r in rows]
+        parts = [linear_resample_dynamic(_as_tensor(s, dev, torch.float32), r,
+                                         cfg.max_seq_len)
+                 for s, r in zip(streams, rows)]
+        feats = torch.cat(parts, dim=-1)
+        mask = torch.ones(feats.shape[:2], dtype=torch.bool, device=dev)
+        duration = _as_tensor(duration, dev, torch.float32)
+        video_rows = rows[0].float()
+        fps = video_rows / duration
+        feat_stride = ((video_rows - 1.0) * ds_feat_stride + ds_num_frames) \
+            / cfg.max_seq_len
+        points = generate_points(cfg.fpn_lens, cfg.fpn_strides, cfg.regression_range,
+                                 device=dev)
+        out = model(feats, mask)
+        segs, scores, cls_idxs, valid = decode_and_postprocess(
+            out, points, fps, duration, feat_stride, feat_stride,
+            test_cfg, cfg.num_classes)
+        return segs, scores, cls_idxs, valid, out["cls_scores"]
+
+    return fn
+
+
+def collate_streams(samples: List[dict], caps: List[int]):
+    """Batch raw per-stream arrays into zero-padded fixed-cap arrays and row
+    counts for ``build_online_inference_fn``."""
+    b = len(samples)
+    streams, rows = [], []
+    for s in range(len(samples[0]["streams"])):
+        c = samples[0]["streams"][s].shape[1]
+        arr = np.zeros((b, caps[s], c), np.float32)
+        cnt = np.zeros((b,), np.int32)
+        for i, item in enumerate(samples):
+            x = item["streams"][s]
+            if x.shape[0] > caps[s]:
+                raise ValueError(f"stream {s}: {x.shape[0]} rows > cap {caps[s]}")
+            arr[i, :x.shape[0]] = x
+            cnt[i] = x.shape[0]
+        streams.append(arr)
+        rows.append(cnt)
+    duration = np.asarray([s["duration"] for s in samples], np.float32)
+    video_ids = [s["video_id"] for s in samples]
+    return tuple(streams), tuple(rows), duration, video_ids
 
 
 def results_to_items(video_ids: List[str], segs, scores, valid, video_cls,

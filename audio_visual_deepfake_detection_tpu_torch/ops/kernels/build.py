@@ -2,11 +2,11 @@
 
 Route: ``nvcc -gencode arch=compute_90a,code=sm_90a -shared`` over
 ``csrc/*.cu`` (K1 fused_block, K2 patch_embed, K3 mvit_attention, K4
-mvit_block) into one shared library with a plain C interface (no PyTorch
-headers, so a build takes seconds). The library lands in ``build/kernels/``
-at the repository root, in a file named by a hash of the sources and flags,
-so an edited source rebuilds and an unchanged one loads at once. The build
-runs at first use, never at import.
+mvit_block, K5 conv_extractor, K8 full_attention) into one shared library
+with a plain C interface (no PyTorch headers, so a build takes seconds). The
+library lands in ``build/kernels/`` at the repository root, in a file named
+by a hash of the sources and flags, so an edited source rebuilds and an
+unchanged one loads at once. The build runs at first use, never at import.
 """
 
 from __future__ import annotations
@@ -51,7 +51,7 @@ def _sources():
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libavdd_kernels_{h.hexdigest()[:16]}.so"
@@ -116,5 +116,11 @@ def load() -> ctypes.CDLL:
             ]
             lib.avdd_msblock.restype = i
             lib.avdd_msblock.argtypes = [p] * 21 + [i] * 7 + [p]
+            lib.avdd_conv_extractor.restype = i
+            lib.avdd_conv_extractor.argtypes = [p] * 12 + [i] * 3 + [p]
+            lib.avdd_full_mha.restype = i
+            lib.avdd_full_mha.argtypes = [p] * 5 + [i] * 4 + [q] * 12 + [i, p]
+            lib.avdd_full_mha_smem.restype = i
+            lib.avdd_full_mha_smem.argtypes = [i, i, i]
             _lib = lib
     return _lib

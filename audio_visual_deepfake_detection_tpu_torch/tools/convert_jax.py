@@ -17,6 +17,11 @@ bit for bit, and a reference checkpoint loads into the port by name.
 ``mvit_state_dict_from_flax`` does the same for the MViT-v2 video encoder,
 under torchvision's names (Conv3d ``(out, in/g, kt, kh, kw)`` <- flax
 ``(kt, kh, kw, in/g, out)``), the inverse of the JAX ``convert_mvit_torch``.
+
+``byola_state_dict_from_flax`` (original ``AudioNTT2020Task6`` names;
+Conv2d ``(out, in, mel, time)`` <- flax ``(time, mel, in, out)``) and
+``emotion2vec_state_dict_from_flax`` (fairseq data2vec-multi names) invert
+``convert_byola_torch`` and ``convert_emotion2vec_torch`` the same way.
 """
 
 from __future__ import annotations
@@ -121,19 +126,15 @@ _LAYOUT = {
     "linear": np.transpose,                                # (in, out) -> (out, in)
     "conv3d": lambda w: np.transpose(w, (4, 3, 0, 1, 2)),  # (kt, kh, kw, in/g, out) -> (out, in/g, kt, kh, kw)
     "flat": lambda w: np.reshape(w, (-1,)),                # class token (1, 1, C) -> (C,)
+    # BYOL-A: flax NHWC conv over (time, mel) -> torch's (out, in, mel, time)
+    "conv2d_tm": lambda w: np.transpose(w, (3, 2, 1, 0)),
     "vec": lambda w: w,
 }
 
 
 def state_dict_from_flax(params: Dict) -> Dict[str, torch.Tensor]:
     """Flax tree of the whole localizer -> torch state dict."""
-    if set(params) == {"params"}:
-        params = params["params"]
-    out = {}
-    for path, value in _flatten(params):
-        name, kind = torch_name(path)
-        out[name] = _tensor(kind, value)
-    return out
+    return _state_dict(params, torch_name)
 
 
 def block_state_dict_from_flax(params: Dict) -> Dict[str, torch.Tensor]:
@@ -188,10 +189,83 @@ def mvit_state_dict_from_flax(params: Dict) -> Dict[str, torch.Tensor]:
     """Flax tree of a JAX ``MViTVideoEncoder`` -> state dict under
     torchvision's names, the ones ``convert_mvit_torch`` reads, so
     ``convert_mvit_torch(mvit_state_dict_from_flax(p), p)`` returns ``p``."""
+    return _state_dict(params, _mvit_name)
+
+
+def _byola_name(path: Tuple[str, ...]) -> Tuple[str, str]:
+    """BYOL-A flax path -> (AudioNTT2020Task6 name, layout kind)."""
+    blk, leaf = path[0], path[-1]
+    if blk in ("block0", "block1", "block2"):
+        i = 4 * int(blk[-1])
+        if path[1] == "conv":
+            return f"features.{i}.{_wb(leaf)}", "conv2d_tm" if leaf == "kernel" else "vec"
+        key = {"bn_mean": "running_mean", "bn_var": "running_var",
+               "bn_scale": "weight", "bn_bias": "bias"}[path[1]]
+        return f"features.{i + 1}.{key}", "vec"
+    if blk in ("fc1", "fc2"):
+        return f"fc.{0 if blk == 'fc1' else 3}.{_wb(leaf)}", \
+            "linear" if leaf == "kernel" else "vec"
+    raise KeyError(f"unmapped BYOL-A param {path}")
+
+
+_AUD = "modality_encoders.AUDIO"
+
+
+def _emotion_name(path: Tuple[str, ...]) -> Tuple[str, str]:
+    """Emotion2Vec flax path -> (fairseq name, layout kind)."""
+    name, leaf = path[0], path[-1]
+    ln_leaf = "weight" if leaf == "scale" else "bias"
+    lin = "linear" if leaf == "kernel" else "vec"
+    if name == "local_encoder":
+        i = int(path[1].split("_")[1])
+        if path[1].startswith("conv_"):
+            return f"{_AUD}.local_encoder.conv_layers.{i}.0.weight", "conv"
+        return f"{_AUD}.local_encoder.conv_layers.{i}.2.1.{ln_leaf}", "vec"
+    if name == "proj_ln":
+        return f"{_AUD}.project_features.1.{ln_leaf}", "vec"
+    if name == "proj":
+        return f"{_AUD}.project_features.2.{_wb(leaf)}", lin
+    if name.startswith("pos_conv_"):
+        i = int(name.split("_")[2])
+        return f"{_AUD}.relative_positional_encoder.{i + 1}.0.{_wb(leaf)}", \
+            "conv" if leaf == "kernel" else "vec"
+    if name == "prenet_norm":
+        return f"{_AUD}.context_encoder.norm.{ln_leaf}", "vec"
+    if name in ("extra_tokens", "alibi_scale"):
+        return f"{_AUD}.{name}", "vec"
+    if name.startswith("prenet_") or name.startswith("block_"):
+        i = int(name.split("_")[1])
+        ref = f"{_AUD}.context_encoder.blocks.{i}" if name.startswith("prenet_") \
+            else f"blocks.{i}"
+        sub = path[1]
+        if sub == "attn":
+            return f"{ref}.attn.{path[2]}.{_wb(leaf)}", lin
+        if sub in ("norm1", "norm2"):
+            return f"{ref}.{sub}.{ln_leaf}", "vec"
+        if sub in ("mlp_fc1", "mlp_fc2"):
+            return f"{ref}.mlp.{sub[4:]}.{_wb(leaf)}", lin
+    raise KeyError(f"unmapped Emotion2Vec param {path}")
+
+
+def _state_dict(params: Dict, name_of) -> Dict[str, torch.Tensor]:
     if set(params) == {"params"}:
         params = params["params"]
     out = {}
     for path, value in _flatten(params):
-        name, kind = _mvit_name(path)
+        name, kind = name_of(path)
         out[name] = _tensor(kind, value)
     return out
+
+
+def byola_state_dict_from_flax(params: Dict) -> Dict[str, torch.Tensor]:
+    """Flax tree of a JAX ``AudioNTT2020`` -> state dict under the original
+    model's names, so ``convert_byola_torch`` of the result returns the tree.
+    (A torch BatchNorm's ``num_batches_tracked`` has no counterpart: load
+    with ``strict=False``.)"""
+    return _state_dict(params, _byola_name)
+
+
+def emotion2vec_state_dict_from_flax(params: Dict) -> Dict[str, torch.Tensor]:
+    """Flax tree of a JAX ``Emotion2Vec`` -> state dict under fairseq's
+    names, the ones ``convert_emotion2vec_torch`` reads."""
+    return _state_dict(params, _emotion_name)

@@ -7,7 +7,8 @@ Phases (any failure exits nonzero):
 1. build   - nvcc-builds the port's CUDA sources (one nvcc per source, in
              parallel) into build/kernels/, prints ptxas's registers, shared
              memory and spills per kernel, the toolchain and the card's name
-             and power limit;
+             and power limit; then reads the production YAML through the
+             port's own loader;
 2. kernels - the fused transformer-block kernel K1 against its plain PyTorch
              version (block_math), both on the card, for every production
              (mode, T, attention) combination of the HRLR backbone at the
@@ -26,18 +27,35 @@ Phases (any failure exits nonzero):
              MultiscaleBlock) against their plain versions at every
              production shape of mvit_v2_b at 512 frames, B = 2 chunks (one
              with a zero tail), f32 (atol 1e-4, rtol 5e-4) and bf16;
-6. video   - MViT-v2-b at full width and depth, bf16, through
+6. audio kernels - K5 (Emotion2Vec conv extractor) against its plain version
+             at B = 2 on a 9.6 s wav and one with an odd tail, K8 (full
+             attention) at (2, 12, 479, 64) and (2, 12, 130, 64) with and
+             without a padding mask, f32 and bf16;
+7. video   - MViT-v2-b at full width and depth, bf16, through
              FeatureExtractor.video_chunks_features on 16 uint8 chunks of
              512 frames: shape, finiteness, each kernel's launch count; f32 on
              a 32-frame chunk, card against the CPU plain path;
-7. video -> detections - 16 videos of 240 frames: video features, 240
-             rows, resample to 768, concat with random audio stand-ins, the
-             production localizer; every video gets a detection;
-8. timing  - K1 per production shape at B=16 and B=512 (bf16), packing
+8. audio   - BYOL-A and Emotion2Vec at full width and depth (12 AltBlocks),
+             bf16, 16 wavs of 9.6 s through FeatureExtractor: shapes,
+             finiteness, K5 once and K8 twelve times; f32 on a padded pair of
+             short wavs, card against the CPU plain path;
+9. media -> detections - the program of bench.py::measure_e2e: 16 videos of
+             240 uint8 frames and their 153,600-sample wavs through the three
+             encoders, rows 240 / 119 / 479, build_online_inference_fn
+             (device resample to 768, concat, the production localizer,
+             decode, soft-NMS); every kernel's launch count, and every video
+             gets a detection;
+10. timing - K1 per production shape at B=16 and B=512 (bf16), packing
              cost, service latency at batch 16, localizer-only videos/s at
              B=512 bf16 (the program of bench.py::measure_ours); K2-K4 and
              K1's dense paths against their plain versions; MViT-v2-b
-             chunks/s at 16 and 64 chunks, back stages per chunk and batched.
+             chunks/s at 16 and 64 chunks; K5 and K8 at B = 2, 16, 64 with
+             the eager conv stack and scaled_dot_product_attention beside
+             them; BYOL-A and Emotion2Vec wavs/s; media -> detections
+             videos/s at 16 and 64 videos and its per-stage breakdown. Each
+             kernel's time stands beside its bound: the larger of its
+             operations over the card's peak rate and its bytes over the
+             memory rate.
 
 The card's name and power limit, then a JSON object with the kernels'
 launches, errors and times, are the two lines before the last; the last
@@ -48,6 +66,7 @@ build/chip_smoke_report.json.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -145,6 +164,26 @@ def cuda_ms(fn, iters, warmup=2):
 
 # ----------------------------------------------------------------- phases
 
+def phase_config():
+    """The port's own YAML loader on the production test config: it must give
+    the localizer chip_smoke.py serves (and import nothing of JAX: main()
+    looks at sys.modules at the end)."""
+    from audio_visual_deepfake_detection_tpu_torch.core.config import (
+        ArchConfig, arch_config_from, load_config, test_config_from)
+
+    config = load_config(os.path.join(REPO, "configs_test", "deepfake_exp12_test.yaml"))
+    arch = arch_config_from(config)
+    test_config_from(config)
+    want = ArchConfig(**PROD)
+    for field in ("variant", "input_dim", "max_seq_len", "embd_dim", "n_head",
+                  "mha_win_size", "arch"):
+        if getattr(arch, field) != getattr(want, field):
+            fail(f"load_config: {field} = {getattr(arch, field)!r}, expected "
+                 f"{getattr(want, field)!r}")
+    log(f"config: deepfake_exp12_test.yaml -> {arch.variant}, input {arch.input_dim}, "
+        f"T {arch.max_seq_len}, windows {arch.mha_win_size}")
+
+
 def phase_build():
     import torch
     from audio_visual_deepfake_detection_tpu_torch.ops.kernels import build
@@ -227,8 +266,6 @@ def compare(got, ref):
     may round to the neighbouring bf16 value, and the output keeps that step
     where the MLP branch cancels it to a small value. Non-finite output
     fails."""
-    import math
-
     import torch
 
     g, r = got.float(), ref.float()
@@ -356,10 +393,12 @@ def phase_timing(model, cfg, smi):
 
     dev = torch.device("cuda")
     per_shape = []
-    totals = {}
+    totals, bounds = {}, {}
     worst = 0.0
     for b in (16, 512):
         k_tot = p_tot = 0.0
+        bounds[b] = bound_sum([(*k1_work(mode, t, window, b), len(names))
+                               for names, mode, t, window in PROD_BLOCKS])
         for names, mode, t, window in PROD_BLOCKS:
             x, xo, mask, packed = block_case(mode, t, window, b, torch.bfloat16, dev, seed=t)
             err, ok, n_over = compare(
@@ -387,7 +426,7 @@ def phase_timing(model, cfg, smi):
             del x, xo, mask, packed
         totals[b] = (k_tot, p_tot)
         log(f"time B={b}: 18 blocks of one forward, kernel {k_tot:.3f} ms, "
-            f"plain {p_tot:.3f} ms ({smi})")
+            f"plain {p_tot:.3f} ms, bound {bounds[b][0]:.3f} ms ({bounds[b][1]}) ({smi})")
         torch.cuda.empty_cache()
     REPORT["block_times"] = per_shape
     REPORT["pack_ms"] = pack_cost(model, smi)
@@ -439,8 +478,9 @@ def phase_timing(model, cfg, smi):
     REPORT["timing"] = dict(service_latency_ms=lat_ms, service_runs_ms=lat,
                             localizer_videos_per_s=vps, rates=rates,
                             block_totals_ms={str(k): v for k, v in totals.items()},
+                            block_bounds_ms={str(k): v for k, v in bounds.items()},
                             profile=profile, card=smi)
-    return totals, worst
+    return totals, worst, bounds
 
 
 def pack_cost(model, smi):
@@ -701,19 +741,22 @@ def run_patch(which, video, w, bias, dtype):
 
 
 def mvit_cases(dev="cuda"):
-    """(kernel, label, blocks per chunk-forward, case builder, runner) for
-    every production shape of K2-K4 at B = 2 chunks."""
+    """(kernel, label, blocks per chunk-forward, case maker, runner, bf16
+    (operations, bytes) of one call) for every production shape of K2-K4 at
+    B = 2 chunks."""
     cases = [("patch_embed", "B=2 T=512 96x96x3 -> 8x8x96", 1,
-              lambda dt: patch_case(dt, dev), run_patch)]
+              lambda dt: patch_case(dt, dev), run_patch, k2_work(2, VIDEO_T))]
     for name, bh, ng, d, band_cd, n in K3_SHAPES:
         cases.append(("pooled_attention", f"{name}: BH={bh} Ng={ng} Nk=513 d={d}", n,
-                      lambda dt, a=(bh, ng, d, band_cd): k3_case(*a, dt, dev), run_k3))
+                      lambda dt, a=(bh, ng, d, band_cd): k3_case(*a, dt, dev), run_k3,
+                      k3_work(bh, ng, d, 2 if band_cd else 4, VIDEO_T + 1)))
     for hw, c, nh, n in MSBLOCK_SHAPES:
         s = hw[0] * hw[1]
         cases.append(("multiscale_block", f"S={s} C={c} heads={nh}", n,
                       lambda dt, a=(hw, c, nh): msblock_case(*a, dt, dev),
                       lambda which, blk, x, a=(hw, nh): run_msblock(
-                          which, blk, x, VIDEO_T, a[0], a[1])))
+                          which, blk, x, VIDEO_T, a[0], a[1]),
+                      k4_work(2, s, c, VIDEO_T)))
     return cases
 
 
@@ -724,7 +767,7 @@ def phase_mvit_kernels(dev="cuda"):
     import torch
 
     worst, rows = {}, []
-    for kname, label, _, make, run in mvit_cases(dev):
+    for kname, label, _, make, run, _ in mvit_cases(dev):
         for dtype in (torch.float32, torch.bfloat16):
             args = make(dtype)
             got, ref = run("kernel", *args), run("plain", *args)
@@ -762,22 +805,6 @@ def video_launches(n_chunks, group, batched_back, n_k4=18, n_k3_front=2, n_k3_ba
             "multiscale_block": n_k4 * backs}
 
 
-def reset_video_counts():
-    from audio_visual_deepfake_detection_tpu_torch.ops.kernels import (
-        mvit_attention, mvit_block, patch_embed)
-
-    for m in (patch_embed, mvit_attention, mvit_block):
-        m.reset_launches()
-
-
-def video_counts():
-    from audio_visual_deepfake_detection_tpu_torch.ops.kernels import (
-        mvit_attention, mvit_block, patch_embed)
-
-    return {"patch_embed": patch_embed.LAUNCHES, "pooled_attention": mvit_attention.LAUNCHES,
-            "multiscale_block": mvit_block.LAUNCHES}
-
-
 def video_model(dtype, temporal_size=VIDEO_T, seed=0):
     from audio_visual_deepfake_detection_tpu_torch.frontends.mvit import init_mvit, mvit_v2_b
 
@@ -796,13 +823,13 @@ def phase_video(dev="cuda", n_chunks=16, smi=""):
     chunks = rng.integers(0, 256, (n_chunks, VIDEO_T, 96, 96, 3), dtype=np.uint8)
     chunks[-1, VIDEO_T // 2:] = 0                    # a zero-padded tail chunk
     sync(dev)
-    reset_video_counts()
+    reset_counts()
     t0 = time.perf_counter()
     feats = ex.video_chunks_features(chunks)
     sync(dev)
     wall = time.perf_counter() - t0
-    counts = video_counts()
     expect = video_launches(n_chunks, pipeline.FRONT_CHUNK_GROUP, True)
+    counts = {k: launch_counts()[k] for k in expect}
     if torch.device(dev).type != "cuda":
         expect = {k: 0 for k in expect}
     log(f"video: {n_chunks} uint8 chunks x {VIDEO_T} frames -> {feats.shape} bf16 in "
@@ -816,10 +843,10 @@ def phase_video(dev="cuda", n_chunks=16, smi=""):
     m32 = video_model(torch.float32, temporal_size=32, seed=1)
     clip = rng.integers(0, 256, (1, 32, 96, 96, 3), dtype=np.uint8)
     cpu = pipeline.FeatureExtractor(video_model=m32, device="cpu").video_chunks_features(clip)
-    reset_video_counts()
+    reset_counts()
     gpu = pipeline.FeatureExtractor(video_model=m32, device=dev).video_chunks_features(clip)
-    c32 = video_counts()
     e32 = video_launches(1, pipeline.FRONT_CHUNK_GROUP, True)
+    c32 = {k: launch_counts()[k] for k in e32}
     if torch.device(dev).type != "cuda":
         e32 = {k: 0 for k in e32}
     d = np.abs(gpu - cpu)
@@ -835,60 +862,6 @@ def phase_video(dev="cuda", n_chunks=16, smi=""):
     REPORT["video"] = dict(chunks=n_chunks, first_call_s=wall, launches=counts,
                            f32_max_abs_err=float(d.max()), f32_launches=c32)
     return ex, counts
-
-
-def phase_video_detections(ex, model, cfg, dev="cuda", n_videos=16, n_frames=240, smi=""):
-    """16 videos of 9.6 s (240 frames, one zero-padded chunk each) -> video
-    features -> 240 rows -> linear resample to 768, concat with random
-    BYOL-A (119 x 2048) and Emotion2Vec (479 x 768) stand-ins resampled to
-    768 -> the production localizer (K1) -> detections."""
-    import torch
-    from audio_visual_deepfake_detection_tpu_torch.core.config import TestConfig
-    from audio_visual_deepfake_detection_tpu_torch.frontends import pipeline
-    from audio_visual_deepfake_detection_tpu_torch.frontends.video import chunk_video
-    from audio_visual_deepfake_detection_tpu_torch.infer import build_inference_fn
-    from audio_visual_deepfake_detection_tpu_torch.ops.kernels import fused_block as fb
-    from audio_visual_deepfake_detection_tpu_torch.ops.resample import linear_resample_time
-
-    byola_rows, emo_rows = 119, 479
-    rng = np.random.default_rng(7)
-    chunks = np.concatenate([chunk_video(rng.integers(0, 256, (n_frames, 96, 96, 3),
-                                                      dtype=np.uint8), VIDEO_T)[0]
-                             for _ in range(n_videos)])
-    by = torch.from_numpy(rng.standard_normal((n_videos, byola_rows, 2048), dtype=np.float32))
-    emo = torch.from_numpy(rng.standard_normal((n_videos, emo_rows, 768), dtype=np.float32))
-    fn = build_inference_fn(cfg, TestConfig(**dict(BENCH_TEST, min_score=0.001)))
-    seq = cfg.max_seq_len
-    sync(dev)
-    reset_video_counts()
-    fb.reset_launches()
-    t0 = time.perf_counter()
-    v = ex.video_chunks_features_device(chunks)[:, :n_frames]
-    feats = torch.cat([linear_resample_time(v.float(), seq),
-                       linear_resample_time(by.to(dev), seq),
-                       linear_resample_time(emo.to(dev), seq)], dim=-1)
-    mask = torch.ones((n_videos, seq), dtype=torch.bool, device=dev)
-    meta = [torch.full((n_videos,), x, device=dev) for x in (25.0, 9.6, 0.3125, 0.3125)]
-    segs, scores, _, valid, vcls = fn(model, feats, mask, *meta)
-    n_det = valid.sum(1).cpu().numpy()
-    sync(dev)
-    wall = time.perf_counter() - t0
-    counts, k1 = video_counts(), fb.LAUNCHES
-    n_blocks = 1 + cfg.arch[1] + 3 * cfg.arch[2]
-    expect = video_launches(n_videos, pipeline.FRONT_CHUNK_GROUP, True)
-    if torch.device(dev).type != "cuda":
-        n_blocks, expect = 0, {k: 0 for k in expect}
-    log(f"video -> detections: {n_videos} videos of {n_frames} frames, feats "
-        f"{tuple(feats.shape)}, detections per video min {n_det.min()} max {n_det.max()}, "
-        f"K1 launches {k1}, video launches {counts}, wall {wall:.3f} s ({smi})")
-    if n_det.min() < 1 or not torch.isfinite(vcls).all():
-        fail("a video got no detection or a non-finite logit")
-    if k1 != n_blocks or counts != expect:
-        fail(f"launches K1 {k1} (expected {n_blocks}), video {counts} (expected {expect})")
-    REPORT["video_detections"] = dict(videos=n_videos, wall_s=wall,
-                                      detections=n_det.tolist(), k1_launches=k1,
-                                      video_launches=counts)
-    return wall
 
 
 def mvit_breakdown(model, x_u8, smi):
@@ -955,30 +928,49 @@ def phase_mvit_timing(smi, dev="cuda"):
     and both dense paths at T=24, then MViT-v2-b chunks/s (bf16) at 16 and
     64 chunks with the back stages per chunk and batched."""
     import torch
+    import torch.nn.functional as F
     from audio_visual_deepfake_detection_tpu_torch.frontends import mvit, pipeline
     from audio_visual_deepfake_detection_tpu_torch.ops.kernels import fused_block as fb
 
-    per_shape, totals = [], {}
-    for kname, label, n_blocks, make, run in mvit_cases(dev):
+    per_shape, totals, works = [], {}, {}
+    library = {}
+    for kname, label, n_blocks, make, run, work in mvit_cases(dev):
         args = make(torch.bfloat16)
         # the plain K4 time swings from run to run (46.7-90.4 ms per forward
-        # across otherwise equal runs): take the median of 8 interleaved
-        # rounds each, and keep the spread
+        # across otherwise equal runs): take the median of 6 interleaved
+        # readings each, and keep the spread
         ms = {}
-        for which in ("plain", "kernel", "kernel", "plain") * 4:
+        for which in ("plain", "kernel", "kernel", "plain") * 3:
             ms.setdefault(which, []).append(cuda_ms(lambda: run(which, *args), 3, warmup=1))
         k_ms, p_ms = float(np.median(ms["kernel"])), float(np.median(ms["plain"]))
         tot = totals.setdefault(kname, [0.0, 0.0])
         tot[0] += k_ms * n_blocks
         tot[1] += p_ms * n_blocks
-        per_shape.append(dict(kernel=kname, shape=label, blocks=n_blocks, kernel_ms=k_ms,
-                              plain_ms=p_ms, kernel_range=[min(ms["kernel"]), max(ms["kernel"])],
-                              plain_range=[min(ms["plain"]), max(ms["plain"])]))
-        log(f"time {kname} {label} bf16, median of 8: kernel {k_ms:.4f} ms "
+        works.setdefault(kname, []).append((*work, n_blocks))
+        b_ms, b_by = bound(*work)
+        row = dict(kernel=kname, shape=label, blocks=n_blocks, kernel_ms=k_ms,
+                   plain_ms=p_ms, kernel_range=[min(ms["kernel"]), max(ms["kernel"])],
+                   plain_range=[min(ms["plain"]), max(ms["plain"])], bound_ms=b_ms,
+                   bound_by=b_by)
+        extra = ""
+        if kname == "patch_embed":
+            # the one PyTorch call for K2's function: cuDNN's bf16 conv3d on
+            # the channels-first bf16 copy of the same video
+            video, w, bias, _ = args
+            xc = video.permute(0, 4, 1, 2, 3).to(torch.bfloat16).contiguous()
+            wb, bb = w.to(torch.bfloat16), bias.to(torch.bfloat16)
+            library[kname] = row["library_ms"] = cuda_ms(lambda: F.conv3d(
+                xc, wb, bb, stride=(1, 12, 12), padding=(1, 3, 3)), 3, warmup=1)
+            extra = f"  F.conv3d {library[kname]:.4f} ms"
+            del xc
+        per_shape.append(row)
+        log(f"time {kname} {label} bf16, median of 6: kernel {k_ms:.4f} ms "
             f"[{min(ms['kernel']):.4f}, {max(ms['kernel']):.4f}]  plain {p_ms:.4f} ms "
-            f"[{min(ms['plain']):.4f}, {max(ms['plain']):.4f}] (x{n_blocks} per forward) ({smi})")
+            f"[{min(ms['plain']):.4f}, {max(ms['plain']):.4f}]  bound {b_ms:.4f} ms ({b_by})"
+            f"{extra} (x{n_blocks} per forward) ({smi})")
         del args
         torch.cuda.empty_cache()
+    bounds = {k: bound_sum(v) for k, v in works.items()}
 
     dense = {}
     for t, force_tiled in ((48, False), (24, False), (24, True)):
@@ -1007,7 +999,7 @@ def phase_mvit_timing(smi, dev="cuda"):
     for n in (16, 64):
         x = torch.from_numpy(rng.integers(0, 256, (n, VIDEO_T, 96, 96, 3),
                                           dtype=np.uint8)).to(dev)
-        for batched in (False, True):
+        for batched in (False, True) if n == 16 else (True,):   # per chunk: 16 only
             torch.cuda.reset_peak_memory_stats()
             with torch.no_grad():
                 features(x, batched)                    # warm-up
@@ -1033,8 +1025,563 @@ def phase_mvit_timing(smi, dev="cuda"):
                               label="one 16-chunk MViT-v2-b forward, bf16", top_n=25)
     REPORT["mvit_timing"] = dict(per_shape=per_shape, totals=totals, k1_dense=dense,
                                  chunks_per_s=rates, profile=profile, breakdown=breakdown,
-                                 card=smi)
-    return totals, rates
+                                 bounds=bounds, library_ms=library, card=smi)
+    return totals, bounds, library
+
+
+# ------------------------------------------------------------ audio kernels
+
+WAV_LEN = 153600                      # 9.6 s at 16 kHz
+WAV_ODD = 16000 + 7                   # an odd tail: no layer's length divides evenly
+E2V_T, E2V_H, E2V_D = 479, 12, 64     # Emotion2Vec frames of 9.6 s, heads, head dim
+BYOLA_ROWS, EMO_ROWS = 119, 479       # dataset row truncation of a 9.6 s video
+K8_TOL = {"float32": 2e-5, "bfloat16": 5e-2}    # atol, rtol 0 (tests/test_full_attention.py)
+K5_BF16_TOL = 0.08                    # atol and rtol (tests/test_conv_extractor_fused.py)
+# peaks of one H100 SXM for the bounds: dense bf16 tensor cores, f32 outside
+# them, HBM3
+PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+
+
+def bound(flops, nbytes, peak=PEAK_BF16):
+    """(least ms the card could take, 'operations' or 'bytes'): the larger of
+    operations over the peak rate and bytes moved (each input read once, each
+    output written once) over the memory rate."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def bound_sum(works):
+    """The bound of a series of launches, [(operations, bytes, count), ...]:
+    the sum of each launch's bound; named after the side that makes up more
+    of it."""
+    parts = [(bound(f, n), c) for f, n, c in works]
+    total = sum(ms * c for (ms, _), c in parts)
+    by_ops = sum(ms * c for (ms, by), c in parts if by == "operations")
+    return total, "operations" if 2 * by_ops >= total else "bytes"
+
+
+def k1_work(mode, t, window, b, c=256, nbytes=2):
+    """One localizer block on (b, t, c) outputs: 24 c^2 multiply-adds a row
+    for q, k, v, proj and the 4x MLP, 4 c a key for scores and P.V over
+    2 w + 1 keys (all t when dense), the three depthwise k3 convs; reads x
+    (twice the rows when downsampling), the cross input when there is one,
+    the mask and 12 c^2 weights, writes the output."""
+    keys = t if window < 0 else window + 1
+    flops = b * t * (2 * 12 * c * c + 4 * c * keys + 2 * 3 * 3 * c)
+    rows_in = b * t * (2 if mode == "ds_self" else 1)
+    cross = b * t if mode in ("qv_k", "kv") else 0
+    return flops, (rows_in + cross + b * t) * c * nbytes + 12 * c * c * nbytes + rows_in
+
+
+def k2_work(n, t=512, nbytes=2):
+    """Patch embed: f32 video in, (n, t, 8, 8, 96) out, 3 x 15 x 15 x 3 taps."""
+    out = n * t * 64 * 96
+    return 2 * out * 2025, n * t * 96 * 96 * 3 * 4 + out * nbytes + 96 * 2025 * nbytes
+
+
+def k3_work(bh, ng, d, band_bytes, nk=513, nbytes=2):
+    return 4 * bh * ng * nk * d, \
+        bh * (2 * ng * d + 2 * nk * d) * nbytes + bh * ng * (nk - 1) * band_bytes
+
+
+def k4_work(n, s, c, t=512, nbytes=2):
+    """One whole MultiscaleBlock: 24 c^2 a row for qkv, proj and the MLP,
+    6 c a key for scores, band and P.V over 513 keys, 3 x 27 pool taps."""
+    rows = n * (1 + t * s)
+    flops = rows * (2 * 12 * c * c + 6 * c * (t + 1) + 2 * 81 * c)
+    return flops, 2 * rows * c * nbytes + 12 * c * c * nbytes
+
+
+def k5_work(b, length, nbytes=2):
+    from audio_visual_deepfake_detection_tpu_torch.ops.kernels import conv_extractor as k5
+
+    lens = k5.layer_lengths(length)
+    flops = sum(2 * b * t * 512 * k * (512 if i else 1)
+                for i, (t, (_, k, _)) in enumerate(zip(lens, k5.CONV_SPEC)))
+    weights = sum(512 * k * (512 if i else 1) for i, (_, k, _) in enumerate(k5.CONV_SPEC))
+    return flops, b * length * 4 + b * lens[-1] * 512 * nbytes + weights * nbytes
+
+
+def k8_work(b, h, t, d, masked, nbytes=2):
+    return 4 * b * h * t * t * d, 4 * b * h * t * d * nbytes + (b * t if masked else 0)
+
+
+def k5_case(b, length, dtype, dev, seed=0):
+    """The production extractor with seeded weights (LN affines 1 + 0.2 N,
+    0.1 N) and b wavs; the last wav's final third is silence, as a shorter
+    file zero-padded into a batch."""
+    import torch
+    from audio_visual_deepfake_detection_tpu_torch.frontends.emotion2vec import (
+        ConvFeatureExtractor)
+
+    g = torch.Generator().manual_seed(seed)
+    m = ConvFeatureExtractor(dtype=dtype)
+    with torch.no_grad():
+        for p in m.parameters():
+            if p.dim() == 3:
+                p.copy_(torch.randn(p.shape, generator=g) * p[0].numel() ** -0.5)
+        for i, layer in enumerate(m.conv_layers):
+            ln = layer[2][1]
+            ln.weight.copy_(1 + 0.2 * torch.randn(ln.weight.shape, generator=g))
+            ln.bias.copy_(0.1 * torch.randn(ln.bias.shape, generator=g))
+    wav = 0.1 * torch.randn((b, length), generator=g)
+    wav[-1, (2 * length) // 3:] = 0
+    return m.to(dev), wav.to(dev)
+
+
+def run_k5(which, m, wav):
+    from audio_visual_deepfake_detection_tpu_torch.ops.kernels import conv_extractor as k5
+
+    if which == "kernel":
+        return k5.fused_conv_extractor(wav, m.packed())
+    return k5.conv_extractor_math(wav, m._weights(), m._ln_rows(), m.dtype)
+
+
+def k8_case(b, t, dtype, dev, masked, seed=0, h=E2V_H, d=E2V_D):
+    """q (pre-scaled), k, v as AltAttention hands them over: strided views of
+    one (b, t, 3, h, d) projection output. The mask pads the last sample's
+    final third."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    qkv = torch.randn((b, t, 3, h, d), generator=g)
+    qkv[:, :, 0] *= d ** -0.5
+    q, k, v = qkv.to(dev, dtype).permute(2, 0, 3, 1, 4)
+    mask = None
+    if masked:
+        lens = torch.tensor([t] * (b - 1) + [(2 * t) // 3])
+        mask = (torch.arange(t)[None, :] >= lens[:, None]).to(dev)
+    return q, k, v, mask
+
+
+def run_k8(which, q, k, v, mask):
+    from audio_visual_deepfake_detection_tpu_torch.ops.kernels import full_attention as k8
+
+    return (k8.full_mha if which == "kernel" else k8.full_mha_math)(q, k, v, mask)
+
+
+def phase_audio_kernels(dev="cuda", lengths=(WAV_LEN, WAV_ODD), ts=(E2V_T, 130)):
+    """K5 against conv_extractor_math at B = 2, a 9.6 s wav and one with an
+    odd tail, f32 (atol 1e-4, rtol 5e-4) and bf16 (check_bf16); K8 against
+    full_mha_math at (2, 12, 479, 64) and (2, 12, 130, 64), with and without
+    a padding mask, f32 atol 2e-5 and bf16 atol 5e-2."""
+    import torch
+    from audio_visual_deepfake_detection_tpu_torch.ops.kernels import conv_extractor as k5
+
+    worst = {k: {"float32": 0.0, "bfloat16": 0.0} for k in ("conv_extractor", "full_mha")}
+    rows = []
+
+    def record(kname, label, dtype, err, ok, rule):
+        dname = str(dtype).split(".")[-1]
+        worst[kname][dname] = max(worst[kname][dname], err)
+        rows.append(dict(kernel=kname, shape=label, dtype=dname, max_abs_err=err, ok=ok,
+                         rule=rule))
+        log(f"{kname} vs plain {label} {dname:8s} max|d|={err:.3e} [{rule}] "
+            f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            REPORT["audio_kernels"] = rows
+            fail(f"{kname} disagrees with its plain version: {label} {dname}")
+
+    for length in lengths:
+        for dtype in (torch.float32, torch.bfloat16):
+            m, wav = k5_case(2, length, dtype, dev, seed=length)
+            got, ref = run_k5("kernel", m, wav), run_k5("plain", m, wav)
+            sync(dev)
+            t_out = k5.conv_output_length(length)
+            if tuple(got.shape) != (2, t_out, 512) or got.dtype != dtype:
+                fail(f"conv extractor output {tuple(got.shape)} {got.dtype}")
+            if dtype == torch.float32:
+                err, ok = check_f32(got, ref)
+                rule = "atol 1e-4 rtol 5e-4"
+            else:
+                err, ok, rule = check_bf16(got, ref)
+            record("conv_extractor", f"B=2 L={length} -> {t_out} x 512", dtype, err, ok, rule)
+            del m, wav, got, ref
+    for t in ts:
+        for masked in (False, True):
+            for dtype in (torch.float32, torch.bfloat16):
+                args = k8_case(2, t, dtype, dev, masked, seed=t)
+                got, ref = run_k8("kernel", *args), run_k8("plain", *args)
+                sync(dev)
+                tol = K8_TOL[str(dtype).split(".")[-1]]
+                finite = bool(torch.isfinite(got.float()).all())
+                err = (got.float() - ref.float()).abs().max().item() if finite else float("inf")
+                record("full_mha", f"(2, {E2V_H}, {t}, {E2V_D}) {'mask' if masked else 'no mask'}",
+                       dtype, err, finite and err <= tol, f"atol {tol:g}")
+    if torch.device(dev).type == "cuda":
+        torch.cuda.empty_cache()
+    REPORT["audio_kernels"] = rows
+    return worst
+
+
+# ------------------------------------------------------------- audio slice
+
+AUDIO_KERNELS = ("conv_extractor", "full_mha")
+ALL_KERNELS = ("fused_transformer_block", "patch_embed", "pooled_attention",
+               "multiscale_block") + AUDIO_KERNELS
+
+
+def kernel_modules():
+    from audio_visual_deepfake_detection_tpu_torch.ops.kernels import (
+        conv_extractor, full_attention, fused_block, mvit_attention, mvit_block, patch_embed)
+
+    return dict(zip(ALL_KERNELS, (fused_block, patch_embed, mvit_attention, mvit_block,
+                                  conv_extractor, full_attention)))
+
+
+def reset_counts():
+    for m in kernel_modules().values():
+        m.reset_launches()
+
+
+def launch_counts():
+    return {name: m.LAUNCHES for name, m in kernel_modules().items()}
+
+
+def audio_models(dtype, seed=0, d=2048, cfg=None):
+    from audio_visual_deepfake_detection_tpu_torch.frontends.byola import (
+        AudioNTT2020, init_byola)
+    from audio_visual_deepfake_detection_tpu_torch.frontends.emotion2vec import (
+        Emotion2Vec, Emotion2VecConfig, init_emotion2vec)
+
+    cfg = cfg or Emotion2VecConfig()
+    return (init_byola(AudioNTT2020(d=d, dtype=dtype), seed, perturb=True),
+            init_emotion2vec(Emotion2Vec(cfg, dtype=dtype), seed + 1, perturb=True))
+
+
+def phase_audio(video, dev="cuda", n_wavs=16, wav_len=WAV_LEN, smi="", models=None,
+                models32=None):
+    """The audio slice's main path: production-width BYOL-A and Emotion2Vec
+    (12 AltBlocks), bf16, ``n_wavs`` wavs of 9.6 s through a FeatureExtractor
+    that also holds the video model ``video``: shapes, finiteness, K5 once
+    and K8 twelve times per forward; then f32 on a padded pair of 2 s and
+    1.5 s wavs, the card's kernels against the CPU plain path."""
+    import torch
+    from audio_visual_deepfake_detection_tpu_torch.frontends import pipeline
+    from audio_visual_deepfake_detection_tpu_torch.ops.kernels import conv_extractor as k5
+
+    on_card = torch.device(dev).type == "cuda"
+    by_m, emo_m = models or audio_models(torch.bfloat16)
+    n_blocks = len(emo_m.blocks) + len(emo_m.audio.context_encoder.blocks)
+    ex = pipeline.FeatureExtractor(video_model=video, byola_model=by_m, emotion_model=emo_m,
+                                   device=dev)
+    rng = np.random.default_rng(11)
+    wavs = (rng.standard_normal((n_wavs, wav_len)) * 0.1).astype(np.float32)
+    sync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    by = ex.byola_features_device(wavs)
+    emo = ex.emotion_features_device(wavs)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    got = launch_counts()
+    expect = dict.fromkeys(ALL_KERNELS, 0)
+    if on_card:
+        expect.update(conv_extractor=1, full_mha=n_blocks)
+    rows_by, rows_emo = (1 + wav_len // 160) // 8, k5.conv_output_length(wav_len)
+    log(f"audio: {n_wavs} wavs of {wav_len} samples -> BYOL-A {tuple(by.shape)}, Emotion2Vec "
+        f"{tuple(emo.shape)} in {wall:.2f} s (first call), launches {got} ({smi})")
+    if tuple(by.shape) != (n_wavs, rows_by, by_m.d) or \
+            tuple(emo.shape) != (n_wavs, rows_emo, emo_m.cfg.embed_dim):
+        fail(f"audio feature shapes {tuple(by.shape)} {tuple(emo.shape)}")
+    if by.dtype != torch.float32 or emo.dtype != torch.float32 or \
+            not (torch.isfinite(by).all() and torch.isfinite(emo).all()):
+        fail("audio features are not finite f32")
+    if got != expect:
+        fail(f"audio kernel launches {got}, expected {expect}")
+
+    # f32, a zero-padded pair of wavs: the card's kernels vs the CPU plain path
+    by32, emo32 = models32 or audio_models(torch.float32, seed=2)
+    pair = [wavs[0, :32000], wavs[1, :24000]]
+    cpu = pipeline.FeatureExtractor(byola_model=by32, emotion_model=emo32, device="cpu")
+    cpu_out = cpu.byola_features_batch(pair), cpu.emotion_features_batch(pair)
+    card = pipeline.FeatureExtractor(byola_model=by32, emotion_model=emo32, device=dev)
+    reset_counts()
+    card_out = card.byola_features_batch(pair), card.emotion_features_batch(pair)
+    c32 = launch_counts()
+    errs = {}
+    for name, a, b, atol, rtol in (("byola", card_out[0], cpu_out[0], 1e-4, 5e-4),
+                                   ("emotion", card_out[1], cpu_out[1], 2e-4, 1e-3)):
+        d = max(float(np.abs(x - y).max()) for x, y in zip(a, b))
+        ok = all(x.shape == y.shape and bool((np.abs(x - y) <= atol + rtol * np.abs(y)).all())
+                 for x, y in zip(a, b))
+        errs[name] = d
+        log(f"audio f32, wavs of 2 s and 1.5 s, {name}: card vs CPU plain max|d|={d:.3e} "
+            f"(atol {atol:g} rtol {rtol:g}) {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"audio f32 {name}: card vs CPU plain path differ")
+    if c32 != expect:     # else the plain path would be held against itself
+        fail(f"audio f32 kernel launches {c32}, expected {expect}")
+    REPORT["audio"] = dict(wavs=n_wavs, first_call_s=wall, launches=got, f32_max_abs_err=errs)
+    return ex, got
+
+
+def media_batch(n_videos, n_frames=240, wav_len=WAV_LEN, chunk=None, seed=7):
+    """uint8 videos of ``n_frames`` frames, one zero-padded chunk each, and
+    their wavs."""
+    from audio_visual_deepfake_detection_tpu_torch.frontends.video import chunk_video
+
+    rng = np.random.default_rng(seed)
+    chunks = np.concatenate([chunk_video(rng.integers(0, 256, (n_frames, 96, 96, 3),
+                                                      dtype=np.uint8), chunk or VIDEO_T)[0]
+                             for _ in range(n_videos)])
+    wavs = (rng.standard_normal((n_videos, wav_len)) * 0.1).astype(np.float32)
+    return chunks, wavs
+
+
+def media_to_detections(ex, model, fn, chunks, wavs, n_frames=240, duration=9.6):
+    """The program of bench.py::measure_e2e on the port: the three encoders,
+    the dataset's row truncation, then build_online_inference_fn (device
+    resample of each stream to max_seq_len, concat, localizer, decode,
+    soft-NMS, voting). Everything stays on the device."""
+    import torch
+    from audio_visual_deepfake_detection_tpu_torch.data.metadata import (
+        byola_trunc_rows, emotion_trunc_rows)
+
+    n = chunks.shape[0]
+    v = ex.video_chunks_features_device(chunks)[:, :n_frames]
+    by = ex.byola_features_device(wavs)[:, :byola_trunc_rows(duration)]
+    emo = ex.emotion_features_device(wavs)[:, :emotion_trunc_rows(duration)]
+    streams = (v, by, emo)
+    rows = [torch.full((n,), s.shape[1], dtype=torch.int32, device=s.device) for s in streams]
+    return fn(model, streams, rows, torch.full((n,), duration, device=v.device))
+
+
+def phase_media_detections(ex, model, cfg, dev="cuda", n_videos=16, n_frames=240,
+                           wav_len=WAV_LEN, smi=""):
+    """Raw media -> detections with no stand-in: 16 videos of 240 uint8
+    frames and their 9.6 s wavs through MViT-v2-b, BYOL-A and Emotion2Vec,
+    rows 240 / 119 / 479, build_online_inference_fn. Every kernel of the
+    path must launch as often as one forward of each model needs, and every
+    video gets a detection at the serving min_score."""
+    import torch
+    from audio_visual_deepfake_detection_tpu_torch.core.config import TestConfig
+    from audio_visual_deepfake_detection_tpu_torch.frontends import pipeline
+    from audio_visual_deepfake_detection_tpu_torch.infer import build_online_inference_fn
+
+    fn = build_online_inference_fn(cfg, TestConfig(**dict(BENCH_TEST, min_score=0.001)),
+                                   1.0, 1.0)
+    chunks, wavs = media_batch(n_videos, n_frames, wav_len)
+    duration = wav_len / 16000.0
+    sync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    segs, scores, _, valid, vcls = media_to_detections(ex, model, fn, chunks, wavs, n_frames,
+                                                       duration)
+    n_det = valid.sum(1).cpu().numpy()
+    sync(dev)
+    wall = time.perf_counter() - t0
+    got = launch_counts()
+    emo_m = ex.emotion_model
+    expect = dict(video_launches(n_videos, pipeline.FRONT_CHUNK_GROUP, True),
+                  fused_transformer_block=1 + cfg.arch[1] + 3 * cfg.arch[2], conv_extractor=1,
+                  full_mha=len(emo_m.blocks) + len(emo_m.audio.context_encoder.blocks))
+    if torch.device(dev).type != "cuda":
+        expect = dict.fromkeys(expect, 0)
+    log(f"media -> detections: {n_videos} videos of {n_frames} frames + {wav_len}-sample wavs, "
+        f"detections per video min {n_det.min()} max {n_det.max()}, launches {got}, "
+        f"wall {wall:.3f} s ({smi})")
+    if n_det.min() < 1 or not torch.isfinite(vcls).all() or \
+            not torch.isfinite(segs[valid]).all() or not torch.isfinite(scores[valid]).all():
+        fail("a video got no detection or a non-finite result")
+    if segs[valid].min() < 0 or segs[valid].max() > duration + 1e-3:
+        fail("segments outside [0, duration]")
+    if got != expect:
+        fail(f"media -> detections launches {got}, expected {expect}")
+    REPORT["media_detections"] = dict(videos=n_videos, wall_s=wall, detections=n_det.tolist(),
+                                      launches=got)
+    return got
+
+
+def time_pair(run, rounds=5, iters=3):
+    """Kernel and plain interleaved (plain, kernel, kernel, plain, ...):
+    per-call ms as {which: (median, min, max)} over ``rounds`` readings each."""
+    ms = {"plain": [], "kernel": []}
+    order = ("plain", "kernel", "kernel", "plain")
+    for i in range(2 * rounds):
+        which = order[i % 4]
+        ms[which].append(cuda_ms(lambda: run(which), iters, warmup=1))
+    return {k: (float(np.median(v)), min(v), max(v)) for k, v in ms.items()}
+
+
+def eager_conv_stack(m, wav):
+    """K5's function as a straightforward eager PyTorch stack in bf16
+    (F.conv1d, F.layer_norm, F.gelu): a yardstick, not one library call."""
+    import torch
+    import torch.nn.functional as F
+
+    x = wav.to(torch.bfloat16)[:, None, :]
+    for layer, (_, _, s) in zip(m.conv_layers, m.spec):
+        ln = layer[2][1]
+        x = F.conv1d(x, layer[0].weight.to(torch.bfloat16), stride=s).transpose(1, 2)
+        x = F.gelu(F.layer_norm(x, (512,), ln.weight.to(x.dtype), ln.bias.to(x.dtype), 1e-5))
+        x = x.transpose(1, 2)
+    return x.transpose(1, 2)
+
+
+def phase_audio_timing(ex, model, cfg, smi, dev="cuda", batches=(2, 16, 64)):
+    """K5 and K8 per call against their plain versions at B = 2, 16 and 64
+    (bf16, CUDA events, interleaved, median of 5 with min and max), the
+    eager conv stack and the scaled_dot_product_attention call beside them;
+    BYOL-A and Emotion2Vec wavs/s at B = 64; media -> detections videos/s at
+    16 and 64 videos with peak memory, each broken down by stage."""
+    import torch
+    import torch.nn.functional as F
+    from audio_visual_deepfake_detection_tpu_torch.core.config import TestConfig
+    from audio_visual_deepfake_detection_tpu_torch.infer import build_online_inference_fn
+
+    bf16 = torch.bfloat16
+    out = {"conv_extractor": {}, "full_mha": {}}
+    with torch.no_grad():     # as the extractor runs them: no autograd graph kept
+        for b in batches:
+            m, wav = k5_case(b, WAV_LEN, bf16, dev, seed=b)
+            got, ref = run_k5("kernel", m, wav), run_k5("plain", m, wav)
+            err, ok, rule = check_bf16(got, ref)
+            if not ok and math.isfinite(err):
+                # a one-ulp flip of a conv output is scaled by the LayerNorm behind
+                # it, seven layers deep: among the 16 M outputs of a large batch a
+                # few land two ulps apart. The JAX package holds its K5 to atol =
+                # rtol = 0.08 in bf16 (tests/test_conv_extractor_fused.py:60).
+                d, r = (got.float() - ref.float()).abs(), ref.float().abs()
+                ok = bool((d <= K5_BF16_TOL * (1 + r)).all())
+                rule = (f"atol=rtol={K5_BF16_TOL:g}; {int((d > BF16_TOL * (1 + r)).sum())} of "
+                        f"{d.numel()} beyond atol=rtol={BF16_TOL:g}")
+            del got, ref
+            log(f"conv_extractor vs plain B={b} L={WAV_LEN} bfloat16 max|d|={err:.3e} [{rule}] "
+                f"{'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                fail(f"conv_extractor disagrees with its plain version at B={b}")
+            t = time_pair(lambda which: run_k5(which, m, wav))
+            eager = cuda_ms(lambda: eager_conv_stack(m, wav), 3, warmup=1)
+            bms, by = bound(*k5_work(b, WAV_LEN))
+            out["conv_extractor"][b] = dict(ms=t["kernel"][0], ms_range=t["kernel"][1:],
+                                            plain_ms=t["plain"][0], plain_range=t["plain"][1:],
+                                            eager_stack_ms=eager, bound_ms=bms, bound_by=by)
+            log(f"time conv_extractor B={b} L={WAV_LEN} bf16, median of 5: kernel "
+                f"{t['kernel'][0]:.3f} ms [{t['kernel'][1]:.3f}, {t['kernel'][2]:.3f}]  plain "
+                f"{t['plain'][0]:.3f} ms [{t['plain'][1]:.3f}, {t['plain'][2]:.3f}]  eager stack "
+                f"{eager:.3f} ms  bound {bms:.3f} ms ({by}) ({smi})")
+            del m, wav
+            torch.cuda.empty_cache()
+            q, k, v, mask = k8_case(b, E2V_T, bf16, dev, True, seed=b)
+            err = (run_k8("kernel", q, k, v, mask).float()
+                   - run_k8("plain", q, k, v, mask).float()).abs().max().item()
+            log(f"full_mha vs plain ({b}, {E2V_H}, {E2V_T}, {E2V_D}) mask bfloat16 "
+                f"max|d|={err:.3e} [atol {K8_TOL['bfloat16']:g}]")
+            if not err <= K8_TOL["bfloat16"]:
+                fail(f"full_mha disagrees with its plain version at B={b}")
+            t = time_pair(lambda which: run_k8(which, q, k, v, mask), iters=5)
+            add = torch.zeros(mask.shape, dtype=bf16, device=dev).masked_fill_(
+                mask, float("-inf"))[:, None, None, :]
+            lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=add, scale=1.0),
+                          5, warmup=1)
+            bms, by = bound(*k8_work(b, E2V_H, E2V_T, E2V_D, True))
+            out["full_mha"][b] = dict(ms=t["kernel"][0], ms_range=t["kernel"][1:],
+                                      plain_ms=t["plain"][0], plain_range=t["plain"][1:],
+                                      library_ms=lib, bound_ms=bms, bound_by=by)
+            log(f"time full_mha ({b}, {E2V_H}, {E2V_T}, {E2V_D}) mask bf16, median of 5: kernel "
+                f"{t['kernel'][0]:.4f} ms [{t['kernel'][1]:.4f}, {t['kernel'][2]:.4f}]  plain "
+                f"{t['plain'][0]:.4f} ms [{t['plain'][1]:.4f}, {t['plain'][2]:.4f}]  "
+                f"scaled_dot_product_attention {lib:.4f} ms  bound {bms:.4f} ms ({by}) ({smi})")
+            del q, k, v, mask, add
+            torch.cuda.empty_cache()
+
+    def rate(fn, n):
+        """Best of two timed runs after a warm-up, and the peak memory."""
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        runs = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            runs.append(n / (time.perf_counter() - t0))
+        return max(runs), runs, torch.cuda.max_memory_allocated() / 2**30
+
+    rates, stages = {}, {}
+    wavs64 = 0.1 * torch.randn((64, WAV_LEN), device=dev,
+                               generator=torch.Generator(dev).manual_seed(0))
+    for name, feats in (("byola", ex.byola_features_device),
+                        ("emotion2vec", ex.emotion_features_device)):
+        best, runs, peak = rate(lambda: feats(wavs64), 64)
+        rates[f"{name} wavs/s B=64"] = best
+        log(f"{name} bf16 B=64 wavs of 9.6 s: {best:.1f} wavs/s (runs "
+            f"{[round(r, 1) for r in runs]}, peak mem {peak:.1f} GiB) ({smi})")
+    fn = build_online_inference_fn(cfg, TestConfig(**BENCH_TEST), 1.0, 1.0)
+    for n in (16, 64):
+        chunks, wavs = media_batch(n)
+        chunks, wavs = torch.from_numpy(chunks).to(dev), torch.from_numpy(wavs).to(dev)
+
+        def run():
+            media_to_detections(ex, model, fn, chunks, wavs)[1].cpu()
+        best, runs, peak = rate(run, n)
+        reset_counts()
+        run()
+        rates[f"media -> detections videos/s B={n}"] = best
+        rates[f"media -> detections peak GiB B={n}"] = peak
+        rates[f"media -> detections launches B={n}"] = launch_counts()
+        log(f"media -> detections bf16 B={n}: {best:.2f} videos/s (runs "
+            f"{[round(r, 2) for r in runs]}, peak mem {peak:.1f} GiB), launches per run "
+            f"{launch_counts()} ({smi})")
+        stages[str(n)] = media_breakdown(ex, model, cfg, chunks, wavs, smi)
+    REPORT["audio_timing"] = dict(kernels=out, rates=rates, stages=stages, card=smi)
+    return out, rates
+
+
+def media_breakdown(ex, model, cfg, chunks, wavs, smi, n_frames=240, duration=9.6):
+    """CUDA-event time of each stage of one media -> detections run (after
+    the warm-up runs of the rate measurement): video encoder, log-mel,
+    BYOL-A, K5, projection + positional convs, the AltBlock trunk, resample +
+    concat, localizer, decode + soft-NMS."""
+    import torch
+    from audio_visual_deepfake_detection_tpu_torch.core.config import TestConfig
+    from audio_visual_deepfake_detection_tpu_torch.frontends.mel import byola_log_mel
+    from audio_visual_deepfake_detection_tpu_torch.infer.decode import decode_and_postprocess
+    from audio_visual_deepfake_detection_tpu_torch.models.points import generate_points
+    from audio_visual_deepfake_detection_tpu_torch.ops.resample import linear_resample_dynamic
+
+    tcfg = TestConfig(**BENCH_TEST)
+    n = chunks.shape[0]
+    emo_m, by_m = ex.emotion_model, ex.byola_model
+    marks = []
+
+    def stage(name, fn):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = fn()
+        end.record()
+        marks.append((name, start, end))
+        return res
+
+    with torch.inference_mode():
+        v = stage("video (MViT-v2-b)", lambda: ex.video_chunks_features_device(chunks))
+        lms = stage("log-mel", lambda: byola_log_mel(wavs).transpose(-1, -2))
+        by = stage("BYOL-A", lambda: by_m(lms))
+        feats = stage("conv extractor (K5)", lambda: emo_m.audio.local_encoder(wavs))
+        x = stage("proj + pos-conv", lambda: emo_m.project(feats))
+        emo = stage("AltBlock trunk (K8)", lambda: emo_m.trunk(x))
+        streams = (v[:, :n_frames], by[:, :BYOLA_ROWS], emo[:, :EMO_ROWS])
+        rows = [torch.full((n,), s.shape[1], dtype=torch.int32, device=v.device)
+                for s in streams]
+        seq = cfg.max_seq_len
+        cat = stage("resample + concat", lambda: torch.cat(
+            [linear_resample_dynamic(s.float(), r, seq) for s, r in zip(streams, rows)], -1))
+        mask = torch.ones((n, seq), dtype=torch.bool, device=v.device)
+        outp = stage("localizer (K1)", lambda: model(cat, mask))
+        meta = [torch.full((n,), val, device=v.device)
+                for val in (n_frames / duration, duration, n_frames / seq, n_frames / seq)]
+        points = generate_points(cfg.fpn_lens, cfg.fpn_strides, cfg.regression_range,
+                                 device=v.device)
+        stage("decode + soft-NMS", lambda: decode_and_postprocess(
+            outp, points, *meta, tcfg, cfg.num_classes))
+    torch.cuda.synchronize()
+    ms = [(name, s.elapsed_time(e)) for name, s, e in marks]
+    total = sum(t for _, t in ms)
+    log(f"media -> detections breakdown, {n} videos, bf16: {total:.2f} ms of stages ({smi})")
+    for name, t in ms:
+        log(f"  {name:22s} {t:9.3f} ms  {100 * t / total:5.1f}%")
+    return dict(total_ms=total, stages=[dict(stage=k, ms=t) for k, t in ms])
 
 
 def main():
@@ -1053,17 +1600,20 @@ def main():
         return 2
     t_start = time.perf_counter()
     smi = phase_build()
+    phase_config()
     worst = phase_kernels()
     dense_worst = phase_k1_dense()
     phase_long_forward()
     model, cfg = phase_serve()
     serve_launches = REPORT["serve"]["launches"]
     mvit_worst = phase_mvit_kernels()
+    audio_worst = phase_audio_kernels()
     ex, video_launched = phase_video(smi=smi)
-    phase_video_detections(ex, model, cfg, smi=smi)
-    del ex
-    totals, worst_timed = phase_timing(model, cfg, smi)
-    mvit_totals, _ = phase_mvit_timing(smi)
+    ex, audio_launched = phase_audio(ex.video_model, smi=smi)
+    media_launched = phase_media_detections(ex, model, cfg, smi=smi)
+    totals, worst_timed, k1_bounds = phase_timing(model, cfg, smi)
+    mvit_totals, mvit_bounds, mvit_library = phase_mvit_timing(smi)
+    audio_times, _ = phase_audio_timing(ex, model, cfg, smi)
     for mod in ("jax", "audio_visual_deepfake_detection_tpu"):
         if mod in sys.modules:
             fail(f"{mod} was imported")
@@ -1084,8 +1634,12 @@ def main():
         "tolerance": {"float32": F32_ATOL, "bfloat16": BF16_TOL},
         "ms": totals[16][0],
         "plain_ms": totals[16][1],
+        "bound_ms": k1_bounds[16][0],
+        "bound_by": k1_bounds[16][1],
+        "library_ms": None,
         "ms_b512": totals[512][0],
         "plain_ms_b512": totals[512][1],
+        "bound_ms_b512": k1_bounds[512][0],
         "note": "ms = sum over the 18 blocks of one forward at B=16 bf16",
     }]
     for name, file, line in (("patch_embed", "patch_embed", 140),
@@ -1103,8 +1657,38 @@ def main():
                           "bfloat16": "atol=rtol=2e-2 or distributional"},
             "ms": mvit_totals[name][0],
             "plain_ms": mvit_totals[name][1],
+            "bound_ms": mvit_bounds[name][0],
+            "bound_by": mvit_bounds[name][1],
+            "library_ms": mvit_library.get(name),
             "note": "ms = sum over one 2-chunk mvit_v2_b forward's launches, bf16",
         })
+    for name, file, line, per_forward, tol in (
+            ("conv_extractor", "conv_extractor", 177, 1,
+             {"float32": "atol 1e-4 rtol 5e-4", "bfloat16": "atol=rtol=2e-2 or distributional"}),
+            ("full_mha", "full_attention", 114, audio_launched["full_mha"],
+             {"float32": "atol 2e-5", "bfloat16": "atol 5e-2"})):
+        t16 = audio_times[name][16]
+        lib = t16.get("library_ms")
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": src + file + ".cu",
+            "replaces": f"{pallas}{file}.py:{line}",
+            "launches": audio_launched[name],
+            "max_abs_err": audio_worst[name]["float32"],
+            "max_abs_err_bf16": audio_worst[name]["bfloat16"],
+            "tolerance": tol,
+            "ms": t16["ms"] * per_forward,
+            "plain_ms": t16["plain_ms"] * per_forward,
+            "bound_ms": t16["bound_ms"] * per_forward,
+            "bound_by": t16["bound_by"],
+            "library_ms": None if lib is None else lib * per_forward,
+            "per_call_ms": {str(b): t["ms"] for b, t in audio_times[name].items()},
+            "note": f"ms = the {per_forward} launch(es) of one Emotion2Vec forward on 16 wavs "
+                    f"of 9.6 s, bf16",
+        })
+    for k in kernels:
+        k["launches_media_to_detections"] = media_launched[k["name"]]
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

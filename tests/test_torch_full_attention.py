@@ -1,0 +1,81 @@
+"""PyTorch port: the plain version of kernel K8 (``full_mha_math``) vs the
+JAX ``full_mha`` in the Pallas interpreter and vs the XLA einsum path of
+``AltAttention``, on the CPU.
+
+Tolerances are those of ``tests/test_full_attention.py``: f32 atol 2e-5,
+bf16 atol 5e-2, rtol 0 (the kernel divides by the softmax denominator after
+the value product, the XLA path and the plain version before it)."""
+
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+import torch
+
+from audio_visual_deepfake_detection_tpu.ops.pallas import full_attention as jk8
+from audio_visual_deepfake_detection_tpu_torch.ops.kernels import full_attention as tk8
+
+TOL = {"float32": 2e-5, "bfloat16": 5e-2}
+
+
+def _xla_mha(q, k, v, padding_mask=None):
+    att = jnp.einsum("bhqd,bhkd->bhqk", q, k, preferred_element_type=jnp.float32)
+    if padding_mask is not None:
+        att = jnp.where(padding_mask[:, None, None, :], -jnp.inf, att)
+    att = jax.nn.softmax(att.astype(jnp.float32), axis=-1).astype(v.dtype)
+    return jnp.einsum("bhqk,bhkd->bhqd", att, v)
+
+
+def _case(t, d, dtype, masked, seed=0, b=2, h=3):
+    rng = np.random.default_rng(seed)
+    qkv = [rng.standard_normal((b, h, t, d)).astype(np.float32) for _ in range(3)]
+    qkv[0] *= d ** -0.5
+    mask = None
+    if masked:
+        lens = np.array([t, (2 * t) // 3])
+        mask = np.arange(t)[None, :] >= lens[:, None]
+    jd = jnp.dtype(dtype)
+    td = getattr(torch, dtype)
+    jq = [jnp.asarray(a, jd) for a in qkv]
+    tq = [torch.from_numpy(a).to(td) for a in qkv]
+    return jq, tq, mask
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["nomask", "mask"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("t", [128, 130, 499])
+def test_math_matches_jax(t, dtype, masked):
+    jq, tq, mask = _case(t, 64, dtype, masked, seed=t)
+    jmask = None if mask is None else jnp.asarray(mask)
+    tmask = None if mask is None else torch.from_numpy(mask)
+    got = tk8.full_mha_math(*tq, tmask)
+    assert got.dtype == tq[0].dtype and tuple(got.shape) == (2, 3, t, 64)
+    got = got.float().numpy()
+    assert np.isfinite(got).all()                     # pad query rows included
+    kernel = np.asarray(jk8.full_mha(*jq, jmask, interpret=True), np.float32)
+    xla = np.asarray(jax.jit(_xla_mha)(*jq, jmask), np.float32)
+    np.testing.assert_allclose(got, xla, atol=TOL[dtype], rtol=0)
+    np.testing.assert_allclose(got, kernel, atol=TOL[dtype], rtol=0)
+
+
+def test_head_dim_32_and_wrapper_on_cpu():
+    """d = 32 (the small configs' head dim); a CPU tensor takes the plain
+    version, strided q/k/v views included, and counts no launch."""
+    jq, tq, mask = _case(70, 32, "float32", True, seed=5)
+    want = np.asarray(jk8.full_mha(*jq, jnp.asarray(mask), interpret=True))
+    qkv = torch.stack(tq, 0).permute(1, 3, 0, 2, 4).contiguous()       # (b, t, 3, h, d)
+    q, k, v = qkv.permute(2, 0, 3, 1, 4)
+    tk8.reset_launches()
+    got = tk8.full_mha(q, k, v, torch.from_numpy(mask))
+    np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=0)
+    assert tk8.LAUNCHES == 0
+
+
+def test_wrapper_refuses_bad_inputs():
+    q = torch.zeros((1, 2, 8, 32))
+    with pytest.raises(ValueError):
+        tk8.full_mha(q, q[:, :1], q)
+    with pytest.raises(ValueError):
+        tk8.full_mha(q, q, q, torch.zeros((1, 9), dtype=torch.bool))
+    with pytest.raises(ValueError):
+        tk8.full_mha(q.double(), q.double(), q.double())
