@@ -46,7 +46,7 @@ constexpr int NT = 256;
 constexpr int NWARP = NT / 32;
 constexpr int R = 32;                 // query rows per block
 constexpr int KT = 64;                // keys per staged tile
-constexpr int MAXD = 128;             // largest head dim
+constexpr int MAXD = 64;              // largest head dim
 constexpr int ACC = R * MAXD / NT;    // P.V outputs per thread (FMA kernel)
 constexpr int RPT = R / (NT / KT);    // score rows per thread (FMA kernel)
 
@@ -63,10 +63,10 @@ __host__ __device__ inline int fma_smem_floats(int d, int T) {
   return R * ldd + R * T + KT * ldd + R;
 }
 
-// ---- f32 (and any head dim): FMA ------------------------------------------
-template <typename T>
+// ---- f32: FMA at full precision ------------------------------------------
 __global__ void __launch_bounds__(NT)
 full_mha_kernel(Params p) {
+  using T = float;
   using N = Num<T>;
   extern __shared__ __align__(16) float sm[];
   const int d = p.d, ldd = d + 1, nk = p.T;
@@ -325,15 +325,11 @@ full_mha_mma_kernel(Params p) {
   }
 }
 
-// bf16 with a head dim that is a multiple of 16 and operands that take
-// 16-byte loads: the tensor-core kernel; anything else (f32 always): FMA.
-bool use_mma(int dtype, int d, bool vec_ok) { return dtype == 1 && d % 16 == 0 && vec_ok; }
-
+// bf16: the tensor-core kernel; f32: FMA.
 int smem_bytes(bool mma, int d, int T) {
   return mma ? MmaLayout(d, T).bytes : 4 * fma_smem_floats(d, T);
 }
 
-template <typename T>
 int launch(const Params& p, int B, bool mma, cudaStream_t stream) {
   const int bytes = smem_bytes(mma, p.d, p.T);
   dim3 grid(B * p.H, (p.T + R - 1) / R);
@@ -343,8 +339,8 @@ int launch(const Params& p, int B, bool mma, cudaStream_t stream) {
     full_mha_mma_kernel<<<grid, NT, bytes, stream>>>(p);
   } else {
     static int configured = 0;
-    if (int e = set_smem(full_mha_kernel<T>, bytes, configured)) return e;
-    full_mha_kernel<T><<<grid, NT, bytes, stream>>>(p);
+    if (int e = set_smem(full_mha_kernel, bytes, configured)) return e;
+    full_mha_kernel<<<grid, NT, bytes, stream>>>(p);
   }
   return (int)cudaGetLastError();
 }
@@ -353,14 +349,16 @@ int launch(const Params& p, int B, bool mma, cudaStream_t stream) {
 
 extern "C" {
 
-// Dynamic shared memory (bytes) a launch at (T, d, dtype) needs, assuming
-// operands that take 16-byte loads; more than 232448 cannot launch.
-int avdd_full_mha_smem(int T, int d, int dtype) { return smem_bytes(use_mma(dtype, d, true), d, T); }
+// Dynamic shared memory (bytes) a launch at (T, d, dtype) needs; more than
+// 232448 cannot launch.
+int avdd_full_mha_smem(int T, int d, int dtype) { return smem_bytes(dtype == 1, d, T); }
 
 // Launch on `stream`; returns cudaGetLastError() (0 = launched). q, k, v and
 // out hold (B, H, T, d) addressed through (sample, head, row) strides in
 // elements, rows of d contiguous values; bias (B, T) f32 or null. dtype: 0
-// float32, 1 bfloat16.
+// float32, 1 bfloat16. bfloat16 takes a head dim that is a multiple of 16
+// and q, k, v rows on 16-byte boundaries (the wrapper copies what is not);
+// anything else is refused.
 int avdd_full_mha(const void* q, const void* k, const void* v, const void* bias, void* out,
                   int B, int H, int T, int d,
                   long long qsb, long long qsh, long long qst,
@@ -371,9 +369,9 @@ int avdd_full_mha(const void* q, const void* k, const void* v, const void* bias,
   bool vec_ok = ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0 && ost % 2 == 0 &&
                 osb % 2 == 0 && osh % 2 == 0 && (uintptr_t)out % 4 == 0;
   for (long long s : strides) vec_ok = vec_ok && s % 8 == 0;
-  const bool mma = use_mma(dtype, d, vec_ok);
+  const bool mma = dtype == 1;
   if (B <= 0 || H <= 0 || T <= 0 || d <= 0 || d > MAXD || dtype < 0 || dtype > 1 ||
-      smem_bytes(mma, d, T) > SMEM_MAX)
+      (mma && (d % 16 != 0 || !vec_ok)) || smem_bytes(mma, d, T) > SMEM_MAX)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q; p.k = k; p.v = v;
@@ -383,8 +381,7 @@ int avdd_full_mha(const void* q, const void* k, const void* v, const void* bias,
   p.vsb = vsb; p.vsh = vsh; p.vst = vst; p.osb = osb; p.osh = osh; p.ost = ost;
   p.H = H; p.T = T; p.d = d;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(p, B, false, s);
-  return launch<__nv_bfloat16>(p, B, mma, s);
+  return launch(p, B, mma, s);
 }
 
 }  // extern "C"

@@ -50,7 +50,9 @@ class FeatureExtractor:
     extractor's default is C3D, which is not ported: ROADMAP queue 1 item
     10), ``AudioNTT2020()`` and ``Emotion2Vec(emotion_cfg)``. Each default
     model is built at the first call that needs it. Parameters stay f32 and
-    outputs are f32."""
+    outputs are f32. ``device`` defaults to that of the first model given,
+    else to the card: a run on the CPU is asked for with ``device="cpu"``,
+    never fallen back to."""
 
     def __init__(self, video_model: Optional[MViTVideoEncoder] = None,
                  video_chunk: int = 512, seed: int = 0,
@@ -66,7 +68,7 @@ class FeatureExtractor:
         elif given is not None:
             self.device = next(given.parameters()).device
         else:
-            self.device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+            self.device = torch.device("cuda")
         self._models = {"video": video_model, "byola": byola_model, "emotion": emotion_model}
         self._seed, self._emotion_cfg = seed, emotion_cfg
         self.video_chunk = video_chunk

@@ -4,7 +4,6 @@
 ``F.interpolate(mode='nearest')``); ``linear_resample_time`` is
 ``F.interpolate(mode='linear', align_corners=False)`` with the source
 coordinates computed in float32 exactly like the JAX package.
-``linear_resample_matrix`` is the same resample as a dense matrix, and
 ``linear_resample_dynamic`` resamples zero-padded streams of per-sample
 length on the device.
 """
@@ -45,76 +44,28 @@ def linear_resample_time(x: torch.Tensor, out_len: int, axis: int = -2) -> torch
     return x0 * (1.0 - f) + x1 * f
 
 
-@functools.lru_cache(maxsize=64)
-def _linear_matrix_cached(in_len: int, out_len: int):
-    idx0, idx1, frac = _linear_coords(in_len, out_len)
-    mat = np.zeros((in_len, out_len), dtype=np.float32)
-    rows = np.arange(out_len)
-    # accumulate: idx0 and idx1 coincide at the clamped edges
-    np.add.at(mat, (idx0, rows), 1.0 - frac)
-    np.add.at(mat, (idx1, rows), frac)
-    return mat
-
-
-def linear_resample_matrix(in_len: int, out_len: int, device=None) -> torch.Tensor:
-    """Dense (in_len, out_len) resample matrix M:
-    ``einsum('...tc,to->...oc', x, M)`` equals ``linear_resample_time``."""
-    return torch.from_numpy(_linear_matrix_cached(in_len, out_len)).to(device)
-
-
-def linear_resample_dynamic(x: torch.Tensor, in_len: torch.Tensor, out_len: int,
-                            use_matmul: bool = False, resample_len: int | None = None,
-                            start=None, out_valid=None) -> torch.Tensor:
+def linear_resample_dynamic(x: torch.Tensor, in_len: torch.Tensor,
+                            out_len: int) -> torch.Tensor:
     """Per-sample dynamic-length linear resample on the device.
 
     ``x`` (B, T_max, C) zero-padded streams, ``in_len`` (B,) valid row
     counts; returns (B, out_len, C) equal to ``linear_resample_time`` row for
     row on each sample's valid prefix. The coordinates are computed in
-    float32 exactly as there.
-
-    Two lowerings, as in the JAX package: a gather and a lerp (the default
-    here: a gather is cheap on a GPU, and exact), or with ``use_matmul`` the
-    per-sample (out, T_max) lerp-weight matrix from two one-hot comparisons
-    contracted with ``x`` (the JAX default, chosen there because dynamic
-    gathers lower badly on a TPU).
-
-    Fused crop: with ``resample_len=R``, ``start`` (B,) and ``out_valid``
-    (B,), output row j is row ``start + j`` of the length-R resampled grid
-    (the coordinates are evaluated at the shifted indices, so it equals
-    resampling to R and slicing), and rows >= ``out_valid`` are zeroed."""
+    float32 exactly as there; the two source rows are gathered and blended."""
     dev = x.device
     in_len = in_len.to(dev)
     in_len_f = in_len.float()
-    r = out_len if resample_len is None else resample_len
-    scale = in_len_f[:, None] / torch.tensor(float(r), dtype=torch.float32, device=dev)
+    scale = in_len_f[:, None] / torch.tensor(float(out_len), dtype=torch.float32, device=dev)
     j = torch.arange(out_len, dtype=torch.float32, device=dev)[None, :]
-    if start is not None:
-        j = j + start.to(dev).float()[:, None]
     coords = (j + 0.5) * scale - 0.5
     coords = torch.minimum(coords.clamp(min=0.0), in_len_f[:, None] - 1.0)
     idx0 = coords.floor().long()
     idx1 = torch.minimum(idx0 + 1, in_len[:, None].long() - 1)
-    frac = (coords - idx0.float()).to(x.dtype)
-    valid = None
-    if out_valid is not None:
-        valid = (torch.arange(out_len, device=dev)[None, :]
-                 < out_valid.to(dev)[:, None]).to(x.dtype)
-    if use_matmul:
-        iota = torch.arange(x.shape[1], device=dev)
-        w0 = (iota[None, None, :] == idx0[..., None]).to(x.dtype)
-        w1 = (iota[None, None, :] == idx1[..., None]).to(x.dtype)
-        w = w0 * (1.0 - frac)[..., None] + w1 * frac[..., None]
-        if valid is not None:
-            w = w * valid[..., None]
-        return torch.bmm(w, x)
-    frac = frac[..., None]
+    frac = (coords - idx0.float()).to(x.dtype)[..., None]
     c = x.shape[-1]
     x0 = torch.gather(x, 1, idx0[..., None].expand(-1, -1, c))
     x1 = torch.gather(x, 1, idx1[..., None].expand(-1, -1, c))
-    y = x0 * (1.0 - frac) + x1 * frac
-    if valid is not None:
-        y = y * valid[..., None]
-    return y
+    return x0 * (1.0 - frac) + x1 * frac
 
 
 def nearest_resample_time(x: torch.Tensor, out_len: int, axis: int = -2) -> torch.Tensor:
