@@ -1,13 +1,20 @@
 // Fused localizer transformer block for Hopper (sm_90a), CUDA C++.
 //
 // Replaces the TPU kernel audio_visual_deepfake_detection_tpu/ops/pallas/
-// fused_block.py::fused_transformer_block (pl.pallas_call at :535). One
-// launch computes a whole eval-time block of the HRLR backbone:
+// fused_block.py::fused_transformer_block (pl.pallas_call at :535), and with
+// it the forward of fused_transformer_block_train (:753), which is the same
+// kernel given per-sample droppath coefficients. One launch computes a whole
+// block of the HRLR backbone:
 //   pre-LN -> depthwise k3 convs -> plain LN (affines folded into the dense
 //   weights by pack_block_params) -> q/k/v dense -> banded (2w+1 offsets) or
 //   dense attention -> proj -> layer-scaled residual -> LN -> GELU MLP (4C)
 //   -> layer-scaled residual,
-// in the modes self, qv_k, kv (cross-modal k/v stream) and ds_self (stride 2:
+// each layer scale multiplied by the sample's droppath coefficient of that
+// branch (coefs (B, 2) f32 in {0, 1/keep}; a null pointer means 1, the eval
+// launch): the product is taken in f32 and rounded once to the compute dtype,
+// as block_math does. The backward of the training path is not a kernel: it
+// differentiates block_math from the saved inputs, as the JAX package does.
+// The modes are self, qv_k, kv (cross-modal k/v stream) and ds_self (stride 2:
 // the caller passes even/odd rows; the stride-2 depthwise conv and the
 // MaxPool(3,2,1) skip are composed from them). Numerics follow the plain
 // version block_math in ops/kernels/fused_block.py: products accumulate in
@@ -116,6 +123,7 @@ struct Params {
   const float* fc1b;    // (4C,)
   void* out;            // (B, T, C)
   void* kv;             // (B, T, 2C) k | v scratch of the tiled dense path
+  const float* coefs;   // (B, 2) droppath coefficients (attn, mlp), or null = 1
   int T, w, mode, tq;   // w: half window (0 = dense); tq: query rows per block
   int phase;
 };
@@ -370,6 +378,8 @@ fused_block_kernel(Params p) {
   const float* vecs = p.vecs;
   const T* x = static_cast<const T*>(p.x) + (size_t)b * T_ * C;
   const T* xo = static_cast<const T*>(p.xo) + (size_t)b * T_ * C;
+  const float coef_attn = p.coefs ? p.coefs[2 * b] : 1.f;
+  const float coef_mlp = p.coefs ? p.coefs[2 * b + 1] : 1.f;
 
   float* maskf = smem;                     // [NIN] 1 valid / 0 masked or outside
   float* R1 = smem + lay.mask_f;
@@ -583,7 +593,7 @@ fused_block_kernel(Params p) {
                 const float om1 = s > 0 ? N::load(xo, (size_t)(s - 1) * C + n) : -CUDART_INF_F;
                 skip = fmaxf(fmaxf(om1, skip), N::load(xo, (size_t)s * C + n));
               }
-              y1 = N::rnd(skip * mq + N::rnd(att * N::rnd(vecs[ROW_SCALE_ATTN * C + n])));
+              y1 = N::rnd(skip * mq + N::rnd(att * N::rnd(vecs[ROW_SCALE_ATTN * C + n] * coef_attn)));
             }
             Y1[m * LD + n] = y1;
           });
@@ -619,7 +629,7 @@ fused_block_kernel(Params p) {
             const float mq = maskf[m + hw + 1];
             const float h = N::rnd(N::rnd(acc) + N::rnd(vecs[ROW_FC2_BIAS * C + n])) * mq;
             const float y = N::rnd(Y1[m * LD + n] +
-                                   N::rnd(h * N::rnd(vecs[ROW_SCALE_MLP * C + n])));
+                                   N::rnd(h * N::rnd(vecs[ROW_SCALE_MLP * C + n] * coef_mlp)));
             N::store(out, (size_t)s * C + n, y);
           });
 }
@@ -673,12 +683,13 @@ int avdd_fused_block_smem(int T, int w, int force_tiled, int dtype) {
 // Dense weights: (out, in) row-major in the compute dtype (torch's Linear
 // layout), for both dtypes. Dense attention (w = 0) picks its path here
 // (dense_tiled); the tiled path needs kv, a (B, T, 2C) scratch in the
-// compute dtype, so the caller passes one for every dense launch.
+// compute dtype, so the caller passes one for every dense launch. coefs:
+// (B, 2) f32 droppath coefficients of the training forward, or null.
 int avdd_fused_block(const void* x, const void* xo, const void* mask,
                      const void* vecs, const void* wq, const void* wk,
                      const void* wv, const void* wp, const void* wf1,
                      const void* wf2, const void* fc1b, void* out, void* kv,
-                     int B, int T, int c, int n_head, int w, int mode,
+                     const void* coefs, int B, int T, int c, int n_head, int w, int mode,
                      int force_tiled, int dtype, void* stream) {
   const int tiled = dense_tiled(T, w, force_tiled);
   if (c != C || n_head != NH || avdd_fused_block_smem(T, w, force_tiled, dtype) < 0 ||
@@ -692,6 +703,7 @@ int avdd_fused_block(const void* x, const void* xo, const void* mask,
   p.fc1b = static_cast<const float*>(fc1b);
   p.out = out;
   p.kv = kv;
+  p.coefs = static_cast<const float*>(coefs);
   p.T = T; p.w = w > 0 ? w : 0; p.mode = mode; p.tq = tile_rows(T, w, tiled);
   p.phase = tiled ? PHASE_KV : PHASE_WHOLE;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

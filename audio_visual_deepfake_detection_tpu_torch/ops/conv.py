@@ -57,3 +57,11 @@ class Dense(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return dense(x, self.weight, self.bias)
+
+
+def max_pool_skip(x: torch.Tensor, stride: int) -> torch.Tensor:
+    """MaxPool1d(kernel=stride + 1, stride, padding=(stride + 1) // 2) over
+    the time axis of (B, T, C), padded with -inf: the skip path of the
+    downsampling transformer block (JAX ``ops/conv.py::max_pool_skip``)."""
+    y = F.max_pool1d(x.transpose(1, 2), stride + 1, stride, (stride + 1) // 2)
+    return y.transpose(1, 2)

@@ -1,8 +1,9 @@
 """Build the package's CUDA sources with nvcc and load them through ctypes.
 
 Route: ``nvcc -gencode arch=compute_90a,code=sm_90a -shared`` over
-``csrc/*.cu`` (K1 fused_block, K2 patch_embed, K3 mvit_attention, K4
-mvit_block, K5 conv_extractor, K8 full_attention) into one shared library
+``csrc/*.cu`` (K1 and K6 fused_block, K2 patch_embed, K3 mvit_attention, K4
+mvit_block, K5 conv_extractor, K7 band_attention, K8 full_attention) into one
+shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds). The
 library lands in ``build/kernels/`` at the repository root, in a file named
 by a hash of the sources and flags, so an edited source rebuilds and an
@@ -99,6 +100,7 @@ def load() -> ctypes.CDLL:
             lib.avdd_fused_block.argtypes = [
                 p, p, p, p, p, p, p, p, p, p, p, p,   # tensors + out
                 p,                                     # k|v scratch (tiled dense)
+                p,                                     # droppath coefs or null
                 i, i, i, i, i, i, i, i,                # B T C H w mode tiled dtype
                 p,                                     # stream
             ]
@@ -120,6 +122,8 @@ def load() -> ctypes.CDLL:
             lib.avdd_conv_extractor.argtypes = [p] * 12 + [i] * 3 + [p]
             lib.avdd_full_mha.restype = i
             lib.avdd_full_mha.argtypes = [p] * 5 + [i] * 4 + [q] * 12 + [i, p]
+            lib.avdd_band_attention.restype = i
+            lib.avdd_band_attention.argtypes = [p] * 5 + [i] * 5 + [q] * 12 + [i, p]
             lib.avdd_full_mha_smem.restype = i
             lib.avdd_full_mha_smem.argtypes = [i, i, i]
             _lib = lib

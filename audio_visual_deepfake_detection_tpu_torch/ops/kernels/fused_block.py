@@ -1,11 +1,23 @@
 """Fused localizer transformer block: the CUDA kernel, its plain version and
 the parameter packing (JAX ``ops/pallas/fused_block.py``).
 
-``fused_transformer_block`` is the one wrapper the model calls. For a CUDA
-tensor on an sm_90 card it launches ``csrc/fused_block.cu`` (which replaces
-the Pallas kernel ``fused_transformer_block``, ``pallas_call`` at
-``fused_block.py:535``); for a CPU tensor it runs ``block_math``. Nothing
-else routes between the two (``core/runtime.py::use_kernel``).
+``fused_transformer_block`` (K1, eval) and ``fused_transformer_block_train``
+(K6, training) are the two wrappers the model calls. For a CUDA tensor on an
+sm_90 card they launch ``csrc/fused_block.cu`` (which replaces the Pallas
+kernel ``fused_transformer_block``, ``pallas_call`` at ``fused_block.py:535``,
+and through it ``fused_transformer_block_train``, ``:753``); for a CPU tensor
+they run ``block_math``. Nothing else routes between the two
+(``core/runtime.py::use_kernel``).
+
+K6 is K1's forward with per-sample droppath coefficients ``coefs`` (B, 2) in
+{0, 1/keep} (or 1) multiplied into the two layer scales, inside a
+``torch.autograd.Function`` that saves only its inputs. Its backward is no
+kernel in either package: it recomputes ``block_math`` from the saved inputs
+under ``torch.enable_grad()`` and differentiates that (remat semantics: one
+block's intermediates live only during its own backward), as the JAX
+``_trainable_block`` differentiates its mirror. ``pack_block_params`` is
+differentiable, so the gradients of the 8 packed tensors flow on to the
+block's parameters through the folds.
 
 ``block_math`` is a torch transliteration of the JAX ``block_math``
 (``fused_block.py:562-723``) and keeps the numerics that matter:
@@ -16,8 +28,6 @@ else routes between the two (``core/runtime.py::use_kernel``).
   context accumulated offset by offset in the compute dtype.
 The JAX kernel's lane-layout variants (``PACKED_SOFTMAX``, ``BAND_VIA_DENSE``)
 are not ported: both were measured neutral or slower on the TPU.
-
-Eval only: the droppath coefficients of the training path (K6) stay at 1.
 """
 
 from __future__ import annotations
@@ -46,13 +56,16 @@ NUM_VEC_ROWS = 22
 MODES = {"self": 0, "qv_k": 1, "kv": 2, "ds_self": 3}
 KERNEL_CHANNELS, KERNEL_HEADS = 256, 4
 
-# kernel launches since the last reset (CPU calls and plain runs never count)
+# kernel launches since the last reset (CPU calls and plain runs never
+# count): eval launches (K1) and training-forward launches (K6) apart
 LAUNCHES = 0
+TRAIN_LAUNCHES = 0
 
 
 def reset_launches() -> None:
-    global LAUNCHES
+    global LAUNCHES, TRAIN_LAUNCHES
     LAUNCHES = 0
+    TRAIN_LAUNCHES = 0
 
 
 # --------------------------------------------------------------- plain math
@@ -252,14 +265,17 @@ def pack_block_params(sd, n_embd: int, cross: bool, dtype):
     The post-conv LN affines and the ln2 affine are folded into the adjacent
     dense weights: ``LN_aff(y) @ W.T + b == LN_plain(y) @ (W * g).T + (W @ b_ln + b)``.
     Dense weights keep torch's ``(out, in)`` layout, the one the kernel reads
-    for both dtypes, and come out in ``dtype``; vectors in f32."""
+    for both dtypes, and come out in ``dtype``; vectors in f32. Every step is
+    differentiable: called with gradients enabled, the result carries the
+    graph back to the parameters (the training path); the eval path calls it
+    under ``torch.no_grad()`` and caches the result."""
     c = n_embd
 
     def vec(name):
-        return sd[name].detach().float().reshape(c)
+        return sd[name].float().reshape(c)
 
     def dense_w(name):          # torch (out, in[, 1]) -> (out, in) f32
-        w = sd[name].detach().float()
+        w = sd[name].float()
         return w[..., 0] if w.ndim == 3 else w
 
     if cross:
@@ -270,13 +286,13 @@ def pack_block_params(sd, n_embd: int, cross: bool, dtype):
         lnq = lnk = lnv = (vec("ln1.weight"), vec("ln1.bias"))
 
     def conv_taps(name):        # (C, 1, 3) depthwise -> (3, C)
-        return sd[f"attn.{name}.conv.weight"].detach().float().reshape(c, 3).t()
+        return sd[f"attn.{name}.conv.weight"].float().reshape(c, 3).t()
 
     def fold(norm, lin_w, lin_b):
         wf = dense_w(lin_w)
         g, bl = vec(f"{norm}.weight"), vec(f"{norm}.bias")
         return ((wf * g[None, :]).to(dtype).contiguous(),
-                wf @ bl + sd[lin_b].detach().float().reshape(-1))
+                wf @ bl + sd[lin_b].float().reshape(-1))
 
     wq, q_bias = fold("attn.query_norm", "attn.query.weight", "attn.query.bias")
     wk, k_bias = fold("attn.key_norm", "attn.key.weight", "attn.key.bias")
@@ -327,7 +343,7 @@ def _validate(x, xo, mask, vecs, wq, wk, wv, wp, wf1, wf2, fc1b, mode):
 
 def fused_transformer_block(x, xo, mask, vecs, wq, wk, wv, wp, wf1, wf2, fc1b,
                             *, n_head: int, w_overlap: int, mode: str) -> torch.Tensor:
-    """One eval-time block. ``x``/``xo``: (B, T, C) compute dtype (``xo`` is
+    """One eval-time block (not differentiable). ``x``/``xo``: (B, T, C) compute dtype (``xo`` is
     None in self mode; in ds_self they are the even/odd rows of the stream);
     ``mask``: (B, T) bool of the output rows. Returns (B, T, C)."""
     if mode not in MODES:
@@ -344,12 +360,13 @@ def fused_transformer_block(x, xo, mask, vecs, wq, wk, wv, wp, wf1, wf2, fc1b,
 
 
 def _launch(x, xo, mask, vecs, wq, wk, wv, wp, wf1, wf2, fc1b, *, n_head,
-            w_overlap, mode, force_tiled=False):
-    """Launch K1. Dense attention (``w_overlap <= 0``) keeps the whole
+            w_overlap, mode, force_tiled=False, coefs=None):
+    """Launch the kernel: K1 with ``coefs`` None (the kernel reads 1), K6 with
+    the (B, 2) f32 droppath coefficients. Dense attention (``w_overlap <= 0``) keeps the whole
     sequence in one thread block up to 31 rows and takes the tiled two-phase
     path above (the kernel decides); ``force_tiled`` sends any T to the tiled
     path, so that the two can be timed against each other."""
-    global LAUNCHES
+    global LAUNCHES, TRAIN_LAUNCHES
     from .build import load
 
     b, t, c = x.shape
@@ -374,9 +391,67 @@ def _launch(x, xo, mask, vecs, wq, wk, wv, wp, wf1, wf2, fc1b, *, n_head,
             ptr(x), ptr(x if xo is None else xo), ptr(mask), ptr(vecs), ptr(wq),
             ptr(wk), ptr(wv), ptr(wp), ptr(wf1), ptr(wf2), ptr(fc1b), ptr(out),
             ctypes.c_void_p(0 if kv is None else kv.data_ptr()),
+            ctypes.c_void_p(0 if coefs is None else coefs.data_ptr()),
             b, t, c, n_head, w, MODES[mode], int(force_tiled), dcode,
             ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"fused block kernel launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    if coefs is None:
+        LAUNCHES += 1
+    else:
+        TRAIN_LAUNCHES += 1
     return out
+
+
+# ------------------------------------------------------------ training (K6)
+
+class _FusedBlockTrain(torch.autograd.Function):
+    """Forward: the kernel (plain version on the CPU). Backward: autograd
+    through ``block_math`` recomputed from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, x, xo, mask, coefs, n_head, w_overlap, mode, *packed):
+        ctx.save_for_backward(x, xo, mask, coefs, *packed)
+        ctx.static = (n_head, w_overlap, mode)
+        if use_kernel(x):
+            return _launch(x, xo, mask, *packed, n_head=n_head, w_overlap=w_overlap,
+                           mode=mode, coefs=coefs)
+        return block_math(x, x if xo is None else xo, mask.float()[..., None], coefs,
+                          *packed, n_head=n_head, w_overlap=w_overlap, mode=mode)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, xo, mask, coefs, *packed = ctx.saved_tensors
+        n_head, w_overlap, mode = ctx.static
+        # differentiable inputs in the order of forward's arguments: x, xo
+        # (positions 0, 1) and the packed tensors (positions 7..)
+        slots = [0, 1] + list(range(7, 7 + len(packed)))
+        ins = [x, xo, *packed]
+        want = [i for i, (slot, a) in enumerate(zip(slots, ins))
+                if a is not None and ctx.needs_input_grad[slot]]
+        with torch.enable_grad():
+            live = [a if a is None else a.detach().requires_grad_(i in want)
+                    for i, a in enumerate(ins)]
+            lx, lxo, *lpacked = live
+            y = block_math(lx, lx if lxo is None else lxo, mask.float()[..., None],
+                           coefs, *lpacked, n_head=n_head, w_overlap=w_overlap, mode=mode)
+        grads = torch.autograd.grad(y, [live[i] for i in want], g, allow_unused=True)
+        out = [None] * (7 + len(packed))
+        for i, gr in zip(want, grads):
+            out[slots[i]] = gr
+        return tuple(out)
+
+
+def fused_transformer_block_train(x, xo, mask, coefs, vecs, wq, wk, wv, wp, wf1, wf2,
+                                  fc1b, *, n_head: int, w_overlap: int,
+                                  mode: str) -> torch.Tensor:
+    """One training-time block, differentiable in ``x``, ``xo`` and the 8
+    packed tensors. ``coefs`` (B, 2) f32: the droppath coefficients of the
+    attention and the MLP branch, 1 when nothing is dropped, else 0 or
+    1 / keep per sample. Arguments otherwise as ``fused_transformer_block``."""
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}")
+    _validate(x, xo, mask, vecs, wq, wk, wv, wp, wf1, wf2, fc1b, mode)
+    _check("coefs", coefs, (x.shape[0], 2), torch.float32, x.device)
+    return _FusedBlockTrain.apply(x, xo, mask, coefs, n_head, w_overlap, mode,
+                                  vecs, wq, wk, wv, wp, wf1, wf2, fc1b)

@@ -44,19 +44,30 @@ def linear_resample_time(x: torch.Tensor, out_len: int, axis: int = -2) -> torch
     return x0 * (1.0 - f) + x1 * f
 
 
-def linear_resample_dynamic(x: torch.Tensor, in_len: torch.Tensor,
-                            out_len: int) -> torch.Tensor:
+def linear_resample_dynamic(x: torch.Tensor, in_len: torch.Tensor, out_len: int,
+                            resample_len: int | None = None, start=None,
+                            out_valid=None) -> torch.Tensor:
     """Per-sample dynamic-length linear resample on the device.
 
     ``x`` (B, T_max, C) zero-padded streams, ``in_len`` (B,) valid row
     counts; returns (B, out_len, C) equal to ``linear_resample_time`` row for
     row on each sample's valid prefix. The coordinates are computed in
-    float32 exactly as there; the two source rows are gathered and blended."""
+    float32 exactly as there; the two source rows are gathered and blended.
+
+    Fused crop (the training random-window truncation): with
+    ``resample_len`` = R, ``start`` (B,) int and ``out_valid`` (B,) int,
+    output row j is row ``start + j`` of the length-R resampled grid (the
+    coordinates are evaluated at the shifted indices, so it equals resampling
+    to R and slicing on the host bit for bit), and rows ``>= out_valid`` are
+    zero."""
     dev = x.device
     in_len = in_len.to(dev)
     in_len_f = in_len.float()
-    scale = in_len_f[:, None] / torch.tensor(float(out_len), dtype=torch.float32, device=dev)
+    r = out_len if resample_len is None else resample_len
+    scale = in_len_f[:, None] / torch.tensor(float(r), dtype=torch.float32, device=dev)
     j = torch.arange(out_len, dtype=torch.float32, device=dev)[None, :]
+    if start is not None:
+        j = j + start.to(dev).float()[:, None]
     coords = (j + 0.5) * scale - 0.5
     coords = torch.minimum(coords.clamp(min=0.0), in_len_f[:, None] - 1.0)
     idx0 = coords.floor().long()
@@ -65,7 +76,11 @@ def linear_resample_dynamic(x: torch.Tensor, in_len: torch.Tensor,
     c = x.shape[-1]
     x0 = torch.gather(x, 1, idx0[..., None].expand(-1, -1, c))
     x1 = torch.gather(x, 1, idx1[..., None].expand(-1, -1, c))
-    return x0 * (1.0 - frac) + x1 * frac
+    y = x0 * (1.0 - frac) + x1 * frac
+    if out_valid is not None:
+        valid = torch.arange(out_len, device=dev)[None, :] < out_valid.to(dev)[:, None]
+        y = y * valid.to(x.dtype)[..., None]
+    return y
 
 
 def nearest_resample_time(x: torch.Tensor, out_len: int, axis: int = -2) -> torch.Tensor:

@@ -14,6 +14,10 @@ The names are the ones the JAX package's ``tools/convert_torch.py::_ref_name``
 maps to, so ``convert_state_dict(state_dict_from_flax(p), p)`` returns ``p``
 bit for bit, and a reference checkpoint loads into the port by name.
 
+``train_state_from_flax`` carries a whole JAX ``TrainState`` (parameters, EMA
+parameters, Adam moments and count, loss normalizer, step) into the port's
+``TrainState``, so that both take the same next step.
+
 ``mvit_state_dict_from_flax`` does the same for the MViT-v2 video encoder,
 under torchvision's names (Conv3d ``(out, in/g, kt, kh, kw)`` <- flax
 ``(kt, kh, kw, in/g, out)``), the inverse of the JAX ``convert_mvit_torch``.
@@ -135,6 +139,34 @@ _LAYOUT = {
 def state_dict_from_flax(params: Dict) -> Dict[str, torch.Tensor]:
     """Flax tree of the whole localizer -> torch state dict."""
     return _state_dict(params, torch_name)
+
+
+def train_state_from_flax(state, flax_state: Dict):
+    """Load a JAX ``TrainState`` into the port's ``state`` (AdamW), in place.
+
+    ``flax_state`` holds numpy values: ``params`` and ``ema_params`` (flax
+    trees), ``mu`` and ``nu`` (the Adam moment trees of optax's
+    ``ScaleByAdamState``, shaped like ``params``), ``count`` (its step
+    count), ``loss_normalizer`` and ``step``. Returns ``state``."""
+    model, inner = state.model, state.tx.inner
+    if not isinstance(inner, torch.optim.AdamW):
+        raise NotImplementedError("train_state_from_flax carries AdamW moments only")
+    model.load_state_dict(state_dict_from_flax(flax_state["params"]), strict=True)
+    device = next(model.parameters()).device
+    ema = state_dict_from_flax(flax_state["ema_params"])
+    mu = state_dict_from_flax(flax_state["mu"])
+    nu = state_dict_from_flax(flax_state["nu"])
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            state.ema_params[name].copy_(ema[name])
+            inner.state[p] = {
+                "step": torch.tensor(float(flax_state["count"])),
+                "exp_avg": mu[name].to(device),
+                "exp_avg_sq": nu[name].to(device),
+            }
+    state.step = int(flax_state["step"])
+    state.loss_normalizer = torch.tensor(float(flax_state["loss_normalizer"]), device=device)
+    return state
 
 
 def block_state_dict_from_flax(params: Dict) -> Dict[str, torch.Tensor]:

@@ -45,14 +45,37 @@ Phases (any failure exits nonzero):
              (device resample to 768, concat, the production localizer,
              decode, soft-NMS); every kernel's launch count, and every video
              gets a detection;
-10. timing - K1 per production shape at B=16 and B=512 (bf16), packing
+10. k6     - the training forward K6 (K1's kernel with per-sample droppath
+             coefficients) at every production block shape, B=16, f32 and
+             bf16, coefficients from {0, 1/0.9} and a sample of ones, against
+             block_math at K1's tolerances; its gradients through the
+             autograd Function on the card against autograd straight through
+             block_math on the card, and in f32 against the CPU;
+11. k7     - banded attention K7 at (50, 4, T, 64), T = 768 .. 24, w = 3,
+             ragged masks, f32 (atol 1e-5) and bf16, against its plain
+             version; the differentiable wrapper's gradients in f32 against
+             the CPU;
+12. train  - configs_train/deepfake_exp10.yaml through the port's loader,
+             full width and depth, seeded batches in collate_batch's format.
+             f32 with a deterministic forward, 2 steps at B=16, card against
+             CPU (losses rtol 1e-4, grad_norm rtol 1e-3). bf16 and f32,
+             stochastic, 10 steps at B=50 through train_one_epoch: finite
+             losses, K6 18 launches a step, a mid-epoch checkpoint written
+             and restored, the focal sum on the fixed batch falls. The same
+             with dropout 0.1 (the unfused block): K7 17 launches a forward,
+             K6 none, and one f32 step card against CPU with the same draws.
+             ms per step, samples/s and peak GiB at B=50, a K6 step's stages
+             and its device time by kernel;
+13. timing - K1 per production shape at B=16 and B=512 (bf16), packing
              cost, service latency at batch 16, localizer-only videos/s at
              B=512 bf16 (the program of bench.py::measure_ours); K2-K4 and
              K1's dense paths against their plain versions; MViT-v2-b
              chunks/s at 16 and 64 chunks; K5 and K8 at B = 2, 16, 64 with
              the eager conv stack and scaled_dot_product_attention beside
              them; BYOL-A and Emotion2Vec wavs/s; media -> detections
-             videos/s at 16 and 64 videos and its per-stage breakdown. Each
+             videos/s at 16 and 64 videos and its per-stage breakdown; K6 per
+             production shape and K7 per banded length at B=50 with
+             scaled_dot_product_attention under a band mask beside K7. Each
              kernel's time stands beside its bound: the larger of its
              operations over the card's peak rate and its bytes over the
              memory rate.
@@ -1293,25 +1316,31 @@ def phase_audio_kernels(dev="cuda", lengths=(WAV_LEN, WAV_ODD), ts=(E2V_T, 130))
 # ------------------------------------------------------------- audio slice
 
 AUDIO_KERNELS = ("conv_extractor", "full_mha")
+TRAIN_KERNELS = ("fused_transformer_block_train", "band_attention")
 ALL_KERNELS = ("fused_transformer_block", "patch_embed", "pooled_attention",
-               "multiscale_block") + AUDIO_KERNELS
+               "multiscale_block") + AUDIO_KERNELS + TRAIN_KERNELS
 
 
 def kernel_modules():
+    """Kernel name -> (wrapper module, its launch counter). K1 and K6 share a
+    source and a module, and count apart."""
     from audio_visual_deepfake_detection_tpu_torch.ops.kernels import (
-        conv_extractor, full_attention, fused_block, mvit_attention, mvit_block, patch_embed)
+        band_attention, conv_extractor, full_attention, fused_block, mvit_attention,
+        mvit_block, patch_embed)
 
-    return dict(zip(ALL_KERNELS, (fused_block, patch_embed, mvit_attention, mvit_block,
-                                  conv_extractor, full_attention)))
+    mods = (fused_block, patch_embed, mvit_attention, mvit_block, conv_extractor,
+            full_attention, fused_block, band_attention)
+    return {name: (m, "TRAIN_LAUNCHES" if name == "fused_transformer_block_train"
+                   else "LAUNCHES") for name, m in zip(ALL_KERNELS, mods)}
 
 
 def reset_counts():
-    for m in kernel_modules().values():
+    for m, _ in kernel_modules().values():
         m.reset_launches()
 
 
 def launch_counts():
-    return {name: m.LAUNCHES for name, m in kernel_modules().items()}
+    return {name: getattr(m, attr) for name, (m, attr) in kernel_modules().items()}
 
 
 def audio_models(dtype, seed=0, d=2048, cfg=None):
@@ -1449,7 +1478,8 @@ def phase_media_detections(ex, model, cfg, dev="cuda", n_videos=16, n_frames=240
     wall = time.perf_counter() - t0
     got = launch_counts()
     emo_m = ex.emotion_model
-    expect = dict(video_launches(n_videos, pipeline.FRONT_CHUNK_GROUP, True),
+    expect = dict(dict.fromkeys(ALL_KERNELS, 0),
+                  **video_launches(n_videos, pipeline.FRONT_CHUNK_GROUP, True),
                   fused_transformer_block=1 + cfg.arch[1] + 3 * cfg.arch[2], conv_extractor=1,
                   full_mha=len(emo_m.blocks) + len(emo_m.audio.context_encoder.blocks))
     if torch.device(dev).type != "cuda":
@@ -1654,6 +1684,608 @@ def media_breakdown(ex, model, cfg, chunks, wavs, smi, n_frames=240, duration=9.
     return dict(total_ms=total, stages=[dict(stage=k, ms=t) for k, t in ms])
 
 
+# ---------------------------------------------------------- training slice
+
+TRAIN_B = 50                          # configs_train/deepfake_exp10.yaml, per device
+K7_TS = (768, 384, 192, 96, 48, 24)   # the banded blocks' lengths (w = 3, 4 heads of 64)
+K7_F32_ATOL = 1e-5
+GRAD_TOL = 5e-4                       # |d| / max(1, max |ref|), f32 card vs CPU
+
+
+def k6_work(mode, t, window, b, nbytes=2):
+    """K1's work plus the (b, 2) f32 coefficients."""
+    flops, moved = k1_work(mode, t, window, b, nbytes=nbytes)
+    return flops, moved + 8 * b
+
+
+def k7_work(b, h, t, d, w, nbytes=2):
+    """2 d multiply-adds a key for the scores and for P.V over 2 w + 1 keys;
+    q, k, v read and the output written once, and the mask."""
+    return 4 * b * h * t * d * (2 * w + 1), 4 * b * h * t * d * nbytes + b * t
+
+
+def draw_coefs(b, dev, seed, keep=0.9):
+    """(b, 2) droppath coefficients from {0, 1 / keep}, sample 0 all ones."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    coefs = torch.floor(keep + torch.rand((b, 2), generator=g)) / keep
+    coefs[0] = 1.0
+    return coefs.to(dev)
+
+
+def run_k6(which, x, xo, mask, coefs, packed, mode, window):
+    from audio_visual_deepfake_detection_tpu_torch.ops.kernels import fused_block as fb
+
+    kw = dict(n_head=4, w_overlap=window // 2, mode=mode)
+    if which == "kernel":
+        return fb.fused_transformer_block_train(x, xo, mask, coefs, *packed, **kw)
+    return fb.block_math(x, x if xo is None else xo, mask.float()[..., None], coefs,
+                         *packed, **kw)
+
+
+def k6_grads(which, x, xo, mask, coefs, packed, mode, window, g):
+    """d sum(y g) / d (x, xo, the 8 packed tensors): through the K6 Function
+    ('kernel') or straight through block_math ('plain')."""
+    leaves = [None if a is None else a.detach().clone().requires_grad_(True)
+              for a in (x, xo, *packed)]
+    y = run_k6(which, leaves[0], leaves[1], mask, coefs, leaves[2:], mode, window)
+    (y.float() * g).sum().backward()
+    return [None if a is None else a.grad for a in leaves]
+
+
+def grad_gap(got, ref):
+    """Largest |d| / max(1, max |ref|) over the gradient list."""
+    worst = 0.0
+    for a, r in zip(got, ref):
+        if r is None:
+            continue
+        if a is None or not bool(a.isfinite().all()):
+            return float("inf")
+        scale = max(1.0, r.float().abs().max().item())
+        worst = max(worst, (a.float().cpu() - r.float().cpu()).abs().max().item() / scale)
+    return worst
+
+
+def phase_k6(dev="cuda", blocks=PROD_BLOCKS, b=16, grad_b=5):
+    """K6 at every production block shape, f32 and bf16. Forward at batch
+    ``b`` with coefficients from {0, 1/0.9} and a sample of ones: the kernel
+    against block_math at K1's tolerances. Gradients at batch ``grad_b``
+    (lengths full, 3/4, 1/3, one row, none): through the Function on the card
+    against autograd straight through block_math on the card (the same
+    operations: 1e-6 relative), and in f32 against the CPU (GRAD_TOL)."""
+    import torch
+    from audio_visual_deepfake_detection_tpu_torch.ops.kernels import fused_block as fb
+
+    on_card = torch.device(dev).type == "cuda"
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    worst_grad = {"card": 0.0, "cpu": 0.0}
+    rows = []
+    for names, mode, t, window in blocks:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            x, xo, mask, packed = block_case(mode, t, window, b, dtype, dev, seed=t)
+            coefs = draw_coefs(b, dev, seed=t)
+            fb.reset_launches()
+            with torch.no_grad():
+                got = run_k6("kernel", x, xo, mask, coefs, packed, mode, window)
+                ref = run_k6("plain", x, xo, mask, coefs, packed, mode, window)
+            sync(dev)
+            if (fb.TRAIN_LAUNCHES, fb.LAUNCHES) != ((1, 0) if on_card else (0, 0)):
+                fail(f"K6 forward counted {fb.TRAIN_LAUNCHES} training and {fb.LAUNCHES} "
+                     f"eval launches")
+            err, ok, n_over = compare(got, ref)
+            worst[name] = max(worst[name], err)
+            # a dropped branch leaves the residual alone: sample 1's MLP
+            # coefficient decides whether its output moves with the MLP scale
+            x, xo, mask, packed = block_case(mode, t, window, grad_b, dtype, dev, seed=t + 1)
+            coefs = draw_coefs(grad_b, dev, seed=t + 1)
+            g = torch.randn(x.shape, generator=torch.Generator().manual_seed(t)).to(dev)
+            gk = k6_grads("kernel", x, xo, mask, coefs, packed, mode, window, g)
+            gp = k6_grads("plain", x, xo, mask, coefs, packed, mode, window, g)
+            gap_card = grad_gap(gk, gp)
+            worst_grad["card"] = max(worst_grad["card"], gap_card)
+            gap_cpu = None
+            if dtype == torch.float32 and on_card:
+                cpu = lambda a: None if a is None else a.cpu()  # noqa: E731
+                gc = k6_grads("kernel", cpu(x), cpu(xo), mask.cpu(), coefs.cpu(),
+                              [a.cpu() for a in packed], mode, window, g.cpu())
+                gap_cpu = grad_gap(gk, gc)
+                worst_grad["cpu"] = max(worst_grad["cpu"], gap_cpu)
+            rows.append(dict(B=b, mode=mode, T=t, window=window, dtype=name, max_abs_err=err,
+                             ok=ok, grad_gap_card=gap_card, grad_gap_cpu=gap_cpu))
+            log(f"K6 vs plain B={b} {mode:7s} T={t:3d} w={window:2d} {name:8s} max|d|={err:.3e} "
+                f"beyond atol+rtol: {n_over}; grads B={grad_b}: Function vs block_math "
+                f"{gap_card:.2e}" + ("" if gap_cpu is None else f", vs CPU {gap_cpu:.2e}")
+                + f" {'ok' if ok else 'MISMATCH'}")
+            REPORT["k6"] = rows
+            if not ok:
+                fail(f"K6 disagrees with block_math: {mode} T={t} {name}")
+            if gap_card > 1e-6 or (gap_cpu is not None and gap_cpu > GRAD_TOL):
+                fail(f"K6 gradients disagree: {mode} T={t} {name}")
+    if on_card:
+        torch.cuda.empty_cache()
+    return worst, worst_grad
+
+
+def k7_case(b, t, dtype, dev, seed=0, h=4, d=64):
+    """q (pre-scaled), k, v as ConvAttention hands them over: head views of
+    (b, t, h d) projections; ragged key masks (full, 3/4, 1/3, one row, none,
+    the rest full)."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    q, k, v = (torch.randn((b, t, h * d), generator=g).to(dev, dtype) for _ in range(3))
+    q = q * d ** -0.5
+    lens = [t, (3 * t) // 4, t // 3, 1, 0][:b] + [t] * max(0, b - 5)
+    valid = (torch.arange(t)[None, :] < torch.tensor(lens)[:, None]).to(dev)
+    heads = lambda a: a.reshape(b, t, h, d).transpose(1, 2)  # noqa: E731
+    return heads(q), heads(k), heads(v), valid
+
+
+def run_k7(which, q, k, v, valid, w=3):
+    from audio_visual_deepfake_detection_tpu_torch.ops.kernels import band_attention as k7
+
+    fn = k7.band_attention_kernel if which == "kernel" else k7.band_attention_plain
+    return fn(q, k, v, valid, w)
+
+
+def check_k7(got, ref, q, k, v, valid, w=3):
+    """f32: atol K7_F32_ATOL. bf16: atol = rtol = BF16_TOL per element, and
+    the kernel no further than NO_WORSE x the plain version from the same
+    function in f32 (max and median)."""
+    import torch
+
+    if not torch.isfinite(got.float()).all():
+        return float("inf"), False, "non-finite"
+    d = (got.float() - ref.float()).abs()
+    err = d.max().item()
+    if got.dtype == torch.float32:
+        return err, err <= K7_F32_ATOL, f"atol {K7_F32_ATOL:g}"
+    with torch.no_grad():
+        exact = run_k7("plain", q.float(), k.float(), v.float(), valid, w)
+    near, text = against_exact(got, ref, exact)
+    over = int((d > BF16_TOL + BF16_TOL * ref.float().abs()).sum())
+    return err, near and over == 0, f"{over} beyond atol=rtol=2e-2; {text}"
+
+
+def phase_k7(dev="cuda", ts=K7_TS, b=TRAIN_B, grad_b=5, w=3):
+    """K7 at (b, 4, T, 64) for every banded length, ragged masks, f32 and
+    bf16, against band_attention_plain (check_k7); the differentiable
+    wrapper's gradients in f32 at batch ``grad_b`` on the card against the
+    CPU (1e-5 relative to the largest value)."""
+    import torch
+    from audio_visual_deepfake_detection_tpu_torch.ops.kernels import band_attention as k7
+
+    on_card = torch.device(dev).type == "cuda"
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    rows = []
+    for t in ts:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            args = k7_case(b, t, dtype, dev, seed=t)
+            k7.reset_launches()
+            with torch.no_grad():
+                got, ref = run_k7("kernel", *args, w), run_k7("plain", *args, w)
+            sync(dev)
+            if k7.LAUNCHES != int(on_card):
+                fail(f"K7 counted {k7.LAUNCHES} launches for one call")
+            err, ok, rule = check_k7(got, ref, *args, w)
+            worst[name] = max(worst[name], err)
+            rows.append(dict(shape=(b, 4, t, 64), dtype=name, max_abs_err=err, ok=ok, rule=rule))
+            log(f"K7 vs plain ({b}, 4, {t}, 64) w={w} {name:8s} max|d|={err:.3e} [{rule}] "
+                f"{'ok' if ok else 'MISMATCH'}")
+            REPORT["k7"] = rows
+            if not ok:
+                fail(f"K7 disagrees with its plain version: T={t} {name}")
+        q, k, v, valid = k7_case(grad_b, t, torch.float32, dev, seed=t + 1)
+        g = torch.randn(q.shape, generator=torch.Generator().manual_seed(t))
+
+        def grads(device):
+            leaves = [a.detach().to(device).requires_grad_(True) for a in (q, k, v)]
+            k7.band_attention_fused(*leaves, valid.to(device), w).backward(g.to(device))
+            return [a.grad for a in leaves]
+        gap = grad_gap(grads(dev), grads("cpu"))
+        log(f"K7 grads ({grad_b}, 4, {t}, 64) f32 card vs CPU: {gap:.2e}")
+        if gap > 1e-5:
+            fail(f"K7 gradients disagree with the CPU at T={t}")
+    if on_card:
+        torch.cuda.empty_cache()
+    return worst
+
+
+def train_setup(dropout, dtype, dev, seed=0, arch=None, opt_iters=10):
+    """Config, model, state and step from configs_train/deepfake_exp10.yaml
+    through the port's loader (``arch`` overrides the model for a CPU
+    rehearsal)."""
+    import dataclasses
+    from audio_visual_deepfake_detection_tpu_torch.core.config import (
+        ArchConfig, arch_config_from, load_config)
+    from audio_visual_deepfake_detection_tpu_torch import train
+
+    config = load_config(os.path.join(REPO, "configs_train", "deepfake_exp10.yaml"))
+    cfg = arch_config_from(config)
+    want = ArchConfig(**PROD)
+    for field in ("variant", "input_dim", "max_seq_len", "embd_dim", "n_head", "mha_win_size",
+                  "arch", "droppath"):
+        if getattr(cfg, field) != getattr(want, field):
+            fail(f"deepfake_exp10.yaml: {field} = {getattr(cfg, field)!r}")
+    if config["loader"]["batch_size"] != TRAIN_B:
+        fail(f"deepfake_exp10.yaml: batch_size {config['loader']['batch_size']}")
+    if arch is not None:
+        cfg = ArchConfig(**arch)
+    cfg = dataclasses.replace(cfg, dropout=dropout, compute_dtype=dtype)
+    tc = config["train_cfg"]
+    model, _ = train.init_model(cfg, seed, dev)
+    tx, sched = train.make_optimizer(model, config["opt"], opt_iters, tc["clip_grad_l2norm"])
+    return cfg, config, model, tx, sched
+
+
+def train_batch(cfg, b, seed=0, max_gt=32):
+    """A seeded batch in collate_batch's format: varied valid lengths, one
+    to three fake segments per video, every fifth video real (no segment)."""
+    rng = np.random.default_rng(seed)
+    t = cfg.max_seq_len
+    lens = rng.integers(t // 2, t + 1, b)
+    lens[0] = t
+    mask = np.arange(t)[None, :] < lens[:, None]
+    feats = rng.standard_normal((b, t, cfg.input_dim), dtype=np.float32) * mask[..., None]
+    seg = np.zeros((b, max_gt, 2), np.float32)
+    valid = np.zeros((b, max_gt), bool)
+    for i in range(b):
+        if i % 5 == 4:
+            continue
+        n = int(rng.integers(1, 4))
+        start = rng.uniform(0, lens[i] - 40, n)
+        seg[i, :n, 0] = start
+        seg[i, :n, 1] = start + rng.uniform(4, 36, n)
+        valid[i, :n] = True
+    ones = np.ones((b,), np.float32)
+    return {"feats": feats, "mask": mask, "gt_segments": seg,
+            "gt_labels": np.zeros((b, max_gt), np.int64), "gt_valid": valid,
+            "has_gt": valid.any(1), "fps": 25 * ones, "duration": lens / 25.0,
+            "feat_stride": ones, "feat_num_frames": ones,
+            "video_ids": [f"v{i}" for i in range(b)]}
+
+
+def batch_on(batch, dev):
+    """The batch's arrays as tensors on ``dev`` (the ids stay a list)."""
+    import torch
+
+    return {k: v if k == "video_ids" else torch.as_tensor(v).to(dev) for k, v in batch.items()}
+
+
+def batch_losses(cfg, tc, out, dbatch, normalizer):
+    """Label assignment and ``compute_losses`` of model outputs ``out`` on a
+    device batch, as the train step runs them."""
+    from audio_visual_deepfake_detection_tpu_torch.models import meta_arch
+
+    gt_cls, gt_off = meta_arch.label_points(
+        meta_arch.model_points(cfg, normalizer.device), dbatch["gt_segments"],
+        dbatch["gt_labels"], dbatch["gt_valid"], cfg.num_classes, tc["center_sample"],
+        tc["center_sample_radius"])
+    return meta_arch.compute_losses(
+        out, gt_cls, gt_off, dbatch["has_gt"], normalizer, num_classes=cfg.num_classes,
+        loss_weight=tc["loss_weight"], label_smoothing=tc["label_smoothing"])
+
+
+def focal_sum(cfg, config, model, batch):
+    """The unnormalized classification focal sum of the eval-mode model on
+    a batch (cls_loss times the normalizer it was divided by)."""
+    import torch
+    from audio_visual_deepfake_detection_tpu_torch import train
+    from audio_visual_deepfake_detection_tpu_torch.models import meta_arch
+
+    dev = next(model.parameters()).device
+    tc = config["train_cfg"]
+    out = train.build_eval_forward(cfg)(model, batch["feats"], batch["mask"])
+    norm = torch.tensor(float(tc["init_loss_norm"]), device=dev)
+    losses, num_pos = batch_losses(cfg, tc, out, batch_on(batch, dev), norm)
+    return float(losses["cls_loss"] * meta_arch.update_loss_normalizer(norm, num_pos))
+
+
+def steps_card_vs_cpu(dropout, deterministic, dev, b, n_steps, arch=None):
+    """``n_steps`` f32 train steps on the card and on the CPU from the same
+    seed and batch; stochastic steps draw from a CPU generator on both, so
+    the draws are the same. Returns the largest relative gaps and the card's
+    launch counts."""
+    import torch
+    from audio_visual_deepfake_detection_tpu_torch import train
+
+    runs = {}
+    for device in (dev, "cpu"):
+        cfg, config, model, tx, _ = train_setup(dropout, "float32", device, arch=arch)
+        state = train.TrainState.create(model, tx, config["train_cfg"]["init_loss_norm"],
+                                        torch.Generator().manual_seed(11))
+        step = train.build_train_step(cfg, config["train_cfg"],
+                                      deterministic_forward=deterministic)
+        batch = train_batch(cfg, b, seed=3)
+        batch.pop("video_ids")
+        reset_counts()
+        out = []
+        for _ in range(n_steps):
+            state, losses = step(state, batch)
+            out.append({k: float(v) for k, v in losses.items()})
+        sync(device)
+        runs[str(device)] = (out, launch_counts())
+        del state, model, tx
+    gaps = {"losses": 0.0, "grad_norm": 0.0}
+    for card, cpu in zip(runs[str(dev)][0], runs["cpu"][0]):
+        for key, val in cpu.items():
+            if not math.isfinite(card[key]):
+                fail(f"train step: non-finite {key} on the card")
+            gap = abs(card[key] - val) / max(abs(val), 1e-12)
+            which = "grad_norm" if key == "grad_norm" else "losses"
+            gaps[which] = max(gaps[which], gap)
+    return gaps, runs[str(dev)][1], runs[str(dev)][0]
+
+
+def run_epoch(dropout, dtype, dev, b, n_steps, ckpt_dir, arch=None):
+    """``n_steps`` stochastic steps on one fixed batch through
+    train_one_epoch with a checkpoint every ``n_steps // 2`` iterations:
+    finite losses, the launch counts, the checkpoint restored into a fresh
+    state equals what was saved, the eval-mode focal sum on the batch falls."""
+    import torch
+    from audio_visual_deepfake_detection_tpu_torch import train
+
+    cfg, config, model, tx, sched = train_setup(dropout, dtype, dev, arch=arch,
+                                                opt_iters=n_steps)
+    tc = config["train_cfg"]
+    state = train.TrainState.create(model, tx, tc["init_loss_norm"],
+                                    torch.Generator(device=dev).manual_seed(5))
+    step = train.build_train_step(cfg, tc)
+    batch = train_batch(cfg, b, seed=4)
+    seen = []
+
+    def recording_step(st, bt):
+        st, losses = step(st, bt)
+        seen.append(losses)
+        return st, losses
+
+    before = focal_sum(cfg, config, model, batch)
+    sync(dev)
+    reset_counts()
+    state = train.train_one_epoch([batch] * n_steps, state, recording_step, 0,
+                                  schedule=sched, print_freq=max(n_steps // 2, 1),
+                                  ckpt_every_iters=n_steps // 2, ckpt_folder=ckpt_dir,
+                                  batch_size=b)
+    sync(dev)
+    counts = launch_counts()
+    after = focal_sum(cfg, config, model, batch)
+    vals = [{k: float(v) for k, v in ls.items()} for ls in seen]
+    if len(vals) != n_steps or not all(math.isfinite(v) for ls in vals for v in ls.values()):
+        fail(f"train {dtype} dropout={dropout}: {len(vals)} steps, non-finite losses")
+    if not after < before:
+        fail(f"train {dtype} dropout={dropout}: focal sum on the fixed batch went "
+             f"{before:.4f} -> {after:.4f}")
+    tag = f"epoch_000_iter{n_steps // 2 + 1}"
+    path = os.path.join(ckpt_dir, tag + ".pt")
+    if not os.path.exists(path):
+        fail(f"no mid-epoch checkpoint {path}")
+    _, _, model2, tx2, _ = train_setup(dropout, dtype, dev, seed=1, arch=arch, opt_iters=n_steps)
+    fresh = train.TrainState.create(model2, tx2, 0.0, torch.Generator(device=dev))
+    fresh, epoch, next_iter = train.restore_checkpoint(path, fresh)
+    saved = torch.load(path, map_location="cpu", weights_only=False)
+    same = all(torch.equal(v.cpu(), saved["params"][k]) for k, v in model2.state_dict().items())
+    same = same and all(torch.equal(v.cpu(), saved["ema_params"][k])
+                        for k, v in fresh.ema_params.items())
+    if not same or (epoch, next_iter, fresh.step) != (0, n_steps // 2 + 1, n_steps // 2 + 1):
+        fail(f"checkpoint {tag}: restored epoch {epoch}, next_iter {next_iter}, "
+             f"step {fresh.step}, parameters equal: {same}")
+    log(f"train {dtype} dropout={dropout} B={b}: {n_steps} steps through train_one_epoch, "
+        f"final_loss {vals[0]['final_loss']:.4f} -> {vals[-1]['final_loss']:.4f}, eval focal "
+        f"sum {before:.3f} -> {after:.3f}, launches {counts}, checkpoint {tag} restored")
+    del fresh, model2, tx2
+    return dict(steps=n_steps, losses=vals, focal_before=before, focal_after=after,
+                launches=counts), state, step, batch, cfg, config
+
+
+def time_steps(state, step, batch, b, smi, label, warm=2, timed=5):
+    """ms per step, samples/s and peak GiB of ``timed`` steps after
+    ``warm``, on batches already on the device."""
+    import torch
+
+    dev = next(state.model.parameters()).device
+    batch = batch_on(batch, dev)
+    for _ in range(warm):
+        step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        step(state, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / timed
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"train step {label} B={b}: {ms:.1f} ms/step, {b / ms * 1e3:.1f} samples/s, peak "
+        f"{peak:.2f} GiB ({smi})")
+    return dict(ms_per_step=ms, samples_per_s=b / ms * 1e3, peak_gib=peak)
+
+
+def step_breakdown(state, step, cfg, config, batch, smi, label):
+    """CUDA-event time of one K6 training step's stages (forward with the 18
+    K6 launches and the losses; backward with the 17 recomputes; clip +
+    AdamW + EMA), and the device time by kernel of one whole step."""
+    import torch
+
+    model, tc = state.model, config["train_cfg"]
+    dbatch = batch_on(batch, next(model.parameters()).device)
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    model.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    marks[0].record()
+    out = model(dbatch["feats"], dbatch["mask"], train=True, generator=state.generator)
+    losses, _ = batch_losses(cfg, tc, out, dbatch, state.loss_normalizer)
+    marks[1].record()
+    losses["final_loss"].backward()
+    marks[2].record()
+    with torch.no_grad():
+        state.tx.update(state.step, state.tx.global_norm())
+        names, params = zip(*model.named_parameters())
+        ema = [state.ema_params[n] for n in names]
+        torch._foreach_mul_(ema, 0.999)
+        torch._foreach_add_(ema, [p.detach() for p in params], alpha=0.001)
+    marks[3].record()
+    torch.cuda.synchronize()
+    ms = [marks[i].elapsed_time(marks[i + 1]) for i in range(3)]
+    total = sum(ms)
+    log(f"train step stages {label}: forward + losses {ms[0]:.1f} ms ({100 * ms[0] / total:.0f}%), "
+        f"backward (recompute + gradients) {ms[1]:.1f} ms ({100 * ms[1] / total:.0f}%), clip + "
+        f"AdamW + EMA {ms[2]:.1f} ms ({100 * ms[2] / total:.0f}%) ({smi})")
+    prof = profile_forward(lambda: step(state, dbatch), total, smi, label=f"one train step {label}",
+                           top_n=8)
+    k6_ms = None
+    if prof:
+        k6_ms = sum(r["device_ms"] for r in prof["top"] if "fused_block_kernel" in r["name"])
+        log(f"  K6 forward kernels: {k6_ms:.2f} ms of {prof['device_ms']:.2f} ms device time")
+    return dict(forward_ms=ms[0], backward_ms=ms[1], update_ms=ms[2], k6_device_ms=k6_ms,
+                profile=prof)
+
+
+def phase_train(dev="cuda", b=TRAIN_B, cpu_b=16, n_steps=10, arch=None, smi="",
+                timing=True):
+    """The training slice's main path at full width and depth. (a) f32,
+    deterministic forward, 2 steps at batch ``cpu_b``, card against CPU:
+    losses rtol 1e-4, grad_norm rtol 1e-3, K6 18 launches a step. (b) bf16
+    and f32, stochastic, ``n_steps`` through train_one_epoch at batch ``b``
+    (run_epoch). (c) the same with dropout 0.1 (the unfused block): K7 17
+    launches a forward, K6 none, and one stochastic f32 step card against CPU
+    with the same draws. Then the step times."""
+    import tempfile
+    import torch
+
+    on_card = torch.device(dev).type == "cuda"
+    n_blocks = 18 if arch is None else 1 + arch["arch"][1] + 3 * arch["arch"][2]
+    n_band = n_blocks - (1 if (arch or PROD)["mha_win_size"][-1] == -1 else 0)
+    report = {}
+
+    def expect(counts, k6, k7, what):
+        want = dict.fromkeys(counts, 0)
+        if on_card:
+            want.update(fused_transformer_block_train=k6, band_attention=k7)
+        got = {k: v for k, v in counts.items() if k != "fused_transformer_block"}
+        want.pop("fused_transformer_block")     # the eval forwards of focal_sum, if any
+        if got != want:
+            fail(f"{what}: launches {counts}, expected {want}")
+
+    gaps, counts, traj = steps_card_vs_cpu(0.0, True, dev, cpu_b, 2, arch)
+    log(f"train f32 deterministic, 2 steps B={cpu_b}, card vs CPU: losses rel {gaps['losses']:.2e} "
+        f"grad_norm rel {gaps['grad_norm']:.2e}, launches {counts}, final_loss "
+        f"{[round(s['final_loss'], 5) for s in traj]}")
+    expect(counts, 2 * n_blocks, 0, "deterministic steps")
+    if counts["fused_transformer_block"] != 0:
+        fail("a training step launched the eval kernel")
+    if gaps["losses"] > 1e-4 or gaps["grad_norm"] > 1e-3:
+        fail(f"train f32 card vs CPU differ: {gaps}")
+    report["deterministic_card_vs_cpu"] = dict(gaps, B=cpu_b, launches=counts)
+
+    launched = {}
+    states = {}
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as tmp:
+        for dropout, dtype in ((0.0, "bfloat16"), (0.0, "float32"), (0.1, "bfloat16"),
+                               (0.1, "float32")):
+            label = f"{'K6' if dropout == 0 else 'unfused-K7'}-{dtype}"
+            rep, state, step, batch, cfg, config = run_epoch(
+                dropout, dtype, dev, b, n_steps, os.path.join(tmp, label), arch)
+            if dropout == 0.0:
+                expect(rep["launches"], n_blocks * n_steps, 0, label)
+            else:
+                expect(rep["launches"], 0, n_band * n_steps, label)
+            launched.setdefault("k6" if dropout == 0 else "k7", rep["launches"])
+            report[label] = rep
+            if timing and on_card and (dropout == 0.0 or dtype == "bfloat16"):
+                rep["timing"] = time_steps(state, step, batch, b, smi, label)
+                if dropout == 0.0:
+                    rep["stages"] = step_breakdown(state, step, cfg, config, batch, smi, label)
+            del state, step, batch
+            if on_card:
+                torch.cuda.empty_cache()
+
+    gaps, counts, _ = steps_card_vs_cpu(0.1, False, dev, cpu_b, 1, arch)
+    log(f"train f32 dropout=0.1 stochastic (same draws), 1 step B={cpu_b}, card vs CPU: losses "
+        f"rel {gaps['losses']:.2e} grad_norm rel {gaps['grad_norm']:.2e}, launches {counts}")
+    expect(counts, 0, n_band, "unfused step")
+    if gaps["losses"] > 1e-4 or gaps["grad_norm"] > 1e-3:
+        fail(f"unfused train step f32 card vs CPU differ: {gaps}")
+    report["unfused_card_vs_cpu"] = dict(gaps, B=cpu_b, launches=counts)
+    REPORT["train"] = report
+    return launched, report
+
+
+# a small localizer for rehearsing the training phases on the CPU
+TINY_ARCH = dict(input_dim=24, max_seq_len=96, embd_dim=32, fpn_dim=32, head_dim=32, n_head=2,
+                 arch=(1, 1, 2), mha_win_size=(5, 5, -1),
+                 regression_range=((0, 4), (4, 8), (8, 10000)), droppath=0.1)
+
+
+def phase_train_kernel_timing(smi, dev="cuda", b=TRAIN_B):
+    """K6 per production shape and K7 per banded length at the training
+    batch, bf16, against their plain versions (interleaved, CUDA events),
+    each beside its bound; for K7 also scaled_dot_product_attention with an
+    additive band mask, the nearest library call (it computes a dense T x T
+    softmax with -inf outside the band, without the -1e4 penalty's rounding:
+    not the same function)."""
+    import torch
+    import torch.nn.functional as F
+
+    bf16 = torch.bfloat16
+    out = {"k6": [], "k7": []}
+    k_tot = p_tot = 0.0
+    with torch.no_grad():
+        for names, mode, t, window in PROD_BLOCKS:
+            x, xo, mask, packed = block_case(mode, t, window, b, bf16, dev, seed=t)
+            coefs = draw_coefs(b, dev, seed=t)
+            ms = {}
+            for which in ("plain", "kernel", "kernel", "plain"):
+                ms.setdefault(which, []).append(cuda_ms(
+                    lambda: run_k6(which, x, xo, mask, coefs, packed, mode, window), 5))
+            k_ms, p_ms = min(ms["kernel"]), min(ms["plain"])
+            bms, by = bound(*k6_work(mode, t, window, b))
+            k_tot += k_ms * len(names)
+            p_tot += p_ms * len(names)
+            out["k6"].append(dict(mode=mode, T=t, window=window, blocks=len(names), ms=k_ms,
+                                  plain_ms=p_ms, bound_ms=bms, bound_by=by))
+            log(f"time K6 B={b} {mode:7s} T={t:3d} w={window:2d} bf16: kernel {k_ms:.4f} ms  plain "
+                f"{p_ms:.4f} ms  bound {bms:.4f} ms ({by}) ({smi})")
+            del x, xo, mask, packed
+        k6_bound = bound_sum([(*k6_work(mode, t, window, b), len(names))
+                              for names, mode, t, window in PROD_BLOCKS])
+        log(f"time K6 B={b}: the 18 launches of one training forward, kernel {k_tot:.3f} ms, "
+            f"plain {p_tot:.3f} ms, bound {k6_bound[0]:.3f} ms ({k6_bound[1]}) ({smi})")
+        # K7 calls of one unfused forward: 8 at T=768, 2 each at 384..48, 1 at 24
+        calls = {768: 8, 384: 2, 192: 2, 96: 2, 48: 2, 24: 1}
+        k7_tot = k7_plain = k7_lib = 0.0
+        for t in K7_TS:
+            q, k, v, valid = k7_case(b, t, bf16, dev, seed=t)
+            tp = time_pair(lambda which: run_k7(which, q, k, v, valid), rounds=3, iters=5)
+            idx = torch.arange(t, device=dev)
+            band = torch.zeros((t, t), dtype=bf16, device=dev).masked_fill_(
+                (idx[:, None] - idx[None, :]).abs() > 3, float("-inf"))
+            lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=band,
+                                                                 scale=1.0), 5, warmup=1)
+            bms, by = bound(*k7_work(b, 4, t, 64, 3))
+            k7_tot += tp["kernel"][0] * calls[t]
+            k7_plain += tp["plain"][0] * calls[t]
+            k7_lib += lib * calls[t]
+            out["k7"].append(dict(T=t, calls=calls[t], ms=tp["kernel"][0], plain_ms=tp["plain"][0],
+                                  library_ms=lib, bound_ms=bms, bound_by=by))
+            log(f"time K7 ({b}, 4, {t}, 64) w=3 bf16: kernel {tp['kernel'][0]:.4f} ms  plain "
+                f"{tp['plain'][0]:.4f} ms  scaled_dot_product_attention + band mask (nearest "
+                f"library call, not the same function) {lib:.4f} ms  bound {bms:.4f} ms ({by}) "
+                f"({smi})")
+            del q, k, v, valid, band
+        k7_bound = bound_sum([(*k7_work(b, 4, t, 64, 3), calls[t]) for t in K7_TS])
+        log(f"time K7 B={b}: the 17 launches of one unfused forward, kernel {k7_tot:.3f} ms, "
+            f"plain {k7_plain:.3f} ms, library {k7_lib:.3f} ms, bound {k7_bound[0]:.3f} ms "
+            f"({k7_bound[1]}) ({smi})")
+    torch.cuda.empty_cache()
+    totals = dict(k6=(k_tot, p_tot, k6_bound), k7=(k7_tot, k7_plain, k7_bound, k7_lib))
+    REPORT["train_kernel_timing"] = dict(per_shape=out, card=smi,
+                                         totals={k: list(v) for k, v in totals.items()})
+    return totals
+
+
 def main():
     try:
         import torch
@@ -1681,9 +2313,13 @@ def main():
     ex, video_launched = phase_video(smi=smi)
     ex, audio_launched = phase_audio(ex.video_model, smi=smi)
     media_launched = phase_media_detections(ex, model, cfg, smi=smi)
+    k6_worst, k6_grad = phase_k6()
+    k7_worst = phase_k7()
+    train_launched, train_report = phase_train(smi=smi)
     totals, worst_timed, k1_bounds = phase_timing(model, cfg, smi)
     mvit_totals, mvit_bounds, mvit_library = phase_mvit_timing(smi)
     audio_times, _, k5_rules = phase_audio_timing(ex, model, cfg, smi)
+    train_times = phase_train_kernel_timing(smi)
     for mod in ("jax", "audio_visual_deepfake_detection_tpu"):
         if mod in sys.modules:
             fail(f"{mod} was imported")
@@ -1759,6 +2395,49 @@ def main():
         })
     for k in kernels:
         k["launches_media_to_detections"] = media_launched[k["name"]]
+    k6_ms, k6_plain, k6_bound = train_times["k6"]
+    kernels.append({
+        "name": "fused_transformer_block_train",
+        "route": "cuda",
+        "source": src + "fused_block.cu",
+        "replaces": pallas + "fused_block.py:753",
+        "launches": train_launched["k6"]["fused_transformer_block_train"],
+        "max_abs_err": k6_worst["float32"],
+        "max_abs_err_bf16": k6_worst["bfloat16"],
+        "grad_gap": k6_grad,
+        "tolerance": {"float32": F32_ATOL, "bfloat16": BF16_TOL,
+                      "grads": "Function vs block_math 1e-6, f32 card vs CPU "
+                               f"{GRAD_TOL:g}, relative to max(1, max |ref|)"},
+        "ms": k6_ms,
+        "plain_ms": k6_plain,
+        "bound_ms": k6_bound[0],
+        "bound_by": k6_bound[1],
+        "library_ms": None,
+        "note": f"launches = {train_report['K6-bfloat16']['steps']} bf16 training steps at "
+                f"B={TRAIN_B}; ms = the 18 forward launches of one step at B={TRAIN_B} bf16; "
+                "the backward differentiates the plain version, as the TPU kernel's does",
+    })
+    k7_ms, k7_plain, k7_bound, k7_lib = train_times["k7"]
+    kernels.append({
+        "name": "band_attention",
+        "route": "cuda",
+        "source": src + "band_attention.cu",
+        "replaces": pallas + "band_attention.py:77",
+        "launches": train_launched["k7"]["band_attention"],
+        "max_abs_err": k7_worst["float32"],
+        "max_abs_err_bf16": k7_worst["bfloat16"],
+        "tolerance": {"float32": f"atol {K7_F32_ATOL:g}",
+                      "bfloat16": f"atol=rtol=2e-2, and within {NO_WORSE:g}x of plain vs f32"},
+        "ms": k7_ms,
+        "plain_ms": k7_plain,
+        "bound_ms": k7_bound[0],
+        "bound_by": k7_bound[1],
+        "library_ms": k7_lib,
+        "note": f"launches = {train_report['unfused-K7-bfloat16']['steps']} bf16 training steps "
+                f"with dropout 0.1 at B={TRAIN_B}; ms = the 17 launches of one unfused forward "
+                f"at B={TRAIN_B} bf16; library_ms = scaled_dot_product_attention with an "
+                "additive band mask, the nearest library call, not the same function",
+    })
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
