@@ -41,7 +41,10 @@ constexpr float PENALTY = -1e4f;
 
 struct Strides { long long b, h, t; };
 
-template <typename T, int VPL>   // VPL = D / 32 values per lane
+constexpr int HEAD_DIM = 64;     // the localizer's 4 heads of 256 channels
+constexpr int VPL = HEAD_DIM / 32;   // values per lane
+
+template <typename T>
 __global__ void __launch_bounds__(NT)
 band_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const uint8_t* __restrict__ valid,
@@ -106,18 +109,11 @@ int launch(const void* q, const void* k, const void* v, const void* valid, void*
            int B, int H, int Tn, int D, int w, Strides sq, Strides sk, Strides sv,
            Strides so, cudaStream_t stream) {
   dim3 grid((Tn + NT / 32 - 1) / (NT / 32), B * H);
-  auto go = [&](auto kern) {
-    kern<<<grid, NT, 0, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const uint8_t*>(valid), static_cast<T*>(out), H, Tn, w, sq, sk, sv, so);
-    return (int)cudaGetLastError();
-  };
-  switch (D) {
-    case 32: return go(band_attention_kernel<T, 1>);
-    case 64: return go(band_attention_kernel<T, 2>);
-    case 128: return go(band_attention_kernel<T, 4>);
-  }
-  return (int)cudaErrorInvalidValue;
+  if (D != HEAD_DIM) return (int)cudaErrorInvalidValue;
+  band_attention_kernel<T><<<grid, NT, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const uint8_t*>(valid), static_cast<T*>(out), H, Tn, w, sq, sk, sv, so);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -126,8 +122,8 @@ extern "C" {
 
 // Launch on `stream`; returns cudaGetLastError() (0 = launched).
 // q, k, v, out: (B, H, T, D) through element strides (batch, head, row), the
-// D values of a row contiguous; valid: (B, T) bool, contiguous. D in
-// {32, 64, 128}, 0 <= w <= 8, B H <= 65535. dtype: 0 float32, 1 bfloat16.
+// D values of a row contiguous; valid: (B, T) bool, contiguous. D = 64 (the
+// one head width the localizer has), 0 <= w <= 8, B H <= 65535. dtype: 0 float32, 1 bfloat16.
 int avdd_band_attention(const void* q, const void* k, const void* v, const void* valid,
                         void* out, int B, int H, int T, int D, int w,
                         long long qb, long long qh, long long qt,

@@ -32,7 +32,7 @@ import torch
 from ...core.runtime import use_kernel
 from ..attention import NEG_PENALTY, band_attention_xla, shift_time
 
-HEAD_DIMS = (32, 64, 128)   # what the kernel is built for
+HEAD_DIM = 64               # the one head width the kernel is built for
 MAX_W = 8                   # largest half window the kernel takes
 MAX_BH = 65535              # batch x heads of one launch (grid dimension y)
 
@@ -110,8 +110,8 @@ def _launch(q, k, v, kv_valid, w_overlap):
     from .build import load
 
     b, h, t, d = q.shape
-    if d not in HEAD_DIMS:
-        raise ValueError(f"band attention kernel takes head_dim in {HEAD_DIMS}, got {d}")
+    if d != HEAD_DIM:
+        raise ValueError(f"band attention kernel takes head_dim {HEAD_DIM}, got {d}")
     if w_overlap > MAX_W:
         raise ValueError(f"band attention kernel takes w_overlap <= {MAX_W}, got {w_overlap}")
     if b * h > MAX_BH:

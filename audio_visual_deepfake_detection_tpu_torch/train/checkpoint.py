@@ -1,7 +1,9 @@
 """Checkpoint and resume with ``torch.save`` (JAX ``train/checkpoint.py``,
 which uses orbax). A checkpoint holds {params, ema_params, opt_state, step,
 loss_normalizer, rng, epoch, next_iter}; inference loads the EMA weights,
-resume restores everything. Layout: ``<folder>/epoch_<N>.pt`` files, tagged
+resume restores everything. The payload is tensors in plain containers, so
+it is read with ``weights_only=True``: a checkpoint file cannot run code.
+Layout: ``<folder>/epoch_<N>.pt`` files, tagged
 mid-epoch and preemption files, and a ``model_best.pt`` copy.
 """
 
@@ -56,7 +58,7 @@ def restore_checkpoint(path: str, state):
     layout), in place. Returns (state, epoch, next_iter): resume at that
     epoch, skipping its first ``next_iter`` iterations."""
     device = next(state.model.parameters()).device
-    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
     state.model.load_state_dict(ckpt["params"], strict=True)
     if set(ckpt["ema_params"]) != set(state.ema_params):
         raise ValueError("checkpoint / model structure mismatch (EMA parameters)")
@@ -72,7 +74,7 @@ def restore_checkpoint(path: str, state):
 
 def restore_params(path: str, use_ema: bool = True) -> Dict[str, torch.Tensor]:
     """Only the (EMA) parameters, as a state dict for ``load_state_dict``."""
-    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
     return ckpt["ema_params" if use_ema and "ema_params" in ckpt else "params"]
 
 

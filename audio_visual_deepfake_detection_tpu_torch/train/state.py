@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -56,7 +56,8 @@ def _to_device(value, device):
 
 
 def build_train_step(cfg: ArchConfig, train_cfg: Dict, ema_decay: float = 0.999,
-                     online_resample: bool = False, deterministic_forward: bool = False
+                     online_resample: bool = False, deterministic_forward: bool = False,
+                     stage_hook: Optional[Callable[[str], None]] = None
                      ) -> Callable[[TrainState, Dict], Tuple[TrainState, Dict]]:
     """Returns ``train_step(state, batch) -> (state, losses)``; ``batch`` in
     ``collate_batch``'s format (numpy arrays or tensors), ``losses`` 0-dim
@@ -70,7 +71,13 @@ def build_train_step(cfg: ArchConfig, train_cfg: Dict, ema_decay: float = 0.999,
     ``deterministic_forward``: the forward runs without dropout and
     stochastic depth while the optimizer / EMA / normalizer chain stays whole
     (step-for-step comparison across frameworks and devices).
+
+    ``stage_hook(name)``, if given, is called inside every step at "begin"
+    and after "forward" (label assignment, forward, losses), "backward" and
+    "update" (clip, optimizer, EMA, normalizer): a place to record CUDA
+    events, so that a step's stages are timed on the step itself.
     """
+    mark = stage_hook or (lambda name: None)
     points_cpu = model_points(cfg)
     points_on: Dict[torch.device, torch.Tensor] = {}
     seq = cfg.max_seq_len
@@ -85,6 +92,7 @@ def build_train_step(cfg: ArchConfig, train_cfg: Dict, ema_decay: float = 0.999,
         return torch.cat(parts, dim=-1), mask
 
     def train_step(state: TrainState, batch: Dict):
+        mark("begin")
         model = state.model
         device = next(model.parameters()).device
         if device not in points_on:
@@ -105,7 +113,9 @@ def build_train_step(cfg: ArchConfig, train_cfg: Dict, ema_decay: float = 0.999,
                 num_classes=cfg.num_classes, loss_weight=train_cfg["loss_weight"],
                 label_smoothing=train_cfg["label_smoothing"],
                 row_valid=batch.get("row_valid"))
+            mark("forward")
             losses["final_loss"].backward()
+            mark("backward")
 
         with torch.no_grad():
             grad_norm = state.tx.global_norm()
@@ -116,6 +126,7 @@ def build_train_step(cfg: ArchConfig, train_cfg: Dict, ema_decay: float = 0.999,
             torch._foreach_add_(ema, [p.detach() for p in params], alpha=1.0 - ema_decay)
             state.loss_normalizer = update_loss_normalizer(state.loss_normalizer, num_pos)
         state.step += 1
+        mark("update")
         losses = {k: v.detach() for k, v in losses.items()}
         losses["num_pos"] = num_pos
         losses["grad_norm"] = grad_norm
@@ -137,11 +148,14 @@ def build_eval_forward(cfg: ArchConfig):
     return forward
 
 
-def init_model(cfg: ArchConfig, seed: int, device=None
+def init_model(cfg: ArchConfig, seed: int, device="cuda"
                ) -> Tuple[AVLocalizer, torch.Generator]:
     """A freshly initialised model (with the focal-prior classifier bias) on
-    ``device`` and the generator of its training randomness."""
+    ``device`` and the generator of its training randomness. Training runs
+    on the card: a run on the CPU is asked for with ``device="cpu"``, never
+    fallen back to. The weights are drawn on the CPU either way, so a seed
+    gives the same model on both."""
+    device = torch.device(device)
     model = init_localizer(AVLocalizer(cfg), torch.Generator().manual_seed(seed))
     model = model.to(device)
-    dev = next(model.parameters()).device
-    return model, torch.Generator(device=dev).manual_seed(seed + 1)
+    return model, torch.Generator(device=device).manual_seed(seed + 1)

@@ -46,26 +46,30 @@ Phases (any failure exits nonzero):
              decode, soft-NMS); every kernel's launch count, and every video
              gets a detection;
 10. k6     - the training forward K6 (K1's kernel with per-sample droppath
-             coefficients) at every production block shape, B=16, f32 and
-             bf16, coefficients from {0, 1/0.9} and a sample of ones, against
-             block_math at K1's tolerances; its gradients through the
-             autograd Function on the card against autograd straight through
-             block_math on the card, and in f32 against the CPU;
+             coefficients) at every production block shape at the training
+             batch B=50, f32 and bf16, coefficients from {0, 1/0.9} and a
+             sample of ones, against block_math at K1's tolerances; its
+             gradients (B=5: autograd through block_math keeps every
+             intermediate) through the autograd Function on the card against
+             autograd straight through block_math on the card, and in f32
+             against the CPU;
 11. k7     - banded attention K7 at (50, 4, T, 64), T = 768 .. 24, w = 3,
              ragged masks, f32 (atol 1e-5) and bf16, against its plain
              version; the differentiable wrapper's gradients in f32 against
              the CPU;
 12. train  - configs_train/deepfake_exp10.yaml through the port's loader,
              full width and depth, seeded batches in collate_batch's format.
-             f32 with a deterministic forward, 2 steps at B=16, card against
+             f32 with a deterministic forward, 2 steps at B=50, card against
              CPU (losses rtol 1e-4, grad_norm rtol 1e-3). bf16 and f32,
              stochastic, 10 steps at B=50 through train_one_epoch: finite
-             losses, K6 18 launches a step, a mid-epoch checkpoint written
-             and restored, the focal sum on the fixed batch falls. The same
-             with dropout 0.1 (the unfused block): K7 17 launches a forward,
-             K6 none, and one f32 step card against CPU with the same draws.
-             ms per step, samples/s and peak GiB at B=50, a K6 step's stages
-             and its device time by kernel;
+             losses, K6 18 launches a step and K1 none, a mid-epoch
+             checkpoint written and restored, the focal sum on the fixed
+             batch falls. The same with dropout 0.1 (the unfused block; 4
+             steps in f32): K7 17 launches a forward, K6 and K1 none, and
+             one f32 step at B=16 card against CPU with the same draws. ms
+             per step, samples/s and peak GiB at B=50, a K6 step's stages
+             (CUDA events at train_step's stage hook) and its device time by
+             kernel;
 13. timing - K1 per production shape at B=16 and B=512 (bf16), packing
              cost, service latency at batch 16, localizer-only videos/s at
              B=512 bf16 (the program of bench.py::measure_ours); K2-K4 and
@@ -136,6 +140,16 @@ def log(*a):
 def fail(msg):
     log(f"FAIL: {msg}")
     sys.exit(1)
+
+
+def timed(phase, *args, **kwargs):
+    """Run a phase and log the seconds it took."""
+    t0 = time.perf_counter()
+    out = phase(*args, **kwargs)
+    took = time.perf_counter() - t0
+    REPORT.setdefault("phase_seconds", {})[phase.__name__] = took
+    log(f"[{phase.__name__}: {took:.1f} s]")
+    return out
 
 
 def nvidia_smi_line():
@@ -1747,11 +1761,13 @@ def grad_gap(got, ref):
     return worst
 
 
-def phase_k6(dev="cuda", blocks=PROD_BLOCKS, b=16, grad_b=5):
+def phase_k6(dev="cuda", blocks=PROD_BLOCKS, b=TRAIN_B, grad_b=5):
     """K6 at every production block shape, f32 and bf16. Forward at batch
-    ``b`` with coefficients from {0, 1/0.9} and a sample of ones: the kernel
-    against block_math at K1's tolerances. Gradients at batch ``grad_b``
-    (lengths full, 3/4, 1/3, one row, none): through the Function on the card
+    ``b`` (the batch the training path hands it) with coefficients from
+    {0, 1/0.9} and a sample of ones: the kernel against block_math at K1's
+    tolerances. Gradients at the smaller batch ``grad_b`` (lengths full, 3/4,
+    1/3, one row, none; the backward is autograd through block_math, which
+    is per sample, and keeps every intermediate): through the Function on the card
     against autograd straight through block_math on the card (the same
     operations: 1e-6 relative), and in f32 against the CPU (GRAD_TOL)."""
     import torch
@@ -1899,6 +1915,7 @@ def train_setup(dropout, dtype, dev, seed=0, arch=None, opt_iters=10):
     through the port's loader (``arch`` overrides the model for a CPU
     rehearsal)."""
     import dataclasses
+    import torch
     from audio_visual_deepfake_detection_tpu_torch.core.config import (
         ArchConfig, arch_config_from, load_config)
     from audio_visual_deepfake_detection_tpu_torch import train
@@ -1916,7 +1933,11 @@ def train_setup(dropout, dtype, dev, seed=0, arch=None, opt_iters=10):
         cfg = ArchConfig(**arch)
     cfg = dataclasses.replace(cfg, dropout=dropout, compute_dtype=dtype)
     tc = config["train_cfg"]
-    model, _ = train.init_model(cfg, seed, dev)
+    # on the card through the entry point's own default, as a user calls it
+    on_card = torch.device(dev).type == "cuda"
+    model, _ = train.init_model(cfg, seed) if on_card else train.init_model(cfg, seed, dev)
+    if next(model.parameters()).device.type != torch.device(dev).type:
+        fail(f"init_model put the model on {next(model.parameters()).device}")
     tx, sched = train.make_optimizer(model, config["opt"], opt_iters, tc["clip_grad_l2norm"])
     return cfg, config, model, tx, sched
 
@@ -2020,7 +2041,7 @@ def steps_card_vs_cpu(dropout, deterministic, dev, b, n_steps, arch=None):
     return gaps, runs[str(dev)][1], runs[str(dev)][0]
 
 
-def run_epoch(dropout, dtype, dev, b, n_steps, ckpt_dir, arch=None):
+def run_epoch(dropout, dtype, dev, b, n_steps, ckpt_dir, arch=None, stage_hook=None):
     """``n_steps`` stochastic steps on one fixed batch through
     train_one_epoch with a checkpoint every ``n_steps // 2`` iterations:
     finite losses, the launch counts, the checkpoint restored into a fresh
@@ -2033,7 +2054,7 @@ def run_epoch(dropout, dtype, dev, b, n_steps, ckpt_dir, arch=None):
     tc = config["train_cfg"]
     state = train.TrainState.create(model, tx, tc["init_loss_norm"],
                                     torch.Generator(device=dev).manual_seed(5))
-    step = train.build_train_step(cfg, tc)
+    step = train.build_train_step(cfg, tc, stage_hook=stage_hook)
     batch = train_batch(cfg, b, seed=4)
     seen = []
 
@@ -2065,7 +2086,7 @@ def run_epoch(dropout, dtype, dev, b, n_steps, ckpt_dir, arch=None):
     _, _, model2, tx2, _ = train_setup(dropout, dtype, dev, seed=1, arch=arch, opt_iters=n_steps)
     fresh = train.TrainState.create(model2, tx2, 0.0, torch.Generator(device=dev))
     fresh, epoch, next_iter = train.restore_checkpoint(path, fresh)
-    saved = torch.load(path, map_location="cpu", weights_only=False)
+    saved = torch.load(path, map_location="cpu", weights_only=True)
     same = all(torch.equal(v.cpu(), saved["params"][k]) for k, v in model2.state_dict().items())
     same = same and all(torch.equal(v.cpu(), saved["ema_params"][k])
                         for k, v in fresh.ema_params.items())
@@ -2077,7 +2098,7 @@ def run_epoch(dropout, dtype, dev, b, n_steps, ckpt_dir, arch=None):
         f"sum {before:.3f} -> {after:.3f}, launches {counts}, checkpoint {tag} restored")
     del fresh, model2, tx2
     return dict(steps=n_steps, losses=vals, focal_before=before, focal_after=after,
-                launches=counts), state, step, batch, cfg, config
+                launches=counts), state, step, batch
 
 
 def time_steps(state, step, batch, b, smi, label, warm=2, timed=5):
@@ -2102,38 +2123,45 @@ def time_steps(state, step, batch, b, smi, label, warm=2, timed=5):
     return dict(ms_per_step=ms, samples_per_s=b / ms * 1e3, peak_gib=peak)
 
 
-def step_breakdown(state, step, cfg, config, batch, smi, label):
-    """CUDA-event time of one K6 training step's stages (forward with the 18
-    K6 launches and the losses; backward with the 17 recomputes; clip +
-    AdamW + EMA), and the device time by kernel of one whole step."""
+class StageEvents:
+    """A ``stage_hook`` for build_train_step: while ``on``, records a CUDA
+    event at each stage boundary of the step."""
+
+    def __init__(self):
+        self.on, self.events = False, {}
+
+    def __call__(self, name):
+        import torch
+
+        if self.on:
+            self.events[name] = torch.cuda.Event(enable_timing=True)
+            self.events[name].record()
+
+    def ms(self):
+        order = ("begin", "forward", "backward", "update")
+        return [self.events[a].elapsed_time(self.events[b]) for a, b in zip(order, order[1:])]
+
+
+def step_breakdown(state, step, hook, batch, smi, label, profile=True):
+    """CUDA-event time of the stages of one training step, recorded by the
+    step itself through its stage hook (label assignment, forward with the 18
+    K6 launches and the losses; backward with the 17 recomputes; clip + AdamW
+    + EMA + normalizer), and the device time by kernel of one whole step."""
     import torch
 
-    model, tc = state.model, config["train_cfg"]
-    dbatch = batch_on(batch, next(model.parameters()).device)
-    marks = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-    model.zero_grad(set_to_none=True)
+    dbatch = batch_on(batch, next(state.model.parameters()).device)
     torch.cuda.synchronize()
-    marks[0].record()
-    out = model(dbatch["feats"], dbatch["mask"], train=True, generator=state.generator)
-    losses, _ = batch_losses(cfg, tc, out, dbatch, state.loss_normalizer)
-    marks[1].record()
-    losses["final_loss"].backward()
-    marks[2].record()
-    with torch.no_grad():
-        state.tx.update(state.step, state.tx.global_norm())
-        names, params = zip(*model.named_parameters())
-        ema = [state.ema_params[n] for n in names]
-        torch._foreach_mul_(ema, 0.999)
-        torch._foreach_add_(ema, [p.detach() for p in params], alpha=0.001)
-    marks[3].record()
+    hook.on = True
+    step(state, dbatch)
     torch.cuda.synchronize()
-    ms = [marks[i].elapsed_time(marks[i + 1]) for i in range(3)]
+    hook.on = False
+    ms = hook.ms()
     total = sum(ms)
     log(f"train step stages {label}: forward + losses {ms[0]:.1f} ms ({100 * ms[0] / total:.0f}%), "
         f"backward (recompute + gradients) {ms[1]:.1f} ms ({100 * ms[1] / total:.0f}%), clip + "
         f"AdamW + EMA {ms[2]:.1f} ms ({100 * ms[2] / total:.0f}%) ({smi})")
-    prof = profile_forward(lambda: step(state, dbatch), total, smi, label=f"one train step {label}",
-                           top_n=8)
+    prof = profile and profile_forward(lambda: step(state, dbatch), total, smi,
+                                       label=f"one train step {label}", top_n=8)
     k6_ms = None
     if prof:
         k6_ms = sum(r["device_ms"] for r in prof["top"] if "fused_block_kernel" in r["name"])
@@ -2145,12 +2173,14 @@ def step_breakdown(state, step, cfg, config, batch, smi, label):
 def phase_train(dev="cuda", b=TRAIN_B, cpu_b=16, n_steps=10, arch=None, smi="",
                 timing=True):
     """The training slice's main path at full width and depth. (a) f32,
-    deterministic forward, 2 steps at batch ``cpu_b``, card against CPU:
-    losses rtol 1e-4, grad_norm rtol 1e-3, K6 18 launches a step. (b) bf16
-    and f32, stochastic, ``n_steps`` through train_one_epoch at batch ``b``
-    (run_epoch). (c) the same with dropout 0.1 (the unfused block): K7 17
-    launches a forward, K6 none, and one stochastic f32 step card against CPU
-    with the same draws. Then the step times."""
+    deterministic forward, 2 steps at the training batch ``b``, card against
+    CPU: losses rtol 1e-4, grad_norm rtol 1e-3, K6 18 launches a step. (b)
+    bf16 and f32, stochastic, ``n_steps`` through train_one_epoch at batch
+    ``b`` (run_epoch). (c) the same with dropout 0.1 (the unfused block; at
+    most 4 steps in f32): K7 17 launches a forward, K6 none, and one
+    stochastic f32 step at batch ``cpu_b`` card against CPU with the same
+    draws. No training step may launch the eval kernel K1. Then the step
+    times."""
     import tempfile
     import torch
 
@@ -2163,21 +2193,17 @@ def phase_train(dev="cuda", b=TRAIN_B, cpu_b=16, n_steps=10, arch=None, smi="",
         want = dict.fromkeys(counts, 0)
         if on_card:
             want.update(fused_transformer_block_train=k6, band_attention=k7)
-        got = {k: v for k, v in counts.items() if k != "fused_transformer_block"}
-        want.pop("fused_transformer_block")     # the eval forwards of focal_sum, if any
-        if got != want:
+        if counts != want:      # the eval kernel K1 included: none in a training step
             fail(f"{what}: launches {counts}, expected {want}")
 
-    gaps, counts, traj = steps_card_vs_cpu(0.0, True, dev, cpu_b, 2, arch)
-    log(f"train f32 deterministic, 2 steps B={cpu_b}, card vs CPU: losses rel {gaps['losses']:.2e} "
+    gaps, counts, traj = steps_card_vs_cpu(0.0, True, dev, b, 2, arch)
+    log(f"train f32 deterministic, 2 steps B={b}, card vs CPU: losses rel {gaps['losses']:.2e} "
         f"grad_norm rel {gaps['grad_norm']:.2e}, launches {counts}, final_loss "
         f"{[round(s['final_loss'], 5) for s in traj]}")
     expect(counts, 2 * n_blocks, 0, "deterministic steps")
-    if counts["fused_transformer_block"] != 0:
-        fail("a training step launched the eval kernel")
     if gaps["losses"] > 1e-4 or gaps["grad_norm"] > 1e-3:
         fail(f"train f32 card vs CPU differ: {gaps}")
-    report["deterministic_card_vs_cpu"] = dict(gaps, B=cpu_b, launches=counts)
+    report["deterministic_card_vs_cpu"] = dict(gaps, B=b, launches=counts)
 
     launched = {}
     states = {}
@@ -2186,18 +2212,20 @@ def phase_train(dev="cuda", b=TRAIN_B, cpu_b=16, n_steps=10, arch=None, smi="",
         for dropout, dtype in ((0.0, "bfloat16"), (0.0, "float32"), (0.1, "bfloat16"),
                                (0.1, "float32")):
             label = f"{'K6' if dropout == 0 else 'unfused-K7'}-{dtype}"
-            rep, state, step, batch, cfg, config = run_epoch(
-                dropout, dtype, dev, b, n_steps, os.path.join(tmp, label), arch)
+            steps = min(n_steps, 4) if (dropout, dtype) == (0.1, "float32") else n_steps
+            hook = StageEvents()
+            rep, state, step, batch = run_epoch(
+                dropout, dtype, dev, b, steps, os.path.join(tmp, label), arch, hook)
             if dropout == 0.0:
-                expect(rep["launches"], n_blocks * n_steps, 0, label)
+                expect(rep["launches"], n_blocks * steps, 0, label)
             else:
-                expect(rep["launches"], 0, n_band * n_steps, label)
+                expect(rep["launches"], 0, n_band * steps, label)
             launched.setdefault("k6" if dropout == 0 else "k7", rep["launches"])
             report[label] = rep
             if timing and on_card and (dropout == 0.0 or dtype == "bfloat16"):
                 rep["timing"] = time_steps(state, step, batch, b, smi, label)
-                if dropout == 0.0:
-                    rep["stages"] = step_breakdown(state, step, cfg, config, batch, smi, label)
+                rep["stages"] = step_breakdown(state, step, hook, batch, smi, label,
+                                               profile=dropout == 0.0)
             del state, step, batch
             if on_card:
                 torch.cuda.empty_cache()
@@ -2301,25 +2329,25 @@ def main():
         print(f"the port package is not importable here: {e}", file=sys.stderr)
         return 2
     t_start = time.perf_counter()
-    smi = phase_build()
-    phase_config()
-    worst = phase_kernels()
-    dense_worst = phase_k1_dense()
-    phase_long_forward()
-    model, cfg = phase_serve()
+    smi = timed(phase_build)
+    timed(phase_config)
+    worst = timed(phase_kernels)
+    dense_worst = timed(phase_k1_dense)
+    timed(phase_long_forward)
+    model, cfg = timed(phase_serve)
     serve_launches = REPORT["serve"]["launches"]
-    mvit_worst = phase_mvit_kernels()
-    audio_worst = phase_audio_kernels()
-    ex, video_launched = phase_video(smi=smi)
-    ex, audio_launched = phase_audio(ex.video_model, smi=smi)
-    media_launched = phase_media_detections(ex, model, cfg, smi=smi)
-    k6_worst, k6_grad = phase_k6()
-    k7_worst = phase_k7()
-    train_launched, train_report = phase_train(smi=smi)
-    totals, worst_timed, k1_bounds = phase_timing(model, cfg, smi)
-    mvit_totals, mvit_bounds, mvit_library = phase_mvit_timing(smi)
-    audio_times, _, k5_rules = phase_audio_timing(ex, model, cfg, smi)
-    train_times = phase_train_kernel_timing(smi)
+    mvit_worst = timed(phase_mvit_kernels)
+    audio_worst = timed(phase_audio_kernels)
+    ex, video_launched = timed(phase_video, smi=smi)
+    ex, audio_launched = timed(phase_audio, ex.video_model, smi=smi)
+    media_launched = timed(phase_media_detections, ex, model, cfg, smi=smi)
+    k6_worst, k6_grad = timed(phase_k6)
+    k7_worst = timed(phase_k7)
+    train_launched, train_report = timed(phase_train, smi=smi)
+    totals, worst_timed, k1_bounds = timed(phase_timing, model, cfg, smi)
+    mvit_totals, mvit_bounds, mvit_library = timed(phase_mvit_timing, smi)
+    audio_times, _, k5_rules = timed(phase_audio_timing, ex, model, cfg, smi)
+    train_times = timed(phase_train_kernel_timing, smi)
     for mod in ("jax", "audio_visual_deepfake_detection_tpu"):
         if mod in sys.modules:
             fail(f"{mod} was imported")

@@ -73,7 +73,7 @@ def make_batch(seed, b=2, t=96, c=24):
 
 def make_state(seed=0, iters=6):
     cfg = ArchConfig(**ARCH)
-    model, gen = ttrain.init_model(cfg, seed)
+    model, gen = ttrain.init_model(cfg, seed, device="cpu")
     tx, sched = ttrain.make_optimizer(model, OPT_CFG, iters, TRAIN_CFG["clip_grad_l2norm"])
     return cfg, ttrain.TrainState.create(model, tx, TRAIN_CFG["init_loss_norm"], gen), sched
 
@@ -173,7 +173,7 @@ def test_restore_params_and_latest_epoch_path(batches, tmp_path):
     assert torch.equal(ema[name], state.ema_params[name])
     assert torch.equal(raw[name], dict(state.model.named_parameters())[name].detach())
     assert not torch.equal(ema[name], raw[name])
-    model = ttrain.init_model(cfg, 5)[0]
+    model = ttrain.init_model(cfg, 5, device="cpu")[0]
     model.load_state_dict(ema, strict=True)
     assert torch.equal(model.state_dict()[name], state.ema_model().state_dict()[name])
 
@@ -182,7 +182,7 @@ def test_restore_refuses_another_model(batches, tmp_path):
     _, state, _ = make_state()
     path = ttrain.save_checkpoint(str(tmp_path), 0, state)
     other_cfg = ArchConfig(**dict(ARCH, arch=(1, 2, 2)))
-    model, gen = ttrain.init_model(other_cfg, 0)
+    model, gen = ttrain.init_model(other_cfg, 0, device="cpu")
     tx, _ = ttrain.make_optimizer(model, OPT_CFG, 6, 1.0)
     other = ttrain.TrainState.create(model, tx, 200, gen)
     with pytest.raises((RuntimeError, ValueError)):
@@ -343,3 +343,50 @@ def test_meters_and_metrics_logger(tmp_path):
     rows = [json.loads(s) for s in open(tmp_path / "m" / "metrics.jsonl")]
     assert [(r["step"], r["train/final_loss"]) for r in rows] == [(7, 0.5), (8, 0.25)]
     assert all("ts" in r for r in rows)
+
+
+def test_init_model_takes_the_card_unless_the_cpu_is_asked_for():
+    """Training runs on the card by default; without one the entry point
+    raises instead of settling on the CPU."""
+    cfg = ArchConfig(**ARCH)
+    if torch.cuda.is_available():
+        model, gen = ttrain.init_model(cfg, 0)
+        assert next(model.parameters()).device.type == "cuda" and gen.device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            ttrain.init_model(cfg, 0)
+    model, gen = ttrain.init_model(cfg, 0, device="cpu")
+    assert next(model.parameters()).device.type == "cpu" and gen.device.type == "cpu"
+
+
+def test_stage_hook_is_called_in_order_inside_every_step(batches):
+    cfg, state, _ = make_state()
+    seen = []
+    step = ttrain.build_train_step(cfg, TRAIN_CFG, stage_hook=seen.append)
+    for batch in batches[:2]:
+        state, _ = step(state, batch)
+    assert seen == ["begin", "forward", "backward", "update"] * 2
+    # the hook changes nothing: the same two steps without it
+    _, plain, _ = make_state()
+    step = ttrain.build_train_step(cfg, TRAIN_CFG)
+    for batch in batches[:2]:
+        plain, _ = step(plain, batch)
+    assert_same_state(state, plain)
+
+
+class _NotATensor:
+    pass
+
+
+def test_a_checkpoint_that_carries_an_object_is_refused(tmp_path):
+    """Checkpoints are read with ``weights_only=True``: tensors in plain
+    containers load, a pickled object does not."""
+    cfg, state, _ = make_state()
+    path = ttrain.save_checkpoint(str(tmp_path), 0, state)
+    assert set(ttrain.restore_params(path)) == set(state.ema_params)
+    ckpt = torch.load(path, weights_only=True)
+    ckpt["extra"] = _NotATensor()
+    bad = str(tmp_path / "bad.pt")
+    torch.save(ckpt, bad)
+    with pytest.raises(Exception, match="(?i)weights_only|unsupported|unpickl"):
+        ttrain.restore_params(bad)

@@ -121,7 +121,7 @@ def jax_run():
 
 def torch_state(params, dropout=0.0, dtype="float32", seed=1, **cfg_kw):
     cfg = ArchConfig(**ARCH, dropout=dropout, compute_dtype=dtype, **cfg_kw)
-    model, _ = ttrain.init_model(cfg, 0)
+    model, _ = ttrain.init_model(cfg, 0, device="cpu")
     if params is not None:
         model.load_state_dict(state_dict_from_flax(params), strict=True)
     tx, sched = ttrain.make_optimizer(model, OPT_CFG, ITERS, TRAIN_CFG["clip_grad_l2norm"])
@@ -267,12 +267,12 @@ def test_last_hh_block_gets_no_gradient_and_never_moves(jax_run):
 
 def test_init_model_sets_the_focal_prior_and_returns_a_generator():
     cfg = ArchConfig(**ARCH)
-    model, gen = ttrain.init_model(cfg, 3)
+    model, gen = ttrain.init_model(cfg, 3, device="cpu")
     np.testing.assert_allclose(model.cls_head.cls_head.conv.bias.detach().numpy(),
                                -np.log(99.0), rtol=1e-5)
     assert isinstance(gen, torch.Generator) and gen.device.type == "cpu"
-    other, _ = ttrain.init_model(cfg, 3)
-    again, _ = ttrain.init_model(cfg, 4)
+    other, _ = ttrain.init_model(cfg, 3, device="cpu")
+    again, _ = ttrain.init_model(cfg, 4, device="cpu")
     w = lambda m: m.backbone.stem[0].attn.query.weight.detach()  # noqa: E731
     assert torch.equal(w(model), w(other)) and not torch.equal(w(model), w(again))
 
