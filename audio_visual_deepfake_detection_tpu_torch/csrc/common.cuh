@@ -1,7 +1,9 @@
 // Shared device helpers of the audio kernels (conv_extractor.cu,
-// full_attention.cu): compute-dtype load/round/store, warp reductions, the
-// bf16 tensor-core instruction (mma.sync m16n8k16, f32 accumulate) with its
-// fragment loads, and asynchronous 16-byte copies into shared memory.
+// full_attention.cu) and the MViT kernels (mvit_attention.cu, mvit_block.cu):
+// compute-dtype load/round/store, warp reductions, the bf16 tensor-core
+// instruction (mma.sync m16n8k16, f32 accumulate) with its fragment loads,
+// and asynchronous 16-byte copies into shared memory. wgmma.cuh adds the
+// warpgroup instruction on top of these.
 
 #pragma once
 

@@ -13,11 +13,7 @@
 // 4 T d values moved (q, k, v in, out back): T / 2 = 240 operations a byte in
 // bf16 at T = 479, just under the H100's ridge of ~295, so the bound is
 // device memory with the tensor cores close behind, as long as the scores
-// stay on chip. Those are 479^2 f32 = 0.9 MB a (sample, head) and do not fit
-// in shared memory at once, so a block owns 32 query rows and all keys: its
-// 32 x T f32 score rows stay in shared memory (66 KB at T = 479) and never
-// reach device memory; k and v are re-read by each of the 15 row blocks of a
-// (sample, head), from L2.
+// (479^2 f32 = 0.9 MB a (sample, head)) stay on chip.
 //
 // The softmax is the TPU kernel's two-pass one: the maximum over all keys,
 // exps rounded to the compute dtype, the denominator summed in f32 from the
@@ -25,18 +21,31 @@
 // the end. (An online softmax would rescale partial sums and round
 // differently.) Padding query rows attend the valid keys like any other
 // row; a row whose keys are all masked gets uniform weights: both finite.
-// T need not be a multiple of the 64-key tile: the last tile's missing keys
-// are zero-filled on load and take no weight.
 //
-// bf16 (head dim a multiple of 16): q.k and P.V on mma.sync m16n8k16 (f32
-// accumulate); key and value tiles of 64 rows arrive by cp.async in two
-// buffers, tile it + 1 loading while tile it computes; two blocks fit an SM
-// at T = 479. f32: FMA at full precision. q, k, v and out are addressed
-// through (sample, head, row) strides, so the caller's (B, T, 3, H, d)
-// projection output and (B, T, H d) result need no copies. Left for later:
-// wgmma, keeping the exps in bf16 to halve the shared-memory rows.
+// bf16 (head dim a multiple of 16), what the design does: the scores never
+// leave registers. A block of two warpgroups owns 128 query rows, q held as
+// the register A operand of wgmma (m64n64k16, f32 accumulate). Pass 1 walks
+// the key tiles, computes q k^T per 64-key tile and keeps only the running
+// row maximum (exact in any order). Pass 2 recomputes each score tile, takes
+// exp(s - m) rounded to bf16 in the accumulator's registers, sums it into z,
+// and hands the same registers to the P.V wgmma as its A operand (the
+// accumulator layout of one product is the A layout of the next). That is
+// 6 T^2 d operations instead of 4, for no shared-memory scores, no rescaling
+// and no cap on T. Key and value tiles stream through a four-stage ring of
+// 128B-swizzled shared tiles filled by cp.async three tiles ahead, one
+// __syncthreads per tile; a (sample, head)'s k and v are re-read by its 4
+// row blocks (T = 479), from L2. The ragged last key tile is zero-filled on
+// load and masked in registers (-inf, weight 0). 34 KB of shared memory and
+// at most 128 registers a thread: two blocks, four warpgroups, an SM, so one
+// warpgroup's exps overlap another's products. cp.async rather than TMA: q,
+// k, v arrive as strided views of one (B, T, 3, H, d) projection, and a
+// 16-byte copy per thread needs no tensor map per call.
+// f32: FMA at full precision, 32 query rows a block with their score rows
+// in shared memory (8 rows when T is past ~1600, up to T ~ 6600). q, k, v
+// and out are addressed through (sample, head, row) strides, so the caller's
+// projection output and (B, T, H d) result need no copies.
 
-#include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -44,11 +53,8 @@ using namespace avdd;
 
 constexpr int NT = 256;
 constexpr int NWARP = NT / 32;
-constexpr int R = 32;                 // query rows per block
 constexpr int KT = 64;                // keys per staged tile
 constexpr int MAXD = 64;              // largest head dim
-constexpr int ACC = R * MAXD / NT;    // P.V outputs per thread (FMA kernel)
-constexpr int RPT = R / (NT / KT);    // score rows per thread (FMA kernel)
 
 struct Params {
   const void* q; const void* k; const void* v;
@@ -58,14 +64,18 @@ struct Params {
   int H, T, d;
 };
 
+template <int R>
 __host__ __device__ inline int fma_smem_floats(int d, int T) {
   const int ldd = d + 1;
   return R * ldd + R * T + KT * ldd + R;
 }
 
-// ---- f32: FMA at full precision ------------------------------------------
+// ---- f32: FMA at full precision, R query rows a block ---------------------
+template <int R>
 __global__ void __launch_bounds__(NT)
 full_mha_kernel(Params p) {
+  constexpr int ACC = R * MAXD / NT;    // P.V outputs per thread
+  constexpr int RPT = R / (NT / KT);    // score rows per thread
   using T = float;
   using N = Num<T>;
   extern __shared__ __align__(16) float sm[];
@@ -162,186 +172,192 @@ full_mha_kernel(Params p) {
   }
 }
 
-// ---- bf16 on the tensor cores ----------------------------------------------
-// Warp w owns the 16-row half w % 2 of the block's 32 rows and a quarter
-// w / 2 of the columns (16 keys of a score tile, then d / 4 of the output).
-constexpr int LDB = 8;                      // bf16 pad of a shared row
+// ---- bf16 on the tensor cores (wgmma) ---------------------------------------
+// A block owns BMW = 128 query rows, 64 per warpgroup; warp w of a warpgroup
+// owns rows 16 w .. 16 w + 15 and thread (g, t) the rows g and g + 8 of them.
+// q stays in registers as the A operand for the whole kernel. Key and value
+// tiles of KT = 64 rows stream through a ring of NS swizzled stages in the
+// order K_0 .. K_n-1 (pass 1), then K_0, V_0, K_1, V_1, ... (pass 2); all 256
+// threads copy a tile with cp.async, NS - 1 tiles ahead of the products.
+constexpr int NTW = 256;              // two warpgroups
+constexpr int BMW = 128;              // query rows per block
+constexpr int NS = 4;                 // ring stages
+constexpr int TILE_BYTES = KT * 128;  // 64 rows of 128 bytes
+constexpr int WG_SMEM = NS * TILE_BYTES + NS * KT * 4 + 1024;   // tiles, key biases, alignment
 
-struct MmaLayout {      // shared-memory carve-up in bytes
-  int ldq, nkp, q, kt, sc, z, bytes;
-  __host__ __device__ MmaLayout(int d, int nk) {
-    ldq = d + LDB;
-    nkp = (nk + KT - 1) / KT * KT;
-    q = 0;
-    kt = q + 2 * R * ldq;               // two K (then V) tiles
-    sc = kt + 2 * 2 * KT * ldq;
-    z = sc + 4 * R * (nkp + 4);
-    bytes = z + 4 * R;
-  }
-};
-
-// A fragment of rows [m0, m0 + 16) at column k0 of a bf16 row-major tile.
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const __nv_bfloat16* A, int ld,
-                                       int m0, int k0) {
-  const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
-  const __nv_bfloat16* r0 = A + (m0 + g) * ld + k0 + 2 * t;
-  const __nv_bfloat16* r1 = r0 + 8 * ld;
-  a[0] = ld_pair(r0); a[1] = ld_pair(r1); a[2] = ld_pair(r0 + 8); a[3] = ld_pair(r1 + 8);
-}
-
-// Rows [r0, r0 + rows) of a strided (., d) bf16 array into a shared tile by
-// cp.async; rows at or past `hi` are zero-filled.
-__device__ __forceinline__ void copy_rows_async(__nv_bfloat16* dst, int ldq,
-                                                const __nv_bfloat16* src, long long stride,
-                                                int r0, int rows, int hi, int d) {
-  const int d8 = d / 8;
-  for (int idx = threadIdx.x; idx < rows * d8; idx += NT) {
-    const int j = idx / d8, c = 8 * (idx % d8), row = r0 + j;
-    const bool ok = row < hi;
-    cp_async16(dst + j * ldq + c, src + (size_t)(ok ? row : 0) * stride + c, ok ? 16 : 0);
-  }
-}
-
-__global__ void __launch_bounds__(NT, 2)
-full_mha_mma_kernel(Params p) {
-  using N = Num<__nv_bfloat16>;
-  extern __shared__ __align__(16) unsigned char smb[];
+__global__ void __launch_bounds__(NTW, 2)
+full_mha_wgmma_kernel(Params p) {
+  extern __shared__ __align__(16) unsigned char smraw[];
   const int d = p.d, nk = p.T;
-  const MmaLayout L(d, nk);
-  const int ldq = L.ldq, lds = L.nkp + 4;
-  __nv_bfloat16* Q = reinterpret_cast<__nv_bfloat16*>(smb + L.q);
-  __nv_bfloat16* Kb = reinterpret_cast<__nv_bfloat16*>(smb + L.kt);   // [2][KT][ldq]
-  float* Sc = reinterpret_cast<float*>(smb + L.sc);
-  float* Z = reinterpret_cast<float*>(smb + L.z);
-  const int bh = blockIdx.x, b = bh / p.H, h = bh % p.H;
-  const int n0 = blockIdx.y * R;
+  const uint32_t raw = smem_u32(smraw);
+  const uint32_t tiles = (raw + 1023u) & ~1023u;            // shared address of stage 0
+  const float* bias_sm = reinterpret_cast<const float*>(smraw + (tiles - raw) + NS * TILE_BYTES);
+  const uint32_t bias_addr = tiles + NS * TILE_BYTES;
+  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row0 = blockIdx.x * BMW + 64 * wg + 16 * warp + g, row1 = row0 + 8;
   const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q) + b * p.qsb + h * p.qsh;
   const __nv_bfloat16* kp = static_cast<const __nv_bfloat16*>(p.k) + b * p.ksb + h * p.ksh;
   const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(p.v) + b * p.vsb + h * p.vsh;
   const float* bias = p.bias ? p.bias + (size_t)b * nk : nullptr;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int mt = 16 * (warp % 2), wq = warp / 2;     // row half, column quarter
-  const int ntiles = L.nkp / KT;
+  const int nt = (nk + KT - 1) / KT, ntot = 3 * nt;
 
-  copy_rows_async(Kb, ldq, kp, p.kst, 0, KT, nk, d);
-  cp_commit();
-  for (int idx = threadIdx.x; idx < R * (d / 8); idx += NT) {
-    const int r = idx / (d / 8), c = 8 * (idx % (d / 8)), n = n0 + r;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (n < nk) v = *reinterpret_cast<const uint4*>(q + (size_t)n * p.qst + c);
-    *reinterpret_cast<uint4*>(Q + r * ldq + c) = v;
-  }
-
-  // ---- scores -> Sc; tile it + 1 loads while tile it computes --------------
-  for (int it = 0; it < ntiles; ++it) {
-    const int k0 = it * KT;
-    const __nv_bfloat16* Kt = Kb + (it & 1) * KT * ldq;
-    cp_wait_all();
-    __syncthreads();
-    if (it + 1 < ntiles) {
-      copy_rows_async(Kb + ((it + 1) & 1) * KT * ldq, ldq, kp, p.kst, k0 + KT, KT, nk, d);
-      cp_commit();
-    }
-    float sa[2][4] = {};
-    for (int c0 = 0; c0 < d; c0 += 16) {
-      uint32_t a[4];
-      frag_a(a, Q, ldq, mt, c0);
+  // tile j of the sequence -> stage j % NS; rows past T and columns past d are
+  // zero-filled, so a padded key scores 0 (masked below) and weighs nothing
+  auto load_tile = [&](int j) {
+    if (j < ntot) {
+      const bool is_v = j >= nt && ((j - nt) & 1);
+      const int k0 = (j < nt ? j : (j - nt) / 2) * KT;
+      const __nv_bfloat16* src = is_v ? vp : kp;
+      const long long st = is_v ? p.vst : p.kst;
+      const uint32_t dst = tiles + (j % NS) * TILE_BYTES;
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const __nv_bfloat16* br = Kt + (16 * wq + 8 * j + g) * ldq + c0 + 2 * t;
-        mma_bf16(sa[j], a, ld_pair(br), ld_pair(br + 8));
+      for (int i = 0; i < KT * 8 / NTW; ++i) {
+        const int idx = tid + NTW * i, r = idx / 8, c = idx % 8, row = k0 + r;
+        const bool ok = row < nk && 8 * c < d;
+        cp_async16_to(dst + swz(r, c), ok ? src + (size_t)row * st + 8 * c : src, ok ? 16 : 0);
+      }
+      if (bias && !is_v && tid < KT) {
+        const bool ok = k0 + tid < nk;
+        cp_async4_to(bias_addr + ((j % NS) * KT + tid) * 4, ok ? bias + k0 + tid : bias,
+                     ok ? 4 : 0);
       }
     }
+    cp_commit();
+  };
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
+  for (int j = 0; j < NS - 1; ++j) load_tile(j);
+
+  uint32_t qa[4][4];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = mt + g + (e >= 2 ? 8 : 0);
-        const int key = k0 + 16 * wq + 8 * j + 2 * t + (e & 1);
-        Sc[r * lds + key] = sa[j][e] + ((bias && key < nk) ? bias[key] : 0.f);
+  for (int kk = 0; kk < 4; ++kk) {
+    const int c = 16 * kk + 2 * t;
+    const bool ok = 16 * kk < d;
+    qa[kk][0] = ok && row0 < nk ? ld_pair(q + (size_t)row0 * p.qst + c) : 0u;
+    qa[kk][1] = ok && row1 < nk ? ld_pair(q + (size_t)row1 * p.qst + c) : 0u;
+    qa[kk][2] = ok && row0 < nk ? ld_pair(q + (size_t)row0 * p.qst + c + 8) : 0u;
+    qa[kk][3] = ok && row1 < nk ? ld_pair(q + (size_t)row1 * p.qst + c + 8) : 0u;
+  }
+
+  float S[32], O[32];
+  uint32_t pa[4][4] = {};
+  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, z0 = 0.f, z1 = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) S[i] = O[i] = 0.f;
+
+  for (int j = 0; j < ntot; ++j) {
+    cp_wait<NS - 2>();          // this thread's copies of tile j have landed
+    fence_async_shared();
+    __syncthreads();            // everyone's have, and tile j - 1 is consumed
+    load_tile(j + NS - 1);      // into the stage tile j - 1 left
+    const int stage = j % NS;
+    const uint32_t tile = tiles + stage * TILE_BYTES;
+    const bool is_v = j >= nt && ((j - nt) & 1);
+    if (is_v) {                 // O += P V_i: V (key, c) is a transposed B
+      fence_regs(O);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        WgmmaRS<64, 1>::run(O, pa[kk], tile_desc(tile + kk * 2048), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(O);
+      continue;
+    }
+    // S = q K_i^T, then + bias, padded keys at -inf
+    const int k0 = (j < nt ? j : (j - nt) / 2) * KT;
+    fence_regs(S);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      if (16 * kk < d) WgmmaRS<64, 0>::run(S, qa[kk], tile_desc(tile + kk * 32), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(S);
+    const float* bs = bias_sm + stage * KT;
+    const bool ragged = k0 + KT > nk;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int col = 8 * jj + 2 * t;
+      if (bias) {
+        const float2 bb = *reinterpret_cast<const float2*>(bs + col);
+        S[4 * jj] += bb.x; S[4 * jj + 1] += bb.y; S[4 * jj + 2] += bb.x; S[4 * jj + 3] += bb.y;
       }
-  }
-  __syncthreads();
-
-  copy_rows_async(Kb, ldq, vp, p.vst, 0, KT, nk, d);   // V tile 0 loads during the softmax
-  cp_commit();
-
-  // ---- softmax: exps rounded to bf16, the tile padding's keys 0 ------------
-  for (int r = warp; r < R; r += NWARP) {
-    float* srow = Sc + r * lds;
-    float m = -CUDART_INF_F;
-    for (int j = lane; j < nk; j += 32) m = fmaxf(m, srow[j]);
-    m = warp_max(m);
-    float z = 0.f;
-    for (int j = lane; j < L.nkp; j += 32) {
-      const float e = j < nk ? N::rnd(expf(srow[j] - m)) : 0.f;
-      srow[j] = e;
-      z += e;
+      if (ragged) {
+        if (k0 + col >= nk) S[4 * jj] = S[4 * jj + 2] = -CUDART_INF_F;
+        if (k0 + col + 1 >= nk) S[4 * jj + 1] = S[4 * jj + 3] = -CUDART_INF_F;
+      }
     }
-    z = warp_sum(z);
-    if (lane == 0) Z[r] = z;
-  }
-
-  // ---- P.V: this warp's rows, head-dim columns 8 (wq + 4 i) ----------------
-  const int ntile = d / 8;
-  const int mine = (ntile - wq + 3) / 4;             // n8 tiles of this warp
-  float oa[MAXD / 32][4] = {};
-  for (int it = 0; it < ntiles; ++it) {
-    const int k0 = it * KT;
-    const __nv_bfloat16* Vs = Kb + (it & 1) * KT * ldq;   // row-major (key, c)
-    cp_wait_all();
-    __syncthreads();
-    if (it + 1 < ntiles) {
-      copy_rows_async(Kb + ((it + 1) & 1) * KT * ldq, ldq, vp, p.vst, k0 + KT, KT, nk, d);
-      cp_commit();
-    }
-    for (int kk = 0; kk < KT; kk += 16) {
-      const float* s0 = Sc + (mt + g) * lds + k0 + kk + 2 * t;
-      const float* s1 = s0 + 8 * lds;
-      const uint32_t a[4] = {pack_bf16(s0[0], s0[1]), pack_bf16(s1[0], s1[1]),
-                             pack_bf16(s0[8], s0[9]), pack_bf16(s1[8], s1[9])};
+    if (j < nt) {               // pass 1: the row maximum, exact in any order
 #pragma unroll
-      for (int i = 0; i < MAXD / 32; ++i) {
-        if (i >= mine) break;
-        uint32_t b0, b1;
-        frag_b_trans(b0, b1, Vs, ldq, kk, 8 * (wq + 4 * i));
-        mma_bf16(oa[i], a, b0, b1);
+      for (int jj = 0; jj < 8; ++jj) {
+        m0 = fmaxf(m0, fmaxf(S[4 * jj], S[4 * jj + 1]));
+        m1 = fmaxf(m1, fmaxf(S[4 * jj + 2], S[4 * jj + 3]));
+      }
+      if (j == nt - 1) {        // the row's four threads agree on it
+        m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 1));
+        m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 2));
+        m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 1));
+        m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 2));
+      }
+    } else {                    // pass 2: exps (ex2.approx: its 2 ulp vanish in the bf16
+                                // rounding) rounded to bf16, z from the rounded exps
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const __nv_bfloat162 e0 = __floats2bfloat162_rn(__expf(S[4 * jj] - m0),
+                                                        __expf(S[4 * jj + 1] - m0));
+        const __nv_bfloat162 e1 = __floats2bfloat162_rn(__expf(S[4 * jj + 2] - m1),
+                                                        __expf(S[4 * jj + 3] - m1));
+        z0 += __low2float(e0) + __high2float(e0);
+        z1 += __low2float(e1) + __high2float(e1);
+        pa[jj / 2][2 * (jj % 2)] = *reinterpret_cast<const uint32_t*>(&e0);
+        pa[jj / 2][2 * (jj % 2) + 1] = *reinterpret_cast<const uint32_t*>(&e1);
       }
     }
   }
+  cp_wait<0>();
+  z0 += __shfl_xor_sync(0xffffffffu, z0, 1);
+  z0 += __shfl_xor_sync(0xffffffffu, z0, 2);
+  z1 += __shfl_xor_sync(0xffffffffu, z1, 1);
+  z1 += __shfl_xor_sync(0xffffffffu, z1, 2);
   __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out) + b * p.osb + h * p.osh;
+  using N = Num<__nv_bfloat16>;
 #pragma unroll
-  for (int i = 0; i < MAXD / 32; ++i) {
-    if (i >= mine) break;
-    const int c = 8 * (wq + 4 * i) + 2 * t;
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int r = mt + g + 8 * hf, n = n0 + r;
-      if (n >= nk) continue;
-      N::store2(out, (size_t)n * p.ost + c, N::rnd(oa[i][2 * hf] / Z[r]),
-                N::rnd(oa[i][2 * hf + 1] / Z[r]));
-    }
+  for (int jj = 0; jj < 8; ++jj) {
+    const int c = 8 * jj + 2 * t;
+    if (c >= d) continue;
+    if (row0 < nk)
+      N::store2(out, (size_t)row0 * p.ost + c, N::rnd(O[4 * jj] / z0), N::rnd(O[4 * jj + 1] / z0));
+    if (row1 < nk)
+      N::store2(out, (size_t)row1 * p.ost + c, N::rnd(O[4 * jj + 2] / z1),
+                N::rnd(O[4 * jj + 3] / z1));
   }
 }
 
-// bf16: the tensor-core kernel; f32: FMA.
+// f32: 32 query rows a block while their score rows fit, else 8.
+bool f32_wide(int d, int T) { return 4 * fma_smem_floats<32>(d, T) <= SMEM_MAX; }
+
 int smem_bytes(bool mma, int d, int T) {
-  return mma ? MmaLayout(d, T).bytes : 4 * fma_smem_floats(d, T);
+  if (mma) return WG_SMEM;
+  return 4 * (f32_wide(d, T) ? fma_smem_floats<32>(d, T) : fma_smem_floats<8>(d, T));
+}
+
+template <int R>
+int launch_f32(const Params& p, int B, cudaStream_t stream) {
+  static int configured = 0;
+  const int bytes = 4 * fma_smem_floats<R>(p.d, p.T);
+  if (int e = set_smem(full_mha_kernel<R>, bytes, configured)) return e;
+  full_mha_kernel<R><<<dim3(B * p.H, (p.T + R - 1) / R), NT, bytes, stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 int launch(const Params& p, int B, bool mma, cudaStream_t stream) {
-  const int bytes = smem_bytes(mma, p.d, p.T);
-  dim3 grid(B * p.H, (p.T + R - 1) / R);
-  if (mma) {
-    static int configured = 0;
-    if (int e = set_smem(full_mha_mma_kernel, bytes, configured)) return e;
-    full_mha_mma_kernel<<<grid, NT, bytes, stream>>>(p);
-  } else {
-    static int configured = 0;
-    if (int e = set_smem(full_mha_kernel, bytes, configured)) return e;
-    full_mha_kernel<<<grid, NT, bytes, stream>>>(p);
-  }
+  if (!mma) return f32_wide(p.d, p.T) ? launch_f32<32>(p, B, stream) : launch_f32<8>(p, B, stream);
+  static int configured = 0;
+  if (int e = set_smem(full_mha_wgmma_kernel, WG_SMEM, configured)) return e;
+  // row blocks fastest: the blocks of a (sample, head) run together and share its k, v in L2
+  full_mha_wgmma_kernel<<<dim3((p.T + BMW - 1) / BMW, B * p.H), NTW, WG_SMEM, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -350,7 +366,7 @@ int launch(const Params& p, int B, bool mma, cudaStream_t stream) {
 extern "C" {
 
 // Dynamic shared memory (bytes) a launch at (T, d, dtype) needs; more than
-// 232448 cannot launch.
+// 232448 cannot launch (float32 only: its score rows grow with T).
 int avdd_full_mha_smem(int T, int d, int dtype) { return smem_bytes(dtype == 1, d, T); }
 
 // Launch on `stream`; returns cudaGetLastError() (0 = launched). q, k, v and
@@ -371,7 +387,8 @@ int avdd_full_mha(const void* q, const void* k, const void* v, const void* bias,
   for (long long s : strides) vec_ok = vec_ok && s % 8 == 0;
   const bool mma = dtype == 1;
   if (B <= 0 || H <= 0 || T <= 0 || d <= 0 || d > MAXD || dtype < 0 || dtype > 1 ||
-      (mma && (d % 16 != 0 || !vec_ok)) || smem_bytes(mma, d, T) > SMEM_MAX)
+      (mma && (d % 16 != 0 || !vec_ok || (long long)B * H > 65535)) ||
+      smem_bytes(mma, d, T) > SMEM_MAX)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q; p.k = k; p.v = v;

@@ -24,24 +24,25 @@
 // What bounds it on this card: at production a row attends 513 keys of
 // d = 96, so per row ~2 x 513 x 96 FMAs (three with the band) against 2 d
 // values read and d written: far above the H100's ridge, compute-bound.
-// The score row of 513 keys fits in shared memory, so the softmax needs no
-// second pass over device memory and no online rescaling (which would round
-// differently from the JAX kernel).
 //
-// What this first design does about it: one 256-thread block per (sample x
-// head, 32 query rows); q, the 32 x Nk f32 score rows, a 64-key k (then v)
-// tile and the rel-pos rows the tile needs stay in shared memory. In bf16
-// (head dim a multiple of 16) every product runs on the tensor cores
-// (mma.sync m16n8k16, f32 accumulate); in f32 they are FMA (full precision).
-// Not yet done: wgmma, more than one block per SM (~150 KB of shared memory
-// at Nk = 513), overlapping the k/v tile loads with the products.
+// Three kernels. K4's call (bf16, head dim 96, BAND_TABLE) takes
+// pooled_attention_wgmma_kernel: scores, band and P.V on wgmma, the scores
+// in registers, two passes that recompute them (the maximum, then the exps),
+// no cap on Nk; its comment says the rest. K3's call (the band given as an
+// array) and other head dims in bf16 take pooled_attention_mma_kernel: one
+// 256-thread block per (sample x head, 32 query rows), q, the 32 x Nk f32
+// score rows, a 64-key k (then v) tile and the rel-pos rows it needs in
+// shared memory (~150 KB at Nk = 513, one block an SM), every product on
+// mma.sync m16n8k16, the softmax over the stored row with no second pass
+// over device memory and no online rescaling (which would round differently
+// from the JAX kernel). float32 takes pooled_attention_kernel: the same
+// layout with FMA products at full precision.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <math_constants.h>
-#include <stdint.h>
+#include "wgmma.cuh"
 
 namespace {
+
+using namespace avdd;
 
 constexpr int NT = 256;
 constexpr int NWARP = NT / 32;
@@ -50,26 +51,7 @@ constexpr int KT = 64;                // keys per staged tile
 constexpr int MAXD = 128;             // largest head dim
 constexpr int ACC = R * MAXD / NT;    // P.V outputs per thread
 constexpr int RPT = R / (NT / KT);    // score rows per thread
-constexpr int SMEM_MAX = 232448;
 enum { PRESCALE = 1, BAND_ROUND = 2, CLS_FIRST = 4, BAND_TABLE = 8 };
-
-template <typename T> struct Num;
-template <> struct Num<float> {
-  __device__ __forceinline__ static float load(const float* p, size_t i) { return __ldg(p + i); }
-  __device__ __forceinline__ static float rnd(float v) { return v; }
-  __device__ __forceinline__ static void store(float* p, size_t i, float v) { p[i] = v; }
-};
-template <> struct Num<__nv_bfloat16> {
-  __device__ __forceinline__ static float load(const __nv_bfloat16* p, size_t i) {
-    return __bfloat162float(p[i]);
-  }
-  __device__ __forceinline__ static float rnd(float v) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  }
-  __device__ __forceinline__ static void store(__nv_bfloat16* p, size_t i, float v) {
-    p[i] = __float2bfloat16_rn(v);
-  }
-};
 
 struct Params {
   const void* q; const void* k; const void* v;   // q strided; k, v (BH, Nk, d)
@@ -80,17 +62,6 @@ struct Params {
   int nh, nq, nk, d, T, S, flags;
   float scale;
 };
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
 
 __host__ __device__ inline int smem_floats(int d, int nk) {
   const int ldd = d + 1;
@@ -253,22 +224,6 @@ pooled_attention_kernel(Params p) {
 constexpr int LDB = 8;                      // bf16 pad of a shared row
 constexpr int NREL = R + KT;                // table rows per key tile (>= R + KT - 1)
 
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // A fragment of rows [m0, m0 + 16) at column k0 of a bf16 row-major tile.
 __device__ __forceinline__ void frag_a(uint32_t (&a)[4], const __nv_bfloat16* A, int ld,
                                        int m0, int k0) {
@@ -328,21 +283,6 @@ __device__ __forceinline__ void copy_rows_async(__nv_bfloat16* dst, int ldq,
                  :: "r"(s), "l"(src + (size_t)(ok ? row : 0) * d + c), "r"(ok ? 16 : 0));
   }
 }
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-__device__ __forceinline__ void cp_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// B fragment (k = rows r0 .. r0 + 15, n = columns c0 .. c0 + 7) of a
-// row-major (k, n) bf16 shared tile, transposed on the way by ldmatrix.
-__device__ __forceinline__ void frag_b_trans(uint32_t& b0, uint32_t& b1,
-                                             const __nv_bfloat16* tile, int ld, int r0, int c0) {
-  const __nv_bfloat16* src = tile + (r0 + (threadIdx.x % 16)) * ld + c0;
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(src));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(b0), "=r"(b1) : "r"(addr));
-}
-
 __global__ void __launch_bounds__(NT, 1)
 pooled_attention_mma_kernel(Params p) {
   using N = Num<__nv_bfloat16>;
@@ -500,21 +440,280 @@ pooled_attention_mma_kernel(Params p) {
   }
 }
 
+// ---- bf16 with the band from the table, on wgmma (K4's attention step) ------
+// Head dim WD = 96 (every stride-1 stage of mvit_v2_b), flags PRESCALE,
+// CLS_FIRST and BAND_TABLE. A block of two warpgroups owns 128 query rows, 64
+// a warpgroup; both q (scaled for the scores, as stored for the band and the
+// residual) stay in registers as wgmma's A operand. The scores never reach
+// shared memory: pass 1 walks the 64-key tiles, computes s = qs k^T + band
+// in registers and keeps the row maximum; pass 2 recomputes s, takes
+// exp(s - m) rounded to bf16, sums z from it and hands the registers to the
+// P.V wgmma. The band is a Toeplitz gather: for a key tile at k0 a warpgroup
+// needs q . rel[j] for the NREL table rows j its rows' time steps can meet,
+// so it computes G = q rel_window^T (64 x NREL) with one more wgmma, parks G
+// in shared memory (its 16 rows per warp are read back by that warp alone)
+// and thread (row r, key column c) adds G[r][dt_r + 63 - c], an address that
+// does not change from tile to tile. Key / value tiles and the block's table
+// window stream through a ring of NS stages filled by cp.async, one
+// __syncthreads per tile. A tile is two 128B-swizzled halves of 64 columns
+// (the second half holds columns 64..95).
+constexpr int WD = 96, WKS = WD / 16, WCH = WD / 8;    // head dim, k16 steps, 16-byte chunks
+constexpr int WROWS = 128, WNT = 256;
+constexpr int KV_BYTES = 2 * KT * 128;                 // a key or value tile
+
+// Table rows a warpgroup's 64 query rows can meet in one key tile: their
+// time steps span (S - 1 + 63) / S, a tile 63 more, the window start is
+// rounded down to eight rows.
+__host__ __device__ inline int nrel_needed(int S) { return (S + 62) / S + 71; }
+// Rows of the block's table window: where the second warpgroup's starts,
+// plus NREL.
+__host__ __device__ inline int window_rows(int S, int nrel) {
+  return (S + 63) / S / 8 * 8 + nrel;
+}
+__host__ __device__ inline int wg_smem_bytes(int S, int nrel, int ns) {
+  return 1024 + ns * (KV_BYTES + window_rows(S, nrel) * 256) + 2 * 64 * (nrel + 4) * 4;
+}
+
+template <int NREL, int NS>
+__global__ void __launch_bounds__(WNT, 1)
+pooled_attention_wgmma_kernel(Params p) {
+  using N = Num<__nv_bfloat16>;
+  extern __shared__ __align__(16) unsigned char smraw[];
+  const int nk = p.nk, nq = p.nq, nkg = nk - 1, S = p.S;
+  const int rw = window_rows(S, NREL), stage_bytes = KV_BYTES + rw * 256;
+  const uint32_t raw = smem_u32(smraw), ring = (raw + 1023u) & ~1023u;
+  constexpr int LDG = NREL + 4;
+  const int bh = blockIdx.y, b = bh / p.nh, h = bh % p.nh;
+  const int n0 = blockIdx.x * WROWS;
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  float* Gs = reinterpret_cast<float*>(smraw + (ring - raw) + NS * stage_bytes) +
+              (64 * wg + 16 * warp) * LDG;               // this warp's 16 rows of G
+  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q) + b * p.qsb + h * p.qsh;
+  const __nv_bfloat16* kp = static_cast<const __nv_bfloat16*>(p.k) + (size_t)bh * nk * WD;
+  const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(p.v) + (size_t)bh * nk * WD;
+  const __nv_bfloat16* rel = static_cast<const __nv_bfloat16*>(p.rel);
+  const int nt = (nk + KT - 1) / KT, ntot = 3 * nt;
+
+  // the block's and this warpgroup's first time step; the warpgroup's window
+  // starts `off` rows into the block's
+  const int t0b = max(n0 - 1, 0) / S;
+  const int off = (max(n0 + 64 * wg - 1, 0) / S - t0b) / 8 * 8;
+  const int row0 = n0 + 64 * wg + 16 * warp + g, row1 = row0 + 8;
+  const bool band0 = row0 >= 1 && row0 < nq, band1 = row1 >= 1 && row1 < nq;
+  // G column of (this row, key column c) is dt + 63 - c
+  const int dt0 = band0 ? (row0 - 1) / S - t0b - off : 0;
+  const int dt1 = band1 ? (row1 - 1) / S - t0b - off : 0;
+
+  auto load_step = [&](int j) {
+    if (j < ntot) {
+      const bool is_v = j >= nt && ((j - nt) & 1);
+      const int k0 = (j < nt ? j : (j - nt) / 2) * KT;
+      const __nv_bfloat16* src = is_v ? vp : kp;
+      const uint32_t dst = ring + (j % NS) * stage_bytes;
+#pragma unroll
+      for (int i = 0; i < KT * WCH / WNT; ++i) {
+        const int idx = tid + WNT * i, r = idx / WCH, c = idx % WCH, row = k0 + r;
+        const bool ok = row < nk;
+        cp_async16_to(dst + (c / 8) * (KT * 128) + swz(r, c % 8),
+                      ok ? src + (size_t)row * WD + 8 * c : src, ok ? 16 : 0);
+      }
+      if (!is_v && k0 < nkg) {     // table rows rb .. rb + rw - 1 of this tile's window
+        const int rb = t0b - (k0 + KT - 1) + p.T - 1;
+        for (int idx = tid; idx < rw * WCH; idx += WNT) {
+          const int r = idx / WCH, c = idx % WCH, row = rb + r;
+          const bool ok = row >= 0 && row <= 2 * p.T - 2;
+          cp_async16_to(dst + KV_BYTES + (c / 8) * (rw * 128) + swz(r, c % 8),
+                        ok ? rel + (size_t)row * WD + 8 * c : rel, ok ? 16 : 0);
+        }
+      }
+    }
+    cp_commit();
+  };
+#pragma unroll
+  for (int j = 0; j < NS - 1; ++j) load_step(j);
+
+  uint32_t qa[WKS][4], qb[WKS][4];
+  const float qscale = N::rnd(p.scale);
+#pragma unroll
+  for (int kk = 0; kk < WKS; ++kk) {
+    const int c = 16 * kk + 2 * t;
+    qb[kk][0] = row0 < nq ? ld_pair(q + (size_t)row0 * p.qsn + c) : 0u;
+    qb[kk][1] = row1 < nq ? ld_pair(q + (size_t)row1 * p.qsn + c) : 0u;
+    qb[kk][2] = row0 < nq ? ld_pair(q + (size_t)row0 * p.qsn + c + 8) : 0u;
+    qb[kk][3] = row1 < nq ? ld_pair(q + (size_t)row1 * p.qsn + c + 8) : 0u;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&qb[kk][i]));
+      qa[kk][i] = pack_bf16(f.x * qscale, f.y * qscale);
+    }
+  }
+
+  float Sc[32], O[WD / 2], G[NREL / 2];
+  uint32_t pa[4][4] = {};
+  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, z0 = 0.f, z1 = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) Sc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < WD / 2; ++i) O[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < NREL / 2; ++i) G[i] = 0.f;
+
+  for (int j = 0; j < ntot; ++j) {
+    cp_wait<NS - 2>();
+    fence_async_shared();
+    __syncthreads();
+    load_step(j + NS - 1);
+    const uint32_t tile = ring + (j % NS) * stage_bytes;
+    const bool is_v = j >= nt && ((j - nt) & 1);
+    if (is_v) {                 // O += P V_i, V (key, c) a transposed B of two column blocks
+      fence_regs(O);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        WgmmaRS<WD, 1>::run(O, pa[kk], tile_desc(tile + kk * 2048, KT * 128), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(O);
+      continue;
+    }
+    const int k0 = (j < nt ? j : (j - nt) / 2) * KT;
+    const bool banded = k0 < nkg;
+    fence_regs(Sc);
+    fence_regs(G);
+    wgmma_fence();
+    if (banded) {               // G = q rel_window^T over this warpgroup's NREL rows
+      const uint32_t win = tile + KV_BYTES + off * 128;
+#pragma unroll
+      for (int kk = 0; kk < WKS; ++kk)
+        WgmmaRS<NREL, 0>::run(G, qb[kk], tile_desc(win + (kk / 4) * (rw * 128) + (kk % 4) * 32),
+                              kk > 0);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < WKS; ++kk)
+      WgmmaRS<64, 0>::run(Sc, qa[kk], tile_desc(tile + (kk / 4) * (KT * 128) + (kk % 4) * 32),
+                          kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();            // G is done; the scores' product runs on
+    fence_regs(G);
+    if (banded) {
+      __syncwarp();             // the last tile's reads of G are done
+      const bool rnd = p.flags & BAND_ROUND;
+#pragma unroll
+      for (int jj = 0; jj < NREL / 8; ++jj) {
+        const int col = 8 * jj + 2 * t;
+        float2 lo = make_float2(G[4 * jj], G[4 * jj + 1]);
+        float2 hi = make_float2(G[4 * jj + 2], G[4 * jj + 3]);
+        if (rnd) {
+          lo.x = N::rnd(lo.x); lo.y = N::rnd(lo.y); hi.x = N::rnd(hi.x); hi.y = N::rnd(hi.y);
+        }
+        *reinterpret_cast<float2*>(Gs + g * LDG + col) = lo;
+        *reinterpret_cast<float2*>(Gs + (g + 8) * LDG + col) = hi;
+      }
+      __syncwarp();
+      wgmma_wait<0>();
+      fence_regs(Sc);
+      const float* g0 = Gs + g * LDG + dt0 + 63 - 2 * t;
+      const float* g1 = Gs + (g + 8) * LDG + dt1 + 63 - 2 * t;
+      const bool part = k0 + KT > nkg;     // a tile that also holds the class key
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int c = 8 * jj;              // this thread's columns: c + 2 t, c + 2 t + 1
+        const bool k_a = !part || k0 + c + 2 * t < nkg, k_b = !part || k0 + c + 2 * t + 1 < nkg;
+        if (band0 && k_a) Sc[4 * jj] += g0[-c];
+        if (band0 && k_b) Sc[4 * jj + 1] += g0[-c - 1];
+        if (band1 && k_a) Sc[4 * jj + 2] += g1[-c];
+        if (band1 && k_b) Sc[4 * jj + 3] += g1[-c - 1];
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(Sc);
+    if (k0 + KT > nk) {         // keys past the last: -inf, weight 0
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int key = k0 + 8 * jj + 2 * t;
+        if (key >= nk) Sc[4 * jj] = Sc[4 * jj + 2] = -CUDART_INF_F;
+        if (key + 1 >= nk) Sc[4 * jj + 1] = Sc[4 * jj + 3] = -CUDART_INF_F;
+      }
+    }
+    if (j < nt) {               // pass 1: the row maximum
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        m0 = fmaxf(m0, fmaxf(Sc[4 * jj], Sc[4 * jj + 1]));
+        m1 = fmaxf(m1, fmaxf(Sc[4 * jj + 2], Sc[4 * jj + 3]));
+      }
+      if (j == nt - 1) {
+        m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 1));
+        m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 2));
+        m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 1));
+        m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 2));
+      }
+    } else {                    // pass 2: exps (ex2.approx: its 2 ulp vanish in the bf16
+                                // rounding) rounded to bf16, z from the rounded exps
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const __nv_bfloat162 e0 = __floats2bfloat162_rn(__expf(Sc[4 * jj] - m0),
+                                                        __expf(Sc[4 * jj + 1] - m0));
+        const __nv_bfloat162 e1 = __floats2bfloat162_rn(__expf(Sc[4 * jj + 2] - m1),
+                                                        __expf(Sc[4 * jj + 3] - m1));
+        z0 += __low2float(e0) + __high2float(e0);
+        z1 += __low2float(e1) + __high2float(e1);
+        pa[jj / 2][2 * (jj % 2)] = *reinterpret_cast<const uint32_t*>(&e0);
+        pa[jj / 2][2 * (jj % 2) + 1] = *reinterpret_cast<const uint32_t*>(&e1);
+      }
+    }
+  }
+  cp_wait<0>();
+  z0 += __shfl_xor_sync(0xffffffffu, z0, 1);
+  z0 += __shfl_xor_sync(0xffffffffu, z0, 2);
+  z1 += __shfl_xor_sync(0xffffffffu, z1, 1);
+  z1 += __shfl_xor_sync(0xffffffffu, z1, 2);
+  // + q: the residual columns 8 jj + 2 t (+ 1) of a row sit in its A fragment
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out) + b * p.osb + h * p.osh;
+#pragma unroll
+  for (int jj = 0; jj < WD / 8; ++jj) {
+    const int c = 8 * jj + 2 * t;
+    const float2 r0 = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&qb[jj / 2][2 * (jj % 2)]));
+    const float2 r1 = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&qb[jj / 2][2 * (jj % 2) + 1]));
+    if (row0 < nq) {
+      float y0 = N::rnd(O[4 * jj] / z0), y1 = N::rnd(O[4 * jj + 1] / z0);
+      if (row0 >= 1) { y0 = N::rnd(y0 + r0.x); y1 = N::rnd(y1 + r0.y); }
+      N::store2(out, (size_t)row0 * p.osn + c, y0, y1);
+    }
+    if (row1 < nq) {
+      float y0 = N::rnd(O[4 * jj + 2] / z1), y1 = N::rnd(O[4 * jj + 3] / z1);
+      if (row1 >= 1) { y0 = N::rnd(y0 + r1.x); y1 = N::rnd(y1 + r1.y); }
+      N::store2(out, (size_t)row1 * p.osn + c, y0, y1);
+    }
+  }
+}
+
+template <int NREL, int NS>
+int launch_wgmma(const Params& p, int B, cudaStream_t stream) {
+  static int configured = 0;
+  const int bytes = wg_smem_bytes(p.S, NREL, NS);
+  if (int e = set_smem(pooled_attention_wgmma_kernel<NREL, NS>, bytes, configured)) return e;
+  pooled_attention_wgmma_kernel<NREL, NS><<<dim3((p.nq + WROWS - 1) / WROWS, B * p.nh), WNT,
+                                            bytes, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// The wgmma kernel takes K4's call: bf16, head dim 96, the band from the
+// table with q pre-scaled and the class token first, 16-byte loads.
+bool use_wgmma(int dtype, int d, int flags, bool vec_ok, long long osn) {
+  const int need = PRESCALE | CLS_FIRST | BAND_TABLE;
+  return dtype == 1 && d == WD && (flags & need) == need && vec_ok && osn % 2 == 0;
+}
+
 // bf16 with a head dim that is a multiple of 16 and operands that take
 // 16-byte loads: the tensor-core kernel; anything else (f32 always): FMA.
 bool use_mma(int dtype, int d, bool vec_ok) { return dtype == 1 && d % 16 == 0 && vec_ok; }
 
 int smem_bytes(bool mma, int d, int nk) {
   return mma ? MmaLayout(d, nk).bytes : 4 * smem_floats(d, nk);
-}
-
-template <typename K>
-int set_smem(K kernel, int bytes, int& configured) {
-  if (bytes <= configured) return 0;
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       bytes);
-  if (e == cudaSuccess) configured = bytes;
-  return (int)e;
 }
 
 template <typename T>
@@ -551,8 +750,9 @@ int avdd_pooled_attention(const void* q, const void* k, const void* v,
   const bool vec_ok = ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)rel) % 16 == 0 &&
                       qsb % 8 == 0 && qsh % 8 == 0 && qsn % 8 == 0;
   const bool mma = use_mma(dtype, d, vec_ok);
+  const bool wg = use_wgmma(dtype, d, flags, vec_ok, osn) && nk - 1 == T && rel;
   if (B <= 0 || nh <= 0 || nq <= 0 || nk < 2 || d <= 0 || d > MAXD || S <= 0 ||
-      dtype < 0 || dtype > 1 || smem_bytes(mma, d, nk) > SMEM_MAX ||
+      dtype < 0 || dtype > 1 || (!wg && smem_bytes(mma, d, nk) > SMEM_MAX) ||
       (table && (!rel || nk - 1 != T)) ||
       (!table && !band))
     return (int)cudaErrorInvalidValue;
@@ -565,6 +765,12 @@ int avdd_pooled_attention(const void* q, const void* k, const void* v,
   p.nh = nh; p.nq = nq; p.nk = nk; p.d = d; p.T = T; p.S = S; p.flags = flags;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (wg) {
+    const int need = nrel_needed(S);
+    if (need <= 80) return launch_wgmma<80, 4>(p, B, s);
+    if (need <= 88) return launch_wgmma<88, 4>(p, B, s);
+    return launch_wgmma<136, 2>(p, B, s);     // S = 1 needs 134
+  }
   if (dtype == 0) return launch<float>(p, B, false, s);
   return launch<__nv_bfloat16>(p, B, mma, s);
 }

@@ -90,8 +90,10 @@ def init_localizer(model: AVLocalizer, generator: Optional[torch.Generator] = No
     return model
 
 
-def build_localizer(cfg: ArchConfig, seed: int = 0, device=None) -> AVLocalizer:
-    """A seeded, randomly initialised localizer in eval mode on ``device``."""
+def build_localizer(cfg: ArchConfig, seed: int = 0, device="cuda") -> AVLocalizer:
+    """A seeded, randomly initialised localizer in eval mode on ``device``:
+    the card unless the caller asks for ``device="cpu"``. The weights are
+    drawn on the CPU from ``seed``, so both devices hold the same values."""
     gen = torch.Generator().manual_seed(seed)
     model = init_localizer(AVLocalizer(cfg), gen)
     return model.to(device).eval()

@@ -2,8 +2,9 @@
 
 Route: ``nvcc -gencode arch=compute_90a,code=sm_90a -shared`` over
 ``csrc/*.cu`` (K1 and K6 fused_block, K2 patch_embed, K3 mvit_attention, K4
-mvit_block, K5 conv_extractor, K7 band_attention, K8 full_attention) into one
-shared library
+mvit_block with its attention step in mvit_attention, K5 conv_extractor, K7
+band_attention, K8 full_attention; headers common.cuh and, for the wgmma
+kernels of K4 and K8, wgmma.cuh) into one shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds). The
 library lands in ``build/kernels/`` at the repository root, in a file named
 by a hash of the sources and flags, so an edited source rebuilds and an
@@ -117,7 +118,7 @@ def load() -> ctypes.CDLL:
                 ctypes.c_float, i, i, p,               # scale flags dtype stream
             ]
             lib.avdd_msblock.restype = i
-            lib.avdd_msblock.argtypes = [p] * 21 + [i] * 7 + [p]
+            lib.avdd_msblock.argtypes = [p] * 22 + [i] * 8 + [p]
             lib.avdd_conv_extractor.restype = i
             lib.avdd_conv_extractor.argtypes = [p] * 12 + [i] * 3 + [p]
             lib.avdd_full_mha.restype = i

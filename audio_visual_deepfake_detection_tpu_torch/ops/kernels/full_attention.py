@@ -21,7 +21,9 @@ dtype with the denominator summed in f32 from the rounded exps), P.V
 accumulated in f32 and one divide per output element at the end. Padding
 query rows attend the valid keys, so they come out finite. The TPU wrapper's
 pad of T to a multiple of 128 is lane layout and is not carried over: the
-kernel masks its ragged last key tile itself.
+kernel masks its ragged last key tile itself. In bfloat16 the scores stay in
+registers (wgmma, both passes recompute q k^T), so T has no cap; the float32
+kernel keeps score rows in shared memory and takes T up to ~6600.
 """
 
 from __future__ import annotations
@@ -98,15 +100,14 @@ def _launch(q, k, v, padding_mask):
     if b == 0 or t == 0:
         return out
     bias = None
-    if padding_mask is not None:
-        bias = torch.zeros((b, t), dtype=torch.float32, device=q.device)
-        bias.masked_fill_(padding_mask, NEG)
+    if padding_mask is not None:     # (b, t) f32: NEG at a masked key, else 0
+        bias = torch.where(padding_mask, NEG, 0.0)
     lib = load()
     code = 0 if q.dtype == torch.float32 else 1
     need = lib.avdd_full_mha_smem(t, d, code)
-    if need > SMEM_MAX:
-        raise ValueError(f"full attention kernel: T={t} needs {need} bytes of shared "
-                         f"memory for its score rows, a block has {SMEM_MAX}")
+    if need > SMEM_MAX:      # float32 only: bfloat16 needs the same 34 KB at any T
+        raise ValueError(f"full attention kernel, {q.dtype}: T={t} needs {need} bytes of "
+                         f"shared memory for its score rows, a block has {SMEM_MAX}")
     ptr = lambda a: ctypes.c_void_p(a.data_ptr() if a is not None else 0)  # noqa: E731
     strides = [s for a in (q, k, v, out) for s in a.stride()[:3]]
     with torch.cuda.device(q.device):

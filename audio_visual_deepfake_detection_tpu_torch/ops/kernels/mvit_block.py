@@ -24,6 +24,10 @@ shared helpers of ``ops/mvit_math.py``:
 The JAX packing's 128-lane padding, tiled tap vectors and 0/1 head-select
 matrices are TPU layout and are not carried over: ``pack_msblock_params``
 keeps torch's (out, in) weights and per-head (27, d) taps.
+
+In bfloat16 the kernel's four products run on ``wgmma`` from those (out, in)
+weights as they are (rows along the contraction are what its shared-memory
+operand wants), so the packing has no layout of its own for the card.
 """
 
 from __future__ import annotations
@@ -144,7 +148,9 @@ def fused_multiscale_block(x, p: MSBlockPacked, *, t: int, grid_hw,
     return _launch(x.contiguous(), p, t, hs, ws, n_head)
 
 
-def _launch(x, p, t, hs, ws, n_head):
+def _launch(x, p, t, hs, ws, n_head, upto: int = 0):
+    """``upto`` > 0 runs only the block's first ``upto`` launches (the
+    output is then unwritten): for timing them one by one."""
     global LAUNCHES
     from .build import load
 
@@ -159,19 +165,30 @@ def _launch(x, p, t, hs, ws, n_head):
         if a.dtype != (x.dtype if name in ("wqkv", "rel_t", "wp", "w1", "w2") else torch.float32):
             raise ValueError(f"packed {name} has dtype {a.dtype}")
     cd = x.dtype
-    emp = lambda *shape: torch.empty(shape, dtype=cd, device=x.device)  # noqa: E731
-    qkv, qp, ctx, y1 = emp(b, n, 3 * c), emp(b, n, c), emp(b, n, c), emp(b, n, c)
-    kvp, hid, out = emp(2, b, n_head, t + 1, d), emp(b, n, 4 * c), emp(b, n, c)
+    out = torch.empty((b, n, c), dtype=cd, device=x.device)
     if b == 0:
         return out
+    # scratch the launches hand to one another, carved from one allocation
+    # (a call's host time is what a small batch waits for), in the kernel's
+    # argument order: qkv (b, n, 3c), qp (b, n, c), kvp (2, b, nh, t + 1, d),
+    # ctx, y1 (b, n, c), hid (b, n, 4c) in the compute dtype, then the LN row
+    # statistics (b, n, 2) f32
+    rows, es = b * n, x.element_size()
+    sizes = [rows * 3 * c * es, rows * c * es, 2 * b * n_head * (t + 1) * d * es,
+             rows * c * es, rows * c * es, rows * 4 * c * es, rows * 2 * 4]
+    offsets = [0]
+    for size in sizes:
+        offsets.append(offsets[-1] + (size + 255) // 256 * 256)
+    scratch = torch.empty(offsets[-1], dtype=torch.uint8, device=x.device)
+    base = scratch.data_ptr()
     lib = load()
     ptr = lambda a: ctypes.c_void_p(a.data_ptr())  # noqa: E731
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.avdd_msblock(
-            ptr(x), *(ptr(a) for a in p), ptr(qkv), ptr(qp), ptr(kvp), ptr(ctx),
-            ptr(y1), ptr(hid), ptr(out), b, t, hs, ws, c, n_head,
-            0 if cd == torch.float32 else 1, ctypes.c_void_p(stream))
+            ptr(x), *(ptr(a) for a in p), *(ctypes.c_void_p(base + o) for o in offsets[:-1]),
+            ptr(out), b, t, hs, ws, c, n_head, 0 if cd == torch.float32 else 1, upto,
+            ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"multiscale block kernel launch failed: CUDA error {err}")
     LAUNCHES += 1

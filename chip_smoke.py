@@ -26,11 +26,13 @@ Phases (any failure exits nonzero):
 5. mvit    - K2 (patch embed), K3 (pooled attention), K4 (whole
              MultiscaleBlock) against their plain versions at every
              production shape of mvit_v2_b at 512 frames, B = 2 chunks (one
-             with a zero tail), f32 (atol 1e-4, rtol 5e-4) and bf16;
+             with a zero tail), f32 (atol 1e-4, rtol 5e-4) and bf16; K4's
+             stage-3 geometry also at the 32 chunks the main path hands it;
 6. audio kernels - K5 (Emotion2Vec conv extractor) against its plain version
              at B = 2 on a 9.6 s wav and one with an odd tail, K8 (full
-             attention) at (2, 12, 479, 64) and (2, 12, 130, 64) with and
-             without a padding mask, f32 and bf16;
+             attention) at (2, 12, 479 | 130 | 50, 64) and (1, 12, 2000, 64)
+             with and without a padding mask and with one sample fully
+             masked, f32 and bf16;
 7. video   - MViT-v2-b at full width and depth, bf16, through
              FeatureExtractor.video_chunks_features on 16 uint8 chunks of
              512 frames: shape, finiteness, each kernel's launch count; f32 on
@@ -59,7 +61,7 @@ Phases (any failure exits nonzero):
              the CPU;
 12. train  - configs_train/deepfake_exp10.yaml through the port's loader,
              full width and depth, seeded batches in collate_batch's format.
-             f32 with a deterministic forward, 2 steps at B=50, card against
+             f32 with a deterministic forward, 2 steps at B=16, card against
              CPU (losses rtol 1e-4, grad_norm rtol 1e-3). bf16 and f32,
              stochastic, 10 steps at B=50 through train_one_epoch: finite
              losses, K6 18 launches a step and K1 none, a mid-epoch
@@ -70,11 +72,13 @@ Phases (any failure exits nonzero):
              per step, samples/s and peak GiB at B=50, a K6 step's stages
              (CUDA events at train_step's stage hook) and its device time by
              kernel;
-13. timing - K1 per production shape at B=16 and B=512 (bf16), packing
+13. timing - K1 per production shape at B = 16, 64 and 512 (bf16), packing
              cost, service latency at batch 16, localizer-only videos/s at
              B=512 bf16 (the program of bench.py::measure_ours); K2-K4 and
-             K1's dense paths against their plain versions; MViT-v2-b
-             chunks/s at 16 and 64 chunks; K5 and K8 at B = 2, 16, 64 with
+             K1's dense paths against their plain versions, K2 and K3 also at
+             32 chunks; the launches inside one K4 call one by one at 32
+             chunks; MViT-v2-b chunks/s at 16 and 64 chunks; K5 and K8 at
+             B = 2, 16, 64 with
              the eager conv stack and scaled_dot_product_attention beside
              them; BYOL-A and Emotion2Vec wavs/s; media -> detections
              videos/s at 16 and 64 videos and its per-stage breakdown; K6 per
@@ -82,7 +86,8 @@ Phases (any failure exits nonzero):
              scaled_dot_product_attention under a band mask beside K7. Each
              kernel's time stands beside its bound: the larger of its
              operations over the card's peak rate and its bytes over the
-             memory rate.
+             memory rate; and what each main-path kernel costs a 64-video
+             media -> detections run above that bound.
 
 The card's name and power limit, then a JSON object with the kernels'
 launches, errors and times, are the two lines before the last; the last
@@ -199,6 +204,36 @@ def cuda_ms(fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters=20):
+    """Device time of one call of ``fn``, ms: the call is captured into a CUDA
+    graph (allocations, kernels and all) and the graph replayed ``iters``
+    times between two events, so the host issues nothing per call. A
+    CUDA-event reading of a call that the card finishes sooner than the host
+    issues it (~0.1 ms through a Python wrapper, more on a busy host)
+    measures the host; this does not."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):      # warm-up off the default stream, as capture needs
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 # ----------------------------------------------------------------- phases
 
 def phase_config():
@@ -239,7 +274,7 @@ def phase_build():
     log(f"build: {took:.2f} s (nvcc ran: {build.BUILD_SECONDS is not None}) "
         f"-> {build.library_path().name}")
     for line in build.BUILD_LOG.splitlines():
-        if any(k in line for k in ("entry function", "registers", "spill")):
+        if any(k in line for k in ("entry function", "registers", "spill", "warning", "wgmma")):
             log(f"  ptxas: {line.strip()}")
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} nvcc [{nvcc}] triton {triton_v}")
@@ -355,7 +390,7 @@ def phase_serve(dev="cuda", arch=PROD, n_req=32, batch=16):
 
     cfg = ArchConfig(**arch, compute_dtype="bfloat16")
     tcfg = TestConfig(**dict(BENCH_TEST, min_score=0.001))
-    model = perturb(build_localizer(cfg, seed=0), 1).to(dev)
+    model = perturb(build_localizer(cfg, seed=0, device=dev), 1)
     n_blocks = 1 + cfg.arch[1] + 3 * cfg.arch[2]
     service = LocalizerService(cfg, tcfg, model, batch_size=batch, max_wait_ms=50,
                                warmup=True)
@@ -393,7 +428,7 @@ def phase_serve(dev="cuda", arch=PROD, n_req=32, batch=16):
 
     # f32, 2 videos: the card's kernel path vs the same model's plain CPU path
     cfg32 = ArchConfig(**arch, compute_dtype="float32")
-    m32 = perturb(build_localizer(cfg32, seed=0), 1)
+    m32 = perturb(build_localizer(cfg32, seed=0, device="cpu"), 1)
     fn = build_inference_fn(cfg32, tcfg)
     x = rng.standard_normal((2, t, cfg.input_dim), dtype=np.float32)
     mask = np.ones((2, t), bool)
@@ -432,7 +467,7 @@ def phase_timing(model, cfg, smi):
     per_shape = []
     totals, bounds = {}, {}
     worst = 0.0
-    for b in (16, 512):
+    for b in (16, 64, 512):     # the service batch, a 64-video media run, the offline sweep
         k_tot = p_tot = 0.0
         bounds[b] = bound_sum([(*k1_work(mode, t, window, b), len(names))
                                for names, mode, t, window in PROD_BLOCKS])
@@ -447,7 +482,7 @@ def phase_timing(model, cfg, smi):
                 f"{'ok' if ok else 'MISMATCH'}")
             if not ok:
                 fail(f"kernel disagrees with block_math: B={b} {mode} T={t} bfloat16")
-            iters = 20 if b == 16 else 3
+            iters = {16: 20, 64: 8}.get(b, 3)
             ms = {}
             for which in ("plain", "kernel", "kernel", "plain"):   # interleaved
                 ms.setdefault(which, []).append(cuda_ms(
@@ -627,7 +662,7 @@ def phase_long_forward(dev="cuda", arch=PROD, t=1536):
 
     cfg = ArchConfig(**arch, compute_dtype="float32")
     tcfg = TestConfig(**dict(BENCH_TEST, min_score=0.001))
-    model = perturb(build_localizer(cfg, seed=0), 1)
+    model = perturb(build_localizer(cfg, seed=0, device="cpu"), 1)
     fn = build_inference_fn(cfg, tcfg)
     rng = np.random.default_rng(3)
     x = rng.standard_normal((2, t, cfg.input_dim), dtype=np.float32)
@@ -764,7 +799,7 @@ def patch_case(dtype, dev, b=2, seed=0):
     t = VIDEO_T
     g = torch.Generator().manual_seed(seed)
     video = torch.rand((b, t, 96, 96, 3), generator=g)
-    video[1, (3 * t) // 4:] = 0          # zero-padded tail frames
+    video[-1, (3 * t) // 4:] = 0         # zero-padded tail frames
     w = torch.randn((96, 3, 3, 15, 15), generator=g) * 2025 ** -0.5
     bias = 0.1 * torch.randn(96, generator=g)
     return video.to(dev), w.to(dev), bias.to(dev), dtype
@@ -777,35 +812,49 @@ def run_patch(which, video, w, bias, dtype):
     return fn(video, w, bias, dtype)
 
 
-def mvit_cases(dev="cuda"):
+def mvit_cases(dev="cuda", chunks=2):
     """(kernel, label, blocks per chunk-forward, case maker, runner, bf16
     (operations, bytes) of one call) for every production shape of K2-K4 at
-    B = 2 chunks."""
-    cases = [("patch_embed", "B=2 T=512 96x96x3 -> 8x8x96", 1,
-              lambda dt: patch_case(dt, dev), run_patch, k2_work(2, VIDEO_T))]
-    for name, bh, ng, d, band_cd, n in K3_SHAPES:
+    B = ``chunks`` chunks (K3_SHAPES counts its heads for 2)."""
+    cases = [("patch_embed", f"B={chunks} T=512 96x96x3 -> 8x8x96", 1,
+              lambda dt: patch_case(dt, dev, b=chunks), run_patch, k2_work(chunks, VIDEO_T))]
+    for name, bh2, ng, d, band_cd, n in K3_SHAPES:
+        bh = bh2 * chunks // 2
         cases.append(("pooled_attention", f"{name}: BH={bh} Ng={ng} Nk=513 d={d}", n,
                       lambda dt, a=(bh, ng, d, band_cd): k3_case(*a, dt, dev), run_k3,
                       k3_work(bh, ng, d, 2 if band_cd else 4, VIDEO_T + 1)))
     for hw, c, nh, n in MSBLOCK_SHAPES:
         s = hw[0] * hw[1]
         cases.append(("multiscale_block", f"S={s} C={c} heads={nh}", n,
-                      lambda dt, a=(hw, c, nh): msblock_case(*a, dt, dev),
+                      lambda dt, a=(hw, c, nh): msblock_case(*a, dt, dev, b=chunks),
                       lambda which, blk, x, a=(hw, nh): run_msblock(
                           which, blk, x, VIDEO_T, a[0], a[1]),
-                      k4_work(2, s, c, VIDEO_T)))
+                      k4_work(chunks, s, c, VIDEO_T)))
     return cases
 
 
-def phase_mvit_kernels(dev="cuda"):
+def phase_mvit_kernels(dev="cuda", group=32):
     """K2, K3, K4 against their plain versions on the card at every
     production shape, B = 2 chunks (one with a zero tail), f32 (atol 1e-4,
-    rtol 5e-4) and bf16 (check_bf16)."""
+    rtol 5e-4) and bf16 (check_bf16); K4's stage-3 geometry also at the
+    ``group`` chunks the main path hands it, bf16."""
     import torch
 
     worst, rows = {}, []
-    for kname, label, _, make, run, _ in mvit_cases(dev):
-        for dtype in (torch.float32, torch.bfloat16):
+    hw3, c3, nh3, _ = MSBLOCK_SHAPES[1]
+    cases = [(c, (torch.float32, torch.bfloat16)) for c in mvit_cases(dev)]
+    cases.append((("multiscale_block", f"S={hw3[0] * hw3[1]} C={c3} heads={nh3} B={group}", 15,
+                   lambda dt: msblock_case(hw3, c3, nh3, dt, dev, b=group),
+                   lambda which, blk, x: run_msblock(which, blk, x, VIDEO_T, hw3, nh3), None),
+                  (torch.bfloat16,)))
+    # no production width: C = 128 (64-column product tiles beside the 192
+    # ones) with head dim 64 (the attention step's mma.sync kernel)
+    cases.append((("multiscale_block", "S=4 C=128 heads=2 (64-column tiles, head dim 64)", 0,
+                   lambda dt: msblock_case((2, 2), 128, 2, dt, dev),
+                   lambda which, blk, x: run_msblock(which, blk, x, VIDEO_T, (2, 2), 2), None),
+                  (torch.float32, torch.bfloat16)))
+    for (kname, label, _, make, run, _), dtypes in cases:
+        for dtype in dtypes:
             args = make(dtype)
             got, ref = run("kernel", *args), run("plain", *args)
             sync(dev)
@@ -828,6 +877,62 @@ def phase_mvit_kernels(dev="cuda"):
         torch.cuda.empty_cache()
     REPORT["mvit_kernels"] = rows
     return worst
+
+
+K4_LAUNCHES = ("LN1 row statistics", "LN1 + qkv product", "q pool + head LN",
+               "k / v pools + head LN", "pooled attention + q", "proj product + x",
+               "LN2 row statistics", "LN2 + fc1 product + GELU", "fc2 product + y1")
+
+
+def k4_launch_table(smi, dev="cuda", group=32, iters=3):
+    """Device time of each launch inside one fused_multiscale_block call, per
+    production geometry at the ``group`` chunks the main path runs, bf16: the
+    call is cut after its first n launches (the wrapper's ``upto``) for n = 1
+    .. 9, each cut timed with CUDA events (plain, then the cuts in turn, twice,
+    the smaller reading kept), and launch n costs what cut n adds to cut n - 1
+    (launch 1's reading also holds the wrapper's host time, ~0.1 ms, where
+    that is longer than its device time). Says where a block's time is; the
+    whole call's TFLOP/s over k4_work."""
+    import torch
+    from audio_visual_deepfake_detection_tpu_torch.ops.kernels import mvit_block as k4
+
+    out = {}
+    for hw, c, nh, n_blocks in MSBLOCK_SHAPES:
+        s_cells = hw[0] * hw[1]
+        blk, x = msblock_case(hw, c, nh, torch.bfloat16, dev, b=group)
+        p = blk.packed(x.dtype)
+        cuts = [float("inf")] * len(K4_LAUNCHES)
+        with torch.no_grad():
+            for _ in range(2):
+                for n in range(len(K4_LAUNCHES)):
+                    cuts[n] = min(cuts[n], cuda_ms(
+                        lambda: k4._launch(x, p, VIDEO_T, *hw, nh, upto=n + 1), iters, warmup=1))
+            whole = cuda_ms(lambda: run_msblock("kernel", blk, x, VIDEO_T, hw, nh), iters,
+                            warmup=1)
+        rows = [dict(launch=n + 1, name=name, ms=cuts[n] - (cuts[n - 1] if n else 0.0))
+                for n, name in enumerate(K4_LAUNCHES)]
+        flops, _ = k4_work(group, s_cells, c, VIDEO_T)
+        label = f"S={s_cells} C={c} heads={nh}"
+        log(f"K4 launches, {label}, {group} chunks bf16 (x{n_blocks} per forward): whole call "
+            f"{whole:.4f} ms, {flops / whole / 1e9:.1f} TFLOP/s over k4_work ({smi})")
+        for r in rows:
+            log(f"  {r['launch']:2d} {r['ms']:9.4f} ms {100 * r['ms'] / cuts[-1]:5.1f}%  {r['name']}")
+        if abs(cuts[-1] - whole) > 0.15 * whole:
+            fail(f"K4 launch table: the nine cuts sum to {cuts[-1]:.4f} ms, the call takes "
+                 f"{whole:.4f} ms")
+        out[label] = dict(rows=rows, total_ms=whole, tflops=flops / whole / 1e9,
+                          blocks=n_blocks)
+        del blk, x, p
+        torch.cuda.empty_cache()
+    per_forward = sum(v["total_ms"] * v["blocks"] for v in out.values())
+    total_flops = sum(k4_work(group, hw[0] * hw[1], c, VIDEO_T)[0] * n
+                      for hw, c, _, n in MSBLOCK_SHAPES)
+    log(f"K4, the 18 blocks of one {group}-chunk forward: {per_forward:.3f} ms, "
+        f"{total_flops / per_forward / 1e9:.1f} TFLOP/s over k4_work ({smi})")
+    REPORT["k4_launch_table"] = dict(card=smi, chunks=group, shapes=out,
+                                     forward_ms=per_forward,
+                                     forward_tflops=total_flops / per_forward / 1e9)
+    return REPORT["k4_launch_table"]
 
 
 # ------------------------------------------------------------ video slice
@@ -970,7 +1075,7 @@ def phase_mvit_timing(smi, dev="cuda"):
     from audio_visual_deepfake_detection_tpu_torch.ops.kernels import fused_block as fb
 
     per_shape, totals, works = [], {}, {}
-    library = {}
+    library, device_totals = {}, {}
     for kname, label, n_blocks, make, run, work in mvit_cases(dev):
         args = make(torch.bfloat16)
         # the plain K4 time swings from run to run (46.7-90.4 ms per forward
@@ -978,14 +1083,20 @@ def phase_mvit_timing(smi, dev="cuda"):
         # readings each, and keep the spread
         ms = {}
         for which in ("plain", "kernel", "kernel", "plain") * 3:
-            ms.setdefault(which, []).append(cuda_ms(lambda: run(which, *args), 3, warmup=1))
+            # ten kernel calls a reading: with three, the first call's host
+            # time is a tenth of a short kernel's reading
+            ms.setdefault(which, []).append(cuda_ms(
+                lambda: run(which, *args), 10 if which == "kernel" else 3, warmup=1))
         k_ms, p_ms = float(np.median(ms["kernel"])), float(np.median(ms["plain"]))
+        with torch.no_grad():
+            d_ms = device_ms(lambda: run("kernel", *args))
+        device_totals[kname] = device_totals.get(kname, 0.0) + d_ms * n_blocks
         tot = totals.setdefault(kname, [0.0, 0.0])
         tot[0] += k_ms * n_blocks
         tot[1] += p_ms * n_blocks
         works.setdefault(kname, []).append((*work, n_blocks))
         b_ms, b_by = bound(*work)
-        row = dict(kernel=kname, shape=label, blocks=n_blocks, kernel_ms=k_ms,
+        row = dict(kernel=kname, shape=label, blocks=n_blocks, kernel_ms=k_ms, device_ms=d_ms,
                    plain_ms=p_ms, kernel_range=[min(ms["kernel"]), max(ms["kernel"])],
                    plain_range=[min(ms["plain"]), max(ms["plain"])], bound_ms=b_ms,
                    bound_by=b_by)
@@ -1002,12 +1113,30 @@ def phase_mvit_timing(smi, dev="cuda"):
             del xc
         per_shape.append(row)
         log(f"time {kname} {label} bf16, median of 6: kernel {k_ms:.4f} ms "
-            f"[{min(ms['kernel']):.4f}, {max(ms['kernel']):.4f}]  plain {p_ms:.4f} ms "
+            f"[{min(ms['kernel']):.4f}, {max(ms['kernel']):.4f}] (its kernels alone "
+            f"{d_ms:.4f} ms)  plain {p_ms:.4f} ms "
             f"[{min(ms['plain']):.4f}, {max(ms['plain']):.4f}]  bound {b_ms:.4f} ms ({b_by})"
             f"{extra} (x{n_blocks} per forward) ({smi})")
         del args
         torch.cuda.empty_cache()
     bounds = {k: bound_sum(v) for k, v in works.items()}
+
+    # K2 and K3 at the 32 chunks a group of the main path hands them (K4's
+    # time there comes from k4_launch_table): kernel only, per forward
+    group_ms, group_works = {}, {}
+    with torch.no_grad():
+        for kname, label, n_blocks, make, run, work in mvit_cases(dev, pipeline.FRONT_CHUNK_GROUP):
+            if kname == "multiscale_block":
+                continue
+            args = make(torch.bfloat16)
+            k_ms = cuda_ms(lambda: run("kernel", *args), 3, warmup=1)
+            group_ms[kname] = group_ms.get(kname, 0.0) + k_ms * n_blocks
+            group_works.setdefault(kname, []).append((*work, n_blocks))
+            log(f"time {kname} {label} bf16: kernel {k_ms:.4f} ms, bound {bound(*work)[0]:.4f} ms "
+                f"(x{n_blocks} per forward) ({smi})")
+            del args
+            torch.cuda.empty_cache()
+    group = {k: dict(ms=v, bound_ms=bound_sum(group_works[k])[0]) for k, v in group_ms.items()}
 
     dense = {}
     for t, force_tiled in ((48, False), (24, False), (24, True)):
@@ -1062,8 +1191,9 @@ def phase_mvit_timing(smi, dev="cuda"):
                               label="one 16-chunk MViT-v2-b forward, bf16", top_n=25)
     REPORT["mvit_timing"] = dict(per_shape=per_shape, totals=totals, k1_dense=dense,
                                  chunks_per_s=rates, profile=profile, breakdown=breakdown,
-                                 bounds=bounds, library_ms=library, card=smi)
-    return totals, bounds, library
+                                 bounds=bounds, library_ms=library, card=smi,
+                                 group_of_32=group, device_totals=device_totals)
+    return totals, bounds, library, group
 
 
 # ------------------------------------------------------------ audio kernels
@@ -1275,11 +1405,37 @@ def run_k8(which, q, k, v, mask):
     return (k8.full_mha if which == "kernel" else k8.full_mha_math)(q, k, v, mask)
 
 
-def phase_audio_kernels(dev="cuda", lengths=(WAV_LEN, WAV_ODD), ts=(E2V_T, 130)):
+K8_CASES = ((2, E2V_T), (2, 130), (2, 50), (1, 2000))   # (B, T): two production lengths,
+# one shorter than a key tile, one past the 1600 rows the first design could hold
+
+
+def check_k8_all_masked(dtype, dev, t=130):
+    """A sample whose keys are all masked: the plain version's softmax of
+    -inf is NaN there, the kernel gives uniform weights (the mean of v), as
+    the TPU kernel does. The other samples go through check_k8."""
+    import torch
+
+    q, k, v, mask = k8_case(3, t, dtype, dev, True, seed=3 * t)
+    mask[1] = True
+    got = run_k8("kernel", q, k, v, mask)
+    sync(dev)
+    keep = torch.tensor([0, 2], device=q.device)
+    err, ok, rule = check_k8(got[keep], run_k8("plain", q[keep], k[keep], v[keep], mask[keep]),
+                             q[keep], k[keep], v[keep], mask[keep])
+    mean = v[1].float().mean(1, keepdim=True).expand_as(got[1])
+    d = (got[1].float() - mean).abs()
+    tol = K8_F32_ATOL if dtype == torch.float32 else K8_BF16_ATOL + 2 * K8_BF16_ULP * mean.abs()
+    uniform = bool(torch.isfinite(got).all()) and bool((d <= tol).all())
+    return max(err, d.max().item()), ok and uniform, \
+        f"{rule}; all-masked sample vs mean(v) {d.max().item():.2e}"
+
+
+def phase_audio_kernels(dev="cuda", lengths=(WAV_LEN, WAV_ODD), cases=K8_CASES):
     """K5 against conv_extractor_math at B = 2, a 9.6 s wav and one with an
     odd tail, f32 (atol 1e-4, rtol 5e-4) and bf16 (check_k5_bf16); K8 against
-    full_mha_math at (2, 12, 479, 64) and (2, 12, 130, 64), with and without
-    a padding mask, f32 atol 2e-5 and bf16 the rounding bound and the f32 reference (check_k8)."""
+    full_mha_math at (2, 12, 479 | 130 | 50, 64) and (1, 12, 2000, 64), with
+    and without a padding mask, and with one sample fully masked, f32 atol
+    2e-5 and bf16 the rounding bound and the f32 reference (check_k8)."""
     import torch
     from audio_visual_deepfake_detection_tpu_torch.ops.kernels import conv_extractor as k5
 
@@ -1312,15 +1468,21 @@ def phase_audio_kernels(dev="cuda", lengths=(WAV_LEN, WAV_ODD), ts=(E2V_T, 130))
                 err, ok, _, rule = check_k5_bf16(m, wav, got, ref)
             record("conv_extractor", f"B=2 L={length} -> {t_out} x 512", dtype, err, ok, rule)
             del m, wav, got, ref
-    for t in ts:
+    for b, t in cases:
         for masked in (False, True):
             for dtype in (torch.float32, torch.bfloat16):
-                args = k8_case(2, t, dtype, dev, masked, seed=t)
+                args = k8_case(b, t, dtype, dev, masked, seed=t)
                 got, ref = run_k8("kernel", *args), run_k8("plain", *args)
                 sync(dev)
                 err, ok, rule = check_k8(got, ref, *args)
-                record("full_mha", f"(2, {E2V_H}, {t}, {E2V_D}) {'mask' if masked else 'no mask'}",
+                record("full_mha", f"({b}, {E2V_H}, {t}, {E2V_D}) {'mask' if masked else 'no mask'}",
                        dtype, err, ok, rule)
+                del args, got, ref
+    # on the card only: the plain version, which a CPU tensor takes, gives NaN there
+    for dtype in (torch.float32, torch.bfloat16) if torch.device(dev).type == "cuda" else ():
+        err, ok, rule = check_k8_all_masked(dtype, dev)
+        record("full_mha", f"(3, {E2V_H}, 130, {E2V_D}) one sample all masked", dtype, err, ok,
+               rule)
     if torch.device(dev).type == "cuda":
         torch.cuda.empty_cache()
     REPORT["audio_kernels"] = rows
@@ -1586,16 +1748,22 @@ def phase_audio_timing(ex, model, cfg, smi, dev="cuda", batches=(2, 16, 64)):
             t = time_pair(lambda which: run_k8(which, q, k, v, mask), iters=5)
             add = torch.zeros(mask.shape, dtype=bf16, device=dev).masked_fill_(
                 mask, float("-inf"))[:, None, None, :]
-            lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=add, scale=1.0),
-                          5, warmup=1)
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, attn_mask=add, scale=1.0)
+            lib = cuda_ms(sdpa, 5, warmup=1)
+            k_dev = device_ms(lambda: run_k8("kernel", q, k, v, mask))
+            lib_dev = device_ms(sdpa)
             bms, by = bound(*k8_work(b, E2V_H, E2V_T, E2V_D, True))
             out["full_mha"][b] = dict(ms=t["kernel"][0], ms_range=t["kernel"][1:],
                                       plain_ms=t["plain"][0], plain_range=t["plain"][1:],
-                                      library_ms=lib, bound_ms=bms, bound_by=by)
+                                      library_ms=lib, bound_ms=bms, bound_by=by,
+                                      device_ms=k_dev, library_device_ms=lib_dev)
             log(f"time full_mha ({b}, {E2V_H}, {E2V_T}, {E2V_D}) mask bf16, median of 5: kernel "
                 f"{t['kernel'][0]:.4f} ms [{t['kernel'][1]:.4f}, {t['kernel'][2]:.4f}]  plain "
                 f"{t['plain'][0]:.4f} ms [{t['plain'][1]:.4f}, {t['plain'][2]:.4f}]  "
-                f"scaled_dot_product_attention {lib:.4f} ms  bound {bms:.4f} ms ({by}) ({smi})")
+                f"scaled_dot_product_attention {lib:.4f} ms  bound {bms:.4f} ms ({by}); their "
+                f"kernels alone (graph replay): full_mha {k_dev:.4f} ms, "
+                f"scaled_dot_product_attention {lib_dev:.4f} ms ({smi})")
             del q, k, v, mask, add
             torch.cuda.empty_cache()
 
@@ -2173,8 +2341,10 @@ def step_breakdown(state, step, hook, batch, smi, label, profile=True):
 def phase_train(dev="cuda", b=TRAIN_B, cpu_b=16, n_steps=10, arch=None, smi="",
                 timing=True):
     """The training slice's main path at full width and depth. (a) f32,
-    deterministic forward, 2 steps at the training batch ``b``, card against
-    CPU: losses rtol 1e-4, grad_norm rtol 1e-3, K6 18 launches a step. (b)
+    deterministic forward, 2 steps at batch ``cpu_b``, card against CPU
+    (a CPU step at the training batch of 50 takes two minutes; K6 itself is
+    held to block_math at that batch by phase_k6): losses rtol 1e-4,
+    grad_norm rtol 1e-3, K6 18 launches a step. (b)
     bf16 and f32, stochastic, ``n_steps`` through train_one_epoch at batch
     ``b`` (run_epoch). (c) the same with dropout 0.1 (the unfused block; at
     most 4 steps in f32): K7 17 launches a forward, K6 none, and one
@@ -2196,14 +2366,14 @@ def phase_train(dev="cuda", b=TRAIN_B, cpu_b=16, n_steps=10, arch=None, smi="",
         if counts != want:      # the eval kernel K1 included: none in a training step
             fail(f"{what}: launches {counts}, expected {want}")
 
-    gaps, counts, traj = steps_card_vs_cpu(0.0, True, dev, b, 2, arch)
-    log(f"train f32 deterministic, 2 steps B={b}, card vs CPU: losses rel {gaps['losses']:.2e} "
+    gaps, counts, traj = steps_card_vs_cpu(0.0, True, dev, cpu_b, 2, arch)
+    log(f"train f32 deterministic, 2 steps B={cpu_b}, card vs CPU: losses rel {gaps['losses']:.2e} "
         f"grad_norm rel {gaps['grad_norm']:.2e}, launches {counts}, final_loss "
         f"{[round(s['final_loss'], 5) for s in traj]}")
     expect(counts, 2 * n_blocks, 0, "deterministic steps")
     if gaps["losses"] > 1e-4 or gaps["grad_norm"] > 1e-3:
         fail(f"train f32 card vs CPU differ: {gaps}")
-    report["deterministic_card_vs_cpu"] = dict(gaps, B=b, launches=counts)
+    report["deterministic_card_vs_cpu"] = dict(gaps, B=cpu_b, launches=counts)
 
     launched = {}
     states = {}
@@ -2314,6 +2484,42 @@ def phase_train_kernel_timing(smi, dev="cuda", b=TRAIN_B):
     return totals
 
 
+def main_path_loss(kernels, k1_totals, k1_bounds, mvit_group, k4_table, audio_times, smi,
+                   n_videos=64, group=32):
+    """What each kernel of the main path costs one ``n_videos``-video media ->
+    detections run above its bound: launches x (time - bound) at the batch
+    that run hands it (K1 and the audio kernels at 64, the video kernels in
+    groups of 32 chunks), bf16. The next kernel to redesign is read off this
+    column. Adds the three numbers to the kernels' entries."""
+    groups = n_videos // group
+    k4_bound = bound_sum([(*k4_work(group, hw[0] * hw[1], c, VIDEO_T), n)
+                          for hw, c, _, n in MSBLOCK_SHAPES])[0]
+    per_run = {
+        "fused_transformer_block": (k1_totals[n_videos][0], k1_bounds[n_videos][0]),
+        "patch_embed": tuple(groups * mvit_group["patch_embed"][k] for k in ("ms", "bound_ms")),
+        "pooled_attention": tuple(groups * mvit_group["pooled_attention"][k]
+                                  for k in ("ms", "bound_ms")),
+        "multiscale_block": (groups * k4_table["forward_ms"], groups * k4_bound),
+        "conv_extractor": tuple(audio_times["conv_extractor"][n_videos][k]
+                                for k in ("ms", "bound_ms")),
+        "full_mha": tuple(12 * audio_times["full_mha"][n_videos][k] for k in ("ms", "bound_ms")),
+    }
+    launches = REPORT["audio_timing"]["rates"][f"media -> detections launches B={n_videos}"]
+    log(f"kernel time above its bound on one {n_videos}-video media -> detections run, bf16 "
+        f"({smi}):")
+    rows = {}
+    for k in kernels:
+        if k["name"] not in per_run:
+            continue
+        ms, b_ms = per_run[k["name"]]
+        k["main_path_ms_64"], k["main_path_bound_ms_64"] = ms, b_ms
+        k["main_path_lost_ms_64"] = ms - b_ms
+        rows[k["name"]] = dict(launches=launches[k["name"]], ms=ms, bound_ms=b_ms, lost_ms=ms - b_ms)
+        log(f"  {k['name']:24s} {launches[k['name']]:3d} launches {ms:9.3f} ms, bound "
+            f"{b_ms:8.3f} ms, lost {ms - b_ms:9.3f} ms")
+    REPORT["main_path_loss"] = dict(card=smi, videos=n_videos, kernels=rows)
+
+
 def main():
     try:
         import torch
@@ -2345,16 +2551,14 @@ def main():
     k7_worst = timed(phase_k7)
     train_launched, train_report = timed(phase_train, smi=smi)
     totals, worst_timed, k1_bounds = timed(phase_timing, model, cfg, smi)
-    mvit_totals, mvit_bounds, mvit_library = timed(phase_mvit_timing, smi)
+    mvit_totals, mvit_bounds, mvit_library, mvit_group = timed(phase_mvit_timing, smi)
+    k4_table = timed(k4_launch_table, smi)
     audio_times, _, k5_rules = timed(phase_audio_timing, ex, model, cfg, smi)
     train_times = timed(phase_train_kernel_timing, smi)
     for mod in ("jax", "audio_visual_deepfake_detection_tpu"):
         if mod in sys.modules:
             fail(f"{mod} was imported")
     REPORT["seconds"] = time.perf_counter() - t_start
-    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
-    with open(os.path.join(REPO, "build", "chip_smoke_report.json"), "w") as f:
-        json.dump(REPORT, f, indent=1)
     src = "audio_visual_deepfake_detection_tpu_torch/csrc/"
     pallas = "audio_visual_deepfake_detection_tpu/ops/pallas/"
     kernels = [{
@@ -2394,8 +2598,13 @@ def main():
             "bound_ms": mvit_bounds[name][0],
             "bound_by": mvit_bounds[name][1],
             "library_ms": mvit_library.get(name),
-            "note": "ms = sum over one 2-chunk mvit_v2_b forward's launches, bf16",
+            "device_ms": REPORT["mvit_timing"]["device_totals"].get(name),
+            "note": "ms = sum over one 2-chunk mvit_v2_b forward's launches, bf16, through "
+                    "the wrappers (CUDA events); device_ms = their kernels alone (CUDA "
+                    "graph replay)",
         })
+    kernels[-1].update(ms_32_chunks=k4_table["forward_ms"],
+                       tflops_32_chunks=k4_table["forward_tflops"])
     for name, file, line, per_forward, tol in (
             ("conv_extractor", "conv_extractor", 177, 1,
              {"float32": "atol 1e-4 rtol 5e-4", "bfloat16": " | ".join(k5_rules)}),
@@ -2418,6 +2627,10 @@ def main():
             "bound_by": t16["bound_by"],
             "library_ms": None if lib is None else lib * per_forward,
             "per_call_ms": {str(b): t["ms"] for b, t in audio_times[name].items()},
+            "per_call_device_ms": {str(b): t.get("device_ms")
+                                   for b, t in audio_times[name].items()},
+            "per_call_library_device_ms": {str(b): t.get("library_device_ms")
+                                           for b, t in audio_times[name].items()},
             "note": f"ms = the {per_forward} launch(es) of one Emotion2Vec forward on 16 wavs "
                     f"of 9.6 s, bf16",
         })
@@ -2466,6 +2679,11 @@ def main():
                 f"at B={TRAIN_B} bf16; library_ms = scaled_dot_product_attention with an "
                 "additive band mask, the nearest library call, not the same function",
     })
+    main_path_loss(kernels, totals, k1_bounds, mvit_group, k4_table, audio_times, smi)
+    REPORT["kernels"] = kernels
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with open(os.path.join(REPO, "build", "chip_smoke_report.json"), "w") as f:
+        json.dump(REPORT, f, indent=1)
     log(smi)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

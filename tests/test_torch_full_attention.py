@@ -58,6 +58,59 @@ def test_math_matches_jax(t, dtype, masked):
     np.testing.assert_allclose(got, kernel, atol=TOL[dtype], rtol=0)
 
 
+def _ragged_case(t, d, masked, seed, h=2):
+    """One sample, f32; the mask pads its final third."""
+    rng = np.random.default_rng(seed)
+    qkv = [rng.standard_normal((1, h, t, d)).astype(np.float32) for _ in range(3)]
+    qkv[0] *= d ** -0.5
+    mask = (np.arange(t)[None, :] >= (2 * t) // 3) if masked else None
+    return qkv, mask
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["nomask", "mask"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_math_matches_jax_shorter_than_a_key_tile(dtype, masked):
+    """T = 50: fewer keys than the CUDA kernel's 64-key tile."""
+    jq, tq, mask = _case(50, 64, dtype, masked, seed=50)
+    jmask = None if mask is None else jnp.asarray(mask)
+    tmask = None if mask is None else torch.from_numpy(mask)
+    got = tk8.full_mha_math(*tq, tmask).float().numpy()
+    assert np.isfinite(got).all()
+    kernel = np.asarray(jk8.full_mha(*jq, jmask, interpret=True), np.float32)
+    xla = np.asarray(jax.jit(_xla_mha)(*jq, jmask), np.float32)
+    np.testing.assert_allclose(got, xla, atol=TOL[dtype], rtol=0)
+    np.testing.assert_allclose(got, kernel, atol=TOL[dtype], rtol=0)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["nomask", "mask"])
+def test_math_matches_jax_long_sequence(masked):
+    """T = 1700, past the ~1600 rows the first CUDA design could hold in shared
+    memory; the JAX side on its XLA path (the interpreter at this T takes
+    minutes). f32 atol 2e-5."""
+    qkv, mask = _ragged_case(1700, 32, masked, seed=1700)
+    jmask = None if mask is None else jnp.asarray(mask)
+    tmask = None if mask is None else torch.from_numpy(mask)
+    got = tk8.full_mha_math(*(torch.from_numpy(a) for a in qkv), tmask).numpy()
+    assert got.shape == (1, 2, 1700, 32) and np.isfinite(got).all()
+    xla = np.asarray(jax.jit(_xla_mha)(*(jnp.asarray(a) for a in qkv), jmask))
+    np.testing.assert_allclose(got, xla, atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("t", [50, 1700])
+def test_wrapper_on_cpu_takes_any_length(t):
+    """No cap on T in the wrapper: a CPU tensor of any length takes the
+    plain version through strided (b, t, 3, h, d) views, and counts no launch."""
+    qkv, mask = _ragged_case(t, 32, True, seed=t)
+    packed = torch.from_numpy(np.stack(qkv, 0)).permute(1, 3, 0, 2, 4).contiguous()
+    q, k, v = packed.permute(2, 0, 3, 1, 4)
+    tmask = torch.from_numpy(mask)
+    tk8.reset_launches()
+    got = tk8.full_mha(q, k, v, tmask)
+    want = tk8.full_mha_math(*(torch.from_numpy(a) for a in qkv), tmask)
+    assert tuple(got.shape) == (1, 2, t, 32) and tk8.LAUNCHES == 0
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
 def test_head_dim_32_and_wrapper_on_cpu():
     """d = 32 (the small configs' head dim); a CPU tensor takes the plain
     version, strided q/k/v views included, and counts no launch."""

@@ -174,6 +174,27 @@ def test_configs_from_yaml_match_jax():
         ArchConfig(use_rel_pe=True)
 
 
+def test_build_localizer_defaults_to_the_card():
+    """An entry point lands on the card unless the caller asks for the CPU."""
+    import inspect
+
+    from audio_visual_deepfake_detection_tpu_torch.models import build_localizer
+
+    assert inspect.signature(build_localizer).parameters["device"].default == "cuda"
+
+
+def test_build_localizer_on_the_cpu_when_asked():
+    from audio_visual_deepfake_detection_tpu_torch.models import build_localizer
+
+    model = build_localizer(ArchConfig(**ARCH), seed=3, device="cpu")
+    tensors = list(model.parameters()) + list(model.buffers())
+    assert tensors and all(p.device.type == "cpu" for p in tensors)
+    assert not model.training
+    again = build_localizer(ArchConfig(**ARCH), seed=3, device="cpu")
+    for a, b in zip(model.parameters(), again.parameters()):
+        assert torch.equal(a, b)                      # the seed decides the weights
+
+
 def test_port_imports_without_jax():
     code = ("import sys\n"
             "import audio_visual_deepfake_detection_tpu_torch.infer\n"
