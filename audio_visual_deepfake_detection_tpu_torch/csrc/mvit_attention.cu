@@ -703,9 +703,9 @@ int launch_wgmma(const Params& p, int B, cudaStream_t stream) {
 
 // The wgmma kernel takes K4's call: bf16, head dim 96, the band from the
 // table with q pre-scaled and the class token first, 16-byte loads.
-bool use_wgmma(int dtype, int d, int flags, bool vec_ok, long long osn) {
+bool use_wgmma(int dtype, int d, int flags, bool vec_ok, bool out_pairs) {
   const int need = PRESCALE | CLS_FIRST | BAND_TABLE;
-  return dtype == 1 && d == WD && (flags & need) == need && vec_ok && osn % 2 == 0;
+  return dtype == 1 && d == WD && (flags & need) == need && vec_ok && out_pairs;
 }
 
 // bf16 with a head dim that is a multiple of 16 and operands that take
@@ -750,7 +750,8 @@ int avdd_pooled_attention(const void* q, const void* k, const void* v,
   const bool vec_ok = ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)rel) % 16 == 0 &&
                       qsb % 8 == 0 && qsh % 8 == 0 && qsn % 8 == 0;
   const bool mma = use_mma(dtype, d, vec_ok);
-  const bool wg = use_wgmma(dtype, d, flags, vec_ok, osn) && nk - 1 == T && rel;
+  const bool out_pairs = (osb | osh | osn) % 2 == 0 && (uintptr_t)out % 4 == 0;   // bf16x2 stores
+  const bool wg = use_wgmma(dtype, d, flags, vec_ok, out_pairs) && nk - 1 == T && rel;
   if (B <= 0 || nh <= 0 || nq <= 0 || nk < 2 || d <= 0 || d > MAXD || S <= 0 ||
       dtype < 0 || dtype > 1 || (!wg && smem_bytes(mma, d, nk) > SMEM_MAX) ||
       (table && (!rel || nk - 1 != T)) ||
