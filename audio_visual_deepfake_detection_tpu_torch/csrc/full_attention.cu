@@ -193,10 +193,11 @@ full_mha_wgmma_kernel(Params p) {
   const uint32_t tiles = (raw + 1023u) & ~1023u;            // shared address of stage 0
   const float* bias_sm = reinterpret_cast<const float*>(smraw + (tiles - raw) + NS * TILE_BYTES);
   const uint32_t bias_addr = tiles + NS * TILE_BYTES;
-  const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
+  // one grid axis (no 65535 cap on B H), row blocks fastest
+  const int nrb = (nk + BMW - 1) / BMW, bh = blockIdx.x / nrb, b = bh / p.H, h = bh % p.H;
   const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
-  const int row0 = blockIdx.x * BMW + 64 * wg + 16 * warp + g, row1 = row0 + 8;
+  const int row0 = (blockIdx.x % nrb) * BMW + 64 * wg + 16 * warp + g, row1 = row0 + 8;
   const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q) + b * p.qsb + h * p.qsh;
   const __nv_bfloat16* kp = static_cast<const __nv_bfloat16*>(p.k) + b * p.ksb + h * p.ksh;
   const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(p.v) + b * p.vsb + h * p.vsh;
@@ -357,7 +358,7 @@ int launch(const Params& p, int B, bool mma, cudaStream_t stream) {
   static int configured = 0;
   if (int e = set_smem(full_mha_wgmma_kernel, WG_SMEM, configured)) return e;
   // row blocks fastest: the blocks of a (sample, head) run together and share its k, v in L2
-  full_mha_wgmma_kernel<<<dim3((p.T + BMW - 1) / BMW, B * p.H), NTW, WG_SMEM, stream>>>(p);
+  full_mha_wgmma_kernel<<<(unsigned)((p.T + BMW - 1) / BMW * B * p.H), NTW, WG_SMEM, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -387,7 +388,8 @@ int avdd_full_mha(const void* q, const void* k, const void* v, const void* bias,
   for (long long s : strides) vec_ok = vec_ok && s % 8 == 0;
   const bool mma = dtype == 1;
   if (B <= 0 || H <= 0 || T <= 0 || d <= 0 || d > MAXD || dtype < 0 || dtype > 1 ||
-      (mma && (d % 16 != 0 || !vec_ok || (long long)B * H > 65535)) ||
+      (mma && (d % 16 != 0 || !vec_ok ||
+               (long long)B * H * ((T + BMW - 1) / BMW) > 0x7fffffffLL)) ||
       smem_bytes(mma, d, T) > SMEM_MAX)
     return (int)cudaErrorInvalidValue;
   Params p;

@@ -663,18 +663,9 @@ int launch_wgmma(const __nv_bfloat16* A, const __nv_bfloat16* W, const float2* s
 // out = epi(A' W^T): float32 on gemm_kernel (LN inside), bfloat16 on
 // gemm_wgmma_kernel with 192-column tiles where they divide N (else 64),
 // after ln_stats_kernel when A' is the LN of A.
-// A call may be cut after its first `left` launches (avdd_msblock's `upto`,
-// for timing the launches one by one): spent() counts one and says stop.
-constexpr int STOPPED = -1;
-struct Budget {
-  int left;        // 0: no limit
-  bool spent() { return left > 0 && --left == 0; }
-};
-
 template <typename T>
 int gemm(const void* A, const void* W, const float* ln, const float* bias,
-         const void* res, void* out, void* stats, int M, int N, int K, int epi,
-         cudaStream_t s, Budget& budget) {
+         const void* res, void* out, void* stats, int M, int N, int K, int epi, cudaStream_t s) {
   if constexpr (sizeof(T) == 2) {
     const __nv_bfloat16* a = static_cast<const __nv_bfloat16*>(A);
     const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(W);
@@ -684,7 +675,6 @@ int gemm(const void* A, const void* W, const float* ln, const float* bias,
     if (ln) {
       ln_stats_kernel<<<(M + NWARP - 1) / NWARP, NT, 0, s>>>(a, st, M, K);
       if (int e = (int)cudaGetLastError()) return e;
-      if (budget.spent()) return STOPPED;
     }
     // this block's products: LN without a residual (qkv, fc1), or a residual without LN
 #define AVDD_GEMM(BN)                                                                      \
@@ -710,19 +700,13 @@ struct Block {   // the packed inputs, in MSBlockPacked's order, and scratch
   void* qkv; void* qp; void* kvp; void* ctx; void* y1; void* hid; void* stats; void* out;
 };
 
-// The launches of one block, in order; `upto` > 0 stops after that many.
+// The launches of one block, in order; stops at the first CUDA error.
 template <typename T>
-int run(const Block& k, int B, int Tt, int hs, int ws, int C, int nh, int dtype, int upto,
-        cudaStream_t s) {
+int run(const Block& k, int B, int Tt, int hs, int ws, int C, int nh, int dtype, cudaStream_t s) {
   const int S = hs * ws, N = 1 + Tt * S, M = B * N, d = C / nh;
-  Budget budget{upto};
   int e;
-  // a launch's result: an error, or the end of the budget (not an error)
-#define AVDD_STEP(call)                                  \
-  if ((e = (call))) return e == STOPPED ? 0 : e;         \
-  if (budget.spent()) return 0
-  AVDD_STEP(gemm<T>(k.x, k.wqkv, k.ln1, k.bqkv, nullptr, k.qkv, k.stats, M, 3 * C, C, EPI_BIAS,
-                    s, budget));
+#define AVDD_STEP(call) if ((e = (call))) return e
+  AVDD_STEP(gemm<T>(k.x, k.wqkv, k.ln1, k.bqkv, nullptr, k.qkv, k.stats, M, 3 * C, C, EPI_BIAS, s));
   const T* qkv = static_cast<const T*>(k.qkv);
   const long long q_tasks = (long long)M * nh, kv_tasks = 2LL * B * nh * (Tt + 1);
   const bool vec = sizeof(T) == 2 && d % PV == 0;
@@ -751,12 +735,11 @@ int run(const Block& k, int B, int Tt, int hs, int ws, int C, int nh, int dtype,
   AVDD_STEP(avdd_pooled_attention(k.qp, kp, vp, nullptr, k.rel_t, k.ctx, B, nh, N, Tt + 1, d,
                                   Tt, S, (long long)N * C, d, C, (long long)N * C, d, C,
                                   1.f / sqrtf((float)d), flags, dtype, s));
-  AVDD_STEP(gemm<T>(k.ctx, k.wp, nullptr, k.bp, k.x, k.y1, k.stats, M, C, C, EPI_BIAS_RES, s,
-                    budget));
+  AVDD_STEP(gemm<T>(k.ctx, k.wp, nullptr, k.bp, k.x, k.y1, k.stats, M, C, C, EPI_BIAS_RES, s));
   AVDD_STEP(gemm<T>(k.y1, k.w1, k.ln2, k.b1, nullptr, k.hid, k.stats, M, 4 * C, C,
-                    EPI_BIAS_GELU, s, budget));
+                    EPI_BIAS_GELU, s));
   AVDD_STEP(gemm<T>(k.hid, k.w2, nullptr, k.b2, k.y1, k.out, k.stats, M, C, 4 * C, EPI_BIAS_RES,
-                    s, budget));
+                    s));
 #undef AVDD_STEP
   return 0;
 }
@@ -770,15 +753,13 @@ extern "C" {
 // float32, 1 bfloat16), the other packed inputs f32; scratch: qkv (B, N, 3C),
 // qp, ctx, y1 (B, N, C), kvp (2, B, nh, T + 1, d), hid (B, N, 4C), stats
 // (B, N, 2) f32 (bfloat16 only: the LN row statistics); out (B, N, C). Takes
-// C % 64 == 0, head_dim <= 128, hs ws <= 16. upto = 0 runs the whole block;
-// upto = n > 0 only its first n launches (out is then not written), so a
-// caller can time the launches one by one.
+// C % 64 == 0, head_dim <= 128, hs ws <= 16.
 int avdd_msblock(const void* x, const void* ln1, const void* wqkv, const void* bqkv,
                  const void* taps, const void* pool_ln, const void* rel_t,
                  const void* wp, const void* bp, const void* ln2, const void* w1,
                  const void* b1, const void* w2, const void* b2, void* qkv, void* qp,
                  void* kvp, void* ctx, void* y1, void* hid, void* stats, void* out, int B,
-                 int T, int hs, int ws, int C, int nh, int dtype, int upto, void* stream) {
+                 int T, int hs, int ws, int C, int nh, int dtype, void* stream) {
   if (B <= 0 || T <= 0 || hs <= 0 || ws <= 0 || hs * ws > 16 || nh <= 0 || C % 64 ||
       C % nh || C / nh > MAXD)
     return (int)cudaErrorInvalidValue;
@@ -788,8 +769,8 @@ int avdd_msblock(const void* x, const void* ln1, const void* wqkv, const void* b
           static_cast<const float*>(ln2), w1, static_cast<const float*>(b1), w2,
           static_cast<const float*>(b2), qkv, qp, kvp, ctx, y1, hid, stats, out};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return run<float>(k, B, T, hs, ws, C, nh, dtype, upto, s);
-  if (dtype == 1) return run<__nv_bfloat16>(k, B, T, hs, ws, C, nh, dtype, upto, s);
+  if (dtype == 0) return run<float>(k, B, T, hs, ws, C, nh, dtype, s);
+  if (dtype == 1) return run<__nv_bfloat16>(k, B, T, hs, ws, C, nh, dtype, s);
   return (int)cudaErrorInvalidValue;
 }
 

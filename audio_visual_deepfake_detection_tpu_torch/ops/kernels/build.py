@@ -118,7 +118,7 @@ def load() -> ctypes.CDLL:
                 ctypes.c_float, i, i, p,               # scale flags dtype stream
             ]
             lib.avdd_msblock.restype = i
-            lib.avdd_msblock.argtypes = [p] * 22 + [i] * 8 + [p]
+            lib.avdd_msblock.argtypes = [p] * 22 + [i] * 7 + [p]
             lib.avdd_conv_extractor.restype = i
             lib.avdd_conv_extractor.argtypes = [p] * 12 + [i] * 3 + [p]
             lib.avdd_full_mha.restype = i

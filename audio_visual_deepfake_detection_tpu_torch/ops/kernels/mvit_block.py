@@ -148,9 +148,7 @@ def fused_multiscale_block(x, p: MSBlockPacked, *, t: int, grid_hw,
     return _launch(x.contiguous(), p, t, hs, ws, n_head)
 
 
-def _launch(x, p, t, hs, ws, n_head, upto: int = 0):
-    """``upto`` > 0 runs only the block's first ``upto`` launches (the
-    output is then unwritten): for timing them one by one."""
+def _launch(x, p, t, hs, ws, n_head):
     global LAUNCHES
     from .build import load
 
@@ -187,7 +185,7 @@ def _launch(x, p, t, hs, ws, n_head, upto: int = 0):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.avdd_msblock(
             ptr(x), *(ptr(a) for a in p), *(ctypes.c_void_p(base + o) for o in offsets[:-1]),
-            ptr(out), b, t, hs, ws, c, n_head, 0 if cd == torch.float32 else 1, upto,
+            ptr(out), b, t, hs, ws, c, n_head, 0 if cd == torch.float32 else 1,
             ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"multiscale block kernel launch failed: CUDA error {err}")

@@ -27,7 +27,9 @@ Phases (any failure exits nonzero):
              MultiscaleBlock) against their plain versions at every
              production shape of mvit_v2_b at 512 frames, B = 2 chunks (one
              with a zero tail), f32 (atol 1e-4, rtol 5e-4) and bf16; K4's
-             stage-3 geometry also at the 32 chunks the main path hands it;
+             three geometries also at the 32 chunks the main path hands them;
+             then the launches inside one K4 call at 32 chunks one by one
+             (kernel events of a trace) and the whole call's time;
 6. audio kernels - K5 (Emotion2Vec conv extractor) against its plain version
              at B = 2 on a 9.6 s wav and one with an odd tail, K8 (full
              attention) at (2, 12, 479 | 130 | 50, 64) and (1, 12, 2000, 64)
@@ -76,10 +78,9 @@ Phases (any failure exits nonzero):
              cost, service latency at batch 16, localizer-only videos/s at
              B=512 bf16 (the program of bench.py::measure_ours); K2-K4 and
              K1's dense paths against their plain versions, K2 and K3 also at
-             32 chunks; the launches inside one K4 call one by one at 32
-             chunks; MViT-v2-b chunks/s at 16 and 64 chunks; K5 and K8 at
-             B = 2, 16, 64 with
-             the eager conv stack and scaled_dot_product_attention beside
+             32 chunks; MViT-v2-b chunks/s at 16 and 64 chunks; K5 and K8 at
+             B = 2, 16, 64 (checked there too, K8 with and without a mask)
+             with the eager conv stack and scaled_dot_product_attention beside
              them; BYOL-A and Emotion2Vec wavs/s; media -> detections
              videos/s at 16 and 64 videos and its per-stage breakdown; K6 per
              production shape and K7 per banded length at B=50 with
@@ -836,17 +837,18 @@ def mvit_cases(dev="cuda", chunks=2):
 def phase_mvit_kernels(dev="cuda", group=32):
     """K2, K3, K4 against their plain versions on the card at every
     production shape, B = 2 chunks (one with a zero tail), f32 (atol 1e-4,
-    rtol 5e-4) and bf16 (check_bf16); K4's stage-3 geometry also at the
-    ``group`` chunks the main path hands it, bf16."""
+    rtol 5e-4) and bf16 (check_bf16); K4's three geometries also at the
+    ``group`` chunks the main path hands them, bf16."""
     import torch
 
     worst, rows = {}, []
-    hw3, c3, nh3, _ = MSBLOCK_SHAPES[1]
     cases = [(c, (torch.float32, torch.bfloat16)) for c in mvit_cases(dev)]
-    cases.append((("multiscale_block", f"S={hw3[0] * hw3[1]} C={c3} heads={nh3} B={group}", 15,
-                   lambda dt: msblock_case(hw3, c3, nh3, dt, dev, b=group),
-                   lambda which, blk, x: run_msblock(which, blk, x, VIDEO_T, hw3, nh3), None),
-                  (torch.bfloat16,)))
+    for hw, c, nh, n in MSBLOCK_SHAPES:
+        cases.append((("multiscale_block", f"S={hw[0] * hw[1]} C={c} heads={nh} B={group}", n,
+                       lambda dt, a=(hw, c, nh): msblock_case(*a, dt, dev, b=group),
+                       lambda which, blk, x, a=(hw, nh): run_msblock(
+                           which, blk, x, VIDEO_T, a[0], a[1]), None),
+                      (torch.bfloat16,)))
     # no production width: C = 128 (64-column product tiles beside the 192
     # ones) with head dim 64 (the attention step's mma.sync kernel)
     cases.append((("multiscale_block", "S=4 C=128 heads=2 (64-column tiles, head dim 64)", 0,
@@ -884,48 +886,67 @@ K4_LAUNCHES = ("LN1 row statistics", "LN1 + qkv product", "q pool + head LN",
                "LN2 row statistics", "LN2 + fc1 product + GELU", "fc2 product + y1")
 
 
-def k4_launch_table(smi, dev="cuda", group=32, iters=3):
-    """Device time of each launch inside one fused_multiscale_block call, per
-    production geometry at the ``group`` chunks the main path runs, bf16: the
-    call is cut after its first n launches (the wrapper's ``upto``) for n = 1
-    .. 9, each cut timed with CUDA events (plain, then the cuts in turn, twice,
-    the smaller reading kept), and launch n costs what cut n adds to cut n - 1
-    (launch 1's reading also holds the wrapper's host time, ~0.1 ms, where
-    that is longer than its device time). Says where a block's time is; the
-    whole call's TFLOP/s over k4_work."""
+def kernel_events(fn, calls):
+    """The device-side kernel events of ``calls`` calls of ``fn``, in launch
+    order, as (kernel name, device microseconds) (torch.profiler, CUPTI)."""
     import torch
-    from audio_visual_deepfake_detection_tpu_torch.ops.kernels import mvit_block as k4
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not e.name.startswith(("Memcpy", "Memset"))]
+    events.sort(key=lambda e: e.time_range.start)
+    return [(e.name, e.time_range.elapsed_us()) for e in events]
+
+
+def k4_launch_table(smi, dev="cuda", group=32, calls=3):
+    """Device time of each launch inside one fused_multiscale_block call, per
+    production geometry at the ``group`` chunks the main path runs, bf16:
+    ``calls`` calls are traced and each launch's kernel events averaged by
+    their place in the call; the whole call is timed apart, replayed as a
+    CUDA graph (device_ms), with its TFLOP/s over k4_work. Says where a
+    block's time is. A trace that does not hold every launch of every call
+    leaves the per-launch times unmeasured and says so; the whole call's time
+    does not depend on it."""
+    import torch
 
     out = {}
     for hw, c, nh, n_blocks in MSBLOCK_SHAPES:
         s_cells = hw[0] * hw[1]
         blk, x = msblock_case(hw, c, nh, torch.bfloat16, dev, b=group)
-        p = blk.packed(x.dtype)
-        cuts = [float("inf")] * len(K4_LAUNCHES)
         with torch.no_grad():
-            for _ in range(2):
-                for n in range(len(K4_LAUNCHES)):
-                    cuts[n] = min(cuts[n], cuda_ms(
-                        lambda: k4._launch(x, p, VIDEO_T, *hw, nh, upto=n + 1), iters, warmup=1))
-            whole = cuda_ms(lambda: run_msblock("kernel", blk, x, VIDEO_T, hw, nh), iters,
-                            warmup=1)
-            # the last cut is the whole call: the same launches, the same bits
-            same = torch.equal(k4._launch(x, p, VIDEO_T, *hw, nh, upto=len(K4_LAUNCHES)),
-                               run_msblock("kernel", blk, x, VIDEO_T, hw, nh))
-        rows = [dict(launch=n + 1, name=name, ms=cuts[n] - (cuts[n - 1] if n else 0.0))
-                for n, name in enumerate(K4_LAUNCHES)]
+            call = lambda: run_msblock("kernel", blk, x, VIDEO_T, hw, nh)  # noqa: E731
+            events = kernel_events(call, calls)
+            whole = device_ms(call, iters=5)
+        n = len(K4_LAUNCHES)
+        per_call = [events[i * n:(i + 1) * n] for i in range(calls)]
+        traced = len(events) == calls * n and all(
+            [name for name, _ in one] == [name for name, _ in per_call[0]] for one in per_call)
+        rows = [dict(launch=i + 1, name=name,
+                     kernel=per_call[0][i][0][:80] if traced else None,
+                     ms=sum(one[i][1] for one in per_call) / calls / 1e3 if traced else None)
+                for i, name in enumerate(K4_LAUNCHES)]
         flops, _ = k4_work(group, s_cells, c, VIDEO_T)
         label = f"S={s_cells} C={c} heads={nh}"
         log(f"K4 launches, {label}, {group} chunks bf16 (x{n_blocks} per forward): whole call "
             f"{whole:.4f} ms, {flops / whole / 1e9:.1f} TFLOP/s over k4_work ({smi})")
-        for r in rows:
-            log(f"  {r['launch']:2d} {r['ms']:9.4f} ms {100 * r['ms'] / cuts[-1]:5.1f}%  {r['name']}")
-        if not same:
-            fail(f"K4 launch table: {label}: the call cut after {len(K4_LAUNCHES)} launches "
-                 f"differs from the whole call")
+        if traced:
+            busy = sum(r["ms"] for r in rows)
+            for r in rows:
+                log(f"  {r['launch']:2d} {r['ms']:9.4f} ms {100 * r['ms'] / busy:5.1f}%  "
+                    f"{r['name']}  [{r['kernel'][:40]}]")
+        else:
+            log(f"  per-launch times not measured: the trace holds {len(events)} kernel events "
+                f"for {calls} calls of {n} launches")
         out[label] = dict(rows=rows, total_ms=whole, tflops=flops / whole / 1e9,
-                          blocks=n_blocks)
-        del blk, x, p
+                          blocks=n_blocks, traced=traced)
+        del blk, x, call
         torch.cuda.empty_cache()
     per_forward = sum(v["total_ms"] * v["blocks"] for v in out.values())
     total_flops = sum(k4_work(group, hw[0] * hw[1], c, VIDEO_T)[0] * n
@@ -1412,6 +1433,9 @@ K8_CASES = ((2, E2V_T), (2, 130), (2, 50), (1, 2000))   # (B, T): two production
 # one shorter than a key tile, one past the 1600 rows the first design could hold
 
 
+K8_MANY_B = 5462        # x 12 heads = 65,544 (sample, head) pairs
+
+
 def check_k8_all_masked(dtype, dev, t=130):
     """A sample whose keys are all masked: the plain version's softmax of
     -inf is NaN there, the kernel gives uniform weights (the mean of v), as
@@ -1437,8 +1461,9 @@ def phase_audio_kernels(dev="cuda", lengths=(WAV_LEN, WAV_ODD), cases=K8_CASES):
     """K5 against conv_extractor_math at B = 2, a 9.6 s wav and one with an
     odd tail, f32 (atol 1e-4, rtol 5e-4) and bf16 (check_k5_bf16); K8 against
     full_mha_math at (2, 12, 479 | 130 | 50, 64) and (1, 12, 2000, 64), with
-    and without a padding mask, and with one sample fully masked, f32 atol
-    2e-5 and bf16 the rounding bound and the f32 reference (check_k8)."""
+    and without a padding mask, with one sample fully masked, and in bf16 at
+    more than 65,535 (sample, head) pairs; f32 atol 2e-5 and bf16 the rounding
+    bound and the f32 reference (check_k8)."""
     import torch
     from audio_visual_deepfake_detection_tpu_torch.ops.kernels import conv_extractor as k5
 
@@ -1487,6 +1512,13 @@ def phase_audio_kernels(dev="cuda", lengths=(WAV_LEN, WAV_ODD), cases=K8_CASES):
         record("full_mha", f"(3, {E2V_H}, 130, {E2V_D}) one sample all masked", dtype, err, ok,
                rule)
     if torch.device(dev).type == "cuda":
+        # more (sample, head) pairs than a grid's second axis takes (65,535)
+        args = k8_case(K8_MANY_B, 50, torch.bfloat16, dev, True, seed=8, d=32)
+        got, ref = run_k8("kernel", *args), run_k8("plain", *args)
+        sync(dev)
+        record("full_mha", f"({K8_MANY_B}, {E2V_H}, 50, 32) mask", torch.bfloat16,
+               *check_k8(got, ref, *args))
+        del args, got, ref
         torch.cuda.empty_cache()
     REPORT["audio_kernels"] = rows
     return worst
@@ -1742,12 +1774,13 @@ def phase_audio_timing(ex, model, cfg, smi, dev="cuda", batches=(2, 16, 64)):
             del m, wav
             torch.cuda.empty_cache()
             q, k, v, mask = k8_case(b, E2V_T, bf16, dev, True, seed=b)
-            err, ok, rule = check_k8(run_k8("kernel", q, k, v, mask),
-                                     run_k8("plain", q, k, v, mask), q, k, v, mask)
-            log(f"full_mha vs plain ({b}, {E2V_H}, {E2V_T}, {E2V_D}) mask bfloat16 "
-                f"max|d|={err:.3e} [{rule}] {'ok' if ok else 'MISMATCH'}")
-            if not ok:
-                fail(f"full_mha disagrees with its plain version at B={b}")
+            for m_, text in ((None, "no mask"), (mask, "mask")):   # the main path sends both
+                err, ok, rule = check_k8(run_k8("kernel", q, k, v, m_),
+                                         run_k8("plain", q, k, v, m_), q, k, v, m_)
+                log(f"full_mha vs plain ({b}, {E2V_H}, {E2V_T}, {E2V_D}) {text} bfloat16 "
+                    f"max|d|={err:.3e} [{rule}] {'ok' if ok else 'MISMATCH'}")
+                if not ok:
+                    fail(f"full_mha disagrees with its plain version at B={b}, {text}")
             t = time_pair(lambda which: run_k8(which, q, k, v, mask), iters=5)
             add = torch.zeros(mask.shape, dtype=bf16, device=dev).masked_fill_(
                 mask, float("-inf"))[:, None, None, :]
@@ -2546,6 +2579,7 @@ def main():
     model, cfg = timed(phase_serve)
     serve_launches = REPORT["serve"]["launches"]
     mvit_worst = timed(phase_mvit_kernels)
+    k4_table = timed(k4_launch_table, smi)
     audio_worst = timed(phase_audio_kernels)
     ex, video_launched = timed(phase_video, smi=smi)
     ex, audio_launched = timed(phase_audio, ex.video_model, smi=smi)
@@ -2555,7 +2589,6 @@ def main():
     train_launched, train_report = timed(phase_train, smi=smi)
     totals, worst_timed, k1_bounds = timed(phase_timing, model, cfg, smi)
     mvit_totals, mvit_bounds, mvit_library, mvit_group = timed(phase_mvit_timing, smi)
-    k4_table = timed(k4_launch_table, smi)
     audio_times, _, k5_rules = timed(phase_audio_timing, ex, model, cfg, smi)
     train_times = timed(phase_train_kernel_timing, smi)
     for mod in ("jax", "audio_visual_deepfake_detection_tpu"):
