@@ -7,36 +7,38 @@
 //   out = softmax(s) v (+ q),  s[n, k] = scale q[n].k[k] + band[n, k]
 //
 // with k/v pooled to a (T, 1, 1) grid: T grid keys then the class-token key
-// LAST (no band on it). Two ways to get the band:
-// - given (K3): a (BH, Nq, T) f32 array the caller built;
-// - BAND_TABLE (K4): built here by index arithmetic from the temporal
-//   rel-pos table, band[n, k] = q[n] . rel[t_n - k + T - 1], t_n = g / S for
-//   grid row g; no shear, no gather array.
-// Flags for K4: PRESCALE (q rounded to the compute dtype after the scale, as
-// the XLA path; K3 scales the f32 scores instead), BAND_ROUND (the band
-// rounded to the compute dtype: the XLA Toeplitz branch at S <= 4),
-// CLS_FIRST (row 0 is the class-token query: no band, no residual).
+// LAST (no band on it). Two sources of the band:
+// - BAND_TABLE (every call of the MViT forward, K3's blocks 0, 1, 23 and
+//   K4's attention step): built here from the temporal rel-pos table,
+//   band[n, k] = q[n] . rel[t_n - k + T - 1], t_n = g / S for grid row g;
+//   no band array exists anywhere;
+// - given (K3's JAX contract, fused_pooled_attention(q, k, v, band, scale)):
+//   a (BH, Nq, T) f32 array the caller built.
+// Flags: PRESCALE (q rounded to the compute dtype after the scale, as the
+// XLA path of the whole block; without it the f32 scores are scaled, as
+// K3's caller does), BAND_ROUND (the band rounded to the compute dtype: the
+// XLA Toeplitz branch at S <= 4), CLS_FIRST (row 0 is the class-token
+// query: no band, no residual; K4 only).
 // Numerics follow the plain versions (pooled_attention_math, msblock_math):
 // f32 scores and softmax statistics, the exp rounded to the compute dtype,
 // z summed from the rounded exps, P.V in f32 divided by z, rounded once,
 // then the residual add in the compute dtype.
 //
 // What bounds it on this card: at production a row attends 513 keys of
-// d = 96, so per row ~2 x 513 x 96 FMAs (three with the band) against 2 d
-// values read and d written: far above the H100's ridge, compute-bound.
+// d = 96, so per row ~3 x 513 x 96 multiply-adds (scores, band, P.V)
+// against 2 d values read and d written: far above the H100's ridge,
+// operations. With the band taken from the table the bytes are q, k, v, the
+// table rows and the output; a (BH, Ng, T) f32 band array would be 2.1 GB a
+// call at blocks 0-1 of 32 chunks (written where it is built, read here).
 //
-// Three kernels. K4's call (bf16, head dim 96, BAND_TABLE) takes
+// Two kernels. bf16 with head dim 32, 64 or 96 (every MViT call) takes
 // pooled_attention_wgmma_kernel: scores, band and P.V on wgmma, the scores
-// in registers, two passes that recompute them (the maximum, then the exps),
-// no cap on Nk; its comment says the rest. K3's call (the band given as an
-// array) and other head dims in bf16 take pooled_attention_mma_kernel: one
-// 256-thread block per (sample x head, 32 query rows), q, the 32 x Nk f32
-// score rows, a 64-key k (then v) tile and the rel-pos rows it needs in
-// shared memory (~150 KB at Nk = 513, one block an SM), every product on
-// mma.sync m16n8k16, the softmax over the stored row with no second pass
-// over device memory and no online rescaling (which would round differently
-// from the JAX kernel). float32 takes pooled_attention_kernel: the same
-// layout with FMA products at full precision.
+// in registers, two passes that recompute them (the maximum, then the exps)
+// rather than an online softmax, which would round differently from the
+// JAX kernel; its comment says the rest. float32 (and bf16 at any other
+// head dim or alignment) takes pooled_attention_kernel: one 256-thread
+// block per (sample x head, 32 query rows), the 32 x Nk score rows in
+// shared memory, FMA products at full precision.
 
 #include "wgmma.cuh"
 
@@ -55,7 +57,7 @@ enum { PRESCALE = 1, BAND_ROUND = 2, CLS_FIRST = 4, BAND_TABLE = 8 };
 
 struct Params {
   const void* q; const void* k; const void* v;   // q strided; k, v (BH, Nk, d)
-  const float* band;                              // (BH, Nq, Nk - 1), K3
+  const float* band;                              // (BH, Nq - cls, Nk - 1)
   const void* rel;                                // (>= 2T - 1, d), BAND_TABLE
   void* out;
   long long qsb, qsh, qsn, osb, osh, osn;         // (sample, head, row) strides
@@ -149,7 +151,7 @@ pooled_attention_kernel(Params p) {
         if (table)
           s += (p.flags & BAND_ROUND) ? N::rnd(bacc[i]) : bacc[i];
         else
-          s += p.band[((size_t)bh * nq + n) * nkg + key];
+          s += p.band[((size_t)bh * (nq - cls) + n - cls) * nkg + key];
       }
       Sc[r * nk + key] = s;
     }
@@ -214,275 +216,76 @@ pooled_attention_kernel(Params p) {
   }
 }
 
-// ---- bf16 on the tensor cores ------------------------------------------
-// The same function for bf16 with every product (q.k, q.rel, P.V) on
-// mma.sync m16n8k16 (bf16 in, f32 accumulate): products of bf16 values are
-// exact in f32, so this differs from the FMA kernel only in summation
-// order. The band comes from a small product G = q . rel^T over the table
-// rows the key tile needs (at most R + KT - 1), read back by index. Warp w
-// owns the 16-row half w % 2 of the tile and a quarter w / 2 of its columns.
-constexpr int LDB = 8;                      // bf16 pad of a shared row
-constexpr int NREL = R + KT;                // table rows per key tile (>= R + KT - 1)
-
-// A fragment of rows [m0, m0 + 16) at column k0 of a bf16 row-major tile.
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const __nv_bfloat16* A, int ld,
-                                       int m0, int k0) {
-  const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
-  const __nv_bfloat16* r0 = A + (m0 + g) * ld + k0 + 2 * t;
-  const __nv_bfloat16* r1 = r0 + 8 * ld;
-  a[0] = ld_pair(r0); a[1] = ld_pair(r1); a[2] = ld_pair(r0 + 8); a[3] = ld_pair(r1 + 8);
-}
-
-// acc[j] += A[m0:m0+16, :K] . Bt[n0 + 8 j : n0 + 8 j + 8, :K]^T for j < nt
-// (Bt row-major (n, k): the mma's column-major B).
-template <int MAXT>
-__device__ __forceinline__ void mma_rows(float (&acc)[MAXT][4], int nt, const __nv_bfloat16* A,
-                                         int lda, int m0, const __nv_bfloat16* Bt, int ldb,
-                                         int n0, int K) {
-  const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
-  for (int k0 = 0; k0 < K; k0 += 16) {
-    uint32_t a[4];
-    frag_a(a, A, lda, m0, k0);
-#pragma unroll
-    for (int j = 0; j < MAXT; ++j) {
-      if (j >= nt) break;
-      const __nv_bfloat16* br = Bt + (n0 + 8 * j + g) * ldb + k0 + 2 * t;
-      mma_bf16(acc[j], a, ld_pair(br), ld_pair(br + 8));
-    }
-  }
-}
-
-struct MmaLayout {      // shared-memory carve-up in bytes
-  int ldq, nkp, q, qb, kt, rel, g, sc, z, bytes;
-  __host__ __device__ MmaLayout(int d, int nk) {
-    ldq = d + LDB;
-    nkp = (nk + KT - 1) / KT * KT;
-    q = 0;
-    qb = q + 2 * R * ldq;
-    kt = qb + 2 * R * ldq;              // two K (then V) tiles
-    rel = kt + 2 * 2 * KT * ldq;        // two rel-pos tiles
-    g = rel + 2 * 2 * NREL * ldq;
-    sc = g + 4 * R * (NREL + 4);
-    z = sc + 4 * R * (nkp + 4);
-    bytes = z + 4 * R;
-  }
-};
-
-// Asynchronous 16-byte copies (cp.async) of rows [r0, r0 + rows) of a
-// (., d) bf16 array into a shared tile; rows outside [0, hi) are zero-filled.
-// The caller commits the group and waits for it before reading the tile.
-__device__ __forceinline__ void copy_rows_async(__nv_bfloat16* dst, int ldq,
-                                           const __nv_bfloat16* src, int r0, int rows,
-                                           int hi, int d) {
-  const int d8 = d / 8;
-  for (int idx = threadIdx.x; idx < rows * d8; idx += NT) {
-    const int j = idx / d8, c = 8 * (idx % d8), row = r0 + j;
-    const bool ok = row >= 0 && row < hi;
-    const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst + j * ldq + c));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(s), "l"(src + (size_t)(ok ? row : 0) * d + c), "r"(ok ? 16 : 0));
-  }
-}
-__global__ void __launch_bounds__(NT, 1)
-pooled_attention_mma_kernel(Params p) {
-  using N = Num<__nv_bfloat16>;
-  extern __shared__ __align__(16) unsigned char smb[];
-  const int d = p.d, nk = p.nk, nq = p.nq, nkg = nk - 1;
-  const MmaLayout L(d, nk);
-  const int ldq = L.ldq, lds = L.nkp + 4, ldg = NREL + 4;
-  __nv_bfloat16* Qa = reinterpret_cast<__nv_bfloat16*>(smb + L.q);
-  __nv_bfloat16* Qb = reinterpret_cast<__nv_bfloat16*>(smb + L.qb);
-  __nv_bfloat16* Kb = reinterpret_cast<__nv_bfloat16*>(smb + L.kt);   // [2][KT][ldq]
-  __nv_bfloat16* Rb = reinterpret_cast<__nv_bfloat16*>(smb + L.rel);  // [2][NREL][ldq]
-  float* G = reinterpret_cast<float*>(smb + L.g);
-  float* Sc = reinterpret_cast<float*>(smb + L.sc);
-  float* Z = reinterpret_cast<float*>(smb + L.z);
-  const int bh = blockIdx.y, b = bh / p.nh, h = bh % p.nh;
-  const int n0 = blockIdx.x * R;
-  const int cls = (p.flags & CLS_FIRST) ? 1 : 0;
-  const bool table = p.flags & BAND_TABLE;
-  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p.q) + b * p.qsb + h * p.qsh;
-  const __nv_bfloat16* kp = static_cast<const __nv_bfloat16*>(p.k) + (size_t)bh * nk * d;
-  const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(p.v) + (size_t)bh * nk * d;
-  const __nv_bfloat16* rel = static_cast<const __nv_bfloat16*>(p.rel);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int mt = 16 * (warp % 2), wq = warp / 2;     // row half, column quarter
-
-  const float qscale = N::rnd(p.scale);
-  for (int idx = threadIdx.x; idx < R * (d / 8); idx += NT) {
-    const int r = idx / (d / 8), c = 8 * (idx % (d / 8)), n = n0 + r;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (n < nq) v = *reinterpret_cast<const uint4*>(q + (size_t)n * p.qsn + c);
-    *reinterpret_cast<uint4*>(Qb + r * ldq + c) = v;
-    if (p.flags & PRESCALE) {
-      __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&v);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) e[i] = __float2bfloat16_rn(__bfloat162float(e[i]) * qscale);
-    }
-    *reinterpret_cast<uint4*>(Qa + r * ldq + c) = v;
-  }
-  const int t0 = max(n0 - cls, 0) / p.S;
-
-  // ---- scores + band -> Sc; tile it + 1 loads while tile it computes ------
-  const int ntiles = L.nkp / KT;
-  auto rbase_of = [&](int k0) { return t0 - (k0 + KT - 1) + p.T - 1; };
-  auto load_kr = [&](int it) {
-    const int buf = it & 1;
-    copy_rows_async(Kb + buf * KT * ldq, ldq, kp, it * KT, KT, nk, d);
-    if (table)
-      copy_rows_async(Rb + buf * NREL * ldq, ldq, rel, rbase_of(it * KT), NREL, 2 * p.T - 1, d);
-    cp_commit();
-  };
-  load_kr(0);
-  for (int it = 0; it < ntiles; ++it) {
-    const int k0 = it * KT, rbase = rbase_of(k0);
-    const __nv_bfloat16* Kt = Kb + (it & 1) * KT * ldq;
-    const __nv_bfloat16* Rs = Rb + (it & 1) * NREL * ldq;
-    cp_wait_all();
-    __syncthreads();
-    if (it + 1 < ntiles) load_kr(it + 1);
-    if (table) {   // G = Qb . Rs^T: this warp's rows, columns [24 wq, 24 wq + 24)
-      float ga[3][4] = {};
-      mma_rows<3>(ga, 3, Qb, ldq, mt, Rs, ldq, 24 * wq, d);
-#pragma unroll
-      for (int j = 0; j < 3; ++j) {
-        const int col = 24 * wq + 8 * j + 2 * t;
-        G[(mt + g) * ldg + col] = ga[j][0];
-        G[(mt + g) * ldg + col + 1] = ga[j][1];
-        G[(mt + g + 8) * ldg + col] = ga[j][2];
-        G[(mt + g + 8) * ldg + col + 1] = ga[j][3];
-      }
-    }
-    float sa[2][4] = {};
-    mma_rows<2>(sa, 2, Qa, ldq, mt, Kt, ldq, 16 * wq, d);
-    __syncthreads();   // G complete
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = mt + g + (e >= 2 ? 8 : 0);
-        const int key = k0 + 16 * wq + 8 * j + 2 * t + (e & 1);
-        const int n = n0 + r;
-        float s = (p.flags & PRESCALE) ? sa[j][e] : sa[j][e] * p.scale;
-        if (n >= cls && n < nq && key < nkg) {
-          if (table) {
-            const int l = (n - cls) / p.S - key + p.T - 1 - rbase;
-            s += (p.flags & BAND_ROUND) ? N::rnd(G[r * ldg + l]) : G[r * ldg + l];
-          } else {
-            s += p.band[((size_t)bh * nq + n) * nkg + key];
-          }
-        }
-        Sc[r * lds + key] = s;
-      }
-  }
-  __syncthreads();
-
-  copy_rows_async(Kb, ldq, vp, 0, KT, nk, d);   // V tile 0 loads during the softmax
-  cp_commit();
-
-  // ---- softmax: exps rounded to bf16, padded keys 0 -----------------------
-  for (int r = warp; r < R; r += NWARP) {
-    float* srow = Sc + r * lds;
-    float m = -CUDART_INF_F;
-    for (int j = lane; j < nk; j += 32) m = fmaxf(m, srow[j]);
-    m = warp_max(m);
-    float z = 0.f;
-    for (int j = lane; j < L.nkp; j += 32) {
-      const float e = j < nk ? N::rnd(expf(srow[j] - m)) : 0.f;
-      srow[j] = e;
-      z += e;
-    }
-    z = warp_sum(z);
-    if (lane == 0) Z[r] = z;
-  }
-
-  // ---- P.V: this warp's rows, head-dim columns 8 (wq + 4 i) ----------------
-  const int ntile = d / 8;
-  const int mine = (ntile - wq + 3) / 4;             // n8 tiles of this warp
-  float oa[MAXD / 32][4] = {};
-  for (int it = 0; it < ntiles; ++it) {
-    const int k0 = it * KT;
-    const __nv_bfloat16* Vs = Kb + (it & 1) * KT * ldq;   // row-major (key, c)
-    cp_wait_all();
-    __syncthreads();
-    if (it + 1 < ntiles) {
-      copy_rows_async(Kb + ((it + 1) & 1) * KT * ldq, ldq, vp, k0 + KT, KT, nk, d);
-      cp_commit();
-    }
-    for (int kk = 0; kk < KT; kk += 16) {
-      const float* s0 = Sc + (mt + g) * lds + k0 + kk + 2 * t;
-      const float* s1 = s0 + 8 * lds;
-      const uint32_t a[4] = {pack_bf16(s0[0], s0[1]), pack_bf16(s1[0], s1[1]),
-                             pack_bf16(s0[8], s0[9]), pack_bf16(s1[8], s1[9])};
-#pragma unroll
-      for (int i = 0; i < MAXD / 32; ++i) {
-        if (i >= mine) break;
-        uint32_t b0, b1;
-        frag_b_trans(b0, b1, Vs, ldq, kk, 8 * (wq + 4 * i));
-        mma_bf16(oa[i], a, b0, b1);
-      }
-    }
-  }
-  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out) + b * p.osb + h * p.osh;
-#pragma unroll
-  for (int i = 0; i < MAXD / 32; ++i) {
-    if (i >= mine) break;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = mt + g + (e >= 2 ? 8 : 0), n = n0 + r;
-      const int c = 8 * (wq + 4 * i) + 2 * t + (e & 1);
-      if (n >= nq) continue;
-      float y = N::rnd(oa[i][e] / Z[r]);
-      if (n >= cls) y = N::rnd(y + __bfloat162float(Qb[r * ldq + c]));
-      N::store(out, (size_t)n * p.osn + c, y);
-    }
-  }
-}
-
-// ---- bf16 with the band from the table, on wgmma (K4's attention step) ------
-// Head dim WD = 96 (every stride-1 stage of mvit_v2_b), flags PRESCALE,
-// CLS_FIRST and BAND_TABLE. A block of two warpgroups owns 128 query rows, 64
-// a warpgroup; both q (scaled for the scores, as stored for the band and the
-// residual) stay in registers as wgmma's A operand. The scores never reach
-// shared memory: pass 1 walks the 64-key tiles, computes s = qs k^T + band
-// in registers and keeps the row maximum; pass 2 recomputes s, takes
-// exp(s - m) rounded to bf16, sums z from it and hands the registers to the
-// P.V wgmma. The band is a Toeplitz gather: for a key tile at k0 a warpgroup
-// needs q . rel[j] for the NREL table rows j its rows' time steps can meet,
-// so it computes G = q rel_window^T (64 x NREL) with one more wgmma, parks G
-// in shared memory (its 16 rows per warp are read back by that warp alone)
-// and thread (row r, key column c) adds G[r][dt_r + 63 - c], an address that
-// does not change from tile to tile. Key / value tiles and the block's table
-// window stream through a ring of NS stages filled by cp.async, one
-// __syncthreads per tile. A tile is two 128B-swizzled halves of 64 columns
-// (the second half holds columns 64..95).
-constexpr int WD = 96, WKS = WD / 16, WCH = WD / 8;    // head dim, k16 steps, 16-byte chunks
+// ---- bf16 on wgmma: every bf16 call at head dim 32, 64 or 96 ---------------
+// A block of two warpgroups owns 128 query rows, 64 a warpgroup; q stays in
+// registers as wgmma's A operand, as stored (band, residual and, without
+// PRESCALE, the scores) and, with PRESCALE, scaled and rounded for the
+// scores. The scores never reach shared memory: pass 1 walks the 64-key
+// tiles of grid keys, computes s = q k^T (x scale) + band in registers and
+// keeps the row maximum; pass 2 recomputes s, takes exp(s - m) rounded to
+// bf16, sums z from it and hands the registers to the P.V wgmma. The class
+// key (the last of k and v) is no tile of its own (T = 512 grid keys fill
+// eight tiles exactly): each thread dots its q fragment columns with it, a
+// quad sums the four, and its exp joins z and O at the end. The band (NREL):
+// - from the table, directly (NREL = DIRECT_BAND; no class row and S a
+//   multiple of 64: MViT blocks 0-1): a warpgroup's 64 rows are one time
+//   step t, so band[r][k0 + c] = q[r] . rel[t - k0 - c + T - 1] is itself a
+//   64 x 64 product of q with the tile's 64 table rows stored in reverse:
+//   one more wgmma beside the scores', added element by element;
+// - from the table, gathered (NREL > 0: K4's steps, block 23): for a key
+//   tile at k0 a warpgroup needs q . rel[j] for the NREL table rows its
+//   rows' time steps can meet; it computes G = q rel_window^T (64 x NREL)
+//   with one more wgmma, parks G in shared memory (its 16 rows per warp are
+//   read back by that warp alone) and thread (row r, key column c) adds
+//   G[r][dt_r + 63 - c], an address that does not change from tile to tile;
+// - from a given f32 array (NREL = 0), one load per score.
+// Key / value tiles and the block's table window stream through a ring of
+// NS stages filled by cp.async, one __syncthreads per tile. A tile row is
+// one or two 128B-swizzled halves of 64 columns (head dim 96: the second
+// holds columns 64..95). Head dim 32 runs its P.V product 64 columns wide
+// over value columns 32..63 that are zero-filled, and drops them.
 constexpr int WROWS = 128, WNT = 256;
-constexpr int KV_BYTES = 2 * KT * 128;                 // a key or value tile
+
+template <int WD> struct WgDim {
+  static constexpr int KS = WD / 16;                  // k16 steps along the head dim
+  static constexpr int CH = WD / 8;                   // 16-byte chunks of a row
+  static constexpr int HALVES = (WD + 63) / 64;       // 64-column blocks of a tile row
+  static constexpr int PVN = WD < 64 ? 64 : WD;       // width of the P.V product
+  static constexpr int LCH = PVN / 8;                 // chunks a key or value row fills
+  static constexpr int KV_BYTES = HALVES * KT * 128;  // a key or value tile
+};
 
 // Table rows a warpgroup's 64 query rows can meet in one key tile: their
 // time steps span (S - 1 + 63) / S, a tile 63 more, the window start is
 // rounded down to eight rows.
 __host__ __device__ inline int nrel_needed(int S) { return (S + 62) / S + 71; }
-// Rows of the block's table window: where the second warpgroup's starts,
-// plus NREL.
+// Rows of the table a stage holds: the block's window (where the second
+// warpgroup's starts, plus NREL), or with DIRECT_BAND a reversed 64-row
+// window for each warpgroup, or none (the band given).
+constexpr int DIRECT_BAND = -1;
 __host__ __device__ inline int window_rows(int S, int nrel) {
-  return (S + 63) / S / 8 * 8 + nrel;
+  return nrel == DIRECT_BAND ? 2 * KT : nrel ? (S + 63) / S / 8 * 8 + nrel : 0;
 }
-__host__ __device__ inline int wg_smem_bytes(int S, int nrel, int ns) {
-  return 1024 + ns * (KV_BYTES + window_rows(S, nrel) * 256) + 2 * 64 * (nrel + 4) * 4;
+template <int WD>
+int wg_smem_bytes(int S, int nrel, int ns) {
+  using D = WgDim<WD>;
+  return 1024 + ns * (D::KV_BYTES + window_rows(S, nrel) * D::HALVES * 128) +
+         (nrel > 0 ? 2 * 64 * (nrel + 4) * 4 : 0);
 }
 
-template <int NREL, int NS>
+template <int WD, int NREL, int NS>
 __global__ void __launch_bounds__(WNT, 1)
 pooled_attention_wgmma_kernel(Params p) {
   using N = Num<__nv_bfloat16>;
+  using D = WgDim<WD>;
+  constexpr bool GATHER = NREL > 0, DIRECT = NREL == DIRECT_BAND;
+  constexpr int GN = GATHER ? NREL : 8, LDG = GN + 4;
   extern __shared__ __align__(16) unsigned char smraw[];
   const int nk = p.nk, nq = p.nq, nkg = nk - 1, S = p.S;
-  const int rw = window_rows(S, NREL), stage_bytes = KV_BYTES + rw * 256;
+  const int cls = (p.flags & CLS_FIRST) ? 1 : 0;
+  const bool prescale = p.flags & PRESCALE;
+  const int rw = window_rows(S, NREL), stage_bytes = D::KV_BYTES + rw * D::HALVES * 128;
   const uint32_t raw = smem_u32(smraw), ring = (raw + 1023u) & ~1023u;
-  constexpr int LDG = NREL + 4;
   const int bh = blockIdx.y, b = bh / p.nh, h = bh % p.nh;
   const int n0 = blockIdx.x * WROWS;
   const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
@@ -493,17 +296,18 @@ pooled_attention_wgmma_kernel(Params p) {
   const __nv_bfloat16* kp = static_cast<const __nv_bfloat16*>(p.k) + (size_t)bh * nk * WD;
   const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(p.v) + (size_t)bh * nk * WD;
   const __nv_bfloat16* rel = static_cast<const __nv_bfloat16*>(p.rel);
-  const int nt = (nk + KT - 1) / KT, ntot = 3 * nt;
+  const int nt = (nkg + KT - 1) / KT, ntot = 3 * nt;    // tiles of grid keys
 
-  // the block's and this warpgroup's first time step; the warpgroup's window
-  // starts `off` rows into the block's
-  const int t0b = max(n0 - 1, 0) / S;
-  const int off = (max(n0 + 64 * wg - 1, 0) / S - t0b) / 8 * 8;
+  // the block's and this warpgroup's first time step (grid rows start after
+  // the class row when there is one); the warpgroup's window starts `off`
+  // rows into the block's
+  const int t0b = max(n0 - cls, 0) / S;
+  const int off = (max(n0 + 64 * wg - cls, 0) / S - t0b) / 8 * 8;
   const int row0 = n0 + 64 * wg + 16 * warp + g, row1 = row0 + 8;
-  const bool band0 = row0 >= 1 && row0 < nq, band1 = row1 >= 1 && row1 < nq;
+  const bool band0 = row0 >= cls && row0 < nq, band1 = row1 >= cls && row1 < nq;
   // G column of (this row, key column c) is dt + 63 - c
-  const int dt0 = band0 ? (row0 - 1) / S - t0b - off : 0;
-  const int dt1 = band1 ? (row1 - 1) / S - t0b - off : 0;
+  const int dt0 = band0 ? (row0 - cls) / S - t0b - off : 0;
+  const int dt1 = band1 ? (row1 - cls) / S - t0b - off : 0;
 
   auto load_step = [&](int j) {
     if (j < ntot) {
@@ -512,18 +316,29 @@ pooled_attention_wgmma_kernel(Params p) {
       const __nv_bfloat16* src = is_v ? vp : kp;
       const uint32_t dst = ring + (j % NS) * stage_bytes;
 #pragma unroll
-      for (int i = 0; i < KT * WCH / WNT; ++i) {
-        const int idx = tid + WNT * i, r = idx / WCH, c = idx % WCH, row = k0 + r;
-        const bool ok = row < nk;
+      for (int i = 0; i < KT * D::LCH / WNT; ++i) {
+        const int idx = tid + WNT * i, r = idx / D::LCH, c = idx % D::LCH, row = k0 + r;
+        const bool ok = row < nkg && c < D::CH;      // past the grid keys or the head dim: zeros
         cp_async16_to(dst + (c / 8) * (KT * 128) + swz(r, c % 8),
                       ok ? src + (size_t)row * WD + 8 * c : src, ok ? 16 : 0);
       }
-      if (!is_v && k0 < nkg) {     // table rows rb .. rb + rw - 1 of this tile's window
+      if (GATHER && !is_v) {  // table rows rb .. rb + rw - 1 of this tile's window
         const int rb = t0b - (k0 + KT - 1) + p.T - 1;
-        for (int idx = tid; idx < rw * WCH; idx += WNT) {
-          const int r = idx / WCH, c = idx % WCH, row = rb + r;
+        for (int idx = tid; idx < rw * D::CH; idx += WNT) {
+          const int r = idx / D::CH, c = idx % D::CH, row = rb + r;
           const bool ok = row >= 0 && row <= 2 * p.T - 2;
-          cp_async16_to(dst + KV_BYTES + (c / 8) * (rw * 128) + swz(r, c % 8),
+          cp_async16_to(dst + D::KV_BYTES + (c / 8) * (rw * 128) + swz(r, c % 8),
+                        ok ? rel + (size_t)row * WD + 8 * c : rel, ok ? 16 : 0);
+        }
+      }
+      if (DIRECT && !is_v) {  // row c of warpgroup w's window: table row t_w - k0 - c + T - 1
+#pragma unroll
+        for (int i = 0; i < 2 * KT * D::CH / WNT; ++i) {
+          const int idx = tid + WNT * i, w = idx / (KT * D::CH), r = idx / D::CH % KT;
+          const int c = idx % D::CH, row = (n0 + 64 * w) / S - k0 - r + p.T - 1;
+          const bool ok = row >= 0 && row <= 2 * p.T - 2;
+          cp_async16_to(dst + D::KV_BYTES + w * (KT * D::HALVES * 128) + (c / 8) * (KT * 128) +
+                            swz(r, c % 8),
                         ok ? rel + (size_t)row * WD + 8 * c : rel, ok ? 16 : 0);
         }
       }
@@ -533,10 +348,10 @@ pooled_attention_wgmma_kernel(Params p) {
 #pragma unroll
   for (int j = 0; j < NS - 1; ++j) load_step(j);
 
-  uint32_t qa[WKS][4], qb[WKS][4];
+  uint32_t qa[D::KS][4], qb[D::KS][4];
   const float qscale = N::rnd(p.scale);
 #pragma unroll
-  for (int kk = 0; kk < WKS; ++kk) {
+  for (int kk = 0; kk < D::KS; ++kk) {
     const int c = 16 * kk + 2 * t;
     qb[kk][0] = row0 < nq ? ld_pair(q + (size_t)row0 * p.qsn + c) : 0u;
     qb[kk][1] = row1 < nq ? ld_pair(q + (size_t)row1 * p.qsn + c) : 0u;
@@ -545,19 +360,49 @@ pooled_attention_wgmma_kernel(Params p) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&qb[kk][i]));
-      qa[kk][i] = pack_bf16(f.x * qscale, f.y * qscale);
+      qa[kk][i] = prescale ? pack_bf16(f.x * qscale, f.y * qscale) : qb[kk][i];
     }
   }
 
-  float Sc[32], O[WD / 2], G[NREL / 2];
+  // the class key (the last of k and v) is no tile of its own: each thread
+  // dots its A-fragment columns of q with it and sums over its quad
+  const __nv_bfloat16* kc = kp + (size_t)nkg * WD;
+  float sc0 = 0.f, sc1 = 0.f;       // the two rows' class-key scores
+  auto class_scores = [&](float& c0, float& c1) {
+    c0 = c1 = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D::KS; ++kk) {
+      const int c = 16 * kk + 2 * t;
+      const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(kc + c));
+      const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(kc + c + 8));
+      const float2 a0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&qa[kk][0]));
+      const float2 a1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&qa[kk][1]));
+      const float2 a2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&qa[kk][2]));
+      const float2 a3 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&qa[kk][3]));
+      c0 += a0.x * lo.x + a0.y * lo.y + a2.x * hi.x + a2.y * hi.y;
+      c1 += a1.x * lo.x + a1.y * lo.y + a3.x * hi.x + a3.y * hi.y;
+    }
+    c0 += __shfl_xor_sync(0xffffffffu, c0, 1);
+    c0 += __shfl_xor_sync(0xffffffffu, c0, 2);
+    c1 += __shfl_xor_sync(0xffffffffu, c1, 1);
+    c1 += __shfl_xor_sync(0xffffffffu, c1, 2);
+    if (!prescale) {
+      c0 *= p.scale;
+      c1 *= p.scale;
+    }
+  };
+
+  float Sc[32], O[D::PVN / 2], G[GN / 2], Bd[DIRECT ? 32 : 1];
   uint32_t pa[4][4] = {};
   float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, z0 = 0.f, z1 = 0.f;
 #pragma unroll
   for (int i = 0; i < 32; ++i) Sc[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < WD / 2; ++i) O[i] = 0.f;
+  for (int i = 0; i < D::PVN / 2; ++i) O[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < NREL / 2; ++i) G[i] = 0.f;
+  for (int i = 0; i < GN / 2; ++i) G[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (DIRECT ? 32 : 1); ++i) Bd[i] = 0.f;
 
   for (int j = 0; j < ntot; ++j) {
     cp_wait<NS - 2>();
@@ -566,42 +411,50 @@ pooled_attention_wgmma_kernel(Params p) {
     load_step(j + NS - 1);
     const uint32_t tile = ring + (j % NS) * stage_bytes;
     const bool is_v = j >= nt && ((j - nt) & 1);
-    if (is_v) {                 // O += P V_i, V (key, c) a transposed B of two column blocks
+    if (is_v) {                 // O += P V_i, V (key, c) a transposed B of PVN columns
       fence_regs(O);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        WgmmaRS<WD, 1>::run(O, pa[kk], tile_desc(tile + kk * 2048, KT * 128), 1);
+        WgmmaRS<D::PVN, 1>::run(O, pa[kk], tile_desc(tile + kk * 2048, KT * 128), 1);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(O);
       continue;
     }
     const int k0 = (j < nt ? j : (j - nt) / 2) * KT;
-    const bool banded = k0 < nkg;
+    const bool part = k0 + KT > nkg;     // the last tile, past the grid keys
     fence_regs(Sc);
-    fence_regs(G);
+    if constexpr (GATHER) fence_regs(G);
+    if constexpr (DIRECT) fence_regs(Bd);
     wgmma_fence();
-    if (banded) {               // G = q rel_window^T over this warpgroup's NREL rows
-      const uint32_t win = tile + KV_BYTES + off * 128;
+    if constexpr (DIRECT) {     // the band tile itself: q . (this warpgroup's reversed window)^T
+      const uint32_t win = tile + D::KV_BYTES + wg * (KT * D::HALVES * 128);
 #pragma unroll
-      for (int kk = 0; kk < WKS; ++kk)
-        WgmmaRS<NREL, 0>::run(G, qb[kk], tile_desc(win + (kk / 4) * (rw * 128) + (kk % 4) * 32),
-                              kk > 0);
+      for (int kk = 0; kk < D::KS; ++kk)
+        WgmmaRS<64, 0>::run(Bd, qb[kk], tile_desc(win + (kk / 4) * (KT * 128) + (kk % 4) * 32),
+                            kk > 0);
     }
-    wgmma_commit();
+    if constexpr (GATHER) {     // G = q rel_window^T over this warpgroup's NREL rows
+      const uint32_t win = tile + D::KV_BYTES + off * 128;
 #pragma unroll
-    for (int kk = 0; kk < WKS; ++kk)
+      for (int kk = 0; kk < D::KS; ++kk)
+        WgmmaRS<GN, 0>::run(G, qb[kk], tile_desc(win + (kk / 4) * (rw * 128) + (kk % 4) * 32),
+                            kk > 0);
+      wgmma_commit();
+    }
+#pragma unroll
+    for (int kk = 0; kk < D::KS; ++kk)
       WgmmaRS<64, 0>::run(Sc, qa[kk], tile_desc(tile + (kk / 4) * (KT * 128) + (kk % 4) * 32),
                           kk > 0);
     wgmma_commit();
-    wgmma_wait<1>();            // G is done; the scores' product runs on
-    fence_regs(G);
-    if (banded) {
+    if constexpr (GATHER) {
+      wgmma_wait<1>();          // G is done; the scores' product runs on
+      fence_regs(G);
       __syncwarp();             // the last tile's reads of G are done
       const bool rnd = p.flags & BAND_ROUND;
 #pragma unroll
-      for (int jj = 0; jj < NREL / 8; ++jj) {
+      for (int jj = 0; jj < GN / 8; ++jj) {
         const int col = 8 * jj + 2 * t;
         float2 lo = make_float2(G[4 * jj], G[4 * jj + 1]);
         float2 hi = make_float2(G[4 * jj + 2], G[4 * jj + 3]);
@@ -612,29 +465,46 @@ pooled_attention_wgmma_kernel(Params p) {
         *reinterpret_cast<float2*>(Gs + (g + 8) * LDG + col) = hi;
       }
       __syncwarp();
-      wgmma_wait<0>();
-      fence_regs(Sc);
-      const float* g0 = Gs + g * LDG + dt0 + 63 - 2 * t;
-      const float* g1 = Gs + (g + 8) * LDG + dt1 + 63 - 2 * t;
-      const bool part = k0 + KT > nkg;     // a tile that also holds the class key
-#pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        const int c = 8 * jj;              // this thread's columns: c + 2 t, c + 2 t + 1
-        const bool k_a = !part || k0 + c + 2 * t < nkg, k_b = !part || k0 + c + 2 * t + 1 < nkg;
-        if (band0 && k_a) Sc[4 * jj] += g0[-c];
-        if (band0 && k_b) Sc[4 * jj + 1] += g0[-c - 1];
-        if (band1 && k_a) Sc[4 * jj + 2] += g1[-c];
-        if (band1 && k_b) Sc[4 * jj + 3] += g1[-c - 1];
-      }
     }
     wgmma_wait<0>();
     fence_regs(Sc);
-    if (k0 + KT > nk) {         // keys past the last: -inf, weight 0
+    if constexpr (DIRECT) fence_regs(Bd);
+    if (!prescale) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) Sc[i] *= p.scale;
+    }
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int c = 8 * jj + 2 * t;        // this thread's columns: c, c + 1
+      const bool k_a = !part || k0 + c < nkg, k_b = !part || k0 + c + 1 < nkg;
+      if constexpr (DIRECT) {
+        const bool rnd = p.flags & BAND_ROUND;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float bv = rnd ? N::rnd(Bd[4 * jj + e]) : Bd[4 * jj + e];
+          if ((e < 2 ? band0 : band1) && (e & 1 ? k_b : k_a)) Sc[4 * jj + e] += bv;
+        }
+      } else if constexpr (GATHER) {
+        const float* g0 = Gs + g * LDG + dt0 + 63 - c;
+        const float* g1 = Gs + (g + 8) * LDG + dt1 + 63 - c;
+        if (band0 && k_a) Sc[4 * jj] += g0[0];
+        if (band0 && k_b) Sc[4 * jj + 1] += g0[-1];
+        if (band1 && k_a) Sc[4 * jj + 2] += g1[0];
+        if (band1 && k_b) Sc[4 * jj + 3] += g1[-1];
+      } else {
+        const size_t base = (size_t)bh * (nq - cls) * nkg + k0 + c;
+        if (band0 && k_a) Sc[4 * jj] += p.band[base + (size_t)(row0 - cls) * nkg];
+        if (band0 && k_b) Sc[4 * jj + 1] += p.band[base + (size_t)(row0 - cls) * nkg + 1];
+        if (band1 && k_a) Sc[4 * jj + 2] += p.band[base + (size_t)(row1 - cls) * nkg];
+        if (band1 && k_b) Sc[4 * jj + 3] += p.band[base + (size_t)(row1 - cls) * nkg + 1];
+      }
+    }
+    if (part) {                 // keys past the grid keys: -inf, weight 0
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj) {
         const int key = k0 + 8 * jj + 2 * t;
-        if (key >= nk) Sc[4 * jj] = Sc[4 * jj + 2] = -CUDART_INF_F;
-        if (key + 1 >= nk) Sc[4 * jj + 1] = Sc[4 * jj + 3] = -CUDART_INF_F;
+        if (key >= nkg) Sc[4 * jj] = Sc[4 * jj + 2] = -CUDART_INF_F;
+        if (key + 1 >= nkg) Sc[4 * jj + 1] = Sc[4 * jj + 3] = -CUDART_INF_F;
       }
     }
     if (j < nt) {               // pass 1: the row maximum
@@ -643,7 +513,10 @@ pooled_attention_wgmma_kernel(Params p) {
         m0 = fmaxf(m0, fmaxf(Sc[4 * jj], Sc[4 * jj + 1]));
         m1 = fmaxf(m1, fmaxf(Sc[4 * jj + 2], Sc[4 * jj + 3]));
       }
-      if (j == nt - 1) {
+      if (j == nt - 1) {        // the class key's score joins the maximum
+        class_scores(sc0, sc1);
+        m0 = fmaxf(m0, sc0);
+        m1 = fmaxf(m1, sc1);
         m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 1));
         m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 2));
         m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 1));
@@ -669,6 +542,22 @@ pooled_attention_wgmma_kernel(Params p) {
   z0 += __shfl_xor_sync(0xffffffffu, z0, 2);
   z1 += __shfl_xor_sync(0xffffffffu, z1, 1);
   z1 += __shfl_xor_sync(0xffffffffu, z1, 2);
+  {   // the class key: its rounded exp joins z and its value row O
+    const __nv_bfloat162 e = __floats2bfloat162_rn(__expf(sc0 - m0), __expf(sc1 - m1));
+    const float e0 = __low2float(e), e1 = __high2float(e);
+    z0 += e0;
+    z1 += e1;
+    const __nv_bfloat16* vc = vp + (size_t)nkg * WD;
+#pragma unroll
+    for (int jj = 0; jj < WD / 8; ++jj) {
+      const float2 vv = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(vc + 8 * jj + 2 * t));
+      O[4 * jj] += e0 * vv.x;
+      O[4 * jj + 1] += e0 * vv.y;
+      O[4 * jj + 2] += e1 * vv.x;
+      O[4 * jj + 3] += e1 * vv.y;
+    }
+  }
   // + q: the residual columns 8 jj + 2 t (+ 1) of a row sit in its A fragment
   __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out) + b * p.osb + h * p.osh;
 #pragma unroll
@@ -680,55 +569,48 @@ pooled_attention_wgmma_kernel(Params p) {
         *reinterpret_cast<const __nv_bfloat162*>(&qb[jj / 2][2 * (jj % 2) + 1]));
     if (row0 < nq) {
       float y0 = N::rnd(O[4 * jj] / z0), y1 = N::rnd(O[4 * jj + 1] / z0);
-      if (row0 >= 1) { y0 = N::rnd(y0 + r0.x); y1 = N::rnd(y1 + r0.y); }
+      if (row0 >= cls) { y0 = N::rnd(y0 + r0.x); y1 = N::rnd(y1 + r0.y); }
       N::store2(out, (size_t)row0 * p.osn + c, y0, y1);
     }
     if (row1 < nq) {
       float y0 = N::rnd(O[4 * jj + 2] / z1), y1 = N::rnd(O[4 * jj + 3] / z1);
-      if (row1 >= 1) { y0 = N::rnd(y0 + r1.x); y1 = N::rnd(y1 + r1.y); }
+      if (row1 >= cls) { y0 = N::rnd(y0 + r1.x); y1 = N::rnd(y1 + r1.y); }
       N::store2(out, (size_t)row1 * p.osn + c, y0, y1);
     }
   }
 }
 
-template <int NREL, int NS>
+template <int WD, int NREL, int NS>
 int launch_wgmma(const Params& p, int B, cudaStream_t stream) {
   static int configured = 0;
-  const int bytes = wg_smem_bytes(p.S, NREL, NS);
-  if (int e = set_smem(pooled_attention_wgmma_kernel<NREL, NS>, bytes, configured)) return e;
-  pooled_attention_wgmma_kernel<NREL, NS><<<dim3((p.nq + WROWS - 1) / WROWS, B * p.nh), WNT,
-                                            bytes, stream>>>(p);
+  const int bytes = wg_smem_bytes<WD>(p.S, NREL, NS);
+  if (bytes > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  if (int e = set_smem(pooled_attention_wgmma_kernel<WD, NREL, NS>, bytes, configured)) return e;
+  pooled_attention_wgmma_kernel<WD, NREL, NS><<<dim3((p.nq + WROWS - 1) / WROWS, B * p.nh), WNT,
+                                                bytes, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-// The wgmma kernel takes K4's call: bf16, head dim 96, the band from the
-// table with q pre-scaled and the class token first, 16-byte loads.
-bool use_wgmma(int dtype, int d, int flags, bool vec_ok, bool out_pairs) {
-  const int need = PRESCALE | CLS_FIRST | BAND_TABLE;
-  return dtype == 1 && d == WD && (flags & need) == need && vec_ok && out_pairs;
-}
-
-// bf16 with a head dim that is a multiple of 16 and operands that take
-// 16-byte loads: the tensor-core kernel; anything else (f32 always): FMA.
-bool use_mma(int dtype, int d, bool vec_ok) { return dtype == 1 && d % 16 == 0 && vec_ok; }
-
-int smem_bytes(bool mma, int d, int nk) {
-  return mma ? MmaLayout(d, nk).bytes : 4 * smem_floats(d, nk);
+// The band's instantiation: given; from the table directly when each
+// warpgroup's 64 rows are one time step (no class row, S a multiple of 64:
+// MViT blocks 0-1); else the gathered window that holds nrel_needed(S) rows.
+template <int WD>
+int launch_wgmma_dim(const Params& p, int B, bool table, cudaStream_t s) {
+  if (!table) return launch_wgmma<WD, 0, 4>(p, B, s);
+  if (!(p.flags & CLS_FIRST) && p.S % KT == 0) return launch_wgmma<WD, DIRECT_BAND, 4>(p, B, s);
+  const int need = nrel_needed(p.S);
+  if (need <= 80) return launch_wgmma<WD, 80, 4>(p, B, s);
+  if (need <= 88) return launch_wgmma<WD, 88, 4>(p, B, s);
+  return launch_wgmma<WD, 136, WD == 96 ? 2 : 4>(p, B, s);     // S = 1 needs 134
 }
 
 template <typename T>
-int launch(const Params& p, int B, bool mma, cudaStream_t stream) {
-  const int bytes = smem_bytes(mma, p.d, p.nk);
-  dim3 grid((p.nq + R - 1) / R, B * p.nh);
-  if (mma) {
-    static int configured = 0;
-    if (int e = set_smem(pooled_attention_mma_kernel, bytes, configured)) return e;
-    pooled_attention_mma_kernel<<<grid, NT, bytes, stream>>>(p);
-  } else {
-    static int configured = 0;
-    if (int e = set_smem(pooled_attention_kernel<T>, bytes, configured)) return e;
-    pooled_attention_kernel<T><<<grid, NT, bytes, stream>>>(p);
-  }
+int launch(const Params& p, int B, cudaStream_t stream) {
+  static int configured = 0;
+  const int bytes = 4 * smem_floats(p.d, p.nk);
+  if (bytes > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  if (int e = set_smem(pooled_attention_kernel<T>, bytes, configured)) return e;
+  pooled_attention_kernel<T><<<dim3((p.nq + R - 1) / R, B * p.nh), NT, bytes, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -738,25 +620,26 @@ extern "C" {
 
 // Launch on `stream`; returns cudaGetLastError() (0 = launched). B samples x
 // nh heads; q and out are addressed through (sample, head, row) strides in
-// elements, k and v are (B * nh, nk, d) with the class-token key last.
-// dtype: 0 float32, 1 bfloat16.
+// elements, k and v are (B * nh, nk, d) with the class-token key last; the
+// band is (B * nh, nq - cls, nk - 1) f32 unless BAND_TABLE names the table
+// rel (>= 2T - 1, d) in the compute dtype. dtype: 0 float32, 1 bfloat16.
+// When `route` is not null it receives the kernel launched: 0 the FMA
+// kernel, 1 the wgmma kernel with the band given, 2 with the band from the
+// table.
 int avdd_pooled_attention(const void* q, const void* k, const void* v,
                           const void* band, const void* rel, void* out,
                           int B, int nh, int nq, int nk, int d, int T, int S,
                           long long qsb, long long qsh, long long qsn,
                           long long osb, long long osh, long long osn,
-                          float scale, int flags, int dtype, void* stream) {
+                          float scale, int flags, int dtype, void* stream, int* route) {
   const bool table = flags & BAND_TABLE;
+  if (B <= 0 || nh <= 0 || nq <= 0 || nk < 2 || d <= 0 || d > MAXD || S <= 0 ||
+      dtype < 0 || dtype > 1 || (table && (!rel || nk - 1 != T)) || (!table && !band))
+    return (int)cudaErrorInvalidValue;
   const bool vec_ok = ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)rel) % 16 == 0 &&
                       qsb % 8 == 0 && qsh % 8 == 0 && qsn % 8 == 0;
-  const bool mma = use_mma(dtype, d, vec_ok);
-  const bool out_pairs = (osb | osh | osn) % 2 == 0 && (uintptr_t)out % 4 == 0;   // bf16x2 stores
-  const bool wg = use_wgmma(dtype, d, flags, vec_ok, out_pairs) && nk - 1 == T && rel;
-  if (B <= 0 || nh <= 0 || nq <= 0 || nk < 2 || d <= 0 || d > MAXD || S <= 0 ||
-      dtype < 0 || dtype > 1 || (!wg && smem_bytes(mma, d, nk) > SMEM_MAX) ||
-      (table && (!rel || nk - 1 != T)) ||
-      (!table && !band))
-    return (int)cudaErrorInvalidValue;
+  const bool out_pairs = (osb | osh | osn) % 2 == 0 && (uintptr_t)out % 4 == 0;  // bf16x2 stores
+  const bool wg = dtype == 1 && (d == 32 || d == 64 || d == 96) && vec_ok && out_pairs;
   Params p;
   p.q = q; p.k = k; p.v = v;
   p.band = static_cast<const float*>(band);
@@ -766,14 +649,14 @@ int avdd_pooled_attention(const void* q, const void* k, const void* v,
   p.nh = nh; p.nq = nq; p.nk = nk; p.d = d; p.T = T; p.S = S; p.flags = flags;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (wg) {
-    const int need = nrel_needed(S);
-    if (need <= 80) return launch_wgmma<80, 4>(p, B, s);
-    if (need <= 88) return launch_wgmma<88, 4>(p, B, s);
-    return launch_wgmma<136, 2>(p, B, s);     // S = 1 needs 134
-  }
-  if (dtype == 0) return launch<float>(p, B, false, s);
-  return launch<__nv_bfloat16>(p, B, mma, s);
+  int e;
+  if (wg)
+    e = d == 96 ? launch_wgmma_dim<96>(p, B, table, s)
+        : d == 64 ? launch_wgmma_dim<64>(p, B, table, s) : launch_wgmma_dim<32>(p, B, table, s);
+  else
+    e = dtype == 0 ? launch<float>(p, B, s) : launch<__nv_bfloat16>(p, B, s);
+  if (e == 0 && route) *route = wg ? (table ? 2 : 1) : 0;
+  return e;
 }
 
 }  // extern "C"

@@ -56,7 +56,8 @@ extern "C" int avdd_pooled_attention(const void* q, const void* k, const void* v
                                      int B, int nh, int nq, int nk, int d, int T, int S,
                                      long long qsb, long long qsh, long long qsn,
                                      long long osb, long long osh, long long osn,
-                                     float scale, int flags, int dtype, void* stream);
+                                     float scale, int flags, int dtype, void* stream,
+                                     int* route);
 
 namespace {
 
@@ -734,7 +735,7 @@ int run(const Block& k, int B, int Tt, int hs, int ws, int C, int nh, int dtype,
   const int flags = PRESCALE | CLS_FIRST | BAND_TABLE | (S <= 4 ? BAND_ROUND : 0);
   AVDD_STEP(avdd_pooled_attention(k.qp, kp, vp, nullptr, k.rel_t, k.ctx, B, nh, N, Tt + 1, d,
                                   Tt, S, (long long)N * C, d, C, (long long)N * C, d, C,
-                                  1.f / sqrtf((float)d), flags, dtype, s));
+                                  1.f / sqrtf((float)d), flags, dtype, s, nullptr));
   AVDD_STEP(gemm<T>(k.ctx, k.wp, nullptr, k.bp, k.x, k.y1, k.stats, M, C, C, EPI_BIAS_RES, s));
   AVDD_STEP(gemm<T>(k.y1, k.w1, k.ln2, k.b1, nullptr, k.hid, k.stats, M, 4 * C, C,
                     EPI_BIAS_GELU, s));

@@ -15,7 +15,9 @@ Dispatch, the port's counterpart of the JAX gates:
   whole-block kernel K4 (stage 2's S = 16 included, unlike the TPU's
   ``MAX_SPATIAL = 4``);
 - any other block whose k/v pool to (T, 1, 1) -> the pooled-attention kernel
-  K3 for the attention core, the rest in eager torch;
+  K3 for the attention core, its band built inside from the temporal
+  rel-pos table (or, where k/v are pooled in time and q is not, gathered by
+  the caller with the ratio-corrected index), the rest in eager torch;
 - the stride-q transition blocks -> eager torch (no kernel in the JAX
   package either).
 """
@@ -102,13 +104,17 @@ class PatchEmbed(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, v: torch.Tensor) -> torch.Tensor:
+        """Frames in [0, 1], or uint8 frames normalized here (x 1/255 in f32,
+        inside the kernel at the production geometry)."""
+        u8 = v.dtype == torch.uint8
         if (self.kernel == _k2.KERNEL and self.stride == _k2.STRIDE
                 and self.padding == _k2.PADDING and tuple(v.shape[2:]) == _k2.FRAME
                 and self.weight.shape[0] <= _k2.MAX_FEATURES):
-            return _k2.fused_patch_embed(v.float().contiguous(), self.weight, self.bias,
-                                         self.dtype)
-        return _k2.patch_embed_math(v, self.weight, self.bias, self.dtype,
-                                    self.stride, self.padding)
+            if u8:
+                return _k2.fused_patch_embed_u8(v, self.weight, self.bias, self.dtype)
+            return _k2.fused_patch_embed(v.float(), self.weight, self.bias, self.dtype)
+        return _k2.patch_embed_math(_k2.normalize_u8(v) if u8 else v, self.weight, self.bias,
+                                    self.dtype, self.stride, self.padding)
 
 
 class TokenPool(nn.Module):
@@ -168,8 +174,10 @@ class MultiscaleAttention(nn.Module):
         qt, qh, qw = q_thw
         kt, kh, kw = k_thw
         scale_c = torch.tensor(d ** -0.5, dtype=cd, device=x.device)
-        q_grid = q[:, :, 1:].reshape(b, nh, qt, qh, qw, d)
         rel_t = self.rel_pos_t.to(cd)
+        if kh * kw == 1 and qt == kt:
+            return self._pooled_core(q, k, v, rel_t, q_thw, scale_c)
+        q_grid = q[:, :, 1:].reshape(b, nh, qt, qh, qw, d)
         if qt == kt and qh * qw <= 4:     # the XLA Toeplitz branch: G rounded
             bias_t = toeplitz_band(q_grid.reshape(b, nh, qt, qh * qw, d), rel_t, kt,
                                    round_to=cd).reshape(b, nh, qt, qh, qw, kt)
@@ -178,8 +186,8 @@ class MultiscaleAttention(nn.Module):
             qg = q_grid.permute(2, 0, 1, 3, 4, 5).reshape(qt, -1, d)
             bias_t = fmatmul(qg, rt.transpose(1, 2)).reshape(
                 qt, b, nh, qh, qw, kt).permute(1, 2, 0, 3, 4, 5)
-        if kh * kw == 1:
-            return self._pooled_core(q, k, v, bias_t, q_thw, scale_c)
+        if kh * kw == 1:                  # k/v pooled in time too: K3 with the band given
+            return self._pooled_core(q, k, v, rel_t, q_thw, scale_c, band=bias_t)
         idx = lambda a, bb: torch.from_numpy(_rel_pos_index(a, bb)).to(x.device)  # noqa: E731
         rh = self.rel_pos_h.to(cd).float()[idx(qh, kh)]
         rw = self.rel_pos_w.to(cd).float()[idx(qw, kw)]
@@ -196,19 +204,28 @@ class MultiscaleAttention(nn.Module):
         o = o.transpose(1, 2).reshape(b, -1, out_dim)
         return dense(o, self.project.weight, self.project.bias), q_thw
 
-    def _pooled_core(self, q, k, v, bias_t, q_thw, scale_c):
-        """k/v pooled to (T, 1, 1): grid queries through K3, the class-token
-        query row in eager torch (no bias, no residual), as on the TPU."""
+    def _pooled_core(self, q, k, v, rel_t, q_thw, scale_c, band=None):
+        """k/v pooled to (T, 1, 1): grid queries through K3, written straight
+        into the token layout, with the band built inside from the table, or,
+        where q keeps another T than k/v, the (B, nh, qt, qh, qw, kt) ``band``
+        built by the caller; the class-token query row in eager torch (no
+        bias, no residual), as on the TPU."""
         b, nh, n_q, d = q.shape
-        ng, nk = n_q - 1, k.shape[2]
+        qt, qh, qw = q_thw
+        nk = k.shape[2]
         kp = torch.cat([k[:, :, 1:], k[:, :, :1]], dim=2).reshape(b * nh, nk, d)
         vp = torch.cat([v[:, :, 1:], v[:, :, :1]], dim=2).reshape(b * nh, nk, d)
-        out_grid = _k3.fused_pooled_attention(
-            q[:, :, 1:].reshape(b * nh, ng, d), kp, vp,
-            bias_t.reshape(b * nh, ng, nk - 1), scale=d ** -0.5).reshape(b, nh, ng, d)
-        out_cls = softmax_pv(fmatmul(q[:, :, :1] * scale_c, k.transpose(2, 3)), v)
-        o = torch.cat([out_cls, out_grid], dim=2).transpose(1, 2).reshape(b, n_q, nh * d)
-        return dense(o, self.project.weight, self.project.bias), q_thw
+        o = q.new_empty((b, n_q, nh, d))
+        if band is None:
+            _k3.pooled_attention_table(q[:, :, 1:], kp, vp, rel_t, qt, qh * qw, d ** -0.5,
+                                       band_round=qh * qw <= 4, out=o[:, 1:].transpose(1, 2))
+        else:
+            ng = n_q - 1
+            o[:, 1:] = _k3.fused_pooled_attention(
+                q[:, :, 1:].reshape(b * nh, ng, d), kp, vp, band.reshape(b * nh, ng, nk - 1),
+                scale=d ** -0.5).reshape(b, nh, ng, d).transpose(1, 2)
+        o[:, 0] = softmax_pv(fmatmul(q[:, :, :1] * scale_c, k.transpose(2, 3)), v)[:, :, 0]
+        return dense(o.reshape(b, n_q, nh * d), self.project.weight, self.project.bias), q_thw
 
 
 class MultiscaleBlock(nn.Module):

@@ -21,6 +21,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..ops.kernels.patch_embed import normalize_u8
 from .byola import AudioNTT2020, init_byola
 from .emotion2vec import Emotion2Vec, Emotion2VecConfig, conv_output_length, init_emotion2vec
 from .mel import HOP_LENGTH, byola_log_mel
@@ -115,19 +116,20 @@ class FeatureExtractor:
 
     def video_chunks_features(self, chunks) -> np.ndarray:
         """(N, chunk, H, W, 3) float [0, 1] or uint8 -> (N, chunk, D) f32.
-        uint8 chunks are copied as they are and normalized on the device;
-        chunks already at 96x96 skip the resize."""
+        uint8 chunks are copied as they are; at 96x96 they go to the patch
+        embed as they are, which normalizes them (x 1/255 in f32, as the JAX
+        pipeline does before its encoder); other sizes are normalized and
+        resized on the device first."""
         return self.video_chunks_features_device(chunks).cpu().numpy()
 
     @torch.no_grad()
     def video_chunks_features_device(self, chunks) -> torch.Tensor:
         """As ``video_chunks_features``, leaving the features on the device."""
         x = torch.as_tensor(chunks).to(self.device)
-        if x.dtype == torch.uint8:
-            x = x.float() * np.float32(1.0 / 255.0)
-        x = x.float()
-        if tuple(x.shape[2:4]) != (96, 96):
-            x = bilinear_resize_video(x, (96, 96))
+        if x.dtype != torch.uint8 or tuple(x.shape[2:4]) != (96, 96):
+            x = normalize_u8(x) if x.dtype == torch.uint8 else x.float()
+            if tuple(x.shape[2:4]) != (96, 96):
+                x = bilinear_resize_video(x, (96, 96))
         return hybrid_apply(self.video_model, x, front_group=FRONT_CHUNK_GROUP,
                             batched_back=True)
 

@@ -47,8 +47,10 @@ def postprocess_batch(segs, scores, cls_idxs, valid, fps, duration, feat_stride,
     """NMS + voting + grid -> seconds over the batch; per-video metadata are
     (B,) tensors."""
     if 0 < cfg.nms_pre_topk < segs.shape[1]:
-        idx = torch.topk(torch.where(valid, scores, -torch.inf),
-                         cfg.nms_pre_topk, dim=1).indices
+        # lax.top_k's order: descending, the lower index first among ties
+        # (torch.topk promises no order among equal scores)
+        idx = torch.argsort(torch.where(valid, scores, -torch.inf), dim=1, descending=True,
+                            stable=True)[:, :cfg.nms_pre_topk]
         segs = torch.gather(segs, 1, idx[..., None].expand(-1, -1, 2))
         scores, cls_idxs, valid = (torch.gather(a, 1, idx)
                                    for a in (scores, cls_idxs, valid))

@@ -59,13 +59,17 @@ class LocalizerService:
         self._infer_fn = build_inference_fn(cfg, test_cfg)
         self._device = next(model.parameters()).device
         self._dtype = model.compute_dtype
+        # one host buffer per bucket tier in the model's dtype, pinned for a
+        # card, reused by every flush: half the bytes of f32 in bf16 (the
+        # JAX service's half-width infeed), copied without blocking
+        self._host = {}
         self.forwards = 0   # batches run through the model (warmup included)
         if warmup:
             # run every bucket tier once so no live request pays first-use
             # costs (kernel build, cuDNN algorithm choice, allocator growth)
             for bk in self.buckets:
-                self._run(np.zeros((bk, cfg.max_seq_len, cfg.input_dim), np.float32),
-                          np.ones((bk, cfg.max_seq_len), bool), *([np.ones(bk, np.float32)] * 4))
+                self._run(self._host_feats(bk).zero_(), np.ones((bk, cfg.max_seq_len), bool),
+                          *([np.ones(bk, np.float32)] * 4))
         self._queue: "queue.Queue[Optional[_Request]]" = queue.Queue()
         self._closed = False
         # serializes submit's closed-check + enqueue against stop()'s sentinel
@@ -108,11 +112,31 @@ class LocalizerService:
     def localize(self, *args, **kwargs) -> Detections:
         return self.submit(*args, **kwargs).result()
 
-    def _run(self, feats, mask, fps, dur, stride, nframes):
-        feats = torch.from_numpy(feats).to(self._device, self._dtype)
-        self.forwards += 1
-        out = self._infer_fn(self.model, feats, mask, fps, dur, stride, nframes)
-        return [o.cpu().numpy() for o in out]
+    def _host_feats(self, b: int) -> torch.Tensor:
+        """The (b, T, C) host buffer of bucket tier ``b``."""
+        buf = self._host.get(b)
+        if buf is None:
+            buf = torch.empty((b, self.cfg.max_seq_len, self.cfg.input_dim), dtype=self._dtype,
+                              pin_memory=self._device.type == "cuda")
+            self._host[b] = buf
+        return buf
+
+    def _run(self, feats: torch.Tensor, mask, fps, dur, stride, nframes):
+        """``feats``: a host buffer of ``_host_feats``. It is free to be
+        filled again when this returns, also when the model raises: the
+        copy out of it has finished by then."""
+        x = feats.to(self._device, non_blocking=True)
+        copied = None
+        if x.device.type == "cuda":
+            copied = torch.cuda.Event()
+            copied.record(torch.cuda.current_stream(x.device))
+        try:
+            self.forwards += 1
+            out = self._infer_fn(self.model, x, mask, fps, dur, stride, nframes)
+            return [o.cpu().numpy() for o in out]
+        finally:
+            if copied is not None:
+                copied.synchronize()
 
     def _worker(self):
         while True:
@@ -135,12 +159,13 @@ class LocalizerService:
         n = len(batch)
         try:  # any failure resolves the waiters; the worker thread survives
             b = next(bk for bk in self.buckets if bk >= n)
-            t, c = self.cfg.max_seq_len, self.cfg.input_dim
-            feats = np.zeros((b, t, c), np.float32)
-            mask = np.zeros((b, t), bool)
+            feats = self._host_feats(b)
+            feats[n:].zero_()
+            mask = np.zeros((b, self.cfg.max_seq_len), bool)
             meta = np.ones((4, b), np.float32)
             for i, r in enumerate(batch):
-                feats[i], mask[i] = r.feats, r.mask
+                feats[i] = torch.from_numpy(r.feats)     # rounded to the model's dtype here
+                mask[i] = r.mask
                 meta[:, i] = (r.fps, r.duration, r.feat_stride, r.feat_num_frames)
             segs, scores, cls_idxs, valid, video_cls = self._run(feats, mask, *meta)
             for i, r in enumerate(batch):

@@ -186,6 +186,16 @@ class TransformerBlock(nn.Module):
             self._packed[dtype] = hit
         return hit[1]
 
+    def _wants_grad(self, x, xo) -> bool:
+        """Autograd would record this block: grad mode is on and an input or
+        a parameter requires a gradient. Otherwise the eval kernel K1 (no
+        droppath) computes the same as the differentiable K6 path, as the
+        JAX block's ``train=False`` dispatch does."""
+        if not torch.is_grad_enabled():
+            return False
+        return x.requires_grad or (xo is not None and xo.requires_grad) or any(
+            p.requires_grad for p in self.parameters())
+
     def uses_unfused(self, train: bool) -> bool:
         """Dropout inside the block is the one thing the fused kernels do not
         cover (JAX ``fused_train_eligible``)."""
@@ -213,7 +223,7 @@ class TransformerBlock(nn.Module):
         xo = None if xo is None else xo.contiguous()
         kw = dict(n_head=self.n_head, w_overlap=self.window_size // 2, mode=mode)
         drops = train and self.path_pdrop > 0.0
-        if not torch.is_grad_enabled() and not drops:
+        if not drops and not self._wants_grad(x, xo):
             y = _fused.fused_transformer_block(x, xo, mask, *self.packed(x.dtype), **kw)
             return y, mask
         b = x.shape[0]

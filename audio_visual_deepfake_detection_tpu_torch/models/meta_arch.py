@@ -53,7 +53,15 @@ class AVLocalizer(nn.Module):
                 generator: Optional[torch.Generator] = None) -> Dict[str, Any]:
         """``train`` turns stochastic depth and dropout on (drawn from
         ``generator``, which lives on the tensors' device). Parameters stay
-        f32, activations run in ``compute_dtype``, the outputs are f32."""
+        f32, activations run in ``compute_dtype``, the outputs are f32.
+
+        The transformer blocks take the eval kernel K1 unless autograd would
+        record them: with ``train`` False it is taken under ``no_grad`` /
+        ``inference_mode`` and, whatever the grad mode, once the inputs and
+        parameters require no gradient (``model.requires_grad_(False)``).
+        Grad mode on with trainable parameters means the differentiable
+        path: the K6 ``autograd.Function``, its parameters packed anew on
+        every call."""
         feats = feats.to(self.compute_dtype)
         _, _, cls_scores = self.interpolator(feats, mask, train, generator)
         bb_feats, bb_masks = self.backbone(feats, mask, train, generator)

@@ -4,7 +4,7 @@ Route: ``nvcc -gencode arch=compute_90a,code=sm_90a -shared`` over
 ``csrc/*.cu`` (K1 and K6 fused_block, K2 patch_embed, K3 mvit_attention, K4
 mvit_block with its attention step in mvit_attention, K5 conv_extractor, K7
 band_attention, K8 full_attention; headers common.cuh and, for the wgmma
-kernels of K4 and K8, wgmma.cuh) into one shared library
+kernels of K2, K3, K4 and K8, wgmma.cuh) into one shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds). The
 library lands in ``build/kernels/`` at the repository root, in a file named
 by a hash of the sources and flags, so an edited source rebuilds and an
@@ -108,7 +108,7 @@ def load() -> ctypes.CDLL:
             lib.avdd_fused_block_smem.restype = i
             lib.avdd_fused_block_smem.argtypes = [i, i, i, i]
             lib.avdd_patch_embed.restype = i
-            lib.avdd_patch_embed.argtypes = [p, p, p, p, i, i, i, i, p]
+            lib.avdd_patch_embed.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
             q = ctypes.c_longlong
             lib.avdd_pooled_attention.restype = i
             lib.avdd_pooled_attention.argtypes = [
@@ -116,6 +116,7 @@ def load() -> ctypes.CDLL:
                 i, i, i, i, i, i, i,                   # B nh nq nk d T S
                 q, q, q, q, q, q,                      # q and out strides
                 ctypes.c_float, i, i, p,               # scale flags dtype stream
+                ctypes.POINTER(i),                     # the kernel launched
             ]
             lib.avdd_msblock.restype = i
             lib.avdd_msblock.argtypes = [p] * 22 + [i] * 7 + [p]

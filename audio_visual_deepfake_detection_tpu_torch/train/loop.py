@@ -88,6 +88,13 @@ def device_prefetch(batch_iter, device, depth: int = 2):
         yield nxt
 
 
+def is_writer() -> bool:
+    """True on the process that writes checkpoints: rank 0 of an initialised
+    process group, or the only process."""
+    dist = torch.distributed
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+
+
 def train_one_epoch(loader, state, train_step: Callable, curr_epoch: int,
                     schedule=None, logger: Optional[MetricsLogger] = None,
                     print_freq: int = 20, ckpt_every_iters: int = 0,
@@ -119,7 +126,8 @@ def train_one_epoch(loader, state, train_step: Callable, curr_epoch: int,
             yield {k: v for k, v in batch.items() if k not in ("_real_rows", "video_ids")}
 
     def save_preempt(next_iter: int):
-        if ckpt_folder:
+        # one writer, as the JAX loop's process 0; every process stops
+        if ckpt_folder and is_writer():
             save_checkpoint(
                 ckpt_folder,
                 curr_epoch + 1 if next_iter >= num_iters else curr_epoch,

@@ -23,13 +23,19 @@ Phases (any failure exits nonzero):
              launch the block kernel 18 times; then f32 on 2 videos, the
              card's kernel path against the same model's plain path on the
              CPU (scores 1e-4, segments 1e-3, video_cls 2e-4);
-5. mvit    - K2 (patch embed), K3 (pooled attention), K4 (whole
-             MultiscaleBlock) against their plain versions at every
-             production shape of mvit_v2_b at 512 frames, B = 2 chunks (one
-             with a zero tail), f32 (atol 1e-4, rtol 5e-4) and bf16; K4's
-             three geometries also at the 32 chunks the main path hands them;
-             then the launches inside one K4 call at 32 chunks one by one
-             (kernel events of a trace) and the whole call's time;
+5. mvit    - K2 (patch embed: the uint8 entry and the f32 one), K3 (pooled
+             attention: the table entry at blocks 0-1 and 23, and the
+             band-given entry), K4 (whole MultiscaleBlock) against their
+             plain versions at every production shape of mvit_v2_b at 512
+             frames, B = 2 chunks (one with a zero tail), f32 (atol 1e-4,
+             rtol 5e-4) and bf16 (K3 against the f32 function of its bf16
+             inputs within its rounding bound); K2 also at 128, 101 and 33
+             features, K3 also with a dominant class key; K2's uint8 entry
+             and K3's table entry also
+             at the 32 chunks the main path hands them (f32 and bf16), K4's
+             three geometries there in bf16; then the launches inside one K4
+             call at 32 chunks one by one (kernel events of a trace) and the
+             whole call's time;
 6. audio kernels - K5 (Emotion2Vec conv extractor) against its plain version
              at B = 2 on a 9.6 s wav and one with an odd tail, K8 (full
              attention) at (2, 12, 479 | 130 | 50, 64) and (1, 12, 2000, 64)
@@ -37,8 +43,11 @@ Phases (any failure exits nonzero):
              masked, f32 and bf16;
 7. video   - MViT-v2-b at full width and depth, bf16, through
              FeatureExtractor.video_chunks_features on 16 uint8 chunks of
-             512 frames: shape, finiteness, each kernel's launch count; f32 on
-             a 32-frame chunk, card against the CPU plain path;
+             512 frames: shape, finiteness, each kernel's launch count, every
+             K3 launch the wgmma kernel with the band from the table (K3's
+             band-array entry and K2's f32-frame entry raise meanwhile, so
+             K2 ran its uint8 entry); f32 on a 32-frame chunk, card against
+             the CPU plain path;
 8. audio   - BYOL-A and Emotion2Vec at full width and depth (12 AltBlocks),
              bf16, 16 wavs of 9.6 s through FeatureExtractor: shapes,
              finiteness, K5 once and K8 twelve times; f32 on a padded pair of
@@ -47,8 +56,8 @@ Phases (any failure exits nonzero):
              240 uint8 frames and their 153,600-sample wavs through the three
              encoders, rows 240 / 119 / 479, build_online_inference_fn
              (device resample to 768, concat, the production localizer,
-             decode, soft-NMS); every kernel's launch count, and every video
-             gets a detection;
+             decode, soft-NMS); every kernel's launch count and K2's and
+             K3's routes as in phase 7, and every video gets a detection;
 10. k6     - the training forward K6 (K1's kernel with per-sample droppath
              coefficients) at every production block shape at the training
              batch B=50, f32 and bf16, coefficients from {0, 1/0.9} and a
@@ -78,7 +87,9 @@ Phases (any failure exits nonzero):
              cost, service latency at batch 16, localizer-only videos/s at
              B=512 bf16 (the program of bench.py::measure_ours); K2-K4 and
              K1's dense paths against their plain versions, K2 and K3 also at
-             32 chunks; MViT-v2-b chunks/s at 16 and 64 chunks; K5 and K8 at
+             32 chunks, with F.conv3d beside K2 and scaled_dot_product_attention
+             under a [band | 0] mask, + q, beside K3; MViT-v2-b chunks/s at 16
+             and 64 chunks; K5 and K8 at
              B = 2, 16, 64 (checked there too, K8 with and without a mask)
              with the eager conv stack and scaled_dot_product_attention beside
              them; BYOL-A and Emotion2Vec wavs/s; media -> detections
@@ -98,6 +109,7 @@ build/chip_smoke_report.json.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -697,9 +709,10 @@ def phase_long_forward(dev="cuda", arch=PROD, t=1536):
 
 # K4 geometries of mvit_v2_b at 512 frames: (S grid, C, heads, blocks)
 MSBLOCK_SHAPES = [((4, 4), 192, 2, 2), ((2, 2), 384, 4, 15), ((1, 1), 768, 8, 1)]
-# K3 call shapes: (name, B*heads, Ng, d, band in the compute dtype, blocks)
-K3_SHAPES = [("blocks 0-1", 2, 512 * 64, 96, False, 2),
-             ("block 23", 16, 512, 32, True, 1)]
+# K3 on the main path (the table entry): (name, heads, S spatial cells, head
+# dim, band rounded to the compute dtype, blocks per forward); blocks 0-1 are
+# C = 96 on the 8x8 grid, block 23 is 768 -> 256 channels on one cell
+K3_SHAPES = [("blocks 0-1", 1, 64, 96, False, 2), ("block 23", 8, 1, 32, True, 1)]
 VIDEO_T = 512
 
 
@@ -729,6 +742,58 @@ def check_f32(got, ref, atol=1e-4, rtol=5e-4):
         return float("inf"), False
     d = (g - r).abs()
     return d.max().item(), bool((d <= atol + rtol * r.abs()).all())
+
+
+# bf16 K3 per element, against its function in f32 on the same bf16 inputs
+# (K8_RULES' argument, with K3's residual): with p the exact softmax weights,
+# A = sum_j p_j |v_j|, attn = the attention part of the output and out =
+# attn + q, the kernel rounds the exps before P.V and sums z from them
+# (2^-8 (A + |attn|)), rounds attn (2^-8 |attn|) and the sum with q (2^-8
+# |out|). A band the function rounds to bf16 (block 23) may round one ulp
+# the other way from the kernel's f32 G: 2^-7 max_j |band_j| (A + |attn|).
+K3_BF16_RULE = ("|kernel - f32| <= 1e-5 + 2^-8 (sum_j p_j |v_j| + 2 |attn| + |out|) "
+                "[+ 2^-7 max_j |band_j| (sum_j p_j |v_j| + |attn|), band rounded], and within "
+                "1.5x of plain vs f32 (max, median)")
+
+
+def check_k3(got, ref, args):
+    """bf16 K3 (either entry) against its function in f32 on the same bf16
+    inputs: K3_BF16_RULE per element, and the kernel no further than the
+    plain version from it. ``args``: run_k3's (the table entry) or
+    run_k3_array's (the band given). Returns (max |d| to plain, ok, rule)."""
+    import torch
+    from audio_visual_deepfake_detection_tpu_torch.ops.kernels import mvit_attention as k3
+
+    if not torch.isfinite(got.float()).all():
+        return float("inf"), False, "non-finite"
+    err = (got.float() - ref.float()).abs().max().item()
+    with torch.no_grad():
+        if len(args) == 4:                       # the band given
+            q, k, v, band = (a.float() for a in args)
+            band_max = None
+        else:
+            qf, k, v, rel, s_cells, band_round = args
+            q, k, v = qf[:, :, 1:].float(), k.float(), v.float()
+            b, nh, ng, d = q.shape
+            band = k3.table_band(q, rel.float(), VIDEO_T, s_cells, False)
+            if band_round:
+                band = band.to(qf.dtype).float()
+            band_max = band.abs().amax(-1, keepdim=True).reshape(b * nh, ng, 1) \
+                if band_round else None
+            q, band = q.reshape(b * nh, ng, d), band.reshape(b * nh, ng, VIDEO_T)
+        scale = q.shape[-1] ** -0.5
+        exact = k3.pooled_attention_math(q, k, v, band, scale)
+        spread = k3.pooled_attention_math(q, k, v.abs(), band, scale) - q
+        del band
+        attn = exact - q
+        limit = K8_BF16_ATOL + K8_BF16_U * (spread + 2 * attn.abs() + exact.abs())
+        if band_max is not None:
+            limit += 2 * K8_BF16_U * band_max * (spread + attn.abs())
+        g, r = (a.float().reshape(exact.shape) for a in (got, ref))
+        over = int(((g - exact).abs() > limit).sum())
+        near, text = against_exact(g, r, exact)
+    return err, near and over == 0, \
+        f"{over} beyond the rounding bound against f32; {text}"
 
 
 def randomize_block(blk, seed):
@@ -777,72 +842,190 @@ def run_msblock(which, blk, x, t, grid_hw, nh):
     return k4.msblock_math(x, p, t=t, grid_hw=grid_hw, n_head=nh)
 
 
-def k3_case(bh, ng, d, band_cd, dtype, dev, seed=0):
+def k3_case(chunks, heads, s_cells, d, band_round, dtype, dev, seed=0, cls_scale=1.0):
+    """K3's inputs as MultiscaleAttention hands them over: the pooled q
+    (chunks, heads, 1 + T S, d) whose grid rows the kernel reads in place, k
+    and v (chunks * heads, T + 1, d) with the class token last, the (2T - 1,
+    d) temporal table; O(1) scores and band. Then S and the band rounding.
+    ``cls_scale`` scales the class key: at 8 its score is 8 N(0, 1) against
+    512 grid keys of O(1) scores, so it takes half the weight or more on
+    about a fifth of the rows and little on the rest."""
     import torch
 
     g = torch.Generator().manual_seed(seed)
+    t = VIDEO_T
+    qf = torch.randn((chunks, heads, 1 + t * s_cells, d), generator=g)
+    k, v = (torch.randn((chunks * heads, t + 1, d), generator=g) for _ in range(2))
+    k[:, -1] *= cls_scale
+    rel = 0.1 * torch.randn((2 * t - 1, d), generator=g)
+    return tuple(a.to(dev, dtype) for a in (qf, k, v, rel)) + (s_cells, band_round)
+
+
+def run_k3(which, qf, k, v, rel, s_cells, band_round):
+    """The table entry as the MViT forward calls it (q strided, the output
+    written into the token layout), or its plain version."""
+    from audio_visual_deepfake_detection_tpu_torch.ops.kernels import mvit_attention as k3
+
+    d = qf.shape[-1]
+    if which == "kernel":
+        b, nh, n, _ = qf.shape
+        o = qf.new_empty((b, n, nh, d))
+        return k3.pooled_attention_table(qf[:, :, 1:], k, v, rel, VIDEO_T, s_cells, d ** -0.5,
+                                         band_round, out=o[:, 1:].transpose(1, 2))
+    return k3.pooled_attention_table_math(qf[:, :, 1:], k, v, rel, VIDEO_T, s_cells, d ** -0.5,
+                                          band_round)
+
+
+def k3_library(qf, k, v, rel, s_cells, band_round):
+    """The nearest PyTorch calls to K3 (not one call: SDPA has no rel-pos
+    band and no + q): scaled_dot_product_attention with [band | 0] as a bf16
+    additive mask, then + q. The band and the mask are built here, outside
+    what the returned function times."""
+    import torch
+    import torch.nn.functional as F
+    from audio_visual_deepfake_detection_tpu_torch.ops.kernels import mvit_attention as k3
+
+    q = qf[:, :, 1:].contiguous()
+    b, nh, ng, d = q.shape
+    band = k3.table_band(q, rel, VIDEO_T, s_cells, band_round)
+    mask = torch.cat([band, band.new_zeros((b, nh, ng, 1))], -1).to(q.dtype)
+    del band
+    kk, vv = (a.reshape(b, nh, VIDEO_T + 1, d) for a in (k, v))
+    return lambda: F.scaled_dot_product_attention(q, kk, vv, attn_mask=mask, scale=d ** -0.5) + q
+
+
+def k3_array_case(chunks, heads, s_cells, d, band_cd, dtype, dev, seed=0):
+    """K3's JAX contract: grid queries, k/v and a caller-built band array."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    bh, ng = chunks * heads, VIDEO_T * s_cells
     q, k, v = (torch.randn((bh, n, d), generator=g).to(dev, dtype)
                for n in (ng, VIDEO_T + 1, VIDEO_T + 1))
     band = torch.randn((bh, ng, VIDEO_T), generator=g).to(dev)
     return q, k, v, band.to(dtype) if band_cd else band
 
 
-def run_k3(which, q, k, v, band):
+def run_k3_array(which, q, k, v, band):
     from audio_visual_deepfake_detection_tpu_torch.ops.kernels import mvit_attention as k3
 
     fn = k3.fused_pooled_attention if which == "kernel" else k3.pooled_attention_math
     return fn(q, k, v, band, scale=q.shape[-1] ** -0.5)
 
 
-def patch_case(dtype, dev, b=2, seed=0):
+def patch_case(dtype, dev, b=2, seed=0, u8=True, f=96):
+    """b chunks of 512 frames, the last chunk's final quarter zero (a
+    zero-padded tail chunk): uint8 as the main path hands them over, or f32
+    frames in [0, 1]; f features (mvit_v2_b's 96)."""
     import torch
 
     t = VIDEO_T
     g = torch.Generator().manual_seed(seed)
-    video = torch.rand((b, t, 96, 96, 3), generator=g)
-    video[-1, (3 * t) // 4:] = 0         # zero-padded tail frames
-    w = torch.randn((96, 3, 3, 15, 15), generator=g) * 2025 ** -0.5
-    bias = 0.1 * torch.randn(96, generator=g)
+    if u8:
+        video = torch.randint(0, 256, (b, t, 96, 96, 3), generator=g, dtype=torch.uint8)
+    else:
+        video = torch.rand((b, t, 96, 96, 3), generator=g)
+    video[-1, (3 * t) // 4:] = 0
+    w = torch.randn((f, 3, 3, 15, 15), generator=g) * 2025 ** -0.5
+    bias = 0.1 * torch.randn(f, generator=g)
     return video.to(dev), w.to(dev), bias.to(dev), dtype
 
 
 def run_patch(which, video, w, bias, dtype):
+    import torch
     from audio_visual_deepfake_detection_tpu_torch.ops.kernels import patch_embed as k2
 
-    fn = k2.fused_patch_embed if which == "kernel" else k2.patch_embed_math
-    return fn(video, w, bias, dtype)
+    u8 = video.dtype == torch.uint8
+    if which == "kernel":
+        return (k2.fused_patch_embed_u8 if u8 else k2.fused_patch_embed)(video, w, bias, dtype)
+    return (k2.patch_embed_u8_math if u8 else k2.patch_embed_math)(video, w, bias, dtype)
+
+
+def conv3d_library(video, w, bias):
+    """K2's function as one PyTorch call: cuDNN's bf16 conv3d on the
+    channels-first bf16 copy of the same (normalized) frames, made here."""
+    import torch
+    import torch.nn.functional as F
+    from audio_visual_deepfake_detection_tpu_torch.ops.kernels import patch_embed as k2
+
+    x = k2.normalize_u8(video) if video.dtype == torch.uint8 else video
+    xc = x.permute(0, 4, 1, 2, 3).to(torch.bfloat16).contiguous()
+    del x
+    wb, bb = w.to(torch.bfloat16), bias.to(torch.bfloat16)
+    return lambda: F.conv3d(xc, wb, bb, stride=(1, 12, 12), padding=(1, 3, 3))
 
 
 def mvit_cases(dev="cuda", chunks=2):
     """(kernel, label, blocks per chunk-forward, case maker, runner, bf16
-    (operations, bytes) of one call) for every production shape of K2-K4 at
-    B = ``chunks`` chunks (K3_SHAPES counts its heads for 2)."""
-    cases = [("patch_embed", f"B={chunks} T=512 96x96x3 -> 8x8x96", 1,
-              lambda dt: patch_case(dt, dev, b=chunks), run_patch, k2_work(chunks, VIDEO_T))]
-    for name, bh2, ng, d, band_cd, n in K3_SHAPES:
-        bh = bh2 * chunks // 2
-        cases.append(("pooled_attention", f"{name}: BH={bh} Ng={ng} Nk=513 d={d}", n,
-                      lambda dt, a=(bh, ng, d, band_cd): k3_case(*a, dt, dev), run_k3,
-                      k3_work(bh, ng, d, 2 if band_cd else 4, VIDEO_T + 1)))
+    (operations, bytes) of one call) for every main-path call of K2-K4 at
+    B = ``chunks`` chunks: K2's uint8 entry, K3's table entry, K4."""
+    cases = [("patch_embed", f"uint8 B={chunks} T={VIDEO_T} 96x96x3 -> 8x8x96", 1,
+              lambda dt: patch_case(dt, dev, b=chunks), run_patch,
+              k2_work(chunks, VIDEO_T, in_bytes=1))]
+    for name, heads, s_cells, d, rnd, n in K3_SHAPES:
+        cases.append(("pooled_attention",
+                      f"{name}: B={chunks} heads={heads} S={s_cells} Ng={VIDEO_T * s_cells} "
+                      f"Nk={VIDEO_T + 1} d={d}, band from the table", n,
+                      lambda dt, a=(heads, s_cells, d, rnd): k3_case(chunks, *a, dt, dev),
+                      run_k3,
+                      k3_table_work(chunks * heads, VIDEO_T * s_cells, d)))
     for hw, c, nh, n in MSBLOCK_SHAPES:
-        s = hw[0] * hw[1]
-        cases.append(("multiscale_block", f"S={s} C={c} heads={nh}", n,
+        s_cells = hw[0] * hw[1]
+        cases.append(("multiscale_block", f"S={s_cells} C={c} heads={nh}", n,
                       lambda dt, a=(hw, c, nh): msblock_case(*a, dt, dev, b=chunks),
                       lambda which, blk, x, a=(hw, nh): run_msblock(
                           which, blk, x, VIDEO_T, a[0], a[1]),
-                      k4_work(chunks, s, c, VIDEO_T)))
+                      k4_work(chunks, s_cells, c, VIDEO_T)))
+    return cases
+
+
+# K2 at widths mvit_v2_b does not have, as the gate takes them (F <= 128):
+# (features, uint8 frames): the 128-wide product (bf16 frames there stage in
+# two slots), an odd F past 96 and one below it (single stores at the end)
+K2_WIDTHS = ((128, True), (128, False), (101, True), (101, False), (33, True))
+
+
+def contract_cases(dev="cuda", chunks=2):
+    """The entries the main path no longer calls, held all the same: K2 on
+    f32 frames (resized or float inputs) and K3 with the band given (the JAX
+    signature), at K3's main-path shapes; K2 at K2_WIDTHS; K3's table entry
+    with a dominant class key."""
+    cases = [("patch_embed", f"f32 frames B={chunks} T={VIDEO_T} 96x96x3 -> 8x8x96", 0,
+              lambda dt: patch_case(dt, dev, b=chunks, u8=False), run_patch, None)]
+    for f, u8 in K2_WIDTHS:
+        cases.append(("patch_embed", f"{'uint8' if u8 else 'f32'} frames B={chunks} "
+                      f"T={VIDEO_T} 96x96x3 -> 8x8x{f}", 0,
+                      lambda dt, a=(u8, f): patch_case(dt, dev, b=chunks, u8=a[0], f=a[1]),
+                      run_patch, None))
+    for name, heads, s_cells, d, rnd, _ in K3_SHAPES:
+        cases.append(("pooled_attention",
+                      f"{name}: BH={chunks * heads} Ng={VIDEO_T * s_cells} d={d}, band given", 0,
+                      lambda dt, a=(heads, s_cells, d, rnd): k3_array_case(chunks, *a, dt, dev),
+                      run_k3_array, None))
+        cases.append(("pooled_attention",
+                      f"{name}: B={chunks} heads={heads} S={s_cells} d={d}, band from the table, "
+                      f"class key x8", 0,
+                      lambda dt, a=(heads, s_cells, d, rnd): k3_case(chunks, *a, dt, dev,
+                                                                     cls_scale=8.0),
+                      run_k3, None))
     return cases
 
 
 def phase_mvit_kernels(dev="cuda", group=32):
     """K2, K3, K4 against their plain versions on the card at every
-    production shape, B = 2 chunks (one with a zero tail), f32 (atol 1e-4,
-    rtol 5e-4) and bf16 (check_bf16); K4's three geometries also at the
-    ``group`` chunks the main path hands them, bf16."""
+    main-path shape, B = 2 chunks (one with a zero tail), f32 (atol 1e-4,
+    rtol 5e-4) and bf16 (check_bf16; K3 by check_k3), with the entries the
+    main path no longer calls (K2 on f32 frames, K3 with the band given),
+    K2 at K2_WIDTHS and K3 with a dominant class key; K2's uint8
+    entry and K3's table entry also at the ``group`` chunks the main path
+    hands them, f32 and bf16, and K4's three geometries there in bf16."""
     import torch
 
     worst, rows = {}, []
-    cases = [(c, (torch.float32, torch.bfloat16)) for c in mvit_cases(dev)]
+    both = (torch.float32, torch.bfloat16)
+    cases = [(c, both) for c in mvit_cases(dev) + contract_cases(dev)]
+    cases += [((k, f"{label} [{group}-chunk group]", *rest), both)
+              for k, label, *rest in mvit_cases(dev, group) if k != "multiscale_block"]
     for hw, c, nh, n in MSBLOCK_SHAPES:
         cases.append((("multiscale_block", f"S={hw[0] * hw[1]} C={c} heads={nh} B={group}", n,
                        lambda dt, a=(hw, c, nh): msblock_case(*a, dt, dev, b=group),
@@ -850,11 +1033,11 @@ def phase_mvit_kernels(dev="cuda", group=32):
                            which, blk, x, VIDEO_T, a[0], a[1]), None),
                       (torch.bfloat16,)))
     # no production width: C = 128 (64-column product tiles beside the 192
-    # ones) with head dim 64 (the attention step's mma.sync kernel)
+    # ones) with head dim 64 (the attention step's head-dim-64 instantiation)
     cases.append((("multiscale_block", "S=4 C=128 heads=2 (64-column tiles, head dim 64)", 0,
                    lambda dt: msblock_case((2, 2), 128, 2, dt, dev),
                    lambda which, blk, x: run_msblock(which, blk, x, VIDEO_T, (2, 2), 2), None),
-                  (torch.float32, torch.bfloat16)))
+                  both))
     for (kname, label, _, make, run, _), dtypes in cases:
         for dtype in dtypes:
             args = make(dtype)
@@ -864,6 +1047,8 @@ def phase_mvit_kernels(dev="cuda", group=32):
             if dtype == torch.float32:
                 err, ok = check_f32(got, ref)
                 rule = "atol 1e-4 rtol 5e-4"
+            elif kname == "pooled_attention":
+                err, ok, rule = check_k3(got, ref, args)
             else:
                 err, ok, rule = check_bf16(got, ref)
             w = worst.setdefault(kname, {"float32": 0.0, "bfloat16": 0.0})
@@ -971,6 +1156,41 @@ def video_launches(n_chunks, group, batched_back, n_k4=18, n_k3_front=2, n_k3_ba
             "multiscale_block": n_k4 * backs}
 
 
+@contextlib.contextmanager
+def main_path_entries():
+    """While the main path runs, K3's band-array entry and K2's f32-frame
+    entry raise: the forward must take K3's table entry (no band array is
+    built) and K2's uint8 entry (no f32 frames are made)."""
+    from audio_visual_deepfake_detection_tpu_torch.ops.kernels import mvit_attention as k3
+    from audio_visual_deepfake_detection_tpu_torch.ops.kernels import patch_embed as k2
+
+    def refuse(name):
+        def call(*args, **kwargs):
+            raise AssertionError(f"{name} was called on the main path")
+        return call
+
+    saved = k3.fused_pooled_attention, k2.fused_patch_embed
+    k3.fused_pooled_attention = refuse("K3's band-array entry")
+    k2.fused_patch_embed = refuse("K2's f32-frame entry")
+    try:
+        yield
+    finally:
+        k3.fused_pooled_attention, k2.fused_patch_embed = saved
+
+
+def video_routes(counts, on_card):
+    """K3's launches by the kernel the C entry reports it took, since the
+    last reset, against the main path's: every one the wgmma kernel with the
+    band from the table. Fails otherwise."""
+    from audio_visual_deepfake_detection_tpu_torch.ops.kernels import mvit_attention as k3
+
+    got = dict(k3.ROUTES)
+    want = {k3.ROUTE_NAMES[2]: counts["pooled_attention"]} if on_card else {}
+    if got != want:
+        fail(f"K3 routes {got}, expected {want}")
+    return got
+
+
 def video_model(dtype, temporal_size=VIDEO_T, seed=0):
     from audio_visual_deepfake_detection_tpu_torch.frontends.mvit import init_mvit, mvit_v2_b
 
@@ -991,15 +1211,19 @@ def phase_video(dev="cuda", n_chunks=16, smi=""):
     sync(dev)
     reset_counts()
     t0 = time.perf_counter()
-    feats = ex.video_chunks_features(chunks)
+    with main_path_entries():
+        feats = ex.video_chunks_features(chunks)
     sync(dev)
     wall = time.perf_counter() - t0
+    on_card = torch.device(dev).type == "cuda"
     expect = video_launches(n_chunks, pipeline.FRONT_CHUNK_GROUP, True)
     counts = {k: launch_counts()[k] for k in expect}
-    if torch.device(dev).type != "cuda":
+    routes = video_routes(expect, on_card)
+    if not on_card:
         expect = {k: 0 for k in expect}
     log(f"video: {n_chunks} uint8 chunks x {VIDEO_T} frames -> {feats.shape} bf16 in "
-        f"{wall:.2f} s (first call), launches {counts} (expected {expect}) ({smi})")
+        f"{wall:.2f} s (first call), launches {counts} (expected {expect}), K3 routes "
+        f"{routes} ({smi})")
     if feats.shape != (n_chunks, VIDEO_T, 256) or not np.isfinite(feats).all():
         fail(f"video features {feats.shape}, finite={np.isfinite(feats).all()}")
     if counts != expect:
@@ -1046,9 +1270,8 @@ def mvit_breakdown(model, x_u8, smi):
         return out
 
     def forward(record):
-        x = x_u8.float() * np.float32(1.0 / 255.0)
-        thw = model.patch_grid(x.shape)
-        stages = [("patch embed", lambda t: (model.embed(x), thw))]
+        thw = model.patch_grid(x_u8.shape)
+        stages = [("patch embed", lambda t: (model.embed(x_u8), thw))]
         for i, blk in enumerate(model.blocks):
             stages.append((f"block {i}", blk.__call__))
         names, marks = [], []
@@ -1088,6 +1311,20 @@ def mvit_breakdown(model, x_u8, smi):
     return dict(total_ms=total, stages=rows, by_route=by_route)
 
 
+LIBRARY_NAMES = {"patch_embed": "F.conv3d bf16",
+                 "pooled_attention": "scaled_dot_product_attention + q (nearest, not one call)"}
+
+
+def library_call(kname, args):
+    """The PyTorch yardstick of a main-path K2 / K3 case, made outside the
+    timing (None for K4: no PyTorch call computes a whole block)."""
+    if kname == "patch_embed":
+        return conv3d_library(*args[:3])
+    if kname == "pooled_attention":
+        return k3_library(*args)
+    return None
+
+
 def phase_mvit_timing(smi, dev="cuda"):
     """Each new kernel against its plain version per production shape (CUDA
     events, plain / kernel / kernel / plain), K1's tiled dense path at T=48
@@ -1125,16 +1362,12 @@ def phase_mvit_timing(smi, dev="cuda"):
                    plain_range=[min(ms["plain"]), max(ms["plain"])], bound_ms=b_ms,
                    bound_by=b_by)
         extra = ""
-        if kname == "patch_embed":
-            # the one PyTorch call for K2's function: cuDNN's bf16 conv3d on
-            # the channels-first bf16 copy of the same video
-            video, w, bias, _ = args
-            xc = video.permute(0, 4, 1, 2, 3).to(torch.bfloat16).contiguous()
-            wb, bb = w.to(torch.bfloat16), bias.to(torch.bfloat16)
-            library[kname] = row["library_ms"] = cuda_ms(lambda: F.conv3d(
-                xc, wb, bb, stride=(1, 12, 12), padding=(1, 3, 3)), 3, warmup=1)
-            extra = f"  F.conv3d {library[kname]:.4f} ms"
-            del xc
+        lib_fn = library_call(kname, args)
+        if lib_fn is not None:
+            row["library_ms"] = cuda_ms(lib_fn, 3, warmup=1)
+            library[kname] = library.get(kname, 0.0) + row["library_ms"] * n_blocks
+            extra = f"  {LIBRARY_NAMES[kname]} {row['library_ms']:.4f} ms"
+        del lib_fn
         per_shape.append(row)
         log(f"time {kname} {label} bf16, median of 6: kernel {k_ms:.4f} ms "
             f"[{min(ms['kernel']):.4f}, {max(ms['kernel']):.4f}] (its kernels alone "
@@ -1146,21 +1379,35 @@ def phase_mvit_timing(smi, dev="cuda"):
     bounds = {k: bound_sum(v) for k, v in works.items()}
 
     # K2 and K3 at the 32 chunks a group of the main path hands them (K4's
-    # time there comes from k4_launch_table): kernel only, per forward
-    group_ms, group_works = {}, {}
+    # time there comes from k4_launch_table): kernel, its kernels alone and
+    # the library yardstick, per forward
+    group_ms, group_dev, group_lib, group_works = {}, {}, {}, {}
     with torch.no_grad():
         for kname, label, n_blocks, make, run, work in mvit_cases(dev, pipeline.FRONT_CHUNK_GROUP):
             if kname == "multiscale_block":
                 continue
             args = make(torch.bfloat16)
             k_ms = cuda_ms(lambda: run("kernel", *args), 3, warmup=1)
+            d_ms = device_ms(lambda: run("kernel", *args), iters=5)
+            lib_fn = library_call(kname, args)
+            l_ms = cuda_ms(lib_fn, 3, warmup=1)
+            del lib_fn
             group_ms[kname] = group_ms.get(kname, 0.0) + k_ms * n_blocks
+            group_dev[kname] = group_dev.get(kname, 0.0) + d_ms * n_blocks
+            group_lib[kname] = group_lib.get(kname, 0.0) + l_ms * n_blocks
             group_works.setdefault(kname, []).append((*work, n_blocks))
-            log(f"time {kname} {label} bf16: kernel {k_ms:.4f} ms, bound {bound(*work)[0]:.4f} ms "
-                f"(x{n_blocks} per forward) ({smi})")
+            log(f"time {kname} {label} bf16: kernel {k_ms:.4f} ms (its kernels alone {d_ms:.4f} "
+                f"ms), bound {bound(*work)[0]:.4f} ms ({bound(*work)[1]}), "
+                f"{LIBRARY_NAMES[kname]} {l_ms:.4f} ms (x{n_blocks} per forward) ({smi})")
             del args
             torch.cuda.empty_cache()
-    group = {k: dict(ms=v, bound_ms=bound_sum(group_works[k])[0]) for k, v in group_ms.items()}
+    group = {k: dict(ms=v, device_ms=group_dev[k], library_ms=group_lib[k],
+                     bound_ms=bound_sum(group_works[k])[0], bound_by=bound_sum(group_works[k])[1])
+             for k, v in group_ms.items()}
+    for k, v in group.items():
+        log(f"{k}, one {pipeline.FRONT_CHUNK_GROUP}-chunk forward: {v['ms']:.3f} ms (kernels "
+            f"alone {v['device_ms']:.3f}), bound {v['bound_ms']:.3f} ms ({v['bound_by']}), "
+            f"{LIBRARY_NAMES[k]} {v['library_ms']:.3f} ms ({smi})")
 
     dense = {}
     for t, force_tiled in ((48, False), (24, False), (24, True)):
@@ -1182,8 +1429,7 @@ def phase_mvit_timing(smi, dev="cuda"):
         with the back stages run one chunk at a time."""
         if batched:
             return ex.video_chunks_features_device(x)
-        xf = x.float() * np.float32(1.0 / 255.0)
-        return mvit.hybrid_apply(ex.video_model, xf, front_group=pipeline.FRONT_CHUNK_GROUP,
+        return mvit.hybrid_apply(ex.video_model, x, front_group=pipeline.FRONT_CHUNK_GROUP,
                                  batched_back=False)
 
     for n in (16, 64):
@@ -1227,16 +1473,18 @@ WAV_ODD = 16000 + 7                   # an odd tail: no layer's length divides e
 E2V_T, E2V_H, E2V_D = 479, 12, 64     # Emotion2Vec frames of 9.6 s, heads, head dim
 BYOLA_ROWS, EMO_ROWS = 119, 479       # dataset row truncation of a 9.6 s video
 K8_F32_ATOL = 2e-5                    # rtol 0 (tests/test_full_attention.py)
-# bf16 K8 per element: what bf16 rounding can do at most. With p the exact
-# softmax weights, A = sum_j p_j |v_j| and every rounding within 2^-9 of its
-# value: the kernel rounds the exps above and below the divide (2^-9 (A +
-# |out|)), the plain version rounds the weights (2^-9 A), each rounds its
-# output (2^-9 |out|). The inputs here give outputs of std ~0.075 and A ~0.8,
-# so an absolute 5e-2 would pass almost anything. On top of that the kernel
-# must be no further than the plain version from the f32 function (NO_WORSE).
-K8_BF16_ATOL, K8_BF16_ULP = 1e-5, 2.0 ** -9
+# bf16 K8 per element, against the f32 function of the same bf16 inputs
+# alone: what the kernel's own roundings can do at most. Rounding to bf16 (8
+# significant bits) moves a value by at most 2^-8 of it. With p the exact
+# softmax weights and A = sum_j p_j |v_j|, the kernel rounds the exps before
+# P.V (2^-8 A), sums z from them (2^-8 |out|) and rounds its output (2^-8
+# |out|): |kernel - f32| <= 1e-5 + 2^-8 (A + 2 |out|), the 1e-5 for the f32
+# sums. The inputs here give outputs of std ~0.075 and A ~0.8, so an absolute
+# 5e-2 would pass almost anything. Beside it the distributional rule: the
+# kernel no further than the plain version from the f32 function (NO_WORSE).
+K8_BF16_ATOL, K8_BF16_U = 1e-5, 2.0 ** -8
 K8_RULES = {"float32": f"atol {K8_F32_ATOL:g}",
-            "bfloat16": "|d| <= 1e-5 + 2^-9 (2 sum_j p_j |v_j| + 3 |ref|), and within "
+            "bfloat16": "|kernel - f32| <= 1e-5 + 2^-8 (sum_j p_j |v_j| + 2 |f32|), and within "
                         "1.5x of plain vs f32 (max, median)"}
 # a bf16 kernel may be this much further than its plain version from the
 # same function in f32 (max and median |d|), where the two are compared
@@ -1278,15 +1526,26 @@ def k1_work(mode, t, window, b, c=256, nbytes=2):
     return flops, (rows_in + cross + b * t) * c * nbytes + 12 * c * c * nbytes + rows_in
 
 
-def k2_work(n, t=512, nbytes=2):
-    """Patch embed: f32 video in, (n, t, 8, 8, 96) out, 3 x 15 x 15 x 3 taps."""
+def k2_work(n, t=512, nbytes=2, in_bytes=4):
+    """Patch embed: uint8 (in_bytes 1) or f32 video in, (n, t, 8, 8, 96) out,
+    3 x 15 x 15 x 3 taps."""
     out = n * t * 64 * 96
-    return 2 * out * 2025, n * t * 96 * 96 * 3 * 4 + out * nbytes + 96 * 2025 * nbytes
+    return 2 * out * 2025, n * t * 96 * 96 * 3 * in_bytes + out * nbytes + 96 * 2025 * nbytes
 
 
 def k3_work(bh, ng, d, band_bytes, nk=513, nbytes=2):
+    """K3 with the band given: scores and P.V over nk keys; q, k, v, the
+    band array and the output."""
     return 4 * bh * ng * nk * d, \
         bh * (2 * ng * d + 2 * nk * d) * nbytes + bh * ng * (nk - 1) * band_bytes
+
+
+def k3_table_work(bh, ng, d, nk=513, nbytes=2):
+    """K3 with the band from the table: scores, band and P.V, 6 ng nk d
+    operations a (sample, head); q, k, v, the 2 (nk - 1) - 1 table rows and
+    the output."""
+    return 6 * bh * ng * nk * d, \
+        bh * (2 * ng * d + 2 * nk * d) * nbytes + (2 * (nk - 1) - 1) * d * nbytes
 
 
 def k4_work(n, s, c, t=512, nbytes=2):
@@ -1393,17 +1652,17 @@ def check_k8(got, ref, q, k, v, mask):
     name = str(got.dtype).split(".")[-1]
     if not torch.isfinite(got.float()).all():
         return float("inf"), False, "non-finite"
-    d, r = (got.float() - ref.float()).abs(), ref.float().abs()
-    err = d.max().item()
+    err = (got.float() - ref.float()).abs().max().item()
     if got.dtype == torch.float32:
         return err, err <= K8_F32_ATOL, K8_RULES[name]
     with torch.no_grad():
         exact = k8.full_mha_math(q.float(), k.float(), v.float(), mask)
         spread = k8.full_mha_math(q.float(), k.float(), v.float().abs(), mask)
     near, text = against_exact(got, ref, exact)
-    over = int((d > K8_BF16_ATOL + K8_BF16_ULP * (2 * spread + 3 * r)).sum())
+    bound = K8_BF16_ATOL + K8_BF16_U * (spread + 2 * exact.abs())
+    over = int(((got.float() - exact).abs() > bound).sum())
     return err, near and over == 0, \
-        f"{over} beyond the rounding bound; std(ref) {ref.float().std():.3f}; {text}"
+        f"{over} beyond the rounding bound against f32; std(ref) {ref.float().std():.3f}; {text}"
 
 
 def k8_case(b, t, dtype, dev, masked, seed=0, h=E2V_H, d=E2V_D):
@@ -1451,7 +1710,7 @@ def check_k8_all_masked(dtype, dev, t=130):
                              q[keep], k[keep], v[keep], mask[keep])
     mean = v[1].float().mean(1, keepdim=True).expand_as(got[1])
     d = (got[1].float() - mean).abs()
-    tol = K8_F32_ATOL if dtype == torch.float32 else K8_BF16_ATOL + 2 * K8_BF16_ULP * mean.abs()
+    tol = K8_F32_ATOL if dtype == torch.float32 else K8_BF16_ATOL + K8_BF16_U * mean.abs()
     uniform = bool(torch.isfinite(got).all()) and bool((d <= tol).all())
     return max(err, d.max().item()), ok and uniform, \
         f"{rule}; all-masked sample vs mean(v) {d.max().item():.2e}"
@@ -1682,22 +1941,25 @@ def phase_media_detections(ex, model, cfg, dev="cuda", n_videos=16, n_frames=240
     sync(dev)
     reset_counts()
     t0 = time.perf_counter()
-    segs, scores, _, valid, vcls = media_to_detections(ex, model, fn, chunks, wavs, n_frames,
-                                                       duration)
+    with main_path_entries():
+        segs, scores, _, valid, vcls = media_to_detections(ex, model, fn, chunks, wavs,
+                                                           n_frames, duration)
     n_det = valid.sum(1).cpu().numpy()
     sync(dev)
     wall = time.perf_counter() - t0
     got = launch_counts()
     emo_m = ex.emotion_model
-    expect = dict(dict.fromkeys(ALL_KERNELS, 0),
-                  **video_launches(n_videos, pipeline.FRONT_CHUNK_GROUP, True),
+    on_card = torch.device(dev).type == "cuda"
+    video_expect = video_launches(n_videos, pipeline.FRONT_CHUNK_GROUP, True)
+    routes = video_routes(video_expect, on_card)
+    expect = dict(dict.fromkeys(ALL_KERNELS, 0), **video_expect,
                   fused_transformer_block=1 + cfg.arch[1] + 3 * cfg.arch[2], conv_extractor=1,
                   full_mha=len(emo_m.blocks) + len(emo_m.audio.context_encoder.blocks))
-    if torch.device(dev).type != "cuda":
+    if not on_card:
         expect = dict.fromkeys(expect, 0)
     log(f"media -> detections: {n_videos} videos of {n_frames} frames + {wav_len}-sample wavs, "
-        f"detections per video min {n_det.min()} max {n_det.max()}, launches {got}, "
-        f"wall {wall:.3f} s ({smi})")
+        f"detections per video min {n_det.min()} max {n_det.max()}, launches {got}, K3 "
+        f"routes {routes}, wall {wall:.3f} s ({smi})")
     if n_det.min() < 1 or not torch.isfinite(vcls).all() or \
             not torch.isfinite(segs[valid]).all() or not torch.isfinite(scores[valid]).all():
         fail("a video got no detection or a non-finite result")
@@ -1706,7 +1968,7 @@ def phase_media_detections(ex, model, cfg, dev="cuda", n_videos=16, n_frames=240
     if got != expect:
         fail(f"media -> detections launches {got}, expected {expect}")
     REPORT["media_detections"] = dict(videos=n_videos, wall_s=wall, detections=n_det.tolist(),
-                                      launches=got)
+                                      launches=got, routes=routes)
     return got
 
 
@@ -2641,6 +2903,16 @@ def main():
         })
     kernels[-1].update(ms_32_chunks=k4_table["forward_ms"],
                        tflops_32_chunks=k4_table["forward_tflops"])
+    for k in kernels[1:3]:      # K2, K3: one forward of a 32-chunk group of the main path
+        g = mvit_group[k["name"]]
+        k.update(ms_32_chunks=g["ms"], device_ms_32_chunks=g["device_ms"],
+                 bound_ms_32_chunks=g["bound_ms"], library_ms_32_chunks=g["library_ms"])
+    kernels[2].update(routes_media_to_detections=REPORT["media_detections"]["routes"],
+                      tolerance={"float32": "atol 1e-4 rtol 5e-4", "bfloat16": K3_BF16_RULE})
+    kernels[1]["note"] += "; the uint8 entry (the main path's); library_ms = F.conv3d in bf16"
+    kernels[2]["note"] += ("; the table entry (the main path's: band built in the kernel); "
+                           "library_ms = scaled_dot_product_attention with [band | 0] as an "
+                           "additive mask, then + q: the nearest PyTorch calls, not one call")
     for name, file, line, per_forward, tol in (
             ("conv_extractor", "conv_extractor", 177, 1,
              {"float32": "atol 1e-4 rtol 5e-4", "bfloat16": " | ".join(k5_rules)}),

@@ -132,3 +132,26 @@ def test_wrapper_refuses_bad_inputs():
         tk8.full_mha(q, q, q, torch.zeros((1, 9), dtype=torch.bool))
     with pytest.raises(ValueError):
         tk8.full_mha(q.double(), q.double(), q.double())
+
+
+def test_k8_bf16_check_holds_the_kernel_to_the_f32_function():
+    """chip_smoke.py's bf16 K8 check states its per-element bound against the
+    f32 function of the same bf16 inputs alone: an output inside the
+    kernel's own rounding budget 2^-8 (sum_j p_j |v_j| + 2 |out|) passes
+    wherever the plain version's rounding lands (here at the far edge of its
+    own budget, on the other side), and one past it fails."""
+    import chip_smoke
+
+    rng = np.random.default_rng(4)
+    q, k, v = (torch.from_numpy(rng.standard_normal((2, 3, 8, 64)).astype(np.float32))
+               for _ in range(3))
+    q, k, v = (q * 64 ** -0.5).bfloat16(), k.bfloat16(), v.bfloat16()
+    exact = tk8.full_mha_math(q.float(), k.float(), v.float(), None)
+    spread = tk8.full_mha_math(q.float(), k.float(), v.float().abs(), None)
+    u = 2.0 ** -8
+    ref = exact + 0.9 * u * (spread + exact.abs())
+    inside = (exact - 0.45 * u * (spread + 2 * exact.abs())).bfloat16()
+    _, ok, rule = chip_smoke.check_k8(inside, ref, q, k, v, None)
+    assert ok, rule
+    past = (exact + 1.5 * u * (spread + 2 * exact.abs())).bfloat16()
+    assert not chip_smoke.check_k8(past, ref, q, k, v, None)[1]

@@ -158,6 +158,104 @@ def test_service_matches_direct_call(models, rng):
         service.submit(feats[0], 25.0, 3.8, 0.3)
 
 
+def test_service_ships_the_model_dtype_from_one_host_buffer(models, rng):
+    """bf16: every flush fills the same host buffer in the model's dtype (on
+    a card it is pinned and copied without blocking), and the detections
+    equal a direct build_inference_fn call on the same bf16 features (the CPU
+    rounds f32 to bf16 as the card does)."""
+    _, _, ours = models
+    cfg, tcfg = ArchConfig(**dict(ARCH, compute_dtype="bfloat16")), TestConfig(**TEST)
+    model = AVLocalizer(cfg).eval()
+    model.load_state_dict(ours.state_dict(), strict=True)
+    service = LocalizerService(cfg, tcfg, model, batch_size=2, max_wait_ms=5,
+                               batch_buckets=[2], warmup=True)
+    shipped, run = [], service._run
+
+    def recording(feats, *rest):
+        shipped.append((feats.dtype, feats.data_ptr()))
+        return run(feats, *rest)
+
+    service._run = recording
+    feats = [rng.standard_normal((n, 24)).astype(np.float32) for n in (96, 50, 33)]
+    try:
+        results = [service.submit(f, 25.0, 3.8, 0.3).result(timeout=300) for f in feats]
+    finally:
+        assert service.stop() is True
+    assert len(shipped) == 3 and {s for s in shipped} == {(torch.bfloat16, shipped[0][1])}
+    fn = build_inference_fn(cfg, tcfg)
+    for f, res in zip(feats, results):
+        x = torch.zeros((2, 96, 24), dtype=torch.bfloat16)
+        x[0, :len(f)] = torch.from_numpy(f)
+        mask = np.zeros((2, 96), bool)
+        mask[0, :len(f)] = True
+        segs, scores, _, valid, video_cls = (a.numpy() for a in fn(model, x, mask, *_meta(2)))
+        k = valid[0]
+        assert len(res.scores) == int(k.sum()) > 0
+        assert np.array_equal(res.segments, segs[0][k])
+        assert np.array_equal(res.scores, scores[0][k])
+        assert res.video_cls == video_cls[0, 0]
+
+
+def test_service_survives_a_failed_flush(models, rng):
+    """A flush whose model call raises fails its own request only; the next
+    flush refills the same host buffer and answers as a direct call does."""
+    _, _, ours = models
+    cfg, tcfg = ArchConfig(**ARCH), TestConfig(**TEST)
+    service = LocalizerService(cfg, tcfg, ours, batch_size=1, max_wait_ms=1, batch_buckets=[1])
+    infer, calls = service._infer_fn, []
+
+    def failing_once(*args):
+        calls.append(args[1].data_ptr())
+        if len(calls) == 1:
+            raise RuntimeError("model failed")
+        return infer(*args)
+
+    service._infer_fn = failing_once
+    f = rng.standard_normal((50, 24)).astype(np.float32)
+    try:
+        with pytest.raises(RuntimeError, match="model failed"):
+            service.submit(f, 25.0, 3.8, 0.3).result(timeout=300)
+        res = service.submit(f, 25.0, 3.8, 0.3).result(timeout=300)
+    finally:
+        assert service.stop() is True
+    assert len(calls) == 2 and len(service._host) == 1
+    x = np.zeros((1, 96, 24), np.float32)
+    x[0, :50] = f
+    segs, scores, _, valid, _ = (a.numpy() for a in build_inference_fn(cfg, tcfg)(
+        ours, x, (np.arange(96) < 50)[None], *_meta(1)))
+    assert np.array_equal(res.scores, scores[0][valid[0]])
+    assert np.array_equal(res.segments, segs[0][valid[0]])
+
+
+def test_eval_takes_the_eval_kernel_whatever_the_grad_mode(models, rng, monkeypatch):
+    """An eval forward whose inputs and parameters require no gradient takes
+    K1 (``fused_transformer_block``) with grad mode on, as the JAX block's
+    ``train=False`` does; with trainable parameters it is the differentiable
+    K6 path."""
+    from audio_visual_deepfake_detection_tpu_torch.ops.kernels import fused_block
+
+    _, _, ours = models
+    model = AVLocalizer(ArchConfig(**ARCH)).eval()
+    model.load_state_dict(ours.state_dict(), strict=True)
+    calls = []
+    for name, tag in (("fused_transformer_block", "K1"),
+                      ("fused_transformer_block_train", "K6")):
+        fn = getattr(fused_block, name)
+        monkeypatch.setattr(fused_block, name,
+                            lambda *a, _fn=fn, _tag=tag, **kw: (calls.append(_tag), _fn(*a, **kw))[1])
+    x, mask = (torch.from_numpy(a) for a in _inputs(rng))
+    assert torch.is_grad_enabled()
+    model.requires_grad_(False)
+    frozen = model(x, mask)
+    assert calls and set(calls) == {"K1"}
+    calls.clear()
+    model.requires_grad_(True)
+    trainable = model(x, mask)
+    assert calls and set(calls) == {"K6"}
+    torch.testing.assert_close(frozen["cls_scores"], trainable["cls_scores"].detach(),
+                               atol=1e-5, rtol=1e-5)
+
+
 def test_configs_from_yaml_match_jax():
     config = load_config(os.path.join(REPO, "configs_test", "deepfake_exp12_test.yaml"))
     ours, ref = arch_config_from(config), j_arch_config_from(config)

@@ -95,6 +95,18 @@ def test_hybrid_front_groups_equal_whole_forward(rng):
             torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
 
 
+def test_hybrid_front_groups_take_uint8_chunks(rng):
+    """uint8 chunks through front groups with a zero-padded uint8 tail
+    group == the whole forward on the same chunks normalized."""
+    _, _, tm = _pair(rng, setting=([1, 1], [1, 2], [16, 32], 24), temporal_size=4, t=4,
+                     batch_front_split=1)
+    u8 = torch.from_numpy(rng.integers(0, 256, (5, 4, 96, 96, 3), dtype=np.uint8))
+    with torch.no_grad():
+        want = tm(u8.float() * np.float32(1 / 255))
+        got = tmvit.hybrid_apply(tm, u8, front_group=2, batched_back=True)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+
+
 def test_video_features_match_jax(rng, monkeypatch):
     """A 20-frame uint8 clip in 8-frame chunks (zero-padded tail)."""
     from audio_visual_deepfake_detection_tpu.frontends.pipeline import (
@@ -114,6 +126,53 @@ def test_video_features_match_jax(rng, monkeypatch):
     # the audio streams' default models are built at first use, beside the
     # given video model: 1 s of wav -> 101 mel frames -> 12 BYOL-A rows
     assert tex.byola_features(np.zeros(16000, np.float32)).shape == (12, 2048)
+
+
+def test_video_chunks_features_take_uint8_chunks_as_they_are(rng, monkeypatch):
+    """96x96 uint8 chunks go to the patch embed's uint8 entry as they are
+    (zero-padded tail chunk and all): the features equal those of the same
+    chunks normalized first, bit for bit, and the JAX extractor's on the
+    uint8 chunks."""
+    from audio_visual_deepfake_detection_tpu.frontends.pipeline import (
+        FeatureExtractor, FrontendParams)
+
+    jm, params, tm = _pair(rng, setting=([1, 1], [1, 2], [16, 32], 24), t=8,
+                           batch_front_split=1)
+    chunks = rng.integers(0, 256, (3, 8, 96, 96, 3), dtype=np.uint8)
+    chunks[-1, 5:] = 0
+    seen = []
+    u8_entry = tk2.fused_patch_embed_u8
+    monkeypatch.setattr(tk2, "fused_patch_embed_u8",
+                        lambda v, *a: (seen.append(v.dtype), u8_entry(v, *a))[1])
+    tex = tpipe.FeatureExtractor(video_model=tm, video_chunk=8)
+    got = tex.video_chunks_features(chunks)
+    assert seen == [torch.uint8]
+    normalized = tex.video_chunks_features(chunks.astype(np.float32) * np.float32(1 / 255))
+    assert seen == [torch.uint8] and np.array_equal(got, normalized)
+    _interpret_all(monkeypatch, False)
+    jex = FeatureExtractor(params=FrontendParams(video=params, byola=None, emotion=None),
+                           video_model=jm, video_chunk=8)
+    want = jex.video_chunks_features(chunks)
+    assert got.shape == want.shape == (3, 8, 24)
+    np.testing.assert_allclose(got, want, **F32_TOL)
+
+
+def test_forward_builds_no_band_array(rng, monkeypatch):
+    """The K3 block of a forward takes the table entry; the band-array entry
+    is never called (on the card that entry is K3's JAX contract only)."""
+    _, _, tm = _pair(rng)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("band-array entry called")
+
+    table_calls = []
+    table = tk3.pooled_attention_table
+    monkeypatch.setattr(tk3, "fused_pooled_attention", refuse)
+    monkeypatch.setattr(tk3, "pooled_attention_table",
+                        lambda *a, **kw: (table_calls.append(a[4:6]), table(*a, **kw))[1])
+    with torch.no_grad():
+        out = tm(torch.from_numpy(rng.random((2, 8, 96, 96, 3)).astype(np.float32)))
+    assert out.shape == (2, 8, 24) and table_calls == [(8, 64)]   # block 0: T 8, S 64
 
 
 def test_bilinear_resize_matches_jax_downscale(rng):

@@ -75,3 +75,29 @@ def test_batched_nms_matches_jax(rng, num_classes, multiclass, soft):
         jnp.asarray(segs), jnp.asarray(scores), jnp.asarray(cls), jnp.asarray(valid))
     for g, r in zip(got, ref):
         np.testing.assert_allclose(g, np.asarray(r), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("method", ["none", "soft"])
+def test_nms_pre_topk_breaks_ties_as_lax_top_k(rng, method):
+    """``nms_pre_topk`` keeps the k best candidates; among equal scores, and
+    across the k-th place, the lower index first, as ``lax.top_k`` does: the
+    port's ``postprocess_batch`` gives the JAX one's detections exactly."""
+    from audio_visual_deepfake_detection_tpu.infer import decode as jdecode
+    from audio_visual_deepfake_detection_tpu_torch.core.config import TestConfig
+    from audio_visual_deepfake_detection_tpu_torch.infer import decode as tdecode
+
+    b, n, k = 4, 200, 37
+    segs, _, valid = _candidates(rng, b=b, n=n, t=50.0)
+    scores = (np.round(rng.random((b, n)) * 4) / 4).astype(np.float32)   # five values
+    cls = np.zeros((b, n), np.int32)
+    meta = [np.full(b, v, np.float32) for v in (25.0, 100.0, 0.3, 0.3)]
+    cfg = dict(pre_nms_thresh=0.001, iou_threshold=0.1, min_score=0.001, max_seg_num=k,
+               nms_method=method, nms_sigma=0.75, duration_thresh=0.001,
+               multiclass_nms=False, voting_thresh=0.9, nms_pre_topk=k)
+    want = jdecode.postprocess_batch(*map(jnp.asarray, (segs, scores, cls, valid, *meta)),
+                                     jdecode.TestConfig(**cfg), 1)
+    got = tdecode.postprocess_batch(*map(torch.from_numpy, (segs, scores, cls, valid, *meta)),
+                                    TestConfig(**cfg), 1)
+    # the same candidates kept: soft-NMS and voting then agree to atol 1e-5
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5, rtol=0)

@@ -10,6 +10,7 @@ import json
 import os
 import signal
 import time
+import types
 
 import numpy as np
 import pytest
@@ -253,6 +254,23 @@ def test_preemption_is_honoured_at_the_end_of_a_short_epoch(batches, tmp_path):
     _, fresh, _ = make_state()
     _, epoch, next_iter = ttrain.restore_checkpoint(path, fresh)
     assert (epoch, next_iter) == (1, 0)         # the epoch was complete
+
+
+def test_preemption_checkpoint_is_written_by_rank_zero_only(batches, tmp_path, monkeypatch,
+                                                            capsys):
+    """In a process group only rank 0 writes the preemption checkpoint (the
+    JAX loop's process 0); every rank stops and says so."""
+    cfg, state, _ = make_state()
+    step = ttrain.build_train_step(cfg, TRAIN_CFG)
+    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
+    monkeypatch.setattr(torch.distributed, "get_rank", lambda group=None: 1)
+    guard = types.SimpleNamespace(triggered=False, agreed=lambda: True)
+    folder = tmp_path / "ck"
+    out = ttrain.train_one_epoch(ListLoader(batches[:3]), state, step, 0, print_freq=100,
+                                 ckpt_folder=str(folder), preempt=guard, preempt_check_every=2)
+    assert guard.triggered and out is state and state.step == 2
+    assert not glob.glob(str(folder / "*"))
+    assert "preemption requested, stopped at epoch 0 after iter 1" in capsys.readouterr().out
 
 
 def test_guard_signal_handler_sets_the_flag_and_is_restored():
