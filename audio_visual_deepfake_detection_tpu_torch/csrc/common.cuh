@@ -103,6 +103,36 @@ __device__ __forceinline__ void cp_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
+// A 65,536-entry table of f over every bf16 value, f's result rounded to bf16:
+// where the input of an elementwise function is already rounded to bf16 (the
+// GELU after a rounded LN or bias), one load replaces its arithmetic and
+// gives the same bits as computing it. `table` is a __device__ array of the
+// caller's file; fill_table builds it on `stream` at the first call per device
+// (into a graph too while one is being captured, then on every replay) and
+// waits for it outside a capture.
+template <typename F>
+__global__ void fill_table_kernel(__nv_bfloat16* table, F f) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < 65536) table[i] = __float2bfloat16_rn(f(__bfloat162float(__ushort_as_bfloat16((unsigned short)i))));
+}
+template <typename F>
+int fill_table(__nv_bfloat16* table, F f, unsigned& ready_devices, cudaStream_t stream) {
+  int dev = 0;
+  if (int e = (int)cudaGetDevice(&dev)) return e;
+  if (ready_devices >> dev & 1u) return 0;
+  fill_table_kernel<<<256, 256, 0, stream>>>(table, f);
+  if (int e = (int)cudaGetLastError()) return e;
+  cudaStreamCaptureStatus capture;
+  if (int e = (int)cudaStreamIsCapturing(stream, &capture)) return e;
+  if (capture != cudaStreamCaptureStatusNone) return 0;
+  if (int e = (int)cudaStreamSynchronize(stream)) return e;
+  ready_devices |= 1u << dev;
+  return 0;
+}
+__device__ __forceinline__ uint16_t bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
 // Raise a kernel's dynamic shared-memory limit once per size.
 template <typename K>
 int set_smem(K kernel, int bytes, int& configured) {

@@ -3,7 +3,7 @@
 // Replaces the TPU kernel audio_visual_deepfake_detection_tpu/ops/pallas/
 // fused_block.py::fused_transformer_block (pl.pallas_call at :535), and with
 // it the forward of fused_transformer_block_train (:753), which is the same
-// kernel given per-sample droppath coefficients. One launch computes a whole
+// kernel given per-sample droppath coefficients. One call computes a whole
 // block of the HRLR backbone:
 //   pre-LN -> depthwise k3 convs -> plain LN (affines folded into the dense
 //   weights by pack_block_params) -> q/k/v dense -> banded (2w+1 offsets) or
@@ -21,44 +21,64 @@
 // f32 and round to the compute dtype where the JAX kernel rounds, LN moments
 // are one-pass in bf16 and two-pass in f32, softmax is f32.
 //
-// What bounds it on this card: at B=512, T=768 one block is ~0.6 TFLOP of
-// matrix products (q/k/v/proj 4 x C^2, MLP 8 x C^2 per row) against ~0.4 GB
-// of HBM traffic (read x and xo, write y), ~1500 FLOP/byte, far above the
-// H100's ridge; the weights (1.5 MB bf16) stay in L2. So it is compute-bound
-// once the products run on the tensor cores. This version is bound by
-// neither yet: on an H100 SXM (700 W) a full-T block at B=512 in bf16 takes
-// ~20 ms, ~31 TFLOP/s; each 16-row tile streams the whole 1.5 MB of weights
-// from L2 through one 8-warp block per SM, with no prefetch.
+// What bounds it on this card: a row costs 12 C^2 = 786k multiply-adds
+// (q, k, v, proj 4 C^2, the MLP 8 C^2) against ~1-2 KB of HBM traffic, far
+// above the H100's ridge: the tensor cores bound it once the six products
+// run on them, provided the 1.5 MB of bf16 weights reach each SM fast
+// enough. A tile of m rows reads all of them from L2, so the rows a weight
+// fetch serves decide whether L2 or the tensor cores set the pace; the
+// CUDA-core work a row needs (five LNs, three depthwise convs, 4 x (2w+1)
+// scores and context sums, the GELU of 4C values) is second.
 //
-// What this first design does about it: every intermediate stays in shared
-// memory (no HBM round trips between the ten steps; the XLA path of the JAX
-// package moved ~2.7 GB per block), one thread block per (sample, tile of 16
-// query rows) with a halo of w+1 input rows each side (attention needs +-w
-// k/v rows, each of which needs +-1 conv rows). In bf16 the six products
-// run on the tensor cores (mma.sync m16n8k16, f32 accumulate, A fragments
-// from shared memory, B fragments straight from L2); in f32 they are a
-// register-tiled FMA loop, to keep full f32 precision. Both read the dense
-// weights in torch's (out, in) layout, K-contiguous. Not yet done: wgmma,
-// TMA-staged weights, larger tiles (shared memory caps a tile at 16 rows
-// with f32 intermediates), more than one block per SM.
-// Dense attention (window -1, T=24 at production) takes one of two paths:
+// bf16 (the main path, and K6's training forward), two launches on wgmma:
+// - PHASE_QKV: per tile of 64 rows of one sample, LN -> depthwise conv ->
+//   LN of each stream into a 64 x 256 bf16 tile in shared memory (a warp LNs
+//   the input rows each run of four output rows needs, one more each side),
+//   then the q / k / v product and its bias (q scaled) to a (B, T, 3C) bf16
+//   scratch. The values there are the ones block_math rounds to bf16, so the
+//   split is exact; it costs 3C x 2 bytes written and read a row.
+// - PHASE_TAIL: per tile, attention from the scratch (a thread per (row,
+//   head); banded reads the 2w+1 key and value rows through L1, dense all T
+//   in three passes), the context into the tile, proj + the masked,
+//   layer-scaled residual (y1, kept in the output rows), its LN into the
+//   tile, then fc1 -> GELU -> fc2 over 16 chunks of 64 hidden units: the
+//   chunk goes through an 8 KB tile and fc2's sums stay in registers, so
+//   the 4C hidden never lies whole anywhere.
+// Both: a block is one warpgroup and one tile of 64 rows. The weights come
+// by TMA (boxes of 64 inputs x 256 or 64 outputs, 128B-swizzled, straight
+// from torch's (out, in) layout) through a ring of two 32 KB stages, each
+// with an mbarrier that the TMA completes; thread 0 re-arms a slot as soon
+// as the products that read it are done, so the next product's slices
+// arrive while the warpgroup runs LN, attention or GELU. Two blocks share an
+// SM and run out of step, so one's CUDA-core work overlaps the other's
+// products.
+// The products are wgmma m64n256k16 / m64n64k16 with both operands in shared
+// memory (tiles written by the consumers are fenced to the async proxy).
+// Dense attention (window -1) is the same path at any T: the scratch holds
+// every key. The rounding points are block_math's: cdot rounded once,
+// one-pass LN moments, banded scores and the -1e4 penalty in bf16 (products
+// rounded, f32 sums), f32 softmax, the context summed offset by offset in
+// bf16, the division-free GELU, droppath coefficients multiplied into the
+// layer scales in f32 and rounded once.
+//
+// f32 (what the card is held to against the CPU): the first design, kept.
+// Every intermediate stays in shared memory as f32, one thread block per
+// (sample, tile of 16 query rows) with a halo of w+1 input rows each side;
+// the six products are a register-tiled FMA loop (full f32 precision)
+// reading the weights from L2. Dense attention takes one of two paths:
 // - T <= DENSE_MAX_T (31): the whole sequence in one thread block, one key
 //   per lane (one launch);
-// - any longer T (over-length eval inputs, e.g. T = 48 for a 1536-step
-//   video): two launches over tiles of TQ_BAND query rows. Phase 1 computes
-//   each tile's k and v rows (LN, conv, LN, dense; the same arithmetic as the
-//   whole-sequence path) into a (B, T, 2C) scratch in the compute dtype,
-//   whose values are already rounded to it. Phase 2 computes the tile's q
-//   and attends each (row, head) warp to all T keys from the scratch in
-//   three passes (row max, sum of exps, P.V), recomputing the scores, so the
-//   rounding points of block_math stay and shared memory does not grow with T.
+// - any longer T: two launches over tiles of TQ_BAND query rows. Phase 1
+//   computes each tile's k and v rows into a (B, T, 2C) scratch; phase 2
+//   computes the tile's q and attends each (row, head) warp to all T keys
+//   from the scratch in three passes (row max, sum of exps, P.V),
+//   recomputing the scores, so shared memory does not grow with T.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <math_constants.h>
-#include <stdint.h>
+#include "wgmma.cuh"
 
 namespace {
+
+using namespace avdd;
 
 constexpr int C = 256;          // channels
 constexpr int NH = 4;           // heads
@@ -75,7 +95,6 @@ constexpr int DENSE_MAX_T = 31; // whole-sequence rows, dense attention: one
                                 // key per lane, and 32 rows would need more
                                 // than SMEM_MAX (static_assert below); longer
                                 // T takes the tiled two-phase path
-constexpr int SMEM_MAX = 232448;  // dynamic shared memory a block may use
 constexpr float LN_EPS = 1e-5f;
 constexpr float NEG_INF = -1e30f;
 constexpr float NEG_PENALTY = 1e4f;
@@ -90,26 +109,6 @@ enum { MODE_SELF = 0, MODE_QV_K = 1, MODE_KV = 2, MODE_DS_SELF = 3 };
 // PHASE_WHOLE: one launch does everything; PHASE_KV / PHASE_ATTN: the two
 // launches of the tiled dense path
 enum { PHASE_WHOLE = 0, PHASE_KV = 1, PHASE_ATTN = 2 };
-
-template <typename T> struct Num;
-template <> struct Num<float> {
-  static constexpr bool kBf16 = false;
-  __device__ __forceinline__ static float load(const float* p, size_t i) { return __ldg(p + i); }
-  __device__ __forceinline__ static float rnd(float v) { return v; }
-  __device__ __forceinline__ static void store(float* p, size_t i, float v) { p[i] = v; }
-};
-template <> struct Num<__nv_bfloat16> {
-  static constexpr bool kBf16 = true;
-  __device__ __forceinline__ static float load(const __nv_bfloat16* p, size_t i) {
-    return __bfloat162float(p[i]);
-  }
-  __device__ __forceinline__ static float rnd(float v) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  }
-  __device__ __forceinline__ static void store(__nv_bfloat16* p, size_t i, float v) {
-    p[i] = __float2bfloat16_rn(v);
-  }
-};
 
 struct Params {
   const void* x;        // (B, T, C) compute dtype (ds_self: even rows)
@@ -127,17 +126,6 @@ struct Params {
   int T, w, mode, tq;   // w: half window (0 = dense); tq: query rows per block
   int phase;
 };
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
 
 // Plain LN of one row held by a warp (lane owns channels lane + 32 i):
 // writes the normalized values back into v.
@@ -255,94 +243,12 @@ __device__ __forceinline__ void gemm_fma(const float* A, int lda, int M, int K,
   }
 }
 
-// bf16 products on the tensor cores: out[m, n] = sum_k A[m, k] Wt[n, k],
-// A in shared memory (f32 holding bf16 values, so the conversion is exact),
-// Wt (N, K) bf16 in global memory (K-contiguous: the mma B fragments). Warp w
-// owns columns [w N/8, (w+1) N/8) in chunks of 32 (four n8 tiles) and all
-// rows in passes of 32 (two m16 tiles); mma.sync m16n8k16, f32 accumulate.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-template <typename Epi>
-__device__ __forceinline__ void gemm_mma(const float* A, int lda, int M, int K,
-                                         const __nv_bfloat16* __restrict__ Wt,
-                                         int N, Epi epi) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int ncols = N / NWARP;
-  for (int nc = 0; nc < ncols; nc += 32) {
-    const int nbase = warp * ncols + nc;
-    for (int m0 = 0; m0 < M; m0 += 32) {
-      const bool two = m0 + 16 < M;          // second m16 tile has rows
-      float acc[2][4][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-          for (int r = 0; r < 4; ++r) acc[mt][nt][r] = 0.f;
-      const float* arow[2][2];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        arow[mt][0] = A + min(m0 + 16 * mt + g, M - 1) * lda + 2 * t;
-        arow[mt][1] = A + min(m0 + 16 * mt + g + 8, M - 1) * lda + 2 * t;
-      }
-      const __nv_bfloat16* wrow[4];
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) wrow[nt] = Wt + (size_t)(nbase + 8 * nt + g) * K + 2 * t;
-      for (int k0 = 0; k0 < K; k0 += 16) {
-        uint32_t b[4][2];
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          b[nt][0] = __ldg(reinterpret_cast<const unsigned int*>(wrow[nt] + k0));
-          b[nt][1] = __ldg(reinterpret_cast<const unsigned int*>(wrow[nt] + k0 + 8));
-        }
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          if (mt == 1 && !two) break;
-          const float2 x0 = *reinterpret_cast<const float2*>(arow[mt][0] + k0);
-          const float2 x1 = *reinterpret_cast<const float2*>(arow[mt][1] + k0);
-          const float2 x2 = *reinterpret_cast<const float2*>(arow[mt][0] + k0 + 8);
-          const float2 x3 = *reinterpret_cast<const float2*>(arow[mt][1] + k0 + 8);
-          const uint32_t a[4] = {pack_bf16(x0.x, x0.y), pack_bf16(x1.x, x1.y),
-                                 pack_bf16(x2.x, x2.y), pack_bf16(x3.x, x3.y)};
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[mt][nt], a, b[nt][0], b[nt][1]);
-        }
-      }
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const int r = m0 + 16 * mt + g, n = nbase + 8 * nt + 2 * t;
-          if (r < M) { epi(r, n, acc[mt][nt][0]); epi(r, n + 1, acc[mt][nt][1]); }
-          if (r + 8 < M) { epi(r + 8, n, acc[mt][nt][2]); epi(r + 8, n + 1, acc[mt][nt][3]); }
-        }
-      }
-    }
-  }
-}
-
-// Products of the block, W (N, K) in both dtypes: tensor cores in bf16,
-// register-tiled FMA in f32 (full f32 precision).
+// Products of the f32 kernel, W (N, K) f32.
 template <typename T, typename Epi>
 __device__ __forceinline__ void block_gemm(const float* A, int lda, int M, int K,
                                            const void* W, int N, Epi epi) {
-  if constexpr (Num<T>::kBf16)
-    gemm_mma(A, lda, M, K, static_cast<const __nv_bfloat16*>(W), N, epi);
-  else
-    gemm_fma(A, lda, M, K, static_cast<const float*>(W), N, epi);
+  static_assert(sizeof(T) == 4, "the shared-memory kernel runs float32 only");
+  gemm_fma(A, lda, M, K, static_cast<const float*>(W), N, epi);
 }
 
 struct Layout {   // shared-memory carve-up, in floats
@@ -366,7 +272,7 @@ template <typename T>
 __global__ void __launch_bounds__(NT)
 fused_block_kernel(Params p) {
   using N = Num<T>;
-  constexpr bool BF16 = N::kBf16;
+  constexpr bool BF16 = false;
   extern __shared__ __align__(16) float smem[];
   const int T_ = p.T, TQ = p.tq, mode = p.mode;
   const Layout lay(TQ, p.w);
@@ -634,35 +540,668 @@ fused_block_kernel(Params p) {
           });
 }
 
-// Dense attention takes the tiled two-phase path above DENSE_MAX_T rows, or
-// at any T when force_tiled is set (used only to time the two paths).
-int dense_tiled(int T, int w, int force_tiled) {
-  return (w <= 0 && (force_tiled || T > DENSE_MAX_T)) ? 1 : 0;
+// ---- bf16: two launches on wgmma --------------------------------------------
+// Launch 1 (PHASE_QKV) writes the rounded q (scaled), k and v rows of every
+// sequence row to a (B, T, 3C) scratch; launch 2 (PHASE_TAIL) reads them for
+// attention and runs proj, LN and the MLP. A block is one warpgroup and a
+// tile of 64 rows of one sample; two blocks share an SM.
+constexpr int WG_ROWS = 64;                    // rows a block owns
+constexpr int NTW = 128;                       // one warpgroup
+constexpr int STAGES = 2;                      // weight ring depth
+constexpr int STAGE = 32768;                   // a stage: 256 rows x 128 B
+constexpr int TILE = WG_ROWS * 2 * C;          // 64 x 256 bf16: four 8 KB blocks of 64 columns
+constexpr int HCHUNK = WG_ROWS * 128;          // 64 x 64 bf16 hidden chunk
+constexpr int QKV_STAGES = 12;                 // wq, wk, wv: four 64-deep slices each
+constexpr int TAIL_STAGES = 4 + 2 * 16;        // wp, then fc1 | fc2 of 16 hidden chunks
+constexpr int WG_SMEM = 1024 + STAGES * STAGE + TILE + HCHUNK + 8 * (STAGES + 1);
+// banded attention in chunks of this many query rows: their q, keys and
+// values (with the halo) are staged in the ring's space
+constexpr int ATT_ROWS = 32;
+static_assert((3 * ATT_ROWS + 4 * BAND_MAX_W) * 512 <= STAGES * STAGE, "staged rows over the ring");
+static_assert(2 * (WG_SMEM + 1024) <= 233472, "two wgmma blocks over an SM's shared memory");
+enum { PHASE_QKV = 0, PHASE_TAIL = 1 };
+
+// Tensor maps of the six weights, (out, in) bf16: wq, wk, wv, wp in boxes
+// of 64 inputs x 256 outputs; wf1 in boxes of 64 inputs x 64 hidden units;
+// wf2 in boxes of 64 hidden units x 256 outputs;
+// and the (B, T, 3C) q|k|v scratch, unswizzled, in boxes of 256 channels x
+// ATT_ROWS rows (q) or ATT_ROWS + 2w rows (keys, values).
+struct WeightMaps { CUtensorMap w[6]; CUtensorMap q, kv; };
+
+struct ParamsW {
+  const __nv_bfloat16* x; const __nv_bfloat16* xo;
+  const uint8_t* mask; const float* vecs; const float* fc1b; const float* coefs;
+  __nv_bfloat16* qkv;   // (B, T, 3C) q | k | v scratch
+  __nv_bfloat16* out;   // (B, T, C); also holds y1 between proj and fc2
+  int T, w, mode, tiles;
+};
+
+// Byte offset of element (r, c) in a TILE: 64-column block c / 64, 128-byte
+// swizzled row r.
+__device__ __forceinline__ uint32_t tile_at(int r, int c) {
+  return (uint32_t)((c >> 6) * 8192) + swz(r, (c >> 3) & 7) + 2 * (c & 7);
 }
+
+__device__ __forceinline__ uint32_t bf16x2_mul(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t bf16x2_add(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("add.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ float2 unpack2(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+__device__ __forceinline__ float rnd16(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
+
+// The weight stages in the order the products take them. QKV: wq, wk, wv,
+// each as four 64-deep input slices of all 256 outputs. TAIL: wp likewise,
+// then for each 64-wide hidden chunk j its fc1 rows (four 8 KB boxes, one
+// per 64-deep input slice) and its fc2 columns. Stage i lands in slot
+// i % STAGES and completes its bytes on that slot's barrier.
+__device__ void load_stage(const WeightMaps& maps, uint32_t dst, uint32_t full, int i, int phase) {
+  mbar_expect_tx(full, STAGE);
+  if (phase == PHASE_QKV) {
+    tma_load_2d(dst, &maps.w[i / 4], 64 * (i % 4), 0, full);
+  } else if (i < 4) {
+    tma_load_2d(dst, &maps.w[3], 64 * i, 0, full);
+  } else if ((i - 4) % 2 == 0) {
+    for (int kb = 0; kb < 4; ++kb)
+      tma_load_2d(dst + kb * 8192, &maps.w[4], 64 * kb, 64 * ((i - 4) / 2), full);
+  } else {
+    tma_load_2d(dst, &maps.w[5], 64 * ((i - 4) / 2), 0, full);
+  }
+}
+
+// Ring of weight stages. take() waits for the next stage; release(i), once
+// the products reading the i-th stage taken are complete, has thread 0 load
+// stage i + STAGES into its slot (the warpgroup's own wgmma were its only
+// readers, so no other barrier is needed).
+struct Ring {
+  const WeightMaps* maps;
+  uint32_t base, bars;   // stage 0; a full barrier per slot
+  int n, count, phase;   // stages taken so far, stages in all, PHASE_*
+  __device__ void start() {
+    if (threadIdx.x == 0)
+      for (int i = 0; i < STAGES && i < count; ++i)
+        load_stage(*maps, base + i * STAGE, bars + 8 * i, i, phase);
+  }
+  __device__ uint32_t take() {
+    const int s = n % STAGES;
+    mbar_wait(bars + 8 * s, (n / STAGES) & 1);
+    ++n;
+    return base + s * STAGE;
+  }
+  __device__ void release(int i) const {
+    const int s = i % STAGES;
+    if (threadIdx.x == 0 && i + STAGES < count)
+      load_stage(*maps, base + s * STAGE, bars + 8 * s, i + STAGES, phase);
+  }
+};
+
+// acc = tile (64 x 256) . W^T over the next four stages (W 256 x 256).
+__device__ __forceinline__ void product256(float (&acc)[128], uint32_t tile, Ring& ring) {
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+#pragma unroll 1
+  for (int kb = 0; kb < 4; ++kb) {
+    const uint32_t st = ring.take();
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      WgmmaSS<256>::run(acc, tile_desc(tile + kb * 8192 + kk * 32), tile_desc(st + kk * 32), 1);
+    wgmma_commit();
+    wgmma_wait<1>();
+    if (kb) ring.release(ring.n - 2);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  ring.release(ring.n - 1);
+}
+
+// One sequence row of a stream, plain LN (one-pass moments) with the
+// stream's affine, rounded; this lane's channels c0 .. c0 + 7. Zero outside
+// the sequence. The whole warp calls it for the same row.
+__device__ __forceinline__ void ln_stream_row(float (&l)[8], const __nv_bfloat16* src, int s,
+                                              int T, int c0, const float (&lw)[8],
+                                              const float (&lb)[8]) {
+  const bool in = s >= 0 && s < T;
+  float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (in) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(src + (size_t)s * C + c0);
+    const uint32_t* u = reinterpret_cast<const uint32_t*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 v = unpack2(u[i]);
+      f[2 * i] = v.x;
+      f[2 * i + 1] = v.y;
+    }
+  }
+  float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) { s1 += f[i]; s2 += f[i] * f[i]; }
+  const float mu = warp_sum(s1) / C, m2 = warp_sum(s2) / C;
+  const float rs = rsqrtf(fmaxf(m2 - mu * mu, 0.f) + LN_EPS);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) l[i] = in ? rnd16((f[i] * rs - mu * rs) * lw[i] + lb[i]) : 0.f;
+}
+
+// Conv output row (already masked) -> rounded, plain LN, rounded -> the
+// tile's row r (this lane's 16 bytes).
+__device__ __forceinline__ void ln_store_row(float (&y)[8], uint32_t tile, int r, int lane) {
+  float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) { y[i] = rnd16(y[i]); s1 += y[i]; s2 += y[i] * y[i]; }
+  const float mu = warp_sum(s1) / C, m2 = warp_sum(s2) / C;
+  const float rs = rsqrtf(fmaxf(m2 - mu * mu, 0.f) + LN_EPS);
+  uint32_t u[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) u[i] = pack_bf16(y[2 * i] * rs - mu * rs, y[2 * i + 1] * rs - mu * rs);
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n"
+               :: "r"(tile + (uint32_t)((lane >> 3) * 8192) + swz(r, lane & 7)),
+                  "r"(u[0]), "r"(u[1]), "r"(u[2]), "r"(u[3]) : "memory");
+}
+
+// The conv + LN rows of stream `which` (0 q, 1 k, 2 v) for the tile's 64
+// rows into `tile`: warp w does rows 16 w .. 16 w + 15 in two runs of
+// eight, each run LN-ing the input rows it needs (one more on each side) at
+// once, so their loads and reductions overlap; a conv row overwrites the
+// input row it no longer needs. (The two runs unrolled into one measured 7%
+// slower a block on an H100 SXM at 700 W.)
+__device__ void conv_rows(const ParamsW& p, int which, int b, int r0, uint32_t tile, int warp,
+                          int lane) {
+  constexpr int RUN = 8;
+  const float* v = p.vecs;
+  const int c0 = 8 * lane;
+  int rw = ROW_LNQ_W;
+  const __nv_bfloat16* src = p.x + (size_t)b * p.T * C;
+  const __nv_bfloat16* odd = p.xo + (size_t)b * p.T * C;
+  if (p.mode == MODE_QV_K || p.mode == MODE_KV) {
+    if (which == 1) { rw = ROW_LNK_W; src = odd; }
+    if (which == 2) { rw = ROW_LNV_W; if (p.mode == MODE_KV) src = odd; }
+  }
+  float lw[8], lb[8], w0[8], w1[8], w2[8];
+  const int tap = ROW_QCONV + 3 * which;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    lw[i] = v[rw * C + c0 + i];
+    lb[i] = v[(rw + 1) * C + c0 + i];
+    w0[i] = v[tap * C + c0 + i];
+    w1[i] = v[(tap + 1) * C + c0 + i];
+    w2[i] = v[(tap + 2) * C + c0 + i];
+  }
+  const uint8_t* mrow = p.mask + (size_t)b * p.T;
+#pragma unroll 1
+  for (int run = 0; run < 16 / RUN; ++run) {
+    const int i0 = 16 * warp + RUN * run, s0 = r0 + i0;
+    if (p.mode == MODE_DS_SELF) {   // y[i] = w0 odd[i-1] + w1 even[i] + w2 odd[i]
+      float le[RUN][8], lo[RUN + 1][8];
+#pragma unroll
+      for (int k = 0; k <= RUN; ++k) ln_stream_row(lo[k], odd, s0 - 1 + k, p.T, c0, lw, lb);
+#pragma unroll
+      for (int k = 0; k < RUN; ++k) ln_stream_row(le[k], src, s0 + k, p.T, c0, lw, lb);
+#pragma unroll
+      for (int o = 0; o < RUN; ++o) {
+        const int s = s0 + o;
+        const float mv = (s < p.T && mrow[s]) ? 1.f : 0.f;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) le[o][i] = (lo[o][i] * w0[i] + le[o][i] * w1[i] + lo[o + 1][i] * w2[i]) * mv;
+        ln_store_row(le[o], tile, i0 + o, lane);
+      }
+    } else {
+      float l[RUN + 2][8];
+#pragma unroll
+      for (int k = 0; k < RUN + 2; ++k) ln_stream_row(l[k], src, s0 - 1 + k, p.T, c0, lw, lb);
+#pragma unroll
+      for (int o = 0; o < RUN; ++o) {
+        const int s = s0 + o;
+        const float mv = (s < p.T && mrow[s]) ? 1.f : 0.f;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) l[o][i] = (l[o][i] * w0[i] + l[o + 1][i] * w1[i] + l[o + 2][i] * w2[i]) * mv;
+        ln_store_row(l[o], tile, i0 + o, lane);
+      }
+    }
+  }
+}
+
+// Attention -> the tile (CTX). Warp w takes rows w, w + 4, ... of the rows
+// it is given, so the four warps walk neighbouring rows together. Lane l
+// holds head l / 8, channels 8 (l % 8) .. + 7 of it: a warp reads a q, k or
+// v row as one 512-byte run, the eight lanes of a head sum a score with
+// three shuffles, and each lane writes its 16 bytes of the row's context.
+// Invalid query rows give zeros.
+__device__ __forceinline__ float head_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  return v + __shfl_xor_sync(0xffffffffu, v, 4);
+}
+__device__ __forceinline__ void ctx_store(uint32_t tile, int i, int lane, const uint32_t (&c)[4]) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n"
+               :: "r"(tile + (uint32_t)((lane / 8) * 8192) + swz(i, lane % 8)), "r"(c[0]),
+                  "r"(c[1]), "r"(c[2]), "r"(c[3]) : "memory");
+}
+__device__ __forceinline__ uint4 lds16(uint32_t a) {
+  uint4 u;
+  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(u.x), "=r"(u.y), "=r"(u.z), "=r"(u.w) : "r"(a));
+  return u;
+}
+
+// Banded, rows i0 .. i0 + ATT_ROWS - 1 of the tile, from rows staged by TMA
+// (512 bytes a row, zeros outside the sequence): their q at `qst`, their
+// keys and values, rows r0 + i0 - W .. r0 + i0 + ATT_ROWS - 1 + W of the
+// scratch, at `kst` and `vst`. Rounded products summed in f32 and rounded,
+// the -1e4 penalty in bf16, -1e30 outside the sequence, f32 softmax, the
+// context summed offset by offset in bf16. The half window is a template
+// parameter and the key masks come from two ballots, so a row is one
+// branch-free block and two rows' loads and shuffles interleave.
+template <int W>
+__device__ void attend_band(const ParamsW& p, int b, int r0, int i0, uint32_t qst, uint32_t kst,
+                            uint32_t vst, int warp, int lane, uint32_t tile) {
+  constexpr int ROWS = ATT_ROWS + 2 * W;
+  static_assert(ROWS <= 64, "two ballots hold the staged rows' masks");
+  const int T_ = p.T, off = (lane / 8) * 128 + (lane % 8) * 16, s0 = r0 + i0 - W;
+  const uint8_t* mrow = p.mask + (size_t)b * T_;
+  auto valid = [&](int s) { return s >= 0 && s < T_ && mrow[s] != 0; };
+  // bit j: staged row j is a valid key (inside the sequence, not masked)
+  const uint32_t lo = __ballot_sync(0xffffffffu, valid(s0 + lane));
+  const uint32_t hi = __ballot_sync(0xffffffffu, lane + 32 < ROWS && valid(s0 + 32 + lane));
+  auto bit = [&](int j) { return ((j < 32 ? lo >> j : hi >> (j - 32)) & 1u) != 0; };
+  const float pen = rnd16(-NEG_PENALTY);
+#pragma unroll 2
+  for (int i = warp; i < ATT_ROWS; i += 4) {
+    const int r = r0 + i0 + i;
+    const uint4 qu = lds16(qst + (uint32_t)(i * 512 + off));
+    const uint32_t q[4] = {qu.x, qu.y, qu.z, qu.w};
+    float sc[2 * W + 1];
+    float mx = -CUDART_INF_F;
+#pragma unroll
+    for (int d = -W; d <= W; ++d) {
+      const uint4 ku = lds16(kst + (uint32_t)((i + W + d) * 512 + off));
+      const uint32_t kw[4] = {ku.x, ku.y, ku.z, ku.w};
+      float part = 0.f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 pr = unpack2(bf16x2_mul(q[e], kw[e]));
+        part += pr.x + pr.y;
+      }
+      part = rnd16(head_sum(part));
+      const bool inseq = r + d >= 0 && r + d < T_;
+      const float sv = !inseq ? NEG_INF : bit(i + W + d) ? part : rnd16(part + pen);
+      sc[d + W] = sv;
+      mx = fmaxf(mx, sv);
+    }
+    float den = 0.f;
+#pragma unroll
+    for (int d = 0; d <= 2 * W; ++d) {
+      sc[d] = expf(sc[d] - mx);
+      den += sc[d];
+    }
+    const float inv = 1.f / den;
+    uint32_t ctx[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int d = -W; d <= W; ++d) {   // a key outside the sequence was staged as zeros
+      const uint32_t pr = pack_bf16(sc[d + W] * inv, sc[d + W] * inv);
+      const uint4 vu = lds16(vst + (uint32_t)((i + W + d) * 512 + off));
+      const uint32_t vw[4] = {vu.x, vu.y, vu.z, vu.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ctx[e] = bf16x2_add(ctx[e], bf16x2_mul(pr, vw[e]));
+    }
+    const bool live = r < T_ && bit(i + W);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ctx[e] = live ? ctx[e] : 0u;
+    ctx_store(tile, i0 + i, lane, ctx);
+  }
+}
+
+// Dense, all 64 rows of the tile against all T keys of the scratch: f32 dot
+// products rounded once, -1e30 fill on invalid keys, f32 softmax in three
+// passes over the keys, values masked, P.V summed in f32 and rounded once.
+__device__ void attend_dense(const ParamsW& p, int b, int r0, int warp, int lane, uint32_t tile) {
+  const int T_ = p.T;
+  const uint8_t* mrow = p.mask + (size_t)b * T_;
+  const __nv_bfloat16* base = p.qkv + (size_t)b * T_ * 3 * C + (lane / 8) * D + 8 * (lane % 8);
+  auto row = [&](int s, int part) {          // 8 values of q (0), k (1) or v (2) of row s
+    return *reinterpret_cast<const uint4*>(base + (size_t)s * 3 * C + part * C);
+  };
+  const float fill = rnd16(NEG_INF);
+#pragma unroll 1
+  for (int i = warp; i < WG_ROWS; i += 4) {
+    const int r = r0 + i;
+    uint32_t ctx[4] = {0u, 0u, 0u, 0u};
+    if (r < T_ && mrow[r]) {
+      const uint4 qu = row(r, 0);
+      const uint32_t q[4] = {qu.x, qu.y, qu.z, qu.w};
+      auto score = [&](int j) {
+        const uint4 ku = row(j, 1);
+        const uint32_t kw[4] = {ku.x, ku.y, ku.z, ku.w};
+        float part = 0.f;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 a = unpack2(q[e]), k = unpack2(kw[e]);
+          part = fmaf(a.x, k.x, part);
+          part = fmaf(a.y, k.y, part);
+        }
+        part = head_sum(part);
+        return mrow[j] ? rnd16(part) : fill;
+      };
+      float mx = -CUDART_INF_F;
+#pragma unroll 4
+      for (int j = 0; j < T_; ++j) mx = fmaxf(mx, score(j));
+      float den = 0.f;
+#pragma unroll 4
+      for (int j = 0; j < T_; ++j) den += expf(score(j) - mx);
+      float sa[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+      for (int j = 0; j < T_; ++j) {
+        const float pj = rnd16(expf(score(j) - mx) / den);
+        if (!mrow[j]) continue;      // its value row is masked to zero
+        const uint4 vu = row(j, 2);
+        const uint32_t vw[4] = {vu.x, vu.y, vu.z, vu.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 a = unpack2(vw[e]);
+          sa[2 * e] = fmaf(pj, a.x, sa[2 * e]);
+          sa[2 * e + 1] = fmaf(pj, a.y, sa[2 * e + 1]);
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ctx[e] = pack_bf16(sa[2 * e], sa[2 * e + 1]);
+    }
+    ctx_store(tile, i, lane, ctx);
+  }
+}
+
+// The bf16 GELU (the division-free polynomial, rounded) of every bf16 value.
+__device__ __nv_bfloat16 gelu_cheap_table[65536];
+struct GeluCheap {
+  __device__ float operator()(float x) const { return gelu<true>(x); }
+};
+
+// The L2 is asked for the tile's input rows s0 .. s0 + n - 1 of x (B, T, C)
+// ahead of the loads that need them.
+__device__ __forceinline__ void prefetch_rows(const __nv_bfloat16* x, int s0, int n, int T) {
+  for (int i = threadIdx.x; i < 4 * n; i += NTW) {
+    const int s = s0 + i / 4;
+    if (s >= 0 && s < T)
+      asm volatile("prefetch.global.L2 [%0];\n" :: "l"(x + (size_t)s * C + 64 * (i % 4)));
+  }
+}
+
+template <int PHASE>
+__global__ void __launch_bounds__(NTW, 1)
+fused_block_wgmma_kernel(const __grid_constant__ WeightMaps maps, const ParamsW p) {
+  extern __shared__ __align__(1024) unsigned char smraw[];
+  const uint32_t ring_base = (smem_u32(smraw) + 1023u) & ~1023u;
+  const uint32_t hc = ring_base + STAGES * STAGE, tile = hc + HCHUNK, bars = tile + TILE;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s <= STAGES; ++s) mbar_init(bars + 8 * s, 1);   // ring slots, staged rows
+    mbar_init_fence();
+  }
+  __syncthreads();
+  Ring ring{&maps, ring_base, bars, 0, PHASE == PHASE_QKV ? QKV_STAGES : TAIL_STAGES, PHASE};
+  if (PHASE == PHASE_QKV) ring.start();
+  const int tps = (p.T + WG_ROWS - 1) / WG_ROWS;
+  const int b = blockIdx.x / tps, r0 = (blockIdx.x % tps) * WG_ROWS;
+  const int T_ = p.T;
+  const __nv_bfloat16* xb = p.x + (size_t)b * T_ * C;
+  const __nv_bfloat16* ob = p.xo + (size_t)b * T_ * C;
+  prefetch_rows(xb, r0 - 1, WG_ROWS + 2, T_);       // the conv's rows, the skip's
+  if (p.mode != MODE_SELF) prefetch_rows(ob, r0 - 1, WG_ROWS + 2, T_);
+  const float* v = p.vecs;
+  const uint8_t* mrow = p.mask + (size_t)b * T_;
+  float acc[128];
+
+  if (PHASE == PHASE_QKV) {
+    const float qscale = rnd16(1.f / sqrtf((float)D));
+#pragma unroll 1
+    for (int which = 0; which < 3; ++which) {
+      conv_rows(p, which, b, r0, tile, warp, lane);
+      fence_async_shared();
+      bar_sync(1, 128);
+      product256(acc, tile, ring);
+      const int brow = (ROW_Q_BIAS + which) * C;
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+        const int n = 8 * j + 2 * t;
+        const float b0 = rnd16(v[brow + n]), b1 = rnd16(v[brow + n + 1]);
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int m = r0 + 16 * warp + g + 8 * hf;
+          if (m >= T_) continue;
+          float y0 = rnd16(rnd16(acc[4 * j + 2 * hf]) + b0);
+          float y1 = rnd16(rnd16(acc[4 * j + 2 * hf + 1]) + b1);
+          if (which == 0) { y0 = rnd16(y0 * qscale); y1 = rnd16(y1 * qscale); }
+          *reinterpret_cast<uint32_t*>(p.qkv + ((size_t)b * T_ + m) * 3 * C + which * C + n) =
+              pack_bf16(y0, y1);
+        }
+      }
+      // every warp's products have read the tile before the next stream's rows land
+      bar_sync(1, 128);
+    }
+    return;
+  }
+
+  // ---- PHASE_TAIL ----
+  // attention first, in chunks of ATT_ROWS query rows whose q, keys and
+  // values TMA stages in the ring's space; then the ring starts on wp
+  if (p.w > 0) {
+    const int rows = ATT_ROWS + 2 * p.w;
+    const uint32_t kst = ring_base + ATT_ROWS * 512, vst = kst + rows * 512;
+    const uint32_t stbar = bars + 8 * STAGES;
+    for (int i0 = 0, k = 0; i0 < WG_ROWS; i0 += ATT_ROWS, ++k) {
+      if (threadIdx.x == 0) {
+        mbar_expect_tx(stbar, (ATT_ROWS + 2 * rows) * 512);
+        tma_load_3d(ring_base, &maps.q, 0, r0 + i0, b, stbar);
+        tma_load_3d(kst, &maps.kv, C, r0 + i0 - p.w, b, stbar);
+        tma_load_3d(vst, &maps.kv, 2 * C, r0 + i0 - p.w, b, stbar);
+      }
+      mbar_wait(stbar, k & 1);
+      switch (p.w) {
+#define AVDD_BAND(W) \
+  case W: attend_band<W>(p, b, r0, i0, ring_base, kst, vst, warp, lane, tile); break;
+        AVDD_BAND(1) AVDD_BAND(2) AVDD_BAND(3) AVDD_BAND(4)
+        AVDD_BAND(5) AVDD_BAND(6) AVDD_BAND(7) AVDD_BAND(8)
+#undef AVDD_BAND
+      }
+      fence_async_shared();
+      __syncthreads();               // the staged rows are read before they are refilled
+    }
+  } else {
+    attend_dense(p, b, r0, warp, lane, tile);
+    fence_async_shared();
+    __syncthreads();
+  }
+  ring.start();
+  product256(acc, tile, ring);
+
+  // proj + masked skip + layer-scaled residual -> y1 (to out, and kept in
+  // acc), then its plain LN (quad of four threads = one row) -> the tile
+  const float coef_attn = p.coefs ? p.coefs[2 * b] : 1.f;
+  const float coef_mlp = p.coefs ? p.coefs[2 * b + 1] : 1.f;
+  __nv_bfloat16* outb = p.out + (size_t)b * T_ * C;
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int i = 16 * warp + g + 8 * hf, m = r0 + i;
+    const bool in = m < T_;
+    const float mq = (in && mrow[m]) ? 1.f : 0.f;
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int n = 8 * j + 2 * t;
+      float y[2] = {0.f, 0.f};
+      if (in) {
+        float2 skip = unpack2(*reinterpret_cast<const uint32_t*>(xb + (size_t)m * C + n));
+        if (p.mode == MODE_DS_SELF) {   // MaxPool(3, 2, 1), -inf padding
+          const float2 o = unpack2(*reinterpret_cast<const uint32_t*>(ob + (size_t)m * C + n));
+          float2 om1 = make_float2(-CUDART_INF_F, -CUDART_INF_F);
+          if (m > 0) om1 = unpack2(*reinterpret_cast<const uint32_t*>(ob + (size_t)(m - 1) * C + n));
+          skip = make_float2(fmaxf(fmaxf(om1.x, skip.x), o.x), fmaxf(fmaxf(om1.y, skip.y), o.y));
+        }
+        const float sk[2] = {skip.x, skip.y};
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float att = rnd16(rnd16(acc[4 * j + 2 * hf + e]) +
+                                  rnd16(v[ROW_P_BIAS * C + n + e])) * mq;
+          const float sa = rnd16(v[ROW_SCALE_ATTN * C + n + e] * coef_attn);
+          y[e] = rnd16(sk[e] * mq + rnd16(att * sa));
+        }
+        *reinterpret_cast<uint32_t*>(outb + (size_t)m * C + n) = pack_bf16(y[0], y[1]);
+      }
+      acc[4 * j + 2 * hf] = y[0];
+      acc[4 * j + 2 * hf + 1] = y[1];
+      s1 += y[0] + y[1];
+      s2 += y[0] * y[0] + y[1] * y[1];
+    }
+    s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
+    s2 += __shfl_xor_sync(0xffffffffu, s2, 1);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
+    s2 += __shfl_xor_sync(0xffffffffu, s2, 2);
+    const float mu = s1 / C, rs = rsqrtf(fmaxf(s2 / C - mu * mu, 0.f) + LN_EPS);
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int n = 8 * j + 2 * t;
+      const float y0 = acc[4 * j + 2 * hf], y1 = acc[4 * j + 2 * hf + 1];
+      asm volatile("st.shared.b32 [%0], %1;\n"
+                   :: "r"(tile + tile_at(i, n)), "r"(pack_bf16(y0 * rs - mu * rs, y1 * rs - mu * rs))
+                   : "memory");
+    }
+  }
+  fence_async_shared();
+  bar_sync(1, 128);
+
+  // MLP over 16 hidden chunks of 64: fc1 -> GELU -> the chunk tile -> fc2,
+  // whose sums stay in acc; fc2 of chunk j runs while fc1 of j + 1 is issued
+  const uint16_t* gt = reinterpret_cast<const uint16_t*>(gelu_cheap_table);
+  float h1[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) h1[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+#pragma unroll 1
+  for (int j = 0; j < 16; ++j) {
+    const uint32_t st1 = ring.take();
+    fence_regs(h1);
+    wgmma_fence();
+#pragma unroll
+    for (int kb = 0; kb < 4; ++kb)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        WgmmaSS<64>::run(h1, tile_desc(tile + kb * 8192 + kk * 32),
+                         tile_desc(st1 + kb * 8192 + kk * 32), kb | kk);
+    wgmma_commit();
+    wgmma_wait<0>();                 // fc1 of j and fc2 of j - 1
+    fence_regs(h1);
+    fence_regs(acc);
+    if (j) ring.release(ring.n - 2);
+    ring.release(ring.n - 1);
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int n = 8 * jj + 2 * t;
+      const float b0 = rnd16(p.fc1b[64 * j + n]), b1 = rnd16(p.fc1b[64 * j + n + 1]);
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {   // GELU of the rounded fc1 output, from the table
+        const uint32_t a0 = __ldg(gt + bf16_bits(rnd16(h1[4 * jj + 2 * hf]) + b0));
+        const uint32_t a1 = __ldg(gt + bf16_bits(rnd16(h1[4 * jj + 2 * hf + 1]) + b1));
+        asm volatile("st.shared.b32 [%0], %1;\n"
+                     :: "r"(hc + swz(16 * warp + g + 8 * hf, jj) + 4 * t), "r"(a0 | a1 << 16)
+                     : "memory");
+      }
+    }
+    fence_async_shared();
+    bar_sync(1, 128);
+    const uint32_t st2 = ring.take();
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      WgmmaSS<256>::run(acc, tile_desc(hc + kk * 32), tile_desc(st2 + kk * 32), 1);
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  ring.release(ring.n - 1);
+
+  // fc2 bias, masked, layer-scaled residual onto y1 -> out
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    const int m = r0 + 16 * warp + g + 8 * hf;
+    if (m >= T_) continue;
+    const float mq = mrow[m] ? 1.f : 0.f;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int n = 8 * j + 2 * t;
+      uint32_t* o = reinterpret_cast<uint32_t*>(outb + (size_t)m * C + n);
+      const float2 y1 = unpack2(*o);
+      const float yv[2] = {y1.x, y1.y};
+      float y[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float h = rnd16(rnd16(acc[4 * j + 2 * hf + e]) + rnd16(v[ROW_FC2_BIAS * C + n + e])) * mq;
+        y[e] = rnd16(yv[e] + rnd16(h * rnd16(v[ROW_SCALE_MLP * C + n + e] * coef_mlp)));
+      }
+      *o = pack_bf16(y[0], y[1]);
+    }
+  }
+}
+
+int launch_wgmma(const ParamsW& p, const void* const* w, cudaStream_t stream) {
+  static __nv_bfloat16* table = nullptr;
+  static unsigned table_ready = 0;
+  if (!table)
+    if (int e = (int)cudaGetSymbolAddress(reinterpret_cast<void**>(&table), gelu_cheap_table))
+      return e;
+  if (int e = fill_table(table, GeluCheap{}, table_ready, stream)) return e;
+  static int configured = 0;
+  if (int e = set_smem(fused_block_wgmma_kernel<PHASE_QKV>, WG_SMEM, configured)) return e;
+  static int configured_tail = 0;
+  if (int e = set_smem(fused_block_wgmma_kernel<PHASE_TAIL>, WG_SMEM, configured_tail)) return e;
+  WeightMaps maps;
+  const uint64_t sq[2] = {C, C}, st[1] = {2 * C};
+  const uint32_t box[2] = {64, 256};
+  for (int i = 0; i < 4; ++i)
+    if (int e = bf16_tensor_map(&maps.w[i], w[i], 2, sq, st, box)) return e;
+  const uint64_t d1[2] = {C, 4 * C}, d2[2] = {4 * C, C}, st2[1] = {8 * C};
+  const uint32_t box1[2] = {64, 64};
+  if (int e = bf16_tensor_map(&maps.w[4], w[4], 2, d1, st, box1)) return e;
+  if (int e = bf16_tensor_map(&maps.w[5], w[5], 2, d2, st2, box)) return e;
+  const uint64_t dq[3] = {3 * C, (uint64_t)p.T, (uint64_t)(p.tiles / ((p.T + WG_ROWS - 1) / WG_ROWS))};
+  const uint64_t sq3[2] = {3 * C * 2, (uint64_t)p.T * 3 * C * 2};
+  const uint32_t boxq[3] = {C, ATT_ROWS, 1}, boxkv[3] = {C, (uint32_t)(ATT_ROWS + 2 * p.w), 1};
+  if (int e = bf16_tensor_map(&maps.q, p.qkv, 3, dq, sq3, boxq, false)) return e;
+  if (int e = bf16_tensor_map(&maps.kv, p.qkv, 3, dq, sq3, boxkv, false)) return e;
+  const unsigned grid = (unsigned)p.tiles;
+  fused_block_wgmma_kernel<PHASE_QKV><<<grid, NTW, WG_SMEM, stream>>>(maps, p);
+  if (int e = (int)cudaGetLastError()) return e;
+  fused_block_wgmma_kernel<PHASE_TAIL><<<grid, NTW, WG_SMEM, stream>>>(maps, p);
+  return (int)cudaGetLastError();
+}
+
+// Dense f32 attention takes the tiled two-phase path above DENSE_MAX_T rows.
+int dense_tiled(int T, int w) { return (w <= 0 && T > DENSE_MAX_T) ? 1 : 0; }
 
 int tile_rows(int T, int w, int tiled) { return (w > 0 || tiled) ? TQ_BAND : T; }
 
-template <typename T>
-int launch(Params p, int B, cudaStream_t stream) {
+int launch_f32(Params p, int B, cudaStream_t stream) {
   const int bytes = Layout(p.tq, p.w).bytes();
   static int configured = 0;    // largest dynamic smem size set so far
-  if (bytes > configured) {
-    cudaError_t e = cudaFuncSetAttribute(
-        fused_block_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return (int)e;
-    configured = bytes;
-  }
+  if (int e = set_smem(fused_block_kernel<float>, bytes, configured)) return e;
   dim3 grid((p.T + p.tq - 1) / p.tq, B);
   if (p.phase == PHASE_WHOLE) {
-    fused_block_kernel<T><<<grid, NT, bytes, stream>>>(p);
+    fused_block_kernel<float><<<grid, NT, bytes, stream>>>(p);
     return (int)cudaGetLastError();
   }
   p.phase = PHASE_KV;
-  fused_block_kernel<T><<<grid, NT, bytes, stream>>>(p);
+  fused_block_kernel<float><<<grid, NT, bytes, stream>>>(p);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   p.phase = PHASE_ATTN;
-  fused_block_kernel<T><<<grid, NT, bytes, stream>>>(p);
+  fused_block_kernel<float><<<grid, NT, bytes, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -672,29 +1211,47 @@ extern "C" {
 
 // Dynamic shared memory (bytes) a launch needs, or -1 if the shape is not
 // supported (a half window above BAND_MAX_W).
-int avdd_fused_block_smem(int T, int w, int force_tiled, int dtype) {
-  (void)dtype;
+int avdd_fused_block_smem(int T, int w, int dtype) {
   if (w > BAND_MAX_W) return -1;
-  return Layout(tile_rows(T, w, dense_tiled(T, w, force_tiled)), w).bytes();
+  if (dtype == 1) return WG_SMEM;
+  return Layout(tile_rows(T, w, dense_tiled(T, w)), w).bytes();
 }
 
-// Launch on `stream`; returns cudaGetLastError() (0 = launched).
+// Launch on `stream`; returns the first CUDA error (0 = launched).
 // dtype: 0 float32, 1 bfloat16. mode: 0 self, 1 qv_k, 2 kv, 3 ds_self.
 // Dense weights: (out, in) row-major in the compute dtype (torch's Linear
-// layout), for both dtypes. Dense attention (w = 0) picks its path here
-// (dense_tiled); the tiled path needs kv, a (B, T, 2C) scratch in the
-// compute dtype, so the caller passes one for every dense launch. coefs:
-// (B, 2) f32 droppath coefficients of the training forward, or null.
+// layout), for both dtypes. coefs: (B, 2) f32 droppath coefficients of the
+// training forward, or null. kv: a scratch in the compute dtype, (B, T, 3C)
+// for bfloat16 (the q | k | v rows between its two launches, any window);
+// for float32 (B, T, 2C), needed by dense attention only, whose path is
+// picked here (dense_tiled).
 int avdd_fused_block(const void* x, const void* xo, const void* mask,
                      const void* vecs, const void* wq, const void* wk,
                      const void* wv, const void* wp, const void* wf1,
                      const void* wf2, const void* fc1b, void* out, void* kv,
                      const void* coefs, int B, int T, int c, int n_head, int w, int mode,
-                     int force_tiled, int dtype, void* stream) {
-  const int tiled = dense_tiled(T, w, force_tiled);
-  if (c != C || n_head != NH || avdd_fused_block_smem(T, w, force_tiled, dtype) < 0 ||
-      mode < 0 || mode > 3 || B <= 0 || T <= 0 || (tiled && !kv))
+                     int dtype, void* stream) {
+  const int tiled = dense_tiled(T, w);
+  if (c != C || n_head != NH || avdd_fused_block_smem(T, w, dtype) < 0 ||
+      mode < 0 || mode > 3 || B <= 0 || T <= 0 || ((tiled || dtype == 1) && !kv) ||
+      dtype < 0 || dtype > 1)
     return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    ParamsW p;
+    p.x = static_cast<const __nv_bfloat16*>(x);
+    p.xo = static_cast<const __nv_bfloat16*>(xo ? xo : x);
+    p.mask = static_cast<const uint8_t*>(mask);
+    p.vecs = static_cast<const float*>(vecs);
+    p.fc1b = static_cast<const float*>(fc1b);
+    p.coefs = static_cast<const float*>(coefs);
+    p.qkv = static_cast<__nv_bfloat16*>(kv);
+    p.out = static_cast<__nv_bfloat16*>(out);
+    p.T = T; p.w = w > 0 ? w : 0; p.mode = mode;
+    p.tiles = B * ((T + WG_ROWS - 1) / WG_ROWS);
+    const void* ws[6] = {wq, wk, wv, wp, wf1, wf2};
+    return launch_wgmma(p, ws, s);
+  }
   Params p;
   p.x = x; p.xo = xo ? xo : x;
   p.mask = static_cast<const uint8_t*>(mask);
@@ -706,10 +1263,7 @@ int avdd_fused_block(const void* x, const void* xo, const void* mask,
   p.coefs = static_cast<const float*>(coefs);
   p.T = T; p.w = w > 0 ? w : 0; p.mode = mode; p.tq = tile_rows(T, w, tiled);
   p.phase = tiled ? PHASE_KV : PHASE_WHOLE;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(p, B, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(p, B, s);
-  return (int)cudaErrorInvalidValue;
+  return launch_f32(p, B, s);
 }
 
 }  // extern "C"

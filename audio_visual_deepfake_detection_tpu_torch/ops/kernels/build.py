@@ -4,7 +4,7 @@ Route: ``nvcc -gencode arch=compute_90a,code=sm_90a -shared`` over
 ``csrc/*.cu`` (K1 and K6 fused_block, K2 patch_embed, K3 mvit_attention, K4
 mvit_block with its attention step in mvit_attention, K5 conv_extractor, K7
 band_attention, K8 full_attention; headers common.cuh and, for the wgmma
-kernels of K2, K3, K4 and K8, wgmma.cuh) into one shared library
+kernels of K1, K2, K3, K4, K5 and K8, wgmma.cuh) into one shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds). The
 library lands in ``build/kernels/`` at the repository root, in a file named
 by a hash of the sources and flags, so an edited source rebuilds and an
@@ -100,13 +100,13 @@ def load() -> ctypes.CDLL:
             lib.avdd_fused_block.restype = i
             lib.avdd_fused_block.argtypes = [
                 p, p, p, p, p, p, p, p, p, p, p, p,   # tensors + out
-                p,                                     # k|v scratch (tiled dense)
+                p,                                     # q|k|v (bf16) / k|v (f32) scratch
                 p,                                     # droppath coefs or null
-                i, i, i, i, i, i, i, i,                # B T C H w mode tiled dtype
+                i, i, i, i, i, i, i,                   # B T C H w mode dtype
                 p,                                     # stream
             ]
             lib.avdd_fused_block_smem.restype = i
-            lib.avdd_fused_block_smem.argtypes = [i, i, i, i]
+            lib.avdd_fused_block_smem.argtypes = [i, i, i]
             lib.avdd_patch_embed.restype = i
             lib.avdd_patch_embed.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
             q = ctypes.c_longlong

@@ -133,29 +133,25 @@ def _ln_plain(x: torch.Tensor, cdtype) -> torch.Tensor:
     return r * torch.rsqrt((r * r).mean(-1, keepdim=True) + LN_EPS)
 
 
-def block_math(x, xo, mrow, coefs, vecs, wq, wk, wv, wp, wf1, wf2, fc1b,
-               *, n_head: int, w_overlap: int, mode: str) -> torch.Tensor:
-    """Plain PyTorch version of the kernel on (B, T, C) inputs; ``mrow`` is
-    the (B, T, 1) f32 mask, ``coefs`` the (B, 2) droppath coefficients, the
-    dense weights ``(out, in)`` as ``pack_block_params`` makes them."""
-    w = w_overlap
+def _cdot(a, m):
+    """a @ m.T, m (out, in): f32 sums of the compute-dtype values, rounded
+    once to a's dtype."""
+    return torch.matmul(a.float(), m.float().t()).to(a.dtype)
+
+
+def qkv_rows(x, xo, mrow, vecs, wq, wk, wv, *, n_head: int, mode: str):
+    """The first half of ``block_math``, what the bf16 kernel's first launch
+    writes to its (B, T, 3C) scratch: the q (scaled), k and v rows. Row i
+    reads input rows i - 1 .. i + 1 only."""
     cdtype = x.dtype
-    b, t, c = x.shape
-    d_head = c // n_head
+    d_head = x.shape[-1] // n_head
     mvalid = mrow
-    mvalid_c = mvalid.to(cdtype)
-    pen = (mvalid - 1.0) * (-NEG_PENALTY)
-    coef_attn = coefs[:, 0][:, None, None]
-    coef_mlp = coefs[:, 1][:, None, None]
 
     def rows(i):
         return vecs[i][None, None, :]
 
     def ln(xx, row_w, row_b):
         return _ln_plain(xx, cdtype) * rows(row_w) + rows(row_b)
-
-    def cdot(a, m):             # a @ m.T, m (out, in)
-        return torch.matmul(a.float(), m.float().t()).to(cdtype)
 
     def dwconv(xx, row0):
         xf = xx.float()
@@ -187,10 +183,31 @@ def block_math(x, xo, mrow, coefs, vecs, wq, wk, wv, wp, wf1, wf2, fc1b,
         k = post_ln(dwconv(lk, ROW_KCONV))
         v = post_ln(dwconv(lv, ROW_VCONV))
 
-    q = cdot(q, wq) + vecs[ROW_Q_BIAS].to(cdtype)
-    k = cdot(k, wk) + vecs[ROW_K_BIAS].to(cdtype)
-    v = cdot(v, wv) + vecs[ROW_V_BIAS].to(cdtype)
+    q = _cdot(q, wq) + vecs[ROW_Q_BIAS].to(cdtype)
+    k = _cdot(k, wk) + vecs[ROW_K_BIAS].to(cdtype)
+    v = _cdot(v, wv) + vecs[ROW_V_BIAS].to(cdtype)
     q = q * torch.tensor(1.0 / math.sqrt(d_head), dtype=cdtype, device=x.device)
+    return q, k, v
+
+
+def block_tail(q, k, v, x, xo, mrow, coefs, vecs, wp, wf1, wf2, fc1b, *, n_head: int,
+               w_overlap: int, mode: str):
+    """The second half of ``block_math``, the bf16 kernel's second launch:
+    attention over the q, k, v rows of ``qkv_rows``, proj, the layer-scaled
+    residual, LN and the MLP. Row i reads q row i, k and v rows i - w ..
+    i + w (all rows when dense) and x (ds_self: xo too) rows i - 1 .. i."""
+    w = w_overlap
+    cdtype = x.dtype
+    b, t, c = x.shape
+    d_head = c // n_head
+    mvalid = mrow
+    mvalid_c = mvalid.to(cdtype)
+    pen = (mvalid - 1.0) * (-NEG_PENALTY)
+    coef_attn = coefs[:, 0][:, None, None]
+    coef_mlp = coefs[:, 1][:, None, None]
+
+    def rows(i):
+        return vecs[i][None, None, :]
 
     row = torch.arange(t, device=x.device)[:, None]
     if w <= 0:
@@ -233,7 +250,7 @@ def block_math(x, xo, mrow, coefs, vecs, wq, wk, wv, wp, wf1, wf2, fc1b,
             ctx = ctx + pb * _shift_rows(v, d)
         ctx = ctx * mvalid_c
 
-    att = cdot(ctx, wp) + vecs[ROW_P_BIAS].to(cdtype)
+    att = _cdot(ctx, wp) + vecs[ROW_P_BIAS].to(cdtype)
     att = att * mvalid_c
     if mode == "ds_self":
         om1 = _shift_rows(xo, -1)
@@ -246,12 +263,24 @@ def block_math(x, xo, mrow, coefs, vecs, wq, wk, wv, wp, wf1, wf2, fc1b,
     y1 = skip * mvalid_c + att * scale_a
 
     h = _ln_plain(y1, cdtype).to(cdtype)
-    h = cdot(h, wf1) + fc1b[0].to(cdtype)
+    h = _cdot(h, wf1) + fc1b[0].to(cdtype)
     h = _gelu(h.float(), cdtype).to(cdtype)
-    h = cdot(h, wf2) + vecs[ROW_FC2_BIAS].to(cdtype)
+    h = _cdot(h, wf2) + vecs[ROW_FC2_BIAS].to(cdtype)
     h = h * mvalid_c
     y = y1 + h * (rows(ROW_SCALE_MLP) * coef_mlp).to(cdtype)
     return y.to(cdtype)
+
+
+def block_math(x, xo, mrow, coefs, vecs, wq, wk, wv, wp, wf1, wf2, fc1b,
+               *, n_head: int, w_overlap: int, mode: str) -> torch.Tensor:
+    """Plain PyTorch version of the kernel on (B, T, C) inputs; ``mrow`` is
+    the (B, T, 1) f32 mask, ``coefs`` the (B, 2) droppath coefficients, the
+    dense weights ``(out, in)`` as ``pack_block_params`` makes them. It is
+    ``block_tail`` of ``qkv_rows``, the split the bf16 kernel's two launches
+    take."""
+    q, k, v = qkv_rows(x, xo, mrow, vecs, wq, wk, wv, n_head=n_head, mode=mode)
+    return block_tail(q, k, v, x, xo, mrow, coefs, vecs, wp, wf1, wf2, fc1b,
+                      n_head=n_head, w_overlap=w_overlap, mode=mode)
 
 
 # ---------------------------------------------------------------- packing
@@ -360,12 +389,13 @@ def fused_transformer_block(x, xo, mask, vecs, wq, wk, wv, wp, wf1, wf2, fc1b,
 
 
 def _launch(x, xo, mask, vecs, wq, wk, wv, wp, wf1, wf2, fc1b, *, n_head,
-            w_overlap, mode, force_tiled=False, coefs=None):
+            w_overlap, mode, coefs=None):
     """Launch the kernel: K1 with ``coefs`` None (the kernel reads 1), K6 with
-    the (B, 2) f32 droppath coefficients. Dense attention (``w_overlap <= 0``) keeps the whole
-    sequence in one thread block up to 31 rows and takes the tiled two-phase
-    path above (the kernel decides); ``force_tiled`` sends any T to the tiled
-    path, so that the two can be timed against each other."""
+    the (B, 2) f32 droppath coefficients. bf16 runs two ``wgmma`` launches
+    through a (B, T, 3C) q|k|v scratch, banded or dense alike. f32 keeps the
+    shared-memory FMA kernel: dense attention (``w_overlap <= 0``) there holds
+    the whole sequence in one thread block up to 31 rows and takes the tiled
+    two-phase path above (the kernel decides)."""
     global LAUNCHES, TRAIN_LAUNCHES
     from .build import load
 
@@ -376,14 +406,18 @@ def _launch(x, xo, mask, vecs, wq, wk, wv, wp, wf1, wf2, fc1b, *, n_head,
     w = max(w_overlap, 0)
     lib = load()
     dcode = 0 if x.dtype == torch.float32 else 1
-    if lib.avdd_fused_block_smem(t, w, int(force_tiled), dcode) < 0:
+    if lib.avdd_fused_block_smem(t, w, dcode) < 0:
         raise ValueError(f"fused block kernel: unsupported window half-width "
                          f"{w_overlap} (banded attention takes w <= 8)")
     out = torch.empty_like(x)
     if b == 0 or t == 0:
         return out
+    # bf16: the (B, T, 3C) q|k|v rows between the kernel's two launches; f32:
     # the (B, T, 2C) k|v scratch of the tiled dense path, should it be taken
-    kv = torch.empty((b, t, 2 * c), dtype=x.dtype, device=x.device) if w == 0 else None
+    if x.dtype == torch.bfloat16:
+        kv = torch.empty((b, t, 3 * c), dtype=x.dtype, device=x.device)
+    else:
+        kv = torch.empty((b, t, 2 * c), dtype=x.dtype, device=x.device) if w == 0 else None
     ptr = lambda a: ctypes.c_void_p(a.data_ptr())  # noqa: E731
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -392,7 +426,7 @@ def _launch(x, xo, mask, vecs, wq, wk, wv, wp, wf1, wf2, fc1b, *, n_head,
             ptr(wk), ptr(wv), ptr(wp), ptr(wf1), ptr(wf2), ptr(fc1b), ptr(out),
             ctypes.c_void_p(0 if kv is None else kv.data_ptr()),
             ctypes.c_void_p(0 if coefs is None else coefs.data_ptr()),
-            b, t, c, n_head, w, MODES[mode], int(force_tiled), dcode,
+            b, t, c, n_head, w, MODES[mode], dcode,
             ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"fused block kernel launch failed: CUDA error {err}")

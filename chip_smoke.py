@@ -12,8 +12,9 @@ Phases (any failure exits nonzero):
 2. kernels - the fused transformer-block kernel K1 against its plain PyTorch
              version (block_math), both on the card, for every production
              (mode, T, attention) combination of the HRLR backbone at the
-             service batch B=16, f32 (atol 1e-4) and bf16 (atol = rtol =
-             2e-2), with partial masks and O(1) layer scales / LN affines;
+             service batch B=16 and the main path's B=64, and a T=768 self
+             block at B=512, f32 (atol 1e-4) and bf16 (atol = rtol = 2e-2),
+             with partial masks and O(1) layer scales / LN affines;
 3. dense   - K1 in dense mode at T = 24, 31 (whole-sequence path) and 32,
              48, 100 (tiled path), f32 and bf16; a production-width f32
              localizer forward at T = 1536 on the card against the CPU;
@@ -37,7 +38,8 @@ Phases (any failure exits nonzero):
              call at 32 chunks one by one (kernel events of a trace) and the
              whole call's time;
 6. audio kernels - K5 (Emotion2Vec conv extractor) against its plain version
-             at B = 2 on a 9.6 s wav and one with an odd tail, K8 (full
+             at B = 2, 16 and 64 on a 9.6 s wav and one with an odd tail,
+             f32 and bf16, K8 (full
              attention) at (2, 12, 479 | 130 | 50, 64) and (1, 12, 2000, 64)
              with and without a padding mask and with one sample fully
              masked, f32 and bf16;
@@ -365,14 +367,23 @@ def compare(got, ref):
     return d.max().item(), bool((d[over] <= ulp).all()), int(over.sum())
 
 
-def phase_kernels(dev="cuda", blocks=PROD_BLOCKS, b=16):
-    """Kernel vs block_math at batch ``b``: five varied valid lengths
-    (full, 3/4, 1/3, one row, none), the rest full."""
+# K1 beyond the batches of phase_kernels' loop: (B, mode, T, window) of the
+# offline sweep's batch, one full-length block
+K1_BIG = ((512, "self", 768, 7),)
+
+
+def phase_kernels(dev="cuda", blocks=PROD_BLOCKS, batches=(16, 64), big=K1_BIG):
+    """Kernel vs block_math, f32 and bf16, at every block shape for each
+    batch of ``batches`` (the service's 16, the main path's 64) and at the
+    (B, mode, T, window) cases of ``big``: five varied valid lengths (full,
+    3/4, 1/3, one row, none), the rest full. The 64-row tiles of the bf16
+    kernel meet their ragged edges and the two-tiles-a-block pairing there."""
     import torch
 
     worst = {"float32": 0.0, "bfloat16": 0.0}
     rows = []
-    for names, mode, t, window in blocks:
+    cases = [(b, mode, t, window) for b in batches for _, mode, t, window in blocks]
+    for b, mode, t, window in cases + list(big):
         for dtype in (torch.float32, torch.bfloat16):
             x, xo, mask, packed = block_case(mode, t, window, b, dtype, dev, seed=t)
             got = run_block("kernel", x, xo, mask, packed, mode, window)
@@ -388,7 +399,8 @@ def phase_kernels(dev="cuda", blocks=PROD_BLOCKS, b=16):
                 f"{'ok' if ok else 'MISMATCH'}")
             if not ok:
                 REPORT["kernels"] = rows
-                fail(f"kernel disagrees with block_math: {mode} T={t} {name}")
+                fail(f"kernel disagrees with block_math: B={b} {mode} T={t} {name}")
+            del x, xo, mask, packed, got, ref
     REPORT["kernels"] = rows
     return worst
 
@@ -478,10 +490,10 @@ def phase_timing(model, cfg, smi):
 
     dev = torch.device("cuda")
     per_shape = []
-    totals, bounds = {}, {}
+    totals, bounds, dev_totals = {}, {}, {}
     worst = 0.0
     for b in (16, 64, 512):     # the service batch, a 64-video media run, the offline sweep
-        k_tot = p_tot = 0.0
+        k_tot = p_tot = d_tot = 0.0
         bounds[b] = bound_sum([(*k1_work(mode, t, window, b), len(names))
                                for names, mode, t, window in PROD_BLOCKS])
         for names, mode, t, window in PROD_BLOCKS:
@@ -501,17 +513,22 @@ def phase_timing(model, cfg, smi):
                 ms.setdefault(which, []).append(cuda_ms(
                     lambda: run_block(which, x, xo, mask, packed, mode, window), iters))
             k_ms, p_ms = min(ms["kernel"]), min(ms["plain"])
+            d_ms = device_ms(lambda: run_block("kernel", x, xo, mask, packed, mode, window),
+                             iters)
             k_tot += k_ms * len(names)
             p_tot += p_ms * len(names)
+            d_tot += d_ms * len(names)
             per_shape.append(dict(B=b, mode=mode, T=t, window=window, max_abs_err=err,
                                   beyond_atol_rtol=n_over, kernel_ms=k_ms, plain_ms=p_ms,
-                                  blocks=len(names)))
+                                  device_ms=d_ms, blocks=len(names)))
             log(f"time B={b:3d} {mode:7s} T={t:3d} w={window:2d}: kernel "
-                f"{k_ms:.4f} ms  plain {p_ms:.4f} ms  ({smi})")
+                f"{k_ms:.4f} ms (device {d_ms:.4f})  plain {p_ms:.4f} ms  ({smi})")
             del x, xo, mask, packed
         totals[b] = (k_tot, p_tot)
-        log(f"time B={b}: 18 blocks of one forward, kernel {k_tot:.3f} ms, "
-            f"plain {p_tot:.3f} ms, bound {bounds[b][0]:.3f} ms ({bounds[b][1]}) ({smi})")
+        dev_totals[b] = d_tot
+        log(f"time B={b}: 18 blocks of one forward, kernel {k_tot:.3f} ms (their kernels alone "
+            f"{d_tot:.3f} ms, {k1_work_total(b) / d_tot / 1e9:.1f} TFLOP/s), plain {p_tot:.3f} ms, "
+            f"bound {bounds[b][0]:.3f} ms ({bounds[b][1]}) ({smi})")
         torch.cuda.empty_cache()
     REPORT["block_times"] = per_shape
     REPORT["pack_ms"] = pack_cost(model, smi)
@@ -563,6 +580,7 @@ def phase_timing(model, cfg, smi):
     REPORT["timing"] = dict(service_latency_ms=lat_ms, service_runs_ms=lat,
                             localizer_videos_per_s=vps, rates=rates,
                             block_totals_ms={str(k): v for k, v in totals.items()},
+                            block_device_ms={str(k): v for k, v in dev_totals.items()},
                             block_bounds_ms={str(k): v for k, v in bounds.items()},
                             profile=profile, card=smi)
     return totals, worst, bounds
@@ -1410,14 +1428,12 @@ def phase_mvit_timing(smi, dev="cuda"):
             f"{LIBRARY_NAMES[k]} {v['library_ms']:.3f} ms ({smi})")
 
     dense = {}
-    for t, force_tiled in ((48, False), (24, False), (24, True)):
+    for t in (48, 24):
         x, xo, mask, packed = block_case("ds_self", t, -1, 512, torch.bfloat16, dev, seed=t)
-        k_ms = cuda_ms(lambda: fb._launch(x, xo, mask, *packed, n_head=4, w_overlap=-1,
-                                          mode="ds_self", force_tiled=force_tiled), 10)
+        k_ms = cuda_ms(lambda: run_block("kernel", x, xo, mask, packed, "ds_self", -1), 10)
         p_ms = cuda_ms(lambda: run_block("plain", x, xo, mask, packed, "ds_self", -1), 10)
-        path = "tiled" if t > 31 or force_tiled else "whole"
-        dense[f"T={t} {path}"] = dict(kernel_ms=k_ms, plain_ms=p_ms)
-        log(f"time K1 dense ds_self B=512 T={t} ({path} path) bf16: kernel {k_ms:.4f} ms "
+        dense[f"T={t}"] = dict(kernel_ms=k_ms, plain_ms=p_ms)
+        log(f"time K1 dense ds_self B=512 T={t} bf16: kernel {k_ms:.4f} ms "
             f"plain {p_ms:.4f} ms ({smi})")
 
     rates = {}
@@ -1524,6 +1540,12 @@ def k1_work(mode, t, window, b, c=256, nbytes=2):
     rows_in = b * t * (2 if mode == "ds_self" else 1)
     cross = b * t if mode in ("qv_k", "kv") else 0
     return flops, (rows_in + cross + b * t) * c * nbytes + 12 * c * c * nbytes + rows_in
+
+
+def k1_work_total(b):
+    """Operations of one forward's 18 blocks at batch b."""
+    return sum(k1_work(mode, t, window, b)[0] * len(names)
+               for names, mode, t, window in PROD_BLOCKS)
 
 
 def k2_work(n, t=512, nbytes=2, in_bytes=4):
@@ -1716,9 +1738,14 @@ def check_k8_all_masked(dtype, dev, t=130):
         f"{rule}; all-masked sample vs mean(v) {d.max().item():.2e}"
 
 
-def phase_audio_kernels(dev="cuda", lengths=(WAV_LEN, WAV_ODD), cases=K8_CASES):
-    """K5 against conv_extractor_math at B = 2, a 9.6 s wav and one with an
-    odd tail, f32 (atol 1e-4, rtol 5e-4) and bf16 (check_k5_bf16); K8 against
+K5_BATCHES = (2, 16, 64)   # a pair, the audio phase's 16 wavs, the main path's 64
+
+
+def phase_audio_kernels(dev="cuda", lengths=(WAV_LEN, WAV_ODD), cases=K8_CASES,
+                        k5_batches=K5_BATCHES):
+    """K5 against conv_extractor_math at B = 2, 16 and 64 (the persistent
+    tiles' ragged last wave), a 9.6 s wav and one with an odd tail, f32 (atol
+    1e-4, rtol 5e-4) and bf16 (check_k5_bf16); K8 against
     full_mha_math at (2, 12, 479 | 130 | 50, 64) and (1, 12, 2000, 64), with
     and without a padding mask, with one sample fully masked, and in bf16 at
     more than 65,535 (sample, head) pairs; f32 atol 2e-5 and bf16 the rounding
@@ -1740,21 +1767,26 @@ def phase_audio_kernels(dev="cuda", lengths=(WAV_LEN, WAV_ODD), cases=K8_CASES):
             REPORT["audio_kernels"] = rows
             fail(f"{kname} disagrees with its plain version: {label} {dname}")
 
-    for length in lengths:
-        for dtype in (torch.float32, torch.bfloat16):
-            m, wav = k5_case(2, length, dtype, dev, seed=length)
-            got, ref = run_k5("kernel", m, wav), run_k5("plain", m, wav)
-            sync(dev)
-            t_out = k5.conv_output_length(length)
-            if tuple(got.shape) != (2, t_out, 512) or got.dtype != dtype:
-                fail(f"conv extractor output {tuple(got.shape)} {got.dtype}")
-            if dtype == torch.float32:
-                err, ok = check_f32(got, ref)
-                rule = "atol 1e-4 rtol 5e-4"
-            else:
-                err, ok, _, rule = check_k5_bf16(m, wav, got, ref)
-            record("conv_extractor", f"B=2 L={length} -> {t_out} x 512", dtype, err, ok, rule)
-            del m, wav, got, ref
+    for b in k5_batches:
+        for length in lengths:
+            for dtype in (torch.float32, torch.bfloat16):
+                with torch.no_grad():
+                    m, wav = k5_case(b, length, dtype, dev, seed=length + b)
+                    got, ref = run_k5("kernel", m, wav), run_k5("plain", m, wav)
+                    sync(dev)
+                    t_out = k5.conv_output_length(length)
+                    if tuple(got.shape) != (b, t_out, 512) or got.dtype != dtype:
+                        fail(f"conv extractor output {tuple(got.shape)} {got.dtype}")
+                    if dtype == torch.float32:
+                        err, ok = check_f32(got, ref)
+                        rule = "atol 1e-4 rtol 5e-4"
+                    else:
+                        err, ok, _, rule = check_k5_bf16(m, wav, got, ref)
+                record("conv_extractor", f"B={b} L={length} -> {t_out} x 512", dtype, err, ok,
+                       rule)
+                del m, wav, got, ref
+        if torch.device(dev).type == "cuda":
+            torch.cuda.empty_cache()
     for b, t in cases:
         for masked in (False, True):
             for dtype in (torch.float32, torch.bfloat16):
@@ -2025,12 +2057,15 @@ def phase_audio_timing(ex, model, cfg, smi, dev="cuda", batches=(2, 16, 64)):
                 fail(f"conv_extractor disagrees with its plain version at B={b}")
             t = time_pair(lambda which: run_k5(which, m, wav))
             eager = cuda_ms(lambda: eager_conv_stack(m, wav), 3, warmup=1)
+            k_dev = device_ms(lambda: run_k5("kernel", m, wav), 5)
             bms, by = bound(*k5_work(b, WAV_LEN))
             out["conv_extractor"][b] = dict(ms=t["kernel"][0], ms_range=t["kernel"][1:],
                                             plain_ms=t["plain"][0], plain_range=t["plain"][1:],
-                                            eager_stack_ms=eager, bound_ms=bms, bound_by=by)
+                                            eager_stack_ms=eager, bound_ms=bms, bound_by=by,
+                                            device_ms=k_dev)
             log(f"time conv_extractor B={b} L={WAV_LEN} bf16, median of 5: kernel "
-                f"{t['kernel'][0]:.3f} ms [{t['kernel'][1]:.3f}, {t['kernel'][2]:.3f}]  plain "
+                f"{t['kernel'][0]:.3f} ms [{t['kernel'][1]:.3f}, {t['kernel'][2]:.3f}] (device "
+                f"{k_dev:.3f}, {k5_work(b, WAV_LEN)[0] / k_dev / 1e9:.1f} TFLOP/s)  plain "
                 f"{t['plain'][0]:.3f} ms [{t['plain'][1]:.3f}, {t['plain'][2]:.3f}]  eager stack "
                 f"{eager:.3f} ms  bound {bms:.3f} ms ({by}) ({smi})")
             del m, wav
@@ -2727,7 +2762,7 @@ def phase_train_kernel_timing(smi, dev="cuda", b=TRAIN_B):
 
     bf16 = torch.bfloat16
     out = {"k6": [], "k7": []}
-    k_tot = p_tot = 0.0
+    k_tot = p_tot = d_tot = 0.0
     with torch.no_grad():
         for names, mode, t, window in PROD_BLOCKS:
             x, xo, mask, packed = block_case(mode, t, window, b, bf16, dev, seed=t)
@@ -2737,18 +2772,21 @@ def phase_train_kernel_timing(smi, dev="cuda", b=TRAIN_B):
                 ms.setdefault(which, []).append(cuda_ms(
                     lambda: run_k6(which, x, xo, mask, coefs, packed, mode, window), 5))
             k_ms, p_ms = min(ms["kernel"]), min(ms["plain"])
+            d_ms = device_ms(lambda: run_k6("kernel", x, xo, mask, coefs, packed, mode, window), 5)
             bms, by = bound(*k6_work(mode, t, window, b))
             k_tot += k_ms * len(names)
             p_tot += p_ms * len(names)
+            d_tot += d_ms * len(names)
             out["k6"].append(dict(mode=mode, T=t, window=window, blocks=len(names), ms=k_ms,
-                                  plain_ms=p_ms, bound_ms=bms, bound_by=by))
-            log(f"time K6 B={b} {mode:7s} T={t:3d} w={window:2d} bf16: kernel {k_ms:.4f} ms  plain "
-                f"{p_ms:.4f} ms  bound {bms:.4f} ms ({by}) ({smi})")
+                                  plain_ms=p_ms, device_ms=d_ms, bound_ms=bms, bound_by=by))
+            log(f"time K6 B={b} {mode:7s} T={t:3d} w={window:2d} bf16: kernel {k_ms:.4f} ms "
+                f"(device {d_ms:.4f})  plain {p_ms:.4f} ms  bound {bms:.4f} ms ({by}) ({smi})")
             del x, xo, mask, packed
         k6_bound = bound_sum([(*k6_work(mode, t, window, b), len(names))
                               for names, mode, t, window in PROD_BLOCKS])
-        log(f"time K6 B={b}: the 18 launches of one training forward, kernel {k_tot:.3f} ms, "
-            f"plain {p_tot:.3f} ms, bound {k6_bound[0]:.3f} ms ({k6_bound[1]}) ({smi})")
+        log(f"time K6 B={b}: the 18 launches of one training forward, kernel {k_tot:.3f} ms "
+            f"(their kernels alone {d_tot:.3f} ms), plain {p_tot:.3f} ms, bound "
+            f"{k6_bound[0]:.3f} ms ({k6_bound[1]}) ({smi})")
         # K7 calls of one unfused forward: 8 at T=768, 2 each at 384..48, 1 at 24
         calls = {768: 8, 384: 2, 192: 2, 96: 2, 48: 2, 24: 1}
         k7_tot = k7_plain = k7_lib = 0.0
@@ -2776,7 +2814,7 @@ def phase_train_kernel_timing(smi, dev="cuda", b=TRAIN_B):
             f"plain {k7_plain:.3f} ms, library {k7_lib:.3f} ms, bound {k7_bound[0]:.3f} ms "
             f"({k7_bound[1]}) ({smi})")
     torch.cuda.empty_cache()
-    totals = dict(k6=(k_tot, p_tot, k6_bound), k7=(k7_tot, k7_plain, k7_bound, k7_lib))
+    totals = dict(k6=(k_tot, p_tot, k6_bound, d_tot), k7=(k7_tot, k7_plain, k7_bound, k7_lib))
     REPORT["train_kernel_timing"] = dict(per_shape=out, card=smi,
                                          totals={k: list(v) for k, v in totals.items()})
     return totals
@@ -2873,10 +2911,17 @@ def main():
         "bound_ms": k1_bounds[16][0],
         "bound_by": k1_bounds[16][1],
         "library_ms": None,
+        "device_ms": REPORT["timing"]["block_device_ms"]["16"],
+        "ms_b64": totals[64][0],
+        "device_ms_b64": REPORT["timing"]["block_device_ms"]["64"],
+        "plain_ms_b64": totals[64][1],
+        "bound_ms_b64": k1_bounds[64][0],
         "ms_b512": totals[512][0],
+        "device_ms_b512": REPORT["timing"]["block_device_ms"]["512"],
         "plain_ms_b512": totals[512][1],
         "bound_ms_b512": k1_bounds[512][0],
-        "note": "ms = sum over the 18 blocks of one forward at B=16 bf16",
+        "note": "ms = sum over the 18 blocks of one forward at B=16 bf16 (two CUDA launches "
+                "a block, counted once)",
     }]
     for name, file, line in (("patch_embed", "patch_embed", 140),
                              ("pooled_attention", "mvit_attention", 72),
@@ -2944,7 +2989,7 @@ def main():
         })
     for k in kernels:
         k["launches_media_to_detections"] = media_launched[k["name"]]
-    k6_ms, k6_plain, k6_bound = train_times["k6"]
+    k6_ms, k6_plain, k6_bound, k6_dev = train_times["k6"]
     kernels.append({
         "name": "fused_transformer_block_train",
         "route": "cuda",
@@ -2958,6 +3003,7 @@ def main():
                       "grads": "Function vs block_math 1e-6, f32 card vs CPU "
                                f"{GRAD_TOL:g}, relative to max(1, max |ref|)"},
         "ms": k6_ms,
+        "device_ms": k6_dev,
         "plain_ms": k6_plain,
         "bound_ms": k6_bound[0],
         "bound_by": k6_bound[1],

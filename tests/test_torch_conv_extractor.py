@@ -114,3 +114,57 @@ def test_module_other_spec_runs_eager_layers(rng):
     want = np.asarray(jax.jit(jm.apply)(params, jnp.asarray(wav)))
     assert got.shape == want.shape == (2, 79, 16)
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=5e-4)
+
+
+# --------------------------------------------- the bf16 kernel's tap views
+# csrc/conv_extractor.cu runs layers 1-6 in bf16 as an implicit GEMM over
+# tiles of 64 frames of one sample: k steps of 64 values, tap j = step / 8 and
+# channel block step % 8, each A slice one box of a 3-D tensor map over the
+# previous layer's output (channels, frames at stride s 512, samples) based
+# at tap j, frames past the layer's end read as zeros; W is the packed
+# (512, k 512) weight, taps outermost.
+
+def _tap_view(x, j, k, s, t_out):
+    """The tensor map of tap j over x (B, T_in, 512): frame t's row s t + j."""
+    b, t_in, ch = x.shape
+    return x.as_strided((b, t_out, ch), (t_in * ch, s * ch, 1), x.storage_offset() + j * ch)
+
+
+def _tiled_layer(x, w_packed, k, s, t_out, tile=64):
+    """The products of one layer as the kernel's tiles sum them."""
+    b = x.shape[0]
+    out = torch.zeros((b, t_out, tk5.CH), dtype=torch.float64)
+    for t0 in range(0, t_out, tile):
+        acc = torch.zeros((b, tile, tk5.CH), dtype=torch.float64)
+        for step in range(8 * k):
+            j, cb = divmod(step, 8)
+            a = torch.zeros((b, tile, 64), dtype=torch.float64)
+            rows = _tap_view(x, j, k, s, t_out)[:, t0:t0 + tile, 64 * cb:64 * cb + 64]
+            a[:, :rows.shape[1]] = rows               # zero fill past the layer's end
+            acc += a @ w_packed[:, j * tk5.CH + 64 * cb:j * tk5.CH + 64 * cb + 64].double().T
+        out[:, t0:t0 + tile] = acc[:, :min(tile, t_out - t0)]
+    return out
+
+
+@pytest.mark.parametrize("length", [16007, 32000])
+def test_tap_view_tiles_reproduce_every_layer(rng, length):
+    """Each of layers 1-6 summed over the kernel's tiles and k steps from
+    the tap views of its input equals the plain Conv1d; the whole stack run
+    that way, with each layer's LN and GELU, equals conv_extractor_math."""
+    _, _, wav, weights, ln = _setup(rng, 2, length)
+    packed = tk5.pack_conv_extractor(weights, ln, torch.float32)
+    wav = torch.from_numpy(wav)
+    lens = tk5.layer_lengths(length)
+    x = tk5.conv_extractor_math(wav, weights[:1], ln, torch.float32, spec=tk5.CONV_SPEC[:1])
+    for i in range(1, 7):
+        _, k, s = tk5.CONV_SPEC[i]
+        got = _tiled_layer(x.double(), packed.ws[i - 1], k, s, lens[i])
+        want = torch.nn.functional.conv1d(x.double().transpose(1, 2), weights[i].double(),
+                                          stride=s).transpose(1, 2)
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-9, atol=1e-9)
+        y = torch.nn.functional.layer_norm(got.float(), (tk5.CH,), ln[2 * i], ln[2 * i + 1],
+                                           eps=tk5.LN_EPS)
+        x = torch.nn.functional.gelu(y).contiguous()
+    np.testing.assert_allclose(x.numpy(), tk5.conv_extractor_math(wav, weights, ln,
+                                                                  torch.float32).numpy(),
+                               rtol=5e-4, atol=1e-4)

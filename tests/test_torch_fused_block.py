@@ -182,3 +182,140 @@ def test_block_packs_once_and_repacks_after_parameter_update(rng):
         assert not torch.equal(before, after)
         ours.load_state_dict(block_state_dict_from_flax(p), strict=True)
         assert torch.equal(ours(tx, tm)[0], before)
+
+
+# ------------------------------------------- the bf16 kernel's decomposition
+# csrc/fused_block.cu runs bf16 as two launches over tiles of 64 rows:
+# launch 1 writes qkv_rows to a (B, T, 3C) scratch, reading input rows
+# r0 - 1 .. r0 + 64 of its tile; launch 2 runs block_tail, reading the
+# scratch rows r0 - w .. r0 + 63 + w (all rows when dense) and x / xo rows
+# r0 - 1 .. r0 + 63. Its products take the weights from a ring of 32 KB
+# stages that TMA fills with 128-byte-swizzled boxes.
+K_C, K_H, TILE = tfb.KERNEL_CHANNELS, tfb.KERNEL_HEADS, 64
+
+
+def _kernel_block(rng, mode, window):
+    """A production-width block with random weights and O(1) layer scales."""
+    blk = TransformerBlock(K_C, K_H, ds_stride=2 if mode == "ds_self" else 1,
+                           window_size=window, cross=CROSS[mode])
+    sd = {}
+    for name, a in blk.state_dict().items():
+        v = rng.standard_normal(tuple(a.shape)).astype(np.float32)
+        if name.endswith("weight") and a.dim() >= 2:
+            v /= np.sqrt(np.prod(a.shape[1:]))
+        elif "norm" in name or name.startswith("ln"):
+            v = (1 + 0.5 * v) if name.endswith("weight") else 0.3 * v
+        sd[name] = torch.from_numpy(v)
+    blk.load_state_dict(sd)
+    return blk
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("window", [7, -1])
+@pytest.mark.parametrize("mode", ["self", "qv_k", "kv", "ds_self"])
+def test_two_launch_tiles_stitch_to_block_math(rng, mode, window, dtype):
+    """Each tile of each launch computed from its own rows alone (T = 150:
+    two full tiles and a ragged one; valid lengths 150, 97, 1 and 0), stitched
+    together, is block_math on the whole sequence."""
+    t, w = 150, max(window // 2, 0)
+    packed = list(_kernel_block(rng, mode, window).packed(dtype))
+    vecs, wq, wk, wv, wp, wf1, wf2, fc1b = packed
+    lens = torch.tensor([t, 97, 1, 0])
+    mrow = (torch.arange(t)[None, :] < lens[:, None]).float()[..., None]
+    x = (torch.from_numpy(rng.standard_normal((4, t, K_C)).astype(np.float32)) * mrow).to(dtype)
+    xo = (torch.from_numpy(rng.standard_normal((4, t, K_C)).astype(np.float32)) * mrow).to(dtype)
+    if mode == "self":
+        xo = x
+    coefs = torch.tensor([[1.0, 1.0], [0.0, 1 / 0.9], [1 / 0.9, 0.0], [1.0, 1.0]])
+    kw = dict(n_head=K_H, mode=mode)
+    q, k, v = (torch.zeros_like(x) for _ in range(3))
+    for r0 in range(0, t, TILE):
+        lo, hi = max(r0 - 1, 0), min(r0 + TILE + 1, t)
+        part = tfb.qkv_rows(x[:, lo:hi], xo[:, lo:hi], mrow[:, lo:hi], vecs, wq, wk, wv, **kw)
+        for whole, p in zip((q, k, v), part):
+            whole[:, r0:r0 + TILE] = p[:, r0 - lo:r0 - lo + TILE]
+    for got, want in zip((q, k, v), tfb.qkv_rows(x, xo, mrow, vecs, wq, wk, wv, **kw)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+    y = torch.empty_like(x)
+    for r0 in range(0, t, TILE):
+        lo, hi = (max(r0 - max(w, 1), 0), min(r0 + TILE + w, t)) if w else (0, t)
+        part = tfb.block_tail(q[:, lo:hi], k[:, lo:hi], v[:, lo:hi], x[:, lo:hi], xo[:, lo:hi],
+                              mrow[:, lo:hi], coefs, vecs, wp, wf1, wf2, fc1b,
+                              w_overlap=window // 2, **kw)
+        y[:, r0:r0 + TILE] = part[:, r0 - lo:r0 - lo + TILE]
+    want = tfb.block_math(x, xo, mrow, coefs, *packed, w_overlap=window // 2, **kw)
+    # the same operations on fewer rows: equal up to the f32 sums' blocking
+    torch.testing.assert_close(y.float(), want.float(), rtol=1e-5, atol=1e-5)
+
+
+def _tma_box(mat, k0, n0, rows):
+    """A TMA box of 64 inputs x ``rows`` outputs of an (out, in) matrix as
+    it lands in shared memory: row n holds 128 bytes, its 16-byte chunk c at
+    chunk c ^ (n % 8) (CU_TENSOR_MAP_SWIZZLE_128B on a 1024-byte boundary)."""
+    img = np.zeros((rows, 64), np.float32)
+    for n in range(rows):
+        for c in range(8):
+            img[n, 8 * (c ^ (n % 8)):8 * (c ^ (n % 8)) + 8] = mat[n0 + n, k0 + 8 * c:k0 + 8 * c + 8]
+    return img
+
+
+def _desc_read(img, row0, kk, rows):
+    """The K-major operand a wgmma descriptor at stage row ``row0``, byte
+    offset 32 kk names: ``rows`` x 16 inputs, unswizzled."""
+    out = np.zeros((rows, 16), np.float32)
+    for n in range(rows):
+        r = row0 + n
+        for k in range(16):
+            c = (2 * kk + k // 8) ^ (r % 8)
+            out[n, k] = img[r, 8 * c + k % 8]
+    return out
+
+
+def _stages(weights, phase):
+    """The producer's schedule (csrc/fused_block.cu::produce) as stage
+    images of 256 rows: QKV wq, wk, wv in four 64-deep slices; TAIL wp, then
+    per hidden chunk j the fc1 rows (four 64 x 64 boxes, one per slice) and
+    the fc2 columns."""
+    wq, wk, wv, wp, wf1, wf2 = weights
+    if phase == "qkv":
+        return [_tma_box(m, 64 * kb, 0, 256) for m in (wq, wk, wv) for kb in range(4)]
+    out = [_tma_box(wp, 64 * kb, 0, 256) for kb in range(4)]
+    for j in range(16):
+        out.append(np.concatenate([_tma_box(wf1, 64 * kb, 64 * j, 64) for kb in range(4)]))
+        out.append(_tma_box(wf2, 64 * j, 0, 256))
+    return out
+
+
+def test_weight_stages_reproduce_each_product(rng):
+    """The six products summed the way the consumers read the ring (per
+    stage and 16-deep step: A's slice against the descriptor's operand) are
+    the plain a @ W.T, fc2 accumulated over the 16 hidden chunks."""
+    ws = [rng.standard_normal(s).astype(np.float32) for s in
+          [(256, 256)] * 4 + [(1024, 256), (256, 1024)]]
+    a = rng.standard_normal((64, 256)).astype(np.float32)
+    h = rng.standard_normal((64, 1024)).astype(np.float32)
+    qkv, tail = _stages(ws, "qkv"), _stages(ws, "tail")
+    assert len(qkv) == 12 and len(tail) == 36 and all(s.shape == (256, 64) for s in qkv + tail)
+
+    def product(stages):      # four stages of 256 outputs, 64 inputs each
+        acc = np.zeros((64, 256))
+        for kb, img in enumerate(stages):
+            for kk in range(4):
+                acc += a[:, 64 * kb + 16 * kk:64 * kb + 16 * kk + 16] @ _desc_read(img, 0, kk, 256).T
+        return acc
+
+    for i, wmat in enumerate(ws[:3]):
+        np.testing.assert_allclose(product(qkv[4 * i:4 * i + 4]), a @ wmat.T, rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(product(tail[:4]), a @ ws[3].T, rtol=1e-5, atol=1e-4)
+    fc2 = np.zeros((64, 256))
+    for j in range(16):
+        fc1 = np.zeros((64, 64))
+        for kb in range(4):
+            for kk in range(4):
+                fc1 += a[:, 64 * kb + 16 * kk:64 * kb + 16 * kk + 16] @ \
+                    _desc_read(tail[4 + 2 * j], 64 * kb, kk, 64).T
+        np.testing.assert_allclose(fc1, a @ ws[4][64 * j:64 * j + 64].T, rtol=1e-5, atol=1e-4)
+        for kk in range(4):
+            fc2 += h[:, 64 * j + 16 * kk:64 * j + 16 * kk + 16] @ \
+                _desc_read(tail[5 + 2 * j], 0, kk, 256).T
+    np.testing.assert_allclose(fc2, h @ ws[5].T, rtol=1e-5, atol=1e-4)
