@@ -1,6 +1,5 @@
-// Shared device helpers of the audio kernels (conv_extractor.cu,
-// full_attention.cu) and the MViT kernels (mvit_attention.cu, mvit_block.cu):
-// compute-dtype load/round/store, warp reductions, the bf16 tensor-core
+// Shared device helpers of the port's kernels: compute-dtype
+// load/round/store, warp reductions, paired bf16 arithmetic, the bf16 tensor-core
 // instruction (mma.sync m16n8k16, f32 accumulate) with its fragment loads,
 // and asynchronous 16-byte copies into shared memory. wgmma.cuh adds the
 // warpgroup instruction on top of these.
@@ -62,6 +61,21 @@ __device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&h);
+}
+// Two bf16 products / sums, each rounded once to bf16 (round to nearest
+// even), as an elementwise bf16 multiply / add in torch rounds them.
+__device__ __forceinline__ uint32_t bf16x2_mul(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ uint32_t bf16x2_add(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("add.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+__device__ __forceinline__ float2 unpack2(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
 }
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {

@@ -582,19 +582,6 @@ __device__ __forceinline__ uint32_t tile_at(int r, int c) {
   return (uint32_t)((c >> 6) * 8192) + swz(r, (c >> 3) & 7) + 2 * (c & 7);
 }
 
-__device__ __forceinline__ uint32_t bf16x2_mul(uint32_t a, uint32_t b) {
-  uint32_t d;
-  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
-  return d;
-}
-__device__ __forceinline__ uint32_t bf16x2_add(uint32_t a, uint32_t b) {
-  uint32_t d;
-  asm("add.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
-  return d;
-}
-__device__ __forceinline__ float2 unpack2(uint32_t v) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
-}
 __device__ __forceinline__ float rnd16(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
 
 // The weight stages in the order the products take them. QKV: wq, wk, wv,

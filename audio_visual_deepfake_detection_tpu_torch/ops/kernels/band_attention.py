@@ -17,7 +17,10 @@ kernel's forward follows the first, its backward differentiates the second.
 ``band_attention_kernel`` launches ``csrc/band_attention.cu`` for a CUDA
 tensor on an sm_90 card (replacing ``band_attention_pallas``,
 ``pallas_call`` at ``band_attention.py:105``) and runs
-``band_attention_plain`` for a CPU tensor. ``band_attention_fused`` is the
+``band_attention_plain`` for a CPU tensor. The kernel computes 8-row tiles
+of one sample across a 512-byte run of heads from k and v rows staged with
+their ±w halo (zeros outside the sequence); ``kernel_limits`` says which
+head widths and windows it takes. ``band_attention_fused`` is the
 JAX ``band_attention_fused`` (``:124``, a ``custom_vjp``): forward = the
 kernel, backward = autograd through ``band_attention_xla`` recomputed from
 the saved q, k, v and mask. Neither package has a backward kernel.
@@ -25,19 +28,23 @@ the saved q, k, v and mask. Neither package has a backward kernel.
 
 from __future__ import annotations
 
-import ctypes
+import contextlib
+import struct
 
 import torch
 
 from ...core.runtime import use_kernel
 from ..attention import NEG_PENALTY, band_attention_xla, shift_time
 
-HEAD_DIM = 64               # the one head width the kernel is built for
 MAX_W = 8                   # largest half window the kernel takes
-MAX_BH = 65535              # batch x heads of one launch (grid dimension y)
+MAX_ROW_BYTES = 512         # a head row: 16-byte pieces, at most a warp's 32 of them
 
 # kernel launches since the last reset (CPU calls and plain runs never count)
 LAUNCHES = 0
+_SAME_DEVICE = contextlib.nullcontext()     # the launch's device is already current
+# csrc/band_attention.cu::BandArgs: q, k, v, valid, out, stream; 12 strides;
+# B, H, T, D, w, dtype (one packed argument: the host's cost of a launch)
+_ARGS = struct.Struct("<6Q12q6i")
 
 
 def reset_launches() -> None:
@@ -91,8 +98,8 @@ def _check(q, k, v, kv_valid, w_overlap):
 
 def band_attention_kernel(q, k, v, kv_valid, w_overlap: int) -> torch.Tensor:
     """K7 without autograd: the kernel on the card, the plain version on the
-    CPU. Returns (B, H, T, D); on the card a view of a (B, T, H, D) buffer,
-    so merging the heads back into (B, T, H D) copies nothing."""
+    CPU. Returns (B, H, T, D); on the card with the strides of a (B, T, H, D)
+    buffer, so merging the heads back into (B, T, H D) copies nothing."""
     _check(q, k, v, kv_valid, w_overlap)
     if not use_kernel(q):
         return band_attention_plain(q, k, v, kv_valid, w_overlap)
@@ -101,33 +108,49 @@ def band_attention_kernel(q, k, v, kv_valid, w_overlap: int) -> torch.Tensor:
 
 def _rows_ok(a):
     """The kernel reads rows of D contiguous values through (batch, head,
-    row) strides; anything else is copied."""
-    return a if a.stride(3) == 1 else a.contiguous()
+    row) strides, each row 16-byte aligned (the stride of a dimension of
+    size 1 is never used); anything else is copied."""
+    vec = 16 // a.element_size()
+    if a.stride(3) == 1 and a.data_ptr() % 16 == 0 and all(
+            s % vec == 0 for s, n in zip(a.stride()[:3], a.shape[:3]) if n > 1):
+        return a
+    return a.clone(memory_format=torch.contiguous_format)
+
+
+def kernel_limits(q, w_overlap):
+    """Raise ValueError for a head width or window the kernel does not take:
+    a head row must be whole 16-byte pieces, at most MAX_ROW_BYTES of them
+    (bf16: head_dim 8, 16, .., 256; f32: 4, 8, .., 128), and w_overlap at
+    most MAX_W."""
+    d, size = q.shape[-1], q.element_size()
+    if (d * size) % 16 or d * size > MAX_ROW_BYTES:
+        raise ValueError(
+            f"band attention kernel takes head rows of whole 16-byte pieces up to "
+            f"{MAX_ROW_BYTES} bytes ({q.dtype}: head_dim a multiple of {16 // size} up to "
+            f"{MAX_ROW_BYTES // size}), got head_dim {d}")
+    if w_overlap > MAX_W:
+        raise ValueError(f"band attention kernel takes w_overlap <= {MAX_W}, got {w_overlap}")
 
 
 def _launch(q, k, v, kv_valid, w_overlap):
     global LAUNCHES
     from .build import load
 
+    kernel_limits(q, w_overlap)
     b, h, t, d = q.shape
-    if d != HEAD_DIM:
-        raise ValueError(f"band attention kernel takes head_dim {HEAD_DIM}, got {d}")
-    if w_overlap > MAX_W:
-        raise ValueError(f"band attention kernel takes w_overlap <= {MAX_W}, got {w_overlap}")
-    if b * h > MAX_BH:
-        raise ValueError(f"band attention kernel takes batch x heads <= {MAX_BH}, got {b * h}")
-    out = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
+    out = torch.empty_strided((b, h, t, d), (t * h * d, d, h * d, 1), dtype=q.dtype,
+                              device=q.device)
     if b == 0 or t == 0:
         return out
-    q, k, v = (_rows_ok(a) for a in (q, k, v))
+    q, k, v = _rows_ok(q), _rows_ok(k), _rows_ok(v)
     kv_valid = kv_valid.contiguous()
-    ptr = lambda a: ctypes.c_void_p(a.data_ptr())  # noqa: E731
-    strides = [s for a in (q, k, v, out) for s in a.stride()[:3]]
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = load().avdd_band_attention(
-            ptr(q), ptr(k), ptr(v), ptr(kv_valid), ptr(out), b, h, t, d, w_overlap,
-            *strides, 0 if q.dtype == torch.float32 else 1, ctypes.c_void_p(stream))
+    dev = q.device.index
+    with torch.cuda.device(dev) if dev != torch.cuda.current_device() else _SAME_DEVICE:
+        err = load().avdd_band_attention(_ARGS.pack(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_valid.data_ptr(), out.data_ptr(),
+            torch._C._cuda_getCurrentRawStream(dev), *q.stride()[:3], *k.stride()[:3],
+            *v.stride()[:3], t * h * d, d, h * d, b, h, t, d, w_overlap,
+            0 if q.dtype == torch.float32 else 1))
     if err != 0:
         raise RuntimeError(f"band attention kernel launch failed: CUDA error {err}")
     LAUNCHES += 1

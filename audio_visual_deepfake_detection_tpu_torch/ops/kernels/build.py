@@ -93,6 +93,8 @@ def build() -> Path:
 def load() -> ctypes.CDLL:
     """The built library, with argument types declared for every entry."""
     global _lib
+    if _lib is not None:        # every launch comes here: no lock once loaded
+        return _lib
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
@@ -125,7 +127,7 @@ def load() -> ctypes.CDLL:
             lib.avdd_full_mha.restype = i
             lib.avdd_full_mha.argtypes = [p] * 5 + [i] * 4 + [q] * 12 + [i, p]
             lib.avdd_band_attention.restype = i
-            lib.avdd_band_attention.argtypes = [p] * 5 + [i] * 5 + [q] * 12 + [i, p]
+            lib.avdd_band_attention.argtypes = [ctypes.c_char_p]   # a packed BandArgs
             lib.avdd_full_mha_smem.restype = i
             lib.avdd_full_mha_smem.argtypes = [i, i, i]
             _lib = lib

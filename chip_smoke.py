@@ -70,8 +70,9 @@ Phases (any failure exits nonzero):
              against the CPU;
 11. k7     - banded attention K7 at (50, 4, T, 64), T = 768 .. 24, w = 3,
              ragged masks, f32 (atol 1e-5) and bf16, against its plain
-             version; the differentiable wrapper's gradients in f32 against
-             the CPU;
+             version; also w = 0, 1 and 8, head dims 32 and 128, 65,600
+             (sample, head) pairs and a layout the wrapper copies; the
+             differentiable wrapper's gradients in f32 against the CPU;
 12. train  - configs_train/deepfake_exp10.yaml through the port's loader,
              full width and depth, seeded batches in collate_batch's format.
              f32 with a deterministic forward, 2 steps at B=16, card against
@@ -82,9 +83,10 @@ Phases (any failure exits nonzero):
              batch falls. The same with dropout 0.1 (the unfused block; 4
              steps in f32): K7 17 launches a forward, K6 and K1 none, and
              one f32 step at B=16 card against CPU with the same draws. ms
-             per step, samples/s and peak GiB at B=50, a K6 step's stages
-             (CUDA events at train_step's stage hook) and its device time by
-             kernel;
+             per step, samples/s and peak GiB at B=50, a step's stages (CUDA
+             events at train_step's stage hook; in the unfused step also
+             around K7's forward and its backward through
+             band_attention_xla) and its device time by kernel;
 13. timing - K1 per production shape at B = 16, 64 and 512 (bf16), packing
              cost, service latency at batch 16, localizer-only videos/s at
              B=512 bf16 (the program of bench.py::measure_ours); K2-K4 and
@@ -96,12 +98,14 @@ Phases (any failure exits nonzero):
              with the eager conv stack and scaled_dot_product_attention beside
              them; BYOL-A and Emotion2Vec wavs/s; media -> detections
              videos/s at 16 and 64 videos and its per-stage breakdown; K6 per
-             production shape and K7 per banded length at B=50 with
-             scaled_dot_product_attention under a band mask beside K7. Each
+             production shape and K7 per banded length at B=50 (also its
+             device time) with scaled_dot_product_attention under a band
+             mask beside K7. Each
              kernel's time stands beside its bound: the larger of its
              operations over the card's peak rate and its bytes over the
              memory rate; and what each main-path kernel costs a 64-video
-             media -> detections run above that bound.
+             media -> detections run above that bound; K7's block size
+             and blocks an SM against four alternatives built beside it.
 
 The card's name and power limit, then a JSON object with the kernels'
 launches, errors and times, are the two lines before the last; the last
@@ -2366,35 +2370,64 @@ def check_k7(got, ref, q, k, v, valid, w=3):
     return err, near and over == 0, f"{over} beyond atol=rtol=2e-2; {text}"
 
 
-def phase_k7(dev="cuda", ts=K7_TS, b=TRAIN_B, grad_b=5, w=3):
+# K7 beyond the main path's shapes: (b, t, d, w, layout); "copied" hands the
+# wrapper q with a transposed row, k 2 bytes off alignment and v with a row
+# stride of 66 values, which it copies before the launch
+K7_EXTRA = ((TRAIN_B, 768, 64, 0, "heads"), (TRAIN_B, 768, 64, 1, "heads"),
+            (TRAIN_B, 768, 64, 8, "heads"), (TRAIN_B, 97, 64, 8, "heads"),
+            (5, 150, 32, 3, "heads"), (5, 150, 128, 3, "heads"), (5, 150, 128, 8, "heads"),
+            (16400, 24, 64, 3, "heads"), (5, 150, 64, 3, "copied"))
+
+
+def k7_relayout(q, k, v):
+    """The same values in layouts the kernel cannot read as they are."""
+    import torch
+
+    b, h, t, d = q.shape
+    q = q.transpose(2, 3).contiguous().transpose(2, 3)
+    flat = torch.empty(k.numel() + 1, dtype=k.dtype, device=k.device)
+    k = flat[1:].view(b, h, t, d).copy_(k)
+    v = torch.empty((b, h, t, d + 2), dtype=v.dtype, device=v.device)[..., :d].copy_(v)
+    return q, k, v
+
+
+def phase_k7(dev="cuda", ts=K7_TS, b=TRAIN_B, grad_b=5, w=3, extra=K7_EXTRA):
     """K7 at (b, 4, T, 64) for every banded length, ragged masks, f32 and
-    bf16, against band_attention_plain (check_k7); the differentiable
-    wrapper's gradients in f32 at batch ``grad_b`` on the card against the
-    CPU (1e-5 relative to the largest value)."""
+    bf16, against band_attention_plain (check_k7), and at the ``extra``
+    shapes, windows and layouts; the differentiable wrapper's gradients in
+    f32 at batch ``grad_b`` on the card against the CPU (1e-5 relative to
+    the largest value)."""
     import torch
     from audio_visual_deepfake_detection_tpu_torch.ops.kernels import band_attention as k7
 
     on_card = torch.device(dev).type == "cuda"
     worst = {"float32": 0.0, "bfloat16": 0.0}
     rows = []
-    for t in ts:
+    cases = [(b, t, 64, w, "heads") for t in ts] + list(extra)
+    for bb, t, d, ww, layout in cases:
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[-1]
-            args = k7_case(b, t, dtype, dev, seed=t)
+            args = k7_case(bb, t, dtype, dev, seed=t, d=d)
+            if layout == "copied":
+                args = (*k7_relayout(*args[:3]), args[3])
             k7.reset_launches()
             with torch.no_grad():
-                got, ref = run_k7("kernel", *args, w), run_k7("plain", *args, w)
+                got, ref = run_k7("kernel", *args, ww), run_k7("plain", *args, ww)
             sync(dev)
             if k7.LAUNCHES != int(on_card):
                 fail(f"K7 counted {k7.LAUNCHES} launches for one call")
-            err, ok, rule = check_k7(got, ref, *args, w)
+            err, ok, rule = check_k7(got, ref, *args, ww)
             worst[name] = max(worst[name], err)
-            rows.append(dict(shape=(b, 4, t, 64), dtype=name, max_abs_err=err, ok=ok, rule=rule))
-            log(f"K7 vs plain ({b}, 4, {t}, 64) w={w} {name:8s} max|d|={err:.3e} [{rule}] "
-                f"{'ok' if ok else 'MISMATCH'}")
+            rows.append(dict(shape=(bb, 4, t, d), w=ww, layout=layout, dtype=name,
+                             max_abs_err=err, ok=ok, rule=rule))
+            log(f"K7 vs plain ({bb}, 4, {t}, {d}) w={ww} {layout:6s} {name:8s} max|d|={err:.3e} "
+                f"[{rule}] {'ok' if ok else 'MISMATCH'}")
             REPORT["k7"] = rows
             if not ok:
-                fail(f"K7 disagrees with its plain version: T={t} {name}")
+                fail(f"K7 disagrees with its plain version: ({bb}, 4, {t}, {d}) w={ww} {layout} "
+                     f"{name}")
+            del args, got, ref
+    for t in ts:
         q, k, v, valid = k7_case(grad_b, t, torch.float32, dev, seed=t + 1)
         g = torch.randn(q.shape, generator=torch.Generator().manual_seed(t))
 
@@ -2409,6 +2442,90 @@ def phase_k7(dev="cuda", ts=K7_TS, b=TRAIN_B, grad_b=5, w=3):
     if on_card:
         torch.cuda.empty_cache()
     return worst
+
+
+# K7's launch shape and its alternatives: (warps a block = query rows a tile,
+# blocks an SM that the register cap allows)
+K7_VARIANTS = ((8, 6), (16, 2), (16, 3), (8, 4), (4, 12))
+
+
+def k7_variants(smi, b=TRAIN_B, variants=K7_VARIANTS, rounds=3):
+    """K7's launch shape against its alternatives (the reason for the
+    source's): csrc/band_attention.cu with its block size and launch bound
+    replaced by each variant's, built beside the source under
+    build/k7_variants/, checked against the plain version at T = 768 and
+    timed (device time, CUDA-graph replay, the variants in turns) at the
+    unfused forward's lengths, bf16. The first variant is the source's own."""
+    import ctypes
+    import torch
+    from audio_visual_deepfake_detection_tpu_torch.ops.kernels import band_attention as k7
+    from audio_visual_deepfake_detection_tpu_torch.ops.kernels import build
+
+    out_dir = os.path.join(REPO, "build", "k7_variants")
+    os.makedirs(out_dir, exist_ok=True)
+    src = (build.CSRC / "band_attention.cu").read_text()
+    own = ("constexpr int NW = 8;", "__launch_bounds__(NT, 6)")
+    if not all(a in src for a in own):
+        fail("k7_variants: csrc/band_attention.cu no longer has the block size it replaces")
+    procs = {}
+    for nw, per_sm in variants:
+        name = f"nw{nw}_x{per_sm}"
+        text = src.replace(own[0], f"constexpr int NW = {nw};").replace(
+            own[1], f"__launch_bounds__(NT, {per_sm})").replace(
+            "avdd_band_attention", "avdd_band_attention_" + name)
+        path = os.path.join(out_dir, name + ".cu")
+        with open(path, "w") as f:
+            f.write(text)
+        procs[name] = subprocess.Popen(
+            [build.nvcc_path(), *build.ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-shared",
+             "-I", str(build.CSRC), "-o", path[:-3] + ".so", path],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    fns = {}
+    for name, proc in procs.items():
+        log_text = proc.communicate()[0]
+        if proc.returncode:
+            fail(f"k7_variants: {name} does not build:\n{log_text[-2000:]}")
+        fn = getattr(ctypes.CDLL(os.path.join(out_dir, name + ".so")), "avdd_band_attention_" + name)
+        fn.restype, fn.argtypes = ctypes.c_int, [ctypes.c_char_p]
+        fns[name] = fn
+
+    def run(fn, q, k, v, valid):
+        bb, h, t, d = q.shape
+        out = torch.empty_strided((bb, h, t, d), (t * h * d, d, h * d, 1), dtype=q.dtype,
+                                  device=q.device)
+        err = fn(k7._ARGS.pack(q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
+                               out.data_ptr(), torch.cuda.current_stream().cuda_stream,
+                               *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], t * h * d, d,
+                               h * d, bb, h, t, d, 3, 1))
+        if err:
+            fail(f"k7_variants: launch failed, CUDA error {err}")
+        return out
+
+    calls = {768: 8, 384: 2, 192: 2, 96: 2, 48: 2, 24: 1}
+    totals = dict.fromkeys(fns, 0.0)
+    rows = []
+    for t in K7_TS:
+        args = k7_case(b, t, torch.bfloat16, "cuda", seed=t)
+        if t == 768:
+            ref = run_k7("plain", *args)
+            for name, fn in fns.items():
+                if not check_k7(run(fn, *args), ref, *args)[1]:
+                    fail(f"k7_variants: {name} disagrees with the plain version")
+        ms = {name: [] for name in fns}
+        order = list(fns)
+        for r in range(rounds):
+            for name in order if r % 2 == 0 else order[::-1]:
+                ms[name].append(device_ms(lambda: run(fns[name], *args)))
+        best = {name: min(v) for name, v in ms.items()}
+        for name in fns:
+            totals[name] += best[name] * calls[t]
+        rows.append(dict(T=t, device_ms=best))
+        log(f"K7 variants ({b}, 4, {t}, 64) bf16 device us: " +
+            ", ".join(f"{n} {v * 1e3:.1f}" for n, v in best.items()) + f" ({smi})")
+    log("K7 variants, the 17 launches of one unfused forward, device ms: " +
+        ", ".join(f"{n} {v:.4f}" for n, v in totals.items()) + f" ({smi})")
+    REPORT["k7_variants"] = dict(card=smi, per_length=rows, totals=totals)
+    return totals
 
 
 def train_setup(dropout, dtype, dev, seed=0, arch=None, opt_iters=10):
@@ -2643,17 +2760,52 @@ class StageEvents:
         return [self.events[a].elapsed_time(self.events[b]) for a, b in zip(order, order[1:])]
 
 
-def step_breakdown(state, step, hook, batch, smi, label, profile=True):
+@contextlib.contextmanager
+def k7_spans():
+    """While inside: a pair of CUDA events around every K7 forward call (the
+    kernel's launch through its wrapper) and every backward of its autograd
+    Function (band_attention_xla recomputed and differentiated). Yields
+    {"forward": [...], "backward": [...]} of (start, end) event pairs; their
+    spans are stream time, any host gap inside a call included."""
+    import torch
+    from audio_visual_deepfake_detection_tpu_torch.ops.kernels import band_attention as k7
+
+    spans = {"forward": [], "backward": []}
+    fwd, bwd = k7.band_attention_kernel, k7._BandAttention.backward
+
+    def timed(kind, fn):
+        def run(*args):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args)
+            end.record()
+            spans[kind].append((start, end))
+            return out
+        return run
+    k7.band_attention_kernel = timed("forward", fwd)
+    k7._BandAttention.backward = staticmethod(timed("backward", bwd))
+    try:
+        yield spans
+    finally:
+        k7.band_attention_kernel = fwd
+        k7._BandAttention.backward = staticmethod(bwd)
+
+
+def step_breakdown(state, step, hook, batch, smi, label, profile=True, band=False):
     """CUDA-event time of the stages of one training step, recorded by the
     step itself through its stage hook (label assignment, forward with the 18
     K6 launches and the losses; backward with the 17 recomputes; clip + AdamW
-    + EMA + normalizer), and the device time by kernel of one whole step."""
+    + EMA + normalizer), and the device time by kernel of one whole step.
+    ``band``: the unfused step, whose forward and backward are split further
+    at K7 (k7_spans): its 17 forward calls, and its 17 backwards through
+    band_attention_xla against the rest of the backward."""
     import torch
 
     dbatch = batch_on(batch, next(state.model.parameters()).device)
     torch.cuda.synchronize()
     hook.on = True
-    step(state, dbatch)
+    with k7_spans() if band else contextlib.nullcontext() as spans:
+        step(state, dbatch)
     torch.cuda.synchronize()
     hook.on = False
     ms = hook.ms()
@@ -2661,14 +2813,25 @@ def step_breakdown(state, step, hook, batch, smi, label, profile=True):
     log(f"train step stages {label}: forward + losses {ms[0]:.1f} ms ({100 * ms[0] / total:.0f}%), "
         f"backward (recompute + gradients) {ms[1]:.1f} ms ({100 * ms[1] / total:.0f}%), clip + "
         f"AdamW + EMA {ms[2]:.1f} ms ({100 * ms[2] / total:.0f}%) ({smi})")
+    out = dict(forward_ms=ms[0], backward_ms=ms[1], update_ms=ms[2])
+    if band:
+        k7_ms = {kind: sum(a.elapsed_time(b) for a, b in pairs) for kind, pairs in spans.items()}
+        n = {kind: len(pairs) for kind, pairs in spans.items()}
+        out.update(k7_forward_ms=k7_ms["forward"], k7_backward_ms=k7_ms["backward"],
+                   k7_calls=n, backward_rest_ms=ms[1] - k7_ms["backward"])
+        log(f"  unfused step {label}: forward {ms[0]:.1f} ms, K7 inside it {k7_ms['forward']:.2f} "
+            f"ms ({n['forward']} calls); backward {ms[1]:.1f} ms, through band_attention_xla "
+            f"{k7_ms['backward']:.1f} ms ({n['backward']} calls, "
+            f"{100 * k7_ms['backward'] / total:.1f}% of the step), the rest "
+            f"{ms[1] - k7_ms['backward']:.1f} ms; optimizer {ms[2]:.1f} ms ({smi})")
     prof = profile and profile_forward(lambda: step(state, dbatch), total, smi,
                                        label=f"one train step {label}", top_n=8)
     k6_ms = None
-    if prof:
+    if prof and not band:
         k6_ms = sum(r["device_ms"] for r in prof["top"] if "fused_block_kernel" in r["name"])
         log(f"  K6 forward kernels: {k6_ms:.2f} ms of {prof['device_ms']:.2f} ms device time")
-    return dict(forward_ms=ms[0], backward_ms=ms[1], update_ms=ms[2], k6_device_ms=k6_ms,
-                profile=prof)
+    out.update(k6_device_ms=k6_ms, profile=prof)
+    return out
 
 
 def phase_train(dev="cuda", b=TRAIN_B, cpu_b=16, n_steps=10, arch=None, smi="",
@@ -2728,7 +2891,7 @@ def phase_train(dev="cuda", b=TRAIN_B, cpu_b=16, n_steps=10, arch=None, smi="",
             if timing and on_card and (dropout == 0.0 or dtype == "bfloat16"):
                 rep["timing"] = time_steps(state, step, batch, b, smi, label)
                 rep["stages"] = step_breakdown(state, step, hook, batch, smi, label,
-                                               profile=dropout == 0.0)
+                                               band=dropout > 0)
             del state, step, batch
             if on_card:
                 torch.cuda.empty_cache()
@@ -2789,32 +2952,41 @@ def phase_train_kernel_timing(smi, dev="cuda", b=TRAIN_B):
             f"{k6_bound[0]:.3f} ms ({k6_bound[1]}) ({smi})")
         # K7 calls of one unfused forward: 8 at T=768, 2 each at 384..48, 1 at 24
         calls = {768: 8, 384: 2, 192: 2, 96: 2, 48: 2, 24: 1}
-        k7_tot = k7_plain = k7_lib = 0.0
+        k7_tot = k7_plain = k7_lib = k7_dev = k7_lib_dev = 0.0
         for t in K7_TS:
             q, k, v, valid = k7_case(b, t, bf16, dev, seed=t)
             tp = time_pair(lambda which: run_k7(which, q, k, v, valid), rounds=3, iters=5)
+            d_ms = device_ms(lambda: run_k7("kernel", q, k, v, valid))
             idx = torch.arange(t, device=dev)
             band = torch.zeros((t, t), dtype=bf16, device=dev).masked_fill_(
                 (idx[:, None] - idx[None, :]).abs() > 3, float("-inf"))
-            lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=band,
-                                                                 scale=1.0), 5, warmup=1)
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k, v, attn_mask=band, scale=1.0)
+            lib = cuda_ms(sdpa, 5, warmup=1)
+            lib_dev = device_ms(sdpa)
             bms, by = bound(*k7_work(b, 4, t, 64, 3))
             k7_tot += tp["kernel"][0] * calls[t]
             k7_plain += tp["plain"][0] * calls[t]
             k7_lib += lib * calls[t]
-            out["k7"].append(dict(T=t, calls=calls[t], ms=tp["kernel"][0], plain_ms=tp["plain"][0],
-                                  library_ms=lib, bound_ms=bms, bound_by=by))
-            log(f"time K7 ({b}, 4, {t}, 64) w=3 bf16: kernel {tp['kernel'][0]:.4f} ms  plain "
-                f"{tp['plain'][0]:.4f} ms  scaled_dot_product_attention + band mask (nearest "
-                f"library call, not the same function) {lib:.4f} ms  bound {bms:.4f} ms ({by}) "
-                f"({smi})")
+            k7_dev += d_ms * calls[t]
+            k7_lib_dev += lib_dev * calls[t]
+            out["k7"].append(dict(T=t, calls=calls[t], ms=tp["kernel"][0], device_ms=d_ms,
+                                  plain_ms=tp["plain"][0], library_ms=lib,
+                                  library_device_ms=lib_dev, bound_ms=bms, bound_by=by))
+            log(f"time K7 ({b}, 4, {t}, 64) w=3 bf16: kernel {tp['kernel'][0]:.4f} ms (device "
+                f"{d_ms:.4f}, {100 * bms / d_ms:.0f}% of the bound)  plain {tp['plain'][0]:.4f} ms  "
+                f"scaled_dot_product_attention + band mask (nearest library call, not the same "
+                f"function) {lib:.4f} ms (device {lib_dev:.4f})  bound {bms:.4f} ms ({by}) ({smi})")
             del q, k, v, valid, band
         k7_bound = bound_sum([(*k7_work(b, 4, t, 64, 3), calls[t]) for t in K7_TS])
-        log(f"time K7 B={b}: the 17 launches of one unfused forward, kernel {k7_tot:.3f} ms, "
-            f"plain {k7_plain:.3f} ms, library {k7_lib:.3f} ms, bound {k7_bound[0]:.3f} ms "
-            f"({k7_bound[1]}) ({smi})")
+        share = calls[768] * out["k7"][0]["device_ms"] / k7_dev
+        log(f"time K7 B={b}: the 17 launches of one unfused forward, kernel {k7_tot:.3f} ms "
+            f"(device {k7_dev:.3f}, the 8 at T=768 {100 * share:.1f}% of it), plain "
+            f"{k7_plain:.3f} ms, library {k7_lib:.3f} ms (device {k7_lib_dev:.3f}), bound "
+            f"{k7_bound[0]:.3f} ms ({k7_bound[1]}) ({smi})")
     torch.cuda.empty_cache()
-    totals = dict(k6=(k_tot, p_tot, k6_bound, d_tot), k7=(k7_tot, k7_plain, k7_bound, k7_lib))
+    totals = dict(k6=(k_tot, p_tot, k6_bound, d_tot),
+                  k7=(k7_tot, k7_plain, k7_bound, k7_lib, k7_dev, k7_lib_dev, share))
     REPORT["train_kernel_timing"] = dict(per_shape=out, card=smi,
                                          totals={k: list(v) for k, v in totals.items()})
     return totals
@@ -2891,6 +3063,7 @@ def main():
     mvit_totals, mvit_bounds, mvit_library, mvit_group = timed(phase_mvit_timing, smi)
     audio_times, _, k5_rules = timed(phase_audio_timing, ex, model, cfg, smi)
     train_times = timed(phase_train_kernel_timing, smi)
+    timed(k7_variants, smi)
     for mod in ("jax", "audio_visual_deepfake_detection_tpu"):
         if mod in sys.modules:
             fail(f"{mod} was imported")
@@ -3012,7 +3185,7 @@ def main():
                 f"B={TRAIN_B}; ms = the 18 forward launches of one step at B={TRAIN_B} bf16; "
                 "the backward differentiates the plain version, as the TPU kernel's does",
     })
-    k7_ms, k7_plain, k7_bound, k7_lib = train_times["k7"]
+    k7_ms, k7_plain, k7_bound, k7_lib, k7_dev, k7_lib_dev, k7_share = train_times["k7"]
     kernels.append({
         "name": "band_attention",
         "route": "cuda",
@@ -3024,14 +3197,20 @@ def main():
         "tolerance": {"float32": f"atol {K7_F32_ATOL:g}",
                       "bfloat16": f"atol=rtol=2e-2, and within {NO_WORSE:g}x of plain vs f32"},
         "ms": k7_ms,
+        "device_ms": k7_dev,
         "plain_ms": k7_plain,
         "bound_ms": k7_bound[0],
         "bound_by": k7_bound[1],
         "library_ms": k7_lib,
+        "library_device_ms": k7_lib_dev,
+        "device_share_t768": k7_share,
+        "redesigned": "8-row tiles across a 512-byte run of heads, k / v and their halo "
+                      "staged by cp.async, a warp a row, w a template parameter, one grid axis",
         "note": f"launches = {train_report['unfused-K7-bfloat16']['steps']} bf16 training steps "
                 f"with dropout 0.1 at B={TRAIN_B}; ms = the 17 launches of one unfused forward "
-                f"at B={TRAIN_B} bf16; library_ms = scaled_dot_product_attention with an "
-                "additive band mask, the nearest library call, not the same function",
+                f"at B={TRAIN_B} bf16 through the wrapper (device_ms: the kernels alone); "
+                "library_ms = scaled_dot_product_attention with an additive band mask, the "
+                "nearest library call, not the same function",
     })
     main_path_loss(kernels, totals, k1_bounds, mvit_group, k4_table, audio_times, smi)
     REPORT["kernels"] = kernels

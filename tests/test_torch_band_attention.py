@@ -7,7 +7,10 @@ against the JAX one. The gradients of the differentiable wrapper against
 ``jax.vjp`` of ``band_attention_xla``, which is what the JAX
 ``band_attention_fused`` differentiates (that function itself calls the
 kernel without ``interpret`` and cannot run on the CPU). ``full_attention``
-and ``shift_time`` against theirs."""
+and ``shift_time`` against theirs. Then the CUDA kernel's decomposition in
+plain torch (8-row tiles from their staged rows alone, the quotient as e
+times the reciprocal of the sum) stitched back against the plain version,
+and the kernel's limits."""
 
 import numpy as np
 import pytest
@@ -129,3 +132,122 @@ def test_unported_options_raise(rng):
         tattn.band_attention(_t(q), _t(k), _t(v), _t(valid), 3, rel_pe=torch.zeros(1, 7))
     with pytest.raises(ValueError):
         tband.band_attention_kernel(_t(q), _t(k), _t(v), _t(valid)[:, :4], 3)
+
+
+TILE = 8            # query rows of a block of csrc/band_attention.cu (ROWS)
+
+
+def _kernel_tiles(q, k, v, valid, w):
+    """The kernel's decomposition in plain torch: each TILE-row tile of each
+    sample computed from its own staged rows alone. The staged k / v rows
+    r0 - w .. r0 + TILE + w - 1 are zeros outside the sequence, the key masks
+    are read from the staged rows (inside the sequence and not masked), the
+    arithmetic runs in f32 rounded to the input dtype where the kernel
+    rounds: products, their f32 sum once, the penalised score, s - max, the
+    exp, the running sum, the quotient as e times the f32 reciprocal of the
+    sum, each product and running sum of the context."""
+    b, h, t, d = q.shape
+    dt = q.dtype
+    rnd = lambda x: x.to(dt).float()  # noqa: E731
+    pen = rnd(torch.tensor(-1e4))
+    out = torch.empty_like(q)
+    for r0 in range(0, t, TILE):
+        n = min(TILE, t - r0)
+        ks, vs = (torch.zeros((b, h, TILE + 2 * w, d)) for _ in range(2))
+        live = torch.zeros((b, TILE + 2 * w), dtype=torch.bool)
+        lo, hi = max(r0 - w, 0), min(r0 + TILE + w, t)
+        at = slice(lo - (r0 - w), hi - (r0 - w))
+        ks[:, :, at], vs[:, :, at], live[:, at] = k[:, :, lo:hi], v[:, :, lo:hi], valid[:, lo:hi]
+        rows = torch.arange(r0, r0 + n)
+        qt = q[:, :, r0:r0 + n].float()
+        scores = []
+        for dd in range(-w, w + 1):
+            j = slice(w + dd, w + dd + n)                        # staged rows of keys r + dd
+            s = rnd(rnd(qt * ks[:, :, j]).sum(-1))
+            s = torch.where(live[:, None, j], s, rnd(s + pen))
+            inseq = (rows + dd >= 0) & (rows + dd < t)
+            scores.append(torch.where(inseq, s, float("-inf")))
+        mx = torch.stack(scores).amax(0)
+        exps = [rnd(torch.exp(rnd(s - mx))) for s in scores]
+        den = exps[0]
+        for e in exps[1:]:
+            den = rnd(den + e)
+        inv = 1.0 / den
+        acc = torch.zeros_like(qt)
+        for dd, e in zip(range(-w, w + 1), exps):
+            p = rnd(e * inv)[..., None]
+            acc = rnd(acc + rnd(p * vs[:, :, w + dd:w + dd + n]))
+        own = live[:, None, w:w + n, None]                      # the row's own key slot
+        out[:, :, r0:r0 + n] = torch.where(own, acc, 0.0).to(dt)
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("w", [0, 1, 3, 8])
+@pytest.mark.parametrize("t", [150, 97, 1])
+def test_kernel_tiles_stitch_to_plain(rng, t, w, d, dtype):
+    """T that 8 does not divide (18 full tiles and a ragged one; 12 and a
+    row; one row), valid lengths T, 2T/3, 1 and 0 (a fully masked sample,
+    and masked rows after each length): the tiles stitched together are
+    band_attention_plain on the whole sequence. In bf16 the f32 sums run in
+    another order than torch's, which may move a score by one bf16 step:
+    nearly every element is equal, all within the kernel's tolerance."""
+    lens = (t, (2 * t) // 3, 1, 0)
+    q, k, v, valid = _case(rng, 4, 4, t, d, lens)
+    tdt = getattr(torch, dtype)
+    q, k, v, valid = _t(q, tdt), _t(k, tdt), _t(v, tdt), _t(valid)
+    got = _kernel_tiles(q, k, v, valid, w)
+    want = tband.band_attention_plain(q, k, v, valid, w)
+    assert got.dtype == tdt and torch.isfinite(got.float()).all()
+    assert not got[3].any() and not got[2, :, 1:].any()     # masked rows come out zero
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    else:
+        np.testing.assert_allclose(got.float().numpy(), want.float().numpy(), **TOLS[dtype])
+        assert (got == want).float().mean().item() >= 0.99
+
+
+def test_quotient_from_reciprocal_rounds_as_division():
+    """The kernel's quotient rnd(e * (1 / den)) equals plain's rnd(e / den)
+    bit for bit for every bf16 e in [0, 1] and den in [1, 17] (the exps and
+    their sums at w <= 8), subnormal e included."""
+    e = torch.arange(0, 0x3F81, dtype=torch.int32).to(torch.int16).view(torch.bfloat16).float()
+    den = torch.arange(0x3F80, 0x4189, dtype=torch.int32).to(torch.int16).view(
+        torch.bfloat16).float()
+    assert e.max() == 1 and den.min() == 1 and den.max() == 17
+    by_reciprocal = (e[:, None] * (1.0 / den)[None, :]).to(torch.bfloat16)
+    by_division = (e[:, None] / den[None, :]).to(torch.bfloat16)
+    assert torch.equal(by_reciprocal.view(torch.int16), by_division.view(torch.int16))
+
+
+@pytest.mark.parametrize("dtype,d,ok", [
+    ("bfloat16", 64, True), ("bfloat16", 32, True), ("bfloat16", 128, True),
+    ("bfloat16", 48, True), ("bfloat16", 256, True), ("bfloat16", 20, False),
+    ("bfloat16", 264, False), ("float32", 64, True), ("float32", 128, True),
+    ("float32", 6, False), ("float32", 160, False)])
+def test_kernel_limits_name_the_head_width(dtype, d, ok):
+    q = torch.empty((1, 1, 1, d), dtype=getattr(torch, dtype))
+    if ok:
+        tband.kernel_limits(q, tband.MAX_W)
+    else:
+        with pytest.raises(ValueError, match="head_dim"):
+            tband.kernel_limits(q, 3)
+    with pytest.raises(ValueError, match="w_overlap"):
+        tband.kernel_limits(torch.empty((1, 1, 1, 64)), tband.MAX_W + 1)
+
+
+def test_rows_ok_copies_only_what_the_kernel_cannot_read():
+    """Head views of (B, T, H D) projections go to the kernel as they are;
+    a transposed row or a row off 16-byte alignment is copied."""
+    base = torch.randn(2, 12, 4 * 64).to(torch.bfloat16)
+    heads = base.reshape(2, 12, 4, 64).transpose(1, 2)
+    assert tband._rows_ok(heads) is heads
+    one = torch.randn(4 * 12 * 64).as_strided((1, 4, 12, 64), (7, 768, 64, 1))
+    assert tband._rows_ok(one) is one                    # a size-1 batch is never stepped
+    shifted = torch.randn(2 * 12 * 4 * 64 + 1).to(torch.bfloat16)[1:]
+    for bad in (heads.transpose(2, 3).contiguous().transpose(2, 3),     # D not contiguous
+                shifted.view(2, 12, 4, 64).transpose(1, 2),             # off by 2 bytes
+                torch.randn(2, 4, 12, 66)[..., :64]):                    # row stride 66
+        copied = tband._rows_ok(bad)
+        assert copied is not bad and copied.is_contiguous() and torch.equal(copied, bad)
