@@ -5,4 +5,4 @@ from .config import (  # noqa: F401
     load_config,
     test_config_from,
 )
-from .runtime import set_numerics, use_kernel  # noqa: F401
+from .runtime import entry_device, set_numerics, use_kernel  # noqa: F401

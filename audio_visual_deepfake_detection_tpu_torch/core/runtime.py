@@ -43,3 +43,16 @@ def use_kernel(t: torch.Tensor) -> bool:
             f"kernels are built for sm_90a (Hopper); device {t.device} has "
             f"compute capability {cap[0]}.{cap[1]}")
     return True
+
+
+def entry_device(name: str = "cuda") -> torch.device:
+    """The device an entry point runs on: the card unless ``name`` asks for
+    the CPU. A CUDA device that is not there raises; nothing carries on on
+    the CPU in its place."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {name!r} asked for, but no CUDA device is available "
+                           f"(run on the CPU with --device cpu)")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"device must be cuda or cpu, got {name!r}")
+    return device

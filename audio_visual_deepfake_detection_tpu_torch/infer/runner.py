@@ -1,9 +1,13 @@
-"""Batched inference: forward + decode + soft-NMS on the model's device
-(JAX ``infer/runner.py:31-171``)."""
+"""Batched inference (JAX ``infer/runner.py``): forward + decode + soft-NMS
+on the model's device, the collators of the offline sweep, and the sweep
+itself (``inference_one_epoch``), which streams the detections to numbered
+JSON flushes that survive a preemption and ``--resume``."""
 
 from __future__ import annotations
 
-from typing import List, Optional
+import os
+import time
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -11,6 +15,7 @@ import torch
 from ..core.config import ArchConfig, TestConfig
 from ..models.points import generate_points
 from .decode import decode_and_postprocess
+from .resume import atomic_write_json
 
 
 def _as_tensor(a, device, dtype=None):
@@ -87,6 +92,44 @@ def build_online_inference_fn(cfg: ArchConfig, test_cfg: TestConfig,
     return fn
 
 
+def host_feats(arrays: Sequence[np.ndarray], t: int, dtype=torch.float32,
+               pin: bool = False) -> torch.Tensor:
+    """(B, t, C) host tensor in ``dtype`` (pinned when ``pin``) holding the
+    (n_i, C) float32 arrays zero-padded to ``t`` rows. A bf16 tensor is
+    rounded to nearest even here, as the model's own cast would round it,
+    and crosses to the card at half the bytes."""
+    out = torch.empty((len(arrays), t, arrays[0].shape[1]), dtype=dtype, pin_memory=pin)
+    for i, a in enumerate(arrays):
+        out[i, :a.shape[0]].copy_(torch.from_numpy(np.ascontiguousarray(a)))
+        out[i, a.shape[0]:].zero_()
+    return out
+
+
+def collate_infer_varlen(samples: List[dict], max_div_factor: int, min_len: int,
+                         dtype=torch.float32, pin: bool = False):
+    """Batch eval samples: features padded to the batch's longest, rounded
+    up to a multiple of ``max_div_factor`` and at least ``min_len`` (=
+    max_seq_len), with per-sample validity masks. Upsampled samples all have
+    max_seq_len rows, which max_div_factor divides: their batch is
+    max_seq_len long and its mask all True."""
+    lens = [s["feats"].shape[0] for s in samples]
+    t = max(max(lens), min_len)
+    t = (t + max_div_factor - 1) // max_div_factor * max_div_factor
+    mask = np.zeros((len(samples), t), bool)
+    for i, n in enumerate(lens):
+        mask[i, :n] = True
+    return {
+        "feats": host_feats([s["feats"] for s in samples], t, dtype, pin),
+        "mask": mask,
+        "fps": np.asarray([s["fps"] for s in samples], np.float32),
+        "duration": np.asarray([s["duration"] for s in samples], np.float32),
+        "feat_stride": np.asarray([s["feat_stride"] for s in samples], np.float32),
+        "feat_num_frames": np.asarray([s["feat_num_frames"] for s in samples],
+                                      np.float32),
+        "video_ids": [s["video_id"] for s in samples],
+    }
+
+
 def collate_streams(samples: List[dict], caps: List[int]):
     """Batch raw per-stream arrays into zero-padded fixed-cap arrays and row
     counts for ``build_online_inference_fn``."""
@@ -125,3 +168,165 @@ def results_to_items(video_ids: List[str], segs, scores, valid, video_cls,
             "segments": segs[i][v].tolist(),
         })
     return items
+
+
+def items_to_table(result_items: List[dict]) -> Dict[str, np.ndarray]:
+    """Result items -> the flat prediction table the evaluators read
+    ({'video-id', 't-start', 't-end', 'label', 'score'} of parallel arrays)."""
+    results = {"video-id": [], "t-start": [], "t-end": [], "label": [],
+               "score": []}
+    for it in result_items:
+        scores = np.asarray(it["scores"], np.float64)
+        if len(scores) == 0:
+            continue
+        segs = np.asarray(it["segments"], np.float64).reshape(-1, 2)
+        results["video-id"].extend([it["video_id"]] * len(scores))
+        results["t-start"].append(segs[:, 0])
+        results["t-end"].append(segs[:, 1])
+        results["label"].append(np.zeros(len(scores), np.int64))
+        results["score"].append(scores)
+    for key in ("t-start", "t-end", "label", "score"):
+        results[key] = (np.concatenate(results[key])
+                        if results[key] else np.zeros((0,)))
+    return results
+
+
+def inference_one_epoch(
+    loader_batches,
+    infer_fn,
+    model,
+    output_folder: Optional[str] = None,
+    flush_every: int = 5000,
+    print_freq: int = 20,
+    seen_offset: int = 0,
+    preempt=None,
+    collect_items: bool = True,
+    prefetch_depth: int = 2,
+    stats: Optional[Dict[str, float]] = None,
+):
+    """Stream detections; returns the flat prediction table for evaluation
+    and all result items.
+
+    ``loader_batches`` yields collated batches with ``video_ids``: a
+    ``streams`` batch goes through ``build_online_inference_fn``'s signature,
+    any other through ``build_inference_fn``'s; a batch padded by
+    ``pad_batch_to`` keeps only its ``len(video_ids)`` real items.
+    ``seen_offset`` shifts the numbered flush names (``data_left<N>.json``),
+    so that a resumed shard never overwrites an earlier run's flushes.
+    ``preempt`` (a ``train.preempt.PreemptionGuard``): once it is requested,
+    the pending results are flushed as a numbered file and the sweep stops
+    after the current batch; ``--resume`` then loses no video.
+
+    ``collect_items=False`` returns ``(None, None)`` and keeps nothing
+    between flushes: a whole shard's items would grow host memory without
+    bound.
+
+    ``prefetch_depth``: batches copied to the model's device ahead of use
+    (``train.loop.device_prefetch``, from pinned memory without blocking on
+    a card). The copies are queued on the compute stream, so on the card
+    batch N+1's copy runs after batch N's compute; what it overlaps is host
+    work (the loader, the fetch, the flushes). 0 hands the batches to
+    ``infer_fn`` as they come.
+
+    ``stats``, if given, is filled with the sweep's own breakdown: batches,
+    videos, seconds, ``wait_s`` (waiting on the loader and the prefetch),
+    ``infer_ms`` (``infer_fn`` on the device: CUDA events on a card, the host
+    clock elsewhere), ``fetch_s`` (the detections to the host, as items) and
+    ``flush_s`` (the JSON writes); and the first batch's share, which holds
+    the pipeline's fill: ``first_s`` (the start to its items), ``first_wait_s``
+    and ``first_videos``."""
+    from ..train.loop import device_prefetch
+
+    if output_folder:
+        os.makedirs(output_folder, exist_ok=True)
+    device = next(model.parameters()).device
+    if prefetch_depth > 0:
+        loader_batches = device_prefetch(loader_batches, device, depth=prefetch_depth)
+    cuda = device.type == "cuda"
+    timing = stats is not None
+    events = []
+    clock = dict(wait_s=0.0, fetch_s=0.0, flush_s=0.0, host_infer_s=0.0)
+    first = dict(first_s=0.0, first_wait_s=0.0, first_videos=0)
+    batch_results: List[dict] = []
+    all_items: List[dict] = []
+    seen = 0
+    flushed = 0
+    n_batches = 0
+    start = time.time()
+
+    def flush(name):
+        t0 = time.perf_counter()
+        atomic_write_json(os.path.join(output_folder, name), batch_results)
+        clock["flush_s"] += time.perf_counter() - t0
+
+    batches = iter(loader_batches)
+    while True:
+        t0 = time.perf_counter()
+        batch = next(batches, None)
+        if batch is None:
+            break
+        t1 = time.perf_counter()
+        clock["wait_s"] += t1 - t0
+        video_ids = batch["video_ids"]
+        if timing and cuda:
+            ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+        if "streams" in batch:  # online path (build_online_inference_fn)
+            out = infer_fn(model, batch["streams"], batch["rows"], batch["duration"])
+        else:
+            out = infer_fn(model, batch["feats"], batch["mask"], batch["fps"],
+                           batch["duration"], batch["feat_stride"], batch["feat_num_frames"])
+        if timing and cuda:
+            ev[1].record()
+            events.append(ev)
+        t2 = time.perf_counter()
+        segs, scores, cls_idxs, valid, video_cls = out
+        items = results_to_items(video_ids, segs, scores, valid, video_cls,
+                                 n_real=len(video_ids))
+        t3 = time.perf_counter()
+        clock["host_infer_s"] += t2 - t1
+        clock["fetch_s"] += t3 - t2
+        n_batches += 1
+        batch_results.extend(items)
+        if collect_items:
+            all_items.extend(items)
+        seen += len(items)
+        if n_batches == 1:
+            first = dict(first_s=time.time() - start, first_wait_s=clock["wait_s"],
+                         first_videos=seen)
+
+        if output_folder and seen - flushed >= flush_every:
+            flush(f"data_left{seen_offset + seen}.json")
+            batch_results = []
+            flushed = seen
+        if (n_batches - 1) % print_freq == 0:
+            rate = seen / max(time.time() - start, 1e-6)
+            print(f"Infer: {seen} videos, {rate:.1f} videos/s")
+
+        # preemption: flush what is pending as a numbered file (a --resume
+        # counts numbered flushes) and stop; hosts share no collectives, so
+        # none has to agree
+        if preempt is not None and preempt.requested():
+            if output_folder and batch_results:
+                flush(f"data_left{seen_offset + seen}.json")
+                batch_results = []
+            preempt.triggered = True
+            print(f"Infer: preemption requested, stopped after {seen} "
+                  f"videos (resume with --resume)")
+            break
+
+    if output_folder and batch_results:
+        flush("data_left.json")
+
+    if timing:
+        host_infer_s = clock.pop("host_infer_s")
+        if cuda:
+            torch.cuda.synchronize(device)
+            infer_ms = sum(a.elapsed_time(b) for a, b in events)
+        else:
+            infer_ms = 1e3 * host_infer_s
+        stats.update(clock, **first, batches=n_batches, videos=seen,
+                     seconds=time.time() - start, infer_ms=infer_ms)
+    if not collect_items:
+        return None, None
+    return items_to_table(all_items), all_items

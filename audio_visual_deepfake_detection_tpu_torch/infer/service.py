@@ -4,8 +4,11 @@ Callers submit single videos; a worker thread coalesces up to
 ``batch_size`` requests (waiting at most ``max_wait_ms`` for stragglers),
 pads the batch to the smallest bucket tier that holds it, runs the
 inference function on the model's device and resolves one future per
-request. ``submit_streams`` (raw per-stream features) is not ported yet:
-its resample lives in the JAX package's data layer (ROADMAP queue 1 item 3).
+request. ``submit`` takes one video's (T, C) features; ``submit_streams``
+takes its raw per-stream features at their native rates and resamples them
+to ``max_seq_len`` on the host (the native ``runtime/host_resample.py``),
+deriving fps and the feature stride as the dataset does. Both ship the batch
+from the same pinned host buffers in the model's dtype.
 """
 
 from __future__ import annotations
@@ -45,17 +48,23 @@ class Detections:
 class LocalizerService:
     def __init__(self, cfg: ArchConfig, test_cfg: TestConfig, model,
                  batch_size: int = 16, max_wait_ms: float = 5.0,
+                 ds_feat_stride: float = 1.0, ds_num_frames: float = 1.0,
                  batch_buckets: Optional[List[int]] = None,
                  warmup: bool = False):
         """``model``: an eval-mode ``AVLocalizer`` on its serving device.
-        ``batch_buckets``: ascending batch tiers; a flush pads to the
-        smallest tier >= the coalesced request count. Default [batch_size]."""
+        ``ds_feat_stride`` / ``ds_num_frames``: the dataset config's
+        ``feat_stride`` / ``num_frames``, from which ``submit_streams``
+        derives a video's feature stride. ``batch_buckets``: ascending batch
+        tiers; a flush pads to the smallest tier >= the coalesced request
+        count. Default [batch_size]."""
         self.cfg = cfg
         self.model = model
         self.batch_size = batch_size
         self.buckets = sorted(batch_buckets or [batch_size])
         assert self.buckets[-1] >= batch_size
         self.max_wait = max_wait_ms / 1000.0
+        self.ds_feat_stride = ds_feat_stride
+        self.ds_num_frames = ds_num_frames
         self._infer_fn = build_inference_fn(cfg, test_cfg)
         self._device = next(model.parameters()).device
         self._dtype = model.compute_dtype
@@ -109,8 +118,26 @@ class LocalizerService:
                                      feat_num_frames or feat_stride, fut))
         return fut
 
+    def submit_streams(self, streams: List[np.ndarray], duration: float) -> Future:
+        """Queue one video as raw per-stream features (the video stream
+        first, each (rows_s, C_s) at its native rate); returns a
+        Future[Detections]. The streams are resampled to ``max_seq_len`` and
+        concatenated in the caller's thread, and fps / feat_stride derived
+        as ``DeepfakeInferenceDataset`` derives them."""
+        from ..runtime.host_resample import resample_concat
+
+        feats = resample_concat(streams, self.cfg.max_seq_len)
+        video_rows = streams[0].shape[0]
+        fps = video_rows / duration
+        stride = ((video_rows - 1) * self.ds_feat_stride
+                  + self.ds_num_frames) / self.cfg.max_seq_len
+        return self.submit(feats, fps, duration, stride, stride)
+
     def localize(self, *args, **kwargs) -> Detections:
         return self.submit(*args, **kwargs).result()
+
+    def localize_streams(self, *args, **kwargs) -> Detections:
+        return self.submit_streams(*args, **kwargs).result()
 
     def _host_feats(self, b: int) -> torch.Tensor:
         """The (b, T, C) host buffer of bucket tier ``b``."""

@@ -27,13 +27,21 @@ def pad_batch_to(batch: dict, target: int) -> dict:
     for the last partial batch). Padded rows get mask = False and has_gt =
     False, which zeroes the point-level losses; the batch-summed video-level
     loss needs the emitted ``row_valid`` mask, which ``compute_losses``
-    takes: with it a padded batch's losses equal the unpadded batch's."""
+    takes: with it a padded batch's losses equal the unpadded batch's.
+    A host tensor (the inference collators' features in the model's dtype)
+    is padded as a tensor of its dtype, pinned if it was."""
     b = (batch["streams"][0] if "streams" in batch else batch["feats"]).shape[0]
     if b == target:
         return batch
     pad = target - b
 
     def pad_one(value, fill=0):
+        if isinstance(value, torch.Tensor):
+            out = torch.empty((target,) + tuple(value.shape[1:]), dtype=value.dtype,
+                              pin_memory=value.is_pinned())
+            out[:b].copy_(value)
+            out[b:].fill_(fill)
+            return out
         value = np.asarray(value)
         filler = np.full((pad,) + value.shape[1:], fill, value.dtype)
         return np.concatenate([value, filler], axis=0)

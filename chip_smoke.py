@@ -105,7 +105,21 @@ Phases (any failure exits nonzero):
              operations over the card's peak rate and its bytes over the
              memory rate; and what each main-path kernel costs a 64-video
              media -> detections run above that bound; K7's block size
-             and blocks an SM against four alternatives built beside it.
+             and blocks an SM against four alternatives built beside it;
+14. offline - the offline sweep from feature caches to submission files
+             and mAP through the port's CLIs (cli/inference.py,
+             generate_results.py, validate.py) in this process:
+             configs_test/deepfake_exp12_test.yaml in bf16, a seeded cache
+             of 256 videos of 4-16 s and one of 30 s at the streams' native
+             rates and widths, a checkpoint with EMA (classifier bias 0).
+             Both routes cover the shard (host resample at B = 16 and 64,
+             device resample at 16), K1 18 launches a forward and no plain
+             block on the card, a preempted run resumed covers every video
+             once with the same detections, f32 card vs CPU over 32 videos
+             and host vs device resample (scores 1e-4, segments 1e-3, logit
+             2e-4), the submission files, validate's mAP at four tIoUs and
+             1.0 on the ground truth fed back; videos/s per route and batch,
+             loader wait vs infer_fn, peak memory, a batch's stages.
 
 The card's name and power limit, then a JSON object with the kernels'
 launches, errors and times, are the two lines before the last; the last
@@ -2561,8 +2575,12 @@ def train_setup(dropout, dtype, dev, seed=0, arch=None, opt_iters=10):
 
 
 def train_batch(cfg, b, seed=0, max_gt=32):
-    """A seeded batch in collate_batch's format: varied valid lengths, one
-    to three fake segments per video, every fifth video real (no segment)."""
+    """A seeded batch: varied valid lengths, one to three fake segments per
+    video, every fifth video real (no segment). Built as arrays and held to
+    what the port's ``collate_batch`` makes of the same samples: the same
+    keys, dtypes and values."""
+    from audio_visual_deepfake_detection_tpu_torch.data import collate_batch
+
     rng = np.random.default_rng(seed)
     t = cfg.max_seq_len
     lens = rng.integers(t // 2, t + 1, b)
@@ -2580,11 +2598,28 @@ def train_batch(cfg, b, seed=0, max_gt=32):
         seg[i, :n, 1] = start + rng.uniform(4, 36, n)
         valid[i, :n] = True
     ones = np.ones((b,), np.float32)
-    return {"feats": feats, "mask": mask, "gt_segments": seg,
-            "gt_labels": np.zeros((b, max_gt), np.int64), "gt_valid": valid,
-            "has_gt": valid.any(1), "fps": 25 * ones, "duration": lens / 25.0,
-            "feat_stride": ones, "feat_num_frames": ones,
-            "video_ids": [f"v{i}" for i in range(b)]}
+    batch = {"feats": feats, "mask": mask, "gt_segments": seg,
+             "gt_labels": np.zeros((b, max_gt), np.int64), "gt_valid": valid,
+             "has_gt": valid.any(1), "fps": 25 * ones,
+             "duration": (lens / 25.0).astype(np.float32),
+             "feat_stride": ones, "feat_num_frames": ones,
+             "video_ids": [f"v{i}" for i in range(b)]}
+    samples = [{"video_id": f"v{i}", "feats": feats[i, :lens[i]],
+                "segments": seg[i, valid[i]] if valid[i].any() else None,
+                "labels": np.zeros(int(valid[i].sum()), np.int64),
+                "fps": 25.0, "duration": lens[i] / 25.0, "feat_stride": 1.0,
+                "feat_num_frames": 1.0} for i in range(b)]
+    real = collate_batch(samples, t, max_gt)
+    for key, value in real.items():
+        mine = batch.get(key)
+        if key == "video_ids":
+            same = mine == value
+        else:
+            same = (isinstance(mine, np.ndarray) and mine.dtype == value.dtype
+                    and np.array_equal(mine, value))
+        if not same or set(real) != set(batch):
+            fail(f"train_batch: {key!r} differs from collate_batch's")
+    return real
 
 
 def batch_on(batch, dev):
@@ -2992,6 +3027,378 @@ def phase_train_kernel_timing(smi, dev="cuda", b=TRAIN_B):
     return totals
 
 
+# ------------------------------------------------------ offline shard sweep
+
+OFFLINE_VIDEOS = 256                  # durations uniform in 4-16 s, plus one of 30 s
+OFFLINE_LABELLED = 64                 # of them with metadata JSONs (0-3 fake segments)
+OFFLINE_CPU_VIDEOS = 32               # the f32 card vs CPU shard
+OFFLINE_LONG_PASSES = 4               # the timing shard: the cache's videos this many times
+OFFLINE_TOL = dict(scores=1e-4, segments=1e-3, video_cls=2e-4)
+
+
+@contextlib.contextmanager
+def plain_block_calls():
+    """Counts ``block_math`` calls on CUDA tensors while the context is open
+    (a block on the card must take K1, never its plain version)."""
+    from audio_visual_deepfake_detection_tpu_torch.ops.kernels import fused_block as fb
+
+    plain, counts = fb.block_math, {"cuda": 0}
+
+    def counted(x, *args, **kwargs):
+        if x.is_cuda:
+            counts["cuda"] += 1
+        return plain(x, *args, **kwargs)
+
+    fb.block_math = counted
+    try:
+        yield counts
+    finally:
+        fb.block_math = plain
+
+
+def flush_items(folder):
+    """A shard folder's result items, in flush order."""
+    from audio_visual_deepfake_detection_tpu_torch.infer.resume import flush_files
+
+    items = []
+    for path in flush_files(folder):
+        with open(path) as f:
+            items.extend(json.load(f))
+    return items
+
+
+def match_detections(got, want, tol=OFFLINE_TOL):
+    """Two runs' items of the same videos, held to ``tol``: the video logit
+    directly, the detections as a set (each of one run matched to an
+    unclaimed one of the other within the score and segment tolerances, so a
+    pair of near-equal scores may come out in either order); a detection
+    may go unmatched only at the cut, its score within the tolerance of its
+    list's lowest. Returns the largest differences and the unmatched count;
+    fails on anything else."""
+    want = {it["video_id"]: it for it in want}
+    worst = dict(scores=0.0, segments=0.0, video_cls=0.0, unmatched=0)
+    if sorted(want) != sorted(it["video_id"] for it in got):
+        fail("the two runs hold different videos")
+    for g in got:
+        w = want[g["video_id"]]
+        worst["video_cls"] = max(worst["video_cls"],
+                                 float(np.abs(np.subtract(g["video_cls"], w["video_cls"])).max()))
+        gs, ws = np.asarray(g["scores"]), np.asarray(w["scores"])
+        gseg, wseg = np.asarray(g["segments"]).reshape(-1, 2), np.asarray(w["segments"]).reshape(-1, 2)
+        free = np.ones(len(ws), bool)
+        lost = []
+        for i in np.argsort(-gs, kind="stable"):
+            ok = free & (np.abs(ws - gs[i]) <= tol["scores"]) \
+                & (np.abs(wseg - gseg[i]).max(axis=1, initial=0.0) <= tol["segments"])
+            if not ok.any():
+                lost.append(gs[i])
+                continue
+            j = int(np.flatnonzero(ok)[np.argmin(np.abs(ws[ok] - gs[i]))])
+            free[j] = False
+            worst["scores"] = max(worst["scores"], float(abs(ws[j] - gs[i])))
+            worst["segments"] = max(worst["segments"], float(np.abs(wseg[j] - gseg[i]).max()))
+        lost += list(ws[free])
+        cut = min(gs.min(initial=np.inf), ws.min(initial=np.inf)) + tol["scores"]
+        if any(s > cut for s in lost):
+            fail(f"{g['video_id']}: {len(lost)} detections unmatched within {tol} "
+                 f"({len(gs)} vs {len(ws)} detections)")
+        worst["unmatched"] += len(lost)
+        worst["matched"] = worst.get("matched", 0) + len(gs) - len(lost)
+    if worst["video_cls"] > tol["video_cls"] or not worst.get("matched"):
+        fail(f"video logits differ by {worst['video_cls']:.3e}, or no detection at all")
+    return worst
+
+
+def offline_breakdown(config_path, ckpt, dev, smi, b=16, n=32):
+    """Where a B=16 bf16 batch of the sweep spends its time, stage by stage
+    on the card: np.load + native resample of one video on one thread (the
+    loader runs ``num_workers`` of them), the copy of a pinned batch to the
+    card, the localizer forward, decode + soft-NMS (the rest of
+    ``infer_fn``), the detections back to the host. CUDA events; host clock
+    for the host stages."""
+    import torch
+    from audio_visual_deepfake_detection_tpu_torch.cli.inference import load_localizer
+    from audio_visual_deepfake_detection_tpu_torch.core.config import (
+        arch_config_from, load_config, test_config_from)
+    from audio_visual_deepfake_detection_tpu_torch.data import DeepfakeInferenceDataset
+    from audio_visual_deepfake_detection_tpu_torch.infer.runner import (
+        build_inference_fn, collate_infer_varlen, results_to_items)
+    from audio_visual_deepfake_detection_tpu_torch.models.meta_arch import DTYPES
+
+    config = load_config(config_path)
+    cfg, tcfg = arch_config_from(config), test_config_from(config)
+    ds = DeepfakeInferenceDataset(config["dataset_name"], ["test"], 1, config["dataset"])
+    t0 = time.perf_counter()
+    samples = [ds[i] for i in range(n)]
+    load_ms = 1e3 * (time.perf_counter() - t0) / n
+    batch = collate_infer_varlen(samples[:b], cfg.max_div_factor, cfg.max_seq_len,
+                                 DTYPES[cfg.compute_dtype], pin=True)
+    model = load_localizer(cfg, ckpt, torch.device(dev))
+    fn = build_inference_fn(cfg, tcfg)
+    meta = [torch.as_tensor(batch[k]).to(dev) for k in ("fps", "duration", "feat_stride",
+                                                       "feat_num_frames")]
+    mask = torch.as_tensor(batch["mask"]).to(dev)
+    x = batch["feats"].to(dev)
+    copy_ms = cuda_ms(lambda: batch["feats"].to(dev, non_blocking=True), 10)
+    with torch.inference_mode():
+        forward_ms = cuda_ms(lambda: model(x, mask), 10)
+    infer_ms = cuda_ms(lambda: fn(model, x, mask, *meta), 5)
+    out = fn(model, x, mask, *meta)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results_to_items(batch["video_ids"], out[0], out[1], out[3], out[4])
+    fetch_ms = 1e3 * (time.perf_counter() - t0)
+    workers = config["loader"]["num_workers"]
+    rows = [("np.load + native resample, one video, one thread", load_ms),
+            (f"  the batch's {b} over {workers} loader threads", load_ms * b / workers),
+            (f"host -> card copy, ({b}, {cfg.max_seq_len}, {cfg.input_dim}) "
+             f"{cfg.compute_dtype} pinned", copy_ms),
+            ("localizer forward (K1 18 launches + eager)", forward_ms),
+            ("decode + soft-NMS (infer_fn - forward)", infer_ms - forward_ms),
+            ("detections to the host (results_to_items, after a sync)", fetch_ms)]
+    log(f"offline breakdown, one B={b} batch ({smi}):")
+    for name, ms in rows:
+        log(f"  {name:62s} {ms:9.3f} ms")
+    return {name: ms for name, ms in rows}
+
+
+def phase_offline_inference(dev="cuda", n_videos=OFFLINE_VIDEOS, n_labelled=OFFLINE_LABELLED,
+                            n_cpu=OFFLINE_CPU_VIDEOS, dims=(256, 2048, 768), overrides=None,
+                            batches=(16, 64), smi=""):
+    """The offline sweep from feature caches to submission files and mAP,
+    through the port's CLIs in this process, as a user runs them:
+    ``configs_test/deepfake_exp12_test.yaml`` (full width and depth, its
+    test config with the 0.2 score cut) in bf16, over a seeded cache of
+    ``n_videos`` videos (durations 4-16 s and one of 30 s, each stream at its
+    native rate and width) and a checkpoint of seeded weights whose EMA copy
+    differs from the raw one (and whose classifier bias is 0, so scores
+    reach the cut). Checks, each a failure:
+    (1) the host-resample route at each of ``batches`` and the
+    device-resample route at 16 yield one item per video (the host route
+    is timed again over the shard read ``OFFLINE_LONG_PASSES`` times, so
+    that its rate is not the pipeline's fill); (2) K1 launches
+    18 times a forward, no other kernel launches and no block runs its
+    plain version on the card; (3) a run stopped by a preemption request
+    after 5 batches and resumed covers every video once with the
+    uninterrupted run's detections; (4) f32 on the card matches the CPU over
+    ``n_cpu`` videos (scores 1e-4, segments 1e-3, logit 2e-4); (5) the two
+    routes agree in f32 at those tolerances; (6) ``generate_results`` writes
+    one line and one key per video; (7) ``validate`` gives a finite mAP at
+    the four tIoUs and the evaluator 1.0 on the ground truth fed back.
+    ``overrides`` (a config fragment) shrink the model for a CPU rehearsal."""
+    import shutil
+    import tempfile
+    import torch
+    from audio_visual_deepfake_detection_tpu_torch.cli import (
+        generate_results, inference, validate)
+    from audio_visual_deepfake_detection_tpu_torch.core.config import (
+        arch_config_from, load_config)
+    from audio_visual_deepfake_detection_tpu_torch.eval import ANETdetection, run_evaluation
+    from audio_visual_deepfake_detection_tpu_torch.models import build_localizer
+    from audio_visual_deepfake_detection_tpu_torch.tools import synth_cache
+    from audio_visual_deepfake_detection_tpu_torch.train.preempt import PreemptionGuard
+
+    on_card = torch.device(dev).type == "cuda"
+    build = os.path.join(REPO, "build")
+    os.makedirs(build, exist_ok=True)
+    report = {}
+    need = 2 * 2.8e6 * n_videos * sum(dims) / 3072    # ~2.8 MB a 10 s video, twice over
+    free = shutil.disk_usage(build).free
+    if free < need:                       # halve the sweep, and say so
+        n_videos, n_labelled = n_videos // 2, n_labelled // 2
+        log(f"offline: {free / 1e9:.1f} GB free for ~{need / 1e9:.1f} GB of caches: "
+            f"{n_videos} videos")
+        report["halved_for_disk"] = True
+    root = tempfile.mkdtemp(dir=build)
+    try:
+        t0 = time.perf_counter()
+        cache = synth_cache.write_feature_cache(root, n_videos - 1, seed=9, dims=dims,
+                                                extra_durations=(30.0,), n_labelled=n_labelled)
+        synth_cache.write_shard_list(cache["test_folder"], 2, cache["records"][:n_cpu])
+        synth_cache.write_shard_list(cache["test_folder"], 3,
+                                     cache["records"] * OFFLINE_LONG_PASSES)
+        size = sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(root) for f in fs)
+        log(f"offline: cache of {n_videos} videos ({size / 1e9:.2f} GB, "
+            f"{1e3 * (time.perf_counter() - t0):.0f} ms to write), {n_labelled} labelled")
+        base = os.path.join(REPO, "configs_test", "deepfake_exp12_test.yaml")
+        configs = {}
+        for dtype in ("bfloat16", "float32"):
+            configs[dtype] = synth_cache.write_config(
+                base, os.path.join(root, f"{dtype}.yaml"), cache, os.path.join(root, "runs"),
+                synth_cache.merge({"tpu": {"compute_dtype": dtype}}, overrides or {}))
+        config = load_config(configs["float32"])
+        cfg = arch_config_from(config)
+        n_blocks = 1 + cfg.arch[1] + 3 * cfg.arch[2]
+        raw = build_localizer(cfg, seed=11, device="cpu")
+        ema = perturb(build_localizer(cfg, seed=0, device="cpu"), 1).state_dict()
+        # a trained model's scale of scores: under the focal prior's bias
+        # (p = 0.01) no seeded score would pass the test config's 0.2 cut
+        ema["cls_head.cls_head.conv.bias"].zero_()
+        ckpt = synth_cache.write_checkpoint(os.path.join(root, "ckpt"), raw, config, ema)
+        ids = sorted(r["id"] for r in cache["records"])
+
+        def sweep(label, dtype, *flags, out=None, device=None, sub=1, preempt=None):
+            """One CLI run over shard ``sub``; its items, summary, launches."""
+            folder = os.path.join(root, out or label)
+            cfg_path = synth_cache.write_config(
+                configs[dtype], os.path.join(root, f"{label}.yaml"), cache, folder)
+            args = [cfg_path, str(sub), "--ckpt", os.path.dirname(ckpt), *flags]
+            if device is not None or not on_card:
+                args += ["--device", device or dev]
+            if on_card:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            with plain_block_calls() as plain:
+                summary = inference.run(inference.build_parser().parse_args(args), preempt)
+            counts = launch_counts()
+            st = summary["stats"]
+            if on_card and (device or dev) == "cuda":
+                want = dict.fromkeys(counts, 0)
+                want["fused_transformer_block"] = n_blocks * st["batches"]
+                if counts != want or plain["cuda"]:
+                    fail(f"offline {label}: launches {counts}, {plain['cuda']} plain block "
+                         f"calls on the card; expected {want}")
+            rate = st["videos"] / summary["seconds"] if summary["seconds"] else 0.0
+            # without the first batch, whose wait is the pipeline's fill
+            rest_s = st["seconds"] - st["first_s"]
+            rest_wait = st["wait_s"] - st["first_wait_s"]
+            rest_rate = (st["videos"] - st["first_videos"]) / rest_s if rest_s > 0 else 0.0
+            peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else None
+            rec = dict(videos=st["videos"], batches=st["batches"], seconds=summary["seconds"],
+                       videos_per_s=rate, wait_s=st["wait_s"], infer_ms=st["infer_ms"],
+                       fetch_s=st["fetch_s"], flush_s=st["flush_s"], peak_gib=peak,
+                       first_s=st["first_s"], first_wait_s=st["first_wait_s"],
+                       after_first_videos_per_s=rest_rate, after_first_wait_s=rest_wait,
+                       after_first_s=rest_s, k1_launches=counts["fused_transformer_block"])
+            log(f"offline {label}: {st['videos']} videos in {summary['seconds']:.3f} s = "
+                f"{rate:.1f} videos/s; waits on the loader {st['wait_s']:.3f} s, infer_fn "
+                f"{st['infer_ms']:.1f} ms on the device, fetch {st['fetch_s']:.3f} s, flushes "
+                f"{st['flush_s']:.3f} s; K1 {counts['fused_transformer_block']} launches in "
+                f"{st['batches']} forwards"
+                + (f", peak {peak:.2f} GiB" if peak is not None else "")
+                + (f"; without the first batch (fill {st['first_s']:.3f} s, of it "
+                   f"{st['first_wait_s']:.3f} s waiting): {rest_rate:.1f} videos/s, waits "
+                   f"{rest_wait:.3f} of {rest_s:.3f} s" if st["batches"] > 1 else ""))
+            return flush_items(summary["out_folder"]), summary, rec
+
+        def covers(label, items, want_ids):
+            got = [it["video_id"] for it in items]
+            if sorted(got) != sorted(want_ids):
+                fail(f"offline {label}: {len(got)} items for {len(want_ids)} videos "
+                     f"({len(set(got))} distinct)")
+
+        # (1), (2): both routes cover the shard; cold then warm for the rates
+        runs = {}
+        b0 = batches[0]
+        for label, flags in ([(f"host_b{b}", ("--batch-size", str(b))) for b in batches]
+                             + [(f"device_resample_b{b0}",
+                                 ("--batch-size", str(b0), "--device-resample"))]):
+            for rep in ("cold", "warm"):
+                items, summary, rec = sweep(f"{label}_{rep}", "bfloat16", *flags)
+                covers(label, items, ids)
+                report[f"{label}_{rep}"] = rec
+            runs[label] = items
+        # the host route's rates at length: the shard read OFFLINE_LONG_PASSES
+        # times over (from the page cache, as the warm runs read it), so that
+        # the first batch's wait, the pipeline's fill, is a small share
+        for b in batches:
+            _, _, rec = sweep(f"long_b{b}", "bfloat16", "--batch-size", str(b), sub=3)
+            report[f"host_b{b}_long"] = rec
+
+        # (3) preemption after 5 batches, then --resume
+        class StopAfter(PreemptionGuard):
+            def __init__(self, n):
+                super().__init__(signals=())
+                self.n, self.polls = n, 0
+
+            def requested(self):
+                self.polls += 1
+                return self.polls >= self.n
+
+        flags = ("--batch-size", str(b0), "--flush-every", str(3 * b0))
+        first, s1, _ = sweep("preempt", "bfloat16", *flags, preempt=StopAfter(5))
+        if not s1["preempted"] or len(first) != 5 * b0:
+            fail(f"offline preempt: stopped {s1['preempted']} after {len(first)} videos")
+        items, s2, _ = sweep("resume", "bfloat16", *flags, "--resume", out="preempt")
+        covers("preempt + resume", items, ids)
+        full = {it["video_id"]: it for it in runs[f"host_b{b0}"]}
+        differ = [it["video_id"] for it in items if it != full[it["video_id"]]]
+        if differ or s2["done_before"] != 5 * b0:
+            fail(f"offline resume: {s2['done_before']} found done, {len(differ)} videos differ "
+                 f"from the uninterrupted run, e.g. {differ[:3]}")
+        report["preempt_resume"] = dict(first=len(first), resumed=s2["stats"]["videos"],
+                                        identical=True)
+        log(f"offline preempt + resume: {len(first)} + {s2['stats']['videos']} videos, every "
+            f"video once, detections equal to the uninterrupted run's")
+
+        # (4), (5) f32: card vs CPU, host vs device resample
+        ids_cpu = sorted(r["id"] for r in cache["records"][:n_cpu])
+        f32 = {}
+        for label, device, flags in (("f32_cpu", "cpu", ()), ("f32_card", dev, ()),
+                                     ("f32_card_device_resample", dev, ("--device-resample",))):
+            f32[label], _, rec = sweep(label, "float32", *flags, device=device, sub=2)
+            covers(label, f32[label], ids_cpu)
+            report[label] = rec
+        report["f32_card_vs_cpu"] = match_detections(f32["f32_card"], f32["f32_cpu"])
+        report["f32_routes"] = match_detections(f32["f32_card_device_resample"],
+                                                f32["f32_card"])
+        log(f"offline f32 card vs CPU over {n_cpu} videos: {report['f32_card_vs_cpu']}; "
+            f"device vs host resample: {report['f32_routes']}")
+
+        # (6) the submission files of the first batch size's run
+        base_out = os.path.join(root, f"host_b{b0}_warm")
+        n_txt, n_json = generate_results.main([base_out, "--num-shards", "1"])
+        with open(os.path.join(base_out, "prediction.txt")) as f:
+            lines = f.read().splitlines()
+        with open(os.path.join(base_out, "prediction.json")) as f:
+            pred = json.load(f)
+        if not (n_txt == n_json == len(lines) == len(pred) == n_videos):
+            fail(f"offline submission: {len(lines)} lines, {len(pred)} keys for {n_videos}")
+        kept = sum(v != [[0, 0, 0]] for v in pred.values())
+        report["submission"] = dict(lines=len(lines), keys=len(pred), videos_over_0_2=kept)
+        log(f"offline submission: prediction.txt {len(lines)} lines, prediction.json "
+            f"{len(pred)} keys ({kept} with a segment of score > 0.2)")
+
+        # (7) validation mAP, and 1.0 on the ground truth fed back
+        vargs = [configs["bfloat16"], "--ckpt", ckpt, "--output",
+                 os.path.join(root, "eval", "proposals.json")]
+        if not on_card:
+            vargs += ["--device", dev]
+        reset_counts()
+        with plain_block_calls() as plain:
+            out = validate.main(vargs)
+        if on_card and (launch_counts()["fused_transformer_block"] == 0 or plain["cuda"]):
+            fail("offline validate: K1 did not run, or a block ran its plain version")
+        at = [float(w) for w in out["summary"].split()[4::2]]
+        if len(at) != 4 or not all(math.isfinite(v) for v in at + [out["mAP"]]):
+            fail(f"offline validate: {out['summary']!r}")
+        gt = out["gt_records"]
+        perfect = {"video-id": [], "t-start": [], "t-end": [], "label": [], "score": []}
+        for rec in gt:
+            for s, e in (rec["segments_time"] if rec["n_fakes"] else []):
+                for key, v in zip(perfect, (rec["video_id"], float(s), float(e), 0, 1.0)):
+                    perfect[key].append(v)
+        perfect = {k: np.asarray(v) for k, v in perfect.items()}
+        _, m_ap, avg = ANETdetection(gt).evaluate(perfect)
+        again, _ = run_evaluation(perfect, gt, os.path.join(root, "eval", "gt.json"),
+                                  verbose=False)
+        if not (avg == 1.0 and list(m_ap) == [1.0] * 4 and again == 100.0):
+            fail(f"offline evaluator on the ground truth: {list(m_ap)}, {again}")
+        report["validate"] = dict(videos=len(gt), segments=len(perfect["score"]),
+                                  mAP=out["mAP"], mAP_at=at, gt_fed_back=avg)
+        log(f"offline validate: {len(gt)} videos, {len(perfect['score'])} fake segments, "
+            f"{out['summary']}; ground truth fed back: {avg}")
+
+        if on_card:
+            report["breakdown"] = offline_breakdown(configs["bfloat16"], ckpt, dev, smi, b=b0)
+        log(f"card: {smi}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    REPORT["offline_inference"] = report
+    return report
+
+
 def main_path_loss(kernels, k1_totals, k1_bounds, mvit_group, k4_table, audio_times, smi,
                    n_videos=64, group=32):
     """What each kernel of the main path costs one ``n_videos``-video media ->
@@ -3064,6 +3471,7 @@ def main():
     audio_times, _, k5_rules = timed(phase_audio_timing, ex, model, cfg, smi)
     train_times = timed(phase_train_kernel_timing, smi)
     timed(k7_variants, smi)
+    offline = timed(phase_offline_inference, smi=smi)
     for mod in ("jax", "audio_visual_deepfake_detection_tpu"):
         if mod in sys.modules:
             fail(f"{mod} was imported")
@@ -3094,7 +3502,9 @@ def main():
         "plain_ms_b512": totals[512][1],
         "bound_ms_b512": k1_bounds[512][0],
         "note": "ms = sum over the 18 blocks of one forward at B=16 bf16 (two CUDA launches "
-                "a block, counted once)",
+                "a block, counted once); launches_offline_inference = the offline sweep's "
+                "256 videos at B=16 through cli/inference.py",
+        "launches_offline_inference": offline["host_b16_warm"]["k1_launches"],
     }]
     for name, file, line in (("patch_embed", "patch_embed", 140),
                              ("pooled_attention", "mvit_attention", 72),
