@@ -8,7 +8,13 @@ checkpoint of this port (the counterpart of the root
 The port's modules keep the reference's state-dict names, so the weights
 load as they are: ``state_dict`` (raw) and ``state_dict_ema`` (EMA; the raw
 weights stand in where the file has none), without DataParallel's
-``module.`` prefix, each strictly into the localizer the config describes.
+``module.`` prefix, each into the localizer the config describes: every
+parameter the model holds must be there with its shape, and what the model
+does not hold is left out, as the JAX package's converter leaves it (the
+reference's no-recon model carries its unused expansion, the THE head an
+unused ``bn1``). Each variant keeps the reference's own prefixes:
+``interpolator.`` with ``expansion.up_*.conv_transpose.conv`` for
+``av_recovery``, ``segmentandCls.`` for ``av_recovery_the``.
 The result, ``<output>/epoch_<epoch>.pt``, is a training start
 (``train.checkpoint.save_weights``: a fresh optimizer, step 0, the
 normalizer at ``init_loss_norm``) that ``cli/inference.py --ckpt`` and
@@ -44,8 +50,10 @@ def convert(config_path: str, torch_ckpt: str, output: str, epoch: int = 0) -> s
     """Returns the file written."""
     config = load_config(config_path)
     cfg = arch_config_from(config)
-    sds = reference_state_dicts(torch_ckpt)
     model = AVLocalizer(cfg)
+    held = set(model.state_dict())
+    sds = {key: {n: v for n, v in sd.items() if n in held}
+           for key, sd in reference_state_dicts(torch_ckpt).items()}
     model.load_state_dict(sds["ema_params"], strict=True)     # names and shapes checked
     model.load_state_dict(sds["params"], strict=True)
     return save_weights(output, model, config, ema_state=sds["ema_params"], epoch=epoch)

@@ -8,9 +8,12 @@ configs are propagated into ``config['model']``), so one YAML file
 configures both packages and gives the same dict. Nothing here imports the
 JAX package.
 
-The port covers the production localizer, ``av_recovery_norecon`` with the
-HRLR backbone and the FPN neck. Anything else raises NotImplementedError
-naming the ROADMAP item that will port it.
+The port covers the three recovery localizers with the HRLR backbone and
+the FPN neck: ``av_recovery_norecon`` (production), ``av_recovery`` (the
+reconstruction feeds the backbone and an L1 loss) and ``av_recovery_the``
+(frame-level segmentation head). Anything else (``plain``, the legacy
+backbones, identity necks, relative PE, time weighting) raises
+NotImplementedError naming the ROADMAP item that will port it.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from typing import Any, Dict, Tuple
 
 import yaml
 
+VARIANTS = ("av_recovery_norecon", "av_recovery", "av_recovery_the")
 _LATER = "queue 1 item 10 of ROADMAP.md ('The rest')"
 
 
@@ -62,9 +66,9 @@ class ArchConfig:
     remat_policy: str = ""
 
     def __post_init__(self):
-        if self.variant != "av_recovery_norecon":
+        if self.variant not in VARIANTS:
             raise NotImplementedError(
-                f"variant {self.variant!r}: only av_recovery_norecon is "
+                f"variant {self.variant!r}: only {', '.join(VARIANTS)} are "
                 f"ported; see {_LATER}")
         if self.backbone_type != "hrlr" or self.fpn_type != "fpn":
             raise NotImplementedError(
@@ -87,15 +91,20 @@ class ArchConfig:
 
     @property
     def max_div_factor(self) -> int:
-        """Padding granularity of eval inputs, lifted to a multiple of the
-        interpolator's 32x downsampling (JAX ``ArchConfig.max_div_factor``)."""
+        """Padding granularity of eval inputs (JAX
+        ``ArchConfig.max_div_factor``): the largest fpn stride x window
+        span, lifted to a multiple of the DeepInterpolator's 32x
+        downsampling for the two variants that hold one. The THE variant's
+        segmentation head keeps every length (stride-1 convs)."""
         m = 1
         for s, w in zip(self.fpn_strides, self.mha_win_size):
             stride = s * (w // 2) * 2 if w > 1 else s
             assert self.max_seq_len % stride == 0, \
                 "max_seq_len must be divisible by fpn stride * window size"
             m = max(m, stride)
-        return m * 32 // math.gcd(m, 32)
+        if self.variant in ("av_recovery", "av_recovery_norecon"):
+            m = m * 32 // math.gcd(m, 32)
+        return m
 
 
 @dataclasses.dataclass(frozen=True)

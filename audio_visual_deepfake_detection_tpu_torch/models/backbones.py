@@ -101,6 +101,12 @@ class HRLRBackbone(nn.Module):
             TransformerBlock(n_embd, n_head, window_size=w0, cross=True, **drop)
             for _ in range(arch[2]))
 
+    def _embed(self, x, mask):
+        for conv, norm in zip(self.embd, self.embd_norm):
+            x, mask = conv(x, mask)
+            x = torch.relu(norm(x))
+        return x, mask
+
     def _run(self, blk, x, mask, xo, mode, train, generator):
         """One block. Activation checkpointing (``remat``) wraps unfused
         training blocks only: a fused training block already keeps nothing
@@ -110,21 +116,30 @@ class HRLRBackbone(nn.Module):
         return blk(x, mask, xo=xo, mode=mode, train=train, generator=generator)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor, train: bool = False,
-                generator: Optional[torch.Generator] = None):
-        """``x`` (B, T, Cin) in the compute dtype, ``mask`` (B, T) bool. The
-        reconstruction stream of the no-recon variant is ``x`` itself, so the
-        shared embedding runs once (the JAX package's ``reco_is_x``).
-        ``train`` turns stochastic depth and dropout on, drawn from
-        ``generator``. The last ``hh_branch`` block's output is discarded
-        (as in the reference), so its parameters get no gradient."""
-        for conv, norm in zip(self.embd, self.embd_norm):
-            x, mask = conv(x, mask)
-            x = torch.relu(norm(x))
+                generator: Optional[torch.Generator] = None,
+                reco_x: Optional[torch.Tensor] = None):
+        """``x`` (B, T, Cin) in the compute dtype, ``mask`` (B, T) bool.
+        ``reco_x`` is the initial cross block's k-stream: the reconstruction
+        of the ``av_recovery`` variant (B, T, Cin), which goes through the
+        same embedding convs (a second call) and gets the same masked
+        absolute PE. With ``None`` (the no-recon and THE variants) the
+        k-stream is ``x`` itself and the embedding runs once (the JAX
+        package's ``reco_is_x``). ``train`` turns stochastic depth and
+        dropout on, drawn from ``generator``. The last ``hh_branch`` block's
+        output is discarded (as in the reference), so its parameters get no
+        gradient."""
+        x, mask = self._embed(x, mask)
+        if reco_x is not None:
+            reco_x, _ = self._embed(reco_x, mask)
         t = x.shape[1]
         if self.use_abs_pe:
             pe = _abs_pe(self.max_len, self.n_embd, t, x.device, train).to(x.dtype)
-            x = x + pe * mask.to(x.dtype)[..., None]
-        reco_x = x
+            pe = pe * mask.to(x.dtype)[..., None]
+            x = x + pe
+            if reco_x is not None:
+                reco_x = reco_x + pe
+        if reco_x is None:
+            reco_x = x
 
         run = lambda blk, x, mask, xo=None, mode=None: self._run(  # noqa: E731
             blk, x, mask, xo, mode, train, generator)

@@ -32,7 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.attention import band_attention, full_attention
-from ..ops.conv import Dense, MaskedConv1D, dense, max_pool_skip
+from ..ops.conv import Dense, MaskedConv1D, MaskedConvTranspose1D, dense, max_pool_skip
 from ..ops.kernels import fused_block as _fused
 from ..ops.norm import ChannelLayerNorm, instance_norm_time
 
@@ -290,7 +290,7 @@ class TransformerBlock(nn.Module):
 
 
 class DownBlock(nn.Module):
-    """MaskedConv(k3, stride 2) + InstanceNorm + LeakyReLU(0.2)."""
+    """MaskedConv(k3, stride 2 or 1) + InstanceNorm + LeakyReLU(0.2)."""
 
     def __init__(self, in_ch: int, out_ch: int, stride: int = 2):
         super().__init__()
@@ -301,13 +301,34 @@ class DownBlock(nn.Module):
         return F.leaky_relu(instance_norm_time(x), 0.2), mask
 
 
-class DeepInterpolator(nn.Module):
-    """Feature-recovery module without reconstruction: the contraction
-    (768 -> 24 rows, in -> 256 -> 512 -> 1024 -> 2048 -> hidden channels) and
-    the video-level classifier, with Dropout(0.5) before its last layer in
-    training. Returns (inputs without gradient, None, video logits)."""
+class UpBlock(nn.Module):
+    """MaskedConvTranspose(k3, stride 2, output_padding 1) + InstanceNorm +
+    LeakyReLU(0.2). The JAX package builds every stage of the expansion,
+    the last one too, with LeakyReLU (``last=False``), not the Tanh its
+    docstring names; so does this port."""
 
-    def __init__(self, in_ch: int, hidden: int = 256, num_classes: int = 1):
+    def __init__(self, in_ch: int, out_ch: int):
+        super().__init__()
+        self.conv_transpose = MaskedConvTranspose1D(in_ch, out_ch, 3, stride=2,
+                                                    output_padding=1)
+
+    def forward(self, x, mask):
+        x, mask = self.conv_transpose(x, mask)
+        return F.leaky_relu(instance_norm_time(x), 0.2), mask
+
+
+class DeepInterpolator(nn.Module):
+    """Feature-recovery module: the contraction (768 -> 24 rows, in -> 256 ->
+    512 -> 1024 -> 2048 -> hidden channels) and the video-level classifier,
+    with Dropout(0.5) before its last layer in training; with
+    ``with_reconstruction`` (the ``av_recovery`` variant) also the expansion
+    (24 -> 768 rows, hidden -> 2048 -> 1024 -> 512 -> 256 -> in channels),
+    whose output is the reconstruction. Returns (inputs without gradient,
+    reconstruction or None, video logits). Without it the module holds no
+    expansion, so the production model keeps its parameter set."""
+
+    def __init__(self, in_ch: int, hidden: int = 256, num_classes: int = 1,
+                 with_reconstruction: bool = False):
         super().__init__()
         chans = [in_ch, 256, 512, 1024, 2048, hidden]
         self.contraction = nn.Module()
@@ -317,6 +338,12 @@ class DeepInterpolator(nn.Module):
         self.conv1 = Dense(2 * hidden, hidden, bias=False)
         self.bn1 = ChannelLayerNorm(hidden)
         self.conv2 = Dense(hidden, num_classes)
+        self.with_reconstruction = with_reconstruction
+        if with_reconstruction:
+            up = [hidden, 2048, 1024, 512, 256, in_ch]
+            self.expansion = nn.Module()
+            for i in range(5):
+                setattr(self.expansion, f"up_{i + 1}", UpBlock(up[i], up[i + 1]))
 
     def forward(self, x, mask, train: bool = False,
                 generator: Optional[torch.Generator] = None):
@@ -328,4 +355,42 @@ class DeepInterpolator(nn.Module):
         h = torch.cat([h.amax(1), h.mean(1)], -1)
         h = torch.relu(self.bn1(self.conv1(h)))
         h = dropout(h, 0.5, train, generator)
-        return x.detach(), None, self.conv2(h)
+        cls_scores = self.conv2(h)
+        reco = None
+        if self.with_reconstruction:
+            for i in range(5):
+                feat, m = getattr(self.expansion, f"up_{i + 1}")(feat, m)
+            reco = feat
+        return x.detach(), reco, cls_scores
+
+
+class SegmentAndCls(nn.Module):
+    """Frame-level segmentation and video head of the THE variant (JAX
+    ``models/blocks.py:406-435``): five stride-1 DownBlocks in -> 1024 ->
+    512 -> 256 -> 128 -> 64 at full length, a 1x1 conv + InstanceNorm +
+    LeakyReLU, per-frame logits (``seg_linear``) and a video logit from the
+    max and mean of the seg map over time (``cls_linear1``). Returns
+    (inputs without gradient, frame logits (B, T), video logits)."""
+
+    def __init__(self, in_ch: int, hidden: int = 1024, num_classes: int = 1):
+        super().__init__()
+        chans = [in_ch] + [hidden // 2 ** i for i in range(5)]
+        self.contraction = nn.Module()
+        for i in range(5):
+            setattr(self.contraction, f"down_{i + 1}",
+                    DownBlock(chans[i], chans[i + 1], stride=1))
+        last = chans[-1]
+        self.conv0 = nn.Sequential(nn.Conv1d(last, last, 1, bias=False))
+        self.seg_linear = Dense(last, num_classes)
+        self.cls_linear1 = Dense(2 * num_classes, num_classes)
+
+    def forward(self, x, mask, train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        feat, m = x, mask
+        for i in range(5):
+            feat, m = getattr(self.contraction, f"down_{i + 1}")(feat, m)
+        h = dense(feat, self.conv0[0].weight)
+        h = F.leaky_relu(instance_norm_time(h), 0.2)
+        seg_map = self.seg_linear(h)                              # (B, T, classes)
+        cls_scores = self.cls_linear1(torch.cat([seg_map.amax(1), seg_map.mean(1)], -1))
+        return x.detach(), seg_map[..., 0], cls_scores

@@ -1,7 +1,11 @@
-"""The production localizer ``av_recovery_norecon`` (JAX
-``models/meta_arch.py:111-203``): DeepInterpolator video classifier, HRLR
-backbone, FPN neck, classification and regression heads; and what training
-adds around it (``meta_arch.py:210-351``): the batched label assignment
+"""The recovery localizers (JAX ``models/meta_arch.py:111-203``): a
+recovery module, the HRLR backbone, FPN neck, classification and regression
+heads. ``av_recovery_norecon`` (production) and ``av_recovery`` hold the
+DeepInterpolator video classifier, ``av_recovery`` also its expansion,
+whose reconstruction is the backbone's k-stream and the target of an L1
+loss; ``av_recovery_the`` holds ``SegmentAndCls`` (frame logits and a video
+logit) under the reference's name ``segmentandCls``. And what training adds
+around them (``meta_arch.py:210-351``): the batched label assignment
 ``label_points``, ``compute_losses`` with its loss-normalizer EMA, and the
 point table ``model_points``."""
 
@@ -14,7 +18,7 @@ from torch import nn
 
 from ..core.config import ArchConfig
 from .backbones import HRLRBackbone
-from .blocks import AffineDropPath, DeepInterpolator, Scale
+from .blocks import AffineDropPath, DeepInterpolator, Scale, SegmentAndCls
 from .heads import ClsHead, RegHead, init_cls_prior
 from .losses import ctr_diou_loss_1d, sigmoid_focal_loss
 from .necks import FPN1D
@@ -28,8 +32,13 @@ class AVLocalizer(nn.Module):
     def __init__(self, cfg: ArchConfig):
         super().__init__()
         self.cfg = cfg
-        self.interpolator = DeepInterpolator(cfg.input_dim, cfg.embd_dim,
-                                             cfg.num_classes)
+        if cfg.variant == "av_recovery_the":
+            # the reference's attribute name, so the state-dict names stay its own
+            self.segmentandCls = SegmentAndCls(cfg.input_dim, num_classes=cfg.num_classes)
+        else:
+            self.interpolator = DeepInterpolator(
+                cfg.input_dim, cfg.embd_dim, cfg.num_classes,
+                with_reconstruction=cfg.variant == "av_recovery")
         self.backbone = HRLRBackbone(
             cfg.input_dim, cfg.embd_dim, cfg.n_head, cfg.embd_kernel_size,
             cfg.max_seq_len, cfg.arch, cfg.mha_win_size, cfg.scale_factor,
@@ -61,28 +70,41 @@ class AVLocalizer(nn.Module):
         parameters require no gradient (``model.requires_grad_(False)``).
         Grad mode on with trainable parameters means the differentiable
         path: the K6 ``autograd.Function``, its parameters packed anew on
-        every call."""
+        every call.
+
+        Outputs: ``out_cls``, ``out_offsets``, ``fpn_masks``, ``cls_scores``;
+        ``av_recovery`` adds ``reco`` and ``norm_inputs`` (the inputs without
+        gradient), ``av_recovery_the`` adds ``seg_scores`` (B, T)."""
         feats = feats.to(self.compute_dtype)
-        _, _, cls_scores = self.interpolator(feats, mask, train, generator)
-        bb_feats, bb_masks = self.backbone(feats, mask, train, generator)
+        out: Dict[str, Any] = {}
+        reco = None
+        if self.cfg.variant == "av_recovery_the":
+            _, seg_scores, cls_scores = self.segmentandCls(feats, mask, train, generator)
+            out["seg_scores"] = seg_scores.float()
+        else:
+            norm_x, reco, cls_scores = self.interpolator(feats, mask, train, generator)
+            if reco is not None:
+                out["reco"], out["norm_inputs"] = reco.float(), norm_x.float()
+        bb_feats, bb_masks = self.backbone(feats, mask, train, generator, reco_x=reco)
         fpn_feats, fpn_masks = self.neck(bb_feats, bb_masks)
         out_cls = self.cls_head(fpn_feats, fpn_masks)
         out_offsets = self.reg_head(fpn_feats, fpn_masks)
-        return {
-            "cls_scores": cls_scores.float(),
-            "out_cls": [o.float() for o in out_cls],
-            "out_offsets": [o.float() for o in out_offsets],
-            "fpn_masks": fpn_masks,
-        }
+        out.update(cls_scores=cls_scores.float(),
+                   out_cls=[o.float() for o in out_cls],
+                   out_offsets=[o.float() for o in out_offsets],
+                   fpn_masks=fpn_masks)
+        return out
 
 
 @torch.no_grad()
 def init_localizer(model: AVLocalizer, generator: Optional[torch.Generator] = None):
     """Seeded fresh init with the JAX package's rules: conv / linear weights
     Uniform(+-1/sqrt(fan_in)) (the torch default), zero biases, LN affines
-    1/0, layer scales 1e-4, head scales 1, focal-prior classifier bias."""
+    1/0, layer scales 1e-4, head scales 1, focal-prior classifier bias. A
+    transposed conv's bound is torch's default too, from its ``(in, out,
+    k)`` weight's fan-in ``out * k``."""
     for m in model.modules():
-        if isinstance(m, (nn.Conv1d, nn.Linear)):
+        if isinstance(m, (nn.Conv1d, nn.Linear, nn.ConvTranspose1d)):
             bound = 1.0 / float(m.weight[0].numel()) ** 0.5
             m.weight.uniform_(-bound, bound, generator=generator)
             if m.bias is not None:
@@ -151,6 +173,8 @@ def compute_losses(outputs: Dict[str, Any], gt_cls: torch.Tensor, gt_offsets: to
                    has_gt: torch.Tensor, loss_normalizer: torch.Tensor, *,
                    num_classes: int, loss_weight: float = 2.0,
                    label_smoothing: float = 0.1,
+                   variant: str = "av_recovery_norecon",
+                   frame_gt: Optional[torch.Tensor] = None,
                    row_valid: Optional[torch.Tensor] = None,
                    reduce: Optional[Callable[[List[torch.Tensor]], None]] = None):
     """Returns (loss dict incl. ``final_loss``, ``num_pos``). The normalizer
@@ -161,12 +185,20 @@ def compute_losses(outputs: Dict[str, Any], gt_cls: torch.Tensor, gt_offsets: to
     video-level loss; their point-level losses vanish through the all-False
     masks of such rows. All in f32.
 
+    ``variant="av_recovery"`` adds ``reco_loss``, the mean |reco -
+    norm_inputs| of each real (no-GT) row averaged over those rows, to
+    ``final_loss``. ``variant="av_recovery_the"`` with ``frame_gt`` (B, T)
+    computes ``reco_seg_loss``, the frame-level focal over ``seg_scores``
+    divided by ``normalizer * 10``, and keeps it out of ``final_loss``, as
+    the reference does.
+
     ``reduce`` (data parallel: sums tensors over the processes in place,
     ``parallel.all_reduce_sum``): the outputs are this process's rows of a
     global batch. ``num_pos`` is then the global count before the normalizer
     takes it, and the auto-balancing weight (``loss_weight <= 0``) is the
-    global ratio, so each loss is this process's share of the global loss
-    and the shares sum to it over the processes."""
+    global ratio, and ``reco_loss`` divides by the global count of real
+    rows, so each loss is this process's share of the global loss and the
+    shares sum to it over the processes."""
     valid_mask = torch.cat(outputs["fpn_masks"], dim=1)                 # (B, P)
     logits = torch.cat(outputs["out_cls"], dim=1)                       # (B, P, C)
     pred_off = torch.cat(outputs["out_offsets"], dim=1)                 # (B, P, 2)
@@ -197,7 +229,23 @@ def compute_losses(outputs: Dict[str, Any], gt_cls: torch.Tensor, gt_offsets: to
     video_gt = has_gt.float()[:, None]
     reco_cls = (sigmoid_focal_loss(outputs["cls_scores"], video_gt) * row_f32[:, None]).sum()
     losses["reco_cls_loss"] = reco_cls
-    losses["final_loss"] = final + 0.1 * reco_cls
+    final = final + 0.1 * reco_cls
+
+    if variant == "av_recovery" and outputs.get("reco") is not None:
+        real = (~has_gt).float() * row_f32
+        per_sample = (outputs["reco"] - outputs["norm_inputs"]).abs().mean(dim=(1, 2))
+        n_real = real.sum()
+        if reduce is not None:
+            reduce([n_real])
+        reco_loss = (per_sample * real).sum() / torch.clamp(n_real, min=1.0)
+        losses["reco_loss"] = reco_loss
+        final = final + reco_loss
+
+    if variant == "av_recovery_the" and frame_gt is not None:
+        seg = sigmoid_focal_loss(outputs["seg_scores"], frame_gt) * row_f32[:, None]
+        losses["reco_seg_loss"] = seg.sum() / (normalizer * 10.0)
+
+    losses["final_loss"] = final
     return losses, num_pos
 
 

@@ -5,13 +5,16 @@ numpy arrays (with or without the leading ``params`` collection) and returns
 a state dict under the original torch repo's names, in torch layouts:
 
 - Conv1d ``(out, in/g, k)``        <- flax ``(k, in/g, out)``
+- ConvTranspose1d ``(in, out, k)`` <- flax ``(k, in, out)`` (the
+  reconstruction's ``expansion.up_*``; no flip, JAX ``_convT_w`` inverted)
 - 1x1 Conv1d ``(out, in, 1)``      <- flax dense ``(in, out)`` (attention
-  q/k/v/proj, the MLP, the interpolator's ``conv0``)
+  q/k/v/proj, the MLP, the recovery module's ``conv0``)
 - Linear ``(out, in)``             <- flax dense ``(in, out)``
 - LayerNorm / layer scale ``(C,)``, head scales ``()``
 
 The names are the ones the JAX package's ``tools/convert_torch.py::_ref_name``
-maps to, so ``convert_state_dict(state_dict_from_flax(p), p)`` returns ``p``
+maps to (the THE variant's recovery module, ``interpolator`` in flax, under
+the reference's ``segmentandCls.``), so ``convert_state_dict(state_dict_from_flax(p), p)`` returns ``p``
 bit for bit, and a reference checkpoint loads into the port by name.
 
 ``train_state_from_flax`` carries a whole JAX ``TrainState`` (parameters, EMA
@@ -78,8 +81,13 @@ def torch_name(path: Tuple[str, ...]) -> Tuple[str, str]:
         name = p[1]
         if re.fullmatch(r"down_\d", name):
             return f"interpolator.contraction.{name}.conv_block.conv.{_wb(leaf)}", conv
-        if name == "cls_conv0":
+        if re.fullmatch(r"up_\d", name):
+            return (f"interpolator.expansion.{name}.conv_transpose.conv.{_wb(leaf)}",
+                    "convT" if leaf == "kernel" else "vec")
+        if name in ("cls_conv0", "seg_conv0"):
             return "interpolator.conv0.0.weight", "conv1x1"
+        if name in ("seg_linear", "cls_linear1"):
+            return f"interpolator.{name}.{_wb(leaf)}", "linear" if leaf == "kernel" else "vec"
         if name == "cls_fc1":
             return "interpolator.conv1.weight", "linear"
         if name == "cls_ln":
@@ -126,6 +134,7 @@ def torch_name(path: Tuple[str, ...]) -> Tuple[str, str]:
 
 _LAYOUT = {
     "conv": lambda w: np.transpose(w, (2, 1, 0)),          # (k, in/g, out) -> (out, in/g, k)
+    "convT": lambda w: np.transpose(w, (1, 2, 0)),         # (k, in, out) -> (in, out, k)
     "conv1x1": lambda w: np.transpose(w)[:, :, None],      # (in, out) -> (out, in, 1)
     "linear": np.transpose,                                # (in, out) -> (out, in)
     "conv3d": lambda w: np.transpose(w, (4, 3, 0, 1, 2)),  # (kt, kh, kw, in/g, out) -> (out, in/g, kt, kh, kw)
@@ -137,8 +146,17 @@ _LAYOUT = {
 
 
 def state_dict_from_flax(params: Dict) -> Dict[str, torch.Tensor]:
-    """Flax tree of the whole localizer -> torch state dict."""
-    return _state_dict(params, torch_name)
+    """Flax tree of the whole localizer -> torch state dict. A tree whose
+    recovery module holds ``seg_linear`` is the THE variant's: its names go
+    under ``segmentandCls.``, the reference's attribute."""
+    if set(params) == {"params"}:
+        params = params["params"]
+    sd = _state_dict(params, torch_name)
+    if "seg_linear" not in params.get("interpolator", {}):
+        return sd
+    head = "interpolator."
+    return {"segmentandCls." + n[len(head):] if n.startswith(head) else n: v
+            for n, v in sd.items()}
 
 
 def train_state_from_flax(state, flax_state: Dict):

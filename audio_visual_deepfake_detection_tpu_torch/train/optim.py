@@ -1,7 +1,7 @@
 """Optimizer and learning-rate schedule (JAX ``train/optim.py``).
 
 - AdamW (or SGD with momentum) with the minGPT-style decay split: weight
-  decay applies to conv / linear weights only; biases, norm affines and layer
+  decay applies to conv / transposed conv / linear weights only; biases, norm affines and layer
   scales are excluded. The last ``hh_branch`` block is excluded too: the
   backbone discards its output, so its parameters never receive a gradient,
   torch skips a parameter without gradient altogether (decay included), and
@@ -26,11 +26,12 @@ from torch import nn
 
 
 def decay_names(model: nn.Module) -> Set[str]:
-    """Names of the parameters that decay: the weights of every conv and
-    linear layer, except those of the last ``hh_branch`` block."""
+    """Names of the parameters that decay: the weights of every conv,
+    transposed conv and linear layer, except those of the last
+    ``hh_branch`` block."""
     names = {f"{prefix}.weight" if prefix else "weight"
              for prefix, m in model.named_modules()
-             if isinstance(m, (nn.Conv1d, nn.Linear))}
+             if isinstance(m, (nn.Conv1d, nn.ConvTranspose1d, nn.Linear))}
     hh = [int(m.group(1)) for n in names
           for m in [re.search(r"(?:^|\.)hh_branch\.(\d+)\.", n)] if m]
     if hh:

@@ -132,8 +132,9 @@ def build_train_step(cfg: ArchConfig, train_cfg: Dict, ema_decay: float = 0.999,
             losses, num_pos = compute_losses(
                 out, gt_cls, gt_off, batch["has_gt"], state.loss_normalizer,
                 num_classes=cfg.num_classes, loss_weight=train_cfg["loss_weight"],
-                label_smoothing=train_cfg["label_smoothing"],
-                row_valid=batch.get("row_valid"), reduce=reduce)
+                label_smoothing=train_cfg["label_smoothing"], variant=cfg.variant,
+                frame_gt=batch.get("frame_labels"), row_valid=batch.get("row_valid"),
+                reduce=reduce)
             mark("forward")
             losses["final_loss"].backward()
         if reduce is not None:

@@ -150,7 +150,29 @@ Phases (any failure exits nonzero):
              for an epoch each; then inference as two processes on the card
              with the trained checkpoint, merged by generate_results, against
              one process. ms a step, samples/s, seconds an epoch, the loader's
-             wait with and without the first step, peak memory.
+             wait with and without the first step, peak memory;
+16. variants - the two other shipped localizers at full width and depth
+             through the port's YAML loader: configs_train/deepfake_exp5.yaml
+             (av_recovery: the reconstruction is the initial cross block's
+             k-stream, K1 / K6 read it as the second stream) and
+             deepfake_exp13.yaml (av_recovery_the: frame-level segmentation
+             head). For each: an eval forward at B=16 on seeded features,
+             f32 card against the CPU (out_cls, out_offsets 1e-4; cls_scores,
+             reco, seg_scores 2e-4; detections at phase 14's rule) and bf16
+             against the same model's plain blocks on the card (check_bf16),
+             K1 18 launches a forward and no plain block; one f32 training
+             step at B=5 card against CPU (losses rtol 1e-4, grad_norm 1e-3,
+             the reconstruction's up_1 gradient: its norm 1e-3, its l2 gap
+             within 4x of what a 1e-6 input noise moves the CPU's own;
+             beside it the card's step with deterministic cuDNN),
+             K6 18 launches;
+             cli/train.py in bf16 at the config's own batch (exp5 B=72 over
+             144 two-stream videos, 2 iterations; exp13 B=5 over 20 videos, 4
+             iterations) in a one-process group: K6 18 a step and nothing
+             else, finite losses, the variant's own loss logged, final_loss
+             the sum without reco_seg_loss, rank 0's checkpoint; then
+             cli/validate.py with it over 32 labelled videos: K1 18 a forward,
+             a finite mAP. ms a step, samples/s, peak GiB and eval videos/s.
 
 The card's name and power limit, then a JSON object with the kernels'
 launches, errors and times, are the two lines before the last; the last
@@ -4028,6 +4050,26 @@ def free_port():
     return port
 
 
+GROUP_KEYS = ("AVDD_COORDINATOR", "AVDD_NUM_PROCESSES", "AVDD_PROCESS_ID")
+
+
+def open_one_process_group():
+    """The variables that make an entry point run in this process as process
+    0 of a one-process group (``init_distributed``: NCCL on the card, Gloo on
+    the CPU), so the data-parallel reduction runs."""
+    os.environ.update(AVDD_COORDINATOR=f"127.0.0.1:{free_port()}", AVDD_NUM_PROCESSES="1",
+                      AVDD_PROCESS_ID="0")
+
+
+def close_one_process_group():
+    import torch
+
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+    for key in GROUP_KEYS:
+        os.environ.pop(key, None)
+
+
 def run_epochs_rates(summary, b):
     """ms a step, samples/s, seconds an epoch and the loop's wait on the
     loader of each epoch of a ``cli.train.run`` summary, whole and without
@@ -4087,9 +4129,7 @@ def phase_train_cli(dev="cuda", n_videos=TRAIN_CLI_VIDEOS, dims=(256, 2048, 768)
     os.makedirs(build, exist_ok=True)
     report = {"card": smi}
     root = tempfile.mkdtemp(dir=build)
-    env_keys = ("AVDD_COORDINATOR", "AVDD_NUM_PROCESSES", "AVDD_PROCESS_ID")
-    os.environ.update(AVDD_COORDINATOR=f"127.0.0.1:{free_port()}", AVDD_NUM_PROCESSES="1",
-                      AVDD_PROCESS_ID="0")
+    open_one_process_group()
     try:
         t0 = time.perf_counter()
         cache = synth_cache.write_feature_cache(root, n_videos, seed=13, dims=dims,
@@ -4252,9 +4292,7 @@ def phase_train_cli(dev="cuda", n_videos=TRAIN_CLI_VIDEOS, dims=(256, 2048, 768)
             report[label] = rec
             shutil.rmtree(summary["out_folder"])
             del summary
-        torch.distributed.destroy_process_group()
-        for key in env_keys:
-            os.environ.pop(key)
+        close_one_process_group()
 
         # (5) inference as two processes sharing the card, merged
         infer_cfg = config("infer")
@@ -4309,12 +4347,371 @@ def phase_train_cli(dev="cuda", n_videos=TRAIN_CLI_VIDEOS, dims=(256, 2048, 768)
             f"identical")
         log(f"card: {smi}")
     finally:
-        if torch.distributed.is_initialized():
-            torch.distributed.destroy_process_group()
-        for key in env_keys:
-            os.environ.pop(key, None)
+        close_one_process_group()
         shutil.rmtree(root, ignore_errors=True)
     REPORT["train_cli"] = report
+    return report
+
+
+# ------------------------------------------------------------ the other localizers
+
+# shipped config, its streams and their widths, cli/train.py's videos (an
+# epoch at the config's own batch: exp5 2 iterations at B=72, exp13 4 at B=5)
+VARIANT_CONFIGS = (
+    ("deepfake_exp5", ("video", "emotion"), (256, 768), 144),
+    ("deepfake_exp13", ("video", "byola", "emotion"), (256, 2048, 768), 20),
+)
+VARIANT_LOSS = {"av_recovery": "reco_loss", "av_recovery_the": "reco_seg_loss"}
+VARIANT_OUT = {"av_recovery": ("reco",), "av_recovery_the": ("seg_scores",)}
+# the JAX package's own tolerances against the reference (tests/test_parity.py:124-160)
+VARIANT_F32_TOL = {"out_cls": 1e-4, "out_offsets": 1e-4, "cls_scores": 2e-4, "reco": 2e-4,
+                   "seg_scores": 2e-4}
+# the parameter whose gradient the step compares: the reconstruction's first
+# transposed conv (reached through the backbone's k-stream and reco_loss), and
+# the THE head's first conv
+VARIANT_GRAD = {"av_recovery": "interpolator.expansion.up_1.conv_transpose.conv.weight",
+                "av_recovery_the": "segmentandCls.contraction.down_1.conv_block.conv.weight"}
+# that gradient's l2 gap card vs CPU, in units of what a 1e-6 input noise
+# moves the CPU's own: on an H100 the expansion's gradients through cuDNN's
+# default algorithms sit ~3x that away, with cudnn.deterministic ~1x (the
+# phase reports both)
+VARIANT_GRAD_NOISE = 4.0
+
+
+@contextlib.contextmanager
+def plain_blocks_on_card():
+    """While open, a localizer block on the card runs its plain version
+    (block_math) instead of K1: the reference that a bf16 forward through
+    the kernel is held to, on the same card and inputs."""
+    from audio_visual_deepfake_detection_tpu_torch.ops.kernels import fused_block as fb
+
+    use = fb.use_kernel
+    fb.use_kernel = lambda t: False
+    try:
+        yield
+    finally:
+        fb.use_kernel = use
+
+
+def variant_batch(cfg, b, seed):
+    """``train_batch`` with the THE variant's frame labels (1 inside a
+    segment, on the feature grid)."""
+    batch = train_batch(cfg, b, seed=seed)
+    batch.pop("video_ids")
+    if cfg.variant == "av_recovery_the":
+        frames = np.zeros((b, cfg.max_seq_len), np.float32)
+        for i in range(b):
+            for (s, e), ok in zip(batch["gt_segments"][i], batch["gt_valid"][i]):
+                if ok:
+                    frames[i, int(s):int(e)] = 1.0
+        batch["frame_labels"] = frames
+    return batch
+
+
+def cat_levels(out, key):
+    import torch
+
+    v = out[key]
+    return torch.cat([o.reshape(o.shape[0], -1) for o in v], 1) if isinstance(v, list) else v
+
+
+def phase_variants(dev="cuda", configs=VARIANT_CONFIGS, overrides=None, eval_b=16, step_b=5,
+                   n_val=32, smi=""):
+    """``av_recovery`` (exp5) and ``av_recovery_the`` (exp13) at full width
+    and depth through the port's loader and entry points, seeded weights
+    and features (phase 16 of the module docstring). ``overrides`` (a config
+    fragment) and the sizes shrink it for a CPU rehearsal. Returns the
+    report, with each config's launches."""
+    import copy
+    import dataclasses
+    import glob
+    import shutil
+    import tempfile
+    import torch
+    import yaml
+    from audio_visual_deepfake_detection_tpu_torch import train
+    from audio_visual_deepfake_detection_tpu_torch.cli import train as train_cli
+    from audio_visual_deepfake_detection_tpu_torch.cli import validate as validate_cli
+    from audio_visual_deepfake_detection_tpu_torch.core.config import (
+        TestConfig, arch_config_from, load_config)
+    from audio_visual_deepfake_detection_tpu_torch.infer import build_inference_fn
+    from audio_visual_deepfake_detection_tpu_torch.models import AVLocalizer, build_localizer
+    from audio_visual_deepfake_detection_tpu_torch.tools import synth_cache
+
+    on_card = torch.device(dev).type == "cuda"
+    build = os.path.join(REPO, "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(dir=build)
+    report = {"card": smi}
+
+    def expect(counts, what, k1=0, k6=0):
+        want = dict.fromkeys(counts, 0)
+        if on_card:
+            want.update(fused_transformer_block=k1, fused_transformer_block_train=k6)
+        if counts != want:
+            fail(f"variants {what}: launches {counts}, expected {want}")
+
+    try:
+        for name, streams, dims, n_videos in configs:
+            t0 = time.perf_counter()
+            base = os.path.join(REPO, "configs_train", f"{name}.yaml")
+            # the streams' widths, the YAML's own at full size
+            widths = {"dataset": {"video_input_dim": dims[0], "audio_input_dim": sum(dims[1:])}}
+            with open(base) as f:
+                tree = yaml.safe_load(f)
+            if overrides is None and any(tree["dataset"][k] != v
+                                         for k, v in widths["dataset"].items()):
+                fail(f"variants {name}: stream widths {dims} against {tree['dataset']}")
+            tree = synth_cache.merge(synth_cache.merge(tree, overrides or {}), widths)
+            path = os.path.join(root, f"{name}.yaml")
+            with open(path, "w") as f:
+                yaml.safe_dump(tree, f)
+            config = load_config(path)
+            cfg = dataclasses.replace(arch_config_from(config), compute_dtype="float32")
+            tc = config["train_cfg"]
+            n_blocks = 1 + cfg.arch[1] + 3 * cfg.arch[2]
+            extra, outs = VARIANT_LOSS[cfg.variant], VARIANT_OUT[cfg.variant]
+            rec = {"variant": cfg.variant, "input_dim": cfg.input_dim, "streams": streams}
+            label = f"{name} ({cfg.variant})"
+
+            # (1) an eval forward: f32 card vs CPU, bf16 kernel vs plain on the card
+            model = perturb(build_localizer(cfg, seed=3, device="cpu"), 4)
+            rng = np.random.default_rng(21)
+            t = cfg.max_seq_len
+            lens = rng.integers(t // 3, t + 1, eval_b)
+            lens[0] = t
+            mask = np.arange(t)[None, :] < lens[:, None]
+            x = rng.standard_normal((eval_b, t, cfg.input_dim), dtype=np.float32) * mask[..., None]
+            xt, mt = torch.from_numpy(x), torch.from_numpy(mask)
+            with torch.no_grad():
+                cpu = model(xt, mt)
+            card = copy.deepcopy(model).to(dev)
+            xd, md = xt.to(dev), mt.to(dev)
+            reset_counts()
+            with torch.no_grad(), plain_block_calls() as plain:
+                got = card(xd, md)
+            sync(dev)
+            expect(launch_counts(), f"{label} f32 forward", k1=n_blocks)
+            if plain["cuda"]:
+                fail(f"variants {label}: {plain['cuda']} blocks ran their plain version")
+            errs = {}
+            for key in ("out_cls", "out_offsets", "cls_scores") + outs:
+                d = (cat_levels(got, key).cpu() - cat_levels(cpu, key)).abs().max().item()
+                errs[key] = d
+                if not d <= VARIANT_F32_TOL[key]:
+                    fail(f"variants {label}: f32 {key} card vs CPU {d:.3e} > "
+                         f"{VARIANT_F32_TOL[key]:g}")
+            tcfg = TestConfig(**dict(BENCH_TEST, min_score=0.001))
+            fn = build_inference_fn(cfg, tcfg)
+            meta = [np.full(eval_b, 25.0, np.float32), (lens / 25.0).astype(np.float32),
+                    np.ones(eval_b, np.float32), np.ones(eval_b, np.float32)]
+            det_cpu = [a.numpy() for a in fn(model, x, mask, *meta)]
+            det_card = [a.cpu().numpy() for a in fn(card, x, mask, *meta)]
+            worst = {"scores": 0.0, "segments": 0.0}
+            for i in range(eval_b):
+                kc, kg = int(det_cpu[3][i].sum()), int(det_card[3][i].sum())
+                if kc != kg or kc == 0:
+                    fail(f"variants {label} video {i}: {kg} detections on the card, {kc} on "
+                         f"the CPU")
+                worst["scores"] = max(worst["scores"], float(
+                    np.abs(det_card[1][i][:kc] - det_cpu[1][i][:kc]).max()))
+                worst["segments"] = max(worst["segments"], float(
+                    np.abs(det_card[0][i][:kc] - det_cpu[0][i][:kc]).max()))
+            worst["video_cls"] = float(np.abs(det_card[4] - det_cpu[4]).max())
+            if worst["scores"] > 1e-4 or worst["segments"] > 1e-3 or worst["video_cls"] > 2e-4:
+                fail(f"variants {label}: detections card vs CPU {worst}")
+            errs["detections"] = worst
+            del card, got, cpu
+
+            m16 = AVLocalizer(dataclasses.replace(cfg, compute_dtype="bfloat16"))
+            m16.load_state_dict(model.state_dict())
+            m16 = m16.to(dev).eval()
+            reset_counts()
+            with torch.no_grad(), plain_block_calls() as plain:
+                g16 = m16(xd, md)
+            sync(dev)
+            launched_eval = launch_counts()
+            expect(launched_eval, f"{label} bf16 forward", k1=n_blocks)
+            if plain["cuda"]:
+                fail(f"variants {label}: {plain['cuda']} bf16 blocks ran their plain version")
+            with torch.no_grad(), plain_blocks_on_card():
+                p16 = m16(xd, md)
+            bf16 = {}
+            for key in ("out_cls", "cls_scores") + outs:
+                err, ok, rule = check_bf16(cat_levels(g16, key), cat_levels(p16, key))
+                bf16[key] = {"max_abs_err": err, "rule": rule}
+                if not ok:
+                    fail(f"variants {label}: bf16 {key} kernel vs plain {err:.3e} ({rule})")
+            rec["eval"] = dict(B=eval_b, f32_card_vs_cpu=errs, bf16_kernel_vs_plain=bf16,
+                               launches=launched_eval)
+            if on_card:
+                with torch.no_grad():
+                    ms = cuda_ms(lambda: m16(xd, md), iters=10)
+                rec["eval"].update(ms_bf16=ms, videos_per_s=eval_b / ms * 1e3)
+            log(f"variants {label} eval B={eval_b}: f32 card vs CPU {errs}; bf16 kernel vs "
+                f"plain { {k: v['max_abs_err'] for k, v in bf16.items()} }; launches "
+                f"{launched_eval}"
+                + (f"; bf16 forward {rec['eval']['ms_bf16']:.2f} ms = "
+                   f"{rec['eval']['videos_per_s']:.1f} videos/s" if on_card else ""))
+            del m16, g16, p16, xd, md
+
+            # (2) one f32 training step, card vs CPU
+            batch = variant_batch(cfg, step_b, seed=7)
+
+            def one_step(device, batch):
+                m = build_localizer(cfg, seed=5, device=device)
+                tx, _ = train.make_optimizer(m, config["opt"], 10, tc["clip_grad_l2norm"])
+                state = train.TrainState.create(m, tx, tc["init_loss_norm"],
+                                                torch.Generator().manual_seed(11))
+                step = train.build_train_step(cfg, tc, deterministic_forward=True)
+                reset_counts()
+                state, losses = step(state, batch)
+                sync(device)
+                grad = dict(m.named_parameters())[VARIANT_GRAD[cfg.variant]].grad
+                return ({k: float(v) for k, v in losses.items()}, grad.detach().cpu().double(),
+                        launch_counts())
+
+            card_l, card_g, counts = one_step(dev, batch)
+            cpu_l, cpu_g, _ = one_step("cpu", batch)
+            # the same card step with cuDNN's deterministic algorithms (reported)
+            torch.backends.cudnn.deterministic = True
+            try:
+                _, det_g, _ = one_step(dev, batch)
+            finally:
+                torch.backends.cudnn.deterministic = False
+            # the CPU's own gradient with the features moved by 1e-6 relative
+            # (f32 rounding's size): how far rounding alone moves it
+            noisy = dict(batch)
+            noisy["feats"] = (batch["feats"] * (1 + 1e-6 * np.random.default_rng(8).standard_normal(
+                batch["feats"].shape))).astype(np.float32)
+            _, noisy_g, _ = one_step("cpu", noisy)
+            expect(counts, f"{label} train step", k6=n_blocks)
+            gaps = {k: abs(card_l[k] - v) / max(abs(v), 1e-12) for k, v in cpu_l.items()}
+            norm = cpu_g.norm().item()
+            grad = dict(l2=(card_g - cpu_g).norm().item() / max(norm, 1e-30),
+                        norm=abs(card_g.norm().item() - norm) / max(norm, 1e-30),
+                        cpu_noise_l2=(noisy_g - cpu_g).norm().item() / max(norm, 1e-30),
+                        cudnn_deterministic_l2=(det_g - cpu_g).norm().item() / max(norm, 1e-30))
+            if extra not in cpu_l or not norm > 0:
+                fail(f"variants {label}: no {extra} ({sorted(cpu_l)}) or a zero gradient of "
+                     f"{VARIANT_GRAD[cfg.variant]}")
+            if max(g for k, g in gaps.items() if k != "grad_norm") > 1e-4 \
+                    or gaps["grad_norm"] > 1e-3 or grad["norm"] > 1e-3 \
+                    or grad["l2"] > max(1e-3, VARIANT_GRAD_NOISE * grad["cpu_noise_l2"]):
+                fail(f"variants {label}: train step card vs CPU gaps {gaps}, "
+                     f"{VARIANT_GRAD[cfg.variant]} gradient {grad}")
+            rec["step"] = dict(B=step_b, gaps=gaps, grad=grad, launches=counts, losses=cpu_l)
+            log(f"variants {label} f32 step B={step_b} card vs CPU: losses rel "
+                f"{max(g for k, g in gaps.items() if k != 'grad_norm'):.2e}, grad_norm rel "
+                f"{gaps['grad_norm']:.2e}, {VARIANT_GRAD[cfg.variant]} gradient: norm rel "
+                f"{grad['norm']:.2e}, l2 rel {grad['l2']:.2e} (the CPU's own under 1e-6 "
+                f"input noise {grad['cpu_noise_l2']:.2e}; the card with deterministic cuDNN "
+                f"{grad['cudnn_deterministic_l2']:.2e}), {extra} {cpu_l[extra]:.4f}, "
+                f"launches {counts}")
+            del model, batch, noisy
+
+            # (3) cli/train.py, bf16, the config's own batch, one epoch
+            cache = synth_cache.write_feature_cache(
+                os.path.join(root, name), n_videos, seed=13, dims=dims, n_labelled=n_videos,
+                split="train", streams=streams)
+            run_tree = synth_cache.merge(synth_cache.merge(
+                {"tpu": {"compute_dtype": "bfloat16"}, "opt": {"early_stop_epochs": 1}},
+                overrides or {}), widths)
+            run_cfg = synth_cache.write_config(base, os.path.join(root, f"{name}_run.yaml"),
+                                               cache, os.path.join(root, "runs", name),
+                                               run_tree)
+            b = load_config(run_cfg)["loader"]["batch_size"]
+            args = [run_cfg, "--output", "t", "-p", "1", "--ckpt-iter-freq", "0"]
+            if not on_card:
+                args += ["--device", dev]
+            if on_card:
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            open_one_process_group()
+            try:
+                reset_counts()
+                with plain_forward_blocks() as plain:
+                    summary = train_cli.run(train_cli.build_parser().parse_args(args))
+                counts = launch_counts()
+            finally:
+                close_one_process_group()
+            peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else None
+            n_steps = sum(st["iters"] for st in summary["epochs"])
+            if n_steps != n_videos // b or summary["world"] != 1:
+                fail(f"variants {label} cli: {n_steps} steps at world {summary['world']}")
+            expect(counts, f"{label} cli/train.py", k6=n_blocks * n_steps)
+            if plain["cuda"]:
+                fail(f"variants {label} cli: {plain['cuda']} forward blocks on their plain "
+                     f"version")
+            losses = summary["epochs"][-1]["losses"]
+            parts = losses["cls_loss"] + tc["loss_weight"] * losses["reg_loss"] \
+                + 0.1 * losses["reco_cls_loss"] + losses.get("reco_loss", 0.0)
+            if not all(math.isfinite(v) for v in losses.values()) or extra not in losses \
+                    or not math.isclose(losses["final_loss"], parts, rel_tol=1e-5):
+                fail(f"variants {label} cli: losses {losses}")
+            with open(os.path.join(summary["out_folder"], "metrics.jsonl")) as f:
+                logged = [json.loads(line) for line in f]
+            if not logged or not all(f"train/{extra}" in r for r in logged):
+                fail(f"variants {label} cli: {extra} not logged ({logged[:1]})")
+            ckpt = os.path.join(summary["out_folder"], "epoch_001.pt")
+            if not os.path.exists(ckpt):
+                fail(f"variants {label} cli: no checkpoint ({glob.glob(summary['out_folder'] + '/*')})")
+            rates = run_epochs_rates(summary, summary["global_batch"])
+            rec["train_cli"] = dict(B=b, videos=n_videos, steps=n_steps, launches=counts,
+                                    peak_gib=peak, epochs=rates)
+            for r in rates:
+                log(f"variants {label} cli/train.py B={b}: {r['iters']} steps in "
+                    f"{r['seconds']:.3f} s = {r['ms_per_step']:.1f} ms/step, "
+                    f"{r['samples_per_s']:.1f} samples/s, wait on the loader "
+                    f"{100 * r['wait_share']:.1f}%"
+                    + (f" ({r['after_first_ms_per_step']:.1f} ms/step, "
+                       f"{r['after_first_samples_per_s']:.1f} samples/s, wait "
+                       f"{100 * r['after_first_wait_share']:.1f}% without the first)"
+                       if r["iters"] > 1 else "")
+                    + (f", peak {peak:.2f} GiB" if peak is not None else "")
+                    + f"; launches {counts}; last losses {losses}")
+            shutil.rmtree(os.path.join(root, name))
+            del summary
+
+            # (4) cli/validate.py with that checkpoint over labelled dev videos
+            dev_cache = synth_cache.write_feature_cache(
+                os.path.join(root, f"{name}_dev"), n_val, seed=17, dims=dims, n_labelled=n_val,
+                streams=streams)
+            val_cfg = synth_cache.write_config(base, os.path.join(root, f"{name}_val.yaml"),
+                                               dev_cache, os.path.join(root, "runs", name),
+                                               run_tree)
+            args = [val_cfg, "--ckpt", ckpt, "--batch-size", "16", "--output",
+                    os.path.join(root, f"{name}_eval.json")]
+            if not on_card:
+                args += ["--device", dev]
+            reset_counts()
+            t1 = time.perf_counter()
+            with plain_block_calls() as plain:
+                result = validate_cli.run(validate_cli.build_parser().parse_args(args))
+            sync(dev)
+            val_s = time.perf_counter() - t1
+            counts = launch_counts()
+            expect(counts, f"{label} cli/validate.py", k1=n_blocks * -(-n_val // 16))
+            if plain["cuda"] or len(result["gt_records"]) != n_val \
+                    or result["mAP"] is None or not math.isfinite(result["mAP"]):
+                fail(f"variants {label} validate: {len(result['gt_records'])} videos, mAP "
+                     f"{result['mAP']}, {plain['cuda']} plain blocks")
+            rec["validate"] = dict(videos=n_val, mAP=result["mAP"], launches=counts,
+                                   seconds=val_s)
+            log(f"variants {label} cli/validate.py: {n_val} videos in {val_s:.2f} s, mAP "
+                f"{result['mAP']:.3f} (random weights), launches {counts}")
+            shutil.rmtree(os.path.join(root, f"{name}_dev"))
+            shutil.rmtree(os.path.join(root, "runs", name))
+            rec["seconds"] = time.perf_counter() - t0
+            report[name] = rec
+            if on_card:
+                torch.cuda.empty_cache()
+        log(f"card: {smi}")
+    finally:
+        close_one_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+    REPORT["variants"] = report
     return report
 
 
@@ -4393,6 +4790,7 @@ def main():
     timed(k7_variants, smi)
     offline = timed(phase_offline_inference, smi=smi)
     train_cli = timed(phase_train_cli, smi=smi)
+    variants = timed(phase_variants, smi=smi)
     for mod in ("jax", "audio_visual_deepfake_detection_tpu"):
         if mod in sys.modules:
             fail(f"{mod} was imported")
@@ -4426,6 +4824,10 @@ def main():
                 "a block, counted once); launches_offline_inference = the offline sweep's "
                 "256 videos at B=16 through cli/inference.py",
         "launches_offline_inference": offline["host_b16_warm"]["k1_launches"],
+        "launches_variants": {
+            name: {"eval_forward_bf16": rec["eval"]["launches"]["fused_transformer_block"],
+                   "validate": rec["validate"]["launches"]["fused_transformer_block"]}
+            for name, rec in variants.items() if name != "card"},
     }]
     for name, file, line in (("patch_embed", "patch_embed", 140),
                              ("pooled_attention", "mvit_attention", 72),
@@ -4520,6 +4922,10 @@ def main():
                 "the backward differentiates the plain version, as the TPU kernel's does; "
                 "launches_train_cli = cli/train.py's host route, 2 epochs at B=50 bf16",
         "launches_train_cli": train_cli["host"]["launches"]["fused_transformer_block_train"],
+        "launches_variants": {
+            name: {"train_step_f32": rec["step"]["launches"]["fused_transformer_block_train"],
+                   "train_cli": rec["train_cli"]["launches"]["fused_transformer_block_train"]}
+            for name, rec in variants.items() if name != "card"},
     })
     k7_ms, k7_plain, k7_bound, k7_lib, k7_dev, k7_lib_dev, k7_share = train_times["k7"]
     kernels.append({

@@ -256,8 +256,12 @@ def test_eval_takes_the_eval_kernel_whatever_the_grad_mode(models, rng, monkeypa
                                atol=1e-5, rtol=1e-5)
 
 
-def test_configs_from_yaml_match_jax():
-    config = load_config(os.path.join(REPO, "configs_test", "deepfake_exp12_test.yaml"))
+@pytest.mark.parametrize("yaml_path", ["configs_test/deepfake_exp12_test.yaml",
+                                       "configs_train/deepfake_exp10.yaml",
+                                       "configs_train/deepfake_exp5.yaml",
+                                       "configs_train/deepfake_exp13.yaml"])
+def test_configs_from_yaml_match_jax(yaml_path):
+    config = load_config(os.path.join(REPO, yaml_path))
     ours, ref = arch_config_from(config), j_arch_config_from(config)
     for field in ArchConfig.__dataclass_fields__:
         assert getattr(ours, field) == getattr(ref, field), field
@@ -266,9 +270,9 @@ def test_configs_from_yaml_match_jax():
     t_ours, t_ref = port_config.test_config_from(config), j_test_config_from(config)
     for field in TestConfig.__dataclass_fields__:
         assert getattr(t_ours, field) == getattr(t_ref, field), field
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ArchConfig(variant="av_recovery")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="item 10 of ROADMAP"):
+        ArchConfig(variant="plain")
+    with pytest.raises(NotImplementedError, match="item 10 of ROADMAP"):
         ArchConfig(use_rel_pe=True)
 
 
