@@ -31,7 +31,7 @@ from ..core.runtime import entry_device
 from ..models.meta_arch import build_localizer
 from ..pipeline import MediaPipeline, discover_media, run_media_pipeline
 from ..train.preempt import PreemptionGuard
-from .extract_features import VIDEO_ENCODERS, build_extractor, check_video_options
+from .extract_features import VIDEO_ENCODERS, build_extractor, video_chunk_buckets
 from .inference import load_localizer, resolve_checkpoint
 
 
@@ -56,9 +56,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--video-encoder", default="mvit_v2_b", choices=VIDEO_ENCODERS,
                         help="the reference checkpoint's production encoder is mvit_b "
-                             "(video_encoder.py:192); c3d is not ported")
+                             "(video_encoder.py:192)")
     parser.add_argument("--video-chunk-bucketing", action="store_true",
-                        help="not ported: raises")
+                        help="tail chunks at the smallest quarter-of---video-chunk bucket "
+                             ">= their length (off by default: a measured mAP cost)")
     parser.add_argument("--video-chunk", type=int, default=512)
     parser.add_argument("--decode-workers", type=int, default=4,
                         help="host video / audio decode threads")
@@ -74,7 +75,6 @@ def run(args: argparse.Namespace, preempt: Optional[PreemptionGuard] = None) -> 
     """One sweep. ``preempt``: the guard to poll (default: one installed on
     SIGTERM for the run). Returns the summary that ``e2e_summary.json``
     holds (a preempted run writes no file)."""
-    check_video_options(args.video_encoder, args.video_chunk_bucketing)
     device = entry_device(args.device)
     config = load_config(args.config)
     cfg = arch_config_from(config)
@@ -85,8 +85,9 @@ def run(args: argparse.Namespace, preempt: Optional[PreemptionGuard] = None) -> 
     print(f"{len(items)} videos discovered")
 
     fdtype = args.frontend_dtype or config.get("tpu", {}).get("compute_dtype", "float32")
-    extractor = build_extractor(args.video_encoder, args.video_chunk, args.seed, fdtype,
-                                device)
+    extractor = build_extractor(
+        args.video_encoder, args.video_chunk, args.seed, fdtype, device,
+        chunk_buckets=video_chunk_buckets(args.video_chunk, args.video_chunk_bucketing))
     if args.ckpt:
         model = load_localizer(cfg, resolve_checkpoint(args.ckpt), device)
     else:

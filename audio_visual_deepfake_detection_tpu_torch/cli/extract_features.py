@@ -7,13 +7,19 @@
 ``LIST`` holds media paths relative to ``--video-root``, one a line. Each
 file is decoded on the host (``preprocess/``: native libav*, else cv2, else
 ffmpeg), its audio read from ``--wav-root``'s wav of the same relative path
-or decoded from its own track, and its three streams (MViT-v2 video,
-BYOL-A, Emotion2Vec) written as float32 ``.npy`` files under
+or decoded from its own track, and its three streams (the
+``--video-encoder``'s video features: MViT-v2-b by default, as the root
+script, or another MViT-v2 size, or C3D; BYOL-A; Emotion2Vec) written as
+float32 ``.npy`` files under
 ``<output-root>/{align_video,content_audio,emotion_audio}/`` at the file's
 relative path: the caches ``cli/inference.py`` and ``cli/train.py`` read.
 A file whose three caches exist is skipped (``--no-skip-existing`` redoes
 it); a file that fails is logged to ``<output-root>/extract_errors.txt`` and
 the run goes on. Weights are random from ``--seed``.
+``--video-chunk-bucketing`` runs each video's tail chunk at the smallest of
+``(q, 2q, 3q, video_chunk)``, ``q = video_chunk // 4``, at least its length
+(``FeatureExtractor(chunk_buckets=...)``; off by default for its measured
+mAP cost).
 
 The run is on the card unless ``--device cpu`` asks for the CPU.
 """
@@ -22,38 +28,39 @@ from __future__ import annotations
 
 import argparse
 import os
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from ..core.runtime import entry_device
 from ..frontends import mvit
 from ..frontends.pipeline import CACHE_DIR_NAMES, FeatureExtractor
+from ..frontends.video import C3DVideoEncoder, init_c3d
 
 VIDEO_ENCODERS = ("c3d", "mvit_v2_t", "mvit_v2_s", "mvit_v2_b")
-_LATER = "queue 1 item 10 of ROADMAP.md ('The rest')"
 
 
-def check_video_options(video_encoder: str, bucketing: bool) -> None:
-    """The JAX extractor's options the port does not have yet raise."""
-    if video_encoder == "c3d":
-        raise NotImplementedError(f"--video-encoder c3d: the C3D encoder is not ported; "
-                                  f"see {_LATER}")
-    if bucketing:
-        raise NotImplementedError(f"--video-chunk-bucketing: tail-chunk bucketing is not "
-                                  f"ported; see {_LATER}")
+def video_chunk_buckets(video_chunk: int, bucketing: bool) -> Optional[Tuple[int, ...]]:
+    """The root scripts' tail-chunk buckets: quarters of ``video_chunk``."""
+    if not bucketing:
+        return None
+    q = max(video_chunk // 4, 1)
+    return (q, 2 * q, 3 * q, video_chunk)
 
 
 def build_extractor(video_encoder: str, video_chunk: int, seed: int, dtype: str,
-                    device: torch.device) -> FeatureExtractor:
+                    device: torch.device, chunk_buckets=None) -> FeatureExtractor:
     """The three frontends with seeded weights in ``dtype``: the named
-    MViT-v2 over ``video_chunk``-frame chunks, ``AudioNTT2020()`` and
-    Emotion2Vec base."""
-    video = mvit.init_mvit(getattr(mvit, video_encoder)(
-        out_dim=256, temporal_size=video_chunk, dtype=getattr(torch, dtype)), seed,
-        perturb=False)
+    video encoder (C3D, or an MViT-v2 over ``video_chunk``-frame chunks),
+    ``AudioNTT2020()`` and Emotion2Vec base."""
+    cdtype = getattr(torch, dtype)
+    if video_encoder == "c3d":
+        video = init_c3d(C3DVideoEncoder(dtype=cdtype), seed, perturb=False)
+    else:
+        video = mvit.init_mvit(getattr(mvit, video_encoder)(
+            out_dim=256, temporal_size=video_chunk, dtype=cdtype), seed, perturb=False)
     return FeatureExtractor(video_model=video, video_chunk=video_chunk, seed=seed,
-                            compute_dtype=dtype, device=device)
+                            compute_dtype=dtype, device=device, chunk_buckets=chunk_buckets)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -68,9 +75,13 @@ def build_parser() -> argparse.ArgumentParser:
                              "for a clip")
     parser.add_argument("--video-encoder", default="mvit_v2_b", choices=VIDEO_ENCODERS,
                         help="visual backbone; the reference's production extractor is "
-                             "MViT-v2 (video_encoder.py:65-170); c3d is not ported")
+                             "MViT-v2 (video_encoder.py:65-170)")
     parser.add_argument("--video-chunk-bucketing", action="store_true",
-                        help="not ported: raises")
+                        help="run tail video chunks at the smallest quarter-of---video-chunk "
+                             "bucket >= their length (512 -> 128/256/384/512) instead of "
+                             "zero-padding to --video-chunk; C3D features are the same, "
+                             "MViT features differ from the reference's padded-512 quirk; "
+                             "off by default for parity")
     parser.add_argument("--video-chunk", type=int, default=512,
                         help="frames per chunk (reference uses 512)")
     parser.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
@@ -84,12 +95,12 @@ def build_parser() -> argparse.ArgumentParser:
 def run(args: argparse.Namespace) -> Dict:
     """The whole list. Returns the counts of files done, skipped and failed,
     and the failures."""
-    check_video_options(args.video_encoder, args.video_chunk_bucketing)
     device = entry_device(args.device)
     with open(args.file_list) as f:
         rels = [line.strip() for line in f if line.strip()]
-    extractor = build_extractor(args.video_encoder, args.video_chunk, args.seed, args.dtype,
-                                device)
+    extractor = build_extractor(
+        args.video_encoder, args.video_chunk, args.seed, args.dtype, device,
+        chunk_buckets=video_chunk_buckets(args.video_chunk, args.video_chunk_bucketing))
     errors = []
     skipped = 0
     cache_names = tuple(CACHE_DIR_NAMES.values())

@@ -8,12 +8,16 @@ configs are propagated into ``config['model']``), so one YAML file
 configures both packages and gives the same dict. Nothing here imports the
 JAX package.
 
-The port covers the three recovery localizers with the HRLR backbone and
-the FPN neck: ``av_recovery_norecon`` (production), ``av_recovery`` (the
-reconstruction feeds the backbone and an L1 loss) and ``av_recovery_the``
-(frame-level segmentation head). Anything else (``plain``, the legacy
-backbones, identity necks, relative PE, time weighting) raises
-NotImplementedError naming the ROADMAP item that will port it.
+The port covers every variant of the JAX package: the three recovery
+localizers with the HRLR backbone (``av_recovery_norecon``, production;
+``av_recovery``, whose reconstruction feeds the backbone and an L1 loss;
+``av_recovery_the``, with a frame-level segmentation head) and the legacy
+``plain`` ActionFormer family (``AVLocPointTransformer`` /
+``LocPointTransformer``) with the ``convTransformer`` or ``conv`` backbone,
+either neck (``fpn`` or ``identity``), relative position bias and time
+weighting. The recovery variants build the HRLR backbone whatever
+``backbone_type`` says, as the JAX package does. ``scale_factor`` other than 2 raises NotImplementedError: the
+stride-2 block is the only downsampling block the port has.
 """
 
 from __future__ import annotations
@@ -25,8 +29,9 @@ from typing import Any, Dict, Tuple
 
 import yaml
 
-VARIANTS = ("av_recovery_norecon", "av_recovery", "av_recovery_the")
-_LATER = "queue 1 item 10 of ROADMAP.md ('The rest')"
+VARIANTS = ("av_recovery_norecon", "av_recovery", "av_recovery_the", "plain")
+BACKBONES = ("hrlr", "convTransformer", "conv")
+NECKS = ("fpn", "identity")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,16 +72,13 @@ class ArchConfig:
 
     def __post_init__(self):
         if self.variant not in VARIANTS:
+            raise ValueError(f"unknown variant {self.variant!r}")
+        if self.backbone_type not in BACKBONES or self.fpn_type not in NECKS:
+            raise ValueError(f"backbone {self.backbone_type!r} / neck {self.fpn_type!r}: "
+                             f"one of {BACKBONES} / {NECKS}")
+        if self.scale_factor != 2:
             raise NotImplementedError(
-                f"variant {self.variant!r}: only {', '.join(VARIANTS)} are "
-                f"ported; see {_LATER}")
-        if self.backbone_type != "hrlr" or self.fpn_type != "fpn":
-            raise NotImplementedError(
-                f"backbone {self.backbone_type!r} / neck {self.fpn_type!r}: "
-                f"only hrlr + fpn are ported; see {_LATER}")
-        if self.use_rel_pe or self.use_time_weight:
-            raise NotImplementedError(
-                f"use_rel_pe / use_time_weight are not ported; see {_LATER}")
+                f"scale_factor {self.scale_factor}: the port downsamples by 2 only")
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype {self.compute_dtype!r}")
 

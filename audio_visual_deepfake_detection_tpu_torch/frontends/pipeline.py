@@ -4,13 +4,12 @@
 ``FeatureExtractor`` turns raw frames into the per-frame visual features the
 localizer's video stream reads (frames chunked into zero-padded
 ``video_chunk``-frame blocks, normalized, resized to 96x96 when they are not
-already, encoded by MViT-v2 through ``hybrid_apply``), and a 16 kHz waveform
-into the BYOL-A content features (log-mel, then ``AudioNTT2020``; 12.5 rows
-per second, 2048-d) and the Emotion2Vec features (50 rows per second,
-768-d). Its outputs are row-compatible with the JAX package's ``.npy``
-caches, which ``extract_to_cache`` writes for one media file.
-
-Not ported: the opt-in tail-chunk bucketing (ROADMAP queue 1 item 10).
+already, encoded by C3D in groups of chunks or by MViT-v2 through
+``hybrid_apply``), and a 16 kHz waveform into the BYOL-A content features
+(log-mel, then ``AudioNTT2020``; 12.5 rows per second, 2048-d) and the
+Emotion2Vec features (50 rows per second, 768-d). Its outputs are
+row-compatible with the JAX package's ``.npy`` caches, which
+``extract_to_cache`` writes for one media file.
 """
 
 from __future__ import annotations
@@ -20,6 +19,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+from torch import nn
 
 from ..ops.kernels.patch_embed import normalize_u8
 from ..preprocess.video_io import read_video_frames
@@ -28,8 +28,8 @@ from ..runtime import host_media
 from .byola import AudioNTT2020, init_byola
 from .emotion2vec import Emotion2Vec, Emotion2VecConfig, conv_output_length, init_emotion2vec
 from .mel import HOP_LENGTH, byola_log_mel
-from .mvit import MViTVideoEncoder, hybrid_apply, init_mvit, mvit_v2_b
-from .video import bilinear_resize_video, chunk_video
+from .mvit import MViTVideoEncoder, hybrid_apply
+from .video import C3DVideoEncoder, bilinear_resize_video, chunk_video, init_c3d
 
 # Chunks run in groups of this many (the tail group zero-padded): the front
 # stages (patch embed + blocks[:split]) batched across the group, then the
@@ -42,28 +42,58 @@ from .video import bilinear_resize_video, chunk_video
 # TPU measurement.
 FRONT_CHUNK_GROUP = 32
 
+# C3D runs its chunks batched (the JAX extractor's one apply over all
+# chunks), in groups of this many so that peak device memory does not grow
+# with the video's length: one 512-frame chunk holds a 604 MB bf16 activation
+# after its first conv. Chunks are independent, so the groups change no result.
+C3D_CHUNK_GROUP = 8
+
 CACHE_DIR_NAMES = {"video": "align_video", "byola": "content_audio",
                    "emotion": "emotion_audio"}
 
 AUDIO_BUCKET = 16000     # batch wavs are zero-padded to a multiple of one second
 
 
+def _encoder_input(x: torch.Tensor) -> torch.Tensor:
+    """Chunks as the encoders take them: f32 in [0, 1] at 96x96."""
+    x = normalize_u8(x) if x.dtype == torch.uint8 else x.float()
+    if tuple(x.shape[2:4]) != (96, 96):
+        x = bilinear_resize_video(x, (96, 96))
+    return x
+
+
 class FeatureExtractor:
     """The three feature streams on the port's device. Models default to
-    seeded production configurations in ``compute_dtype``: MViT-v2-b (the JAX
-    extractor's default is C3D, which is not ported: ROADMAP queue 1 item
-    10), ``AudioNTT2020()`` and ``Emotion2Vec(emotion_cfg)``. Each default
-    model is built at the first call that needs it. Parameters stay f32 and
-    outputs are f32. ``device`` defaults to that of the first model given,
-    else to the card: a run on the CPU is asked for with ``device="cpu"``,
-    never fallen back to."""
+    seeded production configurations in ``compute_dtype``, as the JAX
+    extractor's do: ``C3DVideoEncoder()``, ``AudioNTT2020()`` and
+    ``Emotion2Vec(emotion_cfg)``. Each default model is built at the first
+    call that needs it. Parameters stay f32 and outputs are f32. ``device``
+    defaults to that of the first model given, else to the card: a run on
+    the CPU is asked for with ``device="cpu"``, never fallen back to.
 
-    def __init__(self, video_model: Optional[MViTVideoEncoder] = None,
+    ``chunk_buckets`` (opt-in, e.g. (128, 256, 384, 512)): a video's full
+    ``video_chunk`` blocks run as they are and its tail at the smallest
+    bucket at least its length, instead of zero-padded to ``video_chunk``
+    (the reference's padding). C3D's features are the same either way to
+    rounding only with zero conv biases (a fresh init) and a bucket that
+    leaves at least 4 zero frames after the tail: the 8 temporal convs carry
+    the tail's last frames into the padding and the bucket's end back, so
+    with fewer the tail's last rows move (up to ~1e-2 at 0-2 frames, ~1e-4
+    at 3, ``tests/test_torch_c3d.py``), and with nonzero biases a padded
+    frame's activations are not zero at all. MViT's differ (its attention
+    normalizes over fewer pad tokens).
+    Its measured cost on the JAX package (BENCH_NOTES round 5,
+    ``tools/bucket_ap.py``): -2.8 avg mAP through a localizer trained on
+    padded features, and 7-10 avg mAP below them for one trained on bucketed
+    features (2 seeds), so it is off by default."""
+
+    def __init__(self, video_model: Optional[nn.Module] = None,
                  video_chunk: int = 512, seed: int = 0,
                  compute_dtype: str = "float32", device=None,
                  byola_model: Optional[AudioNTT2020] = None,
                  emotion_model: Optional[Emotion2Vec] = None,
-                 emotion_cfg: Emotion2VecConfig = Emotion2VecConfig()):
+                 emotion_cfg: Emotion2VecConfig = Emotion2VecConfig(),
+                 chunk_buckets: Optional[Sequence[int]] = None):
         self.dtype = getattr(torch, compute_dtype)
         given = next((m for m in (video_model, byola_model, emotion_model)
                       if m is not None), None)
@@ -76,13 +106,14 @@ class FeatureExtractor:
         self._models = {"video": video_model, "byola": byola_model, "emotion": emotion_model}
         self._seed, self._emotion_cfg = seed, emotion_cfg
         self.video_chunk = video_chunk
+        self.chunk_buckets = tuple(sorted(chunk_buckets)) if chunk_buckets else None
 
     def _model(self, which: str):
         """The stream's model on the device, built on first use."""
         if self._models[which] is None:
             self._models[which] = {
-                "video": lambda: init_mvit(mvit_v2_b(dtype=self.dtype), self._seed,
-                                           perturb=False),
+                "video": lambda: init_c3d(C3DVideoEncoder(dtype=self.dtype), self._seed,
+                                          perturb=False),
                 "byola": lambda: init_byola(AudioNTT2020(dtype=self.dtype), self._seed,
                                             perturb=False),
                 "emotion": lambda: init_emotion2vec(
@@ -95,7 +126,7 @@ class FeatureExtractor:
         return model.eval()
 
     @property
-    def video_model(self) -> MViTVideoEncoder:
+    def video_model(self) -> nn.Module:
         return self._model("video")
 
     @property
@@ -110,31 +141,47 @@ class FeatureExtractor:
 
     def video_features(self, frames: np.ndarray) -> np.ndarray:
         """(T, H, W, 3) -> (T, D). uint8 frames are normalized /255, float
-        frames are taken as already in [0, 1]."""
+        frames are taken as already in [0, 1]. With ``chunk_buckets`` the
+        tail block runs at its bucket's length (one encoder call a block)."""
         norm = (frames.astype(np.float32) / 255.0 if frames.dtype == np.uint8
                 else np.asarray(frames, np.float32))
-        chunks, t = chunk_video(norm, self.video_chunk)
-        feats = self.video_chunks_features(chunks)
-        return feats.reshape(-1, feats.shape[-1])[:t]
+        if not self.chunk_buckets:
+            chunks, t = chunk_video(norm, self.video_chunk)
+            feats = self.video_chunks_features(chunks)
+            return feats.reshape(-1, feats.shape[-1])[:t]
+        out, pos, t = [], 0, frames.shape[0]
+        while pos < t:
+            rem = t - pos
+            size = self.video_chunk if rem >= self.video_chunk else next(
+                (b for b in self.chunk_buckets if b >= rem), self.video_chunk)
+            n = min(rem, size)
+            block = np.zeros((size,) + norm.shape[1:], np.float32)
+            block[:n] = norm[pos:pos + n]
+            out.append(self.video_chunks_features(block[None])[0, :n])
+            pos += n
+        return np.concatenate(out, axis=0)
 
     def video_chunks_features(self, chunks) -> np.ndarray:
         """(N, chunk, H, W, 3) float [0, 1] or uint8 -> (N, chunk, D) f32.
-        uint8 chunks are copied as they are; at 96x96 they go to the patch
-        embed as they are, which normalizes them (x 1/255 in f32, as the JAX
-        pipeline does before its encoder); other sizes are normalized and
-        resized on the device first."""
+        uint8 chunks are copied as they are. MViT: at 96x96 they go to the
+        patch embed as they are, which normalizes them (x 1/255 in f32, as
+        the JAX pipeline does before its encoder); other sizes are
+        normalized and resized on the device first. C3D: each group of
+        ``C3D_CHUNK_GROUP`` chunks is normalized, resized where needed and
+        encoded in one batch."""
         return self.video_chunks_features_device(chunks).cpu().numpy()
 
     @torch.no_grad()
     def video_chunks_features_device(self, chunks) -> torch.Tensor:
         """As ``video_chunks_features``, leaving the features on the device."""
         x = torch.as_tensor(chunks).to(self.device)
-        if x.dtype != torch.uint8 or tuple(x.shape[2:4]) != (96, 96):
-            x = normalize_u8(x) if x.dtype == torch.uint8 else x.float()
-            if tuple(x.shape[2:4]) != (96, 96):
-                x = bilinear_resize_video(x, (96, 96))
-        return hybrid_apply(self.video_model, x, front_group=FRONT_CHUNK_GROUP,
-                            batched_back=True)
+        model = self.video_model
+        if isinstance(model, MViTVideoEncoder):
+            if x.dtype != torch.uint8 or tuple(x.shape[2:4]) != (96, 96):
+                x = _encoder_input(x)
+            return hybrid_apply(model, x, front_group=FRONT_CHUNK_GROUP, batched_back=True)
+        return torch.cat([model(_encoder_input(x[i:i + C3D_CHUNK_GROUP]))
+                          for i in range(0, x.shape[0], C3D_CHUNK_GROUP)])
 
     # ---------------------------------------------------------------- audio
 

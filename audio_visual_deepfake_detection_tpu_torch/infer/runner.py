@@ -50,9 +50,17 @@ def build_inference_fn(cfg: ArchConfig, test_cfg: TestConfig):
         segs, scores, cls_idxs, valid = decode_and_postprocess(
             out, points, fps, duration, feat_stride, feat_num_frames,
             test_cfg, cfg.num_classes)
-        return segs, scores, cls_idxs, valid, out["cls_scores"]
+        return segs, scores, cls_idxs, valid, video_logits(out, feats.shape[0], dev)
 
     return fn
+
+
+def video_logits(out, b: int, device) -> torch.Tensor:
+    """The model's video logit (B, 1), or zeros (B, 1) f32 for a model
+    without a video classifier (``plain``), as the JAX runner gives."""
+    if "cls_scores" in out:
+        return out["cls_scores"]
+    return torch.zeros((b, 1), dtype=torch.float32, device=device)
 
 
 def build_online_inference_fn(cfg: ArchConfig, test_cfg: TestConfig,
@@ -88,7 +96,7 @@ def build_online_inference_fn(cfg: ArchConfig, test_cfg: TestConfig,
         segs, scores, cls_idxs, valid = decode_and_postprocess(
             out, points, fps, duration, feat_stride, feat_stride,
             test_cfg, cfg.num_classes)
-        return segs, scores, cls_idxs, valid, out["cls_scores"]
+        return segs, scores, cls_idxs, valid, video_logits(out, feats.shape[0], dev)
 
     return fn
 

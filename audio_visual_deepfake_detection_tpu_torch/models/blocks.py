@@ -12,7 +12,12 @@ loads as it is. ``TransformerBlock`` dispatches as the JAX block does
   K6, ``fused_transformer_block_train``, with stochastic depth folded into
   per-sample coefficients;
 - training with ``dropout > 0``: the unfused block (``ConvAttention`` with
-  banded attention K7 or dense attention, the MLP, ``AffineDropPath``).
+  banded attention K7 or dense attention, the MLP, ``AffineDropPath``);
+- a block with a relative position bias or time weighting
+  (``use_rel_pe`` / ``use_time_weight``), in eval and in training, banded or
+  dense: the unfused block, its banded attention the plain
+  ``band_attention_xla`` (the JAX ``fused_mode`` and ``fused_train_eligible``
+  both exclude these blocks, and the JAX package has no kernel for them).
 
 On the CPU each kernel runs its plain version. Randomness (stochastic depth,
 dropout) comes from an explicit ``torch.Generator``: the numbers are drawn on
@@ -123,15 +128,32 @@ class Scale(nn.Module):
         return x * self.scale.to(x.dtype)
 
 
+REL_PE_STD = 0.87962566103423978    # std of N(0, 1) truncated to +-2 (flax's truncated_normal)
+
+
+def init_rel_pe(p: torch.Tensor, n_embd: int, generator=None) -> torch.Tensor:
+    """flax ``truncated_normal(stddev=sqrt(2 / C))``: N(0, 1) truncated to
+    +-2, scaled to that std."""
+    s = (2.0 / n_embd) ** 0.5 / REL_PE_STD
+    return nn.init.trunc_normal_(p, std=s, a=-2.0 * s, b=2.0 * s, generator=generator)
+
+
 class ConvAttention(nn.Module):
     """The reference attention: depthwise k3 q/k/v convs (the query conv
     uses the kv stride, a reference quirk), their channel LNs, 1x1-conv q/k/v
     projections, banded (``window_size > 1``) or dense attention, the output
     projection and its dropout. The fused kernels read these parameters
-    through ``pack_block_params``; ``forward`` is the unfused path."""
+    through ``pack_block_params``; ``forward`` is the unfused path.
+
+    A banded block can hold ``rel_pe``, a bias added to the scores of each
+    head and offset (truncated normal, std sqrt(2 / C)), and
+    ``time_weighting``, a factor on each head's and offset's attention
+    weight (ones), in the reference's shapes (1, 1, H, W) and (1, H, W);
+    the JAX package holds both as (H, W)."""
 
     def __init__(self, n_embd: int, n_head: int, window_size: int = -1,
-                 stride: int = 1, proj_pdrop: float = 0.0):
+                 stride: int = 1, proj_pdrop: float = 0.0, use_rel_pe: bool = False,
+                 use_time_weight: bool = False):
         super().__init__()
         self.n_head, self.window_size, self.proj_pdrop = n_head, window_size, proj_pdrop
         k = stride + 1 if stride > 1 else 3
@@ -142,6 +164,12 @@ class ConvAttention(nn.Module):
             setattr(self, f"{name}_norm", ChannelLayerNorm(n_embd))
         for name in ("query", "key", "value", "proj"):
             setattr(self, name, nn.Conv1d(n_embd, n_embd, 1))
+        self.rel_pe = self.time_weighting = None
+        if window_size > 1 and use_rel_pe:
+            self.rel_pe = nn.Parameter(init_rel_pe(
+                torch.empty(1, 1, n_head, window_size), n_embd))
+        if window_size > 1 and use_time_weight:
+            self.time_weighting = nn.Parameter(torch.ones(1, n_head, window_size))
 
     def forward(self, x_q, mask_q, x_k, mask_k, x_v, mask_v, train: bool = False,
                 generator: Optional[torch.Generator] = None):
@@ -160,7 +188,10 @@ class ConvAttention(nn.Module):
         q, k, v = to_heads(q), to_heads(k), to_heads(v)
         q = q * (1.0 / math.sqrt(d_head))
         if self.window_size > 1:
-            out = band_attention(q, k, v, kv_mask, self.window_size // 2)
+            hw = (self.n_head, self.window_size)
+            rel_pe = None if self.rel_pe is None else self.rel_pe.reshape(hw)
+            tw = None if self.time_weighting is None else self.time_weighting.reshape(hw)
+            out = band_attention(q, k, v, kv_mask, self.window_size // 2, rel_pe, tw)
         else:
             out = full_attention(q, k, v, kv_mask)
         out = out.transpose(1, 2).reshape(b, out.shape[2], c)
@@ -176,7 +207,8 @@ class TransformerBlock(nn.Module):
 
     def __init__(self, n_embd: int, n_head: int, ds_stride: int = 1,
                  window_size: int = -1, cross: bool = False,
-                 proj_pdrop: float = 0.0, path_pdrop: float = 0.0):
+                 proj_pdrop: float = 0.0, path_pdrop: float = 0.0,
+                 use_rel_pe: bool = False, use_time_weight: bool = False):
         super().__init__()
         if not (window_size > 1 or window_size == -1):
             raise NotImplementedError(
@@ -187,13 +219,15 @@ class TransformerBlock(nn.Module):
         self.n_embd, self.n_head = n_embd, n_head
         self.ds_stride, self.window_size, self.cross = ds_stride, window_size, cross
         self.proj_pdrop, self.path_pdrop = proj_pdrop, path_pdrop
+        self.rel_or_time = use_rel_pe or use_time_weight
         if cross:
             self.lnq = ChannelLayerNorm(n_embd)
             self.lnk = ChannelLayerNorm(n_embd)
             self.lnv = ChannelLayerNorm(n_embd)
         else:
             self.ln1 = ChannelLayerNorm(n_embd)
-        self.attn = ConvAttention(n_embd, n_head, window_size, ds_stride, proj_pdrop)
+        self.attn = ConvAttention(n_embd, n_head, window_size, ds_stride, proj_pdrop,
+                                  use_rel_pe, use_time_weight)
         self.drop_path_attn = AffineDropPath(n_embd, path_pdrop)
         self.ln2 = ChannelLayerNorm(n_embd)
         # the reference's MLP: its two 1x1 convs are mlp.0 and mlp.3
@@ -230,9 +264,11 @@ class TransformerBlock(nn.Module):
             p.requires_grad for p in self.parameters())
 
     def uses_unfused(self, train: bool) -> bool:
-        """Dropout inside the block is the one thing the fused kernels do not
-        cover (JAX ``fused_train_eligible``)."""
-        return train and self.proj_pdrop > 0.0
+        """The fused kernels cover neither dropout inside the block in
+        training nor a relative position bias or time weighting at all (JAX
+        ``fused_train_eligible`` and ``fused_mode``); set either flag and
+        every block of the model is unfused, dense ones too, as in JAX."""
+        return self.rel_or_time or (train and self.proj_pdrop > 0.0)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
                 xo: Optional[torch.Tensor] = None, mode: Optional[str] = None,
@@ -287,6 +323,28 @@ class TransformerBlock(nn.Module):
         h = dropout(h, self.proj_pdrop, train, generator)
         out = out + self.drop_path_mlp(h * mf, train, generator)
         return out, out_mask
+
+
+class ConvBlock(nn.Module):
+    """ResNet-style masked block of the pure-conv backbone (JAX
+    ``models/backbones.py::ConvBlock``): ``conv1`` (k, stride ``ds_stride``,
+    to 2C), ReLU, ``conv2`` (k, back to C), plus the input, or with a stride
+    its 1x1 stride-s ``downsample``, then ReLU."""
+
+    def __init__(self, n_embd: int, kernel_size: int = 3, ds_stride: int = 1,
+                 expansion_factor: int = 2):
+        super().__init__()
+        width = n_embd * expansion_factor
+        self.conv1 = MaskedConv1D(n_embd, width, kernel_size, stride=ds_stride)
+        self.conv2 = MaskedConv1D(width, n_embd, kernel_size)
+        self.downsample = MaskedConv1D(n_embd, n_embd, 1, stride=ds_stride) \
+            if ds_stride > 1 else None
+
+    def forward(self, x, mask):
+        out, out_mask = self.conv1(x, mask)
+        out, out_mask = self.conv2(torch.relu(out), out_mask)
+        identity = x if self.downsample is None else self.downsample(x, mask)[0]
+        return torch.relu(out + identity), out_mask
 
 
 class DownBlock(nn.Module):

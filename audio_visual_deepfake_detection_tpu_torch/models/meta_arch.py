@@ -1,13 +1,17 @@
-"""The recovery localizers (JAX ``models/meta_arch.py:111-203``): a
-recovery module, the HRLR backbone, FPN neck, classification and regression
-heads. ``av_recovery_norecon`` (production) and ``av_recovery`` hold the
-DeepInterpolator video classifier, ``av_recovery`` also its expansion,
-whose reconstruction is the backbone's k-stream and the target of an L1
-loss; ``av_recovery_the`` holds ``SegmentAndCls`` (frame logits and a video
-logit) under the reference's name ``segmentandCls``. And what training adds
-around them (``meta_arch.py:210-351``): the batched label assignment
-``label_points``, ``compute_losses`` with its loss-normalizer EMA, and the
-point table ``model_points``."""
+"""The localizers (JAX ``models/meta_arch.py:111-203``): the three recovery
+variants with the HRLR backbone and the FPN neck, ``av_recovery_norecon``
+(production) and ``av_recovery`` holding the DeepInterpolator video
+classifier, ``av_recovery`` also its expansion, whose reconstruction is the
+backbone's k-stream and the target of an L1 loss; ``av_recovery_the``
+holding ``SegmentAndCls`` (frame logits and a video logit) under the
+reference's name ``segmentandCls``; and the legacy ``plain`` ActionFormer
+(``AVLocPointTransformer`` / ``LocPointTransformer``): no recovery module
+and no video logit, the ``convTransformer`` or ``conv`` backbone and the
+``fpn`` or ``identity`` neck. Each ends in the classification and
+regression heads. And what training adds around them
+(``meta_arch.py:210-351``): the batched label assignment ``label_points``,
+``compute_losses`` with its loss-normalizer EMA, and the point table
+``model_points``."""
 
 from __future__ import annotations
 
@@ -17,11 +21,12 @@ import torch
 from torch import nn
 
 from ..core.config import ArchConfig
-from .backbones import HRLRBackbone
-from .blocks import AffineDropPath, DeepInterpolator, Scale, SegmentAndCls
+from .backbones import ConvBackbone, ConvTransformerBackbone, HRLRBackbone
+from .blocks import AffineDropPath, ConvAttention, DeepInterpolator, Scale, SegmentAndCls, \
+    init_rel_pe
 from .heads import ClsHead, RegHead, init_cls_prior
 from .losses import ctr_diou_loss_1d, sigmoid_focal_loss
-from .necks import FPN1D
+from .necks import FPN1D, FPNIdentity
 from .points import generate_points
 from ..ops.norm import ChannelLayerNorm
 
@@ -35,18 +40,28 @@ class AVLocalizer(nn.Module):
         if cfg.variant == "av_recovery_the":
             # the reference's attribute name, so the state-dict names stay its own
             self.segmentandCls = SegmentAndCls(cfg.input_dim, num_classes=cfg.num_classes)
-        else:
+        elif cfg.variant != "plain":
             self.interpolator = DeepInterpolator(
                 cfg.input_dim, cfg.embd_dim, cfg.num_classes,
                 with_reconstruction=cfg.variant == "av_recovery")
-        self.backbone = HRLRBackbone(
-            cfg.input_dim, cfg.embd_dim, cfg.n_head, cfg.embd_kernel_size,
-            cfg.max_seq_len, cfg.arch, cfg.mha_win_size, cfg.scale_factor,
-            cfg.embd_with_ln, cfg.use_abs_pe, proj_pdrop=cfg.dropout,
-            path_pdrop=cfg.droppath, remat=cfg.remat)
-        n_levels = cfg.arch[2] + 1
-        self.neck = FPN1D(cfg.embd_dim, cfg.fpn_dim, n_levels, cfg.fpn_with_ln,
-                          cfg.fpn_start_level)
+        blocks = dict(proj_pdrop=cfg.dropout, path_pdrop=cfg.droppath,
+                      use_rel_pe=cfg.use_rel_pe, use_time_weight=cfg.use_time_weight)
+        if cfg.variant != "plain":
+            self.backbone = HRLRBackbone(
+                cfg.input_dim, cfg.embd_dim, cfg.n_head, cfg.embd_kernel_size,
+                cfg.max_seq_len, cfg.arch, cfg.mha_win_size, cfg.scale_factor,
+                cfg.embd_with_ln, cfg.use_abs_pe, remat=cfg.remat, **blocks)
+        elif cfg.backbone_type == "conv":
+            self.backbone = ConvBackbone(cfg.input_dim, cfg.embd_dim, cfg.embd_kernel_size,
+                                         cfg.arch, cfg.scale_factor, cfg.embd_with_ln)
+        else:
+            self.backbone = ConvTransformerBackbone(
+                cfg.input_dim, cfg.embd_dim, cfg.n_head, cfg.embd_kernel_size,
+                cfg.max_seq_len, cfg.arch, cfg.mha_win_size, cfg.scale_factor,
+                cfg.embd_with_ln, cfg.use_abs_pe, **blocks)
+        neck = FPN1D if cfg.fpn_type == "fpn" else FPNIdentity
+        self.neck = neck(cfg.embd_dim, cfg.fpn_dim, cfg.arch[2] + 1, cfg.fpn_with_ln,
+                         cfg.fpn_start_level)
         self.cls_head = ClsHead(cfg.fpn_dim, cfg.num_classes, cfg.head_dim,
                                 cfg.head_num_layers, cfg.head_kernel_size,
                                 cfg.head_with_ln)
@@ -72,25 +87,30 @@ class AVLocalizer(nn.Module):
         path: the K6 ``autograd.Function``, its parameters packed anew on
         every call.
 
-        Outputs: ``out_cls``, ``out_offsets``, ``fpn_masks``, ``cls_scores``;
-        ``av_recovery`` adds ``reco`` and ``norm_inputs`` (the inputs without
-        gradient), ``av_recovery_the`` adds ``seg_scores`` (B, T)."""
+        Outputs: ``out_cls``, ``out_offsets``, ``fpn_masks``; every variant
+        but ``plain`` adds the video logit ``cls_scores``; ``av_recovery``
+        adds ``reco`` and ``norm_inputs`` (the inputs without gradient),
+        ``av_recovery_the`` adds ``seg_scores`` (B, T)."""
         feats = feats.to(self.compute_dtype)
         out: Dict[str, Any] = {}
-        reco = None
-        if self.cfg.variant == "av_recovery_the":
-            _, seg_scores, cls_scores = self.segmentandCls(feats, mask, train, generator)
-            out["seg_scores"] = seg_scores.float()
+        variant = self.cfg.variant
+        if variant == "plain":
+            bb_feats, bb_masks = self.backbone(feats, mask, train, generator)
         else:
-            norm_x, reco, cls_scores = self.interpolator(feats, mask, train, generator)
-            if reco is not None:
-                out["reco"], out["norm_inputs"] = reco.float(), norm_x.float()
-        bb_feats, bb_masks = self.backbone(feats, mask, train, generator, reco_x=reco)
+            reco = None
+            if variant == "av_recovery_the":
+                _, seg_scores, cls_scores = self.segmentandCls(feats, mask, train, generator)
+                out["seg_scores"] = seg_scores.float()
+            else:
+                norm_x, reco, cls_scores = self.interpolator(feats, mask, train, generator)
+                if reco is not None:
+                    out["reco"], out["norm_inputs"] = reco.float(), norm_x.float()
+            out["cls_scores"] = cls_scores.float()
+            bb_feats, bb_masks = self.backbone(feats, mask, train, generator, reco_x=reco)
         fpn_feats, fpn_masks = self.neck(bb_feats, bb_masks)
         out_cls = self.cls_head(fpn_feats, fpn_masks)
         out_offsets = self.reg_head(fpn_feats, fpn_masks)
-        out.update(cls_scores=cls_scores.float(),
-                   out_cls=[o.float() for o in out_cls],
+        out.update(out_cls=[o.float() for o in out_cls],
                    out_offsets=[o.float() for o in out_offsets],
                    fpn_masks=fpn_masks)
         return out
@@ -100,9 +120,10 @@ class AVLocalizer(nn.Module):
 def init_localizer(model: AVLocalizer, generator: Optional[torch.Generator] = None):
     """Seeded fresh init with the JAX package's rules: conv / linear weights
     Uniform(+-1/sqrt(fan_in)) (the torch default), zero biases, LN affines
-    1/0, layer scales 1e-4, head scales 1, focal-prior classifier bias. A
-    transposed conv's bound is torch's default too, from its ``(in, out,
-    k)`` weight's fan-in ``out * k``."""
+    1/0, layer scales 1e-4, head scales 1, focal-prior classifier bias,
+    relative position biases truncated normal (std sqrt(2 / C)), time
+    weights 1. A transposed conv's bound is torch's default too, from its
+    ``(in, out, k)`` weight's fan-in ``out * k``."""
     for m in model.modules():
         if isinstance(m, (nn.Conv1d, nn.Linear, nn.ConvTranspose1d)):
             bound = 1.0 / float(m.weight[0].numel()) ** 0.5
@@ -116,6 +137,11 @@ def init_localizer(model: AVLocalizer, generator: Optional[torch.Generator] = No
             m.scale.fill_(1e-4)
         elif isinstance(m, Scale):
             m.scale.fill_(1.0)
+        elif isinstance(m, ConvAttention):
+            if m.rel_pe is not None:
+                init_rel_pe(m.rel_pe, m.query.weight.shape[0], generator)
+            if m.time_weighting is not None:
+                m.time_weighting.fill_(1.0)
     init_cls_prior(model.cls_head, model.cfg.cls_prior_prob, model.cfg.head_empty_cls)
     return model
 
@@ -183,7 +209,9 @@ def compute_losses(outputs: Dict[str, Any], gt_cls: torch.Tensor, gt_offsets: to
     ``update_loss_normalizer(loss_normalizer, num_pos)`` as the new state.
     ``row_valid`` (B,) bool takes padding rows of the batch out of the
     video-level loss; their point-level losses vanish through the all-False
-    masks of such rows. All in f32.
+    masks of such rows. All in f32. The video-level ``reco_cls_loss`` (its
+    ``0.1 *`` in ``final_loss``) needs ``cls_scores``: a ``plain`` model has
+    none, and so no such loss.
 
     ``variant="av_recovery"`` adds ``reco_loss``, the mean |reco -
     norm_inputs| of each real (no-GT) row averaged over those rows, to
@@ -226,10 +254,12 @@ def compute_losses(outputs: Dict[str, Any], gt_cls: torch.Tensor, gt_offsets: to
         weight = terms[0] / torch.clamp(terms[1], min=0.01)
     final = cls_loss + reg_loss * weight
 
-    video_gt = has_gt.float()[:, None]
-    reco_cls = (sigmoid_focal_loss(outputs["cls_scores"], video_gt) * row_f32[:, None]).sum()
-    losses["reco_cls_loss"] = reco_cls
-    final = final + 0.1 * reco_cls
+    if "cls_scores" in outputs:      # every variant but plain
+        video_gt = has_gt.float()[:, None]
+        reco_cls = (sigmoid_focal_loss(outputs["cls_scores"], video_gt)
+                    * row_f32[:, None]).sum()
+        losses["reco_cls_loss"] = reco_cls
+        final = final + 0.1 * reco_cls
 
     if variant == "av_recovery" and outputs.get("reco") is not None:
         real = (~has_gt).float() * row_f32

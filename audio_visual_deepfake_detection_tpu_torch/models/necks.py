@@ -1,4 +1,5 @@
-"""1-D feature pyramid neck (JAX ``models/necks.py::FPN1D``)."""
+"""The necks (JAX ``models/necks.py``): the 1-D feature pyramid ``FPN1D`` and
+the per-level LayerNorm ``FPNIdentity`` of the legacy localizers."""
 
 from __future__ import annotations
 
@@ -42,3 +43,23 @@ class FPN1D(nn.Module):
             feats.append(self.fpn_norms[i](x))
             out_masks.append(m)
         return feats, out_masks
+
+
+class FPNIdentity(nn.Module):
+    """Each level's features through its own channel LN (``fpn_norms.{i}``),
+    or as they are without LN; the masks pass through."""
+
+    def __init__(self, in_channels: int, out_channel: int, n_levels: int,
+                 with_ln: bool = True, start_level: int = 0):
+        super().__init__()
+        if in_channels != out_channel:
+            raise ValueError(f"identity neck: {in_channels} channels in, {out_channel} out")
+        self.start_level = start_level
+        self.fpn_norms = nn.ModuleList(
+            ChannelLayerNorm(out_channel) if with_ln else nn.Identity()
+            for _ in range(n_levels - start_level))
+
+    def forward(self, inputs: Sequence[torch.Tensor], masks: Sequence[torch.Tensor]):
+        s = self.start_level
+        return ([norm(inputs[i + s]) for i, norm in enumerate(self.fpn_norms)],
+                [masks[i + s] for i in range(len(self.fpn_norms))])

@@ -232,6 +232,13 @@ class MediaPipeline:
         """The three frontends over one batch of videos -> per-video
         localizer samples {video_id, streams, duration}."""
         t0 = time.perf_counter()
+        if self.extractor.chunk_buckets:
+            # bucketed tail chunks (opt-in): each video on its own, so each
+            # tail runs at its own bucket's length (FeatureExtractor)
+            video_rows = [self.extractor.video_features(it.frames) for it in decoded]
+            samples = self._assemble_samples(decoded, video_rows)
+            self._add("frontends_s", time.perf_counter() - t0)
+            return samples
         # video: every video's chunks stacked into one encoder call (the
         # reference batches chunks through a bs=10 DataLoader,
         # extract_video_features.py:128-137)

@@ -11,6 +11,14 @@ a state dict under the original torch repo's names, in torch layouts:
   q/k/v/proj, the MLP, the recovery module's ``conv0``)
 - Linear ``(out, in)``             <- flax dense ``(in, out)``
 - LayerNorm / layer scale ``(C,)``, head scales ``()``
+- relative position bias ``(1, 1, H, W)`` and time weighting ``(1, H, W)``
+  <- flax ``(H, W)`` (the reference's shapes; JAX ``convert_torch.py``
+  squeezes them back)
+
+The legacy backbones' trees map too: the per-stream projections
+``embed/proj_{i}`` to ``backbone.proj.{i}``, the conv backbone's
+``ConvBlock``s ``stem_{i}`` / ``branch_{i}`` with ``conv1`` / ``conv2`` /
+``downsample``, and the identity neck's ``fpn_norm_{i}``.
 
 The names are the ones the JAX package's ``tools/convert_torch.py::_ref_name``
 maps to (the THE variant's recovery module, ``interpolator`` in flax, under
@@ -70,6 +78,8 @@ def _block(prefix: str, rest: Tuple[str, ...]) -> Tuple[str, str]:
         if sub in ("query", "key", "value", "proj"):
             return f"{prefix}.attn.{sub}.{_wb(leaf)}", \
                 "conv1x1" if leaf == "kernel" else "vec"
+        if sub in ("rel_pe", "time_weighting"):
+            return f"{prefix}.attn.{sub}", sub
     raise KeyError(f"unmapped block param {prefix} {rest}")
 
 
@@ -103,11 +113,17 @@ def torch_name(path: Tuple[str, ...]) -> Tuple[str, str]:
             m = re.fullmatch(r"embd_norm_(\d+)", p[2])
             if m:
                 return f"backbone.embd_norm.{m.group(1)}.{leaf}", "vec"
+            m = re.fullmatch(r"proj_(\d+)", p[2])
+            if m:
+                return f"backbone.proj.{m.group(1)}.conv.{_wb(leaf)}", conv
         if name == "res_self_attn":
             return _block("backbone.resselfattention", p[2:])
         m = re.fullmatch(r"(stem|branch|lh_branch|hh_branch)_(\d+)", name)
         if m:
-            return _block(f"backbone.{m.group(1)}.{m.group(2)}", p[2:])
+            pre = f"backbone.{m.group(1)}.{m.group(2)}"
+            if p[2] in ("conv1", "conv2", "downsample"):        # the conv backbone's ConvBlock
+                return f"{pre}.{p[2]}.conv.{_wb(leaf)}", conv
+            return _block(pre, p[2:])
     elif p[0] == "neck":
         for pat, ref in ((r"lateral_(\d+)", "lateral_convs"),
                          (r"fpn_conv_(\d+)", "fpn_convs")):
@@ -142,6 +158,8 @@ _LAYOUT = {
     # BYOL-A: flax NHWC conv over (time, mel) -> torch's (out, in, mel, time)
     "conv2d_tm": lambda w: np.transpose(w, (3, 2, 1, 0)),
     "vec": lambda w: w,
+    "rel_pe": lambda w: np.reshape(w, (1, 1) + w.shape),    # (H, W) -> (1, 1, H, W)
+    "time_weighting": lambda w: np.reshape(w, (1,) + w.shape),   # (H, W) -> (1, H, W)
 }
 
 

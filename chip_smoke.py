@@ -172,7 +172,30 @@ Phases (any failure exits nonzero):
              else, finite losses, the variant's own loss logged, final_loss
              the sum without reco_seg_loss, rank 0's checkpoint; then
              cli/validate.py with it over 32 labelled videos: K1 18 a forward,
-             a finite mAP. ms a step, samples/s, peak GiB and eval videos/s.
+             a finite mAP. ms a step, samples/s, peak GiB and eval videos/s;
+17. legacy - the legacy localizer family, C3D and the small MViT-v2 sizes:
+             configs_train/deepfake_exp10.yaml as AVLocPointTransformer
+             (ConvTransformer backbone, identity neck; 3072-d input, C=256,
+             4 heads, T=768, arch (2, 2, 5), windows (7,7,7,7,7,-1), abs PE)
+             through the port's loader, seeded weights: an eval forward at
+             B=16, f32 card vs CPU (out_cls, out_offsets 1e-4; detections at
+             phase 14's rule; video_cls zeros: no video classifier), bf16 K1
+             7 launches and held to the plain blocks on the card
+             (check_bf16); cli/train.py in bf16 at B=50 over 100 seeded
+             videos (K6 7 a step, no reco_cls_loss), cli/validate.py over 32
+             (K1 7 a forward, video_cls all zero, a finite mAP). The conv
+             backbone with the FPN neck and the plain config with relative
+             PE: a forward (f32 card vs CPU) and an f32 step at B=5, K1, K6
+             and K7 at 0 (rel-PE: the step card vs CPU too). C3D through
+             cli/extract_features.py --video-encoder c3d over 16 cv2-written
+             mp4s of 240 frames with 9.6 s wavs: bf16 and f32 caches of 240
+             rows, f32 --video-chunk-bucketing within 1e-3 of the padded
+             features, the production C3D f32 card vs CPU on 2 chunks of 16
+             frames (1e-4), videos/s and peak memory of the c3d and
+             mvit_v2_b extractors side by side. mvit_v2_t and mvit_v2_s: 2
+             chunks of 512 frames bf16 with K2, K3 and K4 launched, held to
+             the plain versions on the card, f32 card vs CPU on 2 chunks of
+             32 frames.
 
 The card's name and power limit, then a JSON object with the kernels'
 launches, errors and times, are the two lines before the last; the last
@@ -4715,6 +4738,542 @@ def phase_variants(dev="cuda", configs=VARIANT_CONFIGS, overrides=None, eval_b=1
     return report
 
 
+# ------------------------------------------------------------ the legacy family and C3D
+
+# configs_train/deepfake_exp10.yaml as the legacy ActionFormer localizer
+# (AVLocPointTransformer): the same streams, widths, windows, abs PE and
+# batch, with the ConvTransformer backbone and the identity neck
+LEGACY_PLAIN = {"model_name": "AVLocPointTransformer",
+                "model": {"backbone_type": "convTransformer", "fpn_type": "identity"}}
+# the two other legacy configs, each a forward and a step: the pure-conv
+# backbone with the FPN neck, and the plain config with relative PE
+LEGACY_OTHERS = (("conv-fpn", {"model": {"backbone_type": "conv", "fpn_type": "fpn"}}),
+                 ("rel-pe", {"model": {"use_rel_pe": True}}))
+LEGACY_VIDEOS = 100                   # cli/train.py: 2 iterations at the config's B=50
+C3D_MP4S = 16                         # cv2-written mp4s through cli/extract_features.py
+C3D_BUCKET_TOL = 1e-3                 # tests/test_video_frontend.py's, f32
+MVIT_SMALL = ("mvit_v2_t", "mvit_v2_s")
+
+
+def c3d_flops(t, n_features=(64, 96, 128, 128), out_dim=256):
+    """Operations of one C3D chunk of ``t`` 96x96 frames: the eight k3 Conv3d
+    at their grids (96, 96, 32, 32, 16, 16, 8, 4) and the projection."""
+    d0, d1, d2, d3 = n_features
+    layers = ((96, 3, d0), (96, d0, d0), (32, d0, d1), (32, d1, d1), (16, d1, d2), (16, d2, d2),
+              (8, d2, d3), (4, d3, d3))
+    macs = sum(s * s * cin * cout * 27 for s, cin, cout in layers) + 4 * d3 * out_dim
+    return 2 * t * macs
+
+
+@contextlib.contextmanager
+def plain_video_on_card():
+    """While open, MViT's kernels K2, K3 and K4 run their plain versions on
+    the card: the reference a bf16 forward through them is held to."""
+    from audio_visual_deepfake_detection_tpu_torch.ops.kernels import (
+        mvit_attention, mvit_block, patch_embed)
+
+    mods = (patch_embed, mvit_attention, mvit_block)
+    saved = [m.use_kernel for m in mods]
+    for m in mods:
+        m.use_kernel = lambda t: False
+    try:
+        yield
+    finally:
+        for m, use in zip(mods, saved):
+            m.use_kernel = use
+
+
+@contextlib.contextmanager
+def recorded_video_cls(module):
+    """The video logits every ``build_inference_fn`` made through
+    ``module`` returns while the context is open."""
+    seen, build = [], module.build_inference_fn
+
+    def recording(*args, **kwargs):
+        fn = build(*args, **kwargs)
+
+        def run(*a):
+            out = fn(*a)
+            seen.append(out[4].detach().float().cpu())
+            return out
+        return run
+
+    module.build_inference_fn = recording
+    try:
+        yield seen
+    finally:
+        module.build_inference_fn = build
+
+
+def phase_legacy(dev="cuda", overrides=None, dims=(256, 2048, 768), eval_b=16, step_b=5,
+                 n_train=LEGACY_VIDEOS, n_val=32, n_mp4=C3D_MP4S, mp4_frames=240,
+                 mp4_size=128, wav_len=WAV_LEN, video_chunk=VIDEO_T, c3d_cpu_t=16,
+                 mvit_t=VIDEO_T, mvit_cpu_t=32, smi=""):
+    """The legacy localizer family, C3D and the small MViT-v2 sizes on the
+    card (phase 17 of the module docstring). ``overrides`` (a config
+    fragment), ``dims`` and the sizes shrink it for a CPU rehearsal. Returns
+    the report, with the launches."""
+    import copy
+    import dataclasses
+    import shutil
+    import tempfile
+    import torch
+    import yaml
+    from scipy.io import wavfile
+    from audio_visual_deepfake_detection_tpu_torch import train
+    from audio_visual_deepfake_detection_tpu_torch.cli import extract_features
+    from audio_visual_deepfake_detection_tpu_torch.cli import train as train_cli
+    from audio_visual_deepfake_detection_tpu_torch.cli import validate as validate_cli
+    from audio_visual_deepfake_detection_tpu_torch.core.config import (
+        TestConfig, arch_config_from, load_config)
+    from audio_visual_deepfake_detection_tpu_torch.frontends import mvit, pipeline
+    from audio_visual_deepfake_detection_tpu_torch.frontends.video import (
+        C3DVideoEncoder, init_c3d)
+    from audio_visual_deepfake_detection_tpu_torch.infer import build_inference_fn
+    from audio_visual_deepfake_detection_tpu_torch.models import AVLocalizer, build_localizer
+    from audio_visual_deepfake_detection_tpu_torch.preprocess.video_io import read_video_frames
+    from audio_visual_deepfake_detection_tpu_torch.tools import synth_cache
+
+    on_card = torch.device(dev).type == "cuda"
+    build = os.path.join(REPO, "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(dir=build)
+    report = {"card": smi}
+    base = os.path.join(REPO, "configs_train", "deepfake_exp10.yaml")
+    widths = {"dataset": {"video_input_dim": dims[0], "audio_input_dim": sum(dims[1:])}}
+    dev_args = [] if on_card else ["--device", dev]
+
+    def expect(counts, what, **want_on_card):
+        want = dict.fromkeys(counts, 0)
+        if on_card:
+            want.update(want_on_card)
+        if counts != want:
+            fail(f"legacy {what}: launches {counts}, expected {want}")
+
+    def write_yaml(name, extra):
+        with open(base) as f:
+            tree = yaml.safe_load(f)
+        for part in (LEGACY_PLAIN, extra, overrides or {}, widths):
+            tree = synth_cache.merge(tree, part)
+        path = os.path.join(root, f"{name}.yaml")
+        with open(path, "w") as f:
+            yaml.safe_dump(tree, f)
+        return path
+
+    def eval_forward(label, cfg, k1, detections=False):
+        """f32 card vs CPU (out_cls, out_offsets 1e-4), then bf16 on the
+        card with K1 at ``k1`` launches, held to the plain blocks on the
+        card where it launched K1."""
+        model = perturb(build_localizer(cfg, seed=3, device="cpu"), 4)
+        rng = np.random.default_rng(21)
+        t = cfg.max_seq_len
+        lens = rng.integers(t // 3, t + 1, eval_b)
+        lens[0] = t
+        mask = np.arange(t)[None, :] < lens[:, None]
+        x = rng.standard_normal((eval_b, t, cfg.input_dim), dtype=np.float32) * mask[..., None]
+        xt, mt = torch.from_numpy(x), torch.from_numpy(mask)
+        with torch.no_grad():
+            cpu = model(xt, mt)
+        card = copy.deepcopy(model).to(dev)
+        xd, md = xt.to(dev), mt.to(dev)
+        reset_counts()
+        with torch.no_grad(), plain_block_calls() as plain:
+            got = card(xd, md)
+        sync(dev)
+        expect(launch_counts(), f"{label} f32 forward", fused_transformer_block=k1)
+        if plain["cuda"] or "cls_scores" in got:
+            fail(f"legacy {label}: {plain['cuda']} plain blocks, outputs {sorted(got)}")
+        errs = {}
+        for key in ("out_cls", "out_offsets"):
+            d = (cat_levels(got, key).cpu() - cat_levels(cpu, key)).abs().max().item()
+            errs[key] = d
+            if not d <= VARIANT_F32_TOL[key]:
+                fail(f"legacy {label}: f32 {key} card vs CPU {d:.3e} > {VARIANT_F32_TOL[key]:g}")
+        rec = {"f32_card_vs_cpu": errs}
+        if detections:
+            fn = build_inference_fn(cfg, TestConfig(**dict(BENCH_TEST, min_score=0.001)))
+            meta = [np.full(eval_b, 25.0, np.float32), (lens / 25.0).astype(np.float32),
+                    np.ones(eval_b, np.float32), np.ones(eval_b, np.float32)]
+            det_cpu = [a.numpy() for a in fn(model, x, mask, *meta)]
+            det_card = [a.cpu().numpy() for a in fn(card, x, mask, *meta)]
+            worst = {"scores": 0.0, "segments": 0.0}
+            for i in range(eval_b):
+                kc, kg = int(det_cpu[3][i].sum()), int(det_card[3][i].sum())
+                if kc != kg or kc == 0:
+                    fail(f"legacy {label} video {i}: {kg} detections on the card, {kc} on the CPU")
+                worst["scores"] = max(worst["scores"], float(
+                    np.abs(det_card[1][i][:kc] - det_cpu[1][i][:kc]).max()))
+                worst["segments"] = max(worst["segments"], float(
+                    np.abs(det_card[0][i][:kc] - det_cpu[0][i][:kc]).max()))
+            if worst["scores"] > 1e-4 or worst["segments"] > 1e-3:
+                fail(f"legacy {label}: detections card vs CPU {worst}")
+            if det_card[4].shape != (eval_b, 1) or det_card[4].any() or det_cpu[4].any():
+                fail(f"legacy {label}: video_cls {det_card[4].ravel()[:4]} (zeros expected)")
+            rec["detections"] = worst
+        del card, got, cpu
+        m16 = AVLocalizer(dataclasses.replace(cfg, compute_dtype="bfloat16"))
+        m16.load_state_dict(model.state_dict())
+        m16 = m16.to(dev).eval()
+        reset_counts()
+        with torch.no_grad(), plain_block_calls() as plain:
+            g16 = m16(xd, md)
+        sync(dev)
+        launched = launch_counts()
+        expect(launched, f"{label} bf16 forward", fused_transformer_block=k1)
+        rec["launches_bf16"] = launched
+        if k1:
+            with torch.no_grad(), plain_blocks_on_card():
+                p16 = m16(xd, md)
+            bf16 = {}
+            for key in ("out_cls", "out_offsets"):
+                # bf16 heads' values handed out as f32: held by the bf16 rule
+                err, ok, rule = check_bf16(cat_levels(g16, key).to(torch.bfloat16),
+                                           cat_levels(p16, key).to(torch.bfloat16))
+                bf16[key] = {"max_abs_err": err, "rule": rule}
+                if not ok:
+                    fail(f"legacy {label}: bf16 {key} kernel vs plain {err:.3e} ({rule})")
+            rec["bf16_kernel_vs_plain"] = bf16
+        if not all(torch.isfinite(cat_levels(g16, k)).all() for k in ("out_cls", "out_offsets")):
+            fail(f"legacy {label}: bf16 outputs not finite")
+        if on_card:
+            with torch.no_grad():
+                ms = cuda_ms(lambda: m16(xd, md), iters=10)
+            rec.update(ms_bf16=ms, videos_per_s=eval_b / ms * 1e3)
+        log(f"legacy {label} eval B={eval_b}: f32 card vs CPU {errs}"
+            + (f", detections {rec['detections']}, video_cls 0" if detections else "")
+            + (f"; bf16 kernel vs plain { {k: v['max_abs_err'] for k, v in rec['bf16_kernel_vs_plain'].items()} }"
+               if k1 else "")
+            + f"; launches {launched}"
+            + (f"; bf16 forward {rec['ms_bf16']:.2f} ms = {rec['videos_per_s']:.1f} videos/s"
+               if on_card else ""))
+        return rec
+
+    def one_step(cfg, config, device, batch):
+        m = build_localizer(cfg, seed=5, device=device)
+        tc = config["train_cfg"]
+        tx, _ = train.make_optimizer(m, config["opt"], 10, tc["clip_grad_l2norm"])
+        state = train.TrainState.create(m, tx, tc["init_loss_norm"],
+                                        torch.Generator().manual_seed(11))
+        step = train.build_train_step(cfg, tc, deterministic_forward=True)
+        reset_counts()
+        with plain_forward_blocks() as plain:
+            _, losses = step(state, batch)
+        sync(device)
+        return {k: float(v) for k, v in losses.items()}, launch_counts(), plain["cuda"]
+
+    try:
+        # (1) the plain ConvTransformer localizer at the production widths
+        t0 = time.perf_counter()
+        path = write_yaml("plain", {})
+        config = load_config(path)
+        cfg = dataclasses.replace(arch_config_from(config), compute_dtype="float32")
+        shape = (cfg.variant, cfg.backbone_type, cfg.fpn_type, cfg.input_dim, cfg.embd_dim,
+                 cfg.n_head, cfg.max_seq_len, cfg.arch, cfg.mha_win_size, cfg.use_abs_pe)
+        if overrides is None and shape != ("plain", "convTransformer", "identity", 3072, 256, 4,
+                                           768, (2, 2, 5), (7, 7, 7, 7, 7, -1), True):
+            fail(f"legacy plain config {shape}")
+        n_blocks = cfg.arch[1] + cfg.arch[2]
+        rec = {"config": dict(zip(("variant", "backbone", "neck", "input_dim", "embd_dim",
+                                   "heads", "max_seq_len", "arch", "windows", "abs_pe"), shape)),
+               "eval": eval_forward("plain", cfg, n_blocks, detections=True)}
+        # cli/train.py in bf16 at the config's own batch, one epoch
+        cache = synth_cache.write_feature_cache(os.path.join(root, "train"), n_train, seed=13,
+                                                dims=dims, n_labelled=n_train, split="train")
+        run_tree = synth_cache.merge({"tpu": {"compute_dtype": "bfloat16"},
+                                      "opt": {"early_stop_epochs": 1}}, overrides or {})
+        run_cfg = synth_cache.write_config(path, os.path.join(root, "plain_run.yaml"), cache,
+                                           os.path.join(root, "runs"), run_tree)
+        b = load_config(run_cfg)["loader"]["batch_size"]
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        open_one_process_group()
+        try:
+            reset_counts()
+            with plain_forward_blocks() as plain:
+                summary = train_cli.run(train_cli.build_parser().parse_args(
+                    [run_cfg, "--output", "t", "-p", "1", "--ckpt-iter-freq", "0", *dev_args]))
+            counts = launch_counts()
+        finally:
+            close_one_process_group()
+        peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else None
+        n_steps = sum(st["iters"] for st in summary["epochs"])
+        if n_steps != n_train // b or n_steps < 2:
+            fail(f"legacy cli/train.py: {n_steps} steps at B={b} over {n_train} videos")
+        expect(counts, "cli/train.py", fused_transformer_block_train=n_blocks * n_steps)
+        losses = summary["epochs"][-1]["losses"]
+        tc = config["train_cfg"]
+        if plain["cuda"] or "reco_cls_loss" in losses \
+                or not all(math.isfinite(v) for v in losses.values()) \
+                or not math.isclose(losses["final_loss"],
+                                    losses["cls_loss"] + tc["loss_weight"] * losses["reg_loss"],
+                                    rel_tol=1e-5):
+            fail(f"legacy cli/train.py: losses {losses}, {plain['cuda']} plain forward blocks")
+        rates = run_epochs_rates(summary, summary["global_batch"])
+        rec["train_cli"] = dict(B=b, videos=n_train, steps=n_steps, launches=counts,
+                                peak_gib=peak, epochs=rates, losses=losses)
+        for r in rates:
+            log(f"legacy plain cli/train.py B={b}: {r['iters']} steps in {r['seconds']:.3f} s = "
+                f"{r['ms_per_step']:.1f} ms/step, {r['samples_per_s']:.1f} samples/s"
+                + (f" ({r['after_first_ms_per_step']:.1f} ms/step without the first)"
+                   if r["iters"] > 1 else "")
+                + (f", peak {peak:.2f} GiB" if peak is not None else "")
+                + f"; launches {counts}; losses {losses}")
+        ckpt = os.path.join(summary["out_folder"], "epoch_001.pt")
+        shutil.rmtree(os.path.join(root, "train"))
+        # cli/validate.py with that checkpoint over labelled dev videos
+        dev_cache = synth_cache.write_feature_cache(os.path.join(root, "dev"), n_val, seed=17,
+                                                    dims=dims, n_labelled=n_val)
+        val_cfg = synth_cache.write_config(path, os.path.join(root, "plain_val.yaml"),
+                                           dev_cache, os.path.join(root, "runs"), run_tree)
+        reset_counts()
+        t1 = time.perf_counter()
+        with plain_block_calls() as plain, recorded_video_cls(validate_cli) as video_cls:
+            result = validate_cli.run(validate_cli.build_parser().parse_args(
+                [val_cfg, "--ckpt", ckpt, "--batch-size", "16", "--output",
+                 os.path.join(root, "plain_eval.json"), *dev_args]))
+        sync(dev)
+        val_s = time.perf_counter() - t1
+        counts = launch_counts()
+        n_batches = -(-n_val // 16)
+        expect(counts, "cli/validate.py", fused_transformer_block=n_blocks * n_batches)
+        zeros = len(video_cls) == n_batches and all(
+            c.shape == (16, 1) and not c.any() for c in video_cls)
+        if plain["cuda"] or len(result["gt_records"]) != n_val or result["mAP"] is None \
+                or not math.isfinite(result["mAP"]) or not zeros:
+            fail(f"legacy cli/validate.py: {len(result['gt_records'])} videos, mAP "
+                 f"{result['mAP']}, {plain['cuda']} plain blocks, video_cls all zero {zeros}")
+        rec["validate"] = dict(videos=n_val, mAP=result["mAP"], launches=counts, seconds=val_s,
+                               video_cls_zero=zeros)
+        log(f"legacy plain cli/validate.py: {n_val} videos in {val_s:.2f} s, mAP "
+            f"{result['mAP']:.3f} (random weights), video_cls all 0, launches {counts}")
+        shutil.rmtree(os.path.join(root, "dev"))
+        shutil.rmtree(os.path.join(root, "runs"))
+        rec["seconds"] = time.perf_counter() - t0
+        report["plain"] = rec
+
+        # (2) the two other legacy configs: a forward and a step each
+        for name, extra in LEGACY_OTHERS:
+            t0 = time.perf_counter()
+            config = load_config(write_yaml(name, extra))
+            cfg = dataclasses.replace(arch_config_from(config), compute_dtype="float32")
+            if (cfg.backbone_type, cfg.fpn_type, cfg.use_rel_pe) != (
+                    ("conv", "fpn", False) if name == "conv-fpn"
+                    else ("convTransformer", "identity", True)):
+                fail(f"legacy {name}: config {cfg}")
+            rec = {"eval": eval_forward(name, cfg, 0)}
+            batch = variant_batch(cfg, step_b, seed=7)
+            card_l, counts, plain_n = one_step(cfg, config, dev, batch)
+            expect(counts, f"{name} train step")
+            if plain_n or not all(math.isfinite(v) for v in card_l.values()):
+                fail(f"legacy {name} step: losses {card_l}, {plain_n} plain forward blocks")
+            rec["step"] = dict(B=step_b, launches=counts, losses=card_l)
+            if name == "rel-pe":
+                cpu_l, _, _ = one_step(cfg, config, "cpu", batch)
+                gaps = {k: abs(card_l[k] - v) / max(abs(v), 1e-12) for k, v in cpu_l.items()}
+                if max(g for k, g in gaps.items() if k != "grad_norm") > 1e-4 \
+                        or gaps["grad_norm"] > 1e-3:
+                    fail(f"legacy {name}: f32 step card vs CPU gaps {gaps}")
+                rec["step"]["gaps_card_vs_cpu"] = gaps
+            log(f"legacy {name} f32 step B={step_b}: launches {counts}, losses {card_l}"
+                + (f", card vs CPU rel gaps {rec['step']['gaps_card_vs_cpu']}"
+                   if "gaps_card_vs_cpu" in rec["step"] else ""))
+            rec["seconds"] = time.perf_counter() - t0
+            report[name] = rec
+
+        # (3) C3D through cli/extract_features.py on cv2-written mp4s
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(41)
+        media = os.path.join(root, "media")
+        rels = [f"c3d/{i:03d}/real" for i in range(n_mp4)]
+        for rel in rels:
+            write_mp4(os.path.join(media, "data", rel + ".mp4"),
+                      smooth_video(rng, mp4_frames, mp4_size))
+            os.makedirs(os.path.dirname(os.path.join(media, "wav", rel)), exist_ok=True)
+            wavfile.write(os.path.join(media, "wav", rel + ".wav"), 16000,
+                          (rng.standard_normal(wav_len) * 3000).astype(np.int16))
+        with open(os.path.join(media, "list.txt"), "w") as f:
+            f.write("\n".join(r + ".mp4" for r in rels))
+
+        def extract(enc, out, dtype, *extra):
+            argv = [os.path.join(media, "list.txt"), "--video-root", os.path.join(media, "data"),
+                    "--wav-root", os.path.join(media, "wav"), "--output-root",
+                    os.path.join(media, out), "--video-encoder", enc, "--video-chunk",
+                    str(video_chunk), "--dtype", dtype, *extra, *dev_args]
+            reset_counts()
+            done = extract_features.main(argv)
+            sync(dev)
+            if done["done"] != n_mp4 or done["errors"]:
+                fail(f"legacy extract_features {enc} {dtype} {extra}: {done}")
+            counts = launch_counts()
+            # the audio streams' kernels only: one Emotion2Vec forward a file
+            expect(counts, f"extract_features {enc} {dtype} {extra}", conv_extractor=n_mp4,
+                   full_mha=12 * n_mp4)
+            caches = [np.load(os.path.join(media, out, "align_video", rel + ".npy"))
+                      for rel in rels]
+            for rel, a in zip(rels, caches):
+                if a.shape != (mp4_frames, 256) or not np.isfinite(a).all():
+                    fail(f"legacy extract_features {enc} {dtype} {extra} {rel}: {a.shape}")
+            return counts, caches
+
+        c3d = {}
+        counts, _ = extract("c3d", "c3d", "bfloat16")
+        # bucketing: the zero-padded tail chunk against the bucketed one in
+        # f32 (the JAX test's tolerance is an f32 one), every row
+        _, padded = extract("c3d", "c3d32", "float32")
+        _, bucketed = extract("c3d", "c3d32_b", "float32", "--video-chunk-bucketing")
+        d_bucket = 0.0
+        for a, b32 in zip(padded, bucketed):
+            d = np.abs(a - b32)
+            if not (d <= C3D_BUCKET_TOL + C3D_BUCKET_TOL * np.abs(a)).all():
+                fail(f"legacy c3d f32 bucketed vs padded {d.max():.3e} > {C3D_BUCKET_TOL:g}")
+            d_bucket = max(d_bucket, float(d.max()))
+        c3d.update(launches=counts, rows=mp4_frames, f32_bucketed_vs_padded=d_bucket)
+        mp = init_c3d(C3DVideoEncoder(), 2)          # biases too
+        clip = torch.from_numpy(rng.uniform(0, 1, (2, c3d_cpu_t, 96, 96, 3)).astype(np.float32))
+        with torch.no_grad():
+            cpu = mp(clip)
+            card = mp.to(dev)(clip.to(dev)).cpu()
+        d_card, ok = check_f32(card, cpu, atol=1e-4, rtol=0.0)
+        if not ok or cpu.shape != (2, c3d_cpu_t, 256):
+            fail(f"legacy c3d f32 card vs CPU {d_card:.3e} (atol 1e-4), {tuple(cpu.shape)}")
+        c3d["f32_card_vs_cpu"] = d_card
+        log(f"legacy c3d: cli/extract_features.py --video-encoder c3d over {n_mp4} mp4s of "
+            f"{mp4_frames} frames: rows {mp4_frames} in bf16 and f32, launches {counts}; f32 "
+            f"--video-chunk-bucketing vs padded {d_bucket:.3e} (<= {C3D_BUCKET_TOL:g}); "
+            f"production C3D f32 card vs CPU on 2 chunks of {c3d_cpu_t} frames {d_card:.3e}")
+        del mp, padded, bucketed
+        # videos/s and peak memory: each encoder's extractor over the mp4s, warm
+        rates = {}
+        for enc in ("c3d", "mvit_v2_b"):
+            ex = extract_features.build_extractor(enc, video_chunk, 0, "bfloat16",
+                                                  torch.device(dev))
+            mp4s = [(os.path.join(media, "data", r + ".mp4"), os.path.join(media, "wav", r + ".wav"))
+                    for r in rels]
+            ex.extract_all(*mp4s[0])                   # builds the models, warms the card
+            decoded = [read_video_frames(m)[0] for m, _ in mp4s]
+            ex.video_features(decoded[0])
+            sync(dev)
+            if on_card:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            for m, w in mp4s:
+                ex.extract_to_cache(m, w, os.path.join(media, f"rate_{enc}"),
+                                    os.path.basename(os.path.dirname(m)) + ".npy")
+            sync(dev)
+            whole = time.perf_counter() - t1
+            peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else None
+            t1 = time.perf_counter()
+            for fr in decoded:
+                ex.video_features(fr)
+            sync(dev)
+            video_s = time.perf_counter() - t1
+            rates[enc] = dict(videos_per_s=n_mp4 / whole, video_stream_videos_per_s=n_mp4 / video_s,
+                              peak_gib=peak, seconds=whole)
+            # the encoder alone on the card: one group of uint8 96x96 chunks
+            g = pipeline.C3D_CHUNK_GROUP
+            xg = torch.from_numpy(rng.integers(0, 256, (g, video_chunk, 96, 96, 3),
+                                               dtype=np.uint8)).to(dev)
+            if on_card:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                ms = cuda_ms(lambda: ex.video_chunks_features_device(xg), iters=3, warmup=1)
+                enc_peak = torch.cuda.max_memory_allocated() / 2**30
+                rates[enc].update(encoder_ms_per_chunk=ms / g, encoder_chunks=g,
+                                  encoder_peak_gib=enc_peak)
+                if enc == "c3d":
+                    flops = c3d_flops(video_chunk)
+                    rates[enc].update(tflops=flops / (ms / g) * 1e-9,
+                                      bound_ms_per_chunk=bound(
+                                          flops, video_chunk * (96 * 96 * 3 + 256 * 4))[0])
+            del xg
+            log(f"legacy extract rate {enc}, bf16, {n_mp4} mp4s of {mp4_frames} frames "
+                f"({mp4_size}x{mp4_size}) + {wav_len / 16000:g} s wavs, chunks of {video_chunk}: "
+                f"{n_mp4 / whole:.2f} videos/s (decode + three streams + .npy writes), video "
+                f"stream alone {n_mp4 / video_s:.2f} videos/s"
+                + (f", peak {peak:.2f} GiB" if peak is not None else "")
+                + (f"; the encoder on {g} uint8 chunks on the card "
+                   f"{rates[enc]['encoder_ms_per_chunk']:.3f} ms a chunk, peak "
+                   f"{rates[enc]['encoder_peak_gib']:.2f} GiB" if on_card else "")
+                + (f", {rates[enc]['tflops']:.1f} TFLOP/s (bound "
+                   f"{rates[enc]['bound_ms_per_chunk']:.3f} ms)" if on_card and enc == "c3d"
+                   else "") + f" ({smi})")
+            del ex
+            if on_card:
+                torch.cuda.empty_cache()
+        c3d["rates"] = rates
+        c3d["group"] = pipeline.C3D_CHUNK_GROUP
+        c3d["seconds"] = time.perf_counter() - t0
+        report["c3d"] = c3d
+        shutil.rmtree(media)
+
+        # (4) mvit_v2_t and mvit_v2_s: a 2-chunk bf16 forward each
+        for name in MVIT_SMALL:
+            t0 = time.perf_counter()
+            m16 = mvit.init_mvit(getattr(mvit, name)(temporal_size=mvit_t, dtype=torch.bfloat16),
+                                 3, perturb=True)
+            ex = pipeline.FeatureExtractor(video_model=m16, video_chunk=mvit_t, device=dev)
+            chunks = rng.integers(0, 256, (2, mvit_t, 96, 96, 3), dtype=np.uint8)
+            chunks[-1, mvit_t // 2:] = 0
+            reset_counts()
+            with torch.no_grad():
+                feats = ex.video_chunks_features_device(chunks)
+            sync(dev)
+            counts = launch_counts()
+            video = ("patch_embed", "pooled_attention", "multiscale_block")
+            if feats.shape != (2, mvit_t, 256) or not torch.isfinite(feats).all():
+                fail(f"legacy {name}: features {tuple(feats.shape)}")
+            if any(counts[k] for k in counts if k not in video) or (
+                    on_card and not all(counts[k] > 0 for k in video)) or (
+                    not on_card and any(counts.values())):
+                fail(f"legacy {name}: launches {counts}")
+            with torch.no_grad(), plain_video_on_card():
+                plain = ex.video_chunks_features_device(chunks)
+            err16, ok, rule = check_bf16(feats, plain)
+            if not ok:
+                # ten or more blocks of bf16 rounding: the kernels no further
+                # than the plain versions from the f32 forward (same weights)
+                same = mvit.init_mvit(getattr(mvit, name)(temporal_size=mvit_t), 3, perturb=True)
+                with torch.no_grad():
+                    exact = pipeline.FeatureExtractor(video_model=same, video_chunk=mvit_t,
+                                                      device=dev).video_chunks_features_device(
+                                                          chunks).float()
+                ok, text = against_exact(feats, plain, exact)
+                rule = f"kernel within {NO_WORSE:g}x of plain vs f32: {text}"
+                del same, exact
+            if not ok:
+                fail(f"legacy {name}: bf16 kernels vs plain {err16:.3e} ({rule})")
+            m32 = mvit.init_mvit(getattr(mvit, name)(temporal_size=mvit_cpu_t), 4, perturb=True)
+            clip = rng.integers(0, 256, (2, mvit_cpu_t, 96, 96, 3), dtype=np.uint8)
+            cpu = pipeline.FeatureExtractor(video_model=m32, device="cpu").video_chunks_features(clip)
+            reset_counts()
+            card = pipeline.FeatureExtractor(video_model=m32, device=dev).video_chunks_features(clip)
+            c32 = {k: launch_counts()[k] for k in video}
+            if on_card and not all(c32.values()):
+                fail(f"legacy {name} f32: launches {c32}")
+            d32, ok = check_f32(torch.from_numpy(card), torch.from_numpy(cpu))
+            if not ok:
+                fail(f"legacy {name}: f32 card vs CPU {d32:.3e} (atol 1e-4 rtol 5e-4)")
+            report[name] = dict(blocks=len(m16.blocks), launches=counts,
+                                bf16_kernel_vs_plain={"max_abs_err": err16, "rule": rule},
+                                f32_card_vs_cpu=d32, f32_launches=c32,
+                                seconds=time.perf_counter() - t0)
+            log(f"legacy {name} ({len(m16.blocks)} blocks): 2 chunks x {mvit_t} frames bf16, "
+                f"launches {counts}, bf16 kernels vs plain {err16:.3e} ({rule}); f32 2 chunks x "
+                f"{mvit_cpu_t} frames card vs CPU {d32:.3e}, launches {c32}")
+            del m16, m32, ex
+            if on_card:
+                torch.cuda.empty_cache()
+        log(f"card: {smi}")
+    finally:
+        close_one_process_group()
+        shutil.rmtree(root, ignore_errors=True)
+    REPORT["legacy"] = report
+    return report
+
+
 def main_path_loss(kernels, k1_totals, k1_bounds, mvit_group, k4_table, audio_times, smi,
                    n_videos=64, group=32):
     """What each kernel of the main path costs one ``n_videos``-video media ->
@@ -4791,6 +5350,7 @@ def main():
     offline = timed(phase_offline_inference, smi=smi)
     train_cli = timed(phase_train_cli, smi=smi)
     variants = timed(phase_variants, smi=smi)
+    legacy = timed(phase_legacy, smi=smi)
     for mod in ("jax", "audio_visual_deepfake_detection_tpu"):
         if mod in sys.modules:
             fail(f"{mod} was imported")
@@ -4828,6 +5388,14 @@ def main():
             name: {"eval_forward_bf16": rec["eval"]["launches"]["fused_transformer_block"],
                    "validate": rec["validate"]["launches"]["fused_transformer_block"]}
             for name, rec in variants.items() if name != "card"},
+        "launches_legacy": {
+            "plain_eval_forward_bf16": legacy["plain"]["eval"]["launches_bf16"][
+                "fused_transformer_block"],
+            "plain_validate": legacy["plain"]["validate"]["launches"]["fused_transformer_block"],
+            "conv_fpn_eval_forward_bf16": legacy["conv-fpn"]["eval"]["launches_bf16"][
+                "fused_transformer_block"],
+            "rel_pe_eval_forward_bf16": legacy["rel-pe"]["eval"]["launches_bf16"][
+                "fused_transformer_block"]},
     }]
     for name, file, line in (("patch_embed", "patch_embed", 140),
                              ("pooled_attention", "mvit_attention", 72),
@@ -4838,6 +5406,7 @@ def main():
             "source": src + file + ".cu",
             "replaces": f"{pallas}{file}.py:{line}",
             "launches": video_launched[name],
+            "launches_legacy": {m: legacy[m]["launches"][name] for m in MVIT_SMALL},
             "max_abs_err": mvit_worst[name]["float32"],
             "max_abs_err_bf16": mvit_worst[name]["bfloat16"],
             "tolerance": {"float32": "atol 1e-4 rtol 5e-4",
@@ -4922,6 +5491,13 @@ def main():
                 "the backward differentiates the plain version, as the TPU kernel's does; "
                 "launches_train_cli = cli/train.py's host route, 2 epochs at B=50 bf16",
         "launches_train_cli": train_cli["host"]["launches"]["fused_transformer_block_train"],
+        "launches_legacy": {
+            "plain_train_cli": legacy["plain"]["train_cli"]["launches"][
+                "fused_transformer_block_train"],
+            "plain_train_cli_steps": legacy["plain"]["train_cli"]["steps"],
+            "conv_fpn_step": legacy["conv-fpn"]["step"]["launches"][
+                "fused_transformer_block_train"],
+            "rel_pe_step": legacy["rel-pe"]["step"]["launches"]["fused_transformer_block_train"]},
         "launches_variants": {
             name: {"train_step_f32": rec["step"]["launches"]["fused_transformer_block_train"],
                    "train_cli": rec["train_cli"]["launches"]["fused_transformer_block_train"]}
@@ -4955,6 +5531,9 @@ def main():
                 "nearest library call, not the same function; launches_train_cli = "
                 "cli/train.py with dropout 0.1, 1 epoch at B=50 bf16",
         "launches_train_cli": train_cli["dropout"]["launches"]["band_attention"],
+        "launches_legacy": {"rel_pe_eval_forward_bf16": legacy["rel-pe"]["eval"][
+            "launches_bf16"]["band_attention"],
+            "rel_pe_step": legacy["rel-pe"]["step"]["launches"]["band_attention"]},
     })
     main_path_loss(kernels, totals, k1_bounds, mvit_group, k4_table, audio_times, smi)
     REPORT["kernels"] = kernels

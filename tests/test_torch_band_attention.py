@@ -127,9 +127,40 @@ def test_shift_time_matches_jax(rng, d):
 
 
 def test_unported_options_raise(rng):
-    q, k, v, valid = _case(rng, 1, 1, 8, 16, (8,))
-    with pytest.raises(NotImplementedError):
-        tattn.band_attention(_t(q), _t(k), _t(v), _t(valid), 3, rel_pe=torch.zeros(1, 7))
+    """Once the options the port refused: ``band_attention`` with a relative
+    position bias and time weighting is the JAX ``band_attention`` with
+    them (the banded formulation, K7 not launched), values and gradients
+    at f32 1e-5, and each option changes the result. The kernel's plain
+    version still refuses a mask of the wrong length."""
+    b, h, t, w = 2, 3, 20, 3
+    q, k, v, valid = _case(rng, b, h, t, 16, (20, 11))
+    rel = (0.5 * rng.standard_normal((h, 2 * w + 1))).astype(np.float32)
+    tw = (1 + 0.5 * rng.standard_normal((h, 2 * w + 1))).astype(np.float32)
+    g = rng.standard_normal(q.shape).astype(np.float32)
+    tband.reset_launches()
+    outs = []
+    for r, m in ((rel, None), (None, tw), (rel, tw)):
+        args = [jnp.asarray(a) for a in (q, k, v)]
+        want, vjp = jax.vjp(lambda *a: jattn.band_attention(
+            *a[:3], jnp.asarray(valid), w, None if r is None else a[3],
+            None if m is None else a[-1]), *args, *(jnp.asarray(x) for x in (r, m)
+                                                     if x is not None))
+        ref_grads = vjp(jnp.asarray(g))
+        ins = [_t(a).requires_grad_(True) for a in (q, k, v)
+               + tuple(x for x in (r, m) if x is not None)]
+        it = iter(ins[3:])
+        got = tattn.band_attention(*ins[:3], _t(valid), w,
+                                   None if r is None else next(it),
+                                   None if m is None else next(it))
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOLS["float32"])
+        got.backward(_t(g))
+        for a, ref in zip(ins, ref_grads):
+            np.testing.assert_allclose(a.grad.numpy(), np.asarray(ref), **TOLS["float32"])
+        outs.append(got.detach())
+    assert tband.LAUNCHES == 0
+    plain = tattn.band_attention(_t(q), _t(k), _t(v), _t(valid), w)
+    for got in outs:
+        assert (got - plain).abs().max() > 1e-2
     with pytest.raises(ValueError):
         tband.band_attention_kernel(_t(q), _t(k), _t(v), _t(valid)[:, :4], 3)
 

@@ -30,15 +30,22 @@ bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
        or m.split(".")[0] == "audio_visual_deepfake_detection_tpu"]
 need = [pkg.__name__ + m for m in (".parallel", ".parallel.mesh", ".cli.train",
-                                    ".cli.convert_checkpoint")]
+                                    ".cli.convert_checkpoint", ".frontends.video",
+                                    ".models.backbones", ".models.necks")]
+legacy = {".frontends.video": ("C3DVideoEncoder", "init_c3d"),
+          ".models.backbones": ("ConvTransformerBackbone", "ConvBackbone"),
+          ".models.blocks": ("ConvBlock",), ".models.necks": ("FPNIdentity",)}
+need += [f"{pkg.__name__}{m}.{a}" for m, attrs in legacy.items() for a in attrs
+         if not hasattr(sys.modules[pkg.__name__ + m], a)]
 print("MISSING", [m for m in need if m not in names])
 print("MODULES", len(names), "INPUT_DIM", arch.input_dim, "BAD", bad)
 """
 
 
 def test_port_imports_no_jax():
-    """Every module of the port (the data-parallel layer and the training
-    and conversion entry points among them), ``load_config`` and
+    """Every module of the port (the data-parallel layer, the training
+    and conversion entry points, the C3D encoder and the legacy backbones
+    and neck among them), ``load_config`` and
     ``arch_config_from`` in a fresh interpreter: neither jax nor the JAX
     package gets imported."""
     yaml_path = os.path.join(REPO, "configs_test", "deepfake_exp12_test.yaml")

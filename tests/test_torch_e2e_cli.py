@@ -8,9 +8,9 @@ corrupt mp4 and a metadata tree. The caches agree at the encoders'
 tolerances, the skip-existing rule, ``extract_errors.txt`` and the log
 lines are the same; the submissions cover the same videos with the same
 probabilities and the same mAP; ``--resume`` and a preempted run resumed
-give the unbroken run's files; the options not ported raise, naming the
-roadmap item; and both entry points run on the card unless asked for the
-CPU."""
+give the unbroken run's files; ``--video-encoder c3d`` and
+``--video-chunk-bucketing`` run and write their files; and both entry
+points run on the card unless asked for the CPU."""
 
 import contextlib
 import importlib.util
@@ -29,7 +29,12 @@ from audio_visual_deepfake_detection_tpu.core import runtime as jruntime
 from audio_visual_deepfake_detection_tpu_torch.cli import end_to_end as e2e_cli
 from audio_visual_deepfake_detection_tpu_torch.cli import extract_features as extract_cli
 from audio_visual_deepfake_detection_tpu_torch.core import config as tconfig
+from audio_visual_deepfake_detection_tpu_torch.frontends import mvit as tmvit
+from audio_visual_deepfake_detection_tpu_torch.frontends import pipeline as tfront
+from audio_visual_deepfake_detection_tpu_torch.frontends.mvit import (MViTVideoEncoder,
+                                                                      generate_config)
 from audio_visual_deepfake_detection_tpu_torch.frontends.pipeline import CACHE_DIR_NAMES
+from audio_visual_deepfake_detection_tpu_torch.frontends.video import C3DVideoEncoder
 from audio_visual_deepfake_detection_tpu_torch.models import build_localizer
 from audio_visual_deepfake_detection_tpu_torch.tools.convert_jax import state_dict_from_flax
 from audio_visual_deepfake_detection_tpu_torch.tools.synth_cache import merge
@@ -107,7 +112,8 @@ def small(monkeypatch, models):
     arguments it was asked for."""
     asked = {"port": [], "root": []}
 
-    def port_build(video_encoder, video_chunk, seed, dtype, device):
+    def port_build(video_encoder, video_chunk, seed, dtype, device, chunk_buckets=None):
+        assert chunk_buckets is None
         asked["port"].append((video_encoder, video_chunk, seed, dtype, device.type))
         return models["tex"]
 
@@ -244,15 +250,52 @@ def test_preempted_end_to_end_resumes_to_the_unbroken_files(tree, small, ckpt, t
 
 
 @pytest.mark.parametrize("flag", [["--video-encoder", "c3d"], ["--video-chunk-bucketing"]])
-def test_options_not_ported_raise(tree, tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        extract_cli.main([str(tree / "list.txt"), "--video-root", str(tree / "data"),
-                          "--output-root", str(tmp_path / "x"), "--device", "cpu", *flag])
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        e2e_cli.main([str(tree / "config.yaml"), "--metadata-root", str(tree / "metadata"),
-                      "--data-root", str(tree / "data"), "--output", str(tmp_path / "y"),
-                      "--device", "cpu", *flag])
-    assert not (tmp_path / "x").exists() and not (tmp_path / "y").exists()
+def test_options_not_ported_raise(tree, models, monkeypatch, tmp_path, flag):
+    """The two options the port once refused run through both entry points
+    and write their files: ``--video-encoder c3d`` builds the seeded C3D,
+    ``--video-chunk-bucketing`` the root scripts' buckets of quarters of
+    ``--video-chunk`` (here around MViT-v2-b, the default). Small models in
+    place of the production widths: C3D (4, 6, 8, 8), a two-stage MViT, the
+    small audio models of ``models``."""
+    built = []
+
+    def c3d(dtype):
+        built.append("c3d")
+        return C3DVideoEncoder((4, 6, 8, 8), VIDEO_D, dtype=dtype)
+
+    def mvit_b(out_dim, temporal_size, dtype):
+        built.append("mvit_v2_b")
+        assert out_dim == 256
+        return MViTVideoEncoder(generate_config([1, 1], [1, 2], [8, 16], VIDEO_D),
+                                temporal_size=temporal_size, dtype=dtype)
+
+    def extractor(**kw):
+        built.append(kw["chunk_buckets"])
+        return tfront.FeatureExtractor(byola_model=models["tex"].byola_model,
+                                       emotion_model=models["tex"].emotion_model, **kw)
+
+    monkeypatch.setattr(extract_cli, "C3DVideoEncoder", c3d)
+    monkeypatch.setattr(tmvit, "mvit_v2_b", mvit_b)
+    monkeypatch.setattr(extract_cli, "FeatureExtractor", extractor)
+    common = ["--video-chunk", str(CHUNK), "--device", "cpu", *flag]
+    summary = extract_cli.main([str(tree / "list.txt"), "--video-root", str(tree / "data"),
+                                "--wav-root", str(tree / "wav"),
+                                "--output-root", str(tmp_path / "x"), *common])
+    assert summary["done"] == 3 and len(summary["errors"]) == 1
+    for rel, (dur, _) in CLIPS.items():
+        for key, name in CACHE_DIR_NAMES.items():
+            arr = np.load(tmp_path / "x" / name / (rel + ".npy"))
+            assert np.isfinite(arr).all() and arr.dtype == np.float32
+            if key == "video":
+                assert arr.shape == (int(round(dur * 25)), VIDEO_D)
+    out = e2e_cli.main([str(tree / "config.yaml"), "--metadata-root", str(tree / "metadata"),
+                        "--data-root", str(tree / "data"), "--wav-root", str(tree / "wav"),
+                        "--output", str(tmp_path / "y"), *common])
+    assert out["num_videos"] == 3 and (tmp_path / "y" / "e2e_summary.json").exists()
+    encoder = "c3d" if "c3d" in flag else "mvit_v2_b"
+    q = CHUNK // 4
+    buckets = None if "c3d" in flag else (q, 2 * q, 3 * q, CHUNK)
+    assert built == [encoder, buckets] * 2
 
 
 def test_entry_points_default_to_the_card(tree, tmp_path):

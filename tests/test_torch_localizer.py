@@ -270,10 +270,15 @@ def test_configs_from_yaml_match_jax(yaml_path):
     t_ours, t_ref = port_config.test_config_from(config), j_test_config_from(config)
     for field in TestConfig.__dataclass_fields__:
         assert getattr(t_ours, field) == getattr(t_ref, field), field
-    with pytest.raises(NotImplementedError, match="item 10 of ROADMAP"):
-        ArchConfig(variant="plain")
-    with pytest.raises(NotImplementedError, match="item 10 of ROADMAP"):
-        ArchConfig(use_rel_pe=True)
+    # the legacy family, once refused, is the JAX package's
+    for kw in (dict(variant="plain"), dict(use_rel_pe=True),
+               dict(variant="plain", backbone_type="conv", fpn_type="identity",
+                    use_time_weight=True)):
+        legacy, j_legacy = ArchConfig(**kw), JArchConfig(**kw)
+        for field in ArchConfig.__dataclass_fields__:
+            assert getattr(legacy, field) == getattr(j_legacy, field), field
+        for prop in ("fpn_strides", "fpn_lens", "max_div_factor"):
+            assert getattr(legacy, prop) == getattr(j_legacy, prop), prop
 
 
 def test_build_localizer_defaults_to_the_card():
