@@ -5,7 +5,9 @@
 ``F.interpolate(mode='linear', align_corners=False)`` with the source
 coordinates computed in float32 exactly like the JAX package.
 ``linear_resample_dynamic`` resamples zero-padded streams of per-sample
-length on the device.
+length on the device (by gathers: the JAX function's ``use_matmul``
+lowering, a one-hot matrix product, was a TPU choice of the same result).
+``linear_resample_matrix`` is the same resample as a dense matrix.
 """
 
 from __future__ import annotations
@@ -28,6 +30,25 @@ def _linear_coords(in_len: int, out_len: int):
 
 
 _linear_coords_cached = functools.lru_cache(maxsize=256)(_linear_coords)
+
+
+@functools.lru_cache(maxsize=64)
+def _linear_matrix_cached(in_len: int, out_len: int) -> np.ndarray:
+    idx0, idx1, frac = _linear_coords(in_len, out_len)
+    mat = np.zeros((in_len, out_len), dtype=np.float32)
+    rows = np.arange(out_len)
+    # accumulate: idx0 and idx1 may coincide at the clamped edges
+    np.add.at(mat, (idx0, rows), 1.0 - frac)
+    np.add.at(mat, (idx1, rows), frac)
+    return mat
+
+
+def linear_resample_matrix(in_len: int, out_len: int) -> torch.Tensor:
+    """Dense ``(in_len, out_len)`` float32 resample matrix on the CPU:
+    ``torch.einsum("...tc,to->...oc", x, M)`` equals
+    :func:`linear_resample_time` of ``x`` along its row axis, for a caller
+    that folds the resample into an adjacent product."""
+    return torch.from_numpy(_linear_matrix_cached(in_len, out_len).copy())
 
 
 def linear_resample_time(x: torch.Tensor, out_len: int, axis: int = -2) -> torch.Tensor:

@@ -92,14 +92,14 @@ Phases (any failure exits nonzero):
              differentiable wrapper's gradients in f32 against the CPU;
 12. train  - configs_train/deepfake_exp10.yaml through the port's loader,
              full width and depth, seeded batches in collate_batch's format.
-             f32 with a deterministic forward, 2 steps at B=16, card against
+             f32 with a deterministic forward, 2 steps at B=8, card against
              CPU (losses rtol 1e-4, grad_norm rtol 1e-3). bf16 and f32,
              stochastic, 10 steps at B=50 through train_one_epoch: finite
              losses, K6 18 launches a step and K1 none, a mid-epoch
              checkpoint written and restored, the focal sum on the fixed
              batch falls. The same with dropout 0.1 (the unfused block; 4
              steps in f32): K7 17 launches a forward, K6 and K1 none, and
-             one f32 step at B=16 card against CPU with the same draws. ms
+             one f32 step at B=8 card against CPU with the same draws. ms
              per step, samples/s and peak GiB at B=50, a step's stages (CUDA
              events at train_step's stage hook; in the unfused step also
              around K7's forward and its backward through
@@ -195,7 +195,33 @@ Phases (any failure exits nonzero):
              mvit_v2_b extractors side by side. mvit_v2_t and mvit_v2_s: 2
              chunks of 512 frames bf16 with K2, K3 and K4 launched, held to
              the plain versions on the card, f32 card vs CPU on 2 chunks of
-             32 frames.
+             32 frames;
+18. released weights - the released frontend checkpoints' route: four
+             files in the released on-disk layouts written with torch.save
+             from seeded, perturbed modules at production geometry (AlignVideo
+             Lightning with MViT-v2-b, with hparams, torchvision's head and a
+             foreign submodule; AlignVideo with C3D, no hparams; fairseq
+             emotion2vec_base with its teacher and decoders; the BYOL-A .pth
+             nested and prefixed), read back with weights_only=True and
+             loaded by tools/convert_frontends.py on the card and on the CPU:
+             the written weights, f32 card vs CPU on 2 chunks of 16 frames
+             and 2 wavs of 1 s (MViT-v2-b, C3D 2e-4; BYOL-A 1e-4; Emotion2Vec
+             2e-4 / rtol 1e-3); bf16 kernels vs plain on the card (check_bf16,
+             else within 1.5x of plain vs f32): mvit_v2_b on 2 chunks of 512
+             frames (K2 1, K3 3, K4 18), Emotion2Vec on 2 wavs of 9.6 s (K5 1,
+             K8 the count its cfg implies); the loaded models through
+             FeatureExtractor.extract_to_cache over 16 cv2-written mp4s of 240
+             frames with 9.6 s wavs (rows = frames / BYOL-A / conv_output_length),
+             videos/s and peak memory beside the seeded extractor's on the same
+             files; a reference checkpoint of deepfake_exp12_test.yaml through
+             cli/convert_checkpoint.py, cli/inference.py over those caches (K1
+             18 a forward) and generate_results; core/profiling.trace around a
+             bf16 B=16 localizer forward with annotate spans (K1's kernel
+             events in the Chrome trace = 2 x its counted launches, the
+             device-busy share of the window), StepTimer over 10 steps within
+             10% of CUDA events; cli/warmup.py --infer-batch 64 --train-batch
+             5 as a process of its own (kernel library found, host libraries,
+             K1 18, K6 18) and again in this process.
 
 The card's name and power limit, then a JSON object with the kernels'
 launches, errors and times, are the two lines before the last; the last
@@ -1917,26 +1943,16 @@ ALL_KERNELS = ("fused_transformer_block", "patch_embed", "pooled_attention",
                "multiscale_block") + AUDIO_KERNELS + TRAIN_KERNELS
 
 
-def kernel_modules():
-    """Kernel name -> (wrapper module, its launch counter). K1 and K6 share a
-    source and a module, and count apart."""
-    from audio_visual_deepfake_detection_tpu_torch.ops.kernels import (
-        band_attention, conv_extractor, full_attention, fused_block, mvit_attention,
-        mvit_block, patch_embed)
-
-    mods = (fused_block, patch_embed, mvit_attention, mvit_block, conv_extractor,
-            full_attention, fused_block, band_attention)
-    return {name: (m, "TRAIN_LAUNCHES" if name == "fused_transformer_block_train"
-                   else "LAUNCHES") for name, m in zip(ALL_KERNELS, mods)}
-
-
 def reset_counts():
-    for m, _ in kernel_modules().values():
-        m.reset_launches()
+    from audio_visual_deepfake_detection_tpu_torch.ops import kernels
+
+    kernels.reset_launches()
 
 
 def launch_counts():
-    return {name: getattr(m, attr) for name, (m, attr) in kernel_modules().items()}
+    from audio_visual_deepfake_detection_tpu_torch.ops import kernels
+
+    return kernels.launch_counts()
 
 
 def audio_models(dtype, seed=0, d=2048, cfg=None):
@@ -3496,7 +3512,7 @@ def step_breakdown(state, step, hook, batch, smi, label, profile=True, band=Fals
     return out
 
 
-def phase_train(dev="cuda", b=TRAIN_B, cpu_b=16, n_steps=10, arch=None, smi="",
+def phase_train(dev="cuda", b=TRAIN_B, cpu_b=8, n_steps=10, arch=None, smi="",
                 timing=True):
     """The training slice's main path at full width and depth. (a) f32,
     deterministic forward, 2 steps at batch ``cpu_b``, card against CPU
@@ -4766,13 +4782,10 @@ def c3d_flops(t, n_features=(64, 96, 128, 128), out_dim=256):
 
 
 @contextlib.contextmanager
-def plain_video_on_card():
-    """While open, MViT's kernels K2, K3 and K4 run their plain versions on
-    the card: the reference a bf16 forward through them is held to."""
-    from audio_visual_deepfake_detection_tpu_torch.ops.kernels import (
-        mvit_attention, mvit_block, patch_embed)
-
-    mods = (patch_embed, mvit_attention, mvit_block)
+def plain_on_card(*mods):
+    """While open, the kernels of the wrapper modules ``mods`` run their
+    plain versions on the card: the reference a bf16 forward through them
+    is held to."""
     saved = [m.use_kernel for m in mods]
     for m in mods:
         m.use_kernel = lambda t: False
@@ -4781,6 +4794,22 @@ def plain_video_on_card():
     finally:
         for m, use in zip(mods, saved):
             m.use_kernel = use
+
+
+def plain_video_on_card():
+    """MViT's kernels K2, K3 and K4 on their plain versions (plain_on_card)."""
+    from audio_visual_deepfake_detection_tpu_torch.ops.kernels import (
+        mvit_attention, mvit_block, patch_embed)
+
+    return plain_on_card(patch_embed, mvit_attention, mvit_block)
+
+
+def plain_audio_on_card():
+    """Emotion2Vec's kernels K5 and K8 on their plain versions (plain_on_card)."""
+    from audio_visual_deepfake_detection_tpu_torch.ops.kernels import (
+        conv_extractor, full_attention)
+
+    return plain_on_card(conv_extractor, full_attention)
 
 
 @contextlib.contextmanager
@@ -5274,6 +5303,545 @@ def phase_legacy(dev="cuda", overrides=None, dims=(256, 2048, 768), eval_b=16, s
     return report
 
 
+RELEASED_MP4S = 16                    # cv2-written mp4s through FeatureExtractor.extract_to_cache
+# f32 card vs CPU on the loaded encoders, (atol, rtol): the port's CPU tests'
+# (tests/test_torch_mvit.py, test_torch_c3d.py, test_torch_audio_pipeline.py,
+# test_torch_emotion2vec.py)
+RELEASED_F32_TOL = {"mvit": (2e-4, 0.0), "c3d": (2e-4, 0.0), "byola": (1e-4, 0.0),
+                    "emotion": (2e-4, 1e-3)}
+K1_KERNEL = "fused_block_"            # both of K1's __global__ names start so
+STEP_TIMER_TOL = 0.1                  # StepTimer's mean vs the CUDA-event time, relative
+
+
+def fairseq_cfg_node(cfg):
+    """An ``Emotion2VecConfig`` as a fairseq checkpoint's ``cfg`` node."""
+    return {"model": {
+        "embed_dim": cfg.embed_dim, "depth": cfg.depth, "num_heads": cfg.num_heads,
+        "mlp_ratio": cfg.mlp_ratio, "norm_eps": cfg.norm_eps,
+        "modalities": {"audio": {
+            "prenet_depth": cfg.prenet_depth, "num_extra_tokens": cfg.num_extra_tokens,
+            "use_alibi_encoder": cfg.use_alibi, "conv_pos_depth": cfg.conv_pos_depth,
+            "conv_pos_width": cfg.conv_pos_width, "conv_pos_groups": cfg.conv_pos_groups}}}}
+
+
+def released_checkpoints(root, mvit_t=VIDEO_T):
+    """The four released frontend files, synthetic, in their on-disk layouts,
+    written with ``torch.save`` from the port's modules at production
+    geometry with seeded, perturbed weights (biases, LN affines and pool
+    norms, BN statistics, rel-pos tables and class token away from their
+    init), with the extras the released files carry. Returns ({name: path},
+    {name: the source module})."""
+    import torch
+    from audio_visual_deepfake_detection_tpu_torch.frontends.byola import (
+        AudioNTT2020, init_byola)
+    from audio_visual_deepfake_detection_tpu_torch.frontends.emotion2vec import (
+        Emotion2Vec, Emotion2VecConfig, init_emotion2vec)
+    from audio_visual_deepfake_detection_tpu_torch.frontends.mvit import init_mvit, mvit_v2_b
+    from audio_visual_deepfake_detection_tpu_torch.frontends.video import (
+        C3DVideoEncoder, init_c3d)
+
+    src = {"mvit": init_mvit(mvit_v2_b(out_dim=256, temporal_size=mvit_t), 31, perturb=True),
+           "c3d": init_c3d(C3DVideoEncoder(), 32, perturb=True),
+           "emotion": init_emotion2vec(Emotion2Vec(Emotion2VecConfig()), 33, perturb=True),
+           "byola": init_byola(AudioNTT2020(), 34, perturb=True)}
+    g = torch.Generator().manual_seed(35)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g)
+
+    def under(prefix, module):
+        return {prefix + k: v for k, v in module.state_dict().items()}
+
+    blobs = {
+        # Lightning AlignVideo, MViT-v2-b under DataParallel: torchvision's
+        # classifier head and a foreign submodule beside the encoder
+        "mvit": {"state_dict": {**under("module.video_encoder.mvit.", src["mvit"]),
+                                "module.video_encoder.mvit.head.1.weight": rand(400, 256),
+                                "module.video_encoder.mvit.head.1.bias": rand(400),
+                                "module.audio_encoder.block0.conv.weight": rand(64, 1, 3)},
+                 "hyper_parameters": {"v_encoder": "mvit_v2_b", "temporal_dim": mvit_t,
+                                      "v_cla_feature_in": 256}},
+        # Lightning AlignVideo, C3D at (64, 96, 128, 128), no hyper_parameters
+        "c3d": {"state_dict": under("module.video_encoder.", src["c3d"])},
+        # fairseq emotion2vec_base: the teacher and the decoders beside the model
+        "emotion": {"model": {**src["emotion"].state_dict(),
+                              "_ema.blocks.0.attn.qkv.weight": rand(16, 8),
+                              "decoder.proj.weight": rand(8, 8),
+                              "modality_encoders.AUDIO.decoder.blocks.0.0.weight": rand(8, 8)},
+                    "cfg": fairseq_cfg_node(src["emotion"].cfg)},
+        # BYOL-A: the encoder under a training wrapper's prefix, nested, with
+        # heads the reference's key regex drops
+        "byola": {"state_dict": {**under("module.encoder.", src["byola"]),
+                                 "module.projector.0.weight": rand(8, 8),
+                                 "module.target_momentum": rand(1)}},
+    }
+    names = {"mvit": "alignvideo_model_mvit_v2_b.ckpt", "c3d": "alignvideo_model_c3d.ckpt",
+             "emotion": "emotion2vec_base.pt", "byola": "AudioNTT2020-BYOLA-64x96d2048.pth"}
+    paths = {}
+    for key, blob in blobs.items():
+        paths[key] = os.path.join(root, names[key])
+        torch.save(blob, paths[key])
+    return paths, src
+
+
+def load_released(files, dtype, device):
+    """The port's loaders over the files' mappings, in ``dtype`` on ``device``."""
+    from audio_visual_deepfake_detection_tpu_torch.tools import convert_frontends as cf
+
+    return {"mvit": cf.load_alignvideo_checkpoint(files["mvit"], dtype=dtype, device=device),
+            "c3d": cf.load_alignvideo_checkpoint(files["c3d"], dtype=dtype, device=device),
+            "emotion": cf.load_emotion2vec_checkpoint(files["emotion"], dtype=dtype,
+                                                      device=device),
+            "byola": cf.load_byola_checkpoint(files["byola"], dtype=dtype, device=device)}
+
+
+def trace_readings(path, window_names=("localizer", "decode")):
+    """A Chrome trace of ``core/profiling.trace``: the kernel events, and the
+    device-busy share of the window from the first of the annotated spans'
+    start to the later of their end and the last kernel's end (the union of
+    kernel intervals over the window's length)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel" and e.get("ph") == "X"]
+    spans = [e for e in events if e.get("cat") == "user_annotation"
+             and e.get("name") in window_names]
+    if not spans:
+        return kernels, spans, None
+    t0 = min(float(e["ts"]) for e in spans)
+    t1 = max([float(e["ts"]) + float(e["dur"]) for e in spans]
+             + [float(e["ts"]) + float(e["dur"]) for e in kernels])
+    busy, end = 0.0, t0
+    for a, b in sorted((max(float(e["ts"]), t0), min(float(e["ts"]) + float(e["dur"]), t1))
+                       for e in kernels):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return kernels, spans, dict(window_us=t1 - t0, busy_us=busy, busy_share=busy / (t1 - t0))
+
+
+def phase_released_weights(dev="cuda", smi="", mvit_t=VIDEO_T, n_mp4=RELEASED_MP4S,
+                           mp4_frames=240, mp4_size=128, wav_len=WAV_LEN, cmp_t=16,
+                           cmp_wav=16000, trace_b=16, overrides=None, warm_config=None,
+                           warm_args=("--infer-batch", "64", "--train-batch", "5")):
+    """The released-weights route on the card (phase 18 of the module
+    docstring). ``mvit_t`` (MViT's temporal size and the extraction's
+    chunk), the media sizes, ``overrides`` (a localizer config fragment
+    whose dataset widths stay the encoders' 256 / 2048 + 768) and
+    ``warm_config`` shrink it for a CPU rehearsal. Returns the report, with
+    the launches."""
+    import ast
+    import shutil
+    import tempfile
+    import torch
+    from scipy.io import wavfile
+    from audio_visual_deepfake_detection_tpu_torch.cli import (
+        convert_checkpoint, extract_features, generate_results, inference, warmup)
+    from audio_visual_deepfake_detection_tpu_torch.core import profiling
+    from audio_visual_deepfake_detection_tpu_torch.core.config import (
+        arch_config_from, load_config, test_config_from)
+    from audio_visual_deepfake_detection_tpu_torch.frontends import pipeline
+    from audio_visual_deepfake_detection_tpu_torch.frontends.emotion2vec import (
+        conv_output_length)
+    from audio_visual_deepfake_detection_tpu_torch.frontends.mvit import MViTVideoEncoder
+    from audio_visual_deepfake_detection_tpu_torch.frontends.video import C3DVideoEncoder
+    from audio_visual_deepfake_detection_tpu_torch.infer.decode import decode_and_postprocess
+    from audio_visual_deepfake_detection_tpu_torch.models import AVLocalizer, build_localizer
+    from audio_visual_deepfake_detection_tpu_torch.models.points import generate_points
+    from audio_visual_deepfake_detection_tpu_torch.tools import synth_cache
+    from audio_visual_deepfake_detection_tpu_torch.train.checkpoint import restore_params
+
+    on_card = torch.device(dev).type == "cuda"
+    dev_args = [] if on_card else ["--device", dev]
+    build = os.path.join(REPO, "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(dir=build)
+    report = {"card": smi}
+    video_names = ("patch_embed", "pooled_attention", "multiscale_block")
+
+    def expect(counts, what, **want_on_card):
+        want = dict.fromkeys(counts, 0)
+        if on_card:
+            want.update(want_on_card)
+        if counts != want:
+            fail(f"released {what}: launches {counts}, expected {want}")
+
+    def peak_reset():
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak():
+        return torch.cuda.max_memory_allocated() / 2**30 if on_card else None
+
+    try:
+        # (1) the four files, read back as a user reads them
+        t0 = time.perf_counter()
+        paths, src = released_checkpoints(root, mvit_t)
+        files = {k: torch.load(p, weights_only=True) for k, p in paths.items()}
+        sizes = {k: os.path.getsize(p) / 2**20 for k, p in paths.items()}
+        card32 = load_released(files, torch.float32, dev)
+        for key, module in card32.items():
+            held = src[key].state_dict()
+            same = all(torch.equal(v.cpu(), held[k]) for k, v in module.state_dict().items())
+            if not same or module.training or \
+                    next(module.parameters()).device.type != torch.device(dev).type:
+                fail(f"released {key}: loaded weights equal the written ones {same}, "
+                     f"training {module.training}")
+        mv, emo_cfg = card32["mvit"], card32["emotion"].cfg
+        if not (isinstance(mv, MViTVideoEncoder) and len(mv.blocks) == 24
+                and mv.temporal_size == mvit_t and isinstance(card32["c3d"], C3DVideoEncoder)
+                and card32["c3d"].block0[0].conv.weight.shape[0] == 64
+                and card32["byola"].d == 2048 and emo_cfg == src["emotion"].cfg):
+            fail("released: the loaders built other geometries than the files describe")
+        k8_per_forward = 0 if emo_cfg.use_alibi else emo_cfg.depth + emo_cfg.prenet_depth
+        report["files_mib"] = sizes
+        log(f"released: four files in the released layouts ({', '.join(f'{os.path.basename(paths[k])} {v:.1f} MiB' for k, v in sizes.items())}) "
+            f"written, read back with weights_only=True and loaded on {dev} in "
+            f"{time.perf_counter() - t0:.2f} s: mvit_v2_b ({len(mv.blocks)} blocks, temporal "
+            f"{mv.temporal_size}), C3D (64, 96, 128, 128), BYOL-A d=2048, Emotion2Vec "
+            f"({emo_cfg.prenet_depth} + {emo_cfg.depth} blocks, ALiBi {emo_cfg.use_alibi}, "
+            f"{emo_cfg.num_extra_tokens} extra tokens: K8 {k8_per_forward} a forward)")
+
+        # (2) f32: the same loaded weights on the card and on the CPU
+        rng = np.random.default_rng(51)
+        clip = rng.integers(0, 256, (2, cmp_t, 96, 96, 3), dtype=np.uint8)
+        clip[1, cmp_t // 2:] = 0
+        wavs = (rng.standard_normal((2, cmp_wav)) * 0.1).astype(np.float32)
+        cpu32 = load_released(files, torch.float32, "cpu")
+        group = video_launches(2, pipeline.FRONT_CHUNK_GROUP, True)
+        f32 = {}
+        for key, want in (("mvit", group), ("c3d", {}), ("byola", {}),
+                          ("emotion", dict(conv_extractor=1, full_mha=k8_per_forward))):
+            def run(models, device):
+                if key in ("mvit", "c3d"):
+                    return pipeline.FeatureExtractor(video_model=models[key], video_chunk=cmp_t,
+                                                     device=device).video_chunks_features(clip)
+                ex = pipeline.FeatureExtractor(byola_model=models["byola"],
+                                               emotion_model=models["emotion"], device=device)
+                fn = ex.byola_features_device if key == "byola" else ex.emotion_features_device
+                with torch.no_grad():
+                    return fn(wavs).cpu().numpy()
+            cpu = run(cpu32, "cpu")
+            reset_counts()
+            card = run(card32, dev)
+            sync(dev)
+            expect(launch_counts(), f"{key} f32", **want)
+            atol, rtol = RELEASED_F32_TOL[key]
+            d, ok = check_f32(torch.from_numpy(card), torch.from_numpy(cpu), atol, rtol)
+            if not ok or card.shape != cpu.shape:
+                fail(f"released {key} f32 card vs CPU {d:.3e} (atol {atol:g} rtol {rtol:g})")
+            f32[key] = d
+        report["f32_card_vs_cpu"] = f32
+        del cpu32
+        log(f"released f32 card vs CPU, 2 chunks of {cmp_t} frames / 2 wavs of "
+            f"{cmp_wav / 16000:g} s: " + ", ".join(
+                f"{k} {v:.3e} (atol {RELEASED_F32_TOL[k][0]:g})" for k, v in f32.items())
+            + f" ({smi})")
+
+        # (3) bf16 on the card: the kernels against their plain versions
+        m16 = load_released(files, torch.bfloat16, dev)
+        del files
+        chunks = rng.integers(0, 256, (2, mvit_t, 96, 96, 3), dtype=np.uint8)
+        chunks[-1, mvit_t // 2:] = 0
+        exv = pipeline.FeatureExtractor(video_model=m16["mvit"], video_chunk=mvit_t, device=dev)
+        reset_counts()
+        with torch.no_grad(), main_path_entries():
+            v16 = exv.video_chunks_features_device(chunks)
+        sync(dev)
+        video_counts = launch_counts()
+        expect(video_counts, "mvit_v2_b bf16, one group of 2 chunks", **group)
+        routes = video_routes(group, on_card)
+        with torch.no_grad(), plain_video_on_card():
+            v16_plain = exv.video_chunks_features_device(chunks)
+        bf16 = {}
+        err, ok, rule = check_bf16(v16, v16_plain)
+        if not ok:
+            exact = pipeline.FeatureExtractor(video_model=card32["mvit"], video_chunk=mvit_t,
+                                              device=dev).video_chunks_features_device(chunks)
+            ok, text = against_exact(v16, v16_plain, exact.float())
+            rule = f"kernel within {NO_WORSE:g}x of plain vs f32: {text}"
+            del exact
+        if not ok or v16.shape != (2, mvit_t, 256):
+            fail(f"released mvit_v2_b bf16 kernels vs plain {err:.3e} ({rule})")
+        bf16["mvit"] = {"max_abs_err": err, "rule": rule}
+        del v16, v16_plain
+        wav2 = (rng.standard_normal((2, wav_len)) * 0.1).astype(np.float32)
+        exa = pipeline.FeatureExtractor(byola_model=m16["byola"], emotion_model=m16["emotion"],
+                                        device=dev)
+        reset_counts()
+        with torch.no_grad():
+            e16 = exa.emotion_features_device(wav2)
+            b16 = exa.byola_features_device(wav2)
+        sync(dev)
+        audio_counts = launch_counts()
+        expect(audio_counts, "Emotion2Vec + BYOL-A bf16, one batch of 2 wavs", conv_extractor=1,
+               full_mha=k8_per_forward)
+        with torch.no_grad(), plain_audio_on_card():
+            e16_plain = exa.emotion_features_device(wav2)
+        err, ok, rule = check_bf16(e16, e16_plain)
+        if not ok:
+            with torch.no_grad():
+                exact = pipeline.FeatureExtractor(emotion_model=card32["emotion"],
+                                                  device=dev).emotion_features_device(wav2)
+            ok, text = against_exact(e16, e16_plain, exact.float())
+            rule = f"kernel within {NO_WORSE:g}x of plain vs f32: {text}"
+        if not ok or not torch.isfinite(b16).all():
+            fail(f"released Emotion2Vec bf16 kernels vs plain {err:.3e} ({rule}); BYOL-A finite "
+                 f"{bool(torch.isfinite(b16).all())}")
+        bf16["emotion"] = {"max_abs_err": err, "rule": rule}
+        report.update(bf16_kernel_vs_plain=bf16, launches_video_group=video_counts,
+                      launches_audio_batch=audio_counts, k3_routes=routes)
+        del card32, e16, e16_plain, b16
+        log(f"released bf16 kernels vs plain on the card: mvit_v2_b 2 chunks of {mvit_t} "
+            f"frames {bf16['mvit']['max_abs_err']:.3e} ({bf16['mvit']['rule']}), launches "
+            f"{ {k: video_counts[k] for k in video_names} }, K3 routes {routes}; Emotion2Vec 2 "
+            f"wavs of {wav_len / 16000:g} s {bf16['emotion']['max_abs_err']:.3e} "
+            f"({bf16['emotion']['rule']}), launches K5 {audio_counts['conv_extractor']} K8 "
+            f"{audio_counts['full_mha']} ({smi})")
+
+        # (4) the route: loaded models -> FeatureExtractor -> caches
+        t0 = time.perf_counter()
+        media = os.path.join(root, "media")
+        rels = [f"released/{i:03d}/real" for i in range(n_mp4)]
+        for rel in rels:
+            write_mp4(os.path.join(media, "data", rel + ".mp4"),
+                      smooth_video(rng, mp4_frames, mp4_size))
+            os.makedirs(os.path.dirname(os.path.join(media, "wav", rel)), exist_ok=True)
+            wavfile.write(os.path.join(media, "wav", rel + ".wav"), 16000,
+                          (rng.standard_normal(wav_len) * 3000).astype(np.int16))
+        mp4s = [(os.path.join(media, "data", r + ".mp4"), os.path.join(media, "wav", r + ".wav"))
+                for r in rels]
+        rows = {"video": mp4_frames, "byola": (1 + wav_len // 160) // 8,
+                "emotion": conv_output_length(wav_len)}
+        loaded = pipeline.FeatureExtractor(video_model=m16["mvit"], byola_model=m16["byola"],
+                                           emotion_model=m16["emotion"],
+                                           compute_dtype="bfloat16", video_chunk=mvit_t)
+        if loaded.device.type != torch.device(dev).type:
+            fail(f"released: the extractor took {loaded.device}, its models are on {dev}")
+
+        def extract_pass(ex, out):
+            peak_reset()
+            t1 = time.perf_counter()
+            for m, w in mp4s:
+                ex.extract_to_cache(m, w, os.path.join(media, out),
+                                    os.path.relpath(m, os.path.join(media, "data"))
+                                    .replace(".mp4", ".npy"))
+            sync(dev)
+            return time.perf_counter() - t1, peak()
+
+        reset_counts()
+        cold_s, _ = extract_pass(loaded, "cache")
+        extract_counts = launch_counts()
+        expect(extract_counts, f"extract_to_cache over {n_mp4} files",
+               **{k: n_mp4 * v for k, v in group.items()}, conv_extractor=n_mp4,
+               full_mha=n_mp4 * k8_per_forward)
+        for rel in rels:
+            for key, name in pipeline.CACHE_DIR_NAMES.items():
+                a = np.load(os.path.join(media, "cache", name, rel + ".npy"))
+                if a.shape[0] != rows[key] or a.dtype != np.float32 or not np.isfinite(a).all():
+                    fail(f"released cache {name}/{rel}.npy: {a.shape} {a.dtype}, {rows[key]} "
+                         f"rows expected")
+        rates = {}
+        seeded = extract_features.build_extractor("mvit_v2_b", mvit_t, 0, "bfloat16",
+                                                  torch.device(dev))
+        seeded.extract_all(*mp4s[0])                  # builds its models, warms them
+        for label, ex in (("loaded", loaded), ("seeded", seeded)):
+            secs, pk = extract_pass(ex, f"rate_{label}")
+            rates[label] = dict(videos_per_s=n_mp4 / secs, seconds=secs, peak_gib=pk)
+        rates["loaded"]["first_pass_videos_per_s"] = n_mp4 / cold_s
+        report.update(extract=rates, launches_extract=extract_counts, rows=rows)
+        del seeded
+        log(f"released route: {n_mp4} cv2 mp4s of {mp4_frames} frames ({mp4_size}x{mp4_size}) "
+            f"+ {wav_len / 16000:g} s wavs through FeatureExtractor.extract_to_cache, bf16, "
+            f"rows {rows}: loaded weights {rates['loaded']['videos_per_s']:.2f} videos/s"
+            + (f" (peak {rates['loaded']['peak_gib']:.2f} GiB)" if on_card else "")
+            + f", seeded weights {rates['seeded']['videos_per_s']:.2f} videos/s"
+            + (f" (peak {rates['seeded']['peak_gib']:.2f} GiB)" if on_card else "")
+            + f"; the first pass {n_mp4 / cold_s:.2f} videos/s; launches {extract_counts} "
+            f"({smi})")
+
+        # (5) a reference localizer checkpoint converted, then cli/inference.py
+        cache = os.path.join(media, "cache")
+        duration = mp4_frames / 25.0
+        with open(os.path.join(cache, "deepfake_test_sub1.txt"), "w") as f:
+            f.write("\n".join(f"{r}.mp4,{duration!r}" for r in rels))
+        os.makedirs(os.path.join(media, "meta"), exist_ok=True)
+        cache_dict = dict(folders={k: os.path.join(cache, v)
+                                   for k, v in pipeline.CACHE_DIR_NAMES.items()},
+                          test_folder=cache, json_folder=os.path.join(media, "meta"),
+                          labelled_txt=os.path.join(cache, "none.txt"))
+        cfg_path = synth_cache.write_config(
+            os.path.join(REPO, "configs_test", "deepfake_exp12_test.yaml"),
+            os.path.join(root, "infer.yaml"), cache_dict, os.path.join(root, "runs"),
+            synth_cache.merge({"tpu": {"compute_dtype": "bfloat16"}}, overrides or {}))
+        config = load_config(cfg_path)
+        cfg, tcfg = arch_config_from(config), test_config_from(config)
+        n_blocks = 1 + cfg.arch[1] + 3 * cfg.arch[2]
+        ref = perturb(build_localizer(cfg, seed=3, device="cpu"), 4).state_dict()
+        ref["cls_head.cls_head.conv.bias"].zero_()   # scores over the 0.2 cut
+        ref_path = os.path.join(root, "epoch_010.pth.tar")
+        torch.save({"epoch": 10, "state_dict": {f"module.{k}": v for k, v in ref.items()},
+                    "state_dict_ema": {f"module.{k}": v for k, v in ref.items()}}, ref_path)
+        ckpt = convert_checkpoint.main([cfg_path, ref_path, "--output",
+                                        os.path.join(root, "converted"), "--epoch", "10"])
+        reset_counts()
+        with plain_block_calls() as plain:
+            summary = inference.run(inference.build_parser().parse_args(
+                [cfg_path, "1", "--ckpt", ckpt, "--batch-size", str(n_mp4), *dev_args]))
+        infer_counts = launch_counts()
+        expect(infer_counts, "cli/inference.py over the caches",
+               fused_transformer_block=n_blocks * summary["stats"]["batches"])
+        got = sorted(it["video_id"] for it in flush_items(summary["out_folder"]))
+        n_txt, n_json = generate_results.main([os.path.join(root, "runs"), "--num-shards", "1"])
+        if plain["cuda"] or got != sorted(r + ".mp4" for r in rels) or \
+                not n_txt == n_json == n_mp4:
+            fail(f"released cli/inference.py: {len(got)} items, submission {n_txt} / {n_json} "
+                 f"of {n_mp4}, {plain['cuda']} plain blocks on the card")
+        report["inference"] = dict(videos=len(got), batches=summary["stats"]["batches"],
+                                   seconds=summary["seconds"], launches=infer_counts,
+                                   submission=[n_txt, n_json])
+        log(f"released: epoch_010.pth.tar of deepfake_exp12_test.yaml -> cli/convert_checkpoint.py"
+            f" -> cli/inference.py over the {n_mp4} caches ({summary['stats']['batches']} batch, "
+            f"{summary['seconds']:.2f} s) -> generate_results: prediction.txt {n_txt} lines, "
+            f"prediction.json {n_json} keys; launches {infer_counts} ({smi})")
+
+        # (6) core/profiling: trace, annotate and StepTimer on a B=16 forward
+        model = AVLocalizer(cfg)
+        model.load_state_dict(restore_params(ckpt))
+        model = model.to(dev).eval()
+        t = cfg.max_seq_len
+        lens = rng.integers(t // 3, t + 1, trace_b)
+        lens[0] = t
+        mask = np.arange(t)[None, :] < lens[:, None]
+        x = rng.standard_normal((trace_b, t, cfg.input_dim), dtype=np.float32) * mask[..., None]
+        xd, md = torch.from_numpy(x).to(dev), torch.from_numpy(mask).to(dev)
+        points = generate_points([t // s for s in cfg.fpn_strides], cfg.fpn_strides,
+                                 cfg.regression_range, device=dev)
+        meta = [torch.full((trace_b,), v, device=dev) for v in (25.0, duration, 1.0, 1.0)]
+
+        @torch.inference_mode()
+        def forward():
+            with profiling.annotate("localizer"):
+                out = model(xd, md)
+            with profiling.annotate("decode"):
+                return decode_and_postprocess(out, points, *meta, tcfg, cfg.num_classes)
+
+        forward()
+        sync(dev)
+        trace_dir = os.path.join(root, "trace")
+        reset_counts()
+        with profiling.trace(trace_dir):
+            forward()
+        k1 = launch_counts()["fused_transformer_block"]
+        trace_file = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)]
+        if len(trace_file) != 1:
+            fail(f"released trace: {trace_file}")
+        kernels, spans, busy = trace_readings(trace_file[0])
+        k1_events = [e for e in kernels if K1_KERNEL in e["name"]]
+        names = sorted({e["name"] for e in k1_events})
+        if {e["name"] for e in spans} != {"localizer", "decode"}:
+            fail(f"released trace: annotated spans {sorted({e['name'] for e in spans})}")
+        if on_card and (k1 != n_blocks or len(k1_events) != 2 * k1 or busy is None):
+            fail(f"released trace: {len(k1_events)} K1 kernel events ({names}) for {k1} counted "
+                 f"launches (two kernels a bf16 call), {len(kernels)} kernel events in all")
+        if not on_card and (kernels or k1):
+            fail(f"released trace on the CPU: {len(kernels)} kernel events, K1 {k1}")
+        timer_rec = None
+        if on_card:
+            sync(dev)
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            timer = profiling.StepTimer(sync_every=10)
+            per_step = None
+            for _ in range(10):
+                per_step = timer.step(forward()) or per_step
+            end.record()
+            torch.cuda.synchronize()
+            ev_ms = start.elapsed_time(end) / 10
+            timer_ms = per_step * 1e3
+            timer_rec = dict(timer_ms=timer_ms, event_ms=ev_ms,
+                             gap=abs(timer_ms - ev_ms) / ev_ms)
+            if timer_rec["gap"] > STEP_TIMER_TOL:
+                fail(f"released StepTimer {timer_ms:.3f} ms a step vs CUDA events {ev_ms:.3f}")
+        report["profiling"] = dict(k1_counted=k1, k1_events=len(k1_events), k1_names=names,
+                                   kernel_events=len(kernels), busy=busy, step_timer=timer_rec)
+        log(f"released core/profiling.trace around one bf16 B={trace_b} forward + decode: "
+            f"{len(k1_events)} K1 kernel events ({', '.join(n.split('::')[-1][:40] for n in names)}) for "
+            f"{k1} counted launches, {len(kernels)} kernel events in all"
+            + (f"; device busy {100 * busy['busy_share']:.1f}% of the annotated window "
+               f"({busy['window_us'] / 1e3:.3f} ms)" if busy else "")
+            + (f"; StepTimer {timer_rec['timer_ms']:.3f} ms a step vs CUDA events "
+               f"{timer_rec['event_ms']:.3f} ms ({100 * timer_rec['gap']:.1f}%)" if timer_rec
+               else "") + f" ({smi})")
+        del model, m16, loaded
+
+        # (7) cli/warmup.py: a process of its own (cold), then in this one (warm)
+        warm_cfg = warm_config or os.path.join(REPO, "configs_test", "deepfake_exp12_test.yaml")
+        argv = [warm_cfg, *warm_args, *dev_args]
+        t1 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m",
+                               "audio_visual_deepfake_detection_tpu_torch.cli.warmup", *argv],
+                              cwd=REPO, capture_output=True, text=True, timeout=600)
+        cold_wall = time.perf_counter() - t1
+        if proc.returncode != 0:
+            fail(f"released cli/warmup.py exited {proc.returncode}: {proc.stderr[-3000:]}")
+        lines = proc.stdout.splitlines()
+
+        def stage(prefix):
+            line = next((ln for ln in lines if ln.startswith(prefix)), None)
+            if line is None:
+                fail(f"released cli/warmup.py printed no '{prefix}' line:\n{proc.stdout}")
+            secs = float(line.split(" ready in ")[1].split("s")[0])
+            return secs, ast.literal_eval(line.split("launches ")[1])
+
+        host = [ln for ln in lines if ln.startswith("host library ")]
+        lib = [ln for ln in lines if ln.startswith("kernel library ")]
+        if len(host) != len(warmup.HOST_LIBRARIES) or (on_card and not (
+                len(lib) == 1 and lib[0].startswith("kernel library found"))):
+            fail(f"released cli/warmup.py: kernel library {lib}, host libraries {host}")
+        warm_b = [int(a) for a in warm_args[warm_args.index("--infer-batch") + 1:
+                                            warm_args.index("--train-batch")]]
+        train_b = [int(a) for a in warm_args[warm_args.index("--train-batch") + 1:]]
+        cold = {}
+        for b in warm_b:
+            cold[f"infer_b{b}"] = stage(f"inference B={b} ")
+            expect(cold[f"infer_b{b}"][1], f"cli/warmup.py inference B={b}",
+                   fused_transformer_block=n_blocks)
+        for b in train_b:
+            cold[f"train_b{b}"] = stage(f"train B={b} ")
+            expect(cold[f"train_b{b}"][1], f"cli/warmup.py train B={b}",
+                   fused_transformer_block_train=n_blocks)
+        warm = warmup.main(argv)
+        warm_s = {**{f"infer_b{b}": r["seconds"] for b, r in warm["infer"].items()},
+                  **{f"train_b{b}": r["seconds"] for b, r in warm["train"].items()}}
+        report["warmup"] = dict(cold_process_s=cold_wall,
+                                cold={k: v[0] for k, v in cold.items()},
+                                cold_launches={k: v[1] for k, v in cold.items()},
+                                warm=warm_s, kernel_library=lib, host_libraries=host)
+        log(f"released cli/warmup.py {' '.join(warm_args)}: its process {cold_wall:.1f} s "
+            f"({lib[0] if lib else 'no kernel library on the CPU'}; "
+            f"{'; '.join(h[len('host library '):].split(':')[0] for h in host)}); cold "
+            + ", ".join(f"{k} {v[0]:.1f} s {v[1]}" for k, v in cold.items())
+            + "; warm, in this process " + ", ".join(f"{k} {v:.2f} s" for k, v in warm_s.items())
+            + f" ({smi})")
+        report["launches"] = {
+            "fused_transformer_block": infer_counts["fused_transformer_block"],
+            "patch_embed": video_counts["patch_embed"],
+            "pooled_attention": video_counts["pooled_attention"],
+            "multiscale_block": video_counts["multiscale_block"],
+            "conv_extractor": audio_counts["conv_extractor"],
+            "full_mha": audio_counts["full_mha"],
+            "fused_transformer_block_train": cold[f"train_b{train_b[0]}"][1].get(
+                "fused_transformer_block_train", 0) if train_b else 0,
+            "band_attention": 0}
+        log(f"card: {smi}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    REPORT["released_weights"] = report
+    return report
+
+
 def main_path_loss(kernels, k1_totals, k1_bounds, mvit_group, k4_table, audio_times, smi,
                    n_videos=64, group=32):
     """What each kernel of the main path costs one ``n_videos``-video media ->
@@ -5351,6 +5919,7 @@ def main():
     train_cli = timed(phase_train_cli, smi=smi)
     variants = timed(phase_variants, smi=smi)
     legacy = timed(phase_legacy, smi=smi)
+    released = timed(phase_released_weights, smi=smi)
     for mod in ("jax", "audio_visual_deepfake_detection_tpu"):
         if mod in sys.modules:
             fail(f"{mod} was imported")
@@ -5535,6 +6104,11 @@ def main():
             "launches_bf16"]["band_attention"],
             "rel_pe_step": legacy["rel-pe"]["step"]["launches"]["band_attention"]},
     })
+    for k in kernels:
+        # checkpoints in the released layouts -> loaders -> extraction ->
+        # cli/inference.py, the traced forward and cli/warmup.py's step
+        k["launches_released_weights"] = released["launches"][k["name"]]
+    kernels[0]["trace_events_released_weights"] = released["profiling"]["k1_events"]
     main_path_loss(kernels, totals, k1_bounds, mvit_group, k4_table, audio_times, smi)
     REPORT["kernels"] = kernels
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)

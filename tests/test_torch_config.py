@@ -31,10 +31,18 @@ bad = [m for m in sys.modules
        or m.split(".")[0] == "audio_visual_deepfake_detection_tpu"]
 need = [pkg.__name__ + m for m in (".parallel", ".parallel.mesh", ".cli.train",
                                     ".cli.convert_checkpoint", ".frontends.video",
-                                    ".models.backbones", ".models.necks")]
+                                    ".models.backbones", ".models.necks",
+                                    ".tools.convert_frontends", ".core.profiling",
+                                    ".cli.warmup")]
 legacy = {".frontends.video": ("C3DVideoEncoder", "init_c3d"),
           ".models.backbones": ("ConvTransformerBackbone", "ConvBackbone"),
-          ".models.blocks": ("ConvBlock",), ".models.necks": ("FPNIdentity",)}
+          ".models.blocks": ("ConvBlock",), ".models.necks": ("FPNIdentity",),
+          ".tools.convert_frontends": ("strip_wrapper_prefixes", "unwrap_lightning",
+                                       "load_alignvideo_checkpoint",
+                                       "emotion2vec_config_from_fairseq",
+                                       "load_emotion2vec_checkpoint", "load_byola_checkpoint"),
+          ".core.profiling": ("trace", "annotate", "StepTimer"),
+          ".cli.warmup": ("main",), ".ops.resample": ("linear_resample_matrix",)}
 need += [f"{pkg.__name__}{m}.{a}" for m, attrs in legacy.items() for a in attrs
          if not hasattr(sys.modules[pkg.__name__ + m], a)]
 print("MISSING", [m for m in need if m not in names])
@@ -45,7 +53,8 @@ print("MODULES", len(names), "INPUT_DIM", arch.input_dim, "BAD", bad)
 def test_port_imports_no_jax():
     """Every module of the port (the data-parallel layer, the training
     and conversion entry points, the C3D encoder and the legacy backbones
-    and neck among them), ``load_config`` and
+    and neck, the released-checkpoint loaders, the profiler, the warm-up
+    entry point and the resample matrix among them), ``load_config`` and
     ``arch_config_from`` in a fresh interpreter: neither jax nor the JAX
     package gets imported."""
     yaml_path = os.path.join(REPO, "configs_test", "deepfake_exp12_test.yaml")
