@@ -16,8 +16,11 @@ localizers with the HRLR backbone (``av_recovery_norecon``, production;
 ``LocPointTransformer``) with the ``convTransformer`` or ``conv`` backbone,
 either neck (``fpn`` or ``identity``), relative position bias and time
 weighting. The recovery variants build the HRLR backbone whatever
-``backbone_type`` says, as the JAX package does. ``scale_factor`` other than 2 raises NotImplementedError: the
-stride-2 block is the only downsampling block the port has.
+``backbone_type`` says, as the JAX package does. ``scale_factor`` is read
+as the JAX package reads it: the pure-conv backbone downsamples by any
+factor, and a transformer block of stride other than 1 or 2 takes the
+unfused path, whose depthwise conv (kernel ``stride + 1``) refuses an even
+kernel as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -76,9 +79,6 @@ class ArchConfig:
         if self.backbone_type not in BACKBONES or self.fpn_type not in NECKS:
             raise ValueError(f"backbone {self.backbone_type!r} / neck {self.fpn_type!r}: "
                              f"one of {BACKBONES} / {NECKS}")
-        if self.scale_factor != 2:
-            raise NotImplementedError(
-                f"scale_factor {self.scale_factor}: the port downsamples by 2 only")
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"compute_dtype {self.compute_dtype!r}")
 

@@ -50,8 +50,11 @@
 //   a shuffle per offset hands every lane the exps for the running sum and
 //   the context. Products are mul.rn.bf16x2, the context add.rn.bf16x2, as
 //   torch rounds them.
-// - w is a template parameter (0 .. 8), P another: the offsets unroll, the
-//   scores stay in registers, and one ballot gives a row's key masks.
+// - w is a template parameter (0 .. 16), P another: the offsets unroll, the
+//   scores stay in registers, and two ballots give a row's key masks (the
+//   second only for w = 16, whose 33rd offset spills past a 32-bit word).
+//   Above w = 8 a block holds 2w + 8 staged rows and each lane more scores,
+//   so an SM runs three such blocks (launch bounds) and not six.
 // - One grid axis over (sample, row tile, head slab): no cap on B x H.
 // The TPU kernel's whole-(T, D) VMEM tiles and 128-lane padding are not
 // carried over.
@@ -65,10 +68,10 @@ using namespace avdd;
 constexpr int NW = 8;            // warps of a block
 constexpr int NT = NW * 32;
 constexpr int ROWS = NW;         // query rows of a block, a warp each
-constexpr int MAX_W = 8;         // largest half window
+constexpr int MAX_W = 16;        // largest half window
 constexpr int SLAB = 512;        // bytes of a staged row: 32 lanes x 16 bytes
 constexpr float PENALTY = -1e4f;
-static_assert(2 * MAX_W + 1 <= 32, "one ballot holds a row's key masks");
+static_assert(2 * MAX_W + 1 <= 64, "two ballots hold a row's key masks");
 
 struct Strides { long long b, h, t; };
 
@@ -147,7 +150,7 @@ __device__ __forceinline__ uint4 ldg16(const char* p) {
 // the rest of its lanes holding zeros). A block computes one tile: query
 // rows r0 .. r0 + ROWS - 1 of sample b across head slab `slab`, a warp a row.
 template <typename T, int W, int P>
-__global__ void __launch_bounds__(NT, 6) band_attention_kernel(const Params p) {
+__global__ void __launch_bounds__(NT, W > 8 ? 3 : 6) band_attention_kernel(const Params p) {
   using V = Vec<T>;
   constexpr int K = 2 * W + 1;                     // offsets a row attends
   constexpr int NO = (K + P - 1) / P;              // offsets a lane finishes
@@ -185,11 +188,15 @@ __global__ void __launch_bounds__(NT, 6) band_attention_kernel(const Params p) {
     return;
   }
   // bit j: key r + j - W (staged row warp + j) is inside the sequence and
-  // not masked
+  // not masked; offsets 32 .. K - 1 in a second word
   const uint8_t* mrow = p.valid + (size_t)b * p.T;
-  const int ks = r - W + lane;
-  const uint32_t kb = __ballot_sync(0xffffffffu, lane < K && ks >= 0 && ks < p.T &&
-                                                     mrow[ks] != 0);
+  auto valid = [&](int j) {
+    const int ks = r - W + j;
+    return j < K && ks >= 0 && ks < p.T && mrow[ks] != 0;
+  };
+  const uint32_t kb = __ballot_sync(0xffffffffu, valid(lane));
+  const uint32_t kb_hi = K > 32 ? __ballot_sync(0xffffffffu, valid(32 + lane)) : 0u;
+  auto bit = [&](int j) { return ((j < 32 ? kb >> (j & 31) : kb_hi >> (j & 31)) & 1u) != 0; };
   const uint4 q = live ? ldg16(p.q + b * p.sq.b + h * p.sq.h + r * p.sq.t + c * VB)
                        : make_uint4(0u, 0u, 0u, 0u);
   cp_wait_all();
@@ -225,7 +232,7 @@ __global__ void __launch_bounds__(NT, 6) band_attention_kernel(const Params p) {
     const int j = NO * c + m, d = j - W;
     const float s = V::rnd(part[m]);
     const bool inseq = j < K && r + d >= 0 && r + d < p.T;
-    e[m] = !inseq ? -CUDART_INF_F : (kb >> j) & 1u ? s : V::rnd(s + pen);
+    e[m] = !inseq ? -CUDART_INF_F : bit(j) ? s : V::rnd(s + pen);
     mx = fmaxf(mx, e[m]);
   }
 #pragma unroll
@@ -246,7 +253,7 @@ __global__ void __launch_bounds__(NT, 6) band_attention_kernel(const Params p) {
 #pragma unroll
   for (int j = 0; j < K; ++j)                      // a key outside the sequence was staged as zeros
     V::axpy(acc, ex[j] * inv, *reinterpret_cast<const uint4*>(vst + j * SLAB));
-  if (!((kb >> W) & 1u)) acc = make_uint4(0u, 0u, 0u, 0u);   // own key slot masked
+  if (!bit(W)) acc = make_uint4(0u, 0u, 0u, 0u);   // own key slot masked
   if (live)
     *reinterpret_cast<uint4*>(p.out + b * p.so.b + h * p.so.h + r * p.so.t + c * VB) = acc;
 }
@@ -270,19 +277,11 @@ int launch_w(const Params& p, int lanes, cudaStream_t s) {
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename T>
+// launch_w<T, w> for the runtime w, one template instance per w <= MAX_W.
+template <typename T, int W = 0>
 int launch(const Params& p, int w, int lanes, cudaStream_t s) {
-  switch (w) {
-    case 0: return launch_w<T, 0>(p, lanes, s);
-    case 1: return launch_w<T, 1>(p, lanes, s);
-    case 2: return launch_w<T, 2>(p, lanes, s);
-    case 3: return launch_w<T, 3>(p, lanes, s);
-    case 4: return launch_w<T, 4>(p, lanes, s);
-    case 5: return launch_w<T, 5>(p, lanes, s);
-    case 6: return launch_w<T, 6>(p, lanes, s);
-    case 7: return launch_w<T, 7>(p, lanes, s);
-    case 8: return launch_w<T, 8>(p, lanes, s);
-  }
+  if (w == W) return launch_w<T, W>(p, lanes, s);
+  if constexpr (W < MAX_W) return launch<T, W + 1>(p, w, lanes, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -307,7 +306,7 @@ struct BandArgs {
 // q, k, v, out: (B, H, T, D) through element strides (batch, head, row), the
 // D values of a row contiguous, every row 16-byte aligned (the stride of a
 // dimension of size 1 is never used); valid: (B, T) bool, contiguous. D x
-// element size a multiple of 16 bytes and at most 512; 0 <= w <= 8; dtype:
+// element size a multiple of 16 bytes and at most 512; 0 <= w <= 16; dtype:
 // 0 float32, 1 bfloat16.
 int avdd_band_attention(const BandArgs* a) {
   const int B = a->B, H = a->H, T = a->T, D = a->D, w = a->w, dtype = a->dtype;

@@ -110,7 +110,6 @@ class HRLRBackbone(_Embed):
                  use_time_weight: bool = False):
         super().__init__()
         assert len(mha_win_size) == 1 + arch[2]
-        assert scale_factor == 2, "the stride-2 block mode needs scale 2"
         self._init_embed(n_in, n_embd, n_embd_ks, arch[0], with_ln)
         n_embd = _width(n_embd)
         self.n_embd, self.max_len, self.arch = n_embd, max_len, tuple(arch)
@@ -124,7 +123,7 @@ class HRLRBackbone(_Embed):
         self.stem = nn.ModuleList(TransformerBlock(n_embd, n_head, window_size=w0, **drop)
                                   for _ in range(arch[1]))
         self.branch = nn.ModuleList(
-            TransformerBlock(n_embd, n_head, ds_stride=2,
+            TransformerBlock(n_embd, n_head, ds_stride=scale_factor,
                              window_size=mha_win_size[1 + i], **drop)
             for i in range(arch[2]))
         self.lh_branch = nn.ModuleList(
@@ -201,7 +200,6 @@ class ConvTransformerBackbone(_Embed):
                  use_rel_pe: bool = False, use_time_weight: bool = False):
         super().__init__()
         assert len(mha_win_size) == 1 + arch[2]
-        assert scale_factor == 2, "the stride-2 block mode needs scale 2"
         self._init_embed(n_in, n_embd, n_embd_ks, arch[0], with_ln)
         n_embd = _width(n_embd)
         self.n_embd, self.max_len, self.use_abs_pe = n_embd, max_len, use_abs_pe
@@ -211,7 +209,8 @@ class ConvTransformerBackbone(_Embed):
             TransformerBlock(n_embd, n_head, window_size=mha_win_size[0], **kw)
             for _ in range(arch[1]))
         self.branch = nn.ModuleList(
-            TransformerBlock(n_embd, n_head, ds_stride=2, window_size=mha_win_size[1 + i], **kw)
+            TransformerBlock(n_embd, n_head, ds_stride=scale_factor,
+                             window_size=mha_win_size[1 + i], **kw)
             for i in range(arch[2]))
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor, train: bool = False,

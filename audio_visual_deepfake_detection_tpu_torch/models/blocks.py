@@ -17,7 +17,11 @@ loads as it is. ``TransformerBlock`` dispatches as the JAX block does
   (``use_rel_pe`` / ``use_time_weight``), in eval and in training, banded or
   dense: the unfused block, its banded attention the plain
   ``band_attention_xla`` (the JAX ``fused_mode`` and ``fused_train_eligible``
-  both exclude these blocks, and the JAX package has no kernel for them).
+  both exclude these blocks, and the JAX package has no kernel for them);
+- a block of stride other than 1 or 2: the unfused block, as the JAX
+  dispatch sends it (``ds_stride in (1, 2)``). Its depthwise convs have
+  kernel ``stride + 1``, and ``MaskedConv1D`` refuses an even kernel, as the
+  JAX package's does: a stride of 3 raises where the JAX block raises.
 
 On the CPU each kernel runs its plain version. Randomness (stochastic depth,
 dropout) comes from an explicit ``torch.Generator``: the numbers are drawn on
@@ -214,7 +218,7 @@ class TransformerBlock(nn.Module):
             raise NotImplementedError(
                 f"window_size {window_size}: only banded (>1) and dense (-1) "
                 f"attention are ported")
-        if ds_stride not in (1, 2) or (cross and ds_stride != 1):
+        if ds_stride < 1 or (cross and ds_stride != 1):
             raise NotImplementedError(f"ds_stride {ds_stride} (cross={cross})")
         self.n_embd, self.n_head = n_embd, n_head
         self.ds_stride, self.window_size, self.cross = ds_stride, window_size, cross
@@ -265,10 +269,12 @@ class TransformerBlock(nn.Module):
 
     def uses_unfused(self, train: bool) -> bool:
         """The fused kernels cover neither dropout inside the block in
-        training nor a relative position bias or time weighting at all (JAX
-        ``fused_train_eligible`` and ``fused_mode``); set either flag and
-        every block of the model is unfused, dense ones too, as in JAX."""
-        return self.rel_or_time or (train and self.proj_pdrop > 0.0)
+        training nor a relative position bias or time weighting at all, nor
+        a stride other than 1 or 2 (JAX ``fused_train_eligible`` and
+        ``fused_mode``); set either flag and every block of the model is
+        unfused, dense ones too, as in JAX."""
+        return (self.rel_or_time or self.ds_stride not in (1, 2)
+                or (train and self.proj_pdrop > 0.0))
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
                 xo: Optional[torch.Tensor] = None, mode: Optional[str] = None,

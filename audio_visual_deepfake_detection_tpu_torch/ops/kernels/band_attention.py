@@ -36,7 +36,7 @@ import torch
 from ...core.runtime import use_kernel
 from ..attention import NEG_PENALTY, band_attention_xla, shift_time
 
-MAX_W = 8                   # largest half window the kernel takes
+MAX_W = 16                  # largest half window the kernel takes
 MAX_ROW_BYTES = 512         # a head row: 16-byte pieces, at most a warp's 32 of them
 
 # kernel launches since the last reset (CPU calls and plain runs never count)
@@ -117,19 +117,27 @@ def _rows_ok(a):
     return a.clone(memory_format=torch.contiguous_format)
 
 
+def kernel_shape_ok(head_dim: int, element_size: int, w_overlap: int) -> bool:
+    """Whether the kernel takes a head width and window: a head row of whole
+    16-byte pieces, at most MAX_ROW_BYTES of them (bf16: head_dim 8, 16, ..,
+    256; f32: 4, 8, .., 128), and 0 <= w_overlap <= MAX_W. The same rule as
+    ``csrc/band_attention.cu::avdd_band_attention``'s check."""
+    row = head_dim * element_size
+    return row > 0 and row % 16 == 0 and row <= MAX_ROW_BYTES and 0 <= w_overlap <= MAX_W
+
+
 def kernel_limits(q, w_overlap):
-    """Raise ValueError for a head width or window the kernel does not take:
-    a head row must be whole 16-byte pieces, at most MAX_ROW_BYTES of them
-    (bf16: head_dim 8, 16, .., 256; f32: 4, 8, .., 128), and w_overlap at
-    most MAX_W."""
+    """Raise ValueError, naming what is out of range, for a head width or
+    window ``kernel_shape_ok`` refuses."""
     d, size = q.shape[-1], q.element_size()
-    if (d * size) % 16 or d * size > MAX_ROW_BYTES:
+    if kernel_shape_ok(d, size, w_overlap):
+        return
+    if not kernel_shape_ok(d, size, 0):
         raise ValueError(
             f"band attention kernel takes head rows of whole 16-byte pieces up to "
             f"{MAX_ROW_BYTES} bytes ({q.dtype}: head_dim a multiple of {16 // size} up to "
             f"{MAX_ROW_BYTES // size}), got head_dim {d}")
-    if w_overlap > MAX_W:
-        raise ValueError(f"band attention kernel takes w_overlap <= {MAX_W}, got {w_overlap}")
+    raise ValueError(f"band attention kernel takes w_overlap <= {MAX_W}, got {w_overlap}")
 
 
 def _launch(q, k, v, kv_valid, w_overlap):

@@ -5,8 +5,10 @@ the parameter packing (JAX ``ops/pallas/fused_block.py``).
 (K6, training) are the two wrappers the model calls. For a CUDA tensor on an
 sm_90 card they launch ``csrc/fused_block.cu`` (which replaces the Pallas
 kernel ``fused_transformer_block``, ``pallas_call`` at ``fused_block.py:535``,
-and through it ``fused_transformer_block_train``, ``:753``); for a CPU tensor
-they run ``block_math``. Nothing else routes between the two
+and through it ``fused_transformer_block_train``, ``:753``) at every block
+shape of ``kernel_shape_ok``, the Pallas kernel's per-shape domain cut at C
+<= 1024, head widths 32 / 64 / 96 / 128 and w <= 16; for a CPU tensor they
+run ``block_math``. Nothing else routes between the two
 (``core/runtime.py::use_kernel``).
 
 K6 is K1's forward with per-sample droppath coefficients ``coefs`` (B, 2) in
@@ -54,7 +56,12 @@ ROW_SCALE_MLP = 21
 NUM_VEC_ROWS = 22
 
 MODES = {"self": 0, "qv_k": 1, "kv": 2, "ds_self": 3}
-KERNEL_CHANNELS, KERNEL_HEADS = 256, 4
+# the kernel's shape domain (csrc/fused_block.cuh::shape_ok): C a multiple of
+# 64 up to MAX_CHANNELS, a head width in HEAD_WIDTHS, a half window up to
+# MAX_W or dense (w <= 0) at any T
+MAX_CHANNELS = 1024
+HEAD_WIDTHS = (32, 64, 96, 128)
+MAX_W = 16
 
 # kernel launches since the last reset (CPU calls and plain runs never
 # count): eval launches (K1) and training-forward launches (K6) apart
@@ -391,36 +398,45 @@ def fused_transformer_block(x, xo, mask, vecs, wq, wk, wv, wp, wf1, wf2, fc1b,
                    n_head=n_head, w_overlap=w_overlap, mode=mode)
 
 
+def kernel_shape_ok(c: int, n_head: int, w_overlap: int) -> bool:
+    """Whether the kernel takes a block of ``c`` channels, ``n_head`` heads
+    and half window ``w_overlap`` (<= 0: dense attention, any length): C a
+    multiple of 64 from 64 to 1024, C / n_head in {32, 64, 96, 128},
+    w_overlap <= 16. The same rule as ``csrc/fused_block.cuh::shape_ok``."""
+    return (64 <= c <= MAX_CHANNELS and c % 64 == 0 and n_head > 0 and c % n_head == 0
+            and c // n_head in HEAD_WIDTHS and w_overlap <= MAX_W)
+
+
 def _launch(x, xo, mask, vecs, wq, wk, wv, wp, wf1, wf2, fc1b, *, n_head,
             w_overlap, mode, coefs=None):
     """Launch the kernel: K1 with ``coefs`` None (the kernel reads 1), K6 with
     the (B, 2) f32 droppath coefficients. bf16 runs two ``wgmma`` launches
     through a (B, T, 3C) q|k|v scratch, banded or dense alike. f32 keeps the
-    shared-memory FMA kernel: dense attention (``w_overlap <= 0``) there holds
-    the whole sequence in one thread block up to 31 rows and takes the tiled
-    two-phase path above (the kernel decides)."""
+    shared-memory FMA kernel: one launch where its tile fits in shared memory
+    (banded with the halo, dense up to 31 rows), else the tiled two-phase path
+    through a (B, T, 2C) k|v scratch (the kernel decides). A shape outside
+    ``kernel_shape_ok`` raises ValueError: there is no plain fallback."""
     global LAUNCHES, TRAIN_LAUNCHES
     from .build import load
 
     b, t, c = x.shape
-    if c != KERNEL_CHANNELS or n_head != KERNEL_HEADS:
-        raise ValueError(f"fused block kernel is built for C={KERNEL_CHANNELS}, "
-                         f"{KERNEL_HEADS} heads; got C={c}, {n_head} heads")
+    if not kernel_shape_ok(c, n_head, w_overlap):
+        raise ValueError(
+            f"fused block kernel takes C a multiple of 64 up to {MAX_CHANNELS}, head width "
+            f"in {HEAD_WIDTHS} and w_overlap <= {MAX_W}; got C={c}, {n_head} heads, "
+            f"w_overlap {w_overlap}")
     w = max(w_overlap, 0)
-    lib = load()
-    dcode = 0 if x.dtype == torch.float32 else 1
-    if lib.avdd_fused_block_smem(t, w, dcode) < 0:
-        raise ValueError(f"fused block kernel: unsupported window half-width "
-                         f"{w_overlap} (banded attention takes w <= 8)")
     out = torch.empty_like(x)
     if b == 0 or t == 0:
         return out
+    lib = load()
+    dcode = 0 if x.dtype == torch.float32 else 1
     # bf16: the (B, T, 3C) q|k|v rows between the kernel's two launches; f32:
-    # the (B, T, 2C) k|v scratch of the tiled dense path, should it be taken
-    if x.dtype == torch.bfloat16:
-        kv = torch.empty((b, t, 3 * c), dtype=x.dtype, device=x.device)
-    else:
-        kv = torch.empty((b, t, 2 * c), dtype=x.dtype, device=x.device) if w == 0 else None
+    # the (B, T, 2C) k|v scratch of the tiled path, where it is taken
+    cols = lib.avdd_fused_block_scratch(t, c, n_head, w, dcode)
+    if cols < 0:
+        raise ValueError(f"fused block kernel refused C={c}, {n_head} heads, w={w}, T={t}")
+    kv = torch.empty((b, t, cols), dtype=x.dtype, device=x.device) if cols else None
     ptr = lambda a: ctypes.c_void_p(a.data_ptr())  # noqa: E731
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream

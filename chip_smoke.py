@@ -92,18 +92,19 @@ Phases (any failure exits nonzero):
              differentiable wrapper's gradients in f32 against the CPU;
 12. train  - configs_train/deepfake_exp10.yaml through the port's loader,
              full width and depth, seeded batches in collate_batch's format.
-             f32 with a deterministic forward, 2 steps at B=8, card against
+             f32 with a deterministic forward, 2 steps at B=4, card against
              CPU (losses rtol 1e-4, grad_norm rtol 1e-3). bf16 and f32,
-             stochastic, 10 steps at B=50 through train_one_epoch: finite
+             stochastic, 6 steps at B=50 through train_one_epoch: finite
              losses, K6 18 launches a step and K1 none, a mid-epoch
              checkpoint written and restored, the focal sum on the fixed
              batch falls. The same with dropout 0.1 (the unfused block; 4
              steps in f32): K7 17 launches a forward, K6 and K1 none, and
-             one f32 step at B=8 card against CPU with the same draws. ms
+             one f32 step at B=4 card against CPU with the same draws. ms
              per step, samples/s and peak GiB at B=50, a step's stages (CUDA
              events at train_step's stage hook; in the unfused step also
              around K7's forward and its backward through
-             band_attention_xla) and its device time by kernel;
+             band_attention_xla) and, for the bf16 K6 step, its device
+             time by kernel;
 13. timing - K1 per production shape at B = 16, 64 and 512 (bf16), packing
              cost, service latency at batch 16, localizer-only videos/s at
              B=512 bf16 (the program of bench.py::measure_ours); K2-K4 and
@@ -221,7 +222,28 @@ Phases (any failure exits nonzero):
              device-busy share of the window), StepTimer over 10 steps within
              10% of CUDA events; cli/warmup.py --infer-batch 64 --train-batch
              5 as a process of its own (kernel library found, host libraries,
-             K1 18, K6 18) and again in this process.
+             K1 18, K6 18) and again in this process;
+19. wide blocks - K1 / K6 / K7 at the corners of their shape domain: K1
+             and K6 at (C, heads, w) = (256, 4, 3), (256, 4, 8), (256, 4, 9),
+             (256, 4, 16), (512, 4, 9), (512, 4, dense), (256, 8, 3), (384, 4,
+             16), (1024, 8, dense) and (64, 2, 1), T = 2304, 150 and 24, the four modes, f32 (atol 1e-4) and bf16 (check_bf16)
+             against block_math; K7 at w = 9, 15 and 16 against its plain
+             version; ms, device ms, plain ms and bound per shape at T =
+             2304. Then ActionFormer's THUMOS14 localizer (WIDE_YAML: the
+             plain variant, ConvTransformer, C 512, 4 heads of 128, windows
+             19, T 2304, 20 classes, identity neck, no PE) through the port's
+             loader with seeded weights: an eval forward at B=2, f32 card vs
+             CPU (out_cls, out_offsets 1e-4; detections after multi-class
+             soft-NMS, scores 1e-4, segments 1e-3, labels equal), bf16 K1 7
+             launches and held to the plain blocks on the card, its forward
+             ms; cli/train.py in bf16 at B=2 over 6 seeded videos (K6 7 a
+             step) and cli/inference.py with that checkpoint over 4 (K1 7 a
+             batch), both under a one-class head (the deepfake dataset takes
+             no other count); the pure-conv variant at scale_factor 3 (T
+             1944), an eval forward f32 card vs CPU, no kernel launched; the
+             ConvTransformer at scale_factor 4 (arch (2, 2, 3), T 2304), an
+             eval forward f32 card vs CPU, K1 2 launches (the stem) and K7 3
+             (the unfused stride-4 blocks).
 
 The card's name and power limit, then a JSON object with the kernels'
 launches, errors and times, are the two lines before the last; the last
@@ -422,14 +444,15 @@ def phase_build():
     return smi
 
 
-def block_case(mode, t, window, b, dtype, device, seed):
-    """Random packed params + inputs of one production block shape."""
+def block_case(mode, t, window, b, dtype, device, seed, c=256, n_head=4):
+    """Random packed params + inputs of one block shape (the production
+    block's width and heads unless ``c`` and ``n_head`` say otherwise)."""
     import torch
     from audio_visual_deepfake_detection_tpu_torch.models.blocks import TransformerBlock
 
     g = torch.Generator().manual_seed(seed)
     cross = mode in ("qv_k", "kv")
-    blk = TransformerBlock(256, 4, ds_stride=2 if mode == "ds_self" else 1,
+    blk = TransformerBlock(c, n_head, ds_stride=2 if mode == "ds_self" else 1,
                            window_size=window, cross=cross)
     with torch.no_grad():
         for m in blk.modules():
@@ -444,23 +467,23 @@ def block_case(mode, t, window, b, dtype, device, seed):
     lens = [t, (3 * t) // 4, t // 3, 1, 0][:b] + [t] * max(0, b - 5)
     mask = torch.arange(t)[None, :] < torch.tensor(lens)[:, None]
     mf = mask[..., None].float()
-    x = (torch.randn((b, t, 256), generator=g) * mf).to(device, dtype)
-    xo = (torch.randn((b, t, 256), generator=g) * mf).to(device, dtype)
+    x = (torch.randn((b, t, c), generator=g) * mf).to(device, dtype)
+    xo = (torch.randn((b, t, c), generator=g) * mf).to(device, dtype)
     if mode == "self":
         xo = None
     return x, xo, mask.to(device).contiguous(), packed
 
 
-def run_block(which, x, xo, mask, packed, mode, window):
+def run_block(which, x, xo, mask, packed, mode, window, n_head=4):
     import torch
     from audio_visual_deepfake_detection_tpu_torch.ops.kernels import fused_block as fb
 
     if which == "kernel":
-        return fb.fused_transformer_block(x, xo, mask, *packed, n_head=4,
+        return fb.fused_transformer_block(x, xo, mask, *packed, n_head=n_head,
                                           w_overlap=window // 2, mode=mode)
     coefs = torch.ones((x.shape[0], 2), device=x.device)
     return fb.block_math(x, x if xo is None else xo, mask.float()[..., None],
-                         coefs, *packed, n_head=4, w_overlap=window // 2, mode=mode)
+                         coefs, *packed, n_head=n_head, w_overlap=window // 2, mode=mode)
 
 
 def compare(got, ref):
@@ -2890,10 +2913,10 @@ def draw_coefs(b, dev, seed, keep=0.9):
     return coefs.to(dev)
 
 
-def run_k6(which, x, xo, mask, coefs, packed, mode, window):
+def run_k6(which, x, xo, mask, coefs, packed, mode, window, n_head=4):
     from audio_visual_deepfake_detection_tpu_torch.ops.kernels import fused_block as fb
 
-    kw = dict(n_head=4, w_overlap=window // 2, mode=mode)
+    kw = dict(n_head=n_head, w_overlap=window // 2, mode=mode)
     if which == "kernel":
         return fb.fused_transformer_block_train(x, xo, mask, coefs, *packed, **kw)
     return fb.block_math(x, x if xo is None else xo, mask.float()[..., None], coefs,
@@ -3109,8 +3132,9 @@ K7_VARIANTS = ((8, 6), (16, 2), (16, 3), (8, 4), (4, 12))
 def k7_variants(smi, b=TRAIN_B, variants=K7_VARIANTS, rounds=3):
     """K7's launch shape against its alternatives (the reason for the
     source's): csrc/band_attention.cu with its block size and launch bound
-    replaced by each variant's, built beside the source under
-    build/k7_variants/, checked against the plain version at T = 768 and
+    replaced by each variant's (windows w <= 8; built for w <= 3 only),
+    built beside the source under build/k7_variants/, checked against the
+    plain version at T = 768 and
     timed (device time, CUDA-graph replay, the variants in turns) at the
     unfused forward's lengths, bf16. The first variant is the source's own."""
     import ctypes
@@ -3121,14 +3145,16 @@ def k7_variants(smi, b=TRAIN_B, variants=K7_VARIANTS, rounds=3):
     out_dir = os.path.join(REPO, "build", "k7_variants")
     os.makedirs(out_dir, exist_ok=True)
     src = (build.CSRC / "band_attention.cu").read_text()
-    own = ("constexpr int NW = 8;", "__launch_bounds__(NT, 6)")
+    own = ("constexpr int NW = 8;", "__launch_bounds__(NT, W > 8 ? 3 : 6)",
+           "constexpr int MAX_W = 16;")
     if not all(a in src for a in own):
         fail("k7_variants: csrc/band_attention.cu no longer has the block size it replaces")
     procs = {}
     for nw, per_sm in variants:
         name = f"nw{nw}_x{per_sm}"
         text = src.replace(own[0], f"constexpr int NW = {nw};").replace(
-            own[1], f"__launch_bounds__(NT, {per_sm})").replace(
+            own[1], f"__launch_bounds__(NT, W > 8 ? 3 : {per_sm})").replace(
+            own[2], "constexpr int MAX_W = 3;").replace(
             "avdd_band_attention", "avdd_band_attention_" + name)
         path = os.path.join(out_dir, name + ".cu")
         with open(path, "w") as f:
@@ -3512,7 +3538,7 @@ def step_breakdown(state, step, hook, batch, smi, label, profile=True, band=Fals
     return out
 
 
-def phase_train(dev="cuda", b=TRAIN_B, cpu_b=8, n_steps=10, arch=None, smi="",
+def phase_train(dev="cuda", b=TRAIN_B, cpu_b=4, n_steps=6, arch=None, smi="",
                 timing=True):
     """The training slice's main path at full width and depth. (a) f32,
     deterministic forward, 2 steps at batch ``cpu_b``, card against CPU
@@ -3524,7 +3550,7 @@ def phase_train(dev="cuda", b=TRAIN_B, cpu_b=8, n_steps=10, arch=None, smi="",
     most 4 steps in f32): K7 17 launches a forward, K6 none, and one
     stochastic f32 step at batch ``cpu_b`` card against CPU with the same
     draws. No training step may launch the eval kernel K1. Then the step
-    times."""
+    times, and the bf16 K6 step's device time by kernel."""
     import tempfile
     import torch
 
@@ -3568,7 +3594,10 @@ def phase_train(dev="cuda", b=TRAIN_B, cpu_b=8, n_steps=10, arch=None, smi="",
             report[label] = rep
             if timing and on_card and (dropout == 0.0 or dtype == "bfloat16"):
                 rep["timing"] = time_steps(state, step, batch, b, smi, label)
+                # device time by kernel (torch.profiler, ~15 s a step) for
+                # the main path's step only, K6 in bf16
                 rep["stages"] = step_breakdown(state, step, hook, batch, smi, label,
+                                               profile=label == "K6-bfloat16",
                                                band=dropout > 0)
             del state, step, batch
             if on_card:
@@ -3675,7 +3704,7 @@ def phase_train_kernel_timing(smi, dev="cuda", b=TRAIN_B):
 OFFLINE_VIDEOS = 256                  # durations uniform in 4-16 s, plus one of 30 s
 OFFLINE_LABELLED = 64                 # of them with metadata JSONs (0-3 fake segments)
 OFFLINE_CPU_VIDEOS = 32               # the f32 card vs CPU shard
-OFFLINE_LONG_PASSES = 4               # the timing shard: the cache's videos this many times
+OFFLINE_LONG_PASSES = 2               # the timing shard: the cache's videos this many times
 OFFLINE_TOL = dict(scores=1e-4, segments=1e-3, video_cls=2e-4)
 
 
@@ -5842,6 +5871,469 @@ def phase_released_weights(dev="cuda", smi="", mvit_t=VIDEO_T, n_mp4=RELEASED_MP
     return report
 
 
+# ------------------------------------------------------------ the wide blocks
+
+# K1 / K6 at the corners of the kernels' shape domain (C a multiple of 64 up
+# to 1024, head width 32 / 64 / 96 / 128, half window up to 16 or dense):
+# (C, heads, half window; 0 = dense): the production block, and the
+# production instance at a compile-time w of 8 and at its runtime window (9,
+# 16); the ActionFormer THUMOS14 block (C 512, 4 heads of 128, window 19) and
+# the ConvTransformer backbone's default (the same, dense); 8 heads of 32, 4
+# heads of 96 at w 16, the widest block dense, the narrowest
+WIDE_SHAPES = ((256, 4, 3), (256, 4, 8), (256, 4, 9), (256, 4, 16), (512, 4, 9), (512, 4, 0),
+               (256, 8, 3), (384, 4, 16), (1024, 8, 0), (64, 2, 1))
+WIDE_TS = (2304, 150, 24)
+WIDE_B = 2
+# K7 beyond w = 8: (B, H, T, D) at each half window of K7_WIDE_W
+K7_WIDE = ((2, 4, 2304, 128), (5, 4, 150, 64))
+K7_WIDE_W = (9, 15, 16)
+
+
+def wide_kernel_grid(dev="cuda", shapes=WIDE_SHAPES, ts=WIDE_TS, b=WIDE_B, k7_shapes=K7_WIDE,
+                     k7_ws=K7_WIDE_W, smi="", timing=True):
+    """K1 and K6 (the same call given droppath coefficients) at every
+    (C, heads, w) of ``shapes``, every T of ``ts``, the four modes, f32 and
+    bf16, against block_math (f32 atol 1e-4; bf16 check_bf16), the ragged
+    masks of block_case at batch ``b``; K7 at every half window of ``k7_ws``
+    and shape of ``k7_shapes`` against band_attention_plain (check_k7). With
+    ``timing`` (on the card): per shape at the longest T, self mode, bf16,
+    ms a call through the wrapper (CUDA events) and alone (device_ms) beside
+    the plain version and the bound, and the f32 kernel's device time; K7 the
+    same per window. Returns the report."""
+    import torch
+    from audio_visual_deepfake_detection_tpu_torch.ops.kernels import band_attention as k7
+    from audio_visual_deepfake_detection_tpu_torch.ops.kernels import fused_block as fb
+
+    on_card = torch.device(dev).type == "cuda"
+    dtypes = (torch.float32, torch.bfloat16)
+    worst = {k: {"float32": 0.0, "bfloat16": 0.0} for k in ("K1", "K6", "K7")}
+    rows = []
+    for c, nh, w in shapes:
+        window = 2 * w + 1 if w else -1
+        for t in ts:
+            for mode in fb.MODES:
+                for dtype in dtypes:
+                    name = str(dtype).split(".")[-1]
+                    seed = c + t + w
+                    x, xo, mask, packed = block_case(mode, t, window, b, dtype, dev, seed, c=c,
+                                                     n_head=nh)
+                    coefs = draw_coefs(b, dev, seed)
+                    fb.reset_launches()
+                    with torch.no_grad():
+                        out = {"K1": (run_block("kernel", x, xo, mask, packed, mode, window, nh),
+                                      run_block("plain", x, xo, mask, packed, mode, window, nh)),
+                               "K6": (run_k6("kernel", x, xo, mask, coefs, packed, mode, window,
+                                             nh),
+                                      run_k6("plain", x, xo, mask, coefs, packed, mode, window,
+                                             nh))}
+                    sync(dev)
+                    if (fb.LAUNCHES, fb.TRAIN_LAUNCHES) != ((1, 1) if on_card else (0, 0)):
+                        fail(f"wide blocks: K1 {fb.LAUNCHES} and K6 {fb.TRAIN_LAUNCHES} launches "
+                             f"for one call each")
+                    for kname, (got, ref) in out.items():
+                        if dtype == torch.float32:
+                            err, ok, _ = compare(got, ref)
+                            rule = f"atol {F32_ATOL:g}"
+                        else:
+                            err, ok, rule = check_bf16(got, ref)
+                        worst[kname][name] = max(worst[kname][name], err)
+                        rows.append(dict(kernel=kname, C=c, heads=nh, w=w, T=t, mode=mode,
+                                         dtype=name, max_abs_err=err, ok=ok, rule=rule))
+                        if not ok:
+                            REPORT["wide_grid"] = rows
+                            fail(f"wide blocks: {kname} disagrees with block_math at C={c} "
+                                 f"{nh} heads w={w} T={t} {mode} {name}: {err:.3e} ({rule})")
+                    del x, xo, mask, packed, out
+            log(f"K1 / K6 vs plain C={c:4d} heads={nh} w={w:2d} T={t:4d} B={b}, 4 modes, f32 "
+                f"and bf16: worst K1 {max(r['max_abs_err'] for r in rows[-16:] if r['kernel'] == 'K1'):.3e} "
+                f"K6 {max(r['max_abs_err'] for r in rows[-16:] if r['kernel'] == 'K6'):.3e} ok")
+    for bb, h, t, d in k7_shapes:
+        for ww in k7_ws:
+            for dtype in dtypes:
+                name = str(dtype).split(".")[-1]
+                args = k7_case(bb, t, dtype, dev, seed=t + ww, h=h, d=d)
+                k7.reset_launches()
+                with torch.no_grad():
+                    got, ref = run_k7("kernel", *args, ww), run_k7("plain", *args, ww)
+                sync(dev)
+                if k7.LAUNCHES != int(on_card):
+                    fail(f"wide blocks: K7 counted {k7.LAUNCHES} launches for one call")
+                err, ok, rule = check_k7(got, ref, *args, ww)
+                worst["K7"][name] = max(worst["K7"][name], err)
+                rows.append(dict(kernel="K7", shape=(bb, h, t, d), w=ww, dtype=name,
+                                 max_abs_err=err, ok=ok, rule=rule))
+                log(f"K7 vs plain ({bb}, {h}, {t}, {d}) w={ww:2d} {name:8s} max|d|={err:.3e} "
+                    f"[{rule}] {'ok' if ok else 'MISMATCH'}")
+                if not ok:
+                    REPORT["wide_grid"] = rows
+                    fail(f"wide blocks: K7 disagrees with its plain version at ({bb}, {h}, {t}, "
+                         f"{d}) w={ww} {name}")
+                del args, got, ref
+    report = {"card": smi, "worst": worst, "rows": rows, "times": []}
+    if timing and on_card:
+        t = max(ts)
+        for c, nh, w in shapes:
+            window = 2 * w + 1 if w else -1
+            rec = dict(kernel="K1", C=c, heads=nh, w=w, T=t, B=b, mode="self")
+            for dtype in dtypes:
+                name = str(dtype).split(".")[-1]
+                x, xo, mask, packed = block_case("self", t, window, b, dtype, dev, c, c=c,
+                                                 n_head=nh)
+                with torch.no_grad():
+                    run = lambda: run_block("kernel", x, xo, mask, packed, "self", window, nh)  # noqa: E731
+                    plain = lambda: run_block("plain", x, xo, mask, packed, "self", window, nh)  # noqa: E731
+                    flops, moved = k1_work("self", t, window, b, c=c, nbytes=x.element_size())
+                    bnd = bound(flops, moved, PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32)
+                    # a call past 10 ms is timed over fewer replays
+                    iters = 20 if cuda_ms(run, iters=1, warmup=1) < 10 else 3
+                    rec[name] = dict(device_ms=device_ms(run, iters=iters), bound_ms=bnd[0],
+                                     bound_by=bnd[1])
+                    if dtype == torch.bfloat16:
+                        rec[name].update(ms=cuda_ms(run, iters=min(iters, 10)),
+                                         plain_ms=cuda_ms(plain, iters=3))
+                del x, xo, mask, packed
+            report["times"].append(rec)
+            bf = rec["bfloat16"]
+            log(f"K1 C={c:4d} heads={nh} w={w:2d} B={b} T={t} self: bf16 {bf['ms']:.3f} ms "
+                f"(dev {bf['device_ms']:.3f}, plain {bf['plain_ms']:.3f}, bound "
+                f"{bf['bound_ms']:.4f} by {bf['bound_by']}); f32 dev "
+                f"{rec['float32']['device_ms']:.3f} ms (bound {rec['float32']['bound_ms']:.4f}) "
+                f"({smi})")
+        bb, h, t, d = k7_shapes[0]
+        for ww in k7_ws:
+            args = k7_case(bb, t, torch.bfloat16, dev, seed=ww, h=h, d=d)
+            with torch.no_grad():
+                run = lambda: run_k7("kernel", *args, ww)  # noqa: E731
+                rec = dict(kernel="K7", shape=(bb, h, t, d), w=ww, ms=cuda_ms(run, iters=10),
+                           device_ms=device_ms(run),
+                           plain_ms=cuda_ms(lambda: run_k7("plain", *args, ww), iters=3))
+            rec["bound_ms"], rec["bound_by"] = bound(*k7_work(bb, h, t, d, ww))
+            report["times"].append(rec)
+            log(f"K7 ({bb}, {h}, {t}, {d}) w={ww:2d} bf16: {rec['ms']:.4f} ms (dev "
+                f"{rec['device_ms']:.4f}, plain {rec['plain_ms']:.3f}, bound {rec['bound_ms']:.4f} "
+                f"by {rec['bound_by']}) ({smi})")
+            del args
+        torch.cuda.empty_cache()
+    REPORT["wide_grid"] = report
+    return report
+
+
+# The ActionFormer THUMOS14 I3D localizer (configs/thumos_i3d.yaml of
+# happyharrycn/actionformer_release) as a fragment over
+# configs_train/deepfake_exp10.yaml: the 2048-d input (I3D RGB + flow) split
+# 1024 | 512 + 512 over the video, BYOL-A and Emotion2Vec fields the cache
+# writes, T 2304, arch (2, 2, 5), C 512, 4 heads of 128, windows of 19 at
+# every level, the identity neck, no position encoding, 20 classes,
+# dropout 0, droppath 0.1, buffer factor 6, batch 2
+WIDE_YAML = """
+model_name: LocPointTransformer
+dataset:
+  max_seq_len: 2304
+  video_input_dim: 1024
+  audio_input_dim: 1024
+  num_classes: 20
+model:
+  backbone_type: convTransformer
+  fpn_type: identity
+  backbone_arch: [2, 2, 5]
+  n_mha_win_size: 19
+  n_head: 4
+  embd_dim: 512
+  fpn_dim: 512
+  head_dim: 512
+  use_abs_pe: false
+  use_rel_pe: false
+  max_buffer_len_factor: 6.0
+loader:
+  batch_size: 2
+train_cfg:
+  dropout: 0.0
+  droppath: 0.1
+test_cfg:
+  multiclass_nms: true
+  nms_method: soft
+"""
+WIDE_DIMS = (1024, 512, 512)          # the cache's video, BYOL-A and Emotion2Vec widths
+WIDE_SHAPE = ("plain", "convTransformer", "identity", 2048, 512, 4, 2304, (2, 2, 5), (19,) * 6,
+              False, 20, 6.0)
+WIDE_TRAIN_VIDEOS = 6                 # cli/train.py: 3 steps at B=2
+WIDE_TEST_VIDEOS = 4                  # cli/inference.py: 2 batches at B=2
+# scale_factor 3 on the same localizer with the pure-conv backbone (the
+# only backbone whose stride-3 blocks build, in both packages): strides up
+# to 3^5 = 243, which divides T = 1944
+WIDE_SCALE3 = dict(backbone_type="conv", scale_factor=3, max_seq_len=1944)
+# scale_factor 4 on the ConvTransformer: its stride-4 blocks (depthwise
+# kernels of 5) are unfused, with K7 at w = 9. Depth cut to three branch
+# levels, strides 1, 4, 16, 64: 64 x 18 divides T = 2304
+WIDE_SCALE4 = dict(scale_factor=4, arch=(2, 2, 3), mha_win_size=(19,) * 4,
+                   regression_range=((0, 4), (4, 16), (16, 64), (64, 10000)))
+
+
+def phase_wide_blocks(dev="cuda", smi="", overrides=None, dims=WIDE_DIMS, b=2,
+                      n_train=WIDE_TRAIN_VIDEOS, n_test=WIDE_TEST_VIDEOS, grid=None,
+                      scale3=WIDE_SCALE3, scale4=WIDE_SCALE4):
+    """K1 / K6 / K7 at the corners of their shape domain (wide_kernel_grid,
+    ``grid`` its arguments), then the legacy localizer at ActionFormer's
+    THUMOS14 width (WIDE_YAML) through the port's entry points: an eval
+    forward at batch ``b`` (f32 card vs CPU: out_cls, out_offsets 1e-4,
+    detections after multi-class soft-NMS scores 1e-4, segments 1e-3; bf16
+    kernel vs the plain blocks on the card, check_bf16; K1 once a block, no
+    plain block), its bf16 forward ms; cli/train.py in bf16 over
+    ``n_train`` seeded videos (K6 once a block a step, ms a step);
+    cli/inference.py with that checkpoint over ``n_test`` videos (K1 once a
+    block a batch, every video's item) - both with a one-class head, the
+    only count the deepfake dataset of either package takes, and multi-class
+    soft-NMS on; the pure-conv variant at
+    ``scale3`` (scale_factor 3), an eval forward f32 card vs CPU with no
+    kernel launched; and the ConvTransformer at ``scale4`` (scale_factor 4),
+    an eval forward f32 card vs CPU, K1 once a stem block and K7 once a
+    stride-4 block. ``overrides`` (a config fragment), ``dims`` and the
+    sizes shrink it for a CPU rehearsal. Returns the report."""
+    import copy
+    import dataclasses
+    import shutil
+    import tempfile
+    import torch
+    import yaml
+    from audio_visual_deepfake_detection_tpu_torch.cli import inference
+    from audio_visual_deepfake_detection_tpu_torch.cli import train as train_cli
+    from audio_visual_deepfake_detection_tpu_torch.core.config import (
+        arch_config_from, load_config, test_config_from)
+    from audio_visual_deepfake_detection_tpu_torch.infer import build_inference_fn
+    from audio_visual_deepfake_detection_tpu_torch.models import AVLocalizer, build_localizer
+    from audio_visual_deepfake_detection_tpu_torch.tools import synth_cache
+
+    on_card = torch.device(dev).type == "cuda"
+    report = {"card": smi, "grid": wide_kernel_grid(dev, smi=smi, **(grid or {}))}
+    build = os.path.join(REPO, "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(dir=build)
+    dev_args = [] if on_card else ["--device", dev]
+
+    def expect(counts, what, **want_on_card):
+        want = dict.fromkeys(counts, 0)
+        if on_card:
+            want.update(want_on_card)
+        if counts != want:
+            fail(f"wide blocks {what}: launches {counts}, expected {want}")
+
+    try:
+        tree = synth_cache.merge(yaml.safe_load(WIDE_YAML), {"dataset": {
+            "video_input_dim": dims[0], "audio_input_dim": sum(dims[1:])}})
+        tree = synth_cache.merge(tree, overrides or {})
+        with open(os.path.join(REPO, "configs_train", "deepfake_exp10.yaml")) as f:
+            path = os.path.join(root, "wide.yaml")
+            with open(path, "w") as g:
+                yaml.safe_dump(synth_cache.merge(yaml.safe_load(f), tree), g)
+        config = load_config(path)
+        cfg = dataclasses.replace(arch_config_from(config), compute_dtype="float32")
+        tcfg = test_config_from(config)
+        shape = (cfg.variant, cfg.backbone_type, cfg.fpn_type, cfg.input_dim, cfg.embd_dim,
+                 cfg.n_head, cfg.max_seq_len, cfg.arch, cfg.mha_win_size, cfg.use_abs_pe,
+                 cfg.num_classes, cfg.max_buffer_len_factor)
+        if overrides is None and shape != WIDE_SHAPE:
+            fail(f"wide blocks: config {shape}")
+        if not tcfg.multiclass_nms or config["loader"]["batch_size"] != b:
+            fail(f"wide blocks: test config {tcfg}, batch {config['loader']['batch_size']}")
+        n_blocks = cfg.arch[1] + cfg.arch[2]
+        report["config"] = dict(zip(("variant", "backbone", "neck", "input_dim", "embd_dim",
+                                     "heads", "max_seq_len", "arch", "windows", "abs_pe",
+                                     "classes", "buffer_factor"), shape))
+
+        # (1) an eval forward and its detections, f32 card vs CPU; bf16
+        t0 = time.perf_counter()
+        model = perturb(build_localizer(cfg, seed=3, device="cpu"), 4)
+        rng = np.random.default_rng(23)
+        t = cfg.max_seq_len
+        lens = np.array([t, int(rng.integers(t // 3, t))])[:b]
+        mask = np.arange(t)[None, :] < lens[:, None]
+        x = rng.standard_normal((b, t, cfg.input_dim), dtype=np.float32) * mask[..., None]
+        xt, mt = torch.from_numpy(x), torch.from_numpy(mask)
+        with torch.no_grad():
+            cpu = model(xt, mt)
+        card = copy.deepcopy(model).to(dev)
+        xd, md = xt.to(dev), mt.to(dev)
+        reset_counts()
+        with torch.no_grad(), plain_block_calls() as plain:
+            got = card(xd, md)
+        sync(dev)
+        expect(launch_counts(), "f32 forward", fused_transformer_block=n_blocks)
+        if plain["cuda"] or got["out_cls"][0].shape[-1] != cfg.num_classes:
+            fail(f"wide blocks: {plain['cuda']} plain blocks, out_cls {got['out_cls'][0].shape}")
+        errs = {}
+        for key in ("out_cls", "out_offsets"):
+            errs[key] = (cat_levels(got, key).cpu() - cat_levels(cpu, key)).abs().max().item()
+            if not errs[key] <= VARIANT_F32_TOL[key]:
+                fail(f"wide blocks: f32 {key} card vs CPU {errs[key]:.3e}")
+        fn = build_inference_fn(cfg, tcfg)
+        meta = [np.full(b, 25.0, np.float32), (lens / 25.0).astype(np.float32),
+                np.ones(b, np.float32), np.ones(b, np.float32)]
+        det_cpu = [a.numpy() for a in fn(model, x, mask, *meta)]
+        reset_counts()
+        det_card = [a.cpu().numpy() for a in fn(card, x, mask, *meta)]
+        expect(launch_counts(), "build_inference_fn", fused_transformer_block=n_blocks)
+        worst = {"scores": 0.0, "segments": 0.0}
+        classes = set()
+        for i in range(b):
+            kc, kg = int(det_cpu[3][i].sum()), int(det_card[3][i].sum())
+            if kc != kg or kc == 0:
+                fail(f"wide blocks video {i}: {kg} detections on the card, {kc} on the CPU")
+            if not np.array_equal(det_card[2][i][:kc], det_cpu[2][i][:kc]):
+                fail(f"wide blocks video {i}: labels differ card vs CPU")
+            classes |= set(det_card[2][i][:kc].tolist())
+            worst["scores"] = max(worst["scores"], float(
+                np.abs(det_card[1][i][:kc] - det_cpu[1][i][:kc]).max()))
+            worst["segments"] = max(worst["segments"], float(
+                np.abs(det_card[0][i][:kc] - det_cpu[0][i][:kc]).max()))
+        if worst["scores"] > 1e-4 or worst["segments"] > 1e-3:
+            fail(f"wide blocks: detections card vs CPU {worst}")
+        rec = dict(B=b, f32_card_vs_cpu=errs, detections=worst, classes=len(classes),
+                   detections_per_video=[int(v.sum()) for v in det_card[3]])
+        del card, got, cpu
+        m16 = AVLocalizer(dataclasses.replace(cfg, compute_dtype="bfloat16"))
+        m16.load_state_dict(model.state_dict())
+        m16 = m16.to(dev).eval()
+        reset_counts()
+        with torch.no_grad(), plain_block_calls() as plain:
+            g16 = m16(xd, md)
+        sync(dev)
+        rec["launches_bf16"] = launch_counts()
+        expect(rec["launches_bf16"], "bf16 forward", fused_transformer_block=n_blocks)
+        if plain["cuda"]:
+            fail(f"wide blocks: {plain['cuda']} plain blocks in the bf16 forward")
+        if on_card:
+            with torch.no_grad(), plain_blocks_on_card():
+                p16 = m16(xd, md)
+            rec["bf16_kernel_vs_plain"] = {}
+            for key in ("out_cls", "out_offsets"):
+                err, ok, rule = check_bf16(cat_levels(g16, key).to(torch.bfloat16),
+                                           cat_levels(p16, key).to(torch.bfloat16))
+                rec["bf16_kernel_vs_plain"][key] = {"max_abs_err": err, "rule": rule}
+                if not ok:
+                    fail(f"wide blocks: bf16 {key} kernel vs plain {err:.3e} ({rule})")
+            with torch.no_grad():
+                rec["forward_ms_bf16"] = cuda_ms(lambda: m16(xd, md), iters=10)
+                rec["forward_device_ms_bf16"] = device_ms(lambda: m16(xd, md), iters=10)
+        if not all(torch.isfinite(cat_levels(g16, k)).all() for k in ("out_cls", "out_offsets")):
+            fail("wide blocks: bf16 outputs not finite")
+        rec["seconds"] = time.perf_counter() - t0
+        report["eval"] = rec
+        log(f"wide blocks eval B={b} T={t} C={cfg.embd_dim}: f32 card vs CPU {errs}, "
+            f"detections {worst} ({len(classes)} classes among them)"
+            + (f"; bf16 kernel vs plain "
+               f"{ {k: v['max_abs_err'] for k, v in rec['bf16_kernel_vs_plain'].items()} }; "
+               f"bf16 forward {rec['forward_ms_bf16']:.3f} ms (dev "
+               f"{rec['forward_device_ms_bf16']:.3f}) ({smi})" if on_card else ""))
+        del m16, g16, xd, md
+
+        # (2) cli/train.py in bf16 over seeded caches; the deepfake dataset
+        # of both packages takes one class only (data/dataset.py), so the
+        # CLIs run the same blocks under a one-class head
+        t0 = time.perf_counter()
+        cache = synth_cache.write_feature_cache(os.path.join(root, "train"), n_train, seed=13,
+                                                dims=dims, n_labelled=n_train, split="train")
+        run_tree = synth_cache.merge({"tpu": {"compute_dtype": "bfloat16"},
+                                      "opt": {"early_stop_epochs": 1},
+                                      "dataset": {"num_classes": 1}}, overrides or {})
+        run_cfg = synth_cache.write_config(path, os.path.join(root, "run.yaml"), cache,
+                                           os.path.join(root, "runs"), run_tree)
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        open_one_process_group()
+        try:
+            reset_counts()
+            with plain_forward_blocks() as plain:
+                summary = train_cli.run(train_cli.build_parser().parse_args(
+                    [run_cfg, "--output", "t", "-p", "1", "--ckpt-iter-freq", "0", *dev_args]))
+            counts = launch_counts()
+        finally:
+            close_one_process_group()
+        n_steps = sum(st["iters"] for st in summary["epochs"])
+        if n_steps != n_train // b:
+            fail(f"wide blocks cli/train.py: {n_steps} steps at B={b} over {n_train} videos")
+        expect(counts, "cli/train.py", fused_transformer_block_train=n_blocks * n_steps)
+        losses = summary["epochs"][-1]["losses"]
+        if plain["cuda"] or not all(math.isfinite(v) for v in losses.values()):
+            fail(f"wide blocks cli/train.py: losses {losses}, {plain['cuda']} plain blocks")
+        rates = run_epochs_rates(summary, summary["global_batch"])
+        peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else None
+        report["train_cli"] = dict(B=b, steps=n_steps, launches=counts, losses=losses,
+                                   epochs=rates, peak_gib=peak,
+                                   seconds=time.perf_counter() - t0)
+        r = rates[-1]
+        log(f"wide blocks cli/train.py bf16 B={b}: {n_steps} steps, {r['ms_per_step']:.1f} ms/step"
+            + (f" ({r['after_first_ms_per_step']:.1f} without the first)"
+               if r["after_first_ms_per_step"] else "")
+            + (f", peak {peak:.2f} GiB" if peak is not None else "")
+            + f"; launches {counts}; losses {losses} ({smi})")
+        ckpt = os.path.join(summary["out_folder"], "epoch_001.pt")
+
+        # (3) cli/inference.py with that checkpoint, multi-class soft-NMS
+        t0 = time.perf_counter()
+        test_cache = synth_cache.write_feature_cache(os.path.join(root, "test"), n_test,
+                                                     seed=17, dims=dims)
+        infer_cfg = synth_cache.write_config(path, os.path.join(root, "infer.yaml"), test_cache,
+                                             os.path.join(root, "runs"), run_tree)
+        reset_counts()
+        with plain_block_calls() as plain:
+            summary = inference.run(inference.build_parser().parse_args(
+                [infer_cfg, "1", "--ckpt", ckpt, "--batch-size", str(b), *dev_args]))
+        counts = launch_counts()
+        expect(counts, "cli/inference.py",
+               fused_transformer_block=n_blocks * summary["stats"]["batches"])
+        items = flush_items(summary["out_folder"])
+        if plain["cuda"] or sorted(it["video_id"] for it in items) != sorted(
+                r["id"] for r in test_cache["records"]):
+            fail(f"wide blocks cli/inference.py: {len(items)} items of {n_test}, "
+                 f"{plain['cuda']} plain blocks")
+        report["inference_cli"] = dict(videos=len(items), batches=summary["stats"]["batches"],
+                                       launches=counts, detections=sum(len(it["scores"])
+                                                                       for it in items),
+                                       seconds=time.perf_counter() - t0)
+        log(f"wide blocks cli/inference.py: {len(items)} videos in "
+            f"{summary['stats']['batches']} batches, {report['inference_cli']['detections']} "
+            f"detections; launches {counts}")
+
+        # (4) scale_factor 3: the pure-conv localizer; (5) scale_factor 4:
+        # the ConvTransformer, its stride-4 blocks unfused with K7; f32 card
+        # vs CPU, with the launches each should make
+        for key, over, seed, want in (
+                ("scale3", scale3, 5, {}),
+                ("scale4", scale4, 7, dict(fused_transformer_block=cfg.arch[1],
+                                           band_attention=scale4["arch"][2]))):
+            cfg_s = dataclasses.replace(cfg, **over)
+            m_s = perturb(build_localizer(cfg_s, seed=seed, device="cpu"), seed + 1)
+            t_s = cfg_s.max_seq_len
+            x_s = rng.standard_normal((b, t_s, cfg_s.input_dim), dtype=np.float32)
+            mask_s = np.ones((b, t_s), bool)
+            mask_s[-1, t_s // 2:] = False
+            x_s *= mask_s[..., None]
+            with torch.no_grad():
+                cpu_s = m_s(torch.from_numpy(x_s), torch.from_numpy(mask_s))
+                card_s = copy.deepcopy(m_s).to(dev)
+                reset_counts()
+                got_s = card_s(torch.from_numpy(x_s).to(dev), torch.from_numpy(mask_s).to(dev))
+                sync(dev)
+            counts = launch_counts()
+            expect(counts, f"{key} forward", **want)
+            errs_s = {k: (cat_levels(got_s, k).cpu() - cat_levels(cpu_s, k)).abs().max().item()
+                      for k in ("out_cls", "out_offsets")}
+            if any(not errs_s[k] <= VARIANT_F32_TOL[k] for k in errs_s):
+                fail(f"wide blocks {key}: f32 card vs CPU {errs_s}")
+            report[key] = dict(config={k: v for k, v in over.items()}, strides=cfg_s.fpn_strides,
+                               launches=counts, f32_card_vs_cpu=errs_s)
+            log(f"wide blocks {key} ({cfg_s.backbone_type}, strides {cfg_s.fpn_strides}, "
+                f"T={t_s}): f32 card vs CPU {errs_s}; launches {counts}")
+            del m_s, card_s, cpu_s, got_s
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        if on_card:
+            torch.cuda.empty_cache()
+    REPORT["wide_blocks"] = report
+    return report
+
+
 def main_path_loss(kernels, k1_totals, k1_bounds, mvit_group, k4_table, audio_times, smi,
                    n_videos=64, group=32):
     """What each kernel of the main path costs one ``n_videos``-video media ->
@@ -5920,6 +6412,7 @@ def main():
     variants = timed(phase_variants, smi=smi)
     legacy = timed(phase_legacy, smi=smi)
     released = timed(phase_released_weights, smi=smi)
+    wide = timed(phase_wide_blocks, smi=smi)
     for mod in ("jax", "audio_visual_deepfake_detection_tpu"):
         if mod in sys.modules:
             fail(f"{mod} was imported")
@@ -5965,6 +6458,13 @@ def main():
                 "fused_transformer_block"],
             "rel_pe_eval_forward_bf16": legacy["rel-pe"]["eval"]["launches_bf16"][
                 "fused_transformer_block"]},
+        "launches_wide_blocks": {
+            "eval_forward_bf16": wide["eval"]["launches_bf16"]["fused_transformer_block"],
+            "inference_cli": wide["inference_cli"]["launches"]["fused_transformer_block"],
+            "inference_cli_batches": wide["inference_cli"]["batches"]},
+        "max_abs_err_wide": wide["grid"]["worst"]["K1"],
+        "wide_times": [r for r in wide["grid"]["times"] if r["kernel"] == "K1"],
+        "wide_forward_ms_b2": wide["eval"].get("forward_ms_bf16"),
     }]
     for name, file, line in (("patch_embed", "patch_embed", 140),
                              ("pooled_attention", "mvit_attention", 72),
@@ -6067,6 +6567,11 @@ def main():
             "conv_fpn_step": legacy["conv-fpn"]["step"]["launches"][
                 "fused_transformer_block_train"],
             "rel_pe_step": legacy["rel-pe"]["step"]["launches"]["fused_transformer_block_train"]},
+        "launches_wide_blocks": {
+            "train_cli": wide["train_cli"]["launches"]["fused_transformer_block_train"],
+            "train_cli_steps": wide["train_cli"]["steps"]},
+        "max_abs_err_wide": wide["grid"]["worst"]["K6"],
+        "wide_train_cli_ms_per_step": wide["train_cli"]["epochs"][-1]["ms_per_step"],
         "launches_variants": {
             name: {"train_step_f32": rec["step"]["launches"]["fused_transformer_block_train"],
                    "train_cli": rec["train_cli"]["launches"]["fused_transformer_block_train"]}
@@ -6103,6 +6608,10 @@ def main():
         "launches_legacy": {"rel_pe_eval_forward_bf16": legacy["rel-pe"]["eval"][
             "launches_bf16"]["band_attention"],
             "rel_pe_step": legacy["rel-pe"]["step"]["launches"]["band_attention"]},
+        "launches_wide_blocks": {key + "_forward": wide[key]["launches"]["band_attention"]
+                                 for key in ("scale3", "scale4")},
+        "max_abs_err_wide": wide["grid"]["worst"]["K7"],
+        "wide_times": [r for r in wide["grid"]["times"] if r["kernel"] == "K7"],
     })
     for k in kernels:
         # checkpoints in the released layouts -> loaders -> extraction ->

@@ -191,7 +191,7 @@ def test_block_packs_once_and_repacks_after_parameter_update(rng):
 # scratch rows r0 - w .. r0 + 63 + w (all rows when dense) and x / xo rows
 # r0 - 1 .. r0 + 63. Its products take the weights from a ring of 32 KB
 # stages that TMA fills with 128-byte-swizzled boxes.
-K_C, K_H, TILE = tfb.KERNEL_CHANNELS, tfb.KERNEL_HEADS, 64
+K_C, K_H, TILE = 256, 4, 64      # the production block
 
 
 def _kernel_block(rng, mode, window):
