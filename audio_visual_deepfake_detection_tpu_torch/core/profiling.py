@@ -7,7 +7,10 @@
   profiler, whose ``key_averages()`` and ``events()`` the caller may read.
   The port's kernels are launched from a plain C library, not from PyTorch
   operators; CUPTI records every kernel of the process's context, so they
-  appear under their ``__global__`` names all the same.
+  appear under their ``__global__`` names all the same. A trace taken in a
+  process after other processes have used the card may lack some of its
+  first kernel events (``tools/profiler_session_drops.py`` counts them);
+  take it in a fresh process where every kernel must be there.
 - ``annotate(name)``: a named span in that trace
   (``torch.profiler.record_function``).
 - ``StepTimer``: a wall-clock meter that synchronizes the card before it

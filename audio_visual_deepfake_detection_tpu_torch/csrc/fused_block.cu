@@ -23,8 +23,9 @@
 //
 // Shapes (shape_ok; ops/kernels/fused_block.py::kernel_shape_ok is the same
 // rule): C a multiple of 64 from 64 to 1024, head width D = C / n_head in
-// {32, 64, 96, 128}, half window w from 1 to 16 or dense attention at any T,
-// the Pallas kernel's domain (it is generated per shape) cut at those bounds.
+// {32, 64, 96, 128}, any half window w >= 1 or dense attention, at any T:
+// the Pallas kernel's domain (it is generated per shape) cut at those C and
+// D.
 //
 // What bounds it on this card: a row costs 12 C^2 multiply-adds (q, k, v,
 // proj 4 C^2, the MLP 8 C^2; 786k at C = 256) against a few KB of HBM
@@ -35,18 +36,24 @@
 // the CUDA-core work a row needs (five LNs, three depthwise convs, 4 x (2w+1)
 // scores and context sums, the GELU of 4C values) is second.
 //
-// bf16 (the main path, and K6's training forward), two launches on wgmma:
+// bf16 (the main path, and K6's training forward), two launches on wgmma,
+// three where the attention runs on the tensor cores:
 // - PHASE_QKV: per tile of 64 rows of one sample, LN -> depthwise conv ->
 //   LN of each stream into a 64 x C bf16 tile in shared memory (a warp LNs
 //   the input rows each run of output rows needs, one more each side), then
 //   the q / k / v product and its bias (q scaled) to a (B, T, 3C) bf16
 //   scratch. The values there are the ones block_math rounds to bf16, so the
 //   split is exact; it costs 3C x 2 bytes written and read a row.
-// - PHASE_TAIL: per tile, attention from the scratch, the context into the
-//   tile, proj + the masked, layer-scaled residual (y1, kept in the output
-//   rows), its LN into the tile, then fc1 -> GELU -> fc2 over C / 16 chunks
-//   of 64 hidden units: the chunk goes through an 8 KB tile and fc2's sums
-//   stay in registers, so the 4C hidden never lies whole anywhere.
+// - the attention launch (fused_block_attend.cu; dense attention at every
+//   T, and bands of w > 16): per (sample, head, 128 query rows), scores,
+//   softmax and P.V on wgmma from the scratch's q, k, v, the context written
+//   over q; its design is in that file.
+// - PHASE_TAIL: per tile, the banded attention (w <= 16) from the scratch,
+//   or the attention launch's context, into the tile, proj + the masked, layer-scaled residual (y1,
+//   kept in the output rows), its LN into the tile, then fc1 -> GELU -> fc2
+//   over C / 16 chunks of 64 hidden units: the chunk goes through an 8 KB
+//   tile and fc2's sums stay in registers, so the 4C hidden never lies whole
+//   anywhere.
 // Both: a block is one warpgroup and one tile of 64 rows. A product's output
 // columns go in groups of 256 (a remainder of 64, 128 or 192 last): one
 // warpgroup's registers hold a 64 x 256 f32 accumulator and no more. With
@@ -74,8 +81,8 @@
 // bytes a lane, the D / 8 lanes of a head sum a score by shuffles. Banded
 // (2w+1 offsets) stages the slab's q, keys and values, the halo included,
 // by TMA into the ring's space in chunks of 32 query rows (16 for w > 8);
-// the key masks of a chunk come from two ballots. Dense (window -1) reads
-// every key of the scratch, at any T. The rounding points are block_math's:
+// the key masks of a chunk come from two ballots. The rounding points are
+// block_math's:
 // cdot rounded once, one-pass LN moments, banded scores and the -1e4 penalty
 // in bf16 (products rounded, f32 sums), f32 softmax, the context summed offset
 // by offset in bf16, the division-free GELU, droppath coefficients multiplied
@@ -95,7 +102,8 @@
 //   a (B, T, 2C) scratch; phase 2 computes the tile's q and attends each
 //   (row, head) warp to its 2w+1 keys, or to all T keys in three passes (row
 //   max, sum of exps, P.V), from the scratch, so shared memory grows with
-//   neither the window nor T.
+//   neither the window nor T. A band of w > 16 recomputes its scores in three
+//   passes too (the score row of w <= 16 stays in registers).
 
 #include "fused_block.cuh"
 
@@ -108,7 +116,7 @@ extern "C" {
 // (k | v), 0 for float32 otherwise; -1 if the kernel does not take the shape
 // (shape_ok) or its f32 tile does not fit in shared memory.
 int avdd_fused_block_scratch(int T, int c, int n_head, int w, int dtype) {
-  if (!shape_ok(c, n_head, w) || T <= 0 || dtype < 0 || dtype > 1) return -1;
+  if (!shape_ok(c, n_head) || T <= 0 || dtype < 0 || dtype > 1) return -1;
   if (dtype == 1) return 3 * c;
   int tq, tiled;
   if (plan_f32(T, c, w, &tq, &tiled) < 0) return -1;
@@ -150,6 +158,7 @@ int avdd_fused_block(const void* x, const void* xo, const void* mask,
     p.f1 = (p.ks + 3) / 4;
     p.slab = (SLAB / p.D) * p.D;
     p.att_rows = p.w > 8 ? 16 : 32;
+    p.attn = p.w == 0 || p.w > MAX_W ? ATT_SCRATCH : ATT_BAND;
     const void* ws[6] = {wq, wk, wv, wp, wf1, wf2};
     return c == 256 && n_head == 4 ? launch_wgmma<256>(p, ws, s) : launch_wgmma_any(p, ws, s);
   }

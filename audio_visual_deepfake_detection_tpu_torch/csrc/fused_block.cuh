@@ -4,8 +4,9 @@
 // for the production block (C = 256, 4 heads of 64, its shape compile-time
 // constants), fused_block_any.cu and fused_block_any_qkv.cu the second and
 // the first launch of the bfloat16 instance for any shape of the domain,
-// fused_block_f32.cu the float32 kernel. The design is described in
-// fused_block.cu.
+// fused_block_attend.cu the bfloat16 attention launch on the tensor cores
+// (dense attention, and bands wider than MAX_W), fused_block_f32.cu the
+// float32 kernel. The design is described in fused_block.cu.
 
 #pragma once
 
@@ -16,14 +17,18 @@ namespace avdd_k1 {
 using namespace avdd;
 
 constexpr int MAX_C = 1024;     // widest block
-constexpr int MAX_W = 16;       // largest half window, banded attention
+constexpr int MAX_W = 16;       // largest half window of the tail's banded step
+                                // (attend_band) and of the f32 kernel's score row;
+                                // wider bands take the tensor-core step, and the
+                                // f32 kernel recomputes their scores
 constexpr float LN_EPS = 1e-5f;
 constexpr float NEG_INF = -1e30f;
 constexpr float NEG_PENALTY = 1e4f;
 
-// The shapes the kernel takes (the Python wrapper's kernel_shape_ok).
-inline bool shape_ok(int c, int n_head, int w) {
-  if (c < 64 || c > MAX_C || c % 64 || n_head <= 0 || c % n_head || w > MAX_W) return false;
+// The shapes the kernel takes (the Python wrapper's kernel_shape_ok): any
+// half window w, and dense attention (w <= 0), at any T.
+inline bool shape_ok(int c, int n_head) {
+  if (c < 64 || c > MAX_C || c % 64 || n_head <= 0 || c % n_head) return false;
   const int d = c / n_head;
   return d == 32 || d == 64 || d == 96 || d == 128;
 }
@@ -87,6 +92,11 @@ constexpr int BOX = 8192;                      // a TMA box: 64 rows x 128 B; al
 constexpr int HCHUNK = WG_ROWS * 128;          // 64 x 64 bf16 hidden chunk
 constexpr int SLAB = 256;                      // widest attention slab, channels
 enum { PHASE_QKV = 0, PHASE_TAIL = 1 };
+// Where the tail takes the attention context from: its banded step over
+// TMA-staged rows (1 <= w <= MAX_W), or the q columns of the scratch, which
+// the attention launch (fused_block_attend.cu) overwrote with the context
+// between the two (dense attention, and bands of w > MAX_W).
+enum { ATT_BAND = 0, ATT_SCRATCH = 1 };
 
 // Dynamic shared memory of a block: the ring, the hidden chunk, the 64 x C
 // tile (C / 64 blocks of 64 columns), the barriers, and 1 KB of alignment.
@@ -110,6 +120,7 @@ struct ParamsW {
   int f1;               // stages of an fc1 chunk: ceil(ks / 4)
   int slab;             // channels of an attention slab: whole heads, <= 256
   int att_rows;         // banded: query rows a staged chunk holds
+  int attn;             // ATT_*: where the tail's attention context comes from
 };
 
 // The block's shape and what follows from it: compile-time constants in the
@@ -607,68 +618,19 @@ __device__ void attend_band(const ParamsW& p, const Dims& dm, int b, int r0, int
   }
 }
 
-// Dense, all 64 rows of the tile against all T keys of the scratch, slab by
-// slab: f32 dot products rounded once, -1e30 fill on invalid keys, f32
-// softmax in three passes over the keys, values masked, P.V summed in f32
-// and rounded once.
-__device__ __forceinline__ void attend_dense(const ParamsW& p, const Dims& d, int b, int r0,
-                                             int warp, int lane, uint32_t tile) {
-  const int T_ = p.T, C = d.C, P = d.D / 8;
-  const uint8_t* mrow = p.mask + (size_t)b * T_;
-  const float fill = rnd16(NEG_INF);
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-#pragma unroll 1
-  for (int col0 = 0; col0 < C; col0 += d.slab) {
-    const bool act = 8 * lane < min(d.slab, C - col0);
-    const __nv_bfloat16* base = p.qkv + (size_t)b * T_ * 3 * C + col0 + 8 * lane;
-    auto row = [&](int s, int part) {        // 8 values of q (0), k (1) or v (2) of row s
-      return act ? *reinterpret_cast<const uint4*>(base + (size_t)s * 3 * C + part * C) : zero;
-    };
-#pragma unroll 1
-    for (int i = warp; i < WG_ROWS; i += 4) {
-      const int r = r0 + i;
-      uint32_t ctx[4] = {0u, 0u, 0u, 0u};
-      if (r < T_ && mrow[r]) {
-        const uint4 qu = row(r, 0);
-        const uint32_t q[4] = {qu.x, qu.y, qu.z, qu.w};
-        auto score = [&](int j) {
-          const uint4 ku = row(j, 1);
-          const uint32_t kw[4] = {ku.x, ku.y, ku.z, ku.w};
-          float part = 0.f;
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float2 a = unpack2(q[e]), k = unpack2(kw[e]);
-            part = fmaf(a.x, k.x, part);
-            part = fmaf(a.y, k.y, part);
-          }
-          part = head_sum(part, P, lane);
-          return mrow[j] ? rnd16(part) : fill;
-        };
-        float mx = -CUDART_INF_F;
+// The context the attention launch left in the q columns of the scratch
+// (invalid rows already zero) -> the tile; rows past T are zeros.
+__device__ __forceinline__ void ctx_from_scratch(const ParamsW& p, const Dims& d, int b, int r0,
+                                                 uint32_t tile) {
+  const int C = d.C, cpr = C / 8;            // 16-byte chunks a row
+  const __nv_bfloat16* src = p.qkv + (size_t)b * p.T * 3 * C;
 #pragma unroll 4
-        for (int j = 0; j < T_; ++j) mx = fmaxf(mx, score(j));
-        float den = 0.f;
-#pragma unroll 4
-        for (int j = 0; j < T_; ++j) den += expf(score(j) - mx);
-        float sa[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-#pragma unroll 4
-        for (int j = 0; j < T_; ++j) {
-          const float pj = rnd16(expf(score(j) - mx) / den);
-          if (!mrow[j]) continue;      // its value row is masked to zero
-          const uint4 vu = row(j, 2);
-          const uint32_t vw[4] = {vu.x, vu.y, vu.z, vu.w};
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const float2 a = unpack2(vw[e]);
-            sa[2 * e] = fmaf(pj, a.x, sa[2 * e]);
-            sa[2 * e + 1] = fmaf(pj, a.y, sa[2 * e + 1]);
-          }
-        }
-#pragma unroll
-        for (int e = 0; e < 4; ++e) ctx[e] = pack_bf16(sa[2 * e], sa[2 * e + 1]);
-      }
-      if (act) st_shared16(tile_chunk(tile, i, col0 + 8 * lane), ctx);
-    }
+  for (int idx = threadIdx.x; idx < WG_ROWS * cpr; idx += NTW) {
+    const int i = idx / cpr, c = 8 * (idx % cpr), r = r0 + i;
+    const uint4 u = r < p.T ? *reinterpret_cast<const uint4*>(src + (size_t)r * 3 * C + c)
+                            : make_uint4(0u, 0u, 0u, 0u);
+    const uint32_t w4[4] = {u.x, u.y, u.z, u.w};
+    st_shared16(tile_chunk(tile, i, c), w4);
   }
 }
 
@@ -946,10 +908,10 @@ fused_block_wgmma_kernel(const __grid_constant__ WeightMaps maps,
   }
 
   // ---- PHASE_TAIL ----
-  // attention first, slab by slab (banded: in chunks of att_rows query rows
-  // whose q, keys and values TMA stages in the ring's space); then the ring
-  // starts on wp
-  if (p.w > 0) {
+  // attention first: banded slab by slab, in chunks of att_rows query rows
+  // whose q, keys and values TMA stages in the ring's space; else the
+  // context the attention launch wrote. Then the ring starts on wp
+  if (p.attn == ATT_BAND) {
     const int ar = p.att_rows, rows = ar + 2 * p.w, rb = 2 * d.slab;
     const uint32_t kst = ring_base + ar * rb, vst = kst + rows * rb;
     const uint32_t stbar = bars + 8 * STAGES;
@@ -988,7 +950,7 @@ fused_block_wgmma_kernel(const __grid_constant__ WeightMaps maps,
       }
     }
   } else {
-    attend_dense(p, d, b, r0, warp, lane, tile);
+    ctx_from_scratch(p, d, b, r0, tile);
     fence_async_shared();
     __syncthreads();
   }
@@ -1048,6 +1010,11 @@ int launch_phase(const WeightMaps& maps, const ParamsW& p, int smem, cudaStream_
 // (its second is fused_block_any.cu's, so the two build side by side).
 int launch_qkv_any(const WeightMaps& maps, const ParamsW& p, int smem, cudaStream_t stream);
 
+// The attention launch on the tensor cores (fused_block_attend.cu), between
+// the first launch and the tail when p.attn == ATT_SCRATCH: the context of
+// every row into the q columns of the scratch.
+int launch_attend(const ParamsW& p, cudaStream_t stream);
+
 // Both launches of the kernel instance CW (256: the production block; 0: any
 // shape), in the translation unit that compiles its second launch (the
 // GELU table the second reads is that unit's).
@@ -1071,13 +1038,17 @@ int launch_wgmma(ParamsW& p, const void* const* w, cudaStream_t stream) {
   if (int e = bf16_tensor_map(&maps.w[5], w[5], 2, d2, st2, box)) return e;
   const uint64_t dq[3] = {3ull * C, (uint64_t)p.T, (uint64_t)(p.tiles / ((p.T + WG_ROWS - 1) / WG_ROWS))};
   const uint64_t sq3[2] = {6ull * C, (uint64_t)p.T * 6 * C};
+  // (the banded step's boxes; another route reads no staged rows, and its
+  // window may exceed a box's 256 rows)
+  const int wb = p.attn == ATT_BAND ? p.w : 0;
   const uint32_t boxq[3] = {(uint32_t)p.slab, (uint32_t)p.att_rows, 1},
-                 boxkv[3] = {(uint32_t)p.slab, (uint32_t)(p.att_rows + 2 * p.w), 1};
+                 boxkv[3] = {(uint32_t)p.slab, (uint32_t)(p.att_rows + 2 * wb), 1};
   if (int e = bf16_tensor_map(&maps.q, p.qkv, 3, dq, sq3, boxq, false)) return e;
   if (int e = bf16_tensor_map(&maps.kv, p.qkv, 3, dq, sq3, boxkv, false)) return e;
   int e;
   if constexpr (CW == 0) e = launch_qkv_any(maps, p, smem, stream);
   else e = launch_phase<PHASE_QKV, CW>(maps, p, smem, stream);
+  if (!e && p.attn == ATT_SCRATCH) e = launch_attend(p, stream);
   return e ? e : launch_phase<PHASE_TAIL, CW>(maps, p, smem, stream);
 }
 

@@ -234,11 +234,9 @@ fused_block_kernel(Params p) {
       // banded: scores in the compute dtype (rounded products, f32 sum),
       // -1e4 penalty on masked keys, -1e30 outside the sequence, f32 softmax;
       // keys from the halo in shared memory or, tiled, from the scratch
-      float sc[2 * MAX_W + 1];
-      float mx = -CUDART_INF_F;
       const float pen = N::rnd(-NEG_PENALTY);
       const int w = p.w;
-      for (int d = -w; d <= w; ++d) {
+      auto score = [&](int d) {   // offset d's score, the same bits on every call
         const int s = r0 + i + d;                  // the key's sequence row
         const bool inseq = s >= 0 && s < T_;
         float e = 0.f;
@@ -257,16 +255,10 @@ fused_block_kernel(Params p) {
         }
         float v = N::rnd(warp_sum(e));
         v = N::rnd(v + (valid ? 0.f : pen));
-        v = inseq ? v : NEG_INF;
-        sc[d + w] = v;
-        mx = fmaxf(mx, v);
-      }
-      float den = 0.f;
-      for (int d = 0; d <= 2 * w; ++d) { sc[d] = expf(sc[d] - mx); den += sc[d]; }
-      const float inv = 1.f / den;
-      for (int d = -w; d <= w; ++d) {
+        return inseq ? v : NEG_INF;
+      };
+      auto add_value = [&](int d, float pr) {
         const int s = r0 + i + d;
-        const float pr = N::rnd(sc[d + w] * inv);
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           if (c >= nd) continue;
@@ -275,6 +267,24 @@ fused_block_kernel(Params p) {
           else vv = (s >= 0 && s < T_) ? kvs[(size_t)s * 2 * C + C + cb + 32 * c] : 0.f;
           o[c] = N::rnd(o[c] + N::rnd(pr * vv));
         }
+      };
+      float mx = -CUDART_INF_F;
+      if (w <= MAX_W) {   // the score row in registers
+        float sc[2 * MAX_W + 1];
+        for (int d = -w; d <= w; ++d) {
+          sc[d + w] = score(d);
+          mx = fmaxf(mx, sc[d + w]);
+        }
+        float den = 0.f;
+        for (int d = 0; d <= 2 * w; ++d) { sc[d] = expf(sc[d] - mx); den += sc[d]; }
+        const float inv = 1.f / den;
+        for (int d = -w; d <= w; ++d) add_value(d, N::rnd(sc[d + w] * inv));
+      } else {            // wider: three passes over the offsets, scores recomputed
+        for (int d = -w; d <= w; ++d) mx = fmaxf(mx, score(d));
+        float den = 0.f;
+        for (int d = -w; d <= w; ++d) den += expf(score(d) - mx);
+        const float inv = 1.f / den;
+        for (int d = -w; d <= w; ++d) add_value(d, N::rnd(expf(score(d) - mx) * inv));
       }
     } else if (p.phase == PHASE_ATTN) {
       // dense, tiled: all T keys from the scratch, three passes over them

@@ -214,10 +214,6 @@ class TransformerBlock(nn.Module):
                  proj_pdrop: float = 0.0, path_pdrop: float = 0.0,
                  use_rel_pe: bool = False, use_time_weight: bool = False):
         super().__init__()
-        if not (window_size > 1 or window_size == -1):
-            raise NotImplementedError(
-                f"window_size {window_size}: only banded (>1) and dense (-1) "
-                f"attention are ported")
         if ds_stride < 1 or (cross and ds_stride != 1):
             raise NotImplementedError(f"ds_stride {ds_stride} (cross={cross})")
         self.n_embd, self.n_head = n_embd, n_head
@@ -270,10 +266,13 @@ class TransformerBlock(nn.Module):
     def uses_unfused(self, train: bool) -> bool:
         """The fused kernels cover neither dropout inside the block in
         training nor a relative position bias or time weighting at all, nor
-        a stride other than 1 or 2 (JAX ``fused_train_eligible`` and
-        ``fused_mode``); set either flag and every block of the model is
-        unfused, dense ones too, as in JAX."""
+        a stride other than 1 or 2, nor a window other than a band (> 1) or
+        -1 (JAX ``fused_train_eligible`` and ``fused_mode``); set either flag
+        and every block of the model is unfused, dense ones too, as in JAX.
+        A window of 0, 1 or below -1 runs unfused with dense attention
+        (``ConvAttention``'s ``full_attention``), as the JAX block does."""
         return (self.rel_or_time or self.ds_stride not in (1, 2)
+                or not (self.window_size > 1 or self.window_size == -1)
                 or (train and self.proj_pdrop > 0.0))
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor,

@@ -7,8 +7,8 @@ sm_90 card they launch ``csrc/fused_block.cu`` (which replaces the Pallas
 kernel ``fused_transformer_block``, ``pallas_call`` at ``fused_block.py:535``,
 and through it ``fused_transformer_block_train``, ``:753``) at every block
 shape of ``kernel_shape_ok``, the Pallas kernel's per-shape domain cut at C
-<= 1024, head widths 32 / 64 / 96 / 128 and w <= 16; for a CPU tensor they
-run ``block_math``. Nothing else routes between the two
+<= 1024 and head widths 32 / 64 / 96 / 128, any window; for a CPU tensor
+they run ``block_math``. Nothing else routes between the two
 (``core/runtime.py::use_kernel``).
 
 K6 is K1's forward with per-sample droppath coefficients ``coefs`` (B, 2) in
@@ -57,11 +57,10 @@ NUM_VEC_ROWS = 22
 
 MODES = {"self": 0, "qv_k": 1, "kv": 2, "ds_self": 3}
 # the kernel's shape domain (csrc/fused_block.cuh::shape_ok): C a multiple of
-# 64 up to MAX_CHANNELS, a head width in HEAD_WIDTHS, a half window up to
-# MAX_W or dense (w <= 0) at any T
+# 64 up to MAX_CHANNELS, a head width in HEAD_WIDTHS, any half window or
+# dense (w <= 0), at any T
 MAX_CHANNELS = 1024
 HEAD_WIDTHS = (32, 64, 96, 128)
-MAX_W = 16
 
 # kernel launches since the last reset (CPU calls and plain runs never
 # count): eval launches (K1) and training-forward launches (K6) apart
@@ -197,30 +196,24 @@ def qkv_rows(x, xo, mrow, vecs, wq, wk, wv, *, n_head: int, mode: str):
     return q, k, v
 
 
-def block_tail(q, k, v, x, xo, mrow, coefs, vecs, wp, wf1, wf2, fc1b, *, n_head: int,
-               w_overlap: int, mode: str):
-    """The second half of ``block_math``, the bf16 kernel's second launch:
-    attention over the q, k, v rows of ``qkv_rows``, proj, the layer-scaled
-    residual, LN and the MLP. Row i reads q row i, k and v rows i - w ..
-    i + w (all rows when dense) and x (ds_self: xo too) rows i - 1 .. i."""
+def attention_ctx(q, k, v, mrow, *, n_head: int, w_overlap: int) -> torch.Tensor:
+    """The attention of ``block_tail`` on the (B, T, C) q (scaled), k and v
+    rows of ``qkv_rows`` and the (B, T, 1) f32 mask: per head, dense
+    (``w_overlap`` <= 0) or over the 2w + 1 offsets of the band. Returns the
+    (B, T, C) context, invalid rows zero. On the card the bf16 kernel runs it
+    inside its second launch (bands up to 16) or as a launch of its own on
+    the tensor cores (dense and wider bands, csrc/fused_block_attend.cu)."""
     w = w_overlap
-    cdtype = x.dtype
-    b, t, c = x.shape
+    cdtype = q.dtype
+    b, t, c = q.shape
     d_head = c // n_head
-    mvalid = mrow
-    mvalid_c = mvalid.to(cdtype)
-    pen = (mvalid - 1.0) * (-NEG_PENALTY)
-    coef_attn = coefs[:, 0][:, None, None]
-    coef_mlp = coefs[:, 1][:, None, None]
-
-    def rows(i):
-        return vecs[i][None, None, :]
-
-    row = torch.arange(t, device=x.device)[:, None]
+    mvalid_c = mrow.to(cdtype)
+    pen = (mrow - 1.0) * (-NEG_PENALTY)
+    row = torch.arange(t, device=q.device)[:, None]
     if w <= 0:
         # dense attention: -1e30 fill on invalid keys, values masked
-        colok = (mvalid[..., 0] > 0.5)[:, None, :]
-        fill = torch.tensor(NEG_INF, dtype=cdtype, device=x.device)
+        colok = (mrow[..., 0] > 0.5)[:, None, :]
+        fill = torch.tensor(NEG_INF, dtype=cdtype, device=q.device)
         vm = v * mvalid_c
         ctx = torch.zeros_like(q)
         for h in range(n_head):
@@ -256,7 +249,29 @@ def block_tail(q, k, v, x, xo, mrow, coefs, vecs, wp, wf1, wf2, fc1b, *, n_head:
             pb = torch.repeat_interleave(p, d_head, dim=-1)
             ctx = ctx + pb * _shift_rows(v, d)
         ctx = ctx * mvalid_c
+    return ctx
 
+
+def block_tail(q, k, v, x, xo, mrow, coefs, vecs, wp, wf1, wf2, fc1b, *, n_head: int,
+               w_overlap: int, mode: str):
+    """The second half of ``block_math``, the bf16 kernel's second launch
+    (with the attention launch before it where that takes the attention):
+    attention over the q, k, v rows of ``qkv_rows``, proj, the layer-scaled
+    residual, LN and the MLP. Row i reads q row i, k and v rows i - w ..
+    i + w (all rows when dense) and x (ds_self: xo too) rows i - 1 .. i."""
+    w = w_overlap
+    cdtype = x.dtype
+    t = x.shape[1]
+    mvalid = mrow
+    mvalid_c = mvalid.to(cdtype)
+    coef_attn = coefs[:, 0][:, None, None]
+    coef_mlp = coefs[:, 1][:, None, None]
+
+    def rows(i):
+        return vecs[i][None, None, :]
+
+    row = torch.arange(t, device=x.device)[:, None]
+    ctx = attention_ctx(q, k, v, mvalid, n_head=n_head, w_overlap=w)
     att = _cdot(ctx, wp) + vecs[ROW_P_BIAS].to(cdtype)
     att = att * mvalid_c
     if mode == "ds_self":
@@ -400,31 +415,34 @@ def fused_transformer_block(x, xo, mask, vecs, wq, wk, wv, wp, wf1, wf2, fc1b,
 
 def kernel_shape_ok(c: int, n_head: int, w_overlap: int) -> bool:
     """Whether the kernel takes a block of ``c`` channels, ``n_head`` heads
-    and half window ``w_overlap`` (<= 0: dense attention, any length): C a
-    multiple of 64 from 64 to 1024, C / n_head in {32, 64, 96, 128},
-    w_overlap <= 16. The same rule as ``csrc/fused_block.cuh::shape_ok``."""
+    and half window ``w_overlap`` (<= 0: dense attention): C a multiple of 64
+    from 64 to 1024 and C / n_head in {32, 64, 96, 128}, at any half window
+    and any length. The same rule as ``csrc/fused_block.cuh::shape_ok``;
+    ``w_overlap`` names the block and limits nothing."""
     return (64 <= c <= MAX_CHANNELS and c % 64 == 0 and n_head > 0 and c % n_head == 0
-            and c // n_head in HEAD_WIDTHS and w_overlap <= MAX_W)
+            and c // n_head in HEAD_WIDTHS)
 
 
 def _launch(x, xo, mask, vecs, wq, wk, wv, wp, wf1, wf2, fc1b, *, n_head,
             w_overlap, mode, coefs=None):
     """Launch the kernel: K1 with ``coefs`` None (the kernel reads 1), K6 with
     the (B, 2) f32 droppath coefficients. bf16 runs two ``wgmma`` launches
-    through a (B, T, 3C) q|k|v scratch, banded or dense alike. f32 keeps the
-    shared-memory FMA kernel: one launch where its tile fits in shared memory
-    (banded with the halo, dense up to 31 rows), else the tiled two-phase path
-    through a (B, T, 2C) k|v scratch (the kernel decides). A shape outside
-    ``kernel_shape_ok`` raises ValueError: there is no plain fallback."""
+    through a (B, T, 3C) q|k|v scratch, and between them a third, the
+    attention on the tensor cores, for dense attention and for half windows
+    above 16 (bands up to 16 attend inside the second launch). f32
+    keeps the shared-memory FMA kernel: one launch where its tile fits in
+    shared memory (banded with the halo, dense up to 31 rows), else the tiled
+    two-phase path through a (B, T, 2C) k|v scratch (the kernel decides). A
+    shape outside ``kernel_shape_ok`` raises ValueError: there is no plain
+    fallback."""
     global LAUNCHES, TRAIN_LAUNCHES
     from .build import load
 
     b, t, c = x.shape
     if not kernel_shape_ok(c, n_head, w_overlap):
         raise ValueError(
-            f"fused block kernel takes C a multiple of 64 up to {MAX_CHANNELS}, head width "
-            f"in {HEAD_WIDTHS} and w_overlap <= {MAX_W}; got C={c}, {n_head} heads, "
-            f"w_overlap {w_overlap}")
+            f"fused block kernel takes C a multiple of 64 up to {MAX_CHANNELS} and head "
+            f"width in {HEAD_WIDTHS}; got C={c}, {n_head} heads")
     w = max(w_overlap, 0)
     out = torch.empty_like(x)
     if b == 0 or t == 0:

@@ -15,9 +15,10 @@ Phases (any failure exits nonzero):
              service batch B=16 and the main path's B=64, and a T=768 self
              block at B=512, f32 (atol 1e-4) and bf16 (atol = rtol = 2e-2),
              with partial masks and O(1) layer scales / LN affines;
-3. dense   - K1 in dense mode at T = 24, 31 (whole-sequence path) and 32,
-             48, 100 (tiled path), f32 and bf16; a production-width f32
-             localizer forward at T = 1536 on the card against the CPU;
+3. dense   - K1 in dense mode at T = 1 .. 31 (f32 whole-sequence path)
+             and 32 .. 150 (f32 tiled path), f32 and bf16 (the tensor-core
+             attention launch); a production-width f32 localizer forward at
+             T = 1536 on the card against the CPU;
 4. serve   - a production-width LocalizerService (3072-d input, T=768,
              C=256, 4 heads, windows (7,7,7,7,7,-1), bf16, seeded weights)
              answers requests of varied valid length; every forward must
@@ -226,13 +227,18 @@ Phases (any failure exits nonzero):
 19. wide blocks - K1 / K6 / K7 at the corners of their shape domain: K1
              and K6 at (C, heads, w) = (256, 4, 3), (256, 4, 8), (256, 4, 9),
              (256, 4, 16), (512, 4, 9), (512, 4, dense), (256, 8, 3), (384, 4,
-             16), (1024, 8, dense) and (64, 2, 1), T = 2304, 150 and 24, the four modes, f32 (atol 1e-4) and bf16 (check_bf16)
-             against block_math; K7 at w = 9, 15 and 16 against its plain
-             version; ms, device ms, plain ms and bound per shape at T =
-             2304. Then ActionFormer's THUMOS14 localizer (WIDE_YAML: the
-             plain variant, ConvTransformer, C 512, 4 heads of 128, windows
-             19, T 2304, 20 classes, identity neck, no PE) through the port's
-             loader with seeded weights: an eval forward at B=2, f32 card vs
+             16), (1024, 8, dense), (64, 2, 1), and on the tensor-core
+             attention (256, 4, 24), (512, 4, 48), (384, 4, 40) and (256, 8,
+             dense), T = 2304, 150 and 24, the four modes, f32 (atol 1e-4)
+             and bf16 (check_bf16) against block_math; K7 at w = 9, 15 and
+             16 against its plain version; ms, device ms, plain ms and bound
+             per shape at T = 2304, for the tensor-core shapes also each
+             launch's device time and SDPA over the same heads. Then the
+             legacy localizer (WIDE_YAML: the plain variant,
+             ConvTransformer, C 512, 4 heads of 128, T 2304, 20 classes,
+             identity neck, no PE) at windows of 19 (ActionFormer's
+             THUMOS14) and dense (the backbone's default), each through the
+             port's loader with seeded weights: an eval forward at B=2, f32 card vs
              CPU (out_cls, out_offsets 1e-4; detections after multi-class
              soft-NMS, scores 1e-4, segments 1e-3, labels equal), bf16 K1 7
              launches and held to the plain blocks on the card, its forward
@@ -797,24 +803,25 @@ def profile_forward(run, forward_ms, smi, label="one B=512 forward", top_n=12):
 
 # ------------------------------------------------------ K1 dense repair
 
-DENSE_TS = (24, 31, 32, 48, 100)   # T >= 32 raised before the tiled path
+DENSE_TS = (1, 8, 24, 31, 32, 48, 65, 100, 150)   # T >= 32: f32's tiled path
 
 
 def phase_k1_dense(dev="cuda", b=5):
-    """K1 in dense mode (ds_self, window -1) against block_math at T = 24,
-    31 (whole-sequence path) and 32, 48, 100 (tiled two-phase path), f32 and
-    bf16, lengths full, 3/4, 1/3, one row and none."""
+    """K1 in dense mode (ds_self, window -1) against block_math at T = 1 ..
+    31 (f32: the whole-sequence path) and 32 .. 150 (f32: the tiled
+    two-phase path), f32 and bf16 (the tensor-core attention launch at
+    every T), lengths full, 3/4, 1/3, one row and none."""
     import torch
 
     worst = {"float32": 0.0, "bfloat16": 0.0}
     for t in DENSE_TS:
         for dtype in (torch.float32, torch.bfloat16):
             x, xo, mask, packed = block_case("ds_self", t, -1, b, dtype, dev, seed=t)
-            got = run_block("kernel", x, xo, mask, packed, "ds_self", -1)
             ref = run_block("plain", x, xo, mask, packed, "ds_self", -1)
+            got = run_block("kernel", x, xo, mask, packed, "ds_self", -1)
             sync(dev)
-            err, ok, n_over = compare(got, ref)
             name = str(dtype).split(".")[-1]
+            err, ok, n_over = compare(got, ref)
             worst[name] = max(worst[name], err)
             log(f"K1 dense B={b} ds_self T={t:3d} {name:8s} max|d|={err:.3e} "
                 f"beyond atol+rtol: {n_over} {'ok' if ok else 'MISMATCH'}")
@@ -5338,7 +5345,8 @@ RELEASED_MP4S = 16                    # cv2-written mp4s through FeatureExtracto
 # test_torch_emotion2vec.py)
 RELEASED_F32_TOL = {"mvit": (2e-4, 0.0), "c3d": (2e-4, 0.0), "byola": (1e-4, 0.0),
                     "emotion": (2e-4, 1e-3)}
-K1_KERNEL = "fused_block_"            # both of K1's __global__ names start so
+K1_KERNEL = "fused_block_"            # all of K1's __global__ names start so
+K1_ATTEND = "fused_block_attend"      # its attention launch on the tensor cores
 STEP_TIMER_TOL = 0.1                  # StepTimer's mean vs the CUDA-event time, relative
 
 
@@ -5768,12 +5776,15 @@ def phase_released_weights(dev="cuda", smi="", mvit_t=VIDEO_T, n_mp4=RELEASED_MP
             fail(f"released trace: {trace_file}")
         kernels, spans, busy = trace_readings(trace_file[0])
         k1_events = [e for e in kernels if K1_KERNEL in e["name"]]
+        k1_attend = [e for e in k1_events if K1_ATTEND in e["name"]]
         names = sorted({e["name"] for e in k1_events})
         if {e["name"] for e in spans} != {"localizer", "decode"}:
             fail(f"released trace: annotated spans {sorted({e['name'] for e in spans})}")
-        if on_card and (k1 != n_blocks or len(k1_events) != 2 * k1 or busy is None):
+        if on_card and (k1 != n_blocks or len(k1_events) - len(k1_attend) != 2 * k1
+                        or len(k1_attend) > k1 or busy is None):
             fail(f"released trace: {len(k1_events)} K1 kernel events ({names}) for {k1} counted "
-                 f"launches (two kernels a bf16 call), {len(kernels)} kernel events in all")
+                 f"launches (two kernels a bf16 call, and the attention launch where dense "
+                 f"attention takes the tensor cores), {len(kernels)} kernel events in all")
         if not on_card and (kernels or k1):
             fail(f"released trace on the CPU: {len(kernels)} kernel events, K1 {k1}")
         timer_rec = None
@@ -5793,7 +5804,8 @@ def phase_released_weights(dev="cuda", smi="", mvit_t=VIDEO_T, n_mp4=RELEASED_MP
                              gap=abs(timer_ms - ev_ms) / ev_ms)
             if timer_rec["gap"] > STEP_TIMER_TOL:
                 fail(f"released StepTimer {timer_ms:.3f} ms a step vs CUDA events {ev_ms:.3f}")
-        report["profiling"] = dict(k1_counted=k1, k1_events=len(k1_events), k1_names=names,
+        report["profiling"] = dict(k1_counted=k1, k1_events=len(k1_events),
+                                   k1_attend_events=len(k1_attend), k1_names=names,
                                    kernel_events=len(kernels), busy=busy, step_timer=timer_rec)
         log(f"released core/profiling.trace around one bf16 B={trace_b} forward + decode: "
             f"{len(k1_events)} K1 kernel events ({', '.join(n.split('::')[-1][:40] for n in names)}) for "
@@ -5874,14 +5886,17 @@ def phase_released_weights(dev="cuda", smi="", mvit_t=VIDEO_T, n_mp4=RELEASED_MP
 # ------------------------------------------------------------ the wide blocks
 
 # K1 / K6 at the corners of the kernels' shape domain (C a multiple of 64 up
-# to 1024, head width 32 / 64 / 96 / 128, half window up to 16 or dense):
+# to 1024, head width 32 / 64 / 96 / 128, any half window or dense):
 # (C, heads, half window; 0 = dense): the production block, and the
 # production instance at a compile-time w of 8 and at its runtime window (9,
 # 16); the ActionFormer THUMOS14 block (C 512, 4 heads of 128, window 19) and
 # the ConvTransformer backbone's default (the same, dense); 8 heads of 32, 4
-# heads of 96 at w 16, the widest block dense, the narrowest
+# heads of 96 at w 16, the widest block dense, the narrowest; then the
+# tensor-core attention at each head width: bands past 16 at head widths 64,
+# 128 and 96, dense at 32
 WIDE_SHAPES = ((256, 4, 3), (256, 4, 8), (256, 4, 9), (256, 4, 16), (512, 4, 9), (512, 4, 0),
-               (256, 8, 3), (384, 4, 16), (1024, 8, 0), (64, 2, 1))
+               (256, 8, 3), (384, 4, 16), (1024, 8, 0), (64, 2, 1), (256, 4, 24), (512, 4, 48),
+               (384, 4, 40), (256, 8, 0))
 WIDE_TS = (2304, 150, 24)
 WIDE_B = 2
 # K7 beyond w = 8: (B, H, T, D) at each half window of K7_WIDE_W
@@ -5889,17 +5904,128 @@ K7_WIDE = ((2, 4, 2304, 128), (5, 4, 150, 64))
 K7_WIDE_W = (9, 15, 16)
 
 
+def launch_table(shapes, t, b):
+    """launch_us of one bf16 K1 call (self, batch ``b``, length ``t``) at each
+    (C, heads, w) of ``shapes``, in a process of its own. A torch.profiler
+    session drops some of its first kernel events once other processes have
+    used the card (more the more processes; tools/profiler_session_drops.py
+    counts them, PERF.md's open questions has its readings), and this
+    script has started many (the CLIs) by the wide phase; a fresh process
+    has started none. The first shape's trace is still taken here
+    too and its counts kept (``in_process``: 3 launches a call, 3 calls), as
+    evidence. Returns ({"C,heads,w": {kernel name: us}}, in_process)."""
+    if not shapes:
+        return {}, None
+    import torch
+
+    c, nh, w = shapes[0]
+    window = 2 * w + 1 if w else -1
+    x, xo, mask, packed = block_case("self", t, window, b, torch.bfloat16, "cuda", c, c=c,
+                                     n_head=nh)
+    with torch.no_grad():
+        _, in_process = launch_us(
+            lambda: run_block("kernel", x, xo, mask, packed, "self", window, nh), strict=False)
+    del x, xo, mask, packed
+    log(f"launch table: the in-process trace of C={c} heads={nh} w={w}: {in_process}")
+    code = (f"import sys; sys.path.insert(0, {REPO!r}); import chip_smoke as c; "
+            f"c.print_launch_table({list(shapes)!r}, {t}, {b})")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                          text=True, timeout=900)
+    found = [ln for ln in proc.stdout.splitlines() if ln.startswith("LAUNCHES ")]
+    if proc.returncode or not found:
+        fail(f"launch_table: exit {proc.returncode}\n{proc.stdout[-2000:]}\n"
+             f"{proc.stderr[-2000:]}")
+    log(f"launch table: {len(shapes)} shapes in a process of its own, "
+        f"{time.perf_counter() - t0:.1f} s")
+    return json.loads(found[-1][len("LAUNCHES "):]), in_process
+
+
+def print_launch_table(shapes, t, b):
+    """launch_table's process: one line, LAUNCHES and the JSON table."""
+    import torch
+
+    table = {}
+    for c, nh, w in shapes:
+        window = 2 * w + 1 if w else -1
+        x, xo, mask, packed = block_case("self", t, window, b, torch.bfloat16, "cuda", c, c=c,
+                                         n_head=nh)
+        with torch.no_grad():
+            table[f"{c},{nh},{w}"] = launch_us(
+                lambda: run_block("kernel", x, xo, mask, packed, "self", window, nh))[0]
+        del x, xo, mask, packed
+    print("LAUNCHES " + json.dumps(table), flush=True)
+
+
+def launch_us(run, calls=3, strict=True):
+    """Device microseconds of each kernel launch of one call of ``run``, by
+    kernel name: the kernel events of a torch.profiler Chrome trace of
+    ``calls`` calls, averaged; and the trace's counts (the exported kernel
+    events, the profiler's own device-side events). With ``strict`` a trace
+    with no kernel event fails the run."""
+    import tempfile
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            run()
+        torch.cuda.synchronize()
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(REPO, "build")) as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    out = {}
+    for e in events:
+        if e.get("cat") == "kernel" and e.get("ph") == "X":
+            short = e["name"].replace("(anonymous namespace)::", "").split("(")[0].split("::")[-1]
+            out[short] = out.get(short, 0.0) + float(e["dur"]) / calls
+    counts = dict(chrome_kernel_events=sum(1 for e in events if e.get("cat") == "kernel"),
+                  device_events=sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA))
+    if strict and not out:
+        fail(f"launch_us: the trace holds no kernel event ({counts})")
+    return out, counts
+
+
+def attention_library(mask, heads, d, w):
+    """The nearest PyTorch composition of a block's attention core on the
+    same (B, heads, T, d), not one call of the same function: SDPA over
+    seeded q, k, v with the key-padding mask of ``mask`` (B, T), and the band
+    |i - j| <= w beside it where w > 0. Returns the call."""
+    import torch
+    import torch.nn.functional as F
+
+    b, t = mask.shape
+    g = torch.Generator().manual_seed(t + w)
+    q, k, v = (torch.randn((b, heads, t, d), generator=g).to(mask.device, torch.bfloat16)
+               for _ in range(3))
+    keep = mask[:, None, None, :]
+    if w > 0:
+        i = torch.arange(t, device=mask.device)
+        keep = keep & ((i[:, None] - i[None, :]).abs() <= w)[None, None]
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep)
+
+
 def wide_kernel_grid(dev="cuda", shapes=WIDE_SHAPES, ts=WIDE_TS, b=WIDE_B, k7_shapes=K7_WIDE,
                      k7_ws=K7_WIDE_W, smi="", timing=True):
     """K1 and K6 (the same call given droppath coefficients) at every
     (C, heads, w) of ``shapes``, every T of ``ts``, the four modes, f32 and
     bf16, against block_math (f32 atol 1e-4; bf16 check_bf16), the ragged
-    masks of block_case at batch ``b``; K7 at every half window of ``k7_ws``
-    and shape of ``k7_shapes`` against band_attention_plain (check_k7). With
-    ``timing`` (on the card): per shape at the longest T, self mode, bf16,
-    ms a call through the wrapper (CUDA events) and alone (device_ms) beside
-    the plain version and the bound, and the f32 kernel's device time; K7 the
-    same per window. Returns the report."""
+    masks of block_case at batch ``b`` (at B = 2 the second sample's last
+    quarter padded: at T = 150 its last key tile wholly); K7 at every half
+    window of ``k7_ws`` and shape of ``k7_shapes`` against
+    band_attention_plain (check_k7). With ``timing`` (on the card): per shape
+    at the longest T, self mode, bf16, ms a call through the wrapper (CUDA
+    events) and alone (device_ms) beside the plain version and the bound,
+    and the f32 kernel's device time; where the attention runs on the tensor
+    cores (dense, w > 16) also each launch's device time (torch.profiler)
+    and the nearest library composition of the attention core
+    (attention_library); K7 the same per window. Returns the report."""
     import torch
     from audio_visual_deepfake_detection_tpu_torch.ops.kernels import band_attention as k7
     from audio_visual_deepfake_detection_tpu_torch.ops.kernels import fused_block as fb
@@ -5972,6 +6098,15 @@ def wide_kernel_grid(dev="cuda", shapes=WIDE_SHAPES, ts=WIDE_TS, b=WIDE_B, k7_sh
     report = {"card": smi, "worst": worst, "rows": rows, "times": []}
     if timing and on_card:
         t = max(ts)
+        # the shapes whose attention ran on the tensor cores: those whose
+        # trace holds the attention launch
+        launches, in_process = launch_table(shapes, t, b)
+        report["launch_trace_in_process"] = in_process
+        tensor_core = [(c, nh, w) for c, nh, w in shapes
+                       if any(K1_ATTEND in k for k in launches[f"{c},{nh},{w}"])]
+        if not tensor_core or any((c, nh, w) not in tensor_core for c, nh, w in shapes
+                                  if w <= 0):
+            fail(f"wide blocks: the attention launch in the traces of {tensor_core} only")
         for c, nh, w in shapes:
             window = 2 * w + 1 if w else -1
             rec = dict(kernel="K1", C=c, heads=nh, w=w, T=t, B=b, mode="self")
@@ -5991,16 +6126,22 @@ def wide_kernel_grid(dev="cuda", shapes=WIDE_SHAPES, ts=WIDE_TS, b=WIDE_B, k7_sh
                     if dtype == torch.bfloat16:
                         rec[name].update(ms=cuda_ms(run, iters=min(iters, 10)),
                                          plain_ms=cuda_ms(plain, iters=3))
+                        if (c, nh, w) in tensor_core:
+                            rec[name]["launch_us"] = launches[f"{c},{nh},{w}"]
+                            rec[name]["library_ms"] = device_ms(attention_library(
+                                mask, nh, c // nh, w), iters=iters)
                 del x, xo, mask, packed
             report["times"].append(rec)
             bf = rec["bfloat16"]
             log(f"K1 C={c:4d} heads={nh} w={w:2d} B={b} T={t} self: bf16 {bf['ms']:.3f} ms "
                 f"(dev {bf['device_ms']:.3f}, plain {bf['plain_ms']:.3f}, bound "
                 f"{bf['bound_ms']:.4f} by {bf['bound_by']}); f32 dev "
-                f"{rec['float32']['device_ms']:.3f} ms (bound {rec['float32']['bound_ms']:.4f}) "
-                f"({smi})")
-        bb, h, t, d = k7_shapes[0]
-        for ww in k7_ws:
+                f"{rec['float32']['device_ms']:.3f} ms (bound {rec['float32']['bound_ms']:.4f})"
+                + (f"; launches (us) {bf['launch_us']}, attention core by SDPA "
+                   f"{bf['library_ms']:.4f} ms dev (nearest, not one call)"
+                   if "launch_us" in bf else "") + f" ({smi})")
+        bb, h, t, d = k7_shapes[0] if k7_shapes else (0, 0, 0, 0)
+        for ww in k7_ws if k7_shapes else ():
             args = k7_case(bb, t, torch.bfloat16, dev, seed=ww, h=h, d=d)
             with torch.no_grad():
                 run = lambda: run_k7("kernel", *args, ww)  # noqa: E731
@@ -6056,6 +6197,9 @@ test_cfg:
 WIDE_DIMS = (1024, 512, 512)          # the cache's video, BYOL-A and Emotion2Vec widths
 WIDE_SHAPE = ("plain", "convTransformer", "identity", 2048, 512, 4, 2304, (2, 2, 5), (19,) * 6,
               False, 20, 6.0)
+# the windows the localizer runs at: ActionFormer's THUMOS14 (19) and the
+# ConvTransformer backbone's default (-1, dense: models/backbones.py)
+WIDE_WINDOWS = (19, -1)
 WIDE_TRAIN_VIDEOS = 6                 # cli/train.py: 3 steps at B=2
 WIDE_TEST_VIDEOS = 4                  # cli/inference.py: 2 batches at B=2
 # scale_factor 3 on the same localizer with the pure-conv backbone (the
@@ -6069,30 +6213,22 @@ WIDE_SCALE4 = dict(scale_factor=4, arch=(2, 2, 3), mha_win_size=(19,) * 4,
                    regression_range=((0, 4), (4, 16), (16, 64), (64, 10000)))
 
 
-def phase_wide_blocks(dev="cuda", smi="", overrides=None, dims=WIDE_DIMS, b=2,
-                      n_train=WIDE_TRAIN_VIDEOS, n_test=WIDE_TEST_VIDEOS, grid=None,
-                      scale3=WIDE_SCALE3, scale4=WIDE_SCALE4):
-    """K1 / K6 / K7 at the corners of their shape domain (wide_kernel_grid,
-    ``grid`` its arguments), then the legacy localizer at ActionFormer's
-    THUMOS14 width (WIDE_YAML) through the port's entry points: an eval
-    forward at batch ``b`` (f32 card vs CPU: out_cls, out_offsets 1e-4,
+def wide_localizer(root, window, dev="cuda", smi="", overrides=None, dims=WIDE_DIMS, b=2,
+                   n_train=WIDE_TRAIN_VIDEOS, n_test=WIDE_TEST_VIDEOS):
+    """The legacy localizer of WIDE_YAML at windows of ``window`` (19:
+    ActionFormer's THUMOS14 localizer; -1: the ConvTransformer backbone's
+    default, dense) through the port's entry points, under ``root``: an
+    eval forward at batch ``b`` (f32 card vs CPU: out_cls, out_offsets 1e-4,
     detections after multi-class soft-NMS scores 1e-4, segments 1e-3; bf16
     kernel vs the plain blocks on the card, check_bf16; K1 once a block, no
-    plain block), its bf16 forward ms; cli/train.py in bf16 over
-    ``n_train`` seeded videos (K6 once a block a step, ms a step);
-    cli/inference.py with that checkpoint over ``n_test`` videos (K1 once a
-    block a batch, every video's item) - both with a one-class head, the
-    only count the deepfake dataset of either package takes, and multi-class
-    soft-NMS on; the pure-conv variant at
-    ``scale3`` (scale_factor 3), an eval forward f32 card vs CPU with no
-    kernel launched; and the ConvTransformer at ``scale4`` (scale_factor 4),
-    an eval forward f32 card vs CPU, K1 once a stem block and K7 once a
-    stride-4 block. ``overrides`` (a config fragment), ``dims`` and the
-    sizes shrink it for a CPU rehearsal. Returns the report."""
+    plain block), its bf16 forward ms; cli/train.py in bf16 over ``n_train``
+    seeded videos (K6 once a block a step, ms a step); cli/inference.py with
+    that checkpoint over ``n_test`` videos (K1 once a block a batch, every
+    video's item) - both with a one-class head, the only count the deepfake
+    dataset of either package takes, and multi-class soft-NMS on.
+    Returns (the report, the f32 ArchConfig)."""
     import copy
     import dataclasses
-    import shutil
-    import tempfile
     import torch
     import yaml
     from audio_visual_deepfake_detection_tpu_torch.cli import inference
@@ -6104,11 +6240,223 @@ def phase_wide_blocks(dev="cuda", smi="", overrides=None, dims=WIDE_DIMS, b=2,
     from audio_visual_deepfake_detection_tpu_torch.tools import synth_cache
 
     on_card = torch.device(dev).type == "cuda"
+    dev_args = [] if on_card else ["--device", dev]
+    tag = "dense" if window < 0 else f"w{window}"
+    label = f"wide blocks ({tag})"
+    want_shape = WIDE_SHAPE[:8] + ((window,) * 6,) + WIDE_SHAPE[9:]
+
+    def expect(counts, what, **want_on_card):
+        want = dict.fromkeys(counts, 0)
+        if on_card:
+            want.update(want_on_card)
+        if counts != want:
+            fail(f"{label} {what}: launches {counts}, expected {want}")
+
+    tree = synth_cache.merge(yaml.safe_load(WIDE_YAML), {"dataset": {
+        "video_input_dim": dims[0], "audio_input_dim": sum(dims[1:])}})
+    tree = synth_cache.merge(tree, {"model": {"n_mha_win_size": window}})
+    tree = synth_cache.merge(tree, overrides or {})
+    with open(os.path.join(REPO, "configs_train", "deepfake_exp10.yaml")) as f:
+        path = os.path.join(root, f"wide_{tag}.yaml")
+        with open(path, "w") as g:
+            yaml.safe_dump(synth_cache.merge(yaml.safe_load(f), tree), g)
+    config = load_config(path)
+    cfg = dataclasses.replace(arch_config_from(config), compute_dtype="float32")
+    tcfg = test_config_from(config)
+    shape = (cfg.variant, cfg.backbone_type, cfg.fpn_type, cfg.input_dim, cfg.embd_dim,
+             cfg.n_head, cfg.max_seq_len, cfg.arch, cfg.mha_win_size, cfg.use_abs_pe,
+             cfg.num_classes, cfg.max_buffer_len_factor)
+    if overrides is None and shape != want_shape:
+        fail(f"{label}: config {shape}")
+    if not tcfg.multiclass_nms or config["loader"]["batch_size"] != b:
+        fail(f"{label}: test config {tcfg}, batch {config['loader']['batch_size']}")
+    n_blocks = cfg.arch[1] + cfg.arch[2]
+    report = {"config": dict(zip(("variant", "backbone", "neck", "input_dim", "embd_dim",
+                                  "heads", "max_seq_len", "arch", "windows", "abs_pe",
+                                  "classes", "buffer_factor"), shape))}
+
+    # (1) an eval forward and its detections, f32 card vs CPU; bf16
+    t0 = time.perf_counter()
+    model = perturb(build_localizer(cfg, seed=3, device="cpu"), 4)
+    rng = np.random.default_rng(23)
+    t = cfg.max_seq_len
+    lens = np.array([t, int(rng.integers(t // 3, t))])[:b]
+    mask = np.arange(t)[None, :] < lens[:, None]
+    x = rng.standard_normal((b, t, cfg.input_dim), dtype=np.float32) * mask[..., None]
+    xt, mt = torch.from_numpy(x), torch.from_numpy(mask)
+    with torch.no_grad():
+        cpu = model(xt, mt)
+    card = copy.deepcopy(model).to(dev)
+    xd, md = xt.to(dev), mt.to(dev)
+    reset_counts()
+    with torch.no_grad(), plain_block_calls() as plain:
+        got = card(xd, md)
+    sync(dev)
+    expect(launch_counts(), "f32 forward", fused_transformer_block=n_blocks)
+    if plain["cuda"] or got["out_cls"][0].shape[-1] != cfg.num_classes:
+        fail(f"{label}: {plain['cuda']} plain blocks, out_cls {got['out_cls'][0].shape}")
+    errs = {}
+    for key in ("out_cls", "out_offsets"):
+        errs[key] = (cat_levels(got, key).cpu() - cat_levels(cpu, key)).abs().max().item()
+        if not errs[key] <= VARIANT_F32_TOL[key]:
+            fail(f"{label}: f32 {key} card vs CPU {errs[key]:.3e}")
+    fn = build_inference_fn(cfg, tcfg)
+    meta = [np.full(b, 25.0, np.float32), (lens / 25.0).astype(np.float32),
+            np.ones(b, np.float32), np.ones(b, np.float32)]
+    det_cpu = [a.numpy() for a in fn(model, x, mask, *meta)]
+    reset_counts()
+    det_card = [a.cpu().numpy() for a in fn(card, x, mask, *meta)]
+    expect(launch_counts(), "build_inference_fn", fused_transformer_block=n_blocks)
+    worst = {"scores": 0.0, "segments": 0.0}
+    classes = set()
+    for i in range(b):
+        kc, kg = int(det_cpu[3][i].sum()), int(det_card[3][i].sum())
+        if kc != kg or kc == 0:
+            fail(f"{label} video {i}: {kg} detections on the card, {kc} on the CPU")
+        if not np.array_equal(det_card[2][i][:kc], det_cpu[2][i][:kc]):
+            fail(f"{label} video {i}: labels differ card vs CPU")
+        classes |= set(det_card[2][i][:kc].tolist())
+        worst["scores"] = max(worst["scores"], float(
+            np.abs(det_card[1][i][:kc] - det_cpu[1][i][:kc]).max()))
+        worst["segments"] = max(worst["segments"], float(
+            np.abs(det_card[0][i][:kc] - det_cpu[0][i][:kc]).max()))
+    if worst["scores"] > 1e-4 or worst["segments"] > 1e-3:
+        fail(f"{label}: detections card vs CPU {worst}")
+    rec = dict(B=b, f32_card_vs_cpu=errs, detections=worst, classes=len(classes),
+               detections_per_video=[int(v.sum()) for v in det_card[3]])
+    del card, got, cpu
+    m16 = AVLocalizer(dataclasses.replace(cfg, compute_dtype="bfloat16"))
+    m16.load_state_dict(model.state_dict())
+    m16 = m16.to(dev).eval()
+    reset_counts()
+    with torch.no_grad(), plain_block_calls() as plain:
+        g16 = m16(xd, md)
+    sync(dev)
+    rec["launches_bf16"] = launch_counts()
+    expect(rec["launches_bf16"], "bf16 forward", fused_transformer_block=n_blocks)
+    if plain["cuda"]:
+        fail(f"{label}: {plain['cuda']} plain blocks in the bf16 forward")
+    if on_card:
+        with torch.no_grad(), plain_blocks_on_card():
+            p16 = m16(xd, md)
+        rec["bf16_kernel_vs_plain"] = {}
+        for key in ("out_cls", "out_offsets"):
+            err, ok, rule = check_bf16(cat_levels(g16, key).to(torch.bfloat16),
+                                       cat_levels(p16, key).to(torch.bfloat16))
+            rec["bf16_kernel_vs_plain"][key] = {"max_abs_err": err, "rule": rule}
+            if not ok:
+                fail(f"{label}: bf16 {key} kernel vs plain {err:.3e} ({rule})")
+        with torch.no_grad():
+            rec["forward_ms_bf16"] = cuda_ms(lambda: m16(xd, md), iters=10)
+            rec["forward_device_ms_bf16"] = device_ms(lambda: m16(xd, md), iters=10)
+    if not all(torch.isfinite(cat_levels(g16, k)).all() for k in ("out_cls", "out_offsets")):
+        fail(f"{label}: bf16 outputs not finite")
+    rec["seconds"] = time.perf_counter() - t0
+    report["eval"] = rec
+    log(f"{label} eval B={b} T={t} C={cfg.embd_dim}: f32 card vs CPU {errs}, "
+        f"detections {worst} ({len(classes)} classes among them)"
+        + (f"; bf16 kernel vs plain "
+           f"{ {k: v['max_abs_err'] for k, v in rec['bf16_kernel_vs_plain'].items()} }; "
+           f"bf16 forward {rec['forward_ms_bf16']:.3f} ms (dev "
+           f"{rec['forward_device_ms_bf16']:.3f}) ({smi})" if on_card else ""))
+    del m16, g16, xd, md
+
+    # (2) cli/train.py in bf16 over seeded caches; the deepfake dataset
+    # of both packages takes one class only (data/dataset.py), so the
+    # CLIs run the same blocks under a one-class head
+    t0 = time.perf_counter()
+    cache = synth_cache.write_feature_cache(os.path.join(root, f"train_{tag}"), n_train, seed=13,
+                                            dims=dims, n_labelled=n_train, split="train")
+    run_tree = synth_cache.merge({"tpu": {"compute_dtype": "bfloat16"},
+                                  "opt": {"early_stop_epochs": 1},
+                                  "dataset": {"num_classes": 1}}, overrides or {})
+    run_cfg = synth_cache.write_config(path, os.path.join(root, f"run_{tag}.yaml"), cache,
+                                       os.path.join(root, f"runs_{tag}"), run_tree)
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    open_one_process_group()
+    try:
+        reset_counts()
+        with plain_forward_blocks() as plain:
+            summary = train_cli.run(train_cli.build_parser().parse_args(
+                [run_cfg, "--output", "t", "-p", "1", "--ckpt-iter-freq", "0", *dev_args]))
+        counts = launch_counts()
+    finally:
+        close_one_process_group()
+    n_steps = sum(st["iters"] for st in summary["epochs"])
+    if n_steps != n_train // b:
+        fail(f"{label} cli/train.py: {n_steps} steps at B={b} over {n_train} videos")
+    expect(counts, "cli/train.py", fused_transformer_block_train=n_blocks * n_steps)
+    losses = summary["epochs"][-1]["losses"]
+    if plain["cuda"] or not all(math.isfinite(v) for v in losses.values()):
+        fail(f"{label} cli/train.py: losses {losses}, {plain['cuda']} plain blocks")
+    rates = run_epochs_rates(summary, summary["global_batch"])
+    peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else None
+    report["train_cli"] = dict(B=b, steps=n_steps, launches=counts, losses=losses,
+                               epochs=rates, peak_gib=peak,
+                               seconds=time.perf_counter() - t0)
+    r = rates[-1]
+    log(f"{label} cli/train.py bf16 B={b}: {n_steps} steps, {r['ms_per_step']:.1f} ms/step"
+        + (f" ({r['after_first_ms_per_step']:.1f} without the first)"
+           if r["after_first_ms_per_step"] else "")
+        + (f", peak {peak:.2f} GiB" if peak is not None else "")
+        + f"; launches {counts}; losses {losses} ({smi})")
+    ckpt = os.path.join(summary["out_folder"], "epoch_001.pt")
+
+    # (3) cli/inference.py with that checkpoint, multi-class soft-NMS
+    t0 = time.perf_counter()
+    test_cache = synth_cache.write_feature_cache(os.path.join(root, f"test_{tag}"), n_test,
+                                                 seed=17, dims=dims)
+    infer_cfg = synth_cache.write_config(path, os.path.join(root, f"infer_{tag}.yaml"), test_cache,
+                                         os.path.join(root, f"runs_{tag}"), run_tree)
+    reset_counts()
+    with plain_block_calls() as plain:
+        summary = inference.run(inference.build_parser().parse_args(
+            [infer_cfg, "1", "--ckpt", ckpt, "--batch-size", str(b), *dev_args]))
+    counts = launch_counts()
+    expect(counts, "cli/inference.py",
+           fused_transformer_block=n_blocks * summary["stats"]["batches"])
+    items = flush_items(summary["out_folder"])
+    if plain["cuda"] or sorted(it["video_id"] for it in items) != sorted(
+            r["id"] for r in test_cache["records"]):
+        fail(f"{label} cli/inference.py: {len(items)} items of {n_test}, "
+             f"{plain['cuda']} plain blocks")
+    report["inference_cli"] = dict(videos=len(items), batches=summary["stats"]["batches"],
+                                   launches=counts, detections=sum(len(it["scores"])
+                                                                   for it in items),
+                                   seconds=time.perf_counter() - t0)
+    log(f"{label} cli/inference.py: {len(items)} videos in "
+        f"{summary['stats']['batches']} batches, {report['inference_cli']['detections']} "
+        f"detections; launches {counts}")
+    return report, cfg
+
+
+def phase_wide_blocks(dev="cuda", smi="", overrides=None, dims=WIDE_DIMS, b=2,
+                      n_train=WIDE_TRAIN_VIDEOS, n_test=WIDE_TEST_VIDEOS, grid=None,
+                      windows=WIDE_WINDOWS, scale3=WIDE_SCALE3, scale4=WIDE_SCALE4):
+    """K1 / K6 / K7 at the corners of their shape domain (wide_kernel_grid,
+    ``grid`` its arguments), then the legacy localizer of WIDE_YAML at each
+    window of ``windows`` through the port's entry points (wide_localizer:
+    an eval forward, cli/train.py, cli/inference.py); then the pure-conv
+    variant at ``scale3`` (scale_factor 3), an eval forward f32 card vs CPU
+    with no kernel launched; and the ConvTransformer at ``scale4``
+    (scale_factor 4), an eval forward f32 card vs CPU, K1 once a stem block
+    and K7 once a stride-4 block. ``overrides`` (a config fragment), ``dims``
+    and the sizes shrink it for a CPU rehearsal. Returns the report: the
+    first window's runs at its top level, the others' under their tag."""
+    import copy
+    import dataclasses
+    import shutil
+    import tempfile
+    import torch
+    from audio_visual_deepfake_detection_tpu_torch.models import build_localizer
+
+    on_card = torch.device(dev).type == "cuda"
     report = {"card": smi, "grid": wide_kernel_grid(dev, smi=smi, **(grid or {}))}
     build = os.path.join(REPO, "build")
     os.makedirs(build, exist_ok=True)
     root = tempfile.mkdtemp(dir=build)
-    dev_args = [] if on_card else ["--device", dev]
 
     def expect(counts, what, **want_on_card):
         want = dict.fromkeys(counts, 0)
@@ -6118,182 +6466,16 @@ def phase_wide_blocks(dev="cuda", smi="", overrides=None, dims=WIDE_DIMS, b=2,
             fail(f"wide blocks {what}: launches {counts}, expected {want}")
 
     try:
-        tree = synth_cache.merge(yaml.safe_load(WIDE_YAML), {"dataset": {
-            "video_input_dim": dims[0], "audio_input_dim": sum(dims[1:])}})
-        tree = synth_cache.merge(tree, overrides or {})
-        with open(os.path.join(REPO, "configs_train", "deepfake_exp10.yaml")) as f:
-            path = os.path.join(root, "wide.yaml")
-            with open(path, "w") as g:
-                yaml.safe_dump(synth_cache.merge(yaml.safe_load(f), tree), g)
-        config = load_config(path)
-        cfg = dataclasses.replace(arch_config_from(config), compute_dtype="float32")
-        tcfg = test_config_from(config)
-        shape = (cfg.variant, cfg.backbone_type, cfg.fpn_type, cfg.input_dim, cfg.embd_dim,
-                 cfg.n_head, cfg.max_seq_len, cfg.arch, cfg.mha_win_size, cfg.use_abs_pe,
-                 cfg.num_classes, cfg.max_buffer_len_factor)
-        if overrides is None and shape != WIDE_SHAPE:
-            fail(f"wide blocks: config {shape}")
-        if not tcfg.multiclass_nms or config["loader"]["batch_size"] != b:
-            fail(f"wide blocks: test config {tcfg}, batch {config['loader']['batch_size']}")
-        n_blocks = cfg.arch[1] + cfg.arch[2]
-        report["config"] = dict(zip(("variant", "backbone", "neck", "input_dim", "embd_dim",
-                                     "heads", "max_seq_len", "arch", "windows", "abs_pe",
-                                     "classes", "buffer_factor"), shape))
-
-        # (1) an eval forward and its detections, f32 card vs CPU; bf16
-        t0 = time.perf_counter()
-        model = perturb(build_localizer(cfg, seed=3, device="cpu"), 4)
-        rng = np.random.default_rng(23)
-        t = cfg.max_seq_len
-        lens = np.array([t, int(rng.integers(t // 3, t))])[:b]
-        mask = np.arange(t)[None, :] < lens[:, None]
-        x = rng.standard_normal((b, t, cfg.input_dim), dtype=np.float32) * mask[..., None]
-        xt, mt = torch.from_numpy(x), torch.from_numpy(mask)
-        with torch.no_grad():
-            cpu = model(xt, mt)
-        card = copy.deepcopy(model).to(dev)
-        xd, md = xt.to(dev), mt.to(dev)
-        reset_counts()
-        with torch.no_grad(), plain_block_calls() as plain:
-            got = card(xd, md)
-        sync(dev)
-        expect(launch_counts(), "f32 forward", fused_transformer_block=n_blocks)
-        if plain["cuda"] or got["out_cls"][0].shape[-1] != cfg.num_classes:
-            fail(f"wide blocks: {plain['cuda']} plain blocks, out_cls {got['out_cls'][0].shape}")
-        errs = {}
-        for key in ("out_cls", "out_offsets"):
-            errs[key] = (cat_levels(got, key).cpu() - cat_levels(cpu, key)).abs().max().item()
-            if not errs[key] <= VARIANT_F32_TOL[key]:
-                fail(f"wide blocks: f32 {key} card vs CPU {errs[key]:.3e}")
-        fn = build_inference_fn(cfg, tcfg)
-        meta = [np.full(b, 25.0, np.float32), (lens / 25.0).astype(np.float32),
-                np.ones(b, np.float32), np.ones(b, np.float32)]
-        det_cpu = [a.numpy() for a in fn(model, x, mask, *meta)]
-        reset_counts()
-        det_card = [a.cpu().numpy() for a in fn(card, x, mask, *meta)]
-        expect(launch_counts(), "build_inference_fn", fused_transformer_block=n_blocks)
-        worst = {"scores": 0.0, "segments": 0.0}
-        classes = set()
-        for i in range(b):
-            kc, kg = int(det_cpu[3][i].sum()), int(det_card[3][i].sum())
-            if kc != kg or kc == 0:
-                fail(f"wide blocks video {i}: {kg} detections on the card, {kc} on the CPU")
-            if not np.array_equal(det_card[2][i][:kc], det_cpu[2][i][:kc]):
-                fail(f"wide blocks video {i}: labels differ card vs CPU")
-            classes |= set(det_card[2][i][:kc].tolist())
-            worst["scores"] = max(worst["scores"], float(
-                np.abs(det_card[1][i][:kc] - det_cpu[1][i][:kc]).max()))
-            worst["segments"] = max(worst["segments"], float(
-                np.abs(det_card[0][i][:kc] - det_cpu[0][i][:kc]).max()))
-        if worst["scores"] > 1e-4 or worst["segments"] > 1e-3:
-            fail(f"wide blocks: detections card vs CPU {worst}")
-        rec = dict(B=b, f32_card_vs_cpu=errs, detections=worst, classes=len(classes),
-                   detections_per_video=[int(v.sum()) for v in det_card[3]])
-        del card, got, cpu
-        m16 = AVLocalizer(dataclasses.replace(cfg, compute_dtype="bfloat16"))
-        m16.load_state_dict(model.state_dict())
-        m16 = m16.to(dev).eval()
-        reset_counts()
-        with torch.no_grad(), plain_block_calls() as plain:
-            g16 = m16(xd, md)
-        sync(dev)
-        rec["launches_bf16"] = launch_counts()
-        expect(rec["launches_bf16"], "bf16 forward", fused_transformer_block=n_blocks)
-        if plain["cuda"]:
-            fail(f"wide blocks: {plain['cuda']} plain blocks in the bf16 forward")
-        if on_card:
-            with torch.no_grad(), plain_blocks_on_card():
-                p16 = m16(xd, md)
-            rec["bf16_kernel_vs_plain"] = {}
-            for key in ("out_cls", "out_offsets"):
-                err, ok, rule = check_bf16(cat_levels(g16, key).to(torch.bfloat16),
-                                           cat_levels(p16, key).to(torch.bfloat16))
-                rec["bf16_kernel_vs_plain"][key] = {"max_abs_err": err, "rule": rule}
-                if not ok:
-                    fail(f"wide blocks: bf16 {key} kernel vs plain {err:.3e} ({rule})")
-            with torch.no_grad():
-                rec["forward_ms_bf16"] = cuda_ms(lambda: m16(xd, md), iters=10)
-                rec["forward_device_ms_bf16"] = device_ms(lambda: m16(xd, md), iters=10)
-        if not all(torch.isfinite(cat_levels(g16, k)).all() for k in ("out_cls", "out_offsets")):
-            fail("wide blocks: bf16 outputs not finite")
-        rec["seconds"] = time.perf_counter() - t0
-        report["eval"] = rec
-        log(f"wide blocks eval B={b} T={t} C={cfg.embd_dim}: f32 card vs CPU {errs}, "
-            f"detections {worst} ({len(classes)} classes among them)"
-            + (f"; bf16 kernel vs plain "
-               f"{ {k: v['max_abs_err'] for k, v in rec['bf16_kernel_vs_plain'].items()} }; "
-               f"bf16 forward {rec['forward_ms_bf16']:.3f} ms (dev "
-               f"{rec['forward_device_ms_bf16']:.3f}) ({smi})" if on_card else ""))
-        del m16, g16, xd, md
-
-        # (2) cli/train.py in bf16 over seeded caches; the deepfake dataset
-        # of both packages takes one class only (data/dataset.py), so the
-        # CLIs run the same blocks under a one-class head
-        t0 = time.perf_counter()
-        cache = synth_cache.write_feature_cache(os.path.join(root, "train"), n_train, seed=13,
-                                                dims=dims, n_labelled=n_train, split="train")
-        run_tree = synth_cache.merge({"tpu": {"compute_dtype": "bfloat16"},
-                                      "opt": {"early_stop_epochs": 1},
-                                      "dataset": {"num_classes": 1}}, overrides or {})
-        run_cfg = synth_cache.write_config(path, os.path.join(root, "run.yaml"), cache,
-                                           os.path.join(root, "runs"), run_tree)
-        if on_card:
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-        open_one_process_group()
-        try:
-            reset_counts()
-            with plain_forward_blocks() as plain:
-                summary = train_cli.run(train_cli.build_parser().parse_args(
-                    [run_cfg, "--output", "t", "-p", "1", "--ckpt-iter-freq", "0", *dev_args]))
-            counts = launch_counts()
-        finally:
-            close_one_process_group()
-        n_steps = sum(st["iters"] for st in summary["epochs"])
-        if n_steps != n_train // b:
-            fail(f"wide blocks cli/train.py: {n_steps} steps at B={b} over {n_train} videos")
-        expect(counts, "cli/train.py", fused_transformer_block_train=n_blocks * n_steps)
-        losses = summary["epochs"][-1]["losses"]
-        if plain["cuda"] or not all(math.isfinite(v) for v in losses.values()):
-            fail(f"wide blocks cli/train.py: losses {losses}, {plain['cuda']} plain blocks")
-        rates = run_epochs_rates(summary, summary["global_batch"])
-        peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else None
-        report["train_cli"] = dict(B=b, steps=n_steps, launches=counts, losses=losses,
-                                   epochs=rates, peak_gib=peak,
-                                   seconds=time.perf_counter() - t0)
-        r = rates[-1]
-        log(f"wide blocks cli/train.py bf16 B={b}: {n_steps} steps, {r['ms_per_step']:.1f} ms/step"
-            + (f" ({r['after_first_ms_per_step']:.1f} without the first)"
-               if r["after_first_ms_per_step"] else "")
-            + (f", peak {peak:.2f} GiB" if peak is not None else "")
-            + f"; launches {counts}; losses {losses} ({smi})")
-        ckpt = os.path.join(summary["out_folder"], "epoch_001.pt")
-
-        # (3) cli/inference.py with that checkpoint, multi-class soft-NMS
-        t0 = time.perf_counter()
-        test_cache = synth_cache.write_feature_cache(os.path.join(root, "test"), n_test,
-                                                     seed=17, dims=dims)
-        infer_cfg = synth_cache.write_config(path, os.path.join(root, "infer.yaml"), test_cache,
-                                             os.path.join(root, "runs"), run_tree)
-        reset_counts()
-        with plain_block_calls() as plain:
-            summary = inference.run(inference.build_parser().parse_args(
-                [infer_cfg, "1", "--ckpt", ckpt, "--batch-size", str(b), *dev_args]))
-        counts = launch_counts()
-        expect(counts, "cli/inference.py",
-               fused_transformer_block=n_blocks * summary["stats"]["batches"])
-        items = flush_items(summary["out_folder"])
-        if plain["cuda"] or sorted(it["video_id"] for it in items) != sorted(
-                r["id"] for r in test_cache["records"]):
-            fail(f"wide blocks cli/inference.py: {len(items)} items of {n_test}, "
-                 f"{plain['cuda']} plain blocks")
-        report["inference_cli"] = dict(videos=len(items), batches=summary["stats"]["batches"],
-                                       launches=counts, detections=sum(len(it["scores"])
-                                                                       for it in items),
-                                       seconds=time.perf_counter() - t0)
-        log(f"wide blocks cli/inference.py: {len(items)} videos in "
-            f"{summary['stats']['batches']} batches, {report['inference_cli']['detections']} "
-            f"detections; launches {counts}")
+        cfg = None
+        for window in windows:
+            got, cfg_w = wide_localizer(root, window, dev, smi, overrides, dims, b, n_train,
+                                        n_test)
+            if cfg is None:
+                report.update(got)
+                cfg = cfg_w
+            else:
+                report["dense" if window < 0 else f"w{window}"] = got
+        rng = np.random.default_rng(29)
 
         # (4) scale_factor 3: the pure-conv localizer; (5) scale_factor 4:
         # the ConvTransformer, its stride-4 blocks unfused with K7; f32 card
@@ -6462,9 +6644,17 @@ def main():
             "eval_forward_bf16": wide["eval"]["launches_bf16"]["fused_transformer_block"],
             "inference_cli": wide["inference_cli"]["launches"]["fused_transformer_block"],
             "inference_cli_batches": wide["inference_cli"]["batches"]},
+        "launches_wide_dense": {
+            "eval_forward_bf16": wide["dense"]["eval"]["launches_bf16"][
+                "fused_transformer_block"],
+            "inference_cli": wide["dense"]["inference_cli"]["launches"][
+                "fused_transformer_block"],
+            "inference_cli_batches": wide["dense"]["inference_cli"]["batches"]},
         "max_abs_err_wide": wide["grid"]["worst"]["K1"],
         "wide_times": [r for r in wide["grid"]["times"] if r["kernel"] == "K1"],
         "wide_forward_ms_b2": wide["eval"].get("forward_ms_bf16"),
+        "wide_dense_forward_ms_b2": wide["dense"]["eval"].get("forward_ms_bf16"),
+        "wide_dense_forward_device_ms_b2": wide["dense"]["eval"].get("forward_device_ms_bf16"),
     }]
     for name, file, line in (("patch_embed", "patch_embed", 140),
                              ("pooled_attention", "mvit_attention", 72),
@@ -6570,6 +6760,9 @@ def main():
         "launches_wide_blocks": {
             "train_cli": wide["train_cli"]["launches"]["fused_transformer_block_train"],
             "train_cli_steps": wide["train_cli"]["steps"]},
+        "launches_wide_dense": {
+            "train_cli": wide["dense"]["train_cli"]["launches"]["fused_transformer_block_train"],
+            "train_cli_steps": wide["dense"]["train_cli"]["steps"]},
         "max_abs_err_wide": wide["grid"]["worst"]["K6"],
         "wide_train_cli_ms_per_step": wide["train_cli"]["epochs"][-1]["ms_per_step"],
         "launches_variants": {

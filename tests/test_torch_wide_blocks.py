@@ -1,18 +1,20 @@
 """PyTorch port, the fused block (K1 / K6) and banded attention (K7) at the
 block shapes beyond the production one, against the JAX package on the CPU.
 
-The CUDA kernels take C a multiple of 64 up to 1024, head widths 32, 64, 96
-and 128, half windows up to 16 or dense attention
-(``fused_block.kernel_shape_ok``, ``band_attention.kernel_shape_ok``); the
-Pallas kernels are generated per shape. On the CPU each wrapper runs its
-plain version, so these tests hold the plain versions and the blocks built
-on them to the JAX package at those shapes:
+The fused block kernel takes C a multiple of 64 up to 1024, head widths 32,
+64, 96 and 128, any half window or dense attention
+(``fused_block.kernel_shape_ok``), the band kernel half windows up to 16
+(``band_attention.kernel_shape_ok``); the Pallas kernels are generated per
+shape. On the CPU each wrapper runs its plain version, so these tests hold
+the plain versions and the blocks built on them to the JAX package at those
+shapes:
 
 - ``block_math`` against the JAX ``block_math`` on the same packed inputs,
   the port's ``TransformerBlock`` against the JAX XLA block, and the port's
   eval and training entries against the Pallas kernel in interpret mode,
-  for d_head 32 / 64 / 96 / 128 and w = 9 and 16 (f32 2e-5, bf16 2e-2, the
-  JAX package's kernel tolerances);
+  for d_head 32 / 64 / 96 / 128 and w = 9 and 16 at T = 48, dense at T =
+  130 and w = 17 and 20 (the card's tensor-core attention) at T = 150 (f32
+  2e-5, bf16 2e-2, the JAX package's kernel tolerances);
 - the K6 gradients against ``jax.vjp`` of the JAX
   ``fused_transformer_block_train`` at C = 128, one head of 128, w = 9, with
   droppath coefficients (2e-4; parameters 5e-4 of the leaf's largest);
@@ -22,6 +24,7 @@ on them to the JAX package at those shapes:
 The localizer at those shapes is in tests/test_torch_wide_localizer.py."""
 
 import functools
+import math
 import os
 import sys
 
@@ -47,9 +50,13 @@ B, T = 2, 48
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
 CROSS = {"self": False, "ds_self": False, "qv_k": True, "kv": True}
-# (C, heads, window): head widths 32, 64, 96 and 128 at half windows 9 and 16
-SHAPES = [(128, 4, 19), (128, 2, 33), (192, 2, 33), (128, 1, 19)]
-SHAPE_IDS = [f"C{c}-h{h}-w{w // 2}" for c, h, w in SHAPES]
+# (C, heads, window, T): head widths 32, 64, 96 and 128 at half windows 9 and
+# 16; dense and half windows past 16 (the card's tensor-core attention) at
+# lengths that are no multiple of its 64-key tiles
+SHAPES = [(128, 4, 19, T), (128, 2, 33, T), (192, 2, 33, T), (128, 1, 19, T),
+          (128, 4, -1, 130), (128, 2, 41, 150), (128, 4, 35, 150)]
+SHAPE_IDS = [f"C{c}-h{h}-w{w // 2}" if t == T else
+             f"C{c}-h{h}-{'dense' if w < 0 else f'w{w // 2}'}-T{t}" for c, h, w, t in SHAPES]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -116,13 +123,13 @@ def _t(a, dtype=None):
 
 
 @pytest.mark.parametrize("mode", ["self", "qv_k", "kv", "ds_self"])
-@pytest.mark.parametrize("c,heads,window", SHAPES, ids=SHAPE_IDS)
-def test_block_matches_jax(rng, c, heads, window, mode):
+@pytest.mark.parametrize("c,heads,window,t", SHAPES, ids=SHAPE_IDS)
+def test_block_matches_jax(rng, c, heads, window, t, mode):
     """f32: the port's block (K1's entry, plain on the CPU) against the JAX
     block's XLA path, the masks exactly. bf16: ``block_math`` against the
     JAX ``block_math`` on the same packed inputs, with droppath
     coefficients; the packing itself to 1e-6."""
-    make, kw, p, x, xo, mask = _setup(rng, c, heads, mode, window)
+    make, kw, p, x, xo, mask = _setup(rng, c, heads, mode, window, t=t)
     ref, ref_mask = jax.jit(lambda prm, xv, mv: make(True).apply({"params": prm}, xv, mv, **kw))(
         p, jnp.asarray(x), jnp.asarray(mask))
     ours = TransformerBlock(c, heads, ds_stride=2 if mode == "ds_self" else 1,
@@ -159,14 +166,16 @@ def test_block_matches_jax(rng, c, heads, window, mode):
     np.testing.assert_allclose(got.float().numpy(), np.asarray(ref, np.float32), **BF16_TOL)
 
 
+ENTRY_CASES = [(128, 4, 19, "qv_k", 32), (128, 2, 33, "ds_self", 32), (192, 2, 33, "kv", 32),
+               (128, 1, 19, "self", 32), (128, 2, 41, "self", 48)]
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("c,heads,window,mode", [(128, 4, 19, "qv_k"), (128, 2, 33, "ds_self"),
-                                                 (192, 2, 33, "kv"), (128, 1, 19, "self")],
-                         ids=SHAPE_IDS)
-def test_entries_match_pallas_kernel_interpret(rng, c, heads, window, mode, dtype):
+@pytest.mark.parametrize("c,heads,window,mode,t", ENTRY_CASES,
+                         ids=SHAPE_IDS[:4] + ["C128-h2-w20-T48"])
+def test_entries_match_pallas_kernel_interpret(rng, c, heads, window, mode, t, dtype):
     """K1's and K6's entries against the Pallas kernel, whose grid is
-    generated for the shape, in interpret mode (T = 32)."""
-    t = 32
+    generated for the shape, in interpret mode (T = 32; at w = 20, T = 48)."""
     _, _, p, x, xo, mask = _setup(rng, c, heads, mode, window, t=t)
     jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
     xa, xb, m = _kernel_args(mode, x, xo, mask)
@@ -227,6 +236,89 @@ def test_train_grads_match_jax_vjp_at_head_width_128(rng, mode):
                                        rtol=5e-4, atol=5e-4, err_msg=f"packed {i}")
 
 
+# ------------------------------------- the tensor-core attention's tiling
+
+KT, AT_ROWS = 64, 128          # csrc/fused_block_attend.cu: keys a tile, query rows a block
+
+
+def _attend_tiles(q, k, v, valid, n_head, w):
+    """csrc/fused_block_attend.cu's arithmetic in torch, bf16 (B, T, C) q
+    (scaled), k, v and a (B, T) bool mask: per (sample, head, block of 128
+    query rows) the key tiles of 64 it visits (all; a band: those meeting
+    [r0 - w, r0 + 127 + w]), scores f32-summed and rounded, the masks
+    (dense: rnd16(-1e30) on invalid keys, -inf past T; banded: the rounded
+    -1e4 penalty, -1e30 outside the band and T), pass 1 a running maximum
+    and a denominator rescaled tile by tile, pass 2 p = rnd16(e * (1 / den))
+    (dense: 0 on invalid keys), P.V in f32, rounded; invalid rows zero."""
+    bf = torch.bfloat16
+    b, t, c = q.shape
+    d = c // n_head
+    fill = torch.tensor(tfb.NEG_INF, dtype=bf).float()
+    pen = torch.tensor(tfb.NEG_PENALTY, dtype=bf)
+    out = torch.zeros_like(q)
+    for bi in range(b):
+        for h in range(n_head):
+            sl = slice(h * d, (h + 1) * d)
+            for r0 in range(0, t, AT_ROWS):
+                rows = torch.arange(r0, min(r0 + AT_ROWS, t))
+                lo, hi = 0, (t - 1) // KT
+                if w > 0:
+                    lo, hi = max(r0 - w, 0) // KT, min(r0 + AT_ROWS - 1 + w, t - 1) // KT
+
+                def tile(j):
+                    keys = torch.arange(j * KT, (j + 1) * KT)
+                    inseq = keys < t
+                    at = keys.clamp(max=t - 1)
+                    kk = k[bi, at, sl].float() * inseq[:, None]
+                    sc = (q[bi, rows, sl].float() @ kk.T).to(bf)
+                    ok = inseq & valid[bi, at]
+                    if w > 0:
+                        sc = torch.where(ok[None], sc, sc + pen).float()
+                        far = (keys[None] - rows[:, None]).abs() > w
+                        sc = torch.where(far | ~inseq[None], tfb.NEG_INF, sc)
+                    else:
+                        sc = torch.where(ok[None], sc.float(),
+                                         torch.where(inseq[None], fill, -math.inf))
+                    return sc, ok, v[bi, at, sl].float() * inseq[:, None]
+
+                m = torch.full((len(rows),), -math.inf)
+                z = torch.zeros(len(rows))
+                for j in range(lo, hi + 1):
+                    sc, _, _ = tile(j)
+                    mn = torch.maximum(m, sc.amax(1))
+                    z = z * torch.exp(m - mn) + torch.exp(sc - mn[:, None]).sum(1)
+                    m = mn
+                inv = 1.0 / z
+                acc = torch.zeros(len(rows), d)
+                for j in range(lo, hi + 1):
+                    sc, ok, vv = tile(j)
+                    pr = (torch.exp(sc - m[:, None]) * inv[:, None]).to(bf).float()
+                    if w <= 0:
+                        pr = pr * ok[None]
+                    acc += pr @ vv
+                out[bi, rows, sl] = acc.to(bf) * valid[bi, rows][:, None]
+    return out
+
+
+@pytest.mark.parametrize("t,heads,d,w", [(150, 2, 64, 0), (65, 4, 32, 0), (24, 1, 128, 0),
+                                         (1, 2, 96, 0), (150, 2, 64, 20), (300, 1, 32, 48),
+                                         (130, 2, 96, 100), (24, 4, 32, 17)])
+def test_tensor_core_attention_tiling_matches_plain(rng, t, heads, d, w):
+    """The tensor-core attention's tiling and online softmax (torch
+    rendering) against the plain ``attention_ctx`` in bf16, dense and w >
+    16, at ragged T: a padded tail, a fully padded sample, a band wider
+    than T (2e-2, the bf16 block tolerance)."""
+    c = heads * d
+    lens = [t, (3 * t) // 4, 0]
+    valid = torch.from_numpy(np.arange(t)[None, :] < np.asarray(lens)[:, None])
+    q, k, v = (_t(rng.standard_normal((3, t, c)).astype(np.float32), torch.bfloat16)
+               for _ in range(3))
+    q = (q.float() * d ** -0.5).to(torch.bfloat16)
+    got = _attend_tiles(q, k, v, valid, heads, w)
+    ref = tfb.attention_ctx(q, k, v, valid.float()[..., None], n_head=heads, w_overlap=w)
+    np.testing.assert_allclose(got.float().numpy(), ref.float().numpy(), **BF16_TOL)
+
+
 # ------------------------------------------------------------ K7
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -269,12 +361,13 @@ def test_quotient_from_reciprocal_rounds_as_division_up_to_w16():
     (1024, 8, 0, True), (1024, 8, -1, True), (64, 2, 1, True), (1024, 32, 16, True),
     (960, 10, 5, True), (192, 2, 16, True),
     (1088, 17, 3, False), (1088, 8, 3, False), (192, 4, 3, False), (256, 1, 3, False),
-    (256, 4, 17, False), (96, 1, 3, False), (32, 1, 3, False), (320, 4, 3, False),
-    (256, 3, 3, False)])
+    (256, 4, 17, True), (256, 4, 48, True), (96, 1, 3, False), (32, 1, 3, False),
+    (320, 4, 3, False), (256, 3, 3, False)])
 def test_fused_block_shape_rule(c, heads, w, ok):
-    """Domain corners taken; C = 1088, head width 48 or 256, w = 17, C not a
-    multiple of 64 refused. On the CPU a refused shape still runs the plain
-    version: the rule is the card's."""
+    """Domain corners taken, at any window (w = 17 and 48: the tensor-core
+    attention); C = 1088, head width 48 or 256, C not a multiple of 64
+    refused. On the CPU a refused shape still runs the plain version: the
+    rule is the card's."""
     assert tfb.kernel_shape_ok(c, heads, w) is ok
 
 

@@ -19,7 +19,12 @@ localizer at 3 (levels of 216, 72 and 24 rows) and the ConvTransformer at 4
 (levels of 256, 64 and 16 rows, its stride-4 blocks unfused with banded
 attention through K7's entry) match it (outputs, detections, one step's
 losses); a transformer block of stride 3 has depthwise convs of kernel 4,
-which both packages' masked convs refuse."""
+which both packages' masked convs refuse.
+
+Windows of 0, 1 and below -1: the JAX block runs them unfused with dense
+attention, and so does the port's (no K1 call): one block at each, and the
+ConvTransformer localizer at windows (1, 1, 1) (outputs, detections, one
+step's losses)."""
 
 import os
 import sys
@@ -47,12 +52,13 @@ from audio_visual_deepfake_detection_tpu_torch.models import AVLocalizer, build_
 from audio_visual_deepfake_detection_tpu_torch.models.blocks import TransformerBlock
 from audio_visual_deepfake_detection_tpu_torch.models.meta_arch import compute_losses
 from audio_visual_deepfake_detection_tpu_torch.ops.kernels import fused_block as tfb
-from audio_visual_deepfake_detection_tpu_torch.tools.convert_jax import state_dict_from_flax
+from audio_visual_deepfake_detection_tpu_torch.tools.convert_jax import (
+    block_state_dict_from_flax, state_dict_from_flax)
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from test_torch_train_step import ITERS, OPT_CFG, TRAIN_CFG, flax_state_np, l2  # noqa: E402
 from test_torch_variants import (  # noqa: E402
-    TEST, TRAJECTORY, assert_close, localizer_params, ragged)
+    TEST, TRAJECTORY, assert_close, localizer_params, ragged, random_tree)
 
 # the ActionFormer THUMOS14 structure, narrowed
 SLICE = dict(variant="plain", backbone_type="convTransformer", fpn_type="identity",
@@ -71,6 +77,9 @@ SCALE3 = dict(variant="plain", backbone_type="conv", fpn_type="fpn", input_dim=2
 # 1, 4, 16 (max_div_factor 128; 256 = 2 x 128)
 SCALE4 = dict(SCALE3, backbone_type="convTransformer", scale_factor=4, max_seq_len=256,
               mha_win_size=(9, 9, 9))
+# windows of 1 at every level: strides 1, 2, 4 (max_div_factor 4)
+WINDOW1 = dict(SCALE3, backbone_type="convTransformer", scale_factor=2, max_seq_len=64,
+               mha_win_size=(1, 1, 1))
 LOSS_KEYS = ("cls_loss", "reg_loss", "final_loss", "num_pos", "grad_norm")
 
 
@@ -329,3 +338,55 @@ def test_scale_factor_3_transformer_block_refused_as_in_jax():
     with pytest.raises(AssertionError, match="kernel must be odd"):
         build_localizer(cfg, seed=0, device="cpu")
     assert TransformerBlock(32, 2, ds_stride=2, window_size=5).uses_unfused(False) is False
+
+
+# ------------------------------------------------------ windows <= 1
+
+@pytest.mark.parametrize("window", [0, 1, -3])
+def test_window_at_most_one_block_runs_dense_as_in_jax(window, monkeypatch):
+    """A block of window 0, 1 or -3 against the JAX block on the same weights
+    (f32, 1e-5; the masks exactly): both run it unfused with dense
+    attention, the port without a K1 call; its training dispatch is
+    unfused too."""
+    c, heads, t = 64, 2, 40
+    rng = np.random.default_rng(31 + window)
+    mask = np.arange(t)[None, :] < np.array([t, 27])[:, None]
+    x = rng.standard_normal((2, t, c)).astype(np.float32) * mask[..., None]
+
+    def make():
+        return JBlock(n_embd=c, n_head=heads, window_size=window)
+
+    shapes = jax.eval_shape(lambda: make().init(jax.random.PRNGKey(0), jnp.asarray(x),
+                                                jnp.asarray(mask)))["params"]
+    p = random_tree(shapes, rng)
+    ref, ref_mask = jax.jit(lambda prm, xv, mv: make().apply({"params": prm}, xv, mv))(
+        p, jnp.asarray(x), jnp.asarray(mask))
+    ours = TransformerBlock(c, heads, window_size=window)
+    ours.load_state_dict(block_state_dict_from_flax(p), strict=True)
+    assert ours.uses_unfused(False) and ours.uses_unfused(True)
+    calls = []
+    k1 = tfb.fused_transformer_block
+    monkeypatch.setattr(tfb, "fused_transformer_block",
+                        lambda *a, **k: (calls.append(k["w_overlap"]), k1(*a, **k))[1])
+    with torch.no_grad():
+        got, got_mask = ours(_t(x), _t(mask))
+    assert calls == []
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+    assert np.array_equal(got_mask.numpy(), np.asarray(ref_mask))
+
+
+def test_window_one_conv_transformer_localizer_matches_jax(monkeypatch):
+    """The ConvTransformer localizer at windows (1, 1, 1), as
+    ``n_mha_win_size: 1`` builds it: outputs at 1e-4, detections and one
+    step's losses against the JAX package; every block unfused, no K1 call."""
+    assert ArchConfig(**WINDOW1).max_div_factor == JArchConfig(**WINDOW1).max_div_factor == 4
+    ours, x, mask = check_scale_factor_localizer(WINDOW1, (1, 2, 4), [64, 40, 23])
+    assert all(blk.uses_unfused(False) for blk in ours.modules()
+               if isinstance(blk, TransformerBlock))
+    calls = []
+    k1 = tfb.fused_transformer_block
+    monkeypatch.setattr(tfb, "fused_transformer_block",
+                        lambda *a, **k: (calls.append(k["w_overlap"]), k1(*a, **k))[1])
+    with torch.no_grad():
+        ours(_t(x), _t(mask))
+    assert calls == []
