@@ -22,7 +22,7 @@
 // are one-pass in bf16 and two-pass in f32, softmax is f32.
 //
 // Shapes (shape_ok; ops/kernels/fused_block.py::kernel_shape_ok is the same
-// rule): C a multiple of 64 from 64 to 1024, head width D = C / n_head in
+// rule, for both dtypes): C a multiple of 64 from 64 to 1024, head width D = C / n_head in
 // {32, 64, 96, 128}, any half window w >= 1 or dense attention, at any T:
 // the Pallas kernel's domain (it is generated per shape) cut at those C and
 // D.
@@ -36,8 +36,9 @@
 // the CUDA-core work a row needs (five LNs, three depthwise convs, 4 x (2w+1)
 // scores and context sums, the GELU of 4C values) is second.
 //
-// bf16 (the main path, and K6's training forward), two launches on wgmma,
-// three where the attention runs on the tensor cores:
+// bf16 (opt-in through a YAML's `tpu: compute_dtype: bfloat16`, and the
+// dtype chip_smoke.py times the main path in), two launches on wgmma, three
+// where the attention runs on the tensor cores:
 // - PHASE_QKV: per tile of 64 rows of one sample, LN -> depthwise conv ->
 //   LN of each stream into a 64 x C bf16 tile in shared memory (a warp LNs
 //   the input rows each run of output rows needs, one more each side), then
@@ -74,8 +75,9 @@
 // constants (every loop over slices, groups, chunks and slabs has a known
 // count and the head sums a fixed lane pattern, as when the kernel took that
 // shape alone) and with the shape read at run time for every other one
-// (fused_block_any.cu and fused_block_any_qkv.cu); the f32 kernel is in
-// fused_block_f32.cu, all four built side by side.
+// (fused_block_any.cu and fused_block_any_qkv.cu); the f32 kernels are in
+// fused_block_f32.cu and fused_block_f32_attend.cu, all six built side by
+// side.
 // Attention runs per slab of whole heads (at most 256 channels: 8 heads of
 // 32, 4 of 64, 2 of 96 or 128): a warp reads a row's slab as one run of 16
 // bytes a lane, the D / 8 lanes of a head sum a score by shuffles. Banded
@@ -88,22 +90,11 @@
 // by offset in bf16, the division-free GELU, droppath coefficients multiplied
 // into the layer scales in f32 and rounded once.
 //
-// f32 (what the card is held to against the CPU): the first design, kept.
-// Every intermediate stays in shared memory as f32, one thread block per
-// (sample, tile of query rows); the six products are a register-tiled FMA
-// loop (full f32 precision) reading the weights from L2. Three paths, the
-// host picks (plan_f32):
-// - banded, where a tile of 16 query rows with a halo of w+1 input rows each
-//   side fits in shared memory (C = 256 up to w = 10): one launch;
-// - dense with T <= DENSE_MAX_T (31) whose whole sequence fits: one launch,
-//   one key per lane;
-// - otherwise two launches over tiles of tq query rows (16, halved until
-//   they fit: 8 at C = 1024). Phase 1 computes each tile's k and v rows into
-//   a (B, T, 2C) scratch; phase 2 computes the tile's q and attends each
-//   (row, head) warp to its 2w+1 keys, or to all T keys in three passes (row
-//   max, sum of exps, P.V), from the scratch, so shared memory grows with
-//   neither the window nor T. A band of w > 16 recomputes its scores in three
-//   passes too (the score row of w <= 16 stays in registers).
+// f32 (the compute dtype of every shipped YAML, and what the card is held to
+// against the CPU): eight launches with 3xTF32 products on wgmma through a
+// scratch in device memory (fused_block_f32.cu: prep, the streams' rows, the
+// q | k | v GEMM, proj, LN, fc1, fc2; fused_block_f32_attend.cu: the
+// attention, dense and banded alike); the design is in fused_block_f32.cu.
 
 #include "fused_block.cuh"
 
@@ -111,32 +102,27 @@ using namespace avdd_k1;
 
 extern "C" {
 
-// Elements a row of the scratch a launch needs hold: 3C for bfloat16 (the
-// q | k | v rows between its two launches), 2C for float32 on its tiled path
-// (k | v), 0 for float32 otherwise; -1 if the kernel does not take the shape
-// (shape_ok) or its f32 tile does not fit in shared memory.
-int avdd_fused_block_scratch(int T, int c, int n_head, int w, int dtype) {
-  if (!shape_ok(c, n_head) || T <= 0 || dtype < 0 || dtype > 1) return -1;
-  if (dtype == 1) return 3 * c;
-  int tq, tiled;
-  if (plan_f32(T, c, w, &tq, &tiled) < 0) return -1;
-  return tiled ? 2 * c : 0;
+// Elements of the compute dtype a call's scratch holds: 3 B T C for bfloat16
+// (the q | k | v rows between its launches), f32_scratch_elems for float32;
+// -1 if the kernel does not take the shape (shape_ok).
+long long avdd_fused_block_scratch(int B, int T, int c, int n_head, int dtype) {
+  if (!shape_ok(c, n_head) || B <= 0 || T <= 0 || dtype < 0 || dtype > 1) return -1;
+  return dtype == 1 ? 3ll * B * T * c : f32_scratch_elems(B, T, c);
 }
 
 // Launch on `stream`; returns the first CUDA error (0 = launched).
 // dtype: 0 float32, 1 bfloat16. mode: 0 self, 1 qv_k, 2 kv, 3 ds_self.
 // Dense weights: (out, in) row-major in the compute dtype (torch's Linear
 // layout), for both dtypes. coefs: (B, 2) f32 droppath coefficients of the
-// training forward, or null. kv: a scratch in the compute dtype of
-// avdd_fused_block_scratch's row width, or null where that is 0.
+// training forward, or null. kv: a scratch of avdd_fused_block_scratch's
+// elements of the compute dtype.
 int avdd_fused_block(const void* x, const void* xo, const void* mask,
                      const void* vecs, const void* wq, const void* wk,
                      const void* wv, const void* wp, const void* wf1,
                      const void* wf2, const void* fc1b, void* out, void* kv,
                      const void* coefs, int B, int T, int c, int n_head, int w, int mode,
                      int dtype, void* stream) {
-  const int scratch = avdd_fused_block_scratch(T, c, n_head, w, dtype);
-  if (scratch < 0 || mode < 0 || mode > 3 || B <= 0 || (scratch > 0 && !kv))
+  if (avdd_fused_block_scratch(B, T, c, n_head, dtype) < 0 || mode < 0 || mode > 3 || !kv)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
@@ -162,21 +148,19 @@ int avdd_fused_block(const void* x, const void* xo, const void* mask,
     const void* ws[6] = {wq, wk, wv, wp, wf1, wf2};
     return c == 256 && n_head == 4 ? launch_wgmma<256>(p, ws, s) : launch_wgmma_any(p, ws, s);
   }
-  Params p;
-  p.x = x; p.xo = xo ? xo : x;
+  ParamsF p;
+  p.x = static_cast<const float*>(x);
+  p.xo = static_cast<const float*>(xo ? xo : x);
   p.mask = static_cast<const uint8_t*>(mask);
   p.vecs = static_cast<const float*>(vecs);
-  p.wq = wq; p.wk = wk; p.wv = wv; p.wp = wp; p.wf1 = wf1; p.wf2 = wf2;
   p.fc1b = static_cast<const float*>(fc1b);
-  p.out = out;
-  p.kv = kv;
   p.coefs = static_cast<const float*>(coefs);
-  p.T = T; p.w = w > 0 ? w : 0; p.mode = mode;
-  p.C = c; p.NH = n_head;
-  int tiled;
-  const int bytes = (int)plan_f32(T, c, w, &p.tq, &tiled);
-  p.phase = tiled ? PHASE_KV : PHASE_WHOLE;
-  return launch_f32(p, B, bytes, s);
+  const void* ws[6] = {wq, wk, wv, wp, wf1, wf2};
+  for (int i = 0; i < 6; ++i) p.wt[i] = static_cast<const float*>(ws[i]);
+  p.out = static_cast<float*>(out);
+  p.B = B; p.T = T; p.C = c; p.NH = n_head; p.D = c / n_head;
+  p.w = w > 0 ? w : 0; p.mode = mode;
+  return launch_f32(p, static_cast<float*>(kv), s);
 }
 
 }  // extern "C"

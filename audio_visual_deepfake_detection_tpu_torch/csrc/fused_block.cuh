@@ -1,12 +1,13 @@
-// Fused localizer transformer block (K1 / K6) for Hopper: what the four
+// Fused localizer transformer block (K1 / K6) for Hopper: what the six
 // translation units of its kernels share, so that they compile in parallel.
 // fused_block.cu holds the C entry points and the bfloat16 kernel instance
 // for the production block (C = 256, 4 heads of 64, its shape compile-time
 // constants), fused_block_any.cu and fused_block_any_qkv.cu the second and
 // the first launch of the bfloat16 instance for any shape of the domain,
 // fused_block_attend.cu the bfloat16 attention launch on the tensor cores
-// (dense attention, and bands wider than MAX_W), fused_block_f32.cu the
-// float32 kernel. The design is described in fused_block.cu.
+// (dense attention, and bands wider than MAX_W), fused_block_f32.cu and
+// fused_block_f32_attend.cu the float32 kernels. The design is described in
+// fused_block.cu (bf16) and fused_block_f32.cu (f32).
 
 #pragma once
 
@@ -17,10 +18,9 @@ namespace avdd_k1 {
 using namespace avdd;
 
 constexpr int MAX_C = 1024;     // widest block
-constexpr int MAX_W = 16;       // largest half window of the tail's banded step
-                                // (attend_band) and of the f32 kernel's score row;
-                                // wider bands take the tensor-core step, and the
-                                // f32 kernel recomputes their scores
+constexpr int MAX_W = 16;       // largest half window of the bf16 tail's banded
+                                // step (attend_band); wider bands take the
+                                // tensor-core step
 constexpr float LN_EPS = 1e-5f;
 constexpr float NEG_INF = -1e30f;
 constexpr float NEG_PENALTY = 1e4f;
@@ -1052,73 +1052,63 @@ int launch_wgmma(ParamsW& p, const void* const* w, cudaStream_t stream) {
   return e ? e : launch_phase<PHASE_TAIL, CW>(maps, p, smem, stream);
 }
 
-// ---- float32: the shared-memory FMA kernel (fused_block_f32.cu) -----------
-constexpr int TQ_BAND = 16;     // query rows per block, f32 banded attention
-constexpr int DENSE_MAX_T = 31; // whole-sequence rows, f32 dense attention: one
-                                // key per lane; longer T takes the tiled path
-// PHASE_WHOLE: one launch does everything; PHASE_KV / PHASE_ATTN: the two
-// launches of the tiled path
-enum { PHASE_WHOLE = 0, PHASE_KV = 1, PHASE_ATTN = 2 };
+// ---- float32: 3xTF32 on wgmma (fused_block_f32.cu, fused_block_f32_attend.cu)
+// Eight launches through a scratch in device memory (design in
+// fused_block_f32.cu); R = B T rows, Tp = T rounded up to KEY_TILE.
+constexpr int KEY_TILE = 32;    // keys a tile of the f32 attention launch
 
-struct Params {
-  const void* x;        // (B, T, C) compute dtype (ds_self: even rows)
-  const void* xo;       // (B, T, C) other stream (ds_self: odd rows)
+struct ParamsF {
+  const float* x;       // (B, T, C) (ds_self: even rows)
+  const float* xo;      // (B, T, C) other stream (ds_self: odd rows); x in self mode
   const uint8_t* mask;  // (B, T) bool
   const float* vecs;    // (22, C) packed vectors
-  // dense weights, (out, in) row-major in the compute dtype
-  const void* wq; const void* wk; const void* wv; const void* wp;  // (C, C)
-  const void* wf1;      // (4C, C)
-  const void* wf2;      // (C, 4C)
   const float* fc1b;    // (4C,)
-  void* out;            // (B, T, C)
-  void* kv;             // (B, T, 2C) k | v scratch of the tiled path
   const float* coefs;   // (B, 2) droppath coefficients (attn, mlp), or null = 1
-  int T, w, mode, tq;   // w: half window (0 = dense); tq: query rows per block
-  int phase;
-  int C, NH;            // channels, heads
+  const float* wt[6];   // wq, wk, wv, wp (C, C), wf1 (4C, C), wf2 (C, 4C): (out, in)
+  float* out;           // (B, T, C): y1 after proj, the block's output after fc2
+  int B, T, C, NH, D, w, mode, Tp;
+  // the scratch, carved by f32_carve
+  float* whi; float* wlo;     // 12 C^2 each: [wq; wk; wv] (3C, C) | wp | wf1 | wf2
+  float* xhi; float* xlo;     // (R, 3C) conv + LN rows of the q | k | v streams,
+                              // later (R, 4C) the GELU'd hidden units
+  float* q;                   // (R, C) q, scaled
+  float* khi; float* klo;     // (R, C) k
+  float* vthi; float* vtlo;   // (B, C, Tp) v transposed, keys past T zero
+  float* chi; float* clo;     // (R, C) the attention context, later LN(y1)
 };
 
-struct Layout {   // shared-memory carve-up, in floats
-  int hw = 0, nkv = 0, nin = 0, mask_f = 0, r1_f = 0, r2_f = 0, ld = 0, ldh = 0;
-  // Shared row strides (floats): even, so float4 loads stay aligned, and
-  // = 8 mod 32, so a half-warp's loads hit 32 distinct banks.
-  __host__ __device__ Layout(int tq, int w, int c) {
-    ld = c + 8;
-    ldh = 4 * c + 8;            // MLP hidden row stride
-    hw = w > 0 ? w : 0;
-    nkv = tq + 2 * hw;          // k/v rows (query tile + halo)
-    nin = nkv + 2;              // input rows (+-1 for the depthwise conv)
-    mask_f = (nin + 3) & ~3;
-    int a = 3 * nin * ld, b = (tq + 2 * nkv) * ld, cc = tq * ldh;
-    r1_f = a > b ? a : b;
-    r1_f = r1_f > cc ? r1_f : cc;
-    r2_f = (tq + 2 * nkv) * ld;
-  }
-  __host__ __device__ long long bytes() const { return 4ll * (mask_f + r1_f + r2_f); }
-};
-
-// The f32 kernel's path for a shape: *tq query rows a block, *tiled 1 for the
-// two-launch path (banded whose halo tile does not fit, or dense above
-// DENSE_MAX_T rows or whose whole sequence does not fit). Returns the bytes
-// of shared memory a block needs, or -1.
-inline long long plan_f32(int T, int C, int w, int* tq, int* tiled) {
-  if (w > 0 && Layout(TQ_BAND, w, C).bytes() <= SMEM_MAX) {
-    *tq = TQ_BAND;
-    *tiled = 0;
-  } else if (w <= 0 && T <= DENSE_MAX_T && Layout(T, 0, C).bytes() <= SMEM_MAX) {
-    *tq = T;
-    *tiled = 0;
-  } else {
-    *tiled = 1;
-    for (*tq = TQ_BAND; *tq > 1 && Layout(*tq, 0, C).bytes() > SMEM_MAX; *tq /= 2) {
-    }
-  }
-  const long long bytes = Layout(*tq, *tiled ? 0 : w, C).bytes();
-  return bytes <= SMEM_MAX ? bytes : -1;
+// Floats of scratch a call needs; carves `scratch` into p's fields.
+inline long long f32_scratch_elems(long long B, long long T, long long C) {
+  const long long R = B * T, Tp = (T + KEY_TILE - 1) / KEY_TILE * KEY_TILE;
+  return 24 * C * C + 13 * R * C + 2 * B * C * Tp;
+}
+inline void f32_carve(ParamsF& p, float* scratch) {
+  const long long C = p.C, R = (long long)p.B * p.T;
+  p.Tp = (p.T + KEY_TILE - 1) / KEY_TILE * KEY_TILE;
+  float* f = scratch;
+  auto take = [&](long long n) { float* r = f; f += n; return r; };
+  p.whi = take(12 * C * C); p.wlo = take(12 * C * C);
+  p.xhi = take(4 * R * C); p.xlo = take(4 * R * C);
+  p.q = take(R * C);
+  p.khi = take(R * C); p.klo = take(R * C);
+  p.vthi = take((long long)p.B * C * p.Tp); p.vtlo = take((long long)p.B * C * p.Tp);
+  p.chi = take(R * C); p.clo = take(R * C);
 }
 
-// Launch the f32 kernel (its one or two launches; fused_block_f32.cu).
-int launch_f32(const Params& p, int B, int bytes, cudaStream_t stream);
+// Two adjacent values a, b split into TF32 parts: hi[i], hi[i + 1] and lo[i],
+// lo[i + 1] (i even).
+__device__ __forceinline__ void store_split2(float* hi, float* lo, size_t i, float a, float b) {
+  uint32_t ha, la, hb, lb;
+  tf32_split(a, ha, la);
+  tf32_split(b, hb, lb);
+  *reinterpret_cast<float2*>(hi + i) = make_float2(__uint_as_float(ha), __uint_as_float(hb));
+  *reinterpret_cast<float2*>(lo + i) = make_float2(__uint_as_float(la), __uint_as_float(lb));
+}
+
+// The f32 block's launches (fused_block_f32.cu), and its attention launch
+// (fused_block_f32_attend.cu), which they call.
+int launch_f32(ParamsF& p, float* scratch, cudaStream_t stream);
+int launch_f32_attend(const ParamsF& p, cudaStream_t stream);
 
 // The instance for any width, compiled in fused_block_any.cu.
 int launch_wgmma_any(ParamsW& p, const void* const* w, cudaStream_t stream);

@@ -1,17 +1,114 @@
-// The float32 fused block kernel (K1 / K6 in f32: what the card is held to
-// against the CPU), in a translation unit of its own so that it compiles
-// beside the bfloat16 instances. See fused_block.cu for the design.
+// The float32 fused block (K1 / K6 in f32, the compute dtype of every shipped
+// YAML) for Hopper: 3xTF32 products on wgmma. It computes what block_math
+// (ops/kernels/fused_block.py, the JAX block_math's f32 path) computes:
+// two-pass LN, the exact rational GELU, f32 sums of the products, the -1e4
+// masked-key penalty and -1e30 outside the band or on dense invalid keys, an
+// f32 softmax, invalid query rows zeroed, the droppath coefficients in the
+// layer scales.
+//
+// What bounds it: 24 C^2 operations a row for the six products (and 4 C a
+// key of attention) against a few KB of a row moved. On the CUDA cores
+// (67 TFLOP/s in f32) the products bound it; on the tensor cores in TF32
+// (495 TFLOP/s) they run three times: each f32 value x is split into a TF32
+// high part hi = rna(x) and a TF32 residual lo = rna(x - hi), and a product
+// is summed as hi.hi + hi.lo + lo.hi in the f32 accumulators (lo.lo, below
+// 2^-22 of it, is left out), so a product costs three TF32 ones, ~165
+// TFLOP/s of f32 at the peak. A single TF32 pass (~3 decimal digits) is not
+// taken: f32 stays full precision. Measured on an H100 against block_math
+// with its f32 steps in f64 (tools/k1_compare_trees.py --precision), the
+// block's worst |d| is 0.3-0.6x the first design's FMA loop's at the
+// production shapes; from block_math in f32 it is up to 2.8x the FMA
+// loop's, since that loop summed in the order of the f32 matmuls it is held
+// to, and shared their rounding (tests/test_torch_f32_block.py models the
+// tensor cores' truncating sums).
+//
+// Design. The f32 operands take twice the bytes of bf16 ones and both parts
+// of each, so a 64-row tile of every stream and the weight ring (what the
+// bf16 kernel keeps in shared memory) do not fit from C = 512 on. The block
+// runs as eight launches through a scratch in device memory instead, each
+// product a GEMM whose operands arrive split:
+//   1. prep: the six weights split into hi / lo (12 C^2 each), and the key
+//      columns of the transposed v past T zeroed;
+//   2. streams: per (row, stream), a warp LNs the three input rows the k3
+//      conv reads, convolves, LNs, and writes the row split (R, 3C);
+//   3. qkv GEMM (N = 3C, K = C; each output tile reads its stream's input
+//      columns): bias, q scaled -> q (R, C) as it is, k split (R, C), v
+//      split and transposed (B, C, Tp), the layouts the attention reads;
+//   4. attention (fused_block_f32_attend.cu) -> the context split (R, C);
+//   5. proj GEMM: bias, masked skip (ds_self: the max-pool of the odd rows
+//      around), layer-scaled residual -> y1 in the output rows;
+//   6. LN of y1 -> split (R, C);
+//   7. fc1 GEMM: bias, exact GELU -> the hidden units split (R, 4C);
+//   8. fc2 GEMM (K = 4C): bias, masked, layer-scaled onto y1 -> the output.
+// The GEMM: a block of two consumer warpgroups (64 rows each, so 128 rows)
+// and a producer warp, an output tile of BN = 128 columns (64 where C is
+// not a multiple of 128, or where 128 leaves SMs idle); the producer's TMA
+// brings each 32-deep slice of A hi, A lo, W hi and W lo (128-byte swizzled
+// rows: one k8 step is 32 bytes) into a ring of three stages, each guarded
+// by a full barrier the TMA completes and an empty one both warpgroups
+// arrive on; the weight slice serves the tile's 128 rows. Per k8 step each
+// warpgroup issues hi.lo, lo.hi, then hi.hi (m64nBNk8, both operands in
+// shared memory) into a per-stage sum that f32 adds then fold into the
+// accumulators (the tensor cores' accumulation truncates; see below), the
+// two warpgroups' stages interleaving on the SM. The epilogue works on
+// the accumulators in registers (thread (g, t) of warp w: rows 16 w + g and
+// + 8, columns 8 j + 2 t, + 1).
 
 #include "fused_block.cuh"
 
 namespace avdd_k1 {
 namespace {
 
-constexpr int NT = 256;         // threads per block
-constexpr int NWARP = NT / 32;
+constexpr int GM_ROWS = 128;    // rows a GEMM block: two consumer warpgroups
+constexpr int GK = 32;          // contraction values a stage: one 128-byte row
+constexpr int GSTAGES = 3;
+constexpr int G_THREADS = 288;  // two consumer warpgroups and a producer warp
+enum { EPI_QKV = 0, EPI_PROJ = 1, EPI_FC1 = 2, EPI_FC2 = 3 };
 
-// Plain LN (two-pass, f32) of one row held by a warp: lane owns channels
-// lane + 32 i for i < nc (= C / 32 <= NC); writes the normalized values back.
+struct GemmMaps { CUtensorMap ahi, alo, whi, wlo; };
+
+template <int BN> struct GemmTile {
+  static constexpr int A_BYTES = GM_ROWS * 128, W_BYTES = BN * 128;
+  static constexpr int STAGE = 2 * A_BYTES + 2 * W_BYTES;
+  static constexpr int SMEM = 1024 + GSTAGES * STAGE + 16 * GSTAGES;
+};
+
+// ---- 1. prep ------------------------------------------------------------------
+__global__ void __launch_bounds__(256) f32_prep_kernel(const __grid_constant__ ParamsF p) {
+  const long long C2 = (long long)p.C * p.C;
+  const long long n4 = 3 * C2;                      // float4s of the 12 C^2 weights
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n4; i += stride) {
+    const long long e = 4 * i;                      // element of [wq; wk; wv; wp; wf1; wf2]
+    const int m = e < 4 * C2 ? (int)(e / C2) : (e < 8 * C2 ? 4 : 5);
+    const long long off = m < 4 ? m * C2 : (m == 4 ? 4 * C2 : 8 * C2);
+    const float4 v = __ldg(reinterpret_cast<const float4*>(p.wt[m] + (e - off)));
+    const float vv[4] = {v.x, v.y, v.z, v.w};
+    float h[4], l[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      uint32_t hh, ll;
+      tf32_split(vv[k], hh, ll);
+      h[k] = __uint_as_float(hh);
+      l[k] = __uint_as_float(ll);
+    }
+    *reinterpret_cast<float4*>(p.whi + e) = make_float4(h[0], h[1], h[2], h[3]);
+    *reinterpret_cast<float4*>(p.wlo + e) = make_float4(l[0], l[1], l[2], l[3]);
+  }
+  // keys T .. Tp - 1 of every transposed v row: zero, so that the attention's
+  // last tile multiplies its zero probabilities by finite values
+  const int pad = p.Tp - p.T;
+  const long long npad = (long long)p.B * p.C * pad;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < npad; i += stride) {
+    const size_t at = (size_t)(i / pad) * p.Tp + p.T + i % pad;
+    p.vthi[at] = 0.f;
+    p.vtlo[at] = 0.f;
+  }
+}
+
+// ---- 2. streams: LN -> depthwise k3 conv (masked) -> LN, split ----------------
+// Plain LN (two-pass) of one row held by a warp: lane owns channels
+// lane + 32 i, i < nc (= C / 32 <= NC).
 template <int NC>
 __device__ __forceinline__ void ln_plain_row(float (&v)[NC], int nc, int C) {
   float s = 0.f;
@@ -28,405 +125,295 @@ __device__ __forceinline__ void ln_plain_row(float (&v)[NC], int nc, int C) {
   for (int i = 0; i < NC; ++i) v[i] = (v[i] - mu) * rs;
 }
 
-// f32 products, register-tiled FMA: out[m, n] = sum_k A[m, k] Wt[n, k] for
-// m < M, n < N (N a multiple of 64); A in shared memory (row stride lda), Wt
-// (N, K) row-major in global memory. Thread t owns rows m0 + t/64 + 4i and
-// columns n0 + t%64 + 64j (i, j < 4): a warp shares its rows (A is a
-// broadcast) and each thread reads its W rows four k at a time (float4),
-// summing k in order.
-template <typename Epi>
-__device__ __forceinline__ void gemm_fma(const float* A, int lda, int M, int K,
-                                         const float* __restrict__ Wt, int N,
-                                         Epi epi) {
-  const int rg = threadIdx.x >> 6;
-  const int c0 = threadIdx.x & 63;
-  for (int n0 = 0; n0 < N; n0 += 256) {
-    for (int m0 = 0; m0 < M; m0 += 16) {
-      float acc[4][4];
-      const float* arow[4];
+// A warp per (row, stream): the stream's three input rows (ds_self: odd
+// s - 1, even s, odd s; else s - 1, s, s + 1; zero outside the sequence) LN'd
+// with the stream's affine, the conv's taps, the row's mask, LN, split.
+template <int NC>
+__global__ void __launch_bounds__(256) f32_streams_kernel(const __grid_constant__ ParamsF p) {
+  const long long task = ((long long)blockIdx.x * 256 + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32;
+  const long long R = (long long)p.B * p.T;
+  if (task >= 3 * R) return;
+  const int which = (int)(task % 3), C = p.C, nc = C / 32, T_ = p.T;
+  const long long m = task / 3;
+  const int b = (int)(m / T_), s = (int)(m % T_);
+  const float* v = p.vecs;
+  const float* xb = p.x + (size_t)b * T_ * C;
+  const float* ob = p.xo + (size_t)b * T_ * C;
+  // the stream's source rows and LN affine (block_math's qkv_rows)
+  const bool ds = p.mode == MODE_DS_SELF;
+  int rw = ROW_LNQ_W;
+  const float* src = xb;
+  if (!ds && p.mode != MODE_SELF && which > 0) {
+    rw = which == 1 ? ROW_LNK_W : ROW_LNV_W;
+    src = (which == 1 || p.mode == MODE_KV) ? ob : xb;
+  }
+  float l[3][NC];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        arow[i] = A + min(m0 + rg + 4 * i, M - 1) * lda;
+  for (int r = 0; r < 3; ++r) {
+    const float* base = ds ? (r == 1 ? xb : ob) : src;
+    const int sr = ds ? (r == 0 ? s - 1 : s) : s - 1 + r;
+    const bool in = sr >= 0 && sr < T_;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-      }
-      const float* wrow[4];
+    for (int i = 0; i < NC; ++i) l[r][i] = (in && i < nc) ? __ldg(base + (size_t)sr * C + lane + 32 * i) : 0.f;
+    if (in) ln_plain_row(l[r], nc, C);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) wrow[j] = Wt + (size_t)min(n0 + c0 + 64 * j, N - 1) * K;
-      for (int k = 0; k < K; k += 4) {
-        float4 wv[4], av[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wv[j] = __ldg(reinterpret_cast<const float4*>(wrow[j] + k));
-#pragma unroll
-        for (int i = 0; i < 4; ++i) av[i] = *reinterpret_cast<const float4*>(arow[i] + k);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            float a = acc[i][j];
-            a = fmaf(av[i].x, wv[j].x, a);
-            a = fmaf(av[i].y, wv[j].y, a);
-            a = fmaf(av[i].z, wv[j].z, a);
-            acc[i][j] = fmaf(av[i].w, wv[j].w, a);
-          }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int m = m0 + rg + 4 * i;
-        if (m < M) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j)
-            if (n0 + c0 + 64 * j < N) epi(m, n0 + c0 + 64 * j, acc[i][j]);
-        }
-      }
+    for (int i = 0; i < NC; ++i) {
+      const int c = lane + 32 * i;
+      l[r][i] = (in && i < nc) ? l[r][i] * v[rw * C + c] + v[(rw + 1) * C + c] : 0.f;
     }
+  }
+  const float mv = p.mask[m] ? 1.f : 0.f;
+  const int tap = ROW_QCONV + 3 * which;
+  float y[NC];
+#pragma unroll
+  for (int i = 0; i < NC; ++i) {
+    const int c = i < nc ? lane + 32 * i : 0;
+    y[i] = i < nc ? (l[0][i] * v[tap * C + c] + l[1][i] * v[(tap + 1) * C + c] +
+                     l[2][i] * v[(tap + 2) * C + c]) * mv
+                  : 0.f;
+  }
+  ln_plain_row(y, nc, C);
+  float* hi = p.xhi + (size_t)m * 3 * C + which * C;
+  float* lo = p.xlo + (size_t)m * 3 * C + which * C;
+#pragma unroll
+  for (int i = 0; i < NC; ++i) {
+    if (i >= nc) continue;
+    uint32_t h, q;
+    tf32_split(y[i], h, q);
+    hi[lane + 32 * i] = __uint_as_float(h);
+    lo[lane + 32 * i] = __uint_as_float(q);
   }
 }
 
-// NC: channels a lane can hold per row / 32 (C <= 32 NC).
+// ---- 6. LN of y1 (ln2's affine folded into wf1), split -------------------------
 template <int NC>
-__global__ void __launch_bounds__(NT)
-fused_block_kernel(Params p) {
-  using N = Num<float>;
-  extern __shared__ __align__(16) float smem[];
-  const int T_ = p.T, TQ = p.tq, mode = p.mode, C = p.C, NH = p.NH;
-  const int nc = C / 32, D = C / NH, nd = D / 32;   // nd: a lane's channels of a head
-  const Layout lay(TQ, p.phase == PHASE_WHOLE ? p.w : 0, C);
-  const int hw = lay.hw, NKV = lay.nkv, NIN = lay.nin, LD = lay.ld, LDH = lay.ldh;
-  const int b = blockIdx.y;
-  const int r0 = blockIdx.x * TQ;          // first query row of this tile
-  const int in0 = r0 - hw - 1;             // seq row of input row 0
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float* vecs = p.vecs;
-  const float* x = static_cast<const float*>(p.x) + (size_t)b * T_ * C;
-  const float* xo = static_cast<const float*>(p.xo) + (size_t)b * T_ * C;
-  const float coef_attn = p.coefs ? p.coefs[2 * b] : 1.f;
-  const float coef_mlp = p.coefs ? p.coefs[2 * b + 1] : 1.f;
-
-  float* maskf = smem;                     // [NIN] 1 valid / 0 masked or outside
-  float* R1 = smem + lay.mask_f;
-  float* R2 = R1 + lay.r1_f;
-  float* L0 = R1;                          // LN'd streams, NIN rows each
-  float* L1 = R1 + NIN * LD;
-  float* L2 = R1 + 2 * NIN * LD;
-
-  // ---- 1. pre-LN of the input rows (zero outside the sequence) ----------
-  for (int j = threadIdx.x; j < NIN; j += NT) {
-    const int s = in0 + j;
-    maskf[j] = (s >= 0 && s < T_ && p.mask[(size_t)b * T_ + s]) ? 1.f : 0.f;
+__global__ void __launch_bounds__(256) f32_ln_kernel(const __grid_constant__ ParamsF p) {
+  const long long m = ((long long)blockIdx.x * 256 + threadIdx.x) / 32;
+  const int lane = threadIdx.x % 32, C = p.C, nc = C / 32;
+  if (m >= (long long)p.B * p.T) return;
+  float y[NC];
+#pragma unroll
+  for (int i = 0; i < NC; ++i) y[i] = i < nc ? p.out[(size_t)m * C + lane + 32 * i] : 0.f;
+  ln_plain_row(y, nc, C);
+#pragma unroll
+  for (int i = 0; i < NC; ++i) {
+    if (i >= nc) continue;
+    uint32_t h, q;
+    tf32_split(y[i], h, q);
+    p.chi[(size_t)m * C + lane + 32 * i] = __uint_as_float(h);
+    p.clo[(size_t)m * C + lane + 32 * i] = __uint_as_float(q);
   }
-  for (int j = warp; j < NIN; j += NWARP) {
-    const int s = in0 + j;
-    const bool in = s >= 0 && s < T_;
-    float vx[NC], vo[NC];
-#pragma unroll
-    for (int i = 0; i < NC; ++i) {
-      const bool ok = in && i < nc;
-      vx[i] = ok ? N::load(x, (size_t)s * C + lane + 32 * i) : 0.f;
-      vo[i] = (ok && mode != MODE_SELF) ? N::load(xo, (size_t)s * C + lane + 32 * i) : 0.f;
+}
+
+// ---- 3, 5, 7, 8: the 3xTF32 GEMM and its epilogues -----------------------------
+// out[m, n] = sum_k A[m, k] W[n, k] over k < K for the block's 128 rows and
+// BN columns; A's columns start at the output tile's stream (EPI_QKV: the
+// tile's n0 / C; BN divides C).
+template <int EPI, int BN>
+__global__ void __launch_bounds__(G_THREADS, 1)
+f32_gemm_kernel(const __grid_constant__ GemmMaps maps, const __grid_constant__ ParamsF p,
+                int K) {
+  using G = GemmTile<BN>;
+  extern __shared__ __align__(1024) unsigned char smraw[];
+  const uint32_t base = (smem_u32(smraw) + 1023u) & ~1023u;
+  const uint32_t full = base + GSTAGES * G::STAGE, empty = full + 8 * GSTAGES;
+  const int m0 = blockIdx.x * GM_ROWS, n0 = blockIdx.y * BN, C = p.C;
+  const int acol = EPI == EPI_QKV ? n0 / C * C : 0;
+  const int nk = K / GK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < GSTAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2);   // one arrival from each consumer warpgroup
     }
-    if (in) {
-      ln_plain_row(vx, nc, C);
-      if (mode != MODE_SELF) ln_plain_row(vo, nc, C);
-    }
-#pragma unroll
-    for (int i = 0; i < NC; ++i) {
-      if (i >= nc) continue;
-      const int c = lane + 32 * i;
-      const float z = in ? 1.f : 0.f;   // rows outside the sequence stay 0
-      const float* v = vecs;
-      L0[j * LD + c] = z * N::rnd(vx[i] * v[ROW_LNQ_W * C + c] + v[ROW_LNQ_B * C + c]);
-      if (mode == MODE_DS_SELF) {
-        L1[j * LD + c] = z * N::rnd(vo[i] * v[ROW_LNQ_W * C + c] + v[ROW_LNQ_B * C + c]);
-      } else if (mode != MODE_SELF) {
-        L1[j * LD + c] = z * N::rnd(vo[i] * v[ROW_LNK_W * C + c] + v[ROW_LNK_B * C + c]);
-        const float vv = mode == MODE_QV_K ? vx[i] : vo[i];
-        L2[j * LD + c] = z * N::rnd(vv * v[ROW_LNV_W * C + c] + v[ROW_LNV_B * C + c]);
-      }
-    }
+    mbar_init_fence();
   }
   __syncthreads();
-
-  // ---- 2. depthwise k3 conv (masked) + plain LN -> PQ, PK, PV -----------
-  float* PQ = R2;
-  float* PK = R2 + TQ * LD;
-  float* PV = R2 + (TQ + NKV) * LD;
-  const int ntask = p.phase == PHASE_ATTN ? TQ : TQ + 2 * NKV;
-  for (int task = warp; task < ntask; task += NWARP) {
-    int which, i;                          // 0 q, 1 k, 2 v; kv-local row i
-    if (task < TQ) { which = 0; i = task + hw; }
-    else if (task < TQ + NKV) { which = 1; i = task - TQ; }
-    else { which = 2; i = task - TQ - NKV; }
-    const int row0 = which == 0 ? ROW_QCONV : (which == 1 ? ROW_KCONV : ROW_VCONV);
-    const int jc = i + 1;                  // input row of the conv centre
-    const float mv = maskf[jc];
-    const float* src = (mode == MODE_SELF || which == 0) ? L0 : (which == 1 ? L1 : L2);
-    float y[NC];
-#pragma unroll
-    for (int k = 0; k < NC; ++k) {
-      y[k] = 0.f;
-      if (k >= nc) continue;
-      const int c = lane + 32 * k;
-      const float w0 = vecs[row0 * C + c], w1 = vecs[(row0 + 1) * C + c],
-                  w2 = vecs[(row0 + 2) * C + c];
-      float acc;
-      if (mode == MODE_DS_SELF)   // y[i] = w0 odd[i-1] + w1 even[i] + w2 odd[i]
-        acc = L1[(jc - 1) * LD + c] * w0 + L0[jc * LD + c] * w1 + L1[jc * LD + c] * w2;
-      else
-        acc = src[(jc - 1) * LD + c] * w0 + src[jc * LD + c] * w1 + src[(jc + 1) * LD + c] * w2;
-      y[k] = N::rnd(acc * mv);
-    }
-    ln_plain_row(y, nc, C);
-    float* dst = which == 0 ? PQ + (i - hw) * LD : (which == 1 ? PK : PV) + i * LD;
-#pragma unroll
-    for (int k = 0; k < NC; ++k)
-      if (k < nc) dst[lane + 32 * k] = N::rnd(y[k]);
-  }
-  __syncthreads();
-
-  // ---- 3. q/k/v dense -----------------------------------------------------
-  float* Qd = R1;
-  float* Kd = R1 + TQ * LD;
-  float* Vd = R1 + (TQ + NKV) * LD;
-  const float qscale = N::rnd(1.f / sqrtf((float)D));
-  if (p.phase != PHASE_KV)
-    gemm_fma(PQ, LD, TQ, C, static_cast<const float*>(p.wq), C,
-             [&](int m, int n, float acc) {
-               const float q = N::rnd(N::rnd(acc) + N::rnd(vecs[ROW_Q_BIAS * C + n]));
-               Qd[m * LD + n] = N::rnd(q * qscale);
-             });
-  if (p.phase != PHASE_ATTN) {
-    gemm_fma(PK, LD, NKV, C, static_cast<const float*>(p.wk), C,
-             [&](int m, int n, float acc) {
-               Kd[m * LD + n] = N::rnd(N::rnd(acc) + N::rnd(vecs[ROW_K_BIAS * C + n]));
-             });
-    gemm_fma(PV, LD, NKV, C, static_cast<const float*>(p.wv), C,
-             [&](int m, int n, float acc) {
-               Vd[m * LD + n] = N::rnd(N::rnd(acc) + N::rnd(vecs[ROW_V_BIAS * C + n]));
-             });
-  }
-  __syncthreads();
-  if (p.phase == PHASE_KV) {   // k | v rows of this tile (hw = 0: row i = seq r0 + i)
-    float* kvb = static_cast<float*>(p.kv) + (size_t)b * T_ * 2 * C;
-    for (int idx = threadIdx.x; idx < TQ * C; idx += NT) {
-      const int i = idx / C, c = idx % C;
-      if (r0 + i < T_) {
-        N::store(kvb, (size_t)(r0 + i) * 2 * C + c, Kd[i * LD + c]);
-        N::store(kvb, (size_t)(r0 + i) * 2 * C + C + c, Vd[i * LD + c]);
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {                     // the producer warp: one thread issues the TMA
+    if (threadIdx.x == 256) {
+      for (int kb = 0; kb < nk; ++kb) {
+        const int s = kb % GSTAGES;
+        if (kb >= GSTAGES) mbar_wait(empty + 8 * s, (kb / GSTAGES - 1) & 1);
+        const uint32_t st = base + s * G::STAGE, bar = full + 8 * s;
+        mbar_expect_tx(bar, G::STAGE);
+        tma_load_2d(st, &maps.ahi, acol + kb * GK, m0, bar);
+        tma_load_2d(st + G::A_BYTES, &maps.alo, acol + kb * GK, m0, bar);
+        tma_load_2d(st + 2 * G::A_BYTES, &maps.whi, kb * GK, n0, bar);
+        tma_load_2d(st + 2 * G::A_BYTES + G::W_BYTES, &maps.wlo, kb * GK, n0, bar);
       }
     }
     return;
   }
+  // a stage's 12 products sum into part, which is added to acc in f32 (round
+  // to nearest): the tensor cores' own f32 accumulation truncates, and over
+  // a whole contraction (3 x 128 steps at K = 1024) that drifts ~20x further
+  // from the exact product than an f32 sum does; per stage it does not
+  float acc[BN / 2], part[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+#pragma unroll 1
+  for (int kb = 0; kb < nk; ++kb) {
+    const int s = kb % GSTAGES;
+    mbar_wait(full + 8 * s, (kb / GSTAGES) & 1);
+    const uint32_t ah = base + s * G::STAGE + wg * (64 * 128), al = ah + G::A_BYTES;
+    const uint32_t wh = base + s * G::STAGE + 2 * G::A_BYTES, wl = wh + G::W_BYTES;
+    fence_regs(part);
+    wgmma_fence();
+    // the small products first, while the sum is small: each step's
+    // truncation is an ulp of the sum so far
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      WgmmaTf32SS<BN>::run(part, tile_desc(ah + 32 * kk), tile_desc(wl + 32 * kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      WgmmaTf32SS<BN>::run(part, tile_desc(al + 32 * kk), tile_desc(wh + 32 * kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      WgmmaTf32SS<BN>::run(part, tile_desc(ah + 32 * kk), tile_desc(wh + 32 * kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(part);
+    if (threadIdx.x % 128 == 0) mbar_arrive(empty + 8 * s);   // the stage is read: release it
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] += part[i];
+  }
 
-  // ---- 4. attention: one warp per (query row, head); lane owns channels
-  // h D + lane + 32 e of its head, e < nd
-  float* CTX = R2;
-  const float* kvs = static_cast<const float*>(p.kv) + (size_t)b * T_ * 2 * C;
-  const uint8_t* mrow = p.mask + (size_t)b * T_;
-  for (int task = warp; task < TQ * NH; task += NWARP) {
-    const int i = task / NH, h = task % NH;
-    const int cb = h * D + lane;
-    const float mq = maskf[i + hw + 1];
-    float qv[4], o[4] = {0.f, 0.f, 0.f, 0.f};
+  // epilogue: element (row 16 warp + g + 8 hf, column 8 j + 2 t + e)
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const long long R = (long long)p.B * p.T;
+  const float* v = p.vecs;
+  const float qscale = (float)(1.0 / sqrt((double)p.D));   // block_math's f32 1 / sqrt(d)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) qv[e] = e < nd ? Qd[i * LD + cb + 32 * e] : 0.f;
-    if (p.w > 0) {
-      // banded: scores in the compute dtype (rounded products, f32 sum),
-      // -1e4 penalty on masked keys, -1e30 outside the sequence, f32 softmax;
-      // keys from the halo in shared memory or, tiled, from the scratch
-      const float pen = N::rnd(-NEG_PENALTY);
-      const int w = p.w;
-      auto score = [&](int d) {   // offset d's score, the same bits on every call
-        const int s = r0 + i + d;                  // the key's sequence row
-        const bool inseq = s >= 0 && s < T_;
-        float e = 0.f;
-        bool valid;
-        if (hw > 0) {
-          const int kk = i + hw + d;               // kv-local key row
+  for (int hf = 0; hf < 2; ++hf) {
+    const long long m = (long long)m0 + 64 * wg + 16 * warp + g + 8 * hf;
+    if (m >= R) continue;
+    const int b = (int)(m / p.T), sq = (int)(m % p.T);
+    const float mq = p.mask[m] ? 1.f : 0.f;
 #pragma unroll
-          for (int c = 0; c < 4; ++c)
-            if (c < nd) e += N::rnd(qv[c] * Kd[kk * LD + cb + 32 * c]);
-          valid = maskf[kk + 1] > 0.5f;
-        } else {
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            if (c < nd && inseq) e += N::rnd(qv[c] * kvs[(size_t)s * 2 * C + cb + 32 * c]);
-          valid = inseq && mrow[s];
+    for (int j = 0; j < BN / 8; ++j) {
+      const int n = n0 + 8 * j + 2 * t;
+      float y0 = acc[4 * j + 2 * hf], y1 = acc[4 * j + 2 * hf + 1];
+      if (EPI == EPI_QKV) {
+        const int which = n0 / C, c = n - which * C;
+        const int brow = (ROW_Q_BIAS + which) * C;
+        y0 += v[brow + c];
+        y1 += v[brow + c + 1];
+        if (which == 0) {
+          *reinterpret_cast<float2*>(p.q + (size_t)m * C + c) = make_float2(y0 * qscale,
+                                                                            y1 * qscale);
+        } else if (which == 1) {
+          store_split2(p.khi, p.klo, (size_t)m * C + c, y0, y1);
+        } else {                       // v^T (b, c, s)
+          uint32_t h0, l0, h1, l1;
+          tf32_split(y0, h0, l0);
+          tf32_split(y1, h1, l1);
+          const size_t at = ((size_t)b * C + c) * p.Tp + sq;
+          p.vthi[at] = __uint_as_float(h0);
+          p.vtlo[at] = __uint_as_float(l0);
+          p.vthi[at + p.Tp] = __uint_as_float(h1);
+          p.vtlo[at + p.Tp] = __uint_as_float(l1);
         }
-        float v = N::rnd(warp_sum(e));
-        v = N::rnd(v + (valid ? 0.f : pen));
-        return inseq ? v : NEG_INF;
-      };
-      auto add_value = [&](int d, float pr) {
-        const int s = r0 + i + d;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          if (c >= nd) continue;
-          float vv;
-          if (hw > 0) vv = Vd[(i + hw + d) * LD + cb + 32 * c];
-          else vv = (s >= 0 && s < T_) ? kvs[(size_t)s * 2 * C + C + cb + 32 * c] : 0.f;
-          o[c] = N::rnd(o[c] + N::rnd(pr * vv));
+      } else if (EPI == EPI_PROJ) {
+        const float coef = p.coefs ? p.coefs[2 * b] : 1.f;
+        const float2 xs = *reinterpret_cast<const float2*>(p.x + (size_t)m * C + n);
+        float sk[2] = {xs.x, xs.y};
+        if (p.mode == MODE_DS_SELF) {    // MaxPool(3, 2, 1), -inf padding
+          const float2 o = *reinterpret_cast<const float2*>(p.xo + (size_t)m * C + n);
+          float2 om1 = make_float2(-CUDART_INF_F, -CUDART_INF_F);
+          if (sq > 0) om1 = *reinterpret_cast<const float2*>(p.xo + (size_t)(m - 1) * C + n);
+          sk[0] = fmaxf(fmaxf(om1.x, sk[0]), o.x);
+          sk[1] = fmaxf(fmaxf(om1.y, sk[1]), o.y);
         }
-      };
-      float mx = -CUDART_INF_F;
-      if (w <= MAX_W) {   // the score row in registers
-        float sc[2 * MAX_W + 1];
-        for (int d = -w; d <= w; ++d) {
-          sc[d + w] = score(d);
-          mx = fmaxf(mx, sc[d + w]);
-        }
-        float den = 0.f;
-        for (int d = 0; d <= 2 * w; ++d) { sc[d] = expf(sc[d] - mx); den += sc[d]; }
-        const float inv = 1.f / den;
-        for (int d = -w; d <= w; ++d) add_value(d, N::rnd(sc[d + w] * inv));
-      } else {            // wider: three passes over the offsets, scores recomputed
-        for (int d = -w; d <= w; ++d) mx = fmaxf(mx, score(d));
-        float den = 0.f;
-        for (int d = -w; d <= w; ++d) den += expf(score(d) - mx);
-        const float inv = 1.f / den;
-        for (int d = -w; d <= w; ++d) add_value(d, N::rnd(expf(score(d) - mx) * inv));
+        const float a0 = (y0 + v[ROW_P_BIAS * C + n]) * mq, a1 = (y1 + v[ROW_P_BIAS * C + n + 1]) * mq;
+        const float s0 = v[ROW_SCALE_ATTN * C + n] * coef, s1 = v[ROW_SCALE_ATTN * C + n + 1] * coef;
+        *reinterpret_cast<float2*>(p.out + (size_t)m * C + n) =
+            make_float2(sk[0] * mq + a0 * s0, sk[1] * mq + a1 * s1);
+      } else if (EPI == EPI_FC1) {
+        y0 = gelu<false>(y0 + p.fc1b[n]);
+        y1 = gelu<false>(y1 + p.fc1b[n + 1]);
+        store_split2(p.xhi, p.xlo, (size_t)m * 4 * C + n, y0, y1);
+      } else {
+        const float coef = p.coefs ? p.coefs[2 * b + 1] : 1.f;
+        float2* o = reinterpret_cast<float2*>(p.out + (size_t)m * C + n);
+        const float2 r = *o;
+        const float h0 = (y0 + v[ROW_FC2_BIAS * C + n]) * mq, h1 = (y1 + v[ROW_FC2_BIAS * C + n + 1]) * mq;
+        *o = make_float2(r.x + h0 * (v[ROW_SCALE_MLP * C + n] * coef),
+                         r.y + h1 * (v[ROW_SCALE_MLP * C + n + 1] * coef));
       }
-    } else if (p.phase == PHASE_ATTN) {
-      // dense, tiled: all T keys from the scratch, three passes over them
-      // (scores recomputed bit for bit); -1e30 fill on invalid keys, values
-      // masked, f32 softmax
-      const float fill = N::rnd(NEG_INF);
-      auto score = [&](int j) {
-        const size_t r = (size_t)j * 2 * C;
-        float e = 0.f;
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          if (c < nd) e += qv[c] * kvs[r + cb + 32 * c];
-        const float v = N::rnd(warp_sum(e));
-        return mrow[j] ? v : fill;
-      };
-      float mx = -CUDART_INF_F;
-      for (int j = 0; j < T_; ++j) mx = fmaxf(mx, score(j));
-      float den = 0.f;
-      for (int j = 0; j < T_; ++j) den += expf(score(j) - mx);
-      for (int j = 0; j < T_; ++j) {
-        const float pj = N::rnd(expf(score(j) - mx) / den);
-        const float mj = mrow[j] ? 1.f : 0.f;
-        const size_t r = (size_t)j * 2 * C + C;
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          if (c < nd) o[c] += pj * N::rnd(kvs[r + cb + 32 * c] * mj);
-      }
-#pragma unroll
-      for (int c = 0; c < 4; ++c) o[c] = N::rnd(o[c]);
-    } else {
-      // dense (whole sequence, T <= 31): lane j keeps the score of key j;
-      // -1e30 fill on invalid keys, values masked, f32 softmax
-      float mine = -CUDART_INF_F;
-      const float fill = N::rnd(NEG_INF);
-      for (int j = 0; j < T_; ++j) {
-        float e = 0.f;
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          if (c < nd) e += qv[c] * Kd[j * LD + cb + 32 * c];
-        float v = N::rnd(warp_sum(e));
-        v = maskf[j + 1] > 0.5f ? v : fill;
-        if (lane == j) mine = v;
-      }
-      const float mx = warp_max(mine);
-      const float e = lane < T_ ? expf(mine - mx) : 0.f;
-      const float pr = N::rnd(e / warp_sum(e));
-      for (int j = 0; j < T_; ++j) {
-        const float pj = __shfl_sync(0xffffffffu, pr, j);
-        const float mj = maskf[j + 1];
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          if (c < nd) o[c] += pj * N::rnd(Vd[j * LD + cb + 32 * c] * mj);
-      }
-#pragma unroll
-      for (int c = 0; c < 4; ++c) o[c] = N::rnd(o[c]);
     }
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      if (c < nd) CTX[i * LD + cb + 32 * c] = o[c] * mq;   // zero invalid query rows
   }
-  __syncthreads();
+}
 
-  // ---- 5. proj + masked skip + layer-scaled residual -> Y1 ---------------
-  float* Y1 = R2 + TQ * LD;
-  gemm_fma(CTX, LD, TQ, C, static_cast<const float*>(p.wp), C,
-           [&](int m, int n, float acc) {
-             const int s = r0 + m;
-             const float mq = maskf[m + hw + 1];
-             float y1 = 0.f;
-             if (s < T_) {
-               const float att = N::rnd(N::rnd(acc) + N::rnd(vecs[ROW_P_BIAS * C + n])) * mq;
-               float skip = N::load(x, (size_t)s * C + n);
-               if (mode == MODE_DS_SELF) {   // MaxPool(3, 2, 1), -inf padding
-                 const float om1 = s > 0 ? N::load(xo, (size_t)(s - 1) * C + n) : -CUDART_INF_F;
-                 skip = fmaxf(fmaxf(om1, skip), N::load(xo, (size_t)s * C + n));
-               }
-               y1 = N::rnd(skip * mq + N::rnd(att * N::rnd(vecs[ROW_SCALE_ATTN * C + n] * coef_attn)));
-             }
-             Y1[m * LD + n] = y1;
-           });
-  __syncthreads();
+// One GEMM: A (R, a_cols) split, W (N, K) split; output columns N.
+template <int EPI, int BN>
+int launch_gemm_bn(const ParamsF& p, const float* ahi, const float* alo, int a_cols,
+                   const float* whi, const float* wlo, int N, int K, cudaStream_t stream) {
+  static int configured = 0;
+  if (int e = set_smem(f32_gemm_kernel<EPI, BN>, GemmTile<BN>::SMEM, configured)) return e;
+  const uint64_t R = (uint64_t)p.B * p.T;
+  GemmMaps maps;
+  const uint64_t ad[2] = {(uint64_t)a_cols, R}, as[1] = {4ull * a_cols};
+  const uint64_t wd[2] = {(uint64_t)K, (uint64_t)N}, ws[1] = {4ull * K};
+  const uint32_t abox[2] = {GK, GM_ROWS}, wbox[2] = {GK, (uint32_t)BN};
+  if (int e = f32_tensor_map(&maps.ahi, ahi, 2, ad, as, abox)) return e;
+  if (int e = f32_tensor_map(&maps.alo, alo, 2, ad, as, abox)) return e;
+  if (int e = f32_tensor_map(&maps.whi, whi, 2, wd, ws, wbox)) return e;
+  if (int e = f32_tensor_map(&maps.wlo, wlo, 2, wd, ws, wbox)) return e;
+  const dim3 grid((unsigned)((R + GM_ROWS - 1) / GM_ROWS), (unsigned)(N / BN));
+  f32_gemm_kernel<EPI, BN><<<grid, G_THREADS, GemmTile<BN>::SMEM, stream>>>(maps, p, K);
+  return (int)cudaGetLastError();
+}
 
-  // ---- 6. plain LN (ln2 affine folded into wf1) -> HL --------------------
-  float* HL = R2 + 2 * TQ * LD;
-  for (int m = warp; m < TQ; m += NWARP) {
-    float v[NC];
-#pragma unroll
-    for (int k = 0; k < NC; ++k) v[k] = k < nc ? Y1[m * LD + lane + 32 * k] : 0.f;
-    ln_plain_row(v, nc, C);
-#pragma unroll
-    for (int k = 0; k < NC; ++k)
-      if (k < nc) HL[m * LD + lane + 32 * k] = N::rnd(v[k]);
-  }
-  __syncthreads();
-
-  // ---- 7. fc1 + GELU -> HID (TQ x 4C) ------------------------------------
-  float* HID = R1;
-  gemm_fma(HL, LD, TQ, C, static_cast<const float*>(p.wf1), 4 * C,
-           [&](int m, int n, float acc) {
-             const float h = N::rnd(N::rnd(acc) + N::rnd(p.fc1b[n]));
-             HID[m * LDH + n] = N::rnd(gelu<false>(h));
-           });
-  __syncthreads();
-
-  // ---- 8. fc2 + masked, layer-scaled residual -> out ---------------------
-  float* out = static_cast<float*>(p.out) + (size_t)b * T_ * C;
-  gemm_fma(HID, LDH, TQ, 4 * C, static_cast<const float*>(p.wf2), C,
-           [&](int m, int n, float acc) {
-             const int s = r0 + m;
-             if (s >= T_) return;
-             const float mq = maskf[m + hw + 1];
-             const float h = N::rnd(N::rnd(acc) + N::rnd(vecs[ROW_FC2_BIAS * C + n])) * mq;
-             const float y = N::rnd(Y1[m * LD + n] +
-                                    N::rnd(h * N::rnd(vecs[ROW_SCALE_MLP * C + n] * coef_mlp)));
-             N::store(out, (size_t)s * C + n, y);
-           });
+// Output tiles of 128 columns where C allows it and they fill the card;
+// else 64.
+template <int EPI>
+int launch_gemm(const ParamsF& p, const float* ahi, const float* alo, int a_cols,
+                const float* whi, const float* wlo, int N, int K, cudaStream_t stream) {
+  const long long rows = ((long long)p.B * p.T + GM_ROWS - 1) / GM_ROWS;
+  const bool wide = p.C % 128 == 0 && rows * (N / 128) >= 132;
+  return wide ? launch_gemm_bn<EPI, 128>(p, ahi, alo, a_cols, whi, wlo, N, K, stream)
+              : launch_gemm_bn<EPI, 64>(p, ahi, alo, a_cols, whi, wlo, N, K, stream);
 }
 
 template <int NC>
-int launch_f32_nc(Params p, int B, int bytes, cudaStream_t stream) {
-  static int configured = 0;    // largest dynamic smem size set so far
-  if (int e = set_smem(fused_block_kernel<NC>, bytes, configured)) return e;
-  dim3 grid((p.T + p.tq - 1) / p.tq, B);
-  if (p.phase == PHASE_WHOLE) {
-    fused_block_kernel<NC><<<grid, NT, bytes, stream>>>(p);
-    return (int)cudaGetLastError();
-  }
-  p.phase = PHASE_KV;
-  fused_block_kernel<NC><<<grid, NT, bytes, stream>>>(p);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  p.phase = PHASE_ATTN;
-  fused_block_kernel<NC><<<grid, NT, bytes, stream>>>(p);
+int launch_rows(const ParamsF& p, cudaStream_t stream) {
+  const long long R = (long long)p.B * p.T;
+  f32_streams_kernel<NC><<<(unsigned)((3 * R + 7) / 8), 256, 0, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+template <int NC>
+int launch_ln(const ParamsF& p, cudaStream_t stream) {
+  const long long R = (long long)p.B * p.T;
+  f32_ln_kernel<NC><<<(unsigned)((R + 7) / 8), 256, 0, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-int launch_f32(const Params& p, int B, int bytes, cudaStream_t stream) {
-  if (p.C <= 256) return launch_f32_nc<8>(p, B, bytes, stream);
-  if (p.C <= 512) return launch_f32_nc<16>(p, B, bytes, stream);
-  return launch_f32_nc<32>(p, B, bytes, stream);
+int launch_f32(ParamsF& p, float* scratch, cudaStream_t stream) {
+  f32_carve(p, scratch);
+  const int C = p.C;
+  const long long C2 = (long long)C * C;
+  f32_prep_kernel<<<264, 256, 0, stream>>>(p);
+  if (int e = (int)cudaGetLastError()) return e;
+  int e = C <= 256 ? launch_rows<8>(p, stream)
+                   : (C <= 512 ? launch_rows<16>(p, stream) : launch_rows<32>(p, stream));
+  if (e) return e;
+  if ((e = launch_gemm<EPI_QKV>(p, p.xhi, p.xlo, 3 * C, p.whi, p.wlo, 3 * C, C, stream)))
+    return e;
+  if ((e = launch_f32_attend(p, stream))) return e;
+  if ((e = launch_gemm<EPI_PROJ>(p, p.chi, p.clo, C, p.whi + 3 * C2, p.wlo + 3 * C2, C, C,
+                                 stream)))
+    return e;
+  e = C <= 256 ? launch_ln<8>(p, stream)
+               : (C <= 512 ? launch_ln<16>(p, stream) : launch_ln<32>(p, stream));
+  if (e) return e;
+  if ((e = launch_gemm<EPI_FC1>(p, p.chi, p.clo, C, p.whi + 4 * C2, p.wlo + 4 * C2, 4 * C, C,
+                                stream)))
+    return e;
+  return launch_gemm<EPI_FC2>(p, p.xhi, p.xlo, 4 * C, p.whi + 8 * C2, p.wlo + 8 * C2, C,
+                              4 * C, stream);
 }
 
 }  // namespace avdd_k1

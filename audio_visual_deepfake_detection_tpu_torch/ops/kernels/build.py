@@ -2,11 +2,12 @@
 
 Route: ``nvcc -gencode arch=compute_90a,code=sm_90a -shared`` over
 ``csrc/*.cu`` (K1 and K6 fused_block with fused_block_any,
-fused_block_any_qkv, fused_block_attend and fused_block_f32, five
-translation units over fused_block.cuh; K2 patch_embed, K3 mvit_attention,
+fused_block_any_qkv, fused_block_attend, fused_block_f32 and
+fused_block_f32_attend, six translation units over fused_block.cuh; K2 patch_embed, K3 mvit_attention,
 K4 mvit_block with its attention step in mvit_attention, K5
 conv_extractor, K7 band_attention, K8 full_attention; headers common.cuh
-and, for the wgmma kernels of K1, K2, K3, K4, K5 and K8, wgmma.cuh) into one shared library with a plain C interface (no PyTorch headers, so a build takes seconds). The
+and, for the wgmma kernels of K1 (both dtypes), K2, K3, K4, K5 and K8,
+wgmma.cuh) into one shared library with a plain C interface (no PyTorch headers, so a build takes seconds). The
 library lands in ``build/kernels/`` at the repository root, in a file named
 by a hash of the sources and flags, so an edited source rebuilds and an
 unchanged one loads at once. The build runs at first use, never at import.
@@ -108,8 +109,8 @@ def load() -> ctypes.CDLL:
                 i, i, i, i, i, i, i,                   # B T C H w mode dtype
                 p,                                     # stream
             ]
-            lib.avdd_fused_block_scratch.restype = i
-            lib.avdd_fused_block_scratch.argtypes = [i, i, i, i, i]   # T C H w dtype
+            lib.avdd_fused_block_scratch.restype = ctypes.c_longlong
+            lib.avdd_fused_block_scratch.argtypes = [i, i, i, i, i]   # B T C H dtype
             lib.avdd_patch_embed.restype = i
             lib.avdd_patch_embed.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
             q = ctypes.c_longlong

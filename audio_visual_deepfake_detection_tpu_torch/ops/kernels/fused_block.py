@@ -3,7 +3,8 @@ the parameter packing (JAX ``ops/pallas/fused_block.py``).
 
 ``fused_transformer_block`` (K1, eval) and ``fused_transformer_block_train``
 (K6, training) are the two wrappers the model calls. For a CUDA tensor on an
-sm_90 card they launch ``csrc/fused_block.cu`` (which replaces the Pallas
+sm_90 card they launch ``csrc/fused_block.cu`` (bf16) or
+``csrc/fused_block_f32.cu`` (f32; both replace the Pallas
 kernel ``fused_transformer_block``, ``pallas_call`` at ``fused_block.py:535``,
 and through it ``fused_transformer_block_train``, ``:753``) at every block
 shape of ``kernel_shape_ok``, the Pallas kernel's per-shape domain cut at C
@@ -20,6 +21,12 @@ block's intermediates live only during its own backward), as the JAX
 ``_trainable_block`` differentiates its mirror. ``pack_block_params`` is
 differentiable, so the gradients of the 8 packed tensors flow on to the
 block's parameters through the folds.
+
+For float32 the kernel sums its products in 3xTF32 on the tensor cores;
+``split_matmul`` is the split of that product in plain PyTorch, its sums
+rounded to nearest (the tensor cores cut theirs toward zero, which the
+tests model apart), held to f32 and f64 products by the tests.
+``block_math`` keeps the f32 matmul.
 
 ``block_math`` is a torch transliteration of the JAX ``block_math``
 (``fused_block.py:562-723``) and keeps the numerics that matter:
@@ -137,6 +144,30 @@ def _ln_plain(x: torch.Tensor, cdtype) -> torch.Tensor:
         return xf * rs - mu * rs
     r = xf - mu
     return r * torch.rsqrt((r * r).mean(-1, keepdim=True) + LN_EPS)
+
+
+def tf32_split(x: torch.Tensor):
+    """The f32 kernel's operand split of an f32 tensor: (hi, lo), hi = x
+    rounded to TF32 (10 mantissa bits; to nearest, ties away from zero, as
+    ``cvt.rna.tf32.f32``), lo = x - hi rounded the same way; hi + lo is x to
+    2^-22 of it."""
+
+    def rna(v):
+        bits = v.float().contiguous().view(torch.int32)
+        return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+    hi = rna(x)
+    return hi, rna(x.float() - hi)
+
+
+def split_matmul(a: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """a @ m.T as the f32 kernel's products form it (3xTF32): the TF32 parts
+    of both operands, hi.hi + hi.lo + lo.hi (lo.lo left out), each product of
+    TF32 values exact in f32, summed in f32 rounding to nearest (on the card
+    the tensor cores cut each 32-deep stage's sum toward zero)."""
+    ah, al = tf32_split(a)
+    mh, ml = tf32_split(m)
+    return ah @ mh.t() + (ah @ ml.t() + al @ mh.t())
 
 
 def _cdot(a, m):
@@ -429,12 +460,12 @@ def _launch(x, xo, mask, vecs, wq, wk, wv, wp, wf1, wf2, fc1b, *, n_head,
     the (B, 2) f32 droppath coefficients. bf16 runs two ``wgmma`` launches
     through a (B, T, 3C) q|k|v scratch, and between them a third, the
     attention on the tensor cores, for dense attention and for half windows
-    above 16 (bands up to 16 attend inside the second launch). f32
-    keeps the shared-memory FMA kernel: one launch where its tile fits in
-    shared memory (banded with the halo, dense up to 31 rows), else the tiled
-    two-phase path through a (B, T, 2C) k|v scratch (the kernel decides). A
-    shape outside ``kernel_shape_ok`` raises ValueError: there is no plain
-    fallback."""
+    above 16 (bands up to 16 attend inside the second launch). f32 runs
+    eight launches with 3xTF32 products on ``wgmma`` (``split_matmul`` is
+    their plain version) through a scratch of the split weights and
+    operands: the streams' rows, the q|k|v GEMM, the attention (every
+    window), proj, LN, fc1, fc2. A shape outside ``kernel_shape_ok`` raises
+    ValueError: there is no plain fallback."""
     global LAUNCHES, TRAIN_LAUNCHES
     from .build import load
 
@@ -449,19 +480,19 @@ def _launch(x, xo, mask, vecs, wq, wk, wv, wp, wf1, wf2, fc1b, *, n_head,
         return out
     lib = load()
     dcode = 0 if x.dtype == torch.float32 else 1
-    # bf16: the (B, T, 3C) q|k|v rows between the kernel's two launches; f32:
-    # the (B, T, 2C) k|v scratch of the tiled path, where it is taken
-    cols = lib.avdd_fused_block_scratch(t, c, n_head, w, dcode)
-    if cols < 0:
+    # bf16: the (B, T, 3C) q|k|v rows between the kernel's launches; f32: the
+    # split weights and the operands its launches pass on (f32_scratch_elems)
+    n = lib.avdd_fused_block_scratch(b, t, c, n_head, dcode)
+    if n < 0:
         raise ValueError(f"fused block kernel refused C={c}, {n_head} heads, w={w}, T={t}")
-    kv = torch.empty((b, t, cols), dtype=x.dtype, device=x.device) if cols else None
+    kv = torch.empty(n, dtype=x.dtype, device=x.device)
     ptr = lambda a: ctypes.c_void_p(a.data_ptr())  # noqa: E731
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.avdd_fused_block(
             ptr(x), ptr(x if xo is None else xo), ptr(mask), ptr(vecs), ptr(wq),
             ptr(wk), ptr(wv), ptr(wp), ptr(wf1), ptr(wf2), ptr(fc1b), ptr(out),
-            ctypes.c_void_p(0 if kv is None else kv.data_ptr()),
+            ptr(kv),
             ctypes.c_void_p(0 if coefs is None else coefs.data_ptr()),
             b, t, c, n_head, w, MODES[mode], dcode,
             ctypes.c_void_p(stream))

@@ -8,17 +8,18 @@ Phases (any failure exits nonzero):
              parallel) into build/kernels/, prints ptxas's registers, shared
              memory and spills per kernel, the toolchain and the card's name
              and power limit; then reads the production YAML through the
-             port's own loader;
+             port's own loader, and traces each launch of one bf16 K1 call
+             at the wide grid's shapes in a process of its own (phase 19
+             reads it);
 2. kernels - the fused transformer-block kernel K1 against its plain PyTorch
              version (block_math), both on the card, for every production
              (mode, T, attention) combination of the HRLR backbone at the
              service batch B=16 and the main path's B=64, and a T=768 self
              block at B=512, f32 (atol 1e-4) and bf16 (atol = rtol = 2e-2),
              with partial masks and O(1) layer scales / LN affines;
-3. dense   - K1 in dense mode at T = 1 .. 31 (f32 whole-sequence path)
-             and 32 .. 150 (f32 tiled path), f32 and bf16 (the tensor-core
-             attention launch); a production-width f32 localizer forward at
-             T = 1536 on the card against the CPU;
+3. dense   - K1 in dense mode at T = 1 .. 150, f32 and bf16 (each
+             dtype's tensor-core attention launch); a production-width f32
+             localizer forward at T = 1536 on the card against the CPU;
 4. serve   - a production-width LocalizerService (3072-d input, T=768,
              C=256, 4 heads, windows (7,7,7,7,7,-1), bf16, seeded weights)
              answers requests of varied valid length; every forward must
@@ -125,6 +126,10 @@ Phases (any failure exits nonzero):
              memory rate; and what each main-path kernel costs a 64-video
              media -> detections run above that bound; K7's block size
              and blocks an SM against four alternatives built beside it;
+             K1 / K6 in float32 (the dtype of every shipped YAML): the 18
+             production blocks at B = 16, 64, 512 and K6 at B=50, device
+             ms beside the plain version and the bound at 67 TFLOP/s, and
+             K7's 17 f32 launches of an unfused forward;
 14. offline - the offline sweep from feature caches to submission files
              and mAP through the port's CLIs (cli/inference.py,
              generate_results.py, validate.py) in this process:
@@ -138,7 +143,8 @@ Phases (any failure exits nonzero):
              and host vs device resample (scores 1e-4, segments 1e-3, logit
              2e-4), the submission files, validate's mAP at four tIoUs and
              1.0 on the ground truth fed back; videos/s per route and batch,
-             loader wait vs infer_fn, peak memory, a batch's stages;
+             loader wait vs infer_fn, peak memory, a batch's stages; the YAML
+             as shipped (no dtype override: f32) at B=16 beside bf16;
 15. train cli - training through cli/train.py in this process as process 0
              of a one-process NCCL group (so the data-parallel reduction
              runs on the card): configs_train/deepfake_exp10.yaml in bf16 at
@@ -148,7 +154,8 @@ Phases (any failure exits nonzero):
              version, the files rank 0 writes), preempted after iteration 2
              and resumed (the final checkpoint within 2.5e-2 of the distance
              moved of the uninterrupted run's, and whether bit-equal),
-             --device-resample (K6 18 a step) and dropout 0.1 (K7 17, K6 0)
+             --device-resample (K6 18 a step), dropout 0.1 (K7 17, K6 0)
+             and the YAML as shipped (no dtype override: f32; K6 18 a step)
              for an epoch each; then inference as two processes on the card
              with the trained checkpoint, merged by generate_results, against
              one process. ms a step, samples/s, seconds an epoch, the loader's
@@ -801,16 +808,88 @@ def profile_forward(run, forward_ms, smi, label="one B=512 forward", top_n=12):
     return dict(device_ms=total_us / 1e3, forward_ms=forward_ms, top=rows)
 
 
+# ------------------------------------------------------ K1 / K6 in float32
+
+F32_BATCHES = (16, 64, 512)           # K1: the service, a 64-video run, the offline sweep
+
+
+def k1_f32_times(smi, dev="cuda", batches=F32_BATCHES, train_b=None):
+    """K1 and K6 in float32, the compute dtype of every shipped YAML: the 18
+    production blocks of one forward at each eval batch of ``batches`` (K1)
+    and at the training batch with droppath coefficients (K6), each block's
+    kernel and its plain version alone on the card (``device_ms``: a CUDA
+    graph replayed between two events), summed over the blocks, beside the
+    bound at the CUDA cores' f32 rate (PEAK_F32) and at the kernel's own
+    3xTF32 rate (PEAK_3XTF32, ``bound_3xtf32_ms``); the plain version through
+    CUDA events (its q scale is a host tensor, which a graph cannot take).
+    Returns {"K1": {B: ...}, "K6": {B: ...}, "K7": {B: ...}}."""
+    import torch
+
+    train_b = TRAIN_B if train_b is None else train_b
+    out = {"card": smi}
+    runs = [("K1", b) for b in batches] + [("K6", train_b)]
+    with torch.no_grad():
+        for kname, b in runs:
+            k_tot = p_tot = 0.0
+            works = []
+            rows = []
+            for names, mode, t, window in PROD_BLOCKS:
+                x, xo, mask, packed = block_case(mode, t, window, b, torch.float32, dev, seed=t)
+                if kname == "K1":
+                    run = lambda which: run_block(which, x, xo, mask, packed, mode, window)  # noqa: E731
+                    works.append((*k1_work(mode, t, window, b, nbytes=4), len(names)))
+                else:
+                    coefs = draw_coefs(b, dev, seed=t)
+                    run = lambda which: run_k6(which, x, xo, mask, coefs, packed, mode,  # noqa: E731
+                                               window)
+                    works.append((*k6_work(mode, t, window, b, nbytes=4), len(names)))
+                iters = 20 if cuda_ms(lambda: run("kernel"), iters=1, warmup=1) < 10 else 3
+                k_ms = device_ms(lambda: run("kernel"), iters=iters)
+                p_ms = cuda_ms(lambda: run("plain"), iters=min(iters, 5), warmup=1)
+                k_tot += k_ms * len(names)
+                p_tot += p_ms * len(names)
+                rows.append(dict(mode=mode, T=t, window=window, blocks=len(names),
+                                 device_ms=k_ms, plain_ms=p_ms))
+                del x, xo, mask, packed
+                torch.cuda.empty_cache()
+            bnd = bound_sum(works, PEAK_F32)
+            b3 = bound_sum(works, PEAK_3XTF32)
+            out.setdefault(kname, {})[str(b)] = dict(device_ms=k_tot, plain_ms=p_tot,
+                                                     bound_ms=bnd[0], bound_by=bnd[1],
+                                                     bound_3xtf32_ms=b3[0],
+                                                     bound_3xtf32_by=b3[1], per_shape=rows)
+            log(f"time {kname} f32 B={b}: the 18 blocks of one forward, kernels alone "
+                f"{k_tot:.3f} ms, plain {p_tot:.3f} ms, bound at PEAK_F32 {bnd[0]:.3f} ms "
+                f"({bnd[1]}), {100 * bnd[0] / k_tot:.1f}% of it; at PEAK_3XTF32 "
+                f"{b3[0]:.3f} ms ({b3[1]}), {100 * b3[0] / k_tot:.1f}% ({smi})")
+        # K7: the 17 launches of the unfused f32 forward that dropout > 0 takes
+        calls = {768: 8, 384: 2, 192: 2, 96: 2, 48: 2, 24: 1}
+        k_tot = p_tot = 0.0
+        for t in K7_TS:
+            q, k, v, valid = k7_case(train_b, t, torch.float32, dev, seed=t)
+            k_tot += calls[t] * device_ms(lambda: run_k7("kernel", q, k, v, valid))
+            p_tot += calls[t] * cuda_ms(lambda: run_k7("plain", q, k, v, valid), 5, warmup=1)
+            del q, k, v, valid
+        bnd = bound_sum([(*k7_work(train_b, 4, t, 64, 3, nbytes=4), calls[t]) for t in K7_TS],
+                        PEAK_F32)
+        out["K7"] = {str(train_b): dict(device_ms=k_tot, plain_ms=p_tot,
+                                        bound_ms=bnd[0], bound_by=bnd[1])}
+        log(f"time K7 f32 B={train_b}: the 17 launches of one unfused forward, kernels alone "
+            f"{k_tot:.3f} ms, plain {p_tot:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]}) ({smi})")
+    REPORT["k1_f32_times"] = out
+    return out
+
+
 # ------------------------------------------------------ K1 dense repair
 
-DENSE_TS = (1, 8, 24, 31, 32, 48, 65, 100, 150)   # T >= 32: f32's tiled path
+DENSE_TS = (1, 8, 24, 31, 32, 48, 65, 100, 150)   # 32-key tiles (f32), 64 (bf16)
 
 
 def phase_k1_dense(dev="cuda", b=5):
     """K1 in dense mode (ds_self, window -1) against block_math at T = 1 ..
-    31 (f32: the whole-sequence path) and 32 .. 150 (f32: the tiled
-    two-phase path), f32 and bf16 (the tensor-core attention launch at
-    every T), lengths full, 3/4, 1/3, one row and none."""
+    150, f32 and bf16 (the tensor-core attention launch of each dtype at
+    every T: one key tile and its ragged edges, several), lengths full, 3/4,
+    1/3, one row and none."""
     import torch
 
     worst = {"float32": 0.0, "bfloat16": 0.0}
@@ -1659,6 +1738,9 @@ NO_WORSE = 1.5
 # peaks of one H100 SXM for the bounds: dense bf16 tensor cores, f32 outside
 # them, HBM3
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
+# the f32 K1 / K6 kernel's own route: 3xTF32 on the tensor cores, three TF32
+# products (495 TFLOP/s dense) for each f32 one
+PEAK_3XTF32 = 495e12 / 3
 
 
 def bound(flops, nbytes, peak=PEAK_BF16):
@@ -1669,11 +1751,11 @@ def bound(flops, nbytes, peak=PEAK_BF16):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def bound_sum(works):
+def bound_sum(works, peak=PEAK_BF16):
     """The bound of a series of launches, [(operations, bytes, count), ...]:
-    the sum of each launch's bound; named after the side that makes up more
-    of it."""
-    parts = [(bound(f, n), c) for f, n, c in works]
+    the sum of each launch's bound at the ``peak`` operation rate; named
+    after the side that makes up more of it."""
+    parts = [(bound(f, n, peak), c) for f, n, c in works]
     total = sum(ms * c for (ms, _), c in parts)
     by_ops = sum(ms * c for (ms, by), c in parts if by == "operations")
     return total, "operations" if 2 * by_ops >= total else "bytes"
@@ -3906,6 +3988,13 @@ def phase_offline_inference(dev="cuda", n_videos=OFFLINE_VIDEOS, n_labelled=OFFL
             configs[dtype] = synth_cache.write_config(
                 base, os.path.join(root, f"{dtype}.yaml"), cache, os.path.join(root, "runs"),
                 synth_cache.merge({"tpu": {"compute_dtype": dtype}}, overrides or {}))
+        # the YAML's own dtype, as a user runs it: no tpu override (float32)
+        configs["shipped"] = synth_cache.write_config(
+            base, os.path.join(root, "shipped.yaml"), cache, os.path.join(root, "runs"),
+            overrides or {})
+        shipped_dtype = arch_config_from(load_config(configs["shipped"])).compute_dtype
+        if shipped_dtype != "float32":
+            fail(f"offline: deepfake_exp12_test.yaml computes in {shipped_dtype}, not float32")
         config = load_config(configs["float32"])
         cfg = arch_config_from(config)
         n_blocks = 1 + cfg.arch[1] + 3 * cfg.arch[2]
@@ -3979,6 +4068,13 @@ def phase_offline_inference(dev="cuda", n_videos=OFFLINE_VIDEOS, n_labelled=OFFL
                 covers(label, items, ids)
                 report[f"{label}_{rep}"] = rec
             runs[label] = items
+        # the shipped YAML as it stands (f32) at the first batch size, warm
+        _, _, rec = sweep(f"shipped_f32_b{b0}", "shipped", "--batch-size", str(b0))
+        report[f"shipped_f32_b{b0}"] = rec
+        log(f"offline as shipped (f32, no dtype override) at B={b0}: {rec['videos_per_s']:.1f} "
+            f"videos/s, infer_fn {rec['infer_ms']:.1f} ms; bf16 (tpu: compute_dtype bfloat16) "
+            f"{report[f'host_b{b0}_warm']['videos_per_s']:.1f} videos/s, infer_fn "
+            f"{report[f'host_b{b0}_warm']['infer_ms']:.1f} ms ({smi})")
         # the host route's rates at length: the shard read OFFLINE_LONG_PASSES
         # times over (from the page cache, as the warm runs read it), so that
         # the first batch's wait, the pipeline's fill, is a small share
@@ -4215,9 +4311,11 @@ def phase_train_cli(dev="cuda", n_videos=TRAIN_CLI_VIDEOS, dims=(256, 2048, 768)
             f"{time.perf_counter() - t0:.1f} s to write)")
         base = os.path.join(REPO, "configs_train", "deepfake_exp10.yaml")
 
-        def config(name, **extra):
-            tree = synth_cache.merge({"tpu": {"compute_dtype": "bfloat16"},
-                                      "opt": {"early_stop_epochs": 2}}, overrides or {})
+        def config(name, shipped=False, **extra):
+            """bf16 unless ``shipped``: then the YAML's own dtype (float32)."""
+            tree = synth_cache.merge({} if shipped else {"tpu": {"compute_dtype": "bfloat16"}},
+                                     {"opt": {"early_stop_epochs": 2}})
+            tree = synth_cache.merge(tree, overrides or {})
             return synth_cache.write_config(base, os.path.join(root, f"{name}.yaml"), cache,
                                             os.path.join(root, "runs", name),
                                             synth_cache.merge(tree, extra))
@@ -4356,17 +4454,30 @@ def phase_train_cli(dev="cuda", n_videos=TRAIN_CLI_VIDEOS, dims=(256, 2048, 768)
             shutil.rmtree(path)
         del got, want, summary
 
-        # (3) the device-resample route, (4) the unfused block (dropout 0.1)
+        # (3) the device-resample route, (4) the unfused block (dropout 0.1),
+        # (4b) the YAML's own dtype, as a user runs it (float32)
+        shipped_cfg = config("shipped_f32", shipped=True, opt={"early_stop_epochs": 1})
+        shipped_dtype = arch_config_from(load_config(shipped_cfg)).compute_dtype
+        if shipped_dtype != "float32":
+            fail(f"train cli: deepfake_exp10.yaml computes in {shipped_dtype}, not float32")
         for label, cfg_path, flags, k6, k7 in (
                 ("device_resample", config("device_resample", opt={"early_stop_epochs": 1}),
                  ("--device-resample",), n_blocks, 0),
                 ("dropout", config("dropout", opt={"early_stop_epochs": 1},
-                                   train_cfg={"dropout": 0.1}), (), 0, n_blocks - 1)):
+                                   train_cfg={"dropout": 0.1}), (), 0, n_blocks - 1),
+                ("shipped_f32", shipped_cfg, (), n_blocks, 0)):
             summary, rec = train(label, cfg_path, "--ckpt-iter-freq", "0", *flags)
             expect(rec, label, k6 * rec["steps"], k7 * rec["steps"])
             report[label] = rec
             shutil.rmtree(summary["out_folder"])
             del summary
+        f32, bf = report["shipped_f32"]["epochs"][-1], report["host"]["epochs"][-1]
+        rest = lambda r: "-" if r["after_first_ms_per_step"] is None else (  # noqa: E731
+            f"{r['after_first_ms_per_step']:.1f}")
+        log(f"train cli as shipped (f32, no dtype override), B={b}: {f32['ms_per_step']:.1f} "
+            f"ms/step ({rest(f32)} without the first), {f32['samples_per_s']:.1f} samples/s; "
+            f"bf16 (tpu: compute_dtype bfloat16) {bf['ms_per_step']:.1f} ({rest(bf)}), "
+            f"{bf['samples_per_s']:.1f} samples/s ({smi})")
         close_one_process_group()
 
         # (5) inference as two processes sharing the card, merged
@@ -5904,31 +6015,34 @@ K7_WIDE = ((2, 4, 2304, 128), (5, 4, 150, 64))
 K7_WIDE_W = (9, 15, 16)
 
 
-def launch_table(shapes, t, b):
-    """launch_us of one bf16 K1 call (self, batch ``b``, length ``t``) at each
-    (C, heads, w) of ``shapes``, in a process of its own. A torch.profiler
+def launch_table(shapes, t, b, dtype="bfloat16"):
+    """launch_us of one K1 call (self, batch ``b``, length ``t``, ``dtype``)
+    at each (C, heads, w) of ``shapes``, in a process of its own. A torch.profiler
     session drops some of its first kernel events once other processes have
     used the card (more the more processes; tools/profiler_session_drops.py
     counts them, PERF.md's open questions has its readings), and this
-    script has started many (the CLIs) by the wide phase; a fresh process
-    has started none. The first shape's trace is still taken here
-    too and its counts kept (``in_process``: 3 launches a call, 3 calls), as
-    evidence. Returns ({"C,heads,w": {kernel name: us}}, in_process)."""
+    script starts many (the CLIs); a fresh process has started none. Late
+    in the script even a fresh process's sessions have held no kernel
+    event, so main() takes the table first (phase_launch_table), and a
+    shape whose session saw none is traced again, three sessions at most.
+    The first shape's trace is still taken here too and its counts kept
+    (``in_process``: 3 launches a call, 3 calls), as evidence. Returns
+    ({"C,heads,w": {kernel name: us}}, in_process)."""
     if not shapes:
         return {}, None
     import torch
 
     c, nh, w = shapes[0]
     window = 2 * w + 1 if w else -1
-    x, xo, mask, packed = block_case("self", t, window, b, torch.bfloat16, "cuda", c, c=c,
-                                     n_head=nh)
+    x, xo, mask, packed = block_case("self", t, window, b, getattr(torch, dtype), "cuda", c,
+                                     c=c, n_head=nh)
     with torch.no_grad():
         _, in_process = launch_us(
             lambda: run_block("kernel", x, xo, mask, packed, "self", window, nh), strict=False)
     del x, xo, mask, packed
-    log(f"launch table: the in-process trace of C={c} heads={nh} w={w}: {in_process}")
+    log(f"launch table {dtype}: the in-process trace of C={c} heads={nh} w={w}: {in_process}")
     code = (f"import sys; sys.path.insert(0, {REPO!r}); import chip_smoke as c; "
-            f"c.print_launch_table({list(shapes)!r}, {t}, {b})")
+            f"c.print_launch_table({list(shapes)!r}, {t}, {b}, {dtype!r})")
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=900)
@@ -5936,23 +6050,35 @@ def launch_table(shapes, t, b):
     if proc.returncode or not found:
         fail(f"launch_table: exit {proc.returncode}\n{proc.stdout[-2000:]}\n"
              f"{proc.stderr[-2000:]}")
-    log(f"launch table: {len(shapes)} shapes in a process of its own, "
+    log(f"launch table {dtype}: {len(shapes)} shapes in a process of its own, "
         f"{time.perf_counter() - t0:.1f} s")
     return json.loads(found[-1][len("LAUNCHES "):]), in_process
 
 
-def print_launch_table(shapes, t, b):
+def phase_launch_table():
+    """launch_table of the wide grid's shapes at its longest T, taken before
+    this script starts the processes after which a torch.profiler session
+    drops kernel events (PERF.md section 7); wide_kernel_grid reads it."""
+    return launch_table(WIDE_SHAPES, max(WIDE_TS), WIDE_B)
+
+
+def print_launch_table(shapes, t, b, dtype="bfloat16"):
     """launch_table's process: one line, LAUNCHES and the JSON table."""
     import torch
 
     table = {}
     for c, nh, w in shapes:
         window = 2 * w + 1 if w else -1
-        x, xo, mask, packed = block_case("self", t, window, b, torch.bfloat16, "cuda", c, c=c,
-                                         n_head=nh)
+        x, xo, mask, packed = block_case("self", t, window, b, getattr(torch, dtype), "cuda",
+                                         c, c=c, n_head=nh)
         with torch.no_grad():
-            table[f"{c},{nh},{w}"] = launch_us(
-                lambda: run_block("kernel", x, xo, mask, packed, "self", window, nh))[0]
+            # a session that saw no kernel event is retried (PERF.md section 7)
+            for attempt in range(3):
+                got = launch_us(lambda: run_block("kernel", x, xo, mask, packed, "self",
+                                                  window, nh), strict=attempt == 2)[0]
+                if got:
+                    break
+            table[f"{c},{nh},{w}"] = got
         del x, xo, mask, packed
     print("LAUNCHES " + json.dumps(table), flush=True)
 
@@ -6012,7 +6138,7 @@ def attention_library(mask, heads, d, w):
 
 
 def wide_kernel_grid(dev="cuda", shapes=WIDE_SHAPES, ts=WIDE_TS, b=WIDE_B, k7_shapes=K7_WIDE,
-                     k7_ws=K7_WIDE_W, smi="", timing=True):
+                     k7_ws=K7_WIDE_W, smi="", timing=True, launches=None):
     """K1 and K6 (the same call given droppath coefficients) at every
     (C, heads, w) of ``shapes``, every T of ``ts``, the four modes, f32 and
     bf16, against block_math (f32 atol 1e-4; bf16 check_bf16), the ragged
@@ -6023,9 +6149,10 @@ def wide_kernel_grid(dev="cuda", shapes=WIDE_SHAPES, ts=WIDE_TS, b=WIDE_B, k7_sh
     at the longest T, self mode, bf16, ms a call through the wrapper (CUDA
     events) and alone (device_ms) beside the plain version and the bound,
     and the f32 kernel's device time; where the attention runs on the tensor
-    cores (dense, w > 16) also each launch's device time (torch.profiler)
-    and the nearest library composition of the attention core
-    (attention_library); K7 the same per window. Returns the report."""
+    cores (dense, w > 16) also each launch's device time (torch.profiler:
+    ``launches``, launch_table's result, taken here where not given) and the
+    nearest library composition of the attention core (attention_library);
+    K7 the same per window. Returns the report."""
     import torch
     from audio_visual_deepfake_detection_tpu_torch.ops.kernels import band_attention as k7
     from audio_visual_deepfake_detection_tpu_torch.ops.kernels import fused_block as fb
@@ -6100,7 +6227,7 @@ def wide_kernel_grid(dev="cuda", shapes=WIDE_SHAPES, ts=WIDE_TS, b=WIDE_B, k7_sh
         t = max(ts)
         # the shapes whose attention ran on the tensor cores: those whose
         # trace holds the attention launch
-        launches, in_process = launch_table(shapes, t, b)
+        launches, in_process = launch_table(shapes, t, b) if launches is None else launches
         report["launch_trace_in_process"] = in_process
         tensor_core = [(c, nh, w) for c, nh, w in shapes
                        if any(K1_ATTEND in k for k in launches[f"{c},{nh},{w}"])]
@@ -6123,20 +6250,22 @@ def wide_kernel_grid(dev="cuda", shapes=WIDE_SHAPES, ts=WIDE_TS, b=WIDE_B, k7_sh
                     iters = 20 if cuda_ms(run, iters=1, warmup=1) < 10 else 3
                     rec[name] = dict(device_ms=device_ms(run, iters=iters), bound_ms=bnd[0],
                                      bound_by=bnd[1])
-                    if dtype == torch.bfloat16:
-                        rec[name].update(ms=cuda_ms(run, iters=min(iters, 10)),
-                                         plain_ms=cuda_ms(plain, iters=3))
-                        if (c, nh, w) in tensor_core:
-                            rec[name]["launch_us"] = launches[f"{c},{nh},{w}"]
-                            rec[name]["library_ms"] = device_ms(attention_library(
-                                mask, nh, c // nh, w), iters=iters)
+                    if dtype == torch.float32:
+                        rec[name]["bound_3xtf32_ms"] = bound(flops, moved, PEAK_3XTF32)[0]
+                    rec[name].update(ms=cuda_ms(run, iters=min(iters, 10)),
+                                     plain_ms=cuda_ms(plain, iters=3))
+                    if dtype == torch.bfloat16 and (c, nh, w) in tensor_core:
+                        rec[name]["launch_us"] = launches[f"{c},{nh},{w}"]
+                        rec[name]["library_ms"] = device_ms(attention_library(
+                            mask, nh, c // nh, w), iters=iters)
                 del x, xo, mask, packed
             report["times"].append(rec)
-            bf = rec["bfloat16"]
+            bf, f32 = rec["bfloat16"], rec["float32"]
             log(f"K1 C={c:4d} heads={nh} w={w:2d} B={b} T={t} self: bf16 {bf['ms']:.3f} ms "
                 f"(dev {bf['device_ms']:.3f}, plain {bf['plain_ms']:.3f}, bound "
-                f"{bf['bound_ms']:.4f} by {bf['bound_by']}); f32 dev "
-                f"{rec['float32']['device_ms']:.3f} ms (bound {rec['float32']['bound_ms']:.4f})"
+                f"{bf['bound_ms']:.4f} by {bf['bound_by']}); f32 {f32['ms']:.3f} ms (dev "
+                f"{f32['device_ms']:.3f}, plain {f32['plain_ms']:.3f}, bound "
+                f"{f32['bound_ms']:.4f} at 67 TFLOP/s, {f32['bound_3xtf32_ms']:.4f} at 165)"
                 + (f"; launches (us) {bf['launch_us']}, attention core by SDPA "
                    f"{bf['library_ms']:.4f} ms dev (nearest, not one call)"
                    if "launch_us" in bf else "") + f" ({smi})")
@@ -6569,6 +6698,7 @@ def main():
     t_start = time.perf_counter()
     smi = timed(phase_build)
     timed(phase_config)
+    wide_launches = timed(phase_launch_table)
     worst = timed(phase_kernels)
     dense_worst = timed(phase_k1_dense)
     timed(phase_long_forward)
@@ -6585,6 +6715,7 @@ def main():
     k7_worst = timed(phase_k7)
     train_launched, train_report = timed(phase_train, smi=smi)
     totals, worst_timed, k1_bounds = timed(phase_timing, model, cfg, smi)
+    f32_times = timed(k1_f32_times, smi)
     mvit_totals, mvit_bounds, mvit_library, mvit_group = timed(phase_mvit_timing, smi)
     audio_times, _, k5_rules = timed(phase_audio_timing, ex, model, cfg, smi)
     train_times = timed(phase_train_kernel_timing, smi)
@@ -6594,7 +6725,7 @@ def main():
     variants = timed(phase_variants, smi=smi)
     legacy = timed(phase_legacy, smi=smi)
     released = timed(phase_released_weights, smi=smi)
-    wide = timed(phase_wide_blocks, smi=smi)
+    wide = timed(phase_wide_blocks, smi=smi, grid=dict(launches=wide_launches))
     for mod in ("jax", "audio_visual_deepfake_detection_tpu"):
         if mod in sys.modules:
             fail(f"{mod} was imported")
@@ -6625,8 +6756,9 @@ def main():
         "plain_ms_b512": totals[512][1],
         "bound_ms_b512": k1_bounds[512][0],
         "note": "ms = sum over the 18 blocks of one forward at B=16 bf16 (two CUDA launches "
-                "a block, counted once); launches_offline_inference = the offline sweep's "
-                "256 videos at B=16 through cli/inference.py",
+                "a block, counted once); f32 = the same in float32 (eight launches a block, "
+                "counted once), device ms, bound at 67 TFLOP/s; launches_offline_inference = "
+                "the offline sweep's 256 videos at B=16 through cli/inference.py",
         "launches_offline_inference": offline["host_b16_warm"]["k1_launches"],
         "launches_variants": {
             name: {"eval_forward_bf16": rec["eval"]["launches"]["fused_transformer_block"],
@@ -6655,6 +6787,9 @@ def main():
         "wide_forward_ms_b2": wide["eval"].get("forward_ms_bf16"),
         "wide_dense_forward_ms_b2": wide["dense"]["eval"].get("forward_ms_bf16"),
         "wide_dense_forward_device_ms_b2": wide["dense"]["eval"].get("forward_device_ms_bf16"),
+        "sources_f32": [src + "fused_block_f32.cu", src + "fused_block_f32_attend.cu"],
+        "f32": {f"B{b}": {k: v for k, v in f32_times["K1"][str(b)].items() if k != "per_shape"}
+                for b in F32_BATCHES},
     }]
     for name, file, line in (("patch_embed", "patch_embed", 140),
                              ("pooled_attention", "mvit_attention", 72),
@@ -6769,6 +6904,10 @@ def main():
             name: {"train_step_f32": rec["step"]["launches"]["fused_transformer_block_train"],
                    "train_cli": rec["train_cli"]["launches"]["fused_transformer_block_train"]}
             for name, rec in variants.items() if name != "card"},
+        "launches_train_cli_shipped_f32": train_cli["shipped_f32"]["launches"][
+            "fused_transformer_block_train"],
+        "f32": {f"B{TRAIN_B}": {k: v for k, v in f32_times["K6"][str(TRAIN_B)].items()
+                                if k != "per_shape"}},
     })
     k7_ms, k7_plain, k7_bound, k7_lib, k7_dev, k7_lib_dev, k7_share = train_times["k7"]
     kernels.append({
@@ -6805,6 +6944,7 @@ def main():
                                  for key in ("scale3", "scale4")},
         "max_abs_err_wide": wide["grid"]["worst"]["K7"],
         "wide_times": [r for r in wide["grid"]["times"] if r["kernel"] == "K7"],
+        "f32": {f"B{TRAIN_B}": f32_times["K7"][str(TRAIN_B)]},
     })
     for k in kernels:
         # checkpoints in the released layouts -> loaders -> extraction ->

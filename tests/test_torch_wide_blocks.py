@@ -9,6 +9,8 @@ shape. On the CPU each wrapper runs its plain version, so these tests hold
 the plain versions and the blocks built on them to the JAX package at those
 shapes:
 
+- ``block_math`` in f32 against the JAX ``block_math`` at the production
+  block and at C 512, 4 heads, dense, T >= 64, all four modes (2e-5);
 - ``block_math`` against the JAX ``block_math`` on the same packed inputs,
   the port's ``TransformerBlock`` against the JAX XLA block, and the port's
   eval and training entries against the Pallas kernel in interpret mode,
@@ -164,6 +166,33 @@ def test_block_matches_jax(rng, c, heads, window, t, mode):
     got = tfb.block_math(_t(xa, torch.bfloat16), _t(xb, torch.bfloat16), _t(mrow), _t(coefs),
                          *tin, n_head=heads, w_overlap=window // 2, mode=mode)
     np.testing.assert_allclose(got.float().numpy(), np.asarray(ref, np.float32), **BF16_TOL)
+
+
+# f32, the compute dtype of every shipped YAML: the production block (C 256,
+# 4 heads, window 7) and the ConvTransformer's default (C 512, 4 heads,
+# dense), T >= 64
+F32_SHAPES = [(256, 4, 7, 64), (512, 4, -1, 96)]
+
+
+@pytest.mark.parametrize("mode", ["self", "qv_k", "kv", "ds_self"])
+@pytest.mark.parametrize("c,heads,window,t", F32_SHAPES, ids=["C256-h4-w3-T64", "C512-h4-dense-T96"])
+def test_f32_block_math_matches_jax(rng, c, heads, window, t, mode):
+    """``block_math`` in f32 against the JAX ``block_math`` on the same f32
+    packed inputs, with droppath coefficients (the f32 block tolerance,
+    2e-5): the function the f32 kernel is held to on the card."""
+    _, _, p, x, xo, mask = _setup(rng, c, heads, mode, window, t=t)
+    jpacked = jfb.pack_block_params(p, c, CROSS[mode], jnp.float32)
+    xa, xb, m = _kernel_args(mode, x, xo, mask)
+    xb = xa if xb is None else xb
+    mrow = m.astype(np.float32)[..., None]
+    coefs = np.array([[1.0, 1 / 0.9], [0.0, 1.0]], np.float32)
+    ref = _jax_block_math(heads, window // 2, mode)(
+        jnp.asarray(xa), jnp.asarray(xb), jnp.asarray(mrow), jnp.asarray(coefs), *jpacked)
+    tin = [_t(a) for a in _torch_layout(jpacked)]
+    got = tfb.block_math(_t(xa), _t(xb), _t(mrow), _t(coefs), *tin, n_head=heads,
+                         w_overlap=window // 2, mode=mode)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **F32_TOL)
 
 
 ENTRY_CASES = [(128, 4, 19, "qv_k", 32), (128, 2, 33, "ds_self", 32), (192, 2, 33, "kv", 32),
