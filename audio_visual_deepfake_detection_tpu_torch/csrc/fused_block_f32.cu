@@ -40,38 +40,32 @@
 //   6. LN of y1 -> split (R, C);
 //   7. fc1 GEMM: bias, exact GELU -> the hidden units split (R, 4C);
 //   8. fc2 GEMM (K = 4C): bias, masked, layer-scaled onto y1 -> the output.
-// The GEMM: a block of two consumer warpgroups (64 rows each, so 128 rows)
-// and a producer warp, an output tile of BN = 128 columns (64 where C is
-// not a multiple of 128, or where 128 leaves SMs idle); the producer's TMA
-// brings each 32-deep slice of A hi, A lo, W hi and W lo (128-byte swizzled
-// rows: one k8 step is 32 bytes) into a ring of three stages, each guarded
-// by a full barrier the TMA completes and an empty one both warpgroups
-// arrive on; the weight slice serves the tile's 128 rows. Per k8 step each
-// warpgroup issues hi.lo, lo.hi, then hi.hi (m64nBNk8, both operands in
-// shared memory) into a per-stage sum that f32 adds then fold into the
-// accumulators (the tensor cores' accumulation truncates; see below), the
-// two warpgroups' stages interleaving on the SM. The epilogue works on
-// the accumulators in registers (thread (g, t) of warp w: rows 16 w + g and
-// + 8, columns 8 j + 2 t, + 1).
+// The GEMM is wgmma.cuh's Tf32Gemm mainloop (K4's f32 products share it):
+// a block of two consumer warpgroups (64 rows each, so 128 rows) and a
+// producer warp, an output tile of BN = 128 columns (64 where C is not a
+// multiple of 128, or where 128 leaves SMs idle); the producer's TMA
+// brings each 32-deep slice of A hi, A lo, W hi and W lo into a ring of
+// three stages; the weight slice serves the tile's 128 rows. Per stage each
+// warpgroup sums hi.lo, lo.hi, then hi.hi into a per-stage sum that f32
+// adds into the accumulators, the two warpgroups' stages interleaving on
+// the SM. The epilogue works on the accumulators in registers (thread
+// (g, t) of warp w: rows 16 w + g and + 8, columns 8 j + 2 t, + 1).
 
 #include "fused_block.cuh"
 
 namespace avdd_k1 {
 namespace {
 
-constexpr int GM_ROWS = 128;    // rows a GEMM block: two consumer warpgroups
-constexpr int GK = 32;          // contraction values a stage: one 128-byte row
 constexpr int GSTAGES = 3;
-constexpr int G_THREADS = 288;  // two consumer warpgroups and a producer warp
 enum { EPI_QKV = 0, EPI_PROJ = 1, EPI_FC1 = 2, EPI_FC2 = 3 };
 
 struct GemmMaps { CUtensorMap ahi, alo, whi, wlo; };
 
-template <int BN> struct GemmTile {
-  static constexpr int A_BYTES = GM_ROWS * 128, W_BYTES = BN * 128;
-  static constexpr int STAGE = 2 * A_BYTES + 2 * W_BYTES;
-  static constexpr int SMEM = 1024 + GSTAGES * STAGE + 16 * GSTAGES;
-};
+// the 3xTF32 mainloop (wgmma.cuh) on operands split beforehand
+template <int BN> using GemmTile = Tf32Gemm<BN, GSTAGES, true>;
+constexpr int GM_ROWS = GemmTile<64>::ROWS;       // rows a GEMM block: two consumer warpgroups
+constexpr int GK = GemmTile<64>::KS;              // contraction values a stage: one 128-byte row
+constexpr int G_THREADS = GemmTile<64>::THREADS;  // two consumer warpgroups and a producer warp
 
 // ---- 1. prep ------------------------------------------------------------------
 __global__ void __launch_bounds__(256) f32_prep_kernel(const __grid_constant__ ParamsF p) {
@@ -217,67 +211,18 @@ f32_gemm_kernel(const __grid_constant__ GemmMaps maps, const __grid_constant__ P
   using G = GemmTile<BN>;
   extern __shared__ __align__(1024) unsigned char smraw[];
   const uint32_t base = (smem_u32(smraw) + 1023u) & ~1023u;
-  const uint32_t full = base + GSTAGES * G::STAGE, empty = full + 8 * GSTAGES;
   const int m0 = blockIdx.x * GM_ROWS, n0 = blockIdx.y * BN, C = p.C;
   const int acol = EPI == EPI_QKV ? n0 / C * C : 0;
   const int nk = K / GK;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < GSTAGES; ++s) {
-      mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, 2);   // one arrival from each consumer warpgroup
-    }
-    mbar_init_fence();
-  }
-  __syncthreads();
+  G::init(base);
   const int wg = threadIdx.x / 128;
   if (wg == 2) {                     // the producer warp: one thread issues the TMA
-    if (threadIdx.x == 256) {
-      for (int kb = 0; kb < nk; ++kb) {
-        const int s = kb % GSTAGES;
-        if (kb >= GSTAGES) mbar_wait(empty + 8 * s, (kb / GSTAGES - 1) & 1);
-        const uint32_t st = base + s * G::STAGE, bar = full + 8 * s;
-        mbar_expect_tx(bar, G::STAGE);
-        tma_load_2d(st, &maps.ahi, acol + kb * GK, m0, bar);
-        tma_load_2d(st + G::A_BYTES, &maps.alo, acol + kb * GK, m0, bar);
-        tma_load_2d(st + 2 * G::A_BYTES, &maps.whi, kb * GK, n0, bar);
-        tma_load_2d(st + 2 * G::A_BYTES + G::W_BYTES, &maps.wlo, kb * GK, n0, bar);
-      }
-    }
+    if (threadIdx.x == 256)
+      G::produce(base, &maps.ahi, &maps.alo, &maps.whi, &maps.wlo, acol, m0, n0, nk);
     return;
   }
-  // a stage's 12 products sum into part, which is added to acc in f32 (round
-  // to nearest): the tensor cores' own f32 accumulation truncates, and over
-  // a whole contraction (3 x 128 steps at K = 1024) that drifts ~20x further
-  // from the exact product than an f32 sum does; per stage it does not
-  float acc[BN / 2], part[BN / 2];
-#pragma unroll
-  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
-#pragma unroll 1
-  for (int kb = 0; kb < nk; ++kb) {
-    const int s = kb % GSTAGES;
-    mbar_wait(full + 8 * s, (kb / GSTAGES) & 1);
-    const uint32_t ah = base + s * G::STAGE + wg * (64 * 128), al = ah + G::A_BYTES;
-    const uint32_t wh = base + s * G::STAGE + 2 * G::A_BYTES, wl = wh + G::W_BYTES;
-    fence_regs(part);
-    wgmma_fence();
-    // the small products first, while the sum is small: each step's
-    // truncation is an ulp of the sum so far
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      WgmmaTf32SS<BN>::run(part, tile_desc(ah + 32 * kk), tile_desc(wl + 32 * kk), kk > 0);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      WgmmaTf32SS<BN>::run(part, tile_desc(al + 32 * kk), tile_desc(wh + 32 * kk), 1);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      WgmmaTf32SS<BN>::run(part, tile_desc(ah + 32 * kk), tile_desc(wh + 32 * kk), 1);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(part);
-    if (threadIdx.x % 128 == 0) mbar_arrive(empty + 8 * s);   // the stage is read: release it
-#pragma unroll
-    for (int i = 0; i < BN / 2; ++i) acc[i] += part[i];
-  }
+  float acc[BN / 2];
+  G::consume(base, wg, nk, acc, [](int, uint32_t, uint32_t) {});
 
   // epilogue: element (row 16 warp + g + 8 hf, column 8 j + 2 t + e)
   const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;

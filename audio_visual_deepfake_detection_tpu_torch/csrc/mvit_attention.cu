@@ -31,16 +31,21 @@
 // table rows and the output; a (BH, Ng, T) f32 band array would be 2.1 GB a
 // call at blocks 0-1 of 32 chunks (written where it is built, read here).
 //
-// Two kernels. bf16 with head dim 32, 64 or 96 (every MViT call) takes
+// Three routes, by dtype and shape, the C entry reporting which it took.
+// bf16 with head dim 32, 64 or 96 (every MViT call) takes
 // pooled_attention_wgmma_kernel: scores, band and P.V on wgmma, the scores
 // in registers, two passes that recompute them (the maximum, then the exps)
 // rather than an online softmax, which would round differently from the
-// JAX kernel; its comment says the rest. float32 (and bf16 at any other
-// head dim or alignment) takes pooled_attention_kernel: one 256-thread
-// block per (sample x head, 32 query rows), the 32 x Nk score rows in
-// shared memory, FMA products at full precision.
+// JAX kernel; its comment says the rest. float32 with a head dim that is a
+// multiple of 4 (every MViT call) takes mvit_attention_f32.cu: k, v and the
+// table split into TF32 parts by one launch, then 3xTF32 products on wgmma;
+// it needs 16-byte aligned operands with strides that are multiples of 4
+// (the wrapper copies any other) and refuses others. bf16 at any other head
+// dim or alignment, and float32 at a head dim that is no multiple of 4,
+// take pooled_attention_kernel: one 256-thread block per (sample x head, 32
+// query rows), the 32 x Nk score rows in shared memory, FMA products.
 
-#include "wgmma.cuh"
+#include "mvit_f32.cuh"
 
 namespace {
 
@@ -623,15 +628,18 @@ extern "C" {
 // elements, k and v are (B * nh, nk, d) with the class-token key last; the
 // band is (B * nh, nq - cls, nk - 1) f32 unless BAND_TABLE names the table
 // rel (>= 2T - 1, d) in the compute dtype. dtype: 0 float32, 1 bfloat16.
-// When `route` is not null it receives the kernel launched: 0 the FMA
-// kernel, 1 the wgmma kernel with the band given, 2 with the band from the
-// table.
+// float32 on the tensor cores splits k, v and the table into `scratch`
+// (avdd_pooled_attention_scratch bytes). When `route` is not null it
+// receives the kernel launched: 0 the FMA kernel, 1 the bf16 wgmma kernel
+// with the band given, 2 with the band from the table, 3 the f32 3xTF32
+// wgmma kernel with the band given, 4 with the band from the table.
 int avdd_pooled_attention(const void* q, const void* k, const void* v,
                           const void* band, const void* rel, void* out,
                           int B, int nh, int nq, int nk, int d, int T, int S,
                           long long qsb, long long qsh, long long qsn,
                           long long osb, long long osh, long long osn,
-                          float scale, int flags, int dtype, void* stream, int* route) {
+                          float scale, int flags, int dtype, void* stream, void* scratch,
+                          int* route) {
   const bool table = flags & BAND_TABLE;
   if (B <= 0 || nh <= 0 || nq <= 0 || nk < 2 || d <= 0 || d > MAXD || S <= 0 ||
       dtype < 0 || dtype > 1 || (table && (!rel || nk - 1 != T)) || (!table && !band))
@@ -640,6 +648,29 @@ int avdd_pooled_attention(const void* q, const void* k, const void* v,
                       qsb % 8 == 0 && qsh % 8 == 0 && qsn % 8 == 0;
   const bool out_pairs = (osb | osh | osn) % 2 == 0 && (uintptr_t)out % 4 == 0;  // bf16x2 stores
   const bool wg = dtype == 1 && (d == 32 || d == 64 || d == 96) && vec_ok && out_pairs;
+  // float32 at a head dim that is a multiple of 4 takes the tensor cores,
+  // which read 16-byte pieces: misaligned operands are refused, not routed
+  // to the FMA kernel
+  const bool tf32 = dtype == 0 && d % 4 == 0;
+  if (tf32) {
+    if (!scratch || (long long)B * nh > 65535 ||
+        ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)rel | (uintptr_t)out) % 16 ||
+        (qsb | qsh | qsn | osb | osh | osn) % 4)
+      return (int)cudaErrorInvalidValue;
+    avdd_mvit::AttnF32 a{};
+    a.q = static_cast<const float*>(q);
+    a.qsb = qsb; a.qsh = qsh; a.qsn = qsn;
+    a.band = static_cast<const float*>(band);
+    a.out = static_cast<float*>(out);
+    a.osb = osb; a.osh = osh; a.osn = osn;
+    a.nh = nh; a.nq = nq; a.T = T; a.S = S; a.d = d; a.flags = flags; a.scale = scale;
+    const int e = avdd_mvit::launch_k3_f32(a, static_cast<const float*>(k),
+                                           static_cast<const float*>(v),
+                                           static_cast<const float*>(rel), scratch, B,
+                                           static_cast<cudaStream_t>(stream));
+    if (e == 0 && route) *route = table ? 4 : 3;
+    return e;
+  }
   Params p;
   p.q = q; p.k = k; p.v = v;
   p.band = static_cast<const float*>(band);
@@ -657,6 +688,14 @@ int avdd_pooled_attention(const void* q, const void* k, const void* v,
     e = dtype == 0 ? launch<float>(p, B, s) : launch<__nv_bfloat16>(p, B, s);
   if (e == 0 && route) *route = wg ? (table ? 2 : 1) : 0;
   return e;
+}
+
+// Bytes of scratch avdd_pooled_attention takes for these sizes (B nh
+// samples x heads, nk keys with the class key, BAND_TABLE in flags): the
+// split operands of the float32 tensor-core route, else 0.
+long long avdd_pooled_attention_scratch(int bhn, int nk, int d, int flags, int dtype) {
+  if (dtype != 0 || d <= 0 || d > MAXD || d % 4 || nk < 2) return 0;
+  return avdd_mvit::k3_f32_scratch_bytes(bhn, nk - 1, d, flags & BAND_TABLE);
 }
 
 }  // extern "C"

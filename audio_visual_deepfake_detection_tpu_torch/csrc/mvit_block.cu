@@ -12,9 +12,11 @@
 // x C) resident in VMEM for one grid step. A Hopper block has 227 KB, and
 // every query row attends all T + 1 pooled keys of its chunk, which exist
 // only once every row of the chunk has been through LN1, qkv and the pools.
-// So one wrapper call (avdd_msblock) runs seven launches on the caller's
-// stream (nine in bf16, where each LN's row statistics are a small pass of
-// their own), each a kernel of this file or of mvit_attention.cu:
+// So one wrapper call (avdd_msblock) runs nine launches on the caller's
+// stream, each LN's row statistics a small pass of their own before the
+// product that applies it, each a kernel of this file or of
+// mvit_attention.cu (float32: of mvit_block_f32.cu and
+// mvit_attention_f32.cu, in the same order):
 //   1. LN1 + qkv product (LN applied to the product's A operand);
 //   2. the q pool + per-head LN, written in the (B, N, C) token layout;
 //   3. the k/v pools straight to (B, nh, T + 1, d), class token last;
@@ -30,7 +32,8 @@
 // Numerics follow msblock_math: f32 LN statistics (fast variance, clamped),
 // products of compute-dtype values accumulated in f32 and rounded once, bias
 // and residual adds in the compute dtype, f32 softmax statistics, the exp
-// rounded before P.V. It differs from msblock_math only by summation order.
+// rounded before P.V. It differs from msblock_math only by summation order
+// (and, in float32, by the 3xTF32 products' own rounding).
 //
 // What bounds it on this card: at the 32 chunks the extractor hands it, a
 // stage-3 block (65,568 rows x 384 channels) is 314 GFLOP (products 24 C^2 a
@@ -42,14 +45,14 @@
 // launches between them near the memory rate. What the design does: in bf16
 // the four products are one wgmma GEMM (below) with the LN statistics taken
 // once per row; the attention step keeps its scores in registers on wgmma
-// (mvit_attention.cu); the pools read 16 bytes a lane. float32 stays a
-// 64 x 64 register-tiled FMA GEMM at full precision with scalar pools. Left
-// for later: fc1 + GELU + fc2 in one kernel so the hidden stays on chip, and
+// (mvit_attention.cu); the pools read 16 bytes a lane. float32 runs its
+// products and attention in 3xTF32 on wgmma (mvit_block_f32.cu). Left for
+// later: fc1 + GELU + fc2 in one kernel so the hidden stays on chip, and
 // tiles larger than 128 x 192 (or TMA multicast) to take less from L2.
 
 #include <type_traits>
 
-#include "wgmma.cuh"
+#include "mvit_f32.cuh"
 
 extern "C" int avdd_pooled_attention(const void* q, const void* k, const void* v,
                                      const void* band, const void* rel, void* out,
@@ -57,103 +60,24 @@ extern "C" int avdd_pooled_attention(const void* q, const void* k, const void* v
                                      long long qsb, long long qsh, long long qsn,
                                      long long osb, long long osh, long long osn,
                                      float scale, int flags, int dtype, void* stream,
-                                     int* route);
+                                     void* scratch, int* route);
 
 namespace {
 
 using namespace avdd;
+using bf16 = __nv_bfloat16;
 
 constexpr int NT = 256;
 constexpr int NWARP = NT / 32;
-constexpr int FM = 64, FN = 64, FK = 16;   // f32 product tile
 constexpr int MAXD = 128;
 constexpr float LN_EPS = 1e-6f;
 enum { EPI_BIAS = 0, EPI_BIAS_GELU = 1, EPI_BIAS_RES = 2 };
 enum { PRESCALE = 1, BAND_ROUND = 2, CLS_FIRST = 4, BAND_TABLE = 8 };  // mvit_attention.cu
 
-// f32 products, register-tiled FMA (full f32 precision):
-// out[m, n] = epi(sum_k A'[m, k] W[n, k]), A (M, K), W (N, K) row-major in
-// the compute dtype; A' = A, or with ln != null the row LN of A with affine
-// ln[0:K] (weight), ln[K:2K] (bias), rounded to the compute dtype. Thread
-// (ty, tx) owns rows ty + 16 i and columns tx + 16 j (i, j < 4).
-template <typename T>
-__global__ void __launch_bounds__(NT)
-gemm_kernel(const T* __restrict__ A, const T* __restrict__ W,
-            const float* __restrict__ ln, const float* __restrict__ bias,
-            const T* __restrict__ res, T* out, int M, int N, int K, int epi) {
-  using Nm = Num<T>;
-  __shared__ float As[FK][FM + 4];
-  __shared__ float Ws[FK][FN + 4];
-  __shared__ float mu[FM], rs[FM];
-  const int m0 = blockIdx.y * FM, n0 = blockIdx.x * FN;
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (ln) {   // row statistics, f32, fast variance clamped at 0 (flax)
-    for (int r = warp; r < FM; r += NWARP) {
-      const int m = min(m0 + r, M - 1);
-      float s = 0.f, s2 = 0.f;
-      for (int k = lane; k < K; k += 32) {
-        const float a = Nm::load(A, (size_t)m * K + k);
-        s += a;
-        s2 += a * a;
-      }
-      s = warp_sum(s);
-      s2 = warp_sum(s2);
-      if (lane == 0) {
-        const float mean = s / K;
-        mu[r] = mean;
-        rs[r] = rsqrtf(fmaxf(s2 / K - mean * mean, 0.f) + LN_EPS);
-      }
-    }
-  }
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < K; k0 += FK) {
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < FM * FK; idx += NT) {
-      const int r = idx / FK, kk = idx % FK, m = min(m0 + r, M - 1), k = k0 + kk;
-      float a = Nm::load(A, (size_t)m * K + k);
-      if (ln) a = Nm::rnd((a - mu[r]) * (rs[r] * ln[k]) + ln[K + k]);
-      As[kk][r] = a;
-      Ws[kk][r] = Nm::load(W, (size_t)(n0 + r) * K + k);   // FN == FM rows of W
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < FK; ++kk) {
-      float a[4], w[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) w[j] = Ws[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx + 16 * j;
-      const size_t o = (size_t)m * N + n;
-      float y = Nm::rnd(Nm::rnd(acc[i][j]) + Nm::rnd(bias[n]));
-      if (epi == EPI_BIAS_GELU)
-        y = Nm::rnd(0.5f * y * (1.f + erff(y * 0.70710678118654752f)));
-      else if (epi == EPI_BIAS_RES)
-        y = Nm::rnd(Nm::load(res, o) + y);
-      Nm::store(out, o, y);
-    }
-  }
-}
-
 // ---- bf16 products on wgmma -------------------------------------------------
-// The same function and epilogues as gemm_kernel. These products are long
+// out[m, n] = epi(sum_k A'[m, k] W[n, k]), A (M, K), W (N, K) row-major in
+// bf16; A' = A, or with ln != null the row LN of A with affine ln[0:K]
+// (weight), ln[K:2K] (bias), rounded to bf16. These products are long
 // and thin (M = 65,568 rows at 32 chunks against K, N of a few hundred): a
 // tile's k loop is only 3 to 48 steps and what a product moves (A in, out
 // back, the residual) weighs about as much as what it multiplies.
@@ -170,7 +94,8 @@ gemm_kernel(const T* __restrict__ A, const T* __restrict__ W,
 //   operand. A k step's four wgmma (m64nBNk16) stay in flight while the next
 //   step's fragments are read and normalised into the other half of a
 //   double-buffered register set.
-// - The epilogue rounds as gemm_kernel does. With a residual it parks the
+// - The epilogue rounds the product, adds the rounded bias, rounds (then
+//   GELU or the residual, rounded). With a residual it parks the
 //   tile in shared memory and reads the residual and writes the rows in
 //   16-byte pieces (measured 10% faster there, NVIDIA H100 80GB HBM3, 700 W);
 //   without one each thread writes its own bf16 pairs (parking measured
@@ -381,11 +306,10 @@ gemm_wgmma_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __re
 
 // Per-head LN of d values held by a warp (lane owns dd = lane + 32 j), f32
 // statistics, affine lw/lb, rounded; written to dst[dd].
-template <typename T>
 __device__ __forceinline__ void head_ln_store(float (&y)[MAXD / 32], int d,
                                               const float* lw, const float* lb,
-                                              T* dst) {
-  using Nm = Num<T>;
+                                              bf16* dst) {
+  using Nm = Num<bf16>;
   float s = 0.f, s2 = 0.f;
 #pragma unroll
   for (int j = 0; j < MAXD / 32; ++j) { s += y[j]; s2 += y[j] * y[j]; }
@@ -402,12 +326,11 @@ __device__ __forceinline__ void head_ln_store(float (&y)[MAXD / 32], int d,
 // q pool: depthwise (3,3,3) conv, stride 1, padding 1, over the (T, Hs, Ws)
 // grid of head h's q columns of qkv (B, N, 3C); the class token passes
 // through; per-head LN -> qp (B, N, C). One warp per (sample, token, head).
-template <typename T>
 __global__ void __launch_bounds__(NT)
-pool_q_kernel(const T* __restrict__ qkv, const float* __restrict__ taps,
-              const float* __restrict__ pln, T* qp, int B, int Tt, int hs, int ws,
+pool_q_kernel(const bf16* __restrict__ qkv, const float* __restrict__ taps,
+              const float* __restrict__ pln, bf16* qp, int B, int Tt, int hs, int ws,
               int C, int nh) {
-  using Nm = Num<T>;
+  using Nm = Num<bf16>;
   const int d = C / nh, S = hs * ws, N = 1 + Tt * S;
   const long long task = (long long)blockIdx.x * NWARP + threadIdx.x / 32;
   if (task >= (long long)B * N * nh) return;
@@ -415,7 +338,7 @@ pool_q_kernel(const T* __restrict__ qkv, const float* __restrict__ taps,
   const int n = (task / nh) % N;
   const int b = task / ((long long)nh * N);
   const int lane = threadIdx.x % 32;
-  const T* base = qkv + (size_t)b * N * 3 * C + h * d;
+  const bf16* base = qkv + (size_t)b * N * 3 * C + h * d;
   float y[MAXD / 32];
 #pragma unroll
   for (int j = 0; j < MAXD / 32; ++j) y[j] = 0.f;
@@ -436,7 +359,7 @@ pool_q_kernel(const T* __restrict__ qkv, const float* __restrict__ taps,
         for (int dj = 0; dj < 3; ++dj) {
           const int jj = jw + dj - 1;
           if (jj < 0 || jj >= ws) continue;
-          const T* src = base + (size_t)(1 + (tt * hs + ii) * ws + jj) * 3 * C;
+          const bf16* src = base + (size_t)(1 + (tt * hs + ii) * ws + jj) * 3 * C;
           const float* tp = taps + ((dt * 3 + di) * 3 + dj) * d;
 #pragma unroll
           for (int j = 0; j < MAXD / 32; ++j) {
@@ -449,7 +372,7 @@ pool_q_kernel(const T* __restrict__ qkv, const float* __restrict__ taps,
 #pragma unroll
     for (int j = 0; j < MAXD / 32; ++j) y[j] = Nm::rnd(y[j]);
   }
-  head_ln_store<T>(y, d, pln, pln + d, qp + ((size_t)b * N + n) * C + h * d);
+  head_ln_store(y, d, pln, pln + d, qp + ((size_t)b * N + n) * C + h * d);
 }
 
 // k / v pools: depthwise (3,3,3) conv, padding 1, with a spatial stride that
@@ -457,12 +380,11 @@ pool_q_kernel(const T* __restrict__ qkv, const float* __restrict__ taps,
 // {0, 1}^2 of the grid through kernel taps (i + 1, j + 1); per-head LN ->
 // kvp (2, B, nh, T + 1, d), the class token LAST. One warp per (k or v,
 // sample, head, output row).
-template <typename T>
 __global__ void __launch_bounds__(NT)
-pool_kv_kernel(const T* __restrict__ qkv, const float* __restrict__ taps,
-               const float* __restrict__ pln, T* kvp, int B, int Tt, int hs, int ws,
+pool_kv_kernel(const bf16* __restrict__ qkv, const float* __restrict__ taps,
+               const float* __restrict__ pln, bf16* kvp, int B, int Tt, int hs, int ws,
                int C, int nh) {
-  using Nm = Num<T>;
+  using Nm = Num<bf16>;
   const int d = C / nh, S = hs * ws, N = 1 + Tt * S;
   const long long task = (long long)blockIdx.x * NWARP + threadIdx.x / 32;
   if (task >= 2LL * B * nh * (Tt + 1)) return;
@@ -472,7 +394,7 @@ pool_kv_kernel(const T* __restrict__ qkv, const float* __restrict__ taps,
   rest /= nh;
   const int b = rest % B, which = rest / B;     // 0 k, 1 v
   const int lane = threadIdx.x % 32;
-  const T* base = qkv + (size_t)b * N * 3 * C + (1 + which) * C + h * d;
+  const bf16* base = qkv + (size_t)b * N * 3 * C + (1 + which) * C + h * d;
   const float* tw = taps + (size_t)(1 + which) * 27 * d;
   const float* lw = pln + (size_t)(1 + which) * 2 * d;
   float y[MAXD / 32];
@@ -490,7 +412,7 @@ pool_kv_kernel(const T* __restrict__ qkv, const float* __restrict__ taps,
       if (tt < 0 || tt >= Tt) continue;
       for (int i = 0; i < 2 && i < hs; ++i)
         for (int jw = 0; jw < 2 && jw < ws; ++jw) {
-          const T* src = base + (size_t)(1 + (tt * hs + i) * ws + jw) * 3 * C;
+          const bf16* src = base + (size_t)(1 + (tt * hs + i) * ws + jw) * 3 * C;
           const float* tp = tw + ((dt * 3 + i + 1) * 3 + jw + 1) * d;
 #pragma unroll
           for (int j = 0; j < MAXD / 32; ++j) {
@@ -502,13 +424,13 @@ pool_kv_kernel(const T* __restrict__ qkv, const float* __restrict__ taps,
 #pragma unroll
     for (int j = 0; j < MAXD / 32; ++j) y[j] = Nm::rnd(y[j]);
   }
-  head_ln_store<T>(y, d, lw, lw + d,
+  head_ln_store(y, d, lw, lw + d,
                    kvp + ((((size_t)which * B + b) * nh + h) * (Tt + 1) + r) * d);
 }
 
 // ---- bf16 pools with 16-byte loads -----------------------------------------
-// The same functions as pool_q_kernel / pool_kv_kernel for bf16 and a head
-// dim that is a multiple of 8: 16 lanes per task, a lane eight consecutive
+// The same functions as pool_q_kernel / pool_kv_kernel (which take the
+// other head dims) for a head dim that is a multiple of 8: 16 lanes per task, a lane eight consecutive
 // channels, so a tap is one 16-byte load per lane instead of d two-byte loads
 // spread over a warp. Taps accumulate in the same order as the scalar
 // kernels; the per-head LN reduces over the 16 lanes.
@@ -661,36 +583,26 @@ int launch_wgmma(const __nv_bfloat16* A, const __nv_bfloat16* W, const float2* s
   return (int)cudaGetLastError();
 }
 
-// out = epi(A' W^T): float32 on gemm_kernel (LN inside), bfloat16 on
-// gemm_wgmma_kernel with 192-column tiles where they divide N (else 64),
-// after ln_stats_kernel when A' is the LN of A.
-template <typename T>
+// out = epi(A' W^T) in bf16 on gemm_wgmma_kernel with 192-column tiles
+// where they divide N (else 64), after ln_stats_kernel when A' is the LN of A.
 int gemm(const void* A, const void* W, const float* ln, const float* bias,
          const void* res, void* out, void* stats, int M, int N, int K, int epi, cudaStream_t s) {
-  if constexpr (sizeof(T) == 2) {
-    const __nv_bfloat16* a = static_cast<const __nv_bfloat16*>(A);
-    const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(W);
-    const __nv_bfloat16* r = static_cast<const __nv_bfloat16*>(res);
-    __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
-    float2* st = static_cast<float2*>(stats);
-    if (ln) {
-      ln_stats_kernel<<<(M + NWARP - 1) / NWARP, NT, 0, s>>>(a, st, M, K);
-      if (int e = (int)cudaGetLastError()) return e;
-    }
-    // this block's products: LN without a residual (qkv, fc1), or a residual without LN
-#define AVDD_GEMM(BN)                                                                      \
-    return ln ? launch_wgmma<BN, true, false>(a, w, st, ln, bias, r, o, M, N, K, epi, s)   \
-              : launch_wgmma<BN, false, true>(a, w, st, ln, bias, r, o, M, N, K, epi, s)
-    if (N % 192 == 0) { AVDD_GEMM(192); }     // every production width
-    AVDD_GEMM(64);                            // any other C % 64 == 0
-#undef AVDD_GEMM
-  } else {
-    dim3 grid(N / FN, (M + FM - 1) / FM);
-    gemm_kernel<T><<<grid, NT, 0, s>>>(static_cast<const T*>(A), static_cast<const T*>(W),
-                                       ln, bias, static_cast<const T*>(res),
-                                       static_cast<T*>(out), M, N, K, epi);
-    return (int)cudaGetLastError();
+  const __nv_bfloat16* a = static_cast<const __nv_bfloat16*>(A);
+  const __nv_bfloat16* w = static_cast<const __nv_bfloat16*>(W);
+  const __nv_bfloat16* r = static_cast<const __nv_bfloat16*>(res);
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
+  float2* st = static_cast<float2*>(stats);
+  if (ln) {
+    ln_stats_kernel<<<(M + NWARP - 1) / NWARP, NT, 0, s>>>(a, st, M, K);
+    if (int e = (int)cudaGetLastError()) return e;
   }
+  // this block's products: LN without a residual (qkv, fc1), or a residual without LN
+#define AVDD_GEMM(BN)                                                                      \
+  return ln ? launch_wgmma<BN, true, false>(a, w, st, ln, bias, r, o, M, N, K, epi, s)     \
+            : launch_wgmma<BN, false, true>(a, w, st, ln, bias, r, o, M, N, K, epi, s)
+  if (N % 192 == 0) { AVDD_GEMM(192); }     // every production width
+  AVDD_GEMM(64);                            // any other C % 64 == 0
+#undef AVDD_GEMM
 }
 
 struct Block {   // the packed inputs, in MSBlockPacked's order, and scratch
@@ -698,49 +610,56 @@ struct Block {   // the packed inputs, in MSBlockPacked's order, and scratch
   const float* taps; const float* pool_ln; const float* rel_t;
   const void* wp; const float* bp; const float* ln2;
   const void* w1; const float* b1; const void* w2; const float* b2;
+  const float* wsplit;
   void* qkv; void* qp; void* kvp; void* ctx; void* y1; void* hid; void* stats; void* out;
+  int rel_rows;
 };
 
-// The launches of one block, in order; stops at the first CUDA error.
-template <typename T>
-int run(const Block& k, int B, int Tt, int hs, int ws, int C, int nh, int dtype, cudaStream_t s) {
+// float32: mvit_block_f32.cu's launches.
+int run_f32(const Block& k, int B, int Tt, int hs, int ws, int C, int nh, cudaStream_t s) {
+  avdd_mvit::BlockF32 f{static_cast<const float*>(k.x), k.ln1, k.bqkv, k.taps, k.pool_ln, k.bp,
+                        k.ln2, k.b1, k.b2, k.wsplit, static_cast<float*>(k.qkv),
+                        static_cast<float*>(k.qp), static_cast<float*>(k.kvp),
+                        static_cast<float*>(k.ctx), static_cast<float*>(k.y1),
+                        static_cast<float*>(k.hid), static_cast<float2*>(k.stats),
+                        static_cast<float*>(k.out), B, Tt, hs, ws, C, nh, k.rel_rows};
+  return avdd_mvit::msblock_f32(f, s);
+}
+
+// The launches of one bfloat16 block, in order; stops at the first CUDA error.
+int run_bf16(const Block& k, int B, int Tt, int hs, int ws, int C, int nh, cudaStream_t s) {
   const int S = hs * ws, N = 1 + Tt * S, M = B * N, d = C / nh;
   int e;
 #define AVDD_STEP(call) if ((e = (call))) return e
-  AVDD_STEP(gemm<T>(k.x, k.wqkv, k.ln1, k.bqkv, nullptr, k.qkv, k.stats, M, 3 * C, C, EPI_BIAS, s));
-  const T* qkv = static_cast<const T*>(k.qkv);
+  AVDD_STEP(gemm(k.x, k.wqkv, k.ln1, k.bqkv, nullptr, k.qkv, k.stats, M, 3 * C, C, EPI_BIAS, s));
+  const bf16* qkv = static_cast<const bf16*>(k.qkv);
+  bf16* qp = static_cast<bf16*>(k.qp);
+  bf16* kvp = static_cast<bf16*>(k.kvp);
   const long long q_tasks = (long long)M * nh, kv_tasks = 2LL * B * nh * (Tt + 1);
-  const bool vec = sizeof(T) == 2 && d % PV == 0;
-  if constexpr (sizeof(T) == 2) {
-    if (vec) {
-      const int per = NT / PL;     // tasks a block
-      pool_q_vec_kernel<<<(unsigned)((q_tasks + per - 1) / per), NT, 0, s>>>(
-          qkv, k.taps, k.pool_ln, static_cast<T*>(k.qp), B, Tt, hs, ws, C, nh);
-      AVDD_STEP((int)cudaGetLastError());
-      pool_kv_vec_kernel<<<(unsigned)((kv_tasks + per - 1) / per), NT, 0, s>>>(
-          qkv, k.taps, k.pool_ln, static_cast<T*>(k.kvp), B, Tt, hs, ws, C, nh);
-      AVDD_STEP((int)cudaGetLastError());
-    }
-  }
-  if (!vec) {
-    pool_q_kernel<T><<<(unsigned)((q_tasks + NWARP - 1) / NWARP), NT, 0, s>>>(
-        qkv, k.taps, k.pool_ln, static_cast<T*>(k.qp), B, Tt, hs, ws, C, nh);
+  if (d % PV == 0) {
+    const int per = NT / PL;     // tasks a block
+    pool_q_vec_kernel<<<(unsigned)((q_tasks + per - 1) / per), NT, 0, s>>>(
+        qkv, k.taps, k.pool_ln, qp, B, Tt, hs, ws, C, nh);
     AVDD_STEP((int)cudaGetLastError());
-    pool_kv_kernel<T><<<(unsigned)((kv_tasks + NWARP - 1) / NWARP), NT, 0, s>>>(
-        qkv, k.taps, k.pool_ln, static_cast<T*>(k.kvp), B, Tt, hs, ws, C, nh);
+    pool_kv_vec_kernel<<<(unsigned)((kv_tasks + per - 1) / per), NT, 0, s>>>(
+        qkv, k.taps, k.pool_ln, kvp, B, Tt, hs, ws, C, nh);
+  } else {
+    pool_q_kernel<<<(unsigned)((q_tasks + NWARP - 1) / NWARP), NT, 0, s>>>(
+        qkv, k.taps, k.pool_ln, qp, B, Tt, hs, ws, C, nh);
     AVDD_STEP((int)cudaGetLastError());
+    pool_kv_kernel<<<(unsigned)((kv_tasks + NWARP - 1) / NWARP), NT, 0, s>>>(
+        qkv, k.taps, k.pool_ln, kvp, B, Tt, hs, ws, C, nh);
   }
-  const T* kp = static_cast<const T*>(k.kvp);
-  const T* vp = kp + (size_t)B * nh * (Tt + 1) * d;
+  AVDD_STEP((int)cudaGetLastError());
+  const bf16* vp = kvp + (size_t)B * nh * (Tt + 1) * d;
   const int flags = PRESCALE | CLS_FIRST | BAND_TABLE | (S <= 4 ? BAND_ROUND : 0);
-  AVDD_STEP(avdd_pooled_attention(k.qp, kp, vp, nullptr, k.rel_t, k.ctx, B, nh, N, Tt + 1, d,
+  AVDD_STEP(avdd_pooled_attention(k.qp, kvp, vp, nullptr, k.rel_t, k.ctx, B, nh, N, Tt + 1, d,
                                   Tt, S, (long long)N * C, d, C, (long long)N * C, d, C,
-                                  1.f / sqrtf((float)d), flags, dtype, s, nullptr));
-  AVDD_STEP(gemm<T>(k.ctx, k.wp, nullptr, k.bp, k.x, k.y1, k.stats, M, C, C, EPI_BIAS_RES, s));
-  AVDD_STEP(gemm<T>(k.y1, k.w1, k.ln2, k.b1, nullptr, k.hid, k.stats, M, 4 * C, C,
-                    EPI_BIAS_GELU, s));
-  AVDD_STEP(gemm<T>(k.hid, k.w2, nullptr, k.b2, k.y1, k.out, k.stats, M, C, 4 * C, EPI_BIAS_RES,
-                    s));
+                                  1.f / sqrtf((float)d), flags, 1, s, nullptr, nullptr));
+  AVDD_STEP(gemm(k.ctx, k.wp, nullptr, k.bp, k.x, k.y1, k.stats, M, C, C, EPI_BIAS_RES, s));
+  AVDD_STEP(gemm(k.y1, k.w1, k.ln2, k.b1, nullptr, k.hid, k.stats, M, 4 * C, C, EPI_BIAS_GELU,
+                 s));
+  AVDD_STEP(gemm(k.hid, k.w2, nullptr, k.b2, k.y1, k.out, k.stats, M, C, 4 * C, EPI_BIAS_RES, s));
 #undef AVDD_STEP
   return 0;
 }
@@ -752,26 +671,32 @@ extern "C" {
 // One block on `stream`; returns the first CUDA error (0 = all launched).
 // x (B, 1 + T hs ws, C) and the four weights in the compute dtype (dtype 0
 // float32, 1 bfloat16), the other packed inputs f32; scratch: qkv (B, N, 3C),
-// qp, ctx, y1 (B, N, C), kvp (2, B, nh, T + 1, d), hid (B, N, 4C), stats
-// (B, N, 2) f32 (bfloat16 only: the LN row statistics); out (B, N, C). Takes
-// C % 64 == 0, head_dim <= 128, hs ws <= 16.
+// qp, ctx, y1 (B, N, C), kvp, hid (B, N, 4C), stats (B, N, 2) f32 (the LN
+// row statistics); out (B, N, C). kvp: bfloat16 (2, B, nh, T + 1, d);
+// float32 the split keys, the split transposed values and the class token's
+// k and v (mvit_block_f32.cu). float32 also takes wsplit: the four weights
+// and the table rel_t (rel_rows rows) split into TF32 parts (MSBlockPacked's
+// split); bfloat16 ignores it. Takes C % 64 == 0, head_dim <= 128 (float32:
+// a multiple of 4), hs ws <= 16.
 int avdd_msblock(const void* x, const void* ln1, const void* wqkv, const void* bqkv,
                  const void* taps, const void* pool_ln, const void* rel_t,
                  const void* wp, const void* bp, const void* ln2, const void* w1,
-                 const void* b1, const void* w2, const void* b2, void* qkv, void* qp,
-                 void* kvp, void* ctx, void* y1, void* hid, void* stats, void* out, int B,
-                 int T, int hs, int ws, int C, int nh, int dtype, void* stream) {
+                 const void* b1, const void* w2, const void* b2, const void* wsplit, void* qkv,
+                 void* qp, void* kvp, void* ctx, void* y1, void* hid, void* stats, void* out,
+                 int B, int T, int hs, int ws, int C, int nh, int rel_rows, int dtype,
+                 void* stream) {
   if (B <= 0 || T <= 0 || hs <= 0 || ws <= 0 || hs * ws > 16 || nh <= 0 || C % 64 ||
-      C % nh || C / nh > MAXD)
+      C % nh || C / nh > MAXD || (dtype == 0 && (!wsplit || (C / nh) % 4)))
     return (int)cudaErrorInvalidValue;
   Block k{x, static_cast<const float*>(ln1), wqkv, static_cast<const float*>(bqkv),
           static_cast<const float*>(taps), static_cast<const float*>(pool_ln),
           static_cast<const float*>(rel_t), wp, static_cast<const float*>(bp),
           static_cast<const float*>(ln2), w1, static_cast<const float*>(b1), w2,
-          static_cast<const float*>(b2), qkv, qp, kvp, ctx, y1, hid, stats, out};
+          static_cast<const float*>(b2), static_cast<const float*>(wsplit), qkv, qp, kvp, ctx,
+          y1, hid, stats, out, rel_rows};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return run<float>(k, B, T, hs, ws, C, nh, dtype, s);
-  if (dtype == 1) return run<__nv_bfloat16>(k, B, T, hs, ws, C, nh, dtype, s);
+  if (dtype == 0) return run_f32(k, B, T, hs, ws, C, nh, s);
+  if (dtype == 1) return run_bf16(k, B, T, hs, ws, C, nh, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -480,6 +480,64 @@ template <> struct WgmmaTf32SS<128> {
   }
 };
 
+// The same product with a from registers: each warp's 16 x 8 TF32 fragment,
+// thread (g, t) = (lane / 4, lane % 4) holding a[0] = A[g][t], a[1] =
+// A[g + 8][t], a[2] = A[g][t + 4], a[3] = A[g + 8][t + 4] (mma.m16n8k8's
+// A layout) of the warp's rows. b as WgmmaTf32SS. Widths: 32, 48, 64 (the
+// float32 MViT attention's P.V, a head width or part of one).
+template <int N> struct WgmmaTf32RS;
+template <> struct WgmmaTf32RS<32> {
+  __device__ __forceinline__ static void run(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+template <> struct WgmmaTf32RS<64> {
+  __device__ __forceinline__ static void run(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+template <> struct WgmmaTf32RS<48> {
+  __device__ __forceinline__ static void run(float (&d)[24], const uint32_t (&a)[4], uint64_t b,
+                                             int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        " %16, %17, %18, %19, %20, %21, %22, %23"
+        "}, {%24, %25, %26, %27}, %28, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  }
+};
+
 // x rounded to TF32 (10 mantissa bits, to nearest, ties away from zero), as
 // an f32 bit pattern the tf32 products take; x - tf32_rna(x) is exact in f32.
 __device__ __forceinline__ uint32_t tf32_rna(float x) {
@@ -589,6 +647,114 @@ __device__ __forceinline__ void regs_inc() {
 __device__ __forceinline__ void bar_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
 }
+
+// ---- the float32 GEMM mainloop: 3xTF32 on wgmma (K1 and K4 in f32) ----------
+// A block of two consumer warpgroups (64 rows each, so 128 rows) and a
+// producer warp (THREADS = 288) sums A[m, k] W[n, k] over k for a 128 x BN
+// tile, f32 operands split into a TF32 high part and residual (hi.hi +
+// hi.lo + lo.hi). W (N, K) arrives as hi and lo parts split beforehand;
+// A (M, K) arrives split too (A_SPLIT: hi and lo tiles) or as f32, which
+// each consumer warpgroup splits in shared memory (hi in place, lo into a
+// tile of its own) through the caller's prep. The producer's TMA brings
+// each 32-deep slice (one 128-byte swizzled row per operand row; a k8 step
+// is 32 bytes) into a ring of STAGES stages, each guarded by a full barrier
+// the TMA completes and an empty one both warpgroups arrive on. Per stage
+// each warpgroup issues hi.lo, lo.hi, then hi.hi (m64nBNk8, both operands
+// in shared memory) into a per-stage sum that f32 adds into the
+// accumulators: the tensor cores' own f32 accumulation truncates, and over
+// a whole contraction (3 x 128 steps at K = 1024) that drifts ~20x further
+// from the exact product than an f32 sum does; per stage it does not.
+template <int BN, int STAGES, bool A_SPLIT>
+struct Tf32Gemm {
+  static constexpr int ROWS = 128, KS = 32, THREADS = 288;
+  static constexpr int A_BYTES = ROWS * 128, W_BYTES = BN * 128;
+  static constexpr int STAGE = (A_SPLIT ? 2 : 1) * A_BYTES + 2 * W_BYTES;
+  static constexpr int LO = A_SPLIT ? 0 : 2 * 64 * 128;   // the consumers' A lo tiles
+  static constexpr int SMEM = 1024 + STAGES * STAGE + LO + 16 * STAGES;
+  static_assert(SMEM <= SMEM_MAX, "shared memory");
+
+  __device__ __forceinline__ static uint32_t full(uint32_t base) {
+    return base + STAGES * STAGE + LO;
+  }
+  __device__ __forceinline__ static uint32_t empty(uint32_t base) {
+    return full(base) + 8 * STAGES;
+  }
+
+  // Every thread of the block: the barriers, then __syncthreads.
+  __device__ __forceinline__ static void init(uint32_t base) {
+    if (threadIdx.x == 0) {
+      for (int s = 0; s < STAGES; ++s) {
+        mbar_init(full(base) + 8 * s, 1);
+        mbar_init(empty(base) + 8 * s, 2);   // one arrival from each consumer warpgroup
+      }
+      mbar_init_fence();
+    }
+    __syncthreads();
+  }
+
+  // One producer thread: nk slices of A's rows m0.. (columns from acol)
+  // and W's rows n0.. (alo unused unless A_SPLIT).
+  __device__ __forceinline__ static void produce(uint32_t base, const CUtensorMap* a,
+                                                 const CUtensorMap* alo, const CUtensorMap* whi,
+                                                 const CUtensorMap* wlo, int acol, int m0,
+                                                 int n0, int nk) {
+    for (int kb = 0; kb < nk; ++kb) {
+      const int s = kb % STAGES;
+      if (kb >= STAGES) mbar_wait(empty(base) + 8 * s, (kb / STAGES - 1) & 1);
+      const uint32_t st = base + s * STAGE, bar = full(base) + 8 * s;
+      const uint32_t w = st + (A_SPLIT ? 2 : 1) * A_BYTES;
+      mbar_expect_tx(bar, STAGE);
+      tma_load_2d(st, a, acol + kb * KS, m0, bar);
+      if (A_SPLIT) tma_load_2d(st + A_BYTES, alo, acol + kb * KS, m0, bar);
+      tma_load_2d(w, whi, kb * KS, n0, bar);
+      tma_load_2d(w + W_BYTES, wlo, kb * KS, n0, bar);
+    }
+  }
+
+  // Consumer warpgroup wg: acc = its 64 rows of the tile (wgmma's m64nBN
+  // layout). Unless A_SPLIT, prep(kb, hi, lo) first splits the warpgroup's
+  // 64 x 32 f32 slice at hi (in place) and into lo; the fence and the
+  // warpgroup's barrier follow it here.
+  template <class Prep>
+  __device__ __forceinline__ static void consume(uint32_t base, int wg, int nk,
+                                                 float (&acc)[BN / 2], Prep&& prep) {
+    float part[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+#pragma unroll 1
+    for (int kb = 0; kb < nk; ++kb) {
+      const int s = kb % STAGES;
+      mbar_wait(full(base) + 8 * s, (kb / STAGES) & 1);
+      const uint32_t ah = base + s * STAGE + wg * (64 * 128);
+      const uint32_t al = A_SPLIT ? ah + A_BYTES : base + STAGES * STAGE + wg * (64 * 128);
+      if constexpr (!A_SPLIT) {
+        prep(kb, ah, al);
+        fence_async_shared();
+        bar_sync(1 + wg, 128);         // this warpgroup's hi and lo tiles are whole
+      }
+      const uint32_t wh = base + s * STAGE + (A_SPLIT ? 2 : 1) * A_BYTES, wl = wh + W_BYTES;
+      fence_regs(part);
+      wgmma_fence();
+      // the small products first, while the sum is small: each step's
+      // truncation is an ulp of the sum so far
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        WgmmaTf32SS<BN>::run(part, tile_desc(ah + 32 * kk), tile_desc(wl + 32 * kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        WgmmaTf32SS<BN>::run(part, tile_desc(al + 32 * kk), tile_desc(wh + 32 * kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        WgmmaTf32SS<BN>::run(part, tile_desc(ah + 32 * kk), tile_desc(wh + 32 * kk), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(part);
+      if (threadIdx.x % 128 == 0) mbar_arrive(empty(base) + 8 * s);   // the stage is read
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) acc[i] += part[i];
+    }
+  }
+};
 
 // ---- host: tensor maps ------------------------------------------------------
 using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

@@ -3,8 +3,10 @@
 Route: ``nvcc -gencode arch=compute_90a,code=sm_90a -shared`` over
 ``csrc/*.cu`` (K1 and K6 fused_block with fused_block_any,
 fused_block_any_qkv, fused_block_attend, fused_block_f32 and
-fused_block_f32_attend, six translation units over fused_block.cuh; K2 patch_embed, K3 mvit_attention,
-K4 mvit_block with its attention step in mvit_attention, K5
+fused_block_f32_attend, six translation units over fused_block.cuh; K2 patch_embed, K3 mvit_attention
+with its float32 route in mvit_attention_f32, K4 mvit_block with its
+attention step in mvit_attention and its float32 launches in
+mvit_block_f32, the two f32 units over mvit_f32.cuh; K5
 conv_extractor, K7 band_attention, K8 full_attention; headers common.cuh
 and, for the wgmma kernels of K1 (both dtypes), K2, K3, K4, K5 and K8,
 wgmma.cuh) into one shared library with a plain C interface (no PyTorch headers, so a build takes seconds). The
@@ -120,10 +122,13 @@ def load() -> ctypes.CDLL:
                 i, i, i, i, i, i, i,                   # B nh nq nk d T S
                 q, q, q, q, q, q,                      # q and out strides
                 ctypes.c_float, i, i, p,               # scale flags dtype stream
+                p,                                     # f32 scratch or null
                 ctypes.POINTER(i),                     # the kernel launched
             ]
+            lib.avdd_pooled_attention_scratch.restype = q
+            lib.avdd_pooled_attention_scratch.argtypes = [i, i, i, i, i]   # BH nk d flags dtype
             lib.avdd_msblock.restype = i
-            lib.avdd_msblock.argtypes = [p] * 22 + [i] * 7 + [p]
+            lib.avdd_msblock.argtypes = [p] * 23 + [i] * 8 + [p]
             lib.avdd_conv_extractor.restype = i
             lib.avdd_conv_extractor.argtypes = [p] * 12 + [i] * 3 + [p]
             lib.avdd_full_mha.restype = i

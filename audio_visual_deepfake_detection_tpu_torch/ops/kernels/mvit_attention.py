@@ -24,7 +24,12 @@ once before the residual add.
 
 A CUDA tensor on an sm_90 card launches ``csrc/mvit_attention.cu``
 (replacing ``fused_pooled_attention``, ``pallas_call`` at
-``mvit_attention.py:103``), a CPU tensor runs the plain version.
+``mvit_attention.py:103``), a CPU tensor runs the plain version. In float32
+the kernel's products are 3xTF32 on the tensor cores
+(``csrc/mvit_attention_f32.cu``): it splits k, v and the table into TF32
+parts in a scratch the wrapper allocates, so every product is summed in f32
+from them, and its softmax is online; it differs from the plain version by
+f32 rounding only.
 """
 
 from __future__ import annotations
@@ -39,7 +44,8 @@ from ..mvit_math import fmatmul, softmax_pv, toeplitz_band
 
 MAX_HEAD_DIM = 128
 BAND_ROUND, BAND_TABLE = 2, 8           # csrc/mvit_attention.cu flags
-ROUTE_NAMES = ("fma", "wgmma, band given", "wgmma, band from the table")
+ROUTE_NAMES = ("fma", "wgmma, band given", "wgmma, band from the table",
+               "wgmma 3xTF32, band given", "wgmma 3xTF32, band from the table")
 
 # kernel launches since the last reset (CPU calls and plain runs never count),
 # and by the kernel the C entry reports it took (ROUTE_NAMES)
@@ -154,6 +160,13 @@ def fused_pooled_attention(q, k, v, band, scale: float) -> torch.Tensor:
     return out[0]
 
 
+def _aligned(a) -> bool:
+    """a's data starts on 16 bytes and its outer strides are multiples of
+    four elements (a float32 tensor with a unit last stride)."""
+    return a.data_ptr() % 16 == 0 and a.stride(-1) == 1 and all(
+        st % 4 == 0 for st in a.stride()[:-1])
+
+
 def _launch(q, k, v, band, rel, out, t, s, scale, flags):
     """The C entry of ``csrc/mvit_attention.cu`` on q and out (B, nh, Nq, d)
     through their strides (``mvit_block.cu`` drives the same entry with K4's
@@ -164,17 +177,32 @@ def _launch(q, k, v, band, rel, out, t, s, scale, flags):
     b, nh, ng, d = q.shape
     if b * nh == 0 or ng == 0:
         return
+    dst = out
+    if q.dtype == torch.float32 and d % 4 == 0:
+        # the tensor-core route reads and writes 16-byte pieces: copy any
+        # operand it cannot take so (the C entry refuses them)
+        q, k, v, rel = (a if a is None or _aligned(a)
+                        else a.clone(memory_format=torch.contiguous_format)
+                        for a in (q, k, v, rel))
+        if not _aligned(out):
+            dst = torch.empty(out.shape, dtype=out.dtype, device=out.device)
     lib = load()
     ptr = lambda a: ctypes.c_void_p(None if a is None else a.data_ptr())  # noqa: E731
     route = ctypes.c_int(-1)
+    dtype = 0 if q.dtype == torch.float32 else 1
+    # float32: the split operands of the tensor-core route (0 bytes otherwise)
+    nbytes = lib.avdd_pooled_attention_scratch(b * nh, k.shape[1], d, flags, dtype)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=q.device) if nbytes else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.avdd_pooled_attention(
-            ptr(q), ptr(k), ptr(v), ptr(band), ptr(rel), ptr(out),
-            b, nh, ng, k.shape[1], d, t, s, *q.stride()[:3], *out.stride()[:3],
-            ctypes.c_float(scale), flags, 0 if q.dtype == torch.float32 else 1,
-            ctypes.c_void_p(stream), ctypes.byref(route))
+            ptr(q), ptr(k), ptr(v), ptr(band), ptr(rel), ptr(dst),
+            b, nh, ng, k.shape[1], d, t, s, *q.stride()[:3], *dst.stride()[:3],
+            ctypes.c_float(scale), flags, dtype, ctypes.c_void_p(stream), ptr(scratch),
+            ctypes.byref(route))
     if err != 0:
         raise RuntimeError(f"pooled attention kernel launch failed: CUDA error {err}")
+    if dst is not out:
+        out.copy_(dst)
     LAUNCHES += 1
     ROUTES[ROUTE_NAMES[route.value]] += 1

@@ -27,19 +27,25 @@ keeps torch's (out, in) weights and per-head (27, d) taps.
 
 In bfloat16 the kernel's four products run on ``wgmma`` from those (out, in)
 weights as they are (rows along the contraction are what its shared-memory
-operand wants), so the packing has no layout of its own for the card.
+operand wants), so the packing has no layout of its own for the card. In
+float32 they run in 3xTF32 (``csrc/mvit_block_f32.cu``): the packing adds
+``split``, the four weights and the temporal table split once into TF32
+high parts and residuals (``tf32_split``, the table's head dim padded to a
+multiple of 32), which the kernel reads instead of splitting them on every
+call; ``msblock_math`` keeps to the f32 weights.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from ...core.runtime import use_kernel
 from ..mvit_math import dense, fmatmul, gelu, layer_norm, softmax_pv, token_pool, toeplitz_band
+from .fused_block import tf32_split
 
 MAX_SPATIAL = 16     # the port's gate takes stage 2 (S = 16) too
 MAX_HEAD_DIM = 128
@@ -70,11 +76,30 @@ class MSBlockPacked(NamedTuple):
     b1: torch.Tensor        # (4C,)
     w2: torch.Tensor        # (C, 4C)
     b2: torch.Tensor        # (C,)
+    # float32 only: wqkv, wp, w1, w2 and rel_t (padded to head_width(d)
+    # columns) split, each hi then lo, flat f32 (split_weights); else None
+    split: Optional[torch.Tensor] = None
+
+
+def head_width(d: int) -> int:
+    """The f32 kernel's padded head dim: a multiple of 32."""
+    return -(-d // 32) * 32
+
+
+def split_weights(wqkv, wp, w1, w2, rel_t) -> torch.Tensor:
+    """The f32 kernel's TF32 operands of the four weights and the table, in
+    one flat f32 buffer: each tensor's hi then its lo (``tf32_split``), the
+    table (R, d) zero-padded to (R, head_width(d))."""
+    d = rel_t.shape[1]
+    rel = F.pad(rel_t.float(), (0, head_width(d) - d))
+    return torch.cat([part.reshape(-1) for w in (wqkv, wp, w1, w2, rel)
+                      for part in tf32_split(w.float())])
 
 
 def pack_msblock_params(params, n_head: int, cdtype) -> MSBlockPacked:
     """A MultiscaleBlock's torchvision-named parameters (``norm1.weight``,
-    ``attn.qkv.weight``, ``attn.pool_q.pool.weight``, ...) -> kernel inputs."""
+    ``attn.qkv.weight``, ``attn.pool_q.pool.weight``, ...) -> kernel inputs
+    (in float32 with ``split``)."""
     def f32(name):
         return params[name].detach().float().contiguous()
 
@@ -91,7 +116,7 @@ def pack_msblock_params(params, n_head: int, cdtype) -> MSBlockPacked:
     pool_ln = torch.stack([torch.stack([f32(f"attn.pool_{w}.norm_act.0.weight"),
                                         f32(f"attn.pool_{w}.norm_act.0.bias")])
                            for w in "qkv"]).contiguous()
-    return MSBlockPacked(
+    packed = MSBlockPacked(
         ln1=torch.stack([f32("norm1.weight"), f32("norm1.bias")]),
         wqkv=mat("attn.qkv.weight"), bqkv=f32("attn.qkv.bias"),
         taps=taps, pool_ln=pool_ln,
@@ -100,6 +125,10 @@ def pack_msblock_params(params, n_head: int, cdtype) -> MSBlockPacked:
         ln2=torch.stack([f32("norm2.weight"), f32("norm2.bias")]),
         w1=mat("mlp.0.weight"), b1=f32("mlp.0.bias"),
         w2=mat("mlp.3.weight"), b2=f32("mlp.3.bias"))
+    if cdtype != torch.float32:
+        return packed
+    return packed._replace(split=split_weights(packed.wqkv, packed.wp, packed.w1, packed.w2,
+                                               packed.rel_t))
 
 
 # -------------------------------------------------------------- plain math
@@ -157,23 +186,38 @@ def _launch(x, p, t, hs, ws, n_head):
     if d > MAX_HEAD_DIM or d % 4 or c % 64:
         raise ValueError(f"multiscale block kernel takes C % 64 == 0 and head_dim "
                          f"<= {MAX_HEAD_DIM} (multiple of 4); got C={c}, d={d}")
+    cd = x.dtype
+    f32 = cd == torch.float32
     for name, a in zip(MSBlockPacked._fields, p):
+        if name == "split":
+            want = (24 * c * c + 2 * p.rel_t.shape[0] * head_width(d),) if f32 else None
+            if (a is None) != (want is None) or (a is not None and (
+                    tuple(a.shape) != want or a.dtype != torch.float32
+                    or a.device != x.device or not a.is_contiguous())):
+                raise ValueError(f"packed split: expected {want} f32 on {x.device}, got "
+                                 f"{None if a is None else (tuple(a.shape), a.dtype)}")
+            continue
         if a.device != x.device or not a.is_contiguous():
             raise ValueError(f"packed {name} must be contiguous on {x.device}")
-        if a.dtype != (x.dtype if name in ("wqkv", "rel_t", "wp", "w1", "w2") else torch.float32):
+        if a.dtype != (cd if name in ("wqkv", "rel_t", "wp", "w1", "w2") else torch.float32):
             raise ValueError(f"packed {name} has dtype {a.dtype}")
-    cd = x.dtype
     out = torch.empty((b, n, c), dtype=cd, device=x.device)
     if b == 0:
         return out
     # scratch the launches hand to one another, carved from one allocation
     # (a call's host time is what a small batch waits for), in the kernel's
-    # argument order: qkv (b, n, 3c), qp (b, n, c), kvp (2, b, nh, t + 1, d),
-    # ctx, y1 (b, n, c), hid (b, n, 4c) in the compute dtype, then the LN row
-    # statistics (b, n, 2) f32
-    rows, es = b * n, x.element_size()
-    sizes = [rows * 3 * c * es, rows * c * es, 2 * b * n_head * (t + 1) * d * es,
-             rows * c * es, rows * c * es, rows * 4 * c * es, rows * 2 * 4]
+    # argument order: qkv (b, n, 3c), qp (b, n, c), kvp, ctx, y1 (b, n, c),
+    # hid (b, n, 4c) in the compute dtype, then the LN row statistics (b, n,
+    # 2) f32. kvp: bf16 the pooled k and v (2, b, nh, t + 1, d); f32 k split
+    # (2, b nh, t, w), v split and transposed (2, b nh, w, tp) and the class
+    # token's k and v (2, b nh, d), w = head_width(d), tp = t rounded up to 32
+    rows, es, bhn = b * n, x.element_size(), b * n_head
+    kvp = 2 * bhn * (t + 1) * d * es
+    if f32:
+        w, tp = head_width(d), -(-t // 32) * 32
+        kvp = 4 * (2 * bhn * t * w + 2 * bhn * w * tp + 2 * bhn * d)
+    sizes = [rows * 3 * c * es, rows * c * es, kvp, rows * c * es, rows * c * es,
+             rows * 4 * c * es, rows * 2 * 4]
     offsets = [0]
     for size in sizes:
         offsets.append(offsets[-1] + (size + 255) // 256 * 256)
@@ -184,9 +228,9 @@ def _launch(x, p, t, hs, ws, n_head):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.avdd_msblock(
-            ptr(x), *(ptr(a) for a in p), *(ctypes.c_void_p(base + o) for o in offsets[:-1]),
-            ptr(out), b, t, hs, ws, c, n_head, 0 if cd == torch.float32 else 1,
-            ctypes.c_void_p(stream))
+            ptr(x), *(ptr(a) for a in p[:-1]), ctypes.c_void_p(p.split.data_ptr() if f32 else None),
+            *(ctypes.c_void_p(base + o) for o in offsets[:-1]), ptr(out), b, t, hs, ws, c,
+            n_head, p.rel_t.shape[0], 0 if f32 else 1, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"multiscale block kernel launch failed: CUDA error {err}")
     LAUNCHES += 1

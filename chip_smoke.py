@@ -36,9 +36,10 @@ Phases (any failure exits nonzero):
              features, K3 also with a dominant class key; K2's uint8 entry
              and K3's table entry also
              at the 32 chunks the main path hands them (f32 and bf16), K4's
-             three geometries there in bf16; then the launches inside one K4
-             call at 32 chunks one by one (kernel events of a trace) and the
-             whole call's time;
+             three geometries there in both dtypes; every f32 K3 call on
+             its 3xTF32 route; then the launches inside one K4 call at 32
+             chunks one by one (kernel events of a trace) and the whole
+             call's time, bf16 and f32;
 6. audio kernels - K5 (Emotion2Vec conv extractor) against its plain version
              at B = 2, 16 and 64 on a 9.6 s wav and one with an odd tail,
              f32 and bf16, K8 (full
@@ -50,8 +51,11 @@ Phases (any failure exits nonzero):
              512 frames: shape, finiteness, each kernel's launch count, every
              K3 launch the wgmma kernel with the band from the table (K3's
              band-array entry and K2's f32-frame entry raise meanwhile, so
-             K2 ran its uint8 entry); f32 on a 32-frame chunk, card against
-             the CPU plain path;
+             K2 ran its uint8 entry); f32 (cli/extract_features.py's
+             default) on 32 chunks: the same launch counts, every K3 launch
+             the 3xTF32 wgmma kernel, finite, the kernels against the same
+             model's plain versions on the card (atol 1e-4, rtol 5e-4); f32
+             on a 32-frame chunk, card against the CPU plain path;
 8. audio   - BYOL-A and Emotion2Vec at full width and depth (12 AltBlocks),
              bf16, 16 wavs of 9.6 s through FeatureExtractor: shapes,
              finiteness, K5 once and K8 twelve times; f32 on a padded pair of
@@ -76,8 +80,9 @@ Phases (any failure exits nonzero):
              the unbroken files. Where cv2 imports: 32 cv2-written 224x224
              mp4s through run_media_pipeline (host resize, submission files
              and mAP), 8 of them through cli/extract_features.py (cache rows,
-             bit-equal to extract_all) and cli/inference.py over those
-             caches. Then the host soft-NMS over one B=16 batch's pre-NMS
+             bit-equal to extract_all; then again with no --dtype, f32 as
+             shipped: launches, K3's route, rows, videos/s) and
+             cli/inference.py over those caches. Then the host soft-NMS over one B=16 batch's pre-NMS
              candidates against the device loop (1e-5);
 10. k6     - the training forward K6 (K1's kernel with per-sample droppath
              coefficients) at every production block shape at the training
@@ -129,7 +134,11 @@ Phases (any failure exits nonzero):
              K1 / K6 in float32 (the dtype of every shipped YAML): the 18
              production blocks at B = 16, 64, 512 and K6 at B=50, device
              ms beside the plain version and the bound at 67 TFLOP/s, and
-             K7's 17 f32 launches of an unfused forward;
+             K7's 17 f32 launches of an unfused forward; the frontends'
+             kernels in float32 (f32_frontend_times: K4's 18 blocks at 32
+             chunks, K3 and K2 at 2 and 32 chunks, K5 and K8 at B = 16 and
+             64, beside plain, the bounds at 67 and 165 TFLOP/s and the
+             library call) and MViT-v2-b f32 chunks/s at 32 chunks;
 14. offline - the offline sweep from feature caches to submission files
              and mAP through the port's CLIs (cli/inference.py,
              generate_results.py, validate.py) in this process:
@@ -819,8 +828,9 @@ def k1_f32_times(smi, dev="cuda", batches=F32_BATCHES, train_b=None):
     and at the training batch with droppath coefficients (K6), each block's
     kernel and its plain version alone on the card (``device_ms``: a CUDA
     graph replayed between two events), summed over the blocks, beside the
-    bound at the CUDA cores' f32 rate (PEAK_F32) and at the kernel's own
-    3xTF32 rate (PEAK_3XTF32, ``bound_3xtf32_ms``); the plain version through
+    bound at its route's rate, 3xTF32 on the tensor cores (PEAK_3XTF32,
+    ``bound_ms``), and at the CUDA cores' f32 FMA rate (PEAK_F32,
+    ``bound_fma_ms``); the plain version through
     CUDA events (its q scale is a host tensor, which a graph cannot take).
     Returns {"K1": {B: ...}, "K6": {B: ...}, "K7": {B: ...}}."""
     import torch
@@ -852,16 +862,16 @@ def k1_f32_times(smi, dev="cuda", batches=F32_BATCHES, train_b=None):
                                  device_ms=k_ms, plain_ms=p_ms))
                 del x, xo, mask, packed
                 torch.cuda.empty_cache()
-            bnd = bound_sum(works, PEAK_F32)
-            b3 = bound_sum(works, PEAK_3XTF32)
+            bnd = bound_sum(works, PEAK_3XTF32)
+            fma = bound_sum(works, PEAK_F32)
             out.setdefault(kname, {})[str(b)] = dict(device_ms=k_tot, plain_ms=p_tot,
                                                      bound_ms=bnd[0], bound_by=bnd[1],
-                                                     bound_3xtf32_ms=b3[0],
-                                                     bound_3xtf32_by=b3[1], per_shape=rows)
+                                                     bound_fma_ms=fma[0], bound_fma_by=fma[1],
+                                                     per_shape=rows)
             log(f"time {kname} f32 B={b}: the 18 blocks of one forward, kernels alone "
-                f"{k_tot:.3f} ms, plain {p_tot:.3f} ms, bound at PEAK_F32 {bnd[0]:.3f} ms "
-                f"({bnd[1]}), {100 * bnd[0] / k_tot:.1f}% of it; at PEAK_3XTF32 "
-                f"{b3[0]:.3f} ms ({b3[1]}), {100 * b3[0] / k_tot:.1f}% ({smi})")
+                f"{k_tot:.3f} ms, plain {p_tot:.3f} ms, bound at PEAK_3XTF32 (its route) "
+                f"{bnd[0]:.3f} ms ({bnd[1]}), {100 * bnd[0] / k_tot:.1f}% of it; at PEAK_F32 "
+                f"{fma[0]:.3f} ms ({fma[1]}), {100 * fma[0] / k_tot:.1f}% ({smi})")
         # K7: the 17 launches of the unfused f32 forward that dropout > 0 takes
         calls = {768: 8, 384: 2, 192: 2, 96: 2, 48: 2, 24: 1}
         k_tot = p_tot = 0.0
@@ -1188,17 +1198,19 @@ def run_patch(which, video, w, bias, dtype):
     return (k2.patch_embed_u8_math if u8 else k2.patch_embed_math)(video, w, bias, dtype)
 
 
-def conv3d_library(video, w, bias):
-    """K2's function as one PyTorch call: cuDNN's bf16 conv3d on the
-    channels-first bf16 copy of the same (normalized) frames, made here."""
+def conv3d_library(video, w, bias, dtype=None):
+    """K2's function as one PyTorch call: cuDNN's conv3d (bf16, or ``dtype``;
+    f32 with TF32 off) on the channels-first copy of the same (normalized)
+    frames, made here."""
     import torch
     import torch.nn.functional as F
     from audio_visual_deepfake_detection_tpu_torch.ops.kernels import patch_embed as k2
 
+    dtype = torch.bfloat16 if dtype is None else dtype
     x = k2.normalize_u8(video) if video.dtype == torch.uint8 else video
-    xc = x.permute(0, 4, 1, 2, 3).to(torch.bfloat16).contiguous()
+    xc = x.permute(0, 4, 1, 2, 3).to(dtype).contiguous()
     del x
-    wb, bb = w.to(torch.bfloat16), bias.to(torch.bfloat16)
+    wb, bb = w.to(dtype), bias.to(dtype)
     return lambda: F.conv3d(xc, wb, bb, stride=(1, 12, 12), padding=(1, 3, 3))
 
 
@@ -1264,8 +1276,8 @@ def phase_mvit_kernels(dev="cuda", group=32):
     rtol 5e-4) and bf16 (check_bf16; K3 by check_k3), with the entries the
     main path no longer calls (K2 on f32 frames, K3 with the band given),
     K2 at K2_WIDTHS and K3 with a dominant class key; K2's uint8
-    entry and K3's table entry also at the ``group`` chunks the main path
-    hands them, f32 and bf16, and K4's three geometries there in bf16."""
+    entry, K3's table entry and K4's three geometries also at the ``group``
+    chunks the main path hands them, f32 and bf16."""
     import torch
 
     worst, rows = {}, []
@@ -1278,19 +1290,29 @@ def phase_mvit_kernels(dev="cuda", group=32):
                        lambda dt, a=(hw, c, nh): msblock_case(*a, dt, dev, b=group),
                        lambda which, blk, x, a=(hw, nh): run_msblock(
                            which, blk, x, VIDEO_T, a[0], a[1]), None),
-                      (torch.bfloat16,)))
+                      both))
     # no production width: C = 128 (64-column product tiles beside the 192
     # ones) with head dim 64 (the attention step's head-dim-64 instantiation)
     cases.append((("multiscale_block", "S=4 C=128 heads=2 (64-column tiles, head dim 64)", 0,
                    lambda dt: msblock_case((2, 2), 128, 2, dt, dev),
                    lambda which, blk, x: run_msblock(which, blk, x, VIDEO_T, (2, 2), 2), None),
                   both))
+    from audio_visual_deepfake_detection_tpu_torch.ops.kernels import mvit_attention as k3
+
+    on_card = torch.device(dev).type == "cuda"
     for (kname, label, _, make, run, _), dtypes in cases:
         for dtype in dtypes:
             args = make(dtype)
-            got, ref = run("kernel", *args), run("plain", *args)
+            k3.reset_launches()
+            got = run("kernel", *args)
+            routes = dict(k3.ROUTES)
+            ref = run("plain", *args)
             sync(dev)
             dname = str(dtype).split(".")[-1]
+            # every f32 K3 call at these head dims takes the 3xTF32 route
+            if kname == "pooled_attention" and dtype == torch.float32 and on_card and \
+                    routes != {k3.ROUTE_NAMES[4 if run is run_k3 else 3]: 1}:
+                fail(f"K3 f32 {label}: routes {routes}")
             if dtype == torch.float32:
                 err, ok = check_f32(got, ref)
                 rule = "atol 1e-4 rtol 5e-4"
@@ -1309,6 +1331,22 @@ def phase_mvit_kernels(dev="cuda", group=32):
                 fail(f"{kname} disagrees with its plain version: {label} {dname}")
             del args, got, ref
         torch.cuda.empty_cache()
+    if on_card:
+        # f32 q off 16 bytes: the wrapper copies it, the tensor-core route
+        # runs (the C entry refuses such operands)
+        name, heads, s_cells, d, rnd, _ = K3_SHAPES[-1]
+        qf, k, v, rel = k3_case(2, heads, s_cells, d, rnd, torch.float32, dev)[:4]
+        q_off = torch.empty(qf.numel() + 1, device=dev)[1:].view(qf.shape).copy_(qf)
+        want = run_k3("kernel", qf, k, v, rel, s_cells, rnd)
+        k3.reset_launches()
+        got = run_k3("kernel", q_off, k, v, rel, s_cells, rnd)
+        routes = dict(k3.ROUTES)
+        err, ok = check_f32(got, run_k3("plain", qf, k, v, rel, s_cells, rnd))
+        log(f"pooled_attention f32 {name}, q 4 bytes off 16: routes {routes}, max|d| {err:.3e} "
+            f"[atol 1e-4 rtol 5e-4], bit for bit the aligned call's: {torch.equal(got, want)}")
+        if routes != {k3.ROUTE_NAMES[4]: 1} or not ok:
+            fail(f"K3 f32 with a misaligned q: routes {routes}, max|d| {err:.3e}")
+        del qf, k, v, rel, q_off, want, got
     REPORT["mvit_kernels"] = rows
     return worst
 
@@ -1337,36 +1375,37 @@ def kernel_events(fn, calls):
     return [(e.name, e.time_range.elapsed_us()) for e in events]
 
 
-def k4_launch_table(smi, dev="cuda", group=32, calls=3):
+def k4_launch_table(smi, dev="cuda", group=32, calls=3, dtype="bfloat16"):
     """Device time of each launch inside one fused_multiscale_block call, per
-    production geometry at the ``group`` chunks the main path runs, bf16:
-    ``calls`` calls are traced and each launch's kernel events averaged by
-    their place in the call; the whole call is timed apart, replayed as a
-    CUDA graph (device_ms), with its TFLOP/s over k4_work. Says where a
-    block's time is. A trace that does not hold every launch of every call
-    leaves the per-launch times unmeasured and says so; the whole call's time
-    does not depend on it."""
+    production geometry at the ``group`` chunks the main path runs, in
+    ``dtype``: ``calls`` calls are traced and each launch's kernel events
+    averaged by their place in the call; the whole call is timed apart,
+    replayed as a CUDA graph (device_ms), with its TFLOP/s over k4_work. Says
+    where a block's time is. A trace that does not hold every launch of
+    every call leaves the per-launch times unmeasured and says so; the whole
+    call's time does not depend on it."""
     import torch
 
     out = {}
     for hw, c, nh, n_blocks in MSBLOCK_SHAPES:
         s_cells = hw[0] * hw[1]
-        blk, x = msblock_case(hw, c, nh, torch.bfloat16, dev, b=group)
+        blk, x = msblock_case(hw, c, nh, getattr(torch, dtype), dev, b=group)
         with torch.no_grad():
             call = lambda: run_msblock("kernel", blk, x, VIDEO_T, hw, nh)  # noqa: E731
             events = kernel_events(call, calls)
             whole = device_ms(call, iters=5)
-        n = len(K4_LAUNCHES)
+        names = K4_LAUNCHES
+        n = len(names)
         per_call = [events[i * n:(i + 1) * n] for i in range(calls)]
         traced = len(events) == calls * n and all(
             [name for name, _ in one] == [name for name, _ in per_call[0]] for one in per_call)
         rows = [dict(launch=i + 1, name=name,
                      kernel=per_call[0][i][0][:80] if traced else None,
                      ms=sum(one[i][1] for one in per_call) / calls / 1e3 if traced else None)
-                for i, name in enumerate(K4_LAUNCHES)]
+                for i, name in enumerate(names)]
         flops, _ = k4_work(group, s_cells, c, VIDEO_T)
         label = f"S={s_cells} C={c} heads={nh}"
-        log(f"K4 launches, {label}, {group} chunks bf16 (x{n_blocks} per forward): whole call "
+        log(f"K4 launches, {label}, {group} chunks {dtype} (x{n_blocks} per forward): whole call "
             f"{whole:.4f} ms, {flops / whole / 1e9:.1f} TFLOP/s over k4_work ({smi})")
         if traced:
             busy = sum(r["ms"] for r in rows)
@@ -1383,12 +1422,12 @@ def k4_launch_table(smi, dev="cuda", group=32, calls=3):
     per_forward = sum(v["total_ms"] * v["blocks"] for v in out.values())
     total_flops = sum(k4_work(group, hw[0] * hw[1], c, VIDEO_T)[0] * n
                       for hw, c, _, n in MSBLOCK_SHAPES)
-    log(f"K4, the 18 blocks of one {group}-chunk forward: {per_forward:.3f} ms, "
+    log(f"K4, the 18 blocks of one {group}-chunk forward, {dtype}: {per_forward:.3f} ms, "
         f"{total_flops / per_forward / 1e9:.1f} TFLOP/s over k4_work ({smi})")
-    REPORT["k4_launch_table"] = dict(card=smi, chunks=group, shapes=out,
-                                     forward_ms=per_forward,
-                                     forward_tflops=total_flops / per_forward / 1e9)
-    return REPORT["k4_launch_table"]
+    key = "k4_launch_table" + ("" if dtype == "bfloat16" else "_" + dtype)
+    REPORT[key] = dict(card=smi, chunks=group, dtype=dtype, shapes=out, forward_ms=per_forward,
+                       forward_tflops=total_flops / per_forward / 1e9)
+    return REPORT[key]
 
 
 # ------------------------------------------------------------ video slice
@@ -1425,14 +1464,15 @@ def main_path_entries():
         k3.fused_pooled_attention, k2.fused_patch_embed = saved
 
 
-def video_routes(counts, on_card):
+def video_routes(counts, on_card, dtype="bfloat16"):
     """K3's launches by the kernel the C entry reports it took, since the
     last reset, against the main path's: every one the wgmma kernel with the
-    band from the table. Fails otherwise."""
+    band from the table (bf16), or its 3xTF32 twin (f32). Fails otherwise."""
     from audio_visual_deepfake_detection_tpu_torch.ops.kernels import mvit_attention as k3
 
     got = dict(k3.ROUTES)
-    want = {k3.ROUTE_NAMES[2]: counts["pooled_attention"]} if on_card else {}
+    route = k3.ROUTE_NAMES[4 if dtype == "float32" else 2]
+    want = {route: counts["pooled_attention"]} if on_card else {}
     if got != want:
         fail(f"K3 routes {got}, expected {want}")
     return got
@@ -1444,10 +1484,13 @@ def video_model(dtype, temporal_size=VIDEO_T, seed=0):
     return init_mvit(mvit_v2_b(temporal_size=temporal_size, dtype=dtype), seed, perturb=True)
 
 
-def phase_video(dev="cuda", n_chunks=16, smi=""):
+def phase_video(dev="cuda", n_chunks=16, smi="", f32_chunks=32, f32_t=VIDEO_T):
     """The video slice's main path: MViT-v2-b at full width and depth, bf16,
-    through FeatureExtractor.video_chunks_features on uint8 chunks; then f32
-    on one 32-frame chunk, card against the CPU plain path."""
+    through FeatureExtractor.video_chunks_features on uint8 chunks; f32 (the
+    dtype cli/extract_features.py computes in unless told otherwise) on
+    ``f32_chunks`` chunks of ``f32_t`` frames, one group, against the same
+    model on its plain versions on the card; then f32 on one 32-frame
+    chunk, card against the CPU plain path."""
     import torch
     from audio_visual_deepfake_detection_tpu_torch.frontends import pipeline
 
@@ -1476,6 +1519,33 @@ def phase_video(dev="cuda", n_chunks=16, smi=""):
     if counts != expect:
         fail(f"video kernel launches {counts}, expected {expect}")
 
+    # f32 as shipped, one group of chunks: launches, K3's route, finite,
+    # and the kernels against the same model's plain versions on the card
+    ex32 = pipeline.FeatureExtractor(video_model=video_model(torch.float32, f32_t, seed=2),
+                                     compute_dtype="float32", device=dev)
+    group = rng.integers(0, 256, (f32_chunks, f32_t, 96, 96, 3), dtype=np.uint8)
+    group[-1, f32_t // 2:] = 0
+    reset_counts()
+    with main_path_entries():
+        f_k = ex32.video_chunks_features(group)
+    sync(dev)
+    e_g = video_launches(f32_chunks, pipeline.FRONT_CHUNK_GROUP, True)
+    c_g = {k: launch_counts()[k] for k in e_g}
+    r_g = video_routes(e_g, on_card, "float32")
+    if not on_card:
+        e_g = {k: 0 for k in e_g}
+    with plain_video_on_card():
+        f_p = ex32.video_chunks_features(group)
+    d_g = np.abs(f_k - f_p)
+    ok_g = bool(np.isfinite(f_k).all() and (d_g <= 1e-4 + 5e-4 * np.abs(f_p)).all())
+    log(f"video f32, {f32_chunks} uint8 chunks x {f32_t} frames -> {f_k.shape}: kernels vs "
+        f"the same model's plain versions on the card max|d|={d_g.max():.3e} (atol 1e-4 "
+        f"rtol 5e-4) {'ok' if ok_g else 'MISMATCH'}, launches {c_g} (expected {e_g}), K3 "
+        f"routes {r_g} ({smi})")
+    if f_k.shape != (f32_chunks, f32_t, 256) or c_g != e_g or not ok_g:
+        fail(f"video f32 group: {f_k.shape}, launches {c_g} (expected {e_g}), ok={ok_g}")
+    del ex32, group, f_k, f_p
+
     # f32, one short chunk: the card's kernels vs the CPU plain path
     m32 = video_model(torch.float32, temporal_size=32, seed=1)
     clip = rng.integers(0, 256, (1, 32, 96, 96, 3), dtype=np.uint8)
@@ -1497,7 +1567,9 @@ def phase_video(dev="cuda", n_chunks=16, smi=""):
     if not ok:
         fail("video f32 card vs CPU plain path differ")
     REPORT["video"] = dict(chunks=n_chunks, first_call_s=wall, launches=counts,
-                           f32_max_abs_err=float(d.max()), f32_launches=c32)
+                           f32_max_abs_err=float(d.max()), f32_launches=c32,
+                           f32_group=dict(chunks=f32_chunks, launches=c_g, routes=r_g,
+                                          max_abs_err_vs_plain_on_card=float(d_g.max())))
     return ex, counts
 
 
@@ -1711,6 +1783,158 @@ def phase_mvit_timing(smi, dev="cuda"):
     return totals, bounds, library, group
 
 
+# ------------------------------------------------ the frontends in float32
+
+F32_CHUNKS = (2, 32)                  # K2 / K3: a short video, the main path's group
+F32_AUDIO_BATCHES = (16, 64)          # K5 / K8
+
+
+def f32_frontend_times(smi, dev="cuda", group=32, chunks=F32_CHUNKS, audio=F32_AUDIO_BATCHES):
+    """The frontends' kernels in float32, the dtype cli/extract_features.py
+    computes in unless told otherwise, each alone on the card (device_ms: a
+    CUDA graph replayed) beside its plain version (CUDA events), its bound
+    (``bound_ms``) at its route's rate: 3xTF32 on the tensor cores
+    (PEAK_3XTF32) for K3 and K4, the CUDA cores' f32 FMA (PEAK_F32) for K2,
+    K5 and K8; both rates' bounds beside (``bound_3xtf32_ms``,
+    ``bound_fma_ms``), and the PyTorch call nearest to it (TF32 off, as the
+    package sets it):
+    - K4 at each MSBLOCK_SHAPES geometry at ``group`` chunks and the 18
+      blocks' sum (no library call computes a block);
+    - K3's table entry at each K3_SHAPES shape at ``chunks``, SDPA under the
+      [band | 0] mask + q beside (not one call);
+    - K2's uint8 entry at ``chunks``, F.conv3d in f32 beside;
+    - K5 at B in ``audio`` on 9.6 s wavs (no library call);
+    - K8 at (B, 12, 479, 64) with the key mask, B in ``audio``, SDPA with
+      the key mask beside;
+    - MViT-v2-b chunks/s at ``group`` chunks through
+      FeatureExtractor.video_chunks_features_device, f32.
+    "Lost": launches x (time - bound_ms) on one ``group``-chunk
+    extraction group (K2 1, K3 3, K4 18) and at B = 64 (K5 1, K8 12)."""
+    import torch
+    import torch.nn.functional as F
+    from audio_visual_deepfake_detection_tpu_torch.frontends import pipeline
+
+    f32 = torch.float32
+    out = {"card": smi, "K2": {}, "K3": {}, "K4": {}, "K5": {}, "K8": {}}
+
+    def row(work, n, k_ms, p_ms, lib_ms=None, tensor_cores=False):
+        fma = bound_sum([(*work, n)], PEAK_F32)
+        tc = bound_sum([(*work, n)], PEAK_3XTF32)
+        own = tc if tensor_cores else fma
+        return dict(device_ms=k_ms * n, plain_ms=p_ms * n, bound_ms=own[0], bound_by=own[1],
+                    bound_peak="PEAK_3XTF32" if tensor_cores else "PEAK_F32",
+                    bound_fma_ms=fma[0], bound_3xtf32_ms=tc[0],
+                    library_ms=None if lib_ms is None else lib_ms * n, launches=n)
+
+    def say(name, label, r):
+        lib = "" if r["library_ms"] is None else f", library {r['library_ms']:.4f} ms"
+        log(f"time {name} f32 {label} (x{r['launches']}): kernels alone {r['device_ms']:.4f} ms, "
+            f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms at {r['bound_peak']} "
+            f"({r['bound_by']}; {100 * r['bound_ms'] / r['device_ms']:.1f}% of it); "
+            f"{r['bound_fma_ms']:.4f} ms at PEAK_F32, {r['bound_3xtf32_ms']:.4f} ms at "
+            f"PEAK_3XTF32{lib} ({smi})")
+
+    with torch.no_grad():
+        for hw, c, nh, n in MSBLOCK_SHAPES:
+            s_cells = hw[0] * hw[1]
+            blk, x = msblock_case(hw, c, nh, f32, dev, b=group)
+            run = lambda which: run_msblock(which, blk, x, VIDEO_T, hw, nh)  # noqa: E731
+            k_ms = device_ms(lambda: run("kernel"), iters=5)
+            p_ms = cuda_ms(lambda: run("plain"), 2, warmup=1)
+            r = out["K4"][f"S={s_cells} C={c} heads={nh}"] = row(
+                k4_work(group, s_cells, c, VIDEO_T, nbytes=4), n, k_ms, p_ms, tensor_cores=True)
+            say("multiscale_block", f"S={s_cells} C={c} heads={nh} B={group}", r)
+            del blk, x, run
+            torch.cuda.empty_cache()
+        for b in chunks:
+            for name, heads, s_cells, d, rnd, n in K3_SHAPES:
+                args = k3_case(b, heads, s_cells, d, rnd, f32, dev)
+                k_ms = device_ms(lambda: run_k3("kernel", *args), iters=5)
+                p_ms = cuda_ms(lambda: run_k3("plain", *args), 2, warmup=1)
+                lib = k3_library(*args)
+                l_ms = cuda_ms(lib, 3, warmup=1)
+                del lib
+                r = out["K3"][f"{name} B={b}"] = row(
+                    k3_table_work(b * heads, VIDEO_T * s_cells, d, nbytes=4), n, k_ms, p_ms, l_ms,
+                    tensor_cores=True)
+                say("pooled_attention", f"{name} B={b} heads={heads} S={s_cells} d={d}", r)
+                del args
+                torch.cuda.empty_cache()
+            video, w, bias, _ = patch_case(f32, dev, b=b)
+            k_ms = device_ms(lambda: run_patch("kernel", video, w, bias, f32), iters=5)
+            p_ms = cuda_ms(lambda: run_patch("plain", video, w, bias, f32), 2, warmup=1)
+            lib = conv3d_library(video, w, bias, f32)
+            l_ms = cuda_ms(lib, 3, warmup=1)
+            del lib
+            r = out["K2"][f"B={b}"] = row(k2_work(b, VIDEO_T, nbytes=4, in_bytes=1), 1, k_ms,
+                                          p_ms, l_ms)
+            say("patch_embed", f"uint8 B={b}", r)
+            del video, w, bias
+            torch.cuda.empty_cache()
+        for b in audio:
+            m, wav = k5_case(b, WAV_LEN, f32, dev, seed=b)
+            k_ms = device_ms(lambda: run_k5("kernel", m, wav), 5)
+            p_ms = cuda_ms(lambda: run_k5("plain", m, wav), 2, warmup=1)
+            r = out["K5"][f"B={b}"] = row(k5_work(b, WAV_LEN, nbytes=4), 1, k_ms, p_ms)
+            say("conv_extractor", f"B={b} L={WAV_LEN}", r)
+            del m, wav
+            q, k, v, mask = k8_case(b, E2V_T, f32, dev, True, seed=b)
+            k_ms = device_ms(lambda: run_k8("kernel", q, k, v, mask))
+            p_ms = cuda_ms(lambda: run_k8("plain", q, k, v, mask), 3, warmup=1)
+            add = torch.zeros(mask.shape, dtype=f32, device=dev).masked_fill_(
+                mask, float("-inf"))[:, None, None, :]
+            l_ms = device_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=add, scale=1.0))
+            r = out["K8"][f"B={b}"] = row(k8_work(b, E2V_H, E2V_T, E2V_D, True, nbytes=4), 12,
+                                          k_ms, p_ms, l_ms)
+            say("full_mha", f"({b}, {E2V_H}, {E2V_T}, {E2V_D}) mask", r)
+            del q, k, v, mask, add
+            torch.cuda.empty_cache()
+
+    def total(name, keys):
+        rows = [out[name][k] for k in keys]
+        return dict({f: sum(r[f] for r in rows) for f in ("device_ms", "plain_ms", "bound_ms",
+                                                           "bound_fma_ms", "bound_3xtf32_ms")},
+                    bound_peak=rows[0]["bound_peak"])
+    out["K4"]["18 blocks"] = total("K4", list(out["K4"]))
+    for b in chunks:
+        out["K3"][f"3 launches B={b}"] = total("K3", [f"{name} B={b}" for name, *_ in K3_SHAPES])
+    lost = {"K2": out["K2"][f"B={group}"], "K3": out["K3"][f"3 launches B={group}"],
+            "K4": out["K4"]["18 blocks"], "K5": out["K5"][f"B={max(audio)}"],
+            "K8": out["K8"][f"B={max(audio)}"]}
+    out["lost_ms"] = {k: r["device_ms"] - r["bound_ms"] for k, r in lost.items()}
+    for k, r in lost.items():
+        log(f"f32 {k}: {r['device_ms']:.3f} ms of kernels alone against a bound of "
+            f"{r['bound_ms']:.3f} ms at {r['bound_peak']} ({r['bound_fma_ms']:.3f} at PEAK_F32, "
+            f"{r['bound_3xtf32_ms']:.3f} at PEAK_3XTF32), plain {r['plain_ms']:.3f} ms; lost "
+            f"{out['lost_ms'][k]:.3f} ms ({smi})")
+
+    # MViT-v2-b in f32 through the extractor, as cli/extract_features.py builds it
+    ex = pipeline.FeatureExtractor(video_model=video_model(f32), compute_dtype="float32",
+                                   device=dev)
+    x = torch.from_numpy(np.random.default_rng(9).integers(
+        0, 256, (group, VIDEO_T, 96, 96, 3), dtype=np.uint8)).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        ex.video_chunks_features_device(x)
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            ex.video_chunks_features_device(x)
+        torch.cuda.synchronize()
+        runs.append(group / (time.perf_counter() - t0))
+    out["mvit_chunks_per_s"] = max(runs)
+    out["mvit_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"MViT-v2-b f32 {group} chunks, batched_back=True: {max(runs):.2f} chunks/s (runs "
+        f"{[round(r_, 2) for r_ in runs]}, peak mem {out['mvit_peak_gib']:.1f} GiB) ({smi})")
+    del ex, x
+    torch.cuda.empty_cache()
+    REPORT["f32_frontend_times"] = out
+    return out
+
+
 # ------------------------------------------------------------ audio kernels
 
 WAV_LEN = 153600                      # 9.6 s at 16 kHz
@@ -1738,8 +1962,9 @@ NO_WORSE = 1.5
 # peaks of one H100 SXM for the bounds: dense bf16 tensor cores, f32 outside
 # them, HBM3
 PEAK_BF16, PEAK_F32, PEAK_BYTES = 989e12, 67e12, 3.35e12
-# the f32 K1 / K6 kernel's own route: 3xTF32 on the tensor cores, three TF32
-# products (495 TFLOP/s dense) for each f32 one
+# the f32 route of K1 / K6, K3 and K4, and the rate of their bound_ms:
+# 3xTF32 on the tensor cores, three TF32 products (495 TFLOP/s dense) for
+# each f32 one
 PEAK_3XTF32 = 495e12 / 3
 
 
@@ -2794,6 +3019,38 @@ def phase_media_pipeline(ex, model, cfg, dev="cuda", n_videos=MEDIA_VIDEOS, n_fr
         log(f"extract_features: {n_extract} mp4s -> caches in {wall:.3f} s = "
             f"{n_extract / wall:.2f} videos/s (one video a call, the models built inside), "
             f"rows {rows}, bit-equal to extract_all; launches {counts} ({smi})")
+
+        # the same with no --dtype: float32, as the CLI ships
+        cache32 = os.path.join(mp4_root, "cache_f32")
+        argv32 = [a for a in argv if a not in ("--dtype", dtype)]
+        argv32[argv32.index("--output-root") + 1] = cache32
+        if cli_extractor is not None:
+            extract_features.build_extractor = lambda *a, **kw: cli_extractor
+        try:
+            sync(dev)
+            reset_counts()
+            t0 = time.perf_counter()
+            done = extract_features.main(argv32)
+            sync(dev)
+            wall32 = time.perf_counter() - t0
+            counts32 = launch_counts()
+            routes32 = video_routes({"pooled_attention": counts32["pooled_attention"]}, on_card,
+                                    "float32")
+        finally:
+            extract_features.build_extractor = build
+        if done["done"] != n_extract or done["errors"] or (on_card and counts32 != want):
+            fail(f"extract_features, no --dtype: {done}, launches {counts32} (expected {want})")
+        for r in rels[:n_extract]:
+            for key, name in CACHE_DIR_NAMES.items():
+                arr = np.load(os.path.join(cache32, name, r + ".npy"))
+                if arr.shape[0] != rows[key] or not np.isfinite(arr).all():
+                    fail(f"f32 cache {name}/{r}.npy: {arr.shape}, {rows[key]} rows expected")
+        rec["extract_features_f32"] = dict(videos=n_extract, seconds=wall32,
+                                           videos_per_s=n_extract / wall32, launches=counts32,
+                                           routes=routes32)
+        log(f"extract_features, no --dtype (float32): {n_extract} mp4s in {wall32:.3f} s = "
+            f"{n_extract / wall32:.2f} videos/s (--dtype {dtype}: {n_extract / wall:.2f}); "
+            f"launches {counts32}, K3 routes {routes32} ({smi})")
         with open(os.path.join(cache, "deepfake_test_sub1.txt"), "w") as f:
             f.write("\n".join(f"{r}.mp4,{duration!r}" for r in rels[:n_extract]))
         folders = {k: os.path.join(cache, v) for k, v in CACHE_DIR_NAMES.items()}
@@ -6245,13 +6502,15 @@ def wide_kernel_grid(dev="cuda", shapes=WIDE_SHAPES, ts=WIDE_TS, b=WIDE_B, k7_sh
                     run = lambda: run_block("kernel", x, xo, mask, packed, "self", window, nh)  # noqa: E731
                     plain = lambda: run_block("plain", x, xo, mask, packed, "self", window, nh)  # noqa: E731
                     flops, moved = k1_work("self", t, window, b, c=c, nbytes=x.element_size())
-                    bnd = bound(flops, moved, PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32)
+                    # f32: its route's own rate, 3xTF32 on the tensor cores
+                    bnd = bound(flops, moved,
+                                PEAK_BF16 if dtype == torch.bfloat16 else PEAK_3XTF32)
                     # a call past 10 ms is timed over fewer replays
                     iters = 20 if cuda_ms(run, iters=1, warmup=1) < 10 else 3
                     rec[name] = dict(device_ms=device_ms(run, iters=iters), bound_ms=bnd[0],
                                      bound_by=bnd[1])
                     if dtype == torch.float32:
-                        rec[name]["bound_3xtf32_ms"] = bound(flops, moved, PEAK_3XTF32)[0]
+                        rec[name]["bound_fma_ms"] = bound(flops, moved, PEAK_F32)[0]
                     rec[name].update(ms=cuda_ms(run, iters=min(iters, 10)),
                                      plain_ms=cuda_ms(plain, iters=3))
                     if dtype == torch.bfloat16 and (c, nh, w) in tensor_core:
@@ -6265,7 +6524,7 @@ def wide_kernel_grid(dev="cuda", shapes=WIDE_SHAPES, ts=WIDE_TS, b=WIDE_B, k7_sh
                 f"(dev {bf['device_ms']:.3f}, plain {bf['plain_ms']:.3f}, bound "
                 f"{bf['bound_ms']:.4f} by {bf['bound_by']}); f32 {f32['ms']:.3f} ms (dev "
                 f"{f32['device_ms']:.3f}, plain {f32['plain_ms']:.3f}, bound "
-                f"{f32['bound_ms']:.4f} at 67 TFLOP/s, {f32['bound_3xtf32_ms']:.4f} at 165)"
+                f"{f32['bound_ms']:.4f} at 165 TFLOP/s, {f32['bound_fma_ms']:.4f} at 67)"
                 + (f"; launches (us) {bf['launch_us']}, attention core by SDPA "
                    f"{bf['library_ms']:.4f} ms dev (nearest, not one call)"
                    if "launch_us" in bf else "") + f" ({smi})")
@@ -6706,6 +6965,7 @@ def main():
     serve_launches = REPORT["serve"]["launches"]
     mvit_worst = timed(phase_mvit_kernels)
     k4_table = timed(k4_launch_table, smi)
+    k4_table_f32 = timed(k4_launch_table, smi, dtype="float32")
     audio_worst = timed(phase_audio_kernels)
     ex, video_launched = timed(phase_video, smi=smi)
     ex, audio_launched = timed(phase_audio, ex.video_model, smi=smi)
@@ -6717,6 +6977,7 @@ def main():
     totals, worst_timed, k1_bounds = timed(phase_timing, model, cfg, smi)
     f32_times = timed(k1_f32_times, smi)
     mvit_totals, mvit_bounds, mvit_library, mvit_group = timed(phase_mvit_timing, smi)
+    f32_front = timed(f32_frontend_times, smi)
     audio_times, _, k5_rules = timed(phase_audio_timing, ex, model, cfg, smi)
     train_times = timed(phase_train_kernel_timing, smi)
     timed(k7_variants, smi)
@@ -6817,6 +7078,14 @@ def main():
         })
     kernels[-1].update(ms_32_chunks=k4_table["forward_ms"],
                        tflops_32_chunks=k4_table["forward_tflops"])
+    # float32, the dtype cli/extract_features.py computes in unless told otherwise
+    kernels[1]["f32"] = f32_front["K2"]
+    kernels[2].update(f32=f32_front["K3"], sources_f32=[src + "mvit_attention_f32.cu"],
+                      routes_f32_video=REPORT["video"]["f32_group"]["routes"])
+    kernels[3].update(f32=dict(f32_front["K4"], launch_table=k4_table_f32["shapes"],
+                               mvit_chunks_per_s_32=f32_front["mvit_chunks_per_s"]),
+                      sources_f32=[src + "mvit_block_f32.cu", src + "mvit_attention_f32.cu"],
+                      launches_video_f32=REPORT["video"]["f32_group"]["launches"])
     for k in kernels[1:3]:      # K2, K3: one forward of a 32-chunk group of the main path
         g = mvit_group[k["name"]]
         k.update(ms_32_chunks=g["ms"], device_ms_32_chunks=g["device_ms"],
@@ -6855,6 +7124,7 @@ def main():
                                            for b, t in audio_times[name].items()},
             "note": f"ms = the {per_forward} launch(es) of one Emotion2Vec forward on 16 wavs "
                     f"of 9.6 s, bf16",
+            "f32": f32_front["K5" if name == "conv_extractor" else "K8"],
         })
     for k in kernels:
         k["launches_media_to_detections"] = media_launched[k["name"]]

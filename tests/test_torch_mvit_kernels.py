@@ -300,6 +300,7 @@ BLOCK_CASES = [
     dict(t=5, hs=2, ws=2, c=128, nh=2),            # non-power-of-2 T
     dict(t=8, hs=2, ws=2, c=128, nh=2, cfg_t=16),  # table longer than T
     dict(t=4, hs=4, ws=4, c=192, nh=2),            # stage 2: S = 16, C = 192
+    dict(t=4, hs=1, ws=1, c=768, nh=8),            # stage 4: S = 1, C = 768, d = 96
 ]
 
 

@@ -1,24 +1,40 @@
-"""The production K1 in two source trees on one card: the 18 blocks of one
-localizer forward (``chip_smoke.PROD_BLOCKS``), in bf16 or float32, device
-ms (each block replayed as a CUDA graph, ``chip_smoke.device_ms``), summed,
-at B = 16, 64 and 512; with ``--wide``, also one self-mode block at each
-(C, heads, half window; 0 dense) of the list at B = 2, T = 2304. The trees
-run in turns a, b, b, a, each in a process of its own that builds its own
-kernel library under its ``build/kernels/``.
+"""The production K1, or the MViT kernels K3 and K4, in two source trees
+on one card. The trees run in turns a, b, b, a, each in a process of its own
+that builds its own kernel library under its ``build/kernels/``.
 
-With ``--precision`` it times nothing and runs each tree once: the float32
-K1 / K6 at every shape ``chip_smoke.py`` checks them at (K1: the 18
-production blocks' 13 shapes at B = 16 and 64 and the B = 512 full-length
-block; K6: the 13 at B = 50 with droppath coefficients; both at every
-(C, heads, w) x T x mode of ``chip_smoke.WIDE_SHAPES`` / ``WIDE_TS`` at
-B = 2), each on the cases and seeds of those checks, against two plain
-versions on the same inputs: ``block_math`` in float32 (what the checks
-hold the kernel to) and ``block_math`` with every float32 step in float64
-(the exact sum of the f32 inputs, to f64 rounding). Per shape it prints
-both trees' worst |d| from each and the ratio b / a.
+K1 (the default): the 18 blocks of one localizer forward
+(``chip_smoke.PROD_BLOCKS``), in bf16 or float32, device ms (each block
+replayed as a CUDA graph, ``chip_smoke.device_ms``), summed, at B = 16, 64
+and 512; with ``--wide``, also one self-mode block at each (C, heads, half
+window; 0 dense) of the list at B = 2, T = 2304. Each run also hashes every
+block's output, and the tool says at which shapes the two trees' outputs
+are bit for bit the same.
 
-    python3 tools/k1_compare_trees.py PARENT_TREE CHANGED_TREE [--dtype float32]
-        [--wide 512,4,0 1024,8,0 ...] [--precision] [--out FILE]
+``--kernels mvit``: in bf16 and float32, K4's 18 blocks of one mvit_v2_b
+forward at 32 chunks (each ``chip_smoke.MSBLOCK_SHAPES`` geometry, device ms
+of one call replayed as a CUDA graph, times its blocks), K3's three
+launches (``chip_smoke.K3_SHAPES``, the table entry) at 2 and 32 chunks,
+and MViT-v2-b chunks/s at 32 chunks in f32 through
+``FeatureExtractor.video_chunks_features_device`` (the extractor's path,
+best of two after a warm-up).
+
+With ``--precision`` it times nothing and runs each tree once, in float32,
+against two plain versions on the same inputs: the one the checks hold the
+kernel to, in f32, and the same with every f32 step in f64
+(``Tensor.float`` swapped for ``Tensor.double``; for K3 / K4 the softmax's
+denominator summed in f64 too: the exact function of the f32 inputs, to
+f64 rounding). K1 / K6 at every shape ``chip_smoke.py`` checks them at (K1:
+the 18 production blocks' 13 shapes at B = 16 and 64 and the B = 512
+full-length block; K6: the 13 at B = 50 with droppath coefficients; both at
+every (C, heads, w) x T x mode of ``chip_smoke.WIDE_SHAPES`` / ``WIDE_TS``
+at B = 2) against ``block_math``; K4 at each geometry and K3 at each shape,
+at 2 and 32 chunks, against ``msblock_math`` /
+``pooled_attention_table_math``; each on the cases and seeds of those
+checks. Per shape it prints both trees' worst |d| from each and the ratio
+b / a.
+
+    python3 tools/k1_compare_trees.py PARENT_TREE CHANGED_TREE [--kernels k1|mvit]
+        [--dtype float32] [--wide 512,4,0 1024,8,0 ...] [--precision] [--out FILE]
 
 A tree is a checkout of the repository (``git archive`` of a commit unpacked
 into a folder). Prints each run and the mean of each tree with the change in
@@ -33,13 +49,14 @@ import sys
 BATCHES = (16, 64, 512)
 
 RUN = r"""
-import json, sys
+import hashlib, json, sys
 sys.path.insert(0, ".")
 import torch
 import chip_smoke as c
 dtype = getattr(torch, %r)
 smi = c.phase_build()
 out = {"card": smi}
+digests = {}
 
 
 def ms(run):
@@ -47,25 +64,140 @@ def ms(run):
     return c.device_ms(run, iters=20 if c.cuda_ms(run, iters=1, warmup=1) < 10 else 5)
 
 
+def timed(key, run):
+    digests[key] = hashlib.sha256(run().float().cpu().numpy().tobytes()).hexdigest()
+    return ms(run)
+
+
 for b in %r:
     total = 0.0
     for names, mode, t, window in c.PROD_BLOCKS:
         x, xo, mask, packed = c.block_case(mode, t, window, b, dtype, "cuda", seed=t)
         with torch.no_grad():
-            total += len(names) * ms(
+            total += len(names) * timed(f"B={b} {mode} T={t} window={window}",
                 lambda: c.run_block("kernel", x, xo, mask, packed, mode, window))
         del x, xo, mask, packed
         torch.cuda.empty_cache()
-    out[str(b)] = total
+    out[f"B={b}"] = total
 for cc, nh, w in %r:
     window = 2 * w + 1 if w else -1
     x, xo, mask, packed = c.block_case("self", 2304, window, 2, dtype, "cuda", cc, c=cc,
                                        n_head=nh)
     with torch.no_grad():
-        out[f"{cc},{nh},{w}"] = ms(
+        out[f"({cc},{nh},{w})"] = timed(f"({cc},{nh},{w})",
             lambda: c.run_block("kernel", x, xo, mask, packed, "self", window, nh))
     del x, xo, mask, packed
+out["digests"] = digests
 print("RESULT " + json.dumps(out))
+"""
+
+MVIT_RUN = r"""
+import json, sys, time
+sys.path.insert(0, ".")
+import numpy as np
+import torch
+import chip_smoke as c
+from audio_visual_deepfake_detection_tpu_torch.frontends import pipeline
+
+smi = c.phase_build()
+out = {"card": smi}
+with torch.no_grad():
+    for dname in ("bfloat16", "float32"):
+        dt = getattr(torch, dname)
+        total = 0.0
+        for hw, cc, nh, n in c.MSBLOCK_SHAPES:
+            blk, x = c.msblock_case(hw, cc, nh, dt, "cuda", b=32)
+            ms = c.device_ms(lambda: c.run_msblock("kernel", blk, x, c.VIDEO_T, hw, nh), iters=5)
+            out[f"K4 {dname} S={hw[0] * hw[1]} C={cc}"] = ms * n
+            total += ms * n
+            del blk, x
+            torch.cuda.empty_cache()
+        out[f"K4 {dname} 18 blocks"] = total
+        for chunks in (2, 32):
+            total = 0.0
+            for name, heads, s_cells, d, rnd, n in c.K3_SHAPES:
+                args = c.k3_case(chunks, heads, s_cells, d, rnd, dt, "cuda")
+                ms = c.device_ms(lambda: c.run_k3("kernel", *args), iters=5)
+                out[f"K3 {dname} {name} B={chunks}"] = ms * n
+                total += ms * n
+                del args
+                torch.cuda.empty_cache()
+            out[f"K3 {dname} 3 launches B={chunks}"] = total
+    ex = pipeline.FeatureExtractor(video_model=c.video_model(torch.float32),
+                                   compute_dtype="float32", device="cuda")
+    x = torch.from_numpy(np.random.default_rng(9).integers(
+        0, 256, (32, c.VIDEO_T, 96, 96, 3), dtype=np.uint8)).cuda()
+    ex.video_chunks_features_device(x)
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ex.video_chunks_features_device(x)
+        torch.cuda.synchronize()
+        runs.append(32 / (time.perf_counter() - t0))
+    out["MViT-v2-b f32 chunks/s B=32"] = max(runs)
+print("RESULT " + json.dumps(out))
+"""
+
+
+MVIT_PREC = r"""
+import json, sys
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as c
+from audio_visual_deepfake_detection_tpu_torch.ops.kernels import mvit_attention as k3
+from audio_visual_deepfake_detection_tpu_torch.ops.kernels import mvit_block as k4
+
+smi = c.phase_build()
+rows = []
+
+
+def softmax_pv64(att, v):
+    e = (att - att.amax(-1, keepdim=True)).exp()
+    return (e @ v) / e.sum(-1, keepdim=True)
+
+
+def f64(run):
+    # the plain version with every .float() a .double() and its softmax in f64
+    f, s3, s4 = torch.Tensor.float, k3.softmax_pv, k4.softmax_pv
+    torch.Tensor.float = torch.Tensor.double
+    k3.softmax_pv = k4.softmax_pv = softmax_pv64
+    try:
+        return run()
+    finally:
+        torch.Tensor.float, k3.softmax_pv, k4.softmax_pv = f, s3, s4
+
+
+def record(kernel, shape, got, ref, exact):
+    torch.cuda.synchronize()
+    rows.append(dict(kernel=kernel, shape=shape, plain=(got - ref).abs().max().item(),
+                     f64=(got - exact).abs().max().item(),
+                     plain_vs_f64=(ref - exact).abs().max().item()))
+
+
+with torch.no_grad():
+    for chunks in (2, 32):
+        for hw, cc, nh, n in c.MSBLOCK_SHAPES:
+            blk, x = c.msblock_case(hw, cc, nh, torch.float32, "cuda", b=chunks)
+            p = blk.packed(torch.float32)
+            t, kw = c.VIDEO_T, dict(grid_hw=hw, n_head=nh)
+            got = k4.fused_multiscale_block(x, p, t=t, **kw).double()
+            ref = k4.msblock_math(x, p, t=t, **kw).double()
+            p64 = k4.MSBlockPacked(*[None if a is None else a.double() for a in p])
+            exact = f64(lambda: k4.msblock_math(x.double(), p64, t=t, **kw))
+            record("K4", f"S={hw[0] * hw[1]} C={cc} heads={nh} B={chunks}", got, ref, exact)
+            del blk, x, p, p64, got, ref, exact
+            torch.cuda.empty_cache()
+        for name, heads, s_cells, d, rnd, n in c.K3_SHAPES:
+            qf, k, v, rel, s, br = c.k3_case(chunks, heads, s_cells, d, rnd, torch.float32, "cuda")
+            got = c.run_k3("kernel", qf, k, v, rel, s, br).double()
+            ref = c.run_k3("plain", qf, k, v, rel, s, br).double()
+            exact = f64(lambda: c.run_k3("plain", qf.double(), k.double(), v.double(),
+                                         rel.double(), s, br))
+            record("K3", f"{name} B={chunks}", got, ref, exact)
+            del qf, k, v, rel, got, ref, exact
+            torch.cuda.empty_cache()
+print("RESULT " + json.dumps({"card": smi, "rows": rows}))
 """
 
 
@@ -127,8 +259,7 @@ print("RESULT " + json.dumps({"card": smi, "rows": rows}))
 """
 
 
-def run_tree(tree, dtype, wide, precision=False):
-    code = PREC if precision else RUN % (dtype, BATCHES, wide)
+def run_tree(tree, code):
     proc = subprocess.run([sys.executable, "-c", code], cwd=tree, capture_output=True,
                           text=True)
     lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")]
@@ -139,20 +270,20 @@ def run_tree(tree, dtype, wide, precision=False):
 
 
 def precision(args):
-    res = {name: run_tree(os.path.abspath(getattr(args, name)), "float32", [], True)
-           for name in ("a", "b")}
+    code = PREC if args.kernels == "k1" else MVIT_PREC
+    res = {name: run_tree(os.path.abspath(getattr(args, name)), code) for name in ("a", "b")}
     print(f"f32 worst |d| per shape, a -> b (b / a), from plain f32 and from plain f64 "
           f"({res['b']['card']})")
     summary = {}
     for ra, rb in zip(res["a"]["rows"], res["b"]["rows"]):
-        shape = (f"{ra['kernel']} {ra['group']} C={ra['C']} heads={ra['heads']} "
-                 f"window={ra['window']} B={ra['B']} T={ra['T']} {ra['mode']}")
+        shape = ra.get("shape") or (f"{ra['group']} C={ra['C']} heads={ra['heads']} "
+                                    f"window={ra['window']} B={ra['B']} T={ra['T']} {ra['mode']}")
         ratio = {k: rb[k] / max(ra[k], 1e-30) for k in ("plain", "f64")}
         rb["ratio"] = ratio
-        print(f"{shape}: plain {ra['plain']:.3e} -> {rb['plain']:.3e} ({ratio['plain']:.2f}x); "
-              f"f64 {ra['f64']:.3e} -> {rb['f64']:.3e} ({ratio['f64']:.2f}x); "
-              f"plain vs f64 {rb['plain_vs_f64']:.3e}")
-        grp = summary.setdefault(f"{ra['kernel']} {ra['group']}", {
+        print(f"{ra['kernel']} {shape}: plain {ra['plain']:.3e} -> {rb['plain']:.3e} "
+              f"({ratio['plain']:.2f}x); f64 {ra['f64']:.3e} -> {rb['f64']:.3e} "
+              f"({ratio['f64']:.2f}x); plain vs f64 {rb['plain_vs_f64']:.3e}")
+        grp = summary.setdefault(f"{ra['kernel']} {ra.get('group', '')}".strip(), {
             "shapes": 0, **{f"{k}_{s}": 0.0 for k in ("plain", "f64") for s in ("a", "b")},
             **{f"{k}_max_ratio": 0.0 for k in ("plain", "f64")},
             **{f"{k}_over_2x": 0 for k in ("plain", "f64")}, "plain_vs_f64": 0.0})
@@ -179,9 +310,12 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("a", help="the first tree (the parent)")
     ap.add_argument("b", help="the second tree (the change)")
-    ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16")
+    ap.add_argument("--kernels", choices=("k1", "mvit"), default="k1",
+                    help="K1 (one dtype), or K3 and K4 (both dtypes)")
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16",
+                    help="K1's dtype")
     ap.add_argument("--wide", nargs="*", default=[], metavar="C,HEADS,W",
-                    help="wide-grid blocks to time at B=2, T=2304 (W 0: dense)")
+                    help="K1: wide-grid blocks to time at B=2, T=2304 (W 0: dense)")
     ap.add_argument("--precision", action="store_true",
                     help="f32 worst |d| per shape from plain f32 and f64, no timing")
     ap.add_argument("--out", help="JSON file for the runs and means")
@@ -189,26 +323,33 @@ def main(argv=None):
     if args.precision:
         return precision(args)
     wide = [tuple(int(v) for v in s.split(",")) for s in args.wide]
-    keys = [str(b) for b in BATCHES] + [f"{c},{h},{w}" for c, h, w in wide]
-    names = [f"B={b}" for b in BATCHES] + [f"({k})" for k in keys[len(BATCHES):]]
+    code = RUN % (args.dtype, BATCHES, wide) if args.kernels == "k1" else MVIT_RUN
+    label = f"K1 {args.dtype}" if args.kernels == "k1" else "K3 / K4"
     runs = []
     for name in ("a", "b", "b", "a"):
         tree = os.path.abspath(getattr(args, name))
-        res = run_tree(tree, args.dtype, wide)
+        res = run_tree(tree, code)
         runs.append(dict(tree=name, path=tree, **res))
-        print(f"{name} {args.dtype} " + " ".join(f"{n} {res[k]:.3f} ms" for n, k in
-                                                 zip(names, keys)) + f" ({res['card']})",
-              flush=True)
+        print(f"{name} {label} " + "; ".join(f"{k} {v:.3f}" for k, v in res.items()
+                                            if k not in ("card", "digests")) +
+              f" ({res['card']})", flush=True)
+    keys = [k for k in runs[0] if k not in ("tree", "path", "card", "digests")]
     means = {name: {k: sum(r[k] for r in runs if r["tree"] == name) / 2 for k in keys}
              for name in ("a", "b")}
     change = {k: 100.0 * (means["b"][k] / means["a"][k] - 1.0) for k in keys}
-    print("mean a " + " ".join(f"{n} {means['a'][k]:.3f}" for n, k in zip(names, keys)))
-    print("mean b " + " ".join(f"{n} {means['b'][k]:.3f}" for n, k in zip(names, keys)))
-    print("b vs a " + " ".join(f"{n} {change[k]:+.2f}%" for n, k in zip(names, keys)))
+    for k in keys:
+        print(f"{label} {k}: a {means['a'][k]:.3f} b {means['b'][k]:.3f} ({change[k]:+.2f}%)")
+    same = None
+    if "digests" in runs[0]:
+        # every run of a tree gives the same bits, and the two trees' agree
+        same = {k: len({r["digests"][k] for r in runs}) == 1 for k in runs[0]["digests"]}
+        print(f"{label} outputs bit for bit the same in all four runs at {sum(same.values())} "
+              f"of {len(same)} shapes" + "".join(f"; differ at {k}" for k, v in same.items()
+                                                  if not v))
     if args.out:
         with open(args.out, "w") as f:
-            json.dump(dict(dtype=args.dtype, runs=runs, means=means, change_percent=change), f,
-                      indent=1)
+            json.dump(dict(kernels=args.kernels, dtype=args.dtype, runs=runs, means=means,
+                           change_percent=change, bit_equal=same), f, indent=1)
     return 0
 
 
