@@ -10,7 +10,8 @@
 // What bounds it on this card: a 9.6 s wav (153,600 samples) is ~47 GFLOP,
 // 24 GFLOP of it in layer 1 (15,359 frames x 1536 x 512), against 0.6 MB of
 // wav read and 0.5 MB of features written: far above the ridge, bound by the
-// tensor cores in bf16, provided the weights reach the SMs fast enough: a
+// tensor cores in both dtypes (f32 as three TF32 products a product),
+// provided the weights reach the SMs fast enough: in bf16 a
 // tile of 64 frames reads a layer's whole weight (1.5 MB for k = 3) from
 // L2, ~45 GB a 64-wav call over the six layers.
 //
@@ -41,7 +42,14 @@
 // both blocks, through a ring of three 72 KB stages with full / empty
 // mbarriers, and runs on into the next tile while the consumers finish the
 // last one's LN, GELU and stores (see
-// conv_ln_gelu_wgmma_kernel). f32: register-tiled FMA at full precision.
+// conv_ln_gelu_wgmma_kernel).
+// f32: layers 1-6 on wgmma in 3xTF32 (hi.lo + lo.hi + hi.hi of TF32 parts,
+// each 32-deep stage's tensor-core sum added into f32 accumulators: the
+// mainloop of K1 / K4 in f32), 128 frames x 128 channels a block, the four
+// blocks of a cluster covering a tile's 512 channels and exchanging the LN
+// statistics through distributed shared memory (see
+// conv_ln_gelu_tf32_kernel); bound at 165 TFLOP/s of f32 work, not the CUDA
+// cores' 67.
 // Numerics follow conv_extractor_math: weights and wav rounded to the
 // compute dtype, f32 sums rounded once, f32 LN statistics (fast variance
 // clamped at 0), the LN output rounded, GELU in f32 rounded (in bf16 read
@@ -152,80 +160,178 @@ layer0_kernel(const float* __restrict__ wav, const float* __restrict__ w0,
   }
 }
 
-// ---- layers 1-6, f32: out[m, :] = gelu(LN(A[m, :K] . W^T)) ----------------
+// ---- layers 1-6, f32: out[m, :] = gelu(LN(A[m, :K] . W^T)) on 3xTF32 -----
 // m = (sample, frame); A row m is the contiguous run in + (b Tin + s t) 512
-// of K = k 512 values; W (512, K) row-major. A block owns BM rows x all 512
-// columns; warp w owns rows w + 8 i, lane l columns l + 32 j (i < 8, j < 16),
-// so a warp holds whole rows and the LN statistics are warp reductions.
-constexpr int BM = 64;
-constexpr int FK = 16;
+// of K = k 512 values; W (512, K), taps outermost, split into TF32 hi and lo
+// parts at packing. The product is K1's / K4's f32 mainloop (wgmma.cuh's
+// Tf32Gemm, A split by the consumers): a block of two consumer warpgroups
+// and a producer warp owns 128 frames x 128 channels. A warpgroup cannot
+// hold more than 128 columns (64 accumulators and 64 of the stage's sum a
+// thread), so a frame's 512 channels span four blocks: a cluster of four
+// covers one tile of 128 frames of one sample, block r channels 128 r ..
+// 128 r + 127. Each producer brings a quarter of the tile's 32-deep A slice
+// (a 3-D tensor map per tap, as bf16's: frames at stride s 512, zero fill
+// past Tout) and multicasts it into the four blocks, and its own quarter of
+// W hi and lo. In the epilogue each block reduces its 128 columns to a
+// (sum, sum of squares) per frame and stores them into every block of the
+// cluster (st.async, completing bytes on a barrier there); once its barrier
+// has all four quarters, a block applies LN, the affine and the exact GELU
+// to its columns and stores f32. Clusters are persistent over the tiles
+// (as many as fit at once), so the producer runs into the next tile while
+// the consumers finish the last one's epilogue. L2 does not bound the k
+// loop: clusters of eight over two tiles, each W part multicast to both,
+// read half the weight bytes and ran no faster (B = 16 and 64 on an H100).
+constexpr int F_CL = 4;                         // blocks a cluster: the 512 channels
+constexpr int F_STAGES = 4;
+using F32Gemm = Tf32Gemm<CH / F_CL, F_STAGES, false, F_CL>;
+constexpr int F_ROWS = F32Gemm::ROWS;           // frames a tile
+constexpr int F_EX = F_CL * F_ROWS * 8;         // one tile's (sum, sumsq) of every block
+constexpr int F_SMEM = F32Gemm::SMEM + 2 * F_EX + 16;
+static_assert(F_SMEM <= SMEM_MAX, "conv f32 block over SMEM_MAX");
 
-__global__ void __launch_bounds__(NT)
-conv_ln_gelu_fma_kernel(const float* __restrict__ in, const float* __restrict__ W,
-                        const float* __restrict__ ln, float* __restrict__ out,
-                        long long M, int Tin, int Tout, int k, int s) {
-  __shared__ float As[FK][BM + 4];
-  __shared__ float Ws[FK][CH];
-  const int K = k * CH;
-  const long long m0 = (long long)blockIdx.x * BM;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int lr = threadIdx.x / 4, lq = threadIdx.x % 4;     // this thread's A load
-  const long long lm = min(m0 + lr, M - 1);
-  const float* arow = in + ((size_t)(lm / Tout) * Tin + (size_t)s * (lm % Tout)) * CH;
-  float acc[8][16];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 16; ++j) acc[i][j] = 0.f;
-  for (int k0 = 0; k0 < K; k0 += FK) {
-    __syncthreads();
-    const float4 av = *reinterpret_cast<const float4*>(arow + k0 + 4 * lq);
-    As[4 * lq + 0][lr] = av.x;
-    As[4 * lq + 1][lr] = av.y;
-    As[4 * lq + 2][lr] = av.z;
-    As[4 * lq + 3][lr] = av.w;
-#pragma unroll
-    for (int i = 0; i < CH * FK / 4 / NT; ++i) {
-      const int idx = threadIdx.x + NT * i, n = idx % CH, q = idx / CH;
-      const float4 wv = __ldg(reinterpret_cast<const float4*>(W + (size_t)n * K + k0 + 4 * q));
-      Ws[4 * q + 0][n] = wv.x;
-      Ws[4 * q + 1][n] = wv.y;
-      Ws[4 * q + 2][n] = wv.z;
-      Ws[4 * q + 3][n] = wv.w;
+struct F32Maps { CUtensorMap a[3]; CUtensorMap whi, wlo; };   // A per tap, W's parts
+
+__global__ void __cluster_dims__(F_CL, 1, 1) __launch_bounds__(F32Gemm::THREADS, 1)
+conv_ln_gelu_tf32_kernel(const __grid_constant__ F32Maps maps, const float* __restrict__ ln,
+                         float* __restrict__ out, int B, int Tout, int k) {
+  using G = F32Gemm;
+  extern __shared__ __align__(1024) unsigned char smraw[];
+  const uint32_t raw = smem_u32(smraw), base = (raw + 1023u) & ~1023u;
+  const uint32_t ex = base + G::SMEM - 1024;          // two (rank, frame) float2 buffers
+  const uint32_t ex_bar = ex + 2 * F_EX;              // and their barriers
+  const float2* exg = reinterpret_cast<const float2*>(smraw + (ex - raw));
+  const uint32_t rank = cluster_rank();
+  if (threadIdx.x == 0) {
+    mbar_init(ex_bar, 1);
+    mbar_init(ex_bar + 8, 1);
+  }
+  G::init(base);
+  cluster_sync();                   // every block's barriers exist before any remote use
+  const int tps = (Tout + F_ROWS - 1) / F_ROWS, ntiles = B * tps, nk = k * (CH / G::KS);
+  const int clusters = gridDim.x / F_CL;
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {                    // the producer warp: one thread issues the TMA
+    if (threadIdx.x == 256) {
+      int i = 0;
+      for (int q = blockIdx.x / F_CL; q < ntiles; q += clusters) {
+        const int b = q / tps, t0 = (q % tps) * F_ROWS;
+        for (int kb = 0; kb < nk; ++kb, ++i) {
+          const int s = i % F_STAGES;
+          if (i >= F_STAGES) mbar_wait(G::empty(base) + 8 * s, (i / F_STAGES - 1) & 1);
+          const uint32_t st = base + s * G::STAGE, full = G::full(base) + 8 * s;
+          mbar_expect_tx(full, G::STAGE);
+          // a quarter of the A slice into every block, this block's W parts
+          tma_load_3d_multicast(st + rank * (G::A_BYTES / F_CL), &maps.a[kb / (CH / G::KS)],
+                                G::KS * (kb % (CH / G::KS)), t0 + (int)rank * (F_ROWS / F_CL), b,
+                                full, (1 << F_CL) - 1);
+          tma_load_2d(st + G::A_BYTES, &maps.whi, G::KS * kb, (int)rank * (CH / F_CL), full);
+          tma_load_2d(st + G::A_BYTES + G::W_BYTES, &maps.wlo, G::KS * kb,
+                      (int)rank * (CH / F_CL), full);
+        }
+      }
     }
-    __syncthreads();
+  } else {
+    // the 16-byte chunk sc of rows sr + 16 i (i < 4) of this warpgroup's 64:
+    // what this thread splits each stage
+    const int ct = threadIdx.x % 128, sc = ct % 8, sr = ct / 8;
+    const int warp = ct / 32, lane = ct % 32, g = lane / 4, t = lane % 4;
+    float acc[CH / F_CL / 2];
+    int it = 0, local = 0;
+    for (int q = blockIdx.x / F_CL; q < ntiles; q += clusters, it += nk, ++local) {
+      const int b = q / tps, t0 = (q % tps) * F_ROWS;
+      G::consume(base, wg, nk, acc, [&](int, uint32_t a_t, uint32_t lo_t) {
 #pragma unroll
-    for (int kk = 0; kk < FK; ++kk) {
-      float a[8], w[16];
+        for (int i = 0; i < 4; ++i) {
+          const uint32_t off = swz(sr + 16 * i, sc);
+          st_split_v4(a_t + off, lo_t + off, ld_shared_v4(a_t + off));
+        }
+      }, it);
+
+      // epilogue: acc[4 j + e] is row 64 wg + 16 warp + g + 8 (e / 2), column
+      // 128 rank + 8 j + 2 t + e % 2
+      const uint32_t buf = ex + (local & 1) * F_EX, bar = ex_bar + 8 * (local & 1);
+      if (threadIdx.x == 0) mbar_expect_tx(bar, F_EX);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = As[kk][warp + 8 * i];
+      for (int hf = 0; hf < 2; ++hf) {
+        float sum = 0.f, sq = 0.f;
 #pragma unroll
-      for (int j = 0; j < 16; ++j) w[j] = Ws[kk][lane + 32 * j];
+        for (int j = 0; j < CH / F_CL / 8; ++j)
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+          for (int e = 2 * hf; e < 2 * hf + 2; ++e) {
+            sum += acc[4 * j + e];
+            sq += acc[4 * j + e] * acc[4 * j + e];
+          }
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sq += __shfl_xor_sync(0xffffffffu, sq, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        sq += __shfl_xor_sync(0xffffffffu, sq, 2);
+        const int r = 64 * wg + 16 * warp + g + 8 * hf;
+        if (t == 0)                 // into every block of the cluster
+          for (int c = 0; c < F_CL; ++c)
+            st_async_v2(buf + 8 * (rank * F_ROWS + r), c, sum, sq, bar);
+      }
+      mbar_wait_cluster(bar, (local >> 1) & 1);
+      const float2* part = exg + (local & 1) * (F_CL * F_ROWS);
 #pragma unroll
-        for (int j = 0; j < 16; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = 64 * wg + 16 * warp + g + 8 * hf, m = t0 + r;
+        float sum = 0.f, sq = 0.f;
+#pragma unroll
+        for (int c = 0; c < F_CL; ++c) {
+          sum += part[c * F_ROWS + r].x;
+          sq += part[c * F_ROWS + r].y;
+        }
+        const float mean = sum / CH;
+        const float rs = rsqrtf(fmaxf(sq / CH - mean * mean, 0.f) + LN_EPS);
+        if (m >= Tout) continue;
+        float* dst = out + ((size_t)b * Tout + m) * CH;
+#pragma unroll
+        for (int j = 0; j < CH / F_CL / 8; ++j) {
+          const int c = (CH / F_CL) * rank + 8 * j + 2 * t;
+          const float2 gw = __ldg(reinterpret_cast<const float2*>(ln + c));
+          const float2 be = __ldg(reinterpret_cast<const float2*>(ln + CH + c));
+          const float z0 = (acc[4 * j + 2 * hf] - mean) * (rs * gw.x) + be.x;
+          const float z1 = (acc[4 * j + 2 * hf + 1] - mean) * (rs * gw.y) + be.y;
+          *reinterpret_cast<float2*>(dst + c) = make_float2(gelu_erf(z0), gelu_erf(z1));
+        }
+      }
     }
   }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const long long m = m0 + warp + 8 * i;
-    float sum = 0.f, sq = 0.f;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      sum += acc[i][j];
-      sq += acc[i][j] * acc[i][j];
-    }
-    const float mean = warp_sum(sum) / CH;
-    const float rs = rsqrtf(fmaxf(warp_sum(sq) / CH - mean * mean, 0.f) + LN_EPS);
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int c = lane + 32 * j;
-      const float z = (acc[i][j] - mean) * (rs * __ldg(ln + c)) + __ldg(ln + CH + c);
-      out[(size_t)m * CH + c] = gelu_erf(z);
-    }
+  cluster_sync();                   // no block leaves while the others may still write to it
+}
+
+// One f32 layer: tensor maps over its input (one per tap) and W's parts
+// (wsplit: hi (512, k 512) then lo), then as many persistent clusters as fit
+// on the card at once.
+int conv_layer_tf32(const float* in, const float* wsplit, const float* ln, float* out, int B,
+                    int Tin, int Tout, int k, int s, cudaStream_t st) {
+  static int configured = 0, fit = 0;
+  if (int e = set_smem(conv_ln_gelu_tf32_kernel, F_SMEM, configured)) return e;
+  if (!fit) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(F_CL);
+    cfg.blockDim = dim3(F32Gemm::THREADS);
+    cfg.dynamicSmemBytes = F_SMEM;
+    if (int e = (int)cudaOccupancyMaxActiveClusters(&fit, conv_ln_gelu_tf32_kernel, &cfg))
+      return e;
+    if (fit < 1) return (int)cudaErrorInvalidConfiguration;
   }
+  F32Maps maps;
+  const uint64_t adims[3] = {CH, (uint64_t)Tout, (uint64_t)B};
+  const uint64_t astr[2] = {(uint64_t)s * CH * 4, (uint64_t)Tin * CH * 4};
+  const uint32_t abox[3] = {F32Gemm::KS, F_ROWS / F_CL, 1};
+  for (int j = 0; j < k; ++j)
+    if (int e = f32_tensor_map(&maps.a[j], in + (size_t)j * CH, 3, adims, astr, abox)) return e;
+  const uint64_t wdims[2] = {(uint64_t)k * CH, CH}, wstr[1] = {(uint64_t)k * CH * 4};
+  const uint32_t wbox[2] = {F32Gemm::KS, CH / F_CL};
+  if (int e = f32_tensor_map(&maps.whi, wsplit, 2, wdims, wstr, wbox)) return e;
+  if (int e = f32_tensor_map(&maps.wlo, wsplit + (size_t)k * CH * CH, 2, wdims, wstr, wbox))
+    return e;
+  const int tiles = B * ((Tout + F_ROWS - 1) / F_ROWS);
+  const int clusters = tiles < fit ? tiles : fit;
+  conv_ln_gelu_tf32_kernel<<<F_CL * clusters, F32Gemm::THREADS, F_SMEM, st>>>(maps, ln, out, B,
+                                                                              Tout, k);
+  return (int)cudaGetLastError();
 }
 
 // ---- layers 1-6, bf16 on wgmma -------------------------------------------
@@ -441,12 +547,11 @@ int run(const float* wav, const float* w0, const void* const* ws, const float* l
                                    KSIZE[i], STRIDE[i], st))
         return e;
     } else {
-      const long long M = (long long)B * len[i];
-      const unsigned grid = (unsigned)((M + BM - 1) / BM);
-      conv_ln_gelu_fma_kernel<<<grid, NT, 0, st>>>(
-          static_cast<const float*>(src), static_cast<const float*>(ws[i - 1]), lni,
-          static_cast<float*>(dst), M, len[i - 1], len[i], KSIZE[i], STRIDE[i]);
-      if (int e = (int)cudaGetLastError()) return e;
+      if (int e = conv_layer_tf32(static_cast<const float*>(src),
+                                  static_cast<const float*>(ws[i - 1]), lni,
+                                  static_cast<float*>(dst), B, len[i - 1], len[i], KSIZE[i],
+                                  STRIDE[i], st))
+        return e;
     }
     src = dst;
   }
@@ -458,24 +563,26 @@ int run(const float* wav, const float* w0, const void* const* ws, const float* l
 extern "C" {
 
 // The seven layers on `stream`; returns the first CUDA error (0 = all
-// launched). wav (B, L) f32; w0 (512, 10) f32 holding compute-dtype values;
-// w1..w6 (512, k 512) in the compute dtype with the taps outermost in K; ln
-// (14, 512) f32 (weight, bias per layer); scratch even (B, T0, 512) and odd
-// (B, T1, 512) and out (B, T6, 512) in the compute dtype (dtype 0 float32,
-// 1 bfloat16). Layers write even, odd, even, ..., the last one out.
+// launched) and sets *route to the route of layers 1-6 (0 bf16 wgmma, 1
+// 3xTF32 wgmma). wav (B, L) f32; w0 (512, 10) f32 holding compute-dtype
+// values; w1..w6 the weights of layers 1-6, taps outermost in K: bf16 (512,
+// k 512), f32 (2, 512, k 512), their TF32 hi and lo parts; ln (14, 512) f32
+// (weight, bias per layer); scratch even (B, T0, 512) and odd (B, T1, 512)
+// and out (B, T6, 512) in the compute dtype (dtype 0 float32, 1 bfloat16).
+// Layers write even, odd, even, ..., the last one out.
 int avdd_conv_extractor(const void* wav, const void* w0, const void* w1, const void* w2,
                         const void* w3, const void* w4, const void* w5, const void* w6,
                         const void* ln, void* even, void* odd, void* out, int B, int L,
-                        int dtype, void* stream) {
-  if (B <= 0 || L <= 0) return (int)cudaErrorInvalidValue;
+                        int dtype, void* stream, int* route) {
+  if (B <= 0 || L <= 0 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
   const void* ws[6] = {w1, w2, w3, w4, w5, w6};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* wavf = static_cast<const float*>(wav);
   const float* w0f = static_cast<const float*>(w0);
   const float* lnf = static_cast<const float*>(ln);
+  *route = dtype == 0 ? 1 : 0;
   if (dtype == 0) return run<float>(wavf, w0f, ws, lnf, even, odd, out, B, L, st);
-  if (dtype == 1) return run<__nv_bfloat16>(wavf, w0f, ws, lnf, even, odd, out, B, L, st);
-  return (int)cudaErrorInvalidValue;
+  return run<__nv_bfloat16>(wavf, w0f, ws, lnf, even, odd, out, B, L, st);
 }
 
 }  // extern "C"

@@ -55,27 +55,10 @@ __host__ __device__ inline int f32_key_pos(int k) {
   return (k & ~7) | ((k & 1) << 2) | ((k >> 1) & 3);
 }
 
-__device__ __forceinline__ void st_shared_v4(uint32_t a, uint32_t x, uint32_t y, uint32_t z,
-                                             uint32_t w) {
-  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" :: "r"(a), "r"(x), "r"(y), "r"(z),
-               "r"(w) : "memory");
-}
-__device__ __forceinline__ float4 ld_shared_v4(uint32_t a) {
-  float4 v;
-  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
-               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(a) : "memory");
-  return v;
-}
-// The four values of v split, stored as a 16-byte hi chunk and a lo chunk.
-__device__ __forceinline__ void st_split_v4(uint32_t hi, uint32_t lo, float4 v) {
-  uint32_t h[4], l[4];
-  avdd::tf32_split(v.x, h[0], l[0]);
-  avdd::tf32_split(v.y, h[1], l[1]);
-  avdd::tf32_split(v.z, h[2], l[2]);
-  avdd::tf32_split(v.w, h[3], l[3]);
-  st_shared_v4(hi, h[0], h[1], h[2], h[3]);
-  st_shared_v4(lo, l[0], l[1], l[2], l[3]);
-}
+// the 16-byte shared-memory moves and the split store live in wgmma.cuh
+using avdd::ld_shared_v4;
+using avdd::st_shared_v4;
+using avdd::st_split_v4;
 
 // The attention on ``stream``, B samples (grid: 64-row blocks x B nh, one
 // axis for KEY_BIAS); returns a CUDA error (0 = launched). Takes d % 4 ==

@@ -613,6 +613,28 @@ __device__ __forceinline__ void tf32_split(float x, uint32_t& hi, uint32_t& lo) 
   lo = tf32_rna(x - __uint_as_float(hi));
 }
 
+__device__ __forceinline__ void st_shared_v4(uint32_t a, uint32_t x, uint32_t y, uint32_t z,
+                                             uint32_t w) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" :: "r"(a), "r"(x), "r"(y), "r"(z),
+               "r"(w) : "memory");
+}
+__device__ __forceinline__ float4 ld_shared_v4(uint32_t a) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(a) : "memory");
+  return v;
+}
+// The four values of v split, stored as a 16-byte hi chunk and a lo chunk.
+__device__ __forceinline__ void st_split_v4(uint32_t hi, uint32_t lo, float4 v) {
+  uint32_t h[4], l[4];
+  tf32_split(v.x, h[0], l[0]);
+  tf32_split(v.y, h[1], l[1]);
+  tf32_split(v.z, h[2], l[2]);
+  tf32_split(v.w, h[3], l[3]);
+  st_shared_v4(hi, h[0], h[1], h[2], h[3]);
+  st_shared_v4(lo, l[0], l[1], l[2], l[3]);
+}
+
 // ---- mbarriers and TMA ----------------------------------------------------
 // A ring stage is guarded by two mbarriers in shared memory: `full`, which
 // the producer arms with the stage's byte count and the TMA completes, and
@@ -675,6 +697,39 @@ __device__ __forceinline__ void tma_load_2d_multicast(uint32_t dst, const CUtens
       :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar), "h"(mask)
       : "memory");
 }
+__device__ __forceinline__ void tma_load_3d_multicast(uint32_t dst, const CUtensorMap* map, int c0,
+                                                      int c1, int c2, uint32_t bar,
+                                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%2, %3, %4}], [%5], %6;\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar),
+         "h"(mask)
+      : "memory");
+}
+// (x, y) into the 8 bytes at `dst`'s offset in the cluster's CTA `rank`,
+// completing 8 bytes on the barrier at `bar`'s offset there (st.async: the
+// waiter on that barrier sees the store once its phase completes).
+__device__ __forceinline__ void st_async_v2(uint32_t dst, uint32_t rank, float x, float y,
+                                            uint32_t bar) {
+  asm volatile(
+      "{\n.reg .b32 rd, rb;\nmapa.shared::cluster.u32 rd, %0, %1;\n"
+      "mapa.shared::cluster.u32 rb, %4, %1;\n"
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [rd], {%2, %3}, [rb];\n}\n"
+      :: "r"(dst), "r"(rank), "f"(x), "f"(y), "r"(bar) : "memory");
+}
+// mbar_wait with cluster-scope acquire: what other CTAs of the cluster
+// stored through st_async_v2 before the phase completed is visible after it.
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (polls == (1u << 26)) __trap();
+  }
+}
 // Arrive on the barrier at `bar`'s offset in the cluster's CTA `rank`.
 __device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t rank) {
   asm volatile(
@@ -709,7 +764,7 @@ __device__ __forceinline__ void bar_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
 }
 
-// ---- the float32 GEMM mainloop: 3xTF32 on wgmma (K1 and K4 in f32) ----------
+// ---- the float32 GEMM mainloop: 3xTF32 on wgmma (K1, K4 and K5 in f32) ------
 // A block of two consumer warpgroups (64 rows each, so 128 rows) and a
 // producer warp (THREADS = 288) sums A[m, k] W[n, k] over k for a 128 x BN
 // tile, f32 operands split into a TF32 high part and residual (hi.hi +
@@ -725,7 +780,12 @@ __device__ __forceinline__ void bar_sync(int id, int n) {
 // accumulators: the tensor cores' own f32 accumulation truncates, and over
 // a whole contraction (3 x 128 steps at K = 1024) that drifts ~20x further
 // from the exact product than an f32 sum does; per stage it does not.
-template <int BN, int STAGES, bool A_SPLIT>
+// CL > 1 (K5 in f32): the block is one of a cluster of CL whose producers
+// multicast the A slice into every block, so a stage is free once the
+// consumers of all CL blocks have read it (2 CL arrivals on each block's
+// empty barrier), and a persistent caller names the ring position `it` at
+// which a tile's first slice arrives; the producer is then the caller's.
+template <int BN, int STAGES, bool A_SPLIT, int CL = 1>
 struct Tf32Gemm {
   static constexpr int ROWS = 128, KS = 32, THREADS = 288;
   static constexpr int A_BYTES = ROWS * 128, W_BYTES = BN * 128;
@@ -746,7 +806,7 @@ struct Tf32Gemm {
     if (threadIdx.x == 0) {
       for (int s = 0; s < STAGES; ++s) {
         mbar_init(full(base) + 8 * s, 1);
-        mbar_init(empty(base) + 8 * s, 2);   // one arrival from each consumer warpgroup
+        mbar_init(empty(base) + 8 * s, 2 * CL);   // each consumer warpgroup of the cluster
       }
       mbar_init_fence();
     }
@@ -773,19 +833,20 @@ struct Tf32Gemm {
   }
 
   // Consumer warpgroup wg: acc = its 64 rows of the tile (wgmma's m64nBN
-  // layout). Unless A_SPLIT, prep(kb, hi, lo) first splits the warpgroup's
-  // 64 x 32 f32 slice at hi (in place) and into lo; the fence and the
-  // warpgroup's barrier follow it here.
+  // layout), its nk slices at ring positions it, it + 1, ... Unless A_SPLIT,
+  // prep(kb, hi, lo) first splits the warpgroup's 64 x 32 f32 slice at hi
+  // (in place) and into lo; the fence and the warpgroup's barrier follow it
+  // here.
   template <class Prep>
   __device__ __forceinline__ static void consume(uint32_t base, int wg, int nk,
-                                                 float (&acc)[BN / 2], Prep&& prep) {
+                                                 float (&acc)[BN / 2], Prep&& prep, int it = 0) {
     float part[BN / 2];
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
 #pragma unroll 1
     for (int kb = 0; kb < nk; ++kb) {
-      const int s = kb % STAGES;
-      mbar_wait(full(base) + 8 * s, (kb / STAGES) & 1);
+      const int s = (it + kb) % STAGES;
+      mbar_wait(full(base) + 8 * s, ((it + kb) / STAGES) & 1);
       const uint32_t ah = base + s * STAGE + wg * (64 * 128);
       const uint32_t al = A_SPLIT ? ah + A_BYTES : base + STAGES * STAGE + wg * (64 * 128);
       if constexpr (!A_SPLIT) {
@@ -810,7 +871,12 @@ struct Tf32Gemm {
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(part);
-      if (threadIdx.x % 128 == 0) mbar_arrive(empty(base) + 8 * s);   // the stage is read
+      if (threadIdx.x % 128 == 0) {       // the stage is read, in every block of the cluster
+        if constexpr (CL == 1)
+          mbar_arrive(empty(base) + 8 * s);
+        else
+          for (int c = 0; c < CL; ++c) mbar_arrive_cluster(empty(base) + 8 * s, c);
+      }
 #pragma unroll
       for (int i = 0; i < BN / 2; ++i) acc[i] += part[i];
     }

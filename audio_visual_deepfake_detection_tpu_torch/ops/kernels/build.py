@@ -130,7 +130,7 @@ def load() -> ctypes.CDLL:
             lib.avdd_msblock.restype = i
             lib.avdd_msblock.argtypes = [p] * 23 + [i] * 8 + [p]
             lib.avdd_conv_extractor.restype = i
-            lib.avdd_conv_extractor.argtypes = [p] * 12 + [i] * 3 + [p]
+            lib.avdd_conv_extractor.argtypes = [p] * 12 + [i] * 3 + [p, ctypes.POINTER(i)]
             lib.avdd_full_mha.restype = i
             lib.avdd_full_mha.argtypes = [p] * 5 + [i] * 4 + [q] * 12 + [i, p, ctypes.POINTER(i)]
             lib.avdd_band_attention.restype = i

@@ -16,7 +16,16 @@ layer's output is in the compute dtype.
 ``fused_conv_extractor`` launches ``csrc/conv_extractor.cu`` for a CUDA
 tensor on an sm_90 card (replacing ``fused_conv_extractor``, ``pallas_call``
 at ``conv_extractor.py:210``) and runs ``conv_extractor_math`` for a CPU
-tensor. The TPU kernel's layout (40-sample wav rows with 8 halo lanes, the
+tensor. Layers 1-6 take one of two routes (``ROUTE_NAMES``; ``ROUTES``
+counts the launches by the route the C entry reports): bfloat16 on wgmma,
+float32 on wgmma in 3xTF32 (hi.lo + lo.hi + hi.hi of the operands' TF32
+parts, each 32-deep stage's tensor-core sum added in f32), the weights split
+at packing (``tf32_split``), the activations by the kernel in shared
+memory. float32 differs from ``conv_extractor_math`` by f32 rounding only.
+There is no other route: a CUDA tensor launches the kernel or the wrapper
+raises.
+
+The TPU kernel's layout (40-sample wav rows with 8 halo lanes, the
 (48, 4096) unfold matrix, pair-reshaped taps) answers Mosaic's lack of
 strided slices and is not carried over: ``pack_conv_extractor`` keeps each
 weight as (512, k * 512) with the taps outermost, so that the k input rows a
@@ -25,29 +34,35 @@ frame reads are one contiguous run of the previous layer's (T, 512) output.
 
 from __future__ import annotations
 
+import collections
 import ctypes
-from typing import NamedTuple, Sequence, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ...core.runtime import use_kernel
 from ..mvit_math import gelu, layer_norm
+from .fused_block import tf32_split
 
 CONV_SPEC: Tuple[Tuple[int, int, int], ...] = (
     (512, 10, 5), (512, 3, 2), (512, 3, 2), (512, 3, 2), (512, 3, 2),
     (512, 2, 2), (512, 2, 2))
 CH = 512
 LN_EPS = 1e-5
+ROUTE_NAMES = ("wgmma bf16", "wgmma 3xTF32")
 
 # kernel launches since the last reset: one per call, whatever the number of
-# launches inside (CPU calls and plain runs never count)
+# launches inside (CPU calls and plain runs never count), and by the route
+# the C entry reports (ROUTE_NAMES)
 LAUNCHES = 0
+ROUTES = collections.Counter()
 
 
 def reset_launches() -> None:
     global LAUNCHES
     LAUNCHES = 0
+    ROUTES.clear()
 
 
 def layer_lengths(length: int, spec=CONV_SPEC):
@@ -69,19 +84,26 @@ class ConvExtractorPacked(NamedTuple):
     w0: torch.Tensor                 # (512, 10) f32 of compute-dtype values
     ws: Tuple[torch.Tensor, ...]     # six (512, k * 512) compute dtype, taps outermost
     ln: torch.Tensor                 # (14, 512) f32: weight, bias of layers 0..6
+    # f32 only: ws split into TF32 parts, six (2, 512, k * 512): hi, lo
+    split: Optional[Tuple[torch.Tensor, ...]] = None
 
 
 def pack_conv_extractor(weights: Sequence[torch.Tensor], ln: torch.Tensor,
                         cdtype) -> ConvExtractorPacked:
     """Seven Conv1d weights in torch's (out, in, k) layout and the (14, 512)
-    LN rows -> kernel inputs, pre-rounded to the compute dtype."""
+    LN rows -> kernel inputs, pre-rounded to the compute dtype; in float32
+    also the TF32 hi and lo parts of layers 1-6, which the card's route
+    reads (the exact weights stay beside them for the plain version: hi +
+    lo is a weight only to 2^-22 of it)."""
     for w, (dim, k, _) in zip(weights, CONV_SPEC):
         if w.shape[0] != dim or w.shape[-1] != k:
             raise ValueError(f"conv weight {tuple(w.shape)} does not fit ({dim}, ., {k})")
     w0 = weights[0].detach().to(cdtype).float().reshape(CH, CONV_SPEC[0][1]).contiguous()
     ws = tuple(w.detach().to(cdtype).permute(0, 2, 1).reshape(CH, -1).contiguous()
                for w in weights[1:])
-    return ConvExtractorPacked(w0, ws, ln.detach().float().reshape(14, CH).contiguous())
+    split = (tuple(torch.stack(tf32_split(w)).contiguous() for w in ws)
+             if cdtype == torch.float32 else None)
+    return ConvExtractorPacked(w0, ws, ln.detach().float().reshape(14, CH).contiguous(), split)
 
 
 def unpack_conv_extractor(p: ConvExtractorPacked):
@@ -133,8 +155,12 @@ def _launch(wav, p, cd):
 
     b, length = wav.shape
     lens = layer_lengths(length)
+    # the card reads the f32 weights' TF32 parts
+    ws = p.ws if cd == torch.bfloat16 else p.split
+    if ws is None:
+        raise ValueError("float32 packed weights lack their TF32 parts (pack_conv_extractor)")
     for name, a, dt in [("w0", p.w0, torch.float32), ("ln", p.ln, torch.float32)] + \
-            [(f"w{i + 1}", w, cd) for i, w in enumerate(p.ws)]:
+            [(f"w{i + 1}", w, cd) for i, w in enumerate(ws)]:
         if a.device != wav.device or not a.is_contiguous() or a.dtype != dt:
             raise ValueError(f"packed {name} must be contiguous {dt} on {wav.device}")
     # ping-pong scratch: layer 0, 2, 4 write `even`, layers 1, 3, 5 `odd`
@@ -145,12 +171,15 @@ def _launch(wav, p, cd):
         return out
     lib = load()
     ptr = lambda a: ctypes.c_void_p(a.data_ptr())  # noqa: E731
+    route = ctypes.c_int(-1)
     with torch.cuda.device(wav.device):
         stream = torch.cuda.current_stream(wav.device).cuda_stream
         err = lib.avdd_conv_extractor(
-            ptr(wav), ptr(p.w0), *(ptr(w) for w in p.ws), ptr(p.ln), ptr(even), ptr(odd),
-            ptr(out), b, length, 0 if cd == torch.float32 else 1, ctypes.c_void_p(stream))
+            ptr(wav), ptr(p.w0), *(ptr(w) for w in ws), ptr(p.ln), ptr(even), ptr(odd),
+            ptr(out), b, length, 0 if cd == torch.float32 else 1, ctypes.c_void_p(stream),
+            ctypes.byref(route))
     if err != 0:
         raise RuntimeError(f"conv extractor kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
+    ROUTES[ROUTE_NAMES[route.value]] += 1
     return out

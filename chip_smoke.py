@@ -42,10 +42,13 @@ Phases (any failure exits nonzero):
              call's time, bf16 and f32;
 6. audio kernels - K5 (Emotion2Vec conv extractor) against its plain version
              at B = 2, 16 and 64 on a 9.6 s wav and one with an odd tail,
-             f32 and bf16, K8 (full
+             f32 (every launch's layers 1-6 in 3xTF32, by K5's ROUTES) and
+             bf16, K8 (full
              attention) at (2, 12, 479 | 130 | 50, 64) and (1, 12, 2000, 64)
              with and without a padding mask and with one sample fully
-             masked, f32 and bf16;
+             masked, f32 and bf16; then the seven launches inside one K5
+             call on 64 wavs one by one (kernel events of a trace) with
+             their TFLOP/s and the whole call's time, f32 and bf16;
 7. video   - MViT-v2-b at full width and depth, bf16, through
              FeatureExtractor.video_chunks_features on 16 uint8 chunks of
              512 frames: shape, finiteness, each kernel's launch count, every
@@ -59,7 +62,8 @@ Phases (any failure exits nonzero):
 8. audio   - BYOL-A and Emotion2Vec at full width and depth (12 AltBlocks),
              bf16, 16 wavs of 9.6 s through FeatureExtractor: shapes,
              finiteness, K5 once and K8 twelve times; f32 on a padded pair of
-             short wavs, card against the CPU plain path;
+             short wavs, card against the CPU plain path, every K5 and K8
+             launch on its 3xTF32 route;
 9. media -> detections - the program of bench.py::measure_e2e: 16 videos of
              240 uint8 frames and their 153,600-sample wavs through the three
              encoders, rows 240 / 119 / 479, build_online_inference_fn
@@ -138,7 +142,8 @@ Phases (any failure exits nonzero):
              kernels in float32 (f32_frontend_times: K4's 18 blocks at 32
              chunks, K3 and K2 at 2 and 32 chunks, K5 and K8 at B = 16 and
              64, beside plain, the bounds at 67 and 165 TFLOP/s and the
-             library call) and MViT-v2-b f32 chunks/s at 32 chunks;
+             library call), MViT-v2-b f32 chunks/s at 32 chunks and
+             Emotion2Vec f32 wavs/s at B = 16 and 64;
 14. offline - the offline sweep from feature caches to submission files
              and mAP through the port's CLIs (cli/inference.py,
              generate_results.py, validate.py) in this process:
@@ -1436,6 +1441,63 @@ def k4_launch_table(smi, dev="cuda", group=32, calls=3, dtype="bfloat16"):
     return REPORT[key]
 
 
+K5_LAUNCHES = ("layer 0: k 10 s 5, CUDA cores", "layer 1: k 3 s 2", "layer 2: k 3 s 2",
+               "layer 3: k 3 s 2", "layer 4: k 3 s 2", "layer 5: k 2 s 2", "layer 6: k 2 s 2")
+
+
+def k5_launch_table(smi, dev="cuda", b=64, calls=3):
+    """Device time of each of the seven launches inside one
+    fused_conv_extractor call on ``b`` wavs of 9.6 s, f32 and bf16, with its
+    TFLOP/s (2 T_l 512 k_l C_in per wav): ``calls`` calls are traced, the
+    kernel events cut into calls at each layer-0 launch, and each launch's
+    events averaged by their place over the calls the trace holds whole
+    (late in the script torch.profiler drops some events of a session,
+    PERF.md §7); the whole call is timed apart (device_ms). A trace with no
+    whole call leaves the per-launch times unmeasured."""
+    import torch
+    from audio_visual_deepfake_detection_tpu_torch.ops.kernels import conv_extractor as k5
+
+    lens = k5.layer_lengths(WAV_LEN)
+    flops = [2 * b * t * 512 * k * (512 if i else 1)
+             for i, (t, (_, k, _)) in enumerate(zip(lens, k5.CONV_SPEC))]
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        m, wav = k5_case(b, WAV_LEN, dtype, dev, seed=b)
+        with torch.no_grad():
+            call = lambda: run_k5("kernel", m, wav)  # noqa: E731
+            events = kernel_events(call, calls)
+            whole = device_ms(call, iters=3)
+        n = len(K5_LAUNCHES)
+        starts = [i for i, (name, _) in enumerate(events) if "layer0_kernel" in name]
+        per_call = [one for one in (events[i:i + n] for i in starts)
+                    if len(one) == n and "layer0_kernel" not in "".join(e for e, _ in one[1:])
+                    and len({e for e, _ in one[1:]}) == 1]
+        traced = bool(per_call)
+        rows = []
+        for i, name in enumerate(K5_LAUNCHES):
+            ms = sum(one[i][1] for one in per_call) / len(per_call) / 1e3 if traced else None
+            rows.append(dict(launch=i, name=name, ms=ms, gflop=flops[i] / 1e9,
+                             kernel=per_call[0][i][0][:80] if traced else None,
+                             tflops=flops[i] / ms / 1e9 if traced else None))
+        log(f"K5 launches, B={b} wavs of 9.6 s, {dname}: whole call {whole:.3f} ms, "
+            f"{sum(flops) / whole / 1e9:.1f} TFLOP/s; {len(per_call)} of {calls} traced calls "
+            f"whole ({len(events)} kernel events) ({smi})")
+        if traced:
+            for r in rows:
+                log(f"  {r['launch']} {r['ms']:9.3f} ms {r['tflops']:6.1f} TFLOP/s "
+                    f"{r['gflop']:8.1f} GFLOP  {r['name']}  [{r['kernel'][:40]}]")
+        else:
+            log(f"  per-launch times not measured: the trace holds {len(events)} kernel events "
+                f"for {calls} calls of {n} launches")
+        out[dname] = dict(rows=rows, total_ms=whole, tflops=sum(flops) / whole / 1e9,
+                          traced=traced, whole_calls=len(per_call))
+        del m, wav, call
+        torch.cuda.empty_cache()
+    REPORT["k5_launch_table"] = dict(card=smi, wavs=b, **out)
+    return REPORT["k5_launch_table"]
+
+
 # ------------------------------------------------------------ video slice
 
 def video_launches(n_chunks, group, batched_back, n_k4=18, n_k3_front=2, n_k3_back=1):
@@ -1485,16 +1547,18 @@ def video_routes(counts, on_card, dtype="bfloat16"):
 
 
 def frontend_routes(counts, on_card, dtype="bfloat16"):
-    """K2's and K8's launches by the route each C entry reports, since the
-    last reset, against ``counts`` (launches by kernel name; a kernel absent
-    there is not checked): every one bf16 wgmma, or in f32 the TF32 tensor
-    cores (K2's uint8 entry in two products, its f32-frame entry in three;
-    K8 in 3xTF32). Fails otherwise; returns the routes by kernel name."""
+    """K2's, K5's and K8's launches by the route each C entry reports, since
+    the last reset, against ``counts`` (launches by kernel name; a kernel
+    absent there is not checked): every one bf16 wgmma, or in f32 the TF32
+    tensor cores (K2's uint8 entry in two products, its f32-frame entry in
+    three; K5's layers 1-6 and K8 in 3xTF32). Fails otherwise; returns the
+    routes by kernel name."""
+    from audio_visual_deepfake_detection_tpu_torch.ops.kernels import conv_extractor as k5
     from audio_visual_deepfake_detection_tpu_torch.ops.kernels import full_attention as k8
     from audio_visual_deepfake_detection_tpu_torch.ops.kernels import patch_embed as k2
 
     got = {}
-    for name, mod in (("patch_embed", k2), ("full_mha", k8)):
+    for name, mod in (("patch_embed", k2), ("conv_extractor", k5), ("full_mha", k8)):
         if name not in counts:
             continue
         got[name] = dict(mod.ROUTES)
@@ -1502,7 +1566,7 @@ def frontend_routes(counts, on_card, dtype="bfloat16"):
         allowed = mod.ROUTE_NAMES[1:] if dtype == "float32" else mod.ROUTE_NAMES[:1]
         n = counts[name] if on_card else 0
         if sum(got[name].values()) != n or not set(got[name]) <= set(allowed):
-            fail(f"K2 / K8 routes {got}, expected {n} {name} launches on {allowed}")
+            fail(f"K2 / K5 / K8 routes {got}, expected {n} {name} launches on {allowed}")
     return got
 
 
@@ -1824,10 +1888,11 @@ def f32_frontend_times(smi, dev="cuda", group=32, chunks=F32_CHUNKS, audio=F32_A
     computes in unless told otherwise, each alone on the card (device_ms: a
     CUDA graph replayed) beside its plain version (CUDA events), its bound
     (``bound_ms``) at its route's rate: 3xTF32 on the tensor cores
-    (PEAK_3XTF32) for K3, K4 and K8, two TF32 products (PEAK_2XTF32) for K2's
-    uint8 entry, the CUDA cores' f32 FMA (PEAK_F32) for K5; the FMA and
-    3xTF32 bounds beside (``bound_fma_ms``, ``bound_3xtf32_ms``), and the
-    PyTorch call nearest to it (TF32 off, as the package sets it):
+    (PEAK_3XTF32) for K3, K4, K5 and K8 (K5's layer 0, 0.7% of its work,
+    runs on the CUDA cores: counted at the same rate), two TF32 products
+    (PEAK_2XTF32) for K2's uint8 entry; the FMA and 3xTF32 bounds beside
+    (``bound_fma_ms``, ``bound_3xtf32_ms``), and the PyTorch call nearest to
+    it (TF32 off, as the package sets it):
     - K4 at each MSBLOCK_SHAPES geometry at ``group`` chunks and the 18
       blocks' sum (no library call computes a block);
     - K3's table entry at each K3_SHAPES shape at ``chunks``, SDPA under the
@@ -1837,7 +1902,10 @@ def f32_frontend_times(smi, dev="cuda", group=32, chunks=F32_CHUNKS, audio=F32_A
     - K8 at (B, 12, 479, 64) with the key mask, B in ``audio``, SDPA with
       the key mask beside;
     - MViT-v2-b chunks/s at ``group`` chunks through
-      FeatureExtractor.video_chunks_features_device, f32.
+      FeatureExtractor.video_chunks_features_device, f32;
+    - Emotion2Vec wavs/s (9.6 s wavs) at B in ``audio`` through
+      FeatureExtractor.emotion_features_device, f32 (K5 once, K8 12 times a
+      forward).
     "Lost": launches x (time - bound_ms) on one ``group``-chunk
     extraction group (K2 1, K3 3, K4 18) and at B = 64 (K5 1, K8 12)."""
     import torch
@@ -1905,8 +1973,7 @@ def f32_frontend_times(smi, dev="cuda", group=32, chunks=F32_CHUNKS, audio=F32_A
             m, wav = k5_case(b, WAV_LEN, f32, dev, seed=b)
             k_ms = device_ms(lambda: run_k5("kernel", m, wav), 5)
             p_ms = cuda_ms(lambda: run_k5("plain", m, wav), 2, warmup=1)
-            r = out["K5"][f"B={b}"] = row(k5_work(b, WAV_LEN, nbytes=4), 1, k_ms, p_ms,
-                                          peak="PEAK_F32")
+            r = out["K5"][f"B={b}"] = row(k5_work(b, WAV_LEN, nbytes=4), 1, k_ms, p_ms)
             say("conv_extractor", f"B={b} L={WAV_LEN}", r)
             del m, wav
             q, k, v, mask = k8_case(b, E2V_T, f32, dev, True, seed=b)
@@ -1961,6 +2028,30 @@ def f32_frontend_times(smi, dev="cuda", group=32, chunks=F32_CHUNKS, audio=F32_A
     log(f"MViT-v2-b f32 {group} chunks, batched_back=True: {max(runs):.2f} chunks/s (runs "
         f"{[round(r_, 2) for r_ in runs]}, peak mem {out['mvit_peak_gib']:.1f} GiB) ({smi})")
     del ex, x
+    torch.cuda.empty_cache()
+
+    # Emotion2Vec in f32 through the extractor, as cli/extract_features.py runs it
+    ex = pipeline.FeatureExtractor(emotion_model=audio_models(f32, seed=3, d=16)[1], device=dev)
+    for b in audio:
+        wavs = 0.1 * torch.randn((b, WAV_LEN), device=dev,
+                                 generator=torch.Generator(dev).manual_seed(b))
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            ex.emotion_features_device(wavs)
+        runs = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                ex.emotion_features_device(wavs)
+            torch.cuda.synchronize()
+            runs.append(b / (time.perf_counter() - t0))
+        out[f"emotion2vec_wavs_per_s_B{b}"] = max(runs)
+        log(f"Emotion2Vec f32 B={b} wavs of 9.6 s: {max(runs):.2f} wavs/s (runs "
+            f"{[round(r_, 2) for r_ in runs]}, peak mem "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB) ({smi})")
+        del wavs
+    del ex
     torch.cuda.empty_cache()
     REPORT["f32_frontend_times"] = out
     return out
@@ -2236,7 +2327,8 @@ def phase_audio_kernels(dev="cuda", lengths=(WAV_LEN, WAV_ODD), cases=K8_CASES,
                         k5_batches=K5_BATCHES):
     """K5 against conv_extractor_math at B = 2, 16 and 64 (the persistent
     tiles' ragged last wave), a 9.6 s wav and one with an odd tail, f32 (atol
-    1e-4, rtol 5e-4) and bf16 (check_k5_bf16); K8 against
+    1e-4, rtol 5e-4) and bf16 (check_k5_bf16), every launch's route
+    (frontend_routes: f32 layers 1-6 in 3xTF32); K8 against
     full_mha_math at (2, 12, 479 | 130 | 50, 64) and (1, 12, 2000 | 7000, 64),
     with and without a padding mask, with one sample fully masked, and in bf16
     at more than 65,535 (sample, head) pairs; f32 atol 2e-5 and bf16 the
@@ -2264,7 +2356,11 @@ def phase_audio_kernels(dev="cuda", lengths=(WAV_LEN, WAV_ODD), cases=K8_CASES,
             for dtype in (torch.float32, torch.bfloat16):
                 with torch.no_grad():
                     m, wav = k5_case(b, length, dtype, dev, seed=length + b)
-                    got, ref = run_k5("kernel", m, wav), run_k5("plain", m, wav)
+                    k5.reset_launches()
+                    got = run_k5("kernel", m, wav)
+                    frontend_routes({"conv_extractor": 1}, torch.device(dev).type == "cuda",
+                                    str(dtype).split(".")[-1])
+                    ref = run_k5("plain", m, wav)
                     sync(dev)
                     t_out = k5.conv_output_length(length)
                     if tuple(got.shape) != (b, t_out, 512) or got.dtype != dtype:
@@ -2407,7 +2503,9 @@ def phase_audio(video, dev="cuda", n_wavs=16, wav_len=WAV_LEN, smi="", models=No
             fail(f"audio f32 {name}: card vs CPU plain path differ")
     if c32 != expect:     # else the plain path would be held against itself
         fail(f"audio f32 kernel launches {c32}, expected {expect}")
-    REPORT["audio"] = dict(wavs=n_wavs, first_call_s=wall, launches=got, f32_max_abs_err=errs)
+    routes32 = frontend_routes(c32, on_card, "float32")
+    REPORT["audio"] = dict(wavs=n_wavs, first_call_s=wall, launches=got, f32_max_abs_err=errs,
+                           f32_routes=routes32)
     return ex, got
 
 
@@ -3077,7 +3175,7 @@ def phase_media_pipeline(ex, model, cfg, dev="cuda", n_videos=MEDIA_VIDEOS, n_fr
             counts32 = launch_counts()
             routes32 = video_routes({"pooled_attention": counts32["pooled_attention"]}, on_card,
                                     "float32")
-            routes32_k2k8 = frontend_routes(counts32, on_card, "float32")
+            routes32_front = frontend_routes(counts32, on_card, "float32")
         finally:
             extract_features.build_extractor = build
         if done["done"] != n_extract or done["errors"] or (on_card and counts32 != want):
@@ -3089,10 +3187,11 @@ def phase_media_pipeline(ex, model, cfg, dev="cuda", n_videos=MEDIA_VIDEOS, n_fr
                     fail(f"f32 cache {name}/{r}.npy: {arr.shape}, {rows[key]} rows expected")
         rec["extract_features_f32"] = dict(videos=n_extract, seconds=wall32,
                                            videos_per_s=n_extract / wall32, launches=counts32,
-                                           routes=routes32, routes_k2_k8=routes32_k2k8)
+                                           routes=routes32, routes_k2_k5_k8=routes32_front)
         log(f"extract_features, no --dtype (float32): {n_extract} mp4s in {wall32:.3f} s = "
             f"{n_extract / wall32:.2f} videos/s (--dtype {dtype}: {n_extract / wall:.2f}); "
-            f"launches {counts32}, K3 routes {routes32}, K2 / K8 routes {routes32_k2k8} ({smi})")
+            f"launches {counts32}, K3 routes {routes32}, K2 / K5 / K8 routes {routes32_front} "
+            f"({smi})")
         with open(os.path.join(cache, "deepfake_test_sub1.txt"), "w") as f:
             f.write("\n".join(f"{r}.mp4,{duration!r}" for r in rels[:n_extract]))
         folders = {k: os.path.join(cache, v) for k, v in CACHE_DIR_NAMES.items()}
@@ -7009,6 +7108,7 @@ def main():
     k4_table = timed(k4_launch_table, smi)
     k4_table_f32 = timed(k4_launch_table, smi, dtype="float32")
     audio_worst = timed(phase_audio_kernels)
+    k5_table = timed(k5_launch_table, smi)
     ex, video_launched = timed(phase_video, smi=smi)
     ex, audio_launched = timed(phase_audio, ex.video_model, smi=smi)
     media_launched = timed(phase_media_detections, ex, model, cfg, smi=smi)
@@ -7168,6 +7268,11 @@ def main():
                     f"of 9.6 s, bf16",
             "f32": f32_front["K5" if name == "conv_extractor" else "K8"],
         })
+    kernels[-2].update(launch_table_b64=k5_table, sources_f32=[src + "conv_extractor.cu"],
+                       routes_f32_audio=REPORT["audio"]["f32_routes"],
+                       emotion2vec_f32_wavs_per_s={
+                           str(b): f32_front[f"emotion2vec_wavs_per_s_B{b}"]
+                           for b in F32_AUDIO_BATCHES})
     for k in kernels:
         k["launches_media_to_detections"] = media_launched[k["name"]]
         # MediaPipeline.run over 128 videos at batch 16: 8 x media_to_detections' 16

@@ -1,5 +1,5 @@
-"""The production K1, the MViT kernels K3 and K4, or the frontends' K2 and
-K8, in two source trees on one card. The trees run in turns a, b, b, a,
+"""The production K1, the MViT kernels K3 and K4, or the frontends' K2, K5
+and K8, in two source trees on one card. The trees run in turns a, b, b, a,
 each in a process of its own that builds its own kernel library under its
 ``build/kernels/``.
 
@@ -13,8 +13,9 @@ are bit for bit the same.
 
 ``--kernels frontends``: in bf16 and float32, K2 (its uint8 entry and its
 f32-frame entry, mvit_v2_b's 96 features) at 2 and 32 chunks, device ms of
-one call replayed as a CUDA graph, and K8's 12 launches of one Emotion2Vec
-forward at (B, 12, 479, 64) with the key mask, B = 16 and 64.
+one call replayed as a CUDA graph, K5 (one call: the seven layers) on B =
+16 and 64 wavs of 9.6 s, and K8's 12 launches of one Emotion2Vec forward at
+(B, 12, 479, 64) with the key mask, B = 16 and 64.
 
 ``--kernels mvit``: in bf16 and float32, K4's 18 blocks of one mvit_v2_b
 forward at 32 chunks (each ``chip_smoke.MSBLOCK_SHAPES`` geometry, device ms
@@ -24,14 +25,20 @@ and MViT-v2-b chunks/s at 32 chunks in f32 through
 ``FeatureExtractor.video_chunks_features_device`` (the extractor's path,
 best of two after a warm-up).
 
+Every timed run also hashes each timed output (``--kernels mvit`` and
+``frontends`` too), and the tool says where the two trees' outputs are bit
+for bit the same.
+
 With ``--precision`` it times nothing and runs each tree once, in float32,
 against two plain versions on the same inputs: the one the checks hold the
 kernel to, in f32, and the same with every f32 step in f64
 (``Tensor.float`` swapped for ``Tensor.double``; for K3 / K4 the softmax's
 denominator summed in f64 too: the exact function of the f32 inputs, to
 f64 rounding). K2 and K8 (``--kernels frontends``) at the shapes that mode
-times them, and K8 at the ``chip_smoke.K8_CASES`` lengths up to 2000, masked
-and not, against ``patch_embed_math`` / ``full_mha_math``. K1 / K6 at every
+times them, K8 at the ``chip_smoke.K8_CASES`` lengths up to 2000, masked
+and not, and K5 on B = 2 wavs of ``chip_smoke.WAV_LEN`` and ``WAV_ODD``
+samples, against ``patch_embed_math`` / ``full_mha_math`` /
+``conv_extractor_math``. K1 / K6 at every
 shape ``chip_smoke.py`` checks them at (K1:
 the 18 production blocks' 13 shapes at B = 16 and 64 and the B = 512
 full-length block; K6: the 13 at B = 50 with droppath coefficients; both at
@@ -100,7 +107,15 @@ out["digests"] = digests
 print("RESULT " + json.dumps(out))
 """
 
-MVIT_RUN = r"""
+DIGEST = r"""
+import hashlib
+
+
+def digest(t):
+    return hashlib.sha256(t.float().cpu().numpy().tobytes()).hexdigest()
+"""
+
+MVIT_RUN = DIGEST + r"""
 import json, sys, time
 sys.path.insert(0, ".")
 import numpy as np
@@ -110,13 +125,16 @@ from audio_visual_deepfake_detection_tpu_torch.frontends import pipeline
 
 smi = c.phase_build()
 out = {"card": smi}
+digests = {}
 with torch.no_grad():
     for dname in ("bfloat16", "float32"):
         dt = getattr(torch, dname)
         total = 0.0
         for hw, cc, nh, n in c.MSBLOCK_SHAPES:
             blk, x = c.msblock_case(hw, cc, nh, dt, "cuda", b=32)
-            ms = c.device_ms(lambda: c.run_msblock("kernel", blk, x, c.VIDEO_T, hw, nh), iters=5)
+            run = lambda: c.run_msblock("kernel", blk, x, c.VIDEO_T, hw, nh)
+            digests[f"K4 {dname} S={hw[0] * hw[1]} C={cc}"] = digest(run())
+            ms = c.device_ms(run, iters=5)
             out[f"K4 {dname} S={hw[0] * hw[1]} C={cc}"] = ms * n
             total += ms * n
             del blk, x
@@ -126,6 +144,7 @@ with torch.no_grad():
             total = 0.0
             for name, heads, s_cells, d, rnd, n in c.K3_SHAPES:
                 args = c.k3_case(chunks, heads, s_cells, d, rnd, dt, "cuda")
+                digests[f"K3 {dname} {name} B={chunks}"] = digest(c.run_k3("kernel", *args))
                 ms = c.device_ms(lambda: c.run_k3("kernel", *args), iters=5)
                 out[f"K3 {dname} {name} B={chunks}"] = ms * n
                 total += ms * n
@@ -145,11 +164,12 @@ with torch.no_grad():
         torch.cuda.synchronize()
         runs.append(32 / (time.perf_counter() - t0))
     out["MViT-v2-b f32 chunks/s B=32"] = max(runs)
+out["digests"] = digests
 print("RESULT " + json.dumps(out))
 """
 
 
-FRONT_RUN = r"""
+FRONT_RUN = DIGEST + r"""
 import json, sys
 sys.path.insert(0, ".")
 import torch
@@ -157,21 +177,32 @@ import chip_smoke as c
 
 smi = c.phase_build()
 out = {"card": smi}
+digests = {}
 with torch.no_grad():
     for dname in ("bfloat16", "float32"):
         dt = getattr(torch, dname)
         for u8 in (True, False):
             for chunks in (2, 32):
                 video, w, bias, _ = c.patch_case(dt, "cuda", b=chunks, u8=u8)
-                out[f"K2 {dname} {'uint8' if u8 else 'f32'} frames B={chunks}"] = c.device_ms(
-                    lambda: c.run_patch("kernel", video, w, bias, dt), iters=5)
+                key = f"K2 {dname} {'uint8' if u8 else 'f32'} frames B={chunks}"
+                run = lambda: c.run_patch("kernel", video, w, bias, dt)
+                digests[key] = digest(run())
+                out[key] = c.device_ms(run, iters=5)
                 del video
                 torch.cuda.empty_cache()
         for b in (16, 64):
+            m, wav = c.k5_case(b, c.WAV_LEN, dt, "cuda", seed=b)
+            run = lambda: c.run_k5("kernel", m, wav)
+            digests[f"K5 {dname} B={b}"] = digest(run())
+            out[f"K5 {dname} B={b}"] = c.device_ms(run, iters=5)
+            del m, wav
+            torch.cuda.empty_cache()
             q, k, v, mask = c.k8_case(b, c.E2V_T, dt, "cuda", True, seed=b)
-            out[f"K8 {dname} 12 launches B={b}"] = 12 * c.device_ms(
-                lambda: c.run_k8("kernel", q, k, v, mask))
+            run = lambda: c.run_k8("kernel", q, k, v, mask)
+            digests[f"K8 {dname} B={b}"] = digest(run())
+            out[f"K8 {dname} 12 launches B={b}"] = 12 * c.device_ms(run)
             del q, k, v, mask
+out["digests"] = digests
 print("RESULT " + json.dumps(out))
 """
 
@@ -181,6 +212,7 @@ import json, sys
 sys.path.insert(0, ".")
 import torch
 import chip_smoke as c
+from audio_visual_deepfake_detection_tpu_torch.ops.kernels import conv_extractor as k5
 from audio_visual_deepfake_detection_tpu_torch.ops.kernels import full_attention as k8
 from audio_visual_deepfake_detection_tpu_torch.ops.kernels import patch_embed as k2
 
@@ -228,6 +260,16 @@ with torch.no_grad():
         record("K8", f"({b}, {c.E2V_H}, {t}, {c.E2V_D}) {'mask' if masked else 'no mask'}",
                got, ref, exact)
         del q, k, v, mask, got, ref, exact
+        torch.cuda.empty_cache()
+    for length in (c.WAV_LEN, c.WAV_ODD):
+        m, wav = c.k5_case(2, length, f32, "cuda", seed=length + 2)
+        got = c.run_k5("kernel", m, wav)
+        ref = c.run_k5("plain", m, wav)
+        exact = f64(lambda: k5.conv_extractor_math(
+            wav.double(), [w.double() for w in m._weights()], m._ln_rows().double(),
+            torch.float64))
+        record("K5", f"B=2 L={length}", got, ref, exact)
+        del m, wav, got, ref, exact
         torch.cuda.empty_cache()
 print("RESULT " + json.dumps({"card": smi, "rows": rows}))
 """
@@ -404,7 +446,7 @@ def main(argv=None):
     ap.add_argument("a", help="the first tree (the parent)")
     ap.add_argument("b", help="the second tree (the change)")
     ap.add_argument("--kernels", choices=("k1", "mvit", "frontends"), default="k1",
-                    help="K1 (one dtype), K3 and K4, or K2 and K8 (both dtypes)")
+                    help="K1 (one dtype), K3 and K4, or K2, K5 and K8 (both dtypes)")
     ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16",
                     help="K1's dtype")
     ap.add_argument("--wide", nargs="*", default=[], metavar="C,HEADS,W",
@@ -418,7 +460,8 @@ def main(argv=None):
     wide = [tuple(int(v) for v in s.split(",")) for s in args.wide]
     code = {"k1": RUN % (args.dtype, BATCHES, wide), "mvit": MVIT_RUN,
             "frontends": FRONT_RUN}[args.kernels]
-    label = {"k1": f"K1 {args.dtype}", "mvit": "K3 / K4", "frontends": "K2 / K8"}[args.kernels]
+    label = {"k1": f"K1 {args.dtype}", "mvit": "K3 / K4",
+             "frontends": "K2 / K5 / K8"}[args.kernels]
     runs = []
     for name in ("a", "b", "b", "a"):
         tree = os.path.abspath(getattr(args, name))
