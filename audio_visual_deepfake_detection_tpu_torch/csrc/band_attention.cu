@@ -57,7 +57,10 @@
 //   so an SM runs three such blocks (launch bounds) and not six.
 // - One grid axis over (sample, row tile, head slab): no cap on B x H.
 // The TPU kernel's whole-(T, D) VMEM tiles and 128-lane padding are not
-// carried over.
+// carried over. The rest of the Pallas kernel's domain, half windows above
+// MAX_W and head rows over 512 bytes (head widths up to 512), runs
+// band_any_kernel below, a simple design: a warp a row, the offsets
+// streamed in order.
 
 #include "common.cuh"
 
@@ -68,7 +71,7 @@ using namespace avdd;
 constexpr int NW = 8;            // warps of a block
 constexpr int NT = NW * 32;
 constexpr int ROWS = NW;         // query rows of a block, a warp each
-constexpr int MAX_W = 16;        // largest half window
+constexpr int MAX_W = 16;        // largest half window of the tiled kernel
 constexpr int SLAB = 512;        // bytes of a staged row: 32 lanes x 16 bytes
 constexpr float PENALTY = -1e4f;
 static_assert(2 * MAX_W + 1 <= 64, "two ballots hold a row's key masks");
@@ -258,6 +261,91 @@ __global__ void __launch_bounds__(NT, W > 8 ? 3 : 6) band_attention_kernel(const
     *reinterpret_cast<uint4*>(p.out + b * p.so.b + h * p.so.h + r * p.so.t + c * VB) = acc;
 }
 
+// Every other window and head width of the domain: half windows above
+// MAX_W and head rows of whole 16-byte pieces up to ANY_ROW bytes. A warp
+// a query row of one (sample, head), its lane l the row's 16-byte pieces
+// l, l + 32, ..; the offsets stream in order, three passes over them (the
+// row maximum, the sum of the exps, the context), each recomputing a
+// score from the k row (read through L1, which the neighbouring rows'
+// warps share) and summing it over the warp. No score is kept, so nothing
+// limits w. The arithmetic and its order are band_attention_plain's, in
+// the input dtype: products, score, penalty, s - max, exp, the running sum
+// of the exps, the quotient (a division, as the plain version's), the
+// products with v and the running context each rounded where it rounds
+// them; offsets outside the sequence are skipped (their exp is exactly 0).
+constexpr int ANY_PIECES = 4;                      // 16-byte pieces a lane holds
+constexpr int ANY_ROW = 32 * ANY_PIECES * 16;      // bytes of the widest head row
+
+template <typename T>
+__global__ void __launch_bounds__(NT) band_any_kernel(const Params p, int w, long long rows) {
+  using V = Vec<T>;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long id = (long long)blockIdx.x * NW + warp;    // (b, h, i), i fastest
+  if (id >= rows) return;
+  const int i = (int)(id % p.T);
+  const long long bh = id / p.T;
+  const int h = (int)(bh % p.H), b = (int)(bh / p.H);
+  const char* kb = p.k + b * p.sk.b + h * p.sk.h;
+  const char* vb = p.v + b * p.sv.b + h * p.sv.h;
+  const char* qr = p.q + b * p.sq.b + h * p.sq.h + i * p.sq.t;
+  uint4 q[ANY_PIECES];
+#pragma unroll
+  for (int j = 0; j < ANY_PIECES; ++j) {
+    const int c = lane + 32 * j;
+    q[j] = c < p.chunks ? ldg16(qr + 16 * c) : make_uint4(0u, 0u, 0u, 0u);
+  }
+  const uint8_t* mrow = p.valid + (size_t)b * p.T;
+  const int lo = max(-w, -i), hi = min(w, p.T - 1 - i);
+  const float pen = V::rnd(PENALTY);
+  auto score = [&](int d) {
+    const char* kr = kb + (i + d) * p.sk.t;
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < ANY_PIECES; ++j) {
+      const int c = lane + 32 * j;
+      if (c < p.chunks) s += V::dot(q[j], ldg16(kr + 16 * c));
+    }
+    s = V::rnd(warp_sum(s));
+    return mrow[i + d] ? s : V::rnd(s + pen);
+  };
+  float mx = -CUDART_INF_F;
+  for (int d = lo; d <= hi; ++d) mx = fmaxf(mx, score(d));
+  float den = 0.f;
+  for (int d = lo; d <= hi; ++d) {
+    const float e = V::rnd(expf(V::rnd(score(d) - mx)));
+    den = d == lo ? e : V::rnd(den + e);
+  }
+  uint4 acc[ANY_PIECES];
+#pragma unroll
+  for (int j = 0; j < ANY_PIECES; ++j) acc[j] = make_uint4(0u, 0u, 0u, 0u);
+  for (int d = lo; d <= hi; ++d) {
+    const float e = V::rnd(expf(V::rnd(score(d) - mx)));
+    const float pq = e / den;                      // rounded to the dtype by axpy
+    const char* vr = vb + (i + d) * p.sv.t;
+#pragma unroll
+    for (int j = 0; j < ANY_PIECES; ++j) {
+      const int c = lane + 32 * j;
+      if (c < p.chunks) V::axpy(acc[j], pq, ldg16(vr + 16 * c));
+    }
+  }
+  char* orow = p.out + b * p.so.b + h * p.so.h + i * p.so.t;
+  const bool own = mrow[i] != 0;                   // own key slot masked: zero
+#pragma unroll
+  for (int j = 0; j < ANY_PIECES; ++j) {
+    const int c = lane + 32 * j;
+    if (c < p.chunks)
+      *reinterpret_cast<uint4*>(orow + 16 * c) = own ? acc[j] : make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+template <typename T>
+int launch_any(const Params& p, int w, long long rows, cudaStream_t stream) {
+  const long long blocks = (rows + NW - 1) / NW;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  band_any_kernel<T><<<(unsigned)blocks, NT, 0, stream>>>(p, w, rows);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int W, int P>
 int launch_p(const Params& p, cudaStream_t stream) {
   static int configured = 0;
@@ -306,15 +394,17 @@ struct BandArgs {
 // q, k, v, out: (B, H, T, D) through element strides (batch, head, row), the
 // D values of a row contiguous, every row 16-byte aligned (the stride of a
 // dimension of size 1 is never used); valid: (B, T) bool, contiguous. D x
-// element size a multiple of 16 bytes and at most 512; 0 <= w <= 16; dtype:
-// 0 float32, 1 bfloat16.
+// element size a multiple of 16 bytes, D at most 512 (rows up to ANY_ROW
+// bytes); any w >= 0 (the tiled kernel up to MAX_W and rows of
+// 512 bytes, band_any_kernel beyond); dtype: 0 float32, 1 bfloat16.
 int avdd_band_attention(const BandArgs* a) {
   const int B = a->B, H = a->H, T = a->T, D = a->D, w = a->w, dtype = a->dtype;
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   const long long es = dtype == 0 ? 4 : 2;
   const long long row = D * es;
-  if (B <= 0 || H <= 0 || T <= 0 || w < 0 || w > MAX_W || row % 16 || row > SLAB)
+  if (B <= 0 || H <= 0 || T <= 0 || w < 0 || D > 512 || row % 16 || row > ANY_ROW)
     return (int)cudaErrorInvalidValue;
+  const bool tiled = w <= MAX_W && row <= SLAB;    // else band_any_kernel
   // in bytes; a stride steps a dimension only where its size exceeds 1
   Strides st[4];
   for (int i = 0; i < 4; ++i) {
@@ -339,6 +429,12 @@ int avdd_band_attention(const BandArgs* a) {
   p.T = T;
   p.tiles = (T + ROWS - 1) / ROWS;
   p.chunks = (int)(row / 16);
+  cudaStream_t s = static_cast<cudaStream_t>(a->stream);
+  if (!tiled) {
+    const long long rows = (long long)B * H * T;
+    return dtype == 0 ? launch_any<float>(p, w, rows, s)
+                      : launch_any<__nv_bfloat16>(p, w, rows, s);
+  }
   int lanes = 8;                                   // lanes a head: a power of 2, >= chunks
   while (lanes < p.chunks) lanes *= 2;
   p.slabs = (H + 32 / lanes - 1) / (32 / lanes);
@@ -347,7 +443,6 @@ int avdd_band_attention(const BandArgs* a) {
   const long long n = (long long)B * p.tiles * p.slabs;
   if (n > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   p.n = (int)n;
-  cudaStream_t s = static_cast<cudaStream_t>(a->stream);
   return dtype == 0 ? launch<float>(p, w, lanes, s) : launch<__nv_bfloat16>(p, w, lanes, s);
 }
 

@@ -38,7 +38,10 @@
 // row blocks (T = 479), from L2. The ragged last key tile is zero-filled on
 // load and masked in registers (-inf, weight 0). 34 KB of shared memory and
 // at most 128 registers a thread: two blocks, four warpgroups, an SM, so one
-// warpgroup's exps overlap another's products. cp.async rather than TMA: q,
+// warpgroup's exps overlap another's products. Head dims 80-128 take the
+// instance of width 128: a tile row is two 64-column swizzled sub-tiles,
+// q k^T runs eight 16-deep steps and P.V two 64-column products, one block
+// an SM (66 KB, the context's 64 accumulators more a thread). cp.async rather than TMA: q,
 // k, v arrive as strided views of one (B, T, 3, H, d) projection, and a
 // 16-byte copy per thread needs no tensor map per call.
 // f32: 3xTF32 on the tensor cores, the KEY_BIAS mode of the f32 pooled
@@ -61,7 +64,7 @@ namespace {
 using namespace avdd;
 
 constexpr int KT = 64;                // keys per staged tile
-constexpr int MAXD = 64;              // largest head dim
+constexpr int MAXD = 128;             // largest head dim
 
 struct Params {
   const void* q; const void* k; const void* v;
@@ -81,11 +84,22 @@ struct Params {
 constexpr int NTW = 256;              // two warpgroups
 constexpr int BMW = 128;              // query rows per block
 constexpr int NS = 4;                 // ring stages
-constexpr int TILE_BYTES = KT * 128;  // 64 rows of 128 bytes
-constexpr int WG_SMEM = NS * TILE_BYTES + NS * KT * 4 + 1024;   // tiles, key biases, alignment
+constexpr int SUB_BYTES = KT * 128;   // 64 rows of 128 bytes: 64 columns of a tile
 
-__global__ void __launch_bounds__(NTW, 2)
+// The kernel's widths: DW = 64 for head dims up to 64, 128 above (a tile
+// row is DW / 64 swizzled sub-tiles of 64 columns side by side, and the
+// context DW / 64 accumulators of 64 columns; at DW = 128 its registers
+// leave one block an SM).
+template <int DW> struct Width {
+  static constexpr int NSUB = DW / 64;
+  static constexpr int TILE_BYTES = NSUB * SUB_BYTES;
+  static constexpr int SMEM = NS * TILE_BYTES + NS * KT * 4 + 1024;   // tiles, key biases, alignment
+};
+
+template <int DW>
+__global__ void __launch_bounds__(NTW, DW == 64 ? 2 : 1)
 full_mha_wgmma_kernel(Params p) {
+  constexpr int NSUB = Width<DW>::NSUB, TILE_BYTES = Width<DW>::TILE_BYTES, KS = DW / 16;
   extern __shared__ __align__(16) unsigned char smraw[];
   const int d = p.d, nk = p.T;
   const uint32_t raw = smem_u32(smraw);
@@ -113,10 +127,12 @@ full_mha_wgmma_kernel(Params p) {
       const long long st = is_v ? p.vst : p.kst;
       const uint32_t dst = tiles + (j % NS) * TILE_BYTES;
 #pragma unroll
-      for (int i = 0; i < KT * 8 / NTW; ++i) {
-        const int idx = tid + NTW * i, r = idx / 8, c = idx % 8, row = k0 + r;
-        const bool ok = row < nk && 8 * c < d;
-        cp_async16_to(dst + swz(r, c), ok ? src + (size_t)row * st + 8 * c : src, ok ? 16 : 0);
+      for (int i = 0; i < KT * 8 * NSUB / NTW; ++i) {
+        const int idx = tid + NTW * i, r = idx / (8 * NSUB), cc = idx % (8 * NSUB);
+        const int c = cc % 8, row = k0 + r;
+        const bool ok = row < nk && 8 * cc < d;
+        cp_async16_to(dst + (cc / 8) * SUB_BYTES + swz(r, c),
+                      ok ? src + (size_t)row * st + 8 * cc : src, ok ? 16 : 0);
       }
       if (bias && !is_v && tid < KT) {
         const bool ok = k0 + tid < nk;
@@ -129,9 +145,9 @@ full_mha_wgmma_kernel(Params p) {
 #pragma unroll
   for (int j = 0; j < NS - 1; ++j) load_tile(j);
 
-  uint32_t qa[4][4];
+  uint32_t qa[KS][4];
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < KS; ++kk) {
     const int c = 16 * kk + 2 * t;
     const bool ok = 16 * kk < d;
     qa[kk][0] = ok && row0 < nk ? ld_pair(q + (size_t)row0 * p.qst + c) : 0u;
@@ -140,11 +156,15 @@ full_mha_wgmma_kernel(Params p) {
     qa[kk][3] = ok && row1 < nk ? ld_pair(q + (size_t)row1 * p.qst + c + 8) : 0u;
   }
 
-  float S[32], O[32];
+  float S[32], O[NSUB][32];
   uint32_t pa[4][4] = {};
   float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, z0 = 0.f, z1 = 0.f;
 #pragma unroll
-  for (int i = 0; i < 32; ++i) S[i] = O[i] = 0.f;
+  for (int i = 0; i < 32; ++i) {
+    S[i] = 0.f;
+#pragma unroll
+    for (int u = 0; u < NSUB; ++u) O[u][i] = 0.f;
+  }
 
   for (int j = 0; j < ntot; ++j) {
     cp_wait<NS - 2>();          // this thread's copies of tile j have landed
@@ -155,14 +175,17 @@ full_mha_wgmma_kernel(Params p) {
     const uint32_t tile = tiles + stage * TILE_BYTES;
     const bool is_v = j >= nt && ((j - nt) & 1);
     if (is_v) {                 // O += P V_i: V (key, c) is a transposed B
-      fence_regs(O);
-      wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        WgmmaRS<64, 1>::run(O, pa[kk], tile_desc(tile + kk * 2048), 1);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(O);
+      for (int u = 0; u < NSUB; ++u) {
+        fence_regs(O[u]);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          WgmmaRS<64, 1>::run(O[u], pa[kk], tile_desc(tile + u * SUB_BYTES + kk * 2048), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(O[u]);
+      }
       continue;
     }
     // S = q K_i^T, then + bias, padded keys at -inf
@@ -170,8 +193,10 @@ full_mha_wgmma_kernel(Params p) {
     fence_regs(S);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      if (16 * kk < d) WgmmaRS<64, 0>::run(S, qa[kk], tile_desc(tile + kk * 32), kk > 0);
+    for (int kk = 0; kk < KS; ++kk)
+      if (16 * kk < d)
+        WgmmaRS<64, 0>::run(S, qa[kk], tile_desc(tile + (kk / 4) * SUB_BYTES + (kk % 4) * 32),
+                            kk > 0);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(S);
@@ -224,23 +249,32 @@ full_mha_wgmma_kernel(Params p) {
   __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.out) + b * p.osb + h * p.osh;
   using N = Num<__nv_bfloat16>;
 #pragma unroll
-  for (int jj = 0; jj < 8; ++jj) {
-    const int c = 8 * jj + 2 * t;
-    if (c >= d) continue;
-    if (row0 < nk)
-      N::store2(out, (size_t)row0 * p.ost + c, N::rnd(O[4 * jj] / z0), N::rnd(O[4 * jj + 1] / z0));
-    if (row1 < nk)
-      N::store2(out, (size_t)row1 * p.ost + c, N::rnd(O[4 * jj + 2] / z1),
-                N::rnd(O[4 * jj + 3] / z1));
-  }
+  for (int u = 0; u < NSUB; ++u)
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int c = 64 * u + 8 * jj + 2 * t;
+      if (c >= d) continue;
+      if (row0 < nk)
+        N::store2(out, (size_t)row0 * p.ost + c, N::rnd(O[u][4 * jj] / z0),
+                  N::rnd(O[u][4 * jj + 1] / z0));
+      if (row1 < nk)
+        N::store2(out, (size_t)row1 * p.ost + c, N::rnd(O[u][4 * jj + 2] / z1),
+                  N::rnd(O[u][4 * jj + 3] / z1));
+    }
+}
+
+template <int DW>
+int launch_dw(const Params& p, int B, cudaStream_t stream) {
+  static int configured = 0;
+  constexpr int smem = Width<DW>::SMEM;
+  if (int e = set_smem(full_mha_wgmma_kernel<DW>, smem, configured)) return e;
+  // row blocks fastest: the blocks of a (sample, head) run together and share its k, v in L2
+  full_mha_wgmma_kernel<DW><<<(unsigned)((p.T + BMW - 1) / BMW * B * p.H), NTW, smem, stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 int launch(const Params& p, int B, cudaStream_t stream) {
-  static int configured = 0;
-  if (int e = set_smem(full_mha_wgmma_kernel, WG_SMEM, configured)) return e;
-  // row blocks fastest: the blocks of a (sample, head) run together and share its k, v in L2
-  full_mha_wgmma_kernel<<<(unsigned)((p.T + BMW - 1) / BMW * B * p.H), NTW, WG_SMEM, stream>>>(p);
-  return (int)cudaGetLastError();
+  return p.d <= 64 ? launch_dw<64>(p, B, stream) : launch_dw<128>(p, B, stream);
 }
 
 }  // namespace

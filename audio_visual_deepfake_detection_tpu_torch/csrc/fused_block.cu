@@ -22,10 +22,12 @@
 // are one-pass in bf16 and two-pass in f32, softmax is f32.
 //
 // Shapes (shape_ok; ops/kernels/fused_block.py::kernel_shape_ok is the same
-// rule, for both dtypes): C a multiple of 64 from 64 to 1024, head width D = C / n_head in
-// {32, 64, 96, 128}, any half window w >= 1 or dense attention, at any T:
-// the Pallas kernel's domain (it is generated per shape) cut at those C and
-// D.
+// rule, for both dtypes): C a multiple of 64 from 64 to 2048, head width D =
+// C / n_head a multiple of 8 from 8 to 512, any half window w >= 1 or dense
+// attention, at any T: the Pallas kernel's domain (it is generated per
+// shape) cut at those C and D. The designs below take C up to 1024 and D in
+// {32, 64, 96, 128} (wgmma_shape_ok); every other shape of the domain runs
+// fused_block_generic.cu, a simple design on the CUDA cores, in both dtypes.
 //
 // What bounds it on this card: a row costs 12 C^2 multiply-adds (q, k, v,
 // proj 4 C^2, the MLP 8 C^2; 786k at C = 256) against a few KB of HBM
@@ -76,8 +78,8 @@
 // count and the head sums a fixed lane pattern, as when the kernel took that
 // shape alone) and with the shape read at run time for every other one
 // (fused_block_any.cu and fused_block_any_qkv.cu); the f32 kernels are in
-// fused_block_f32.cu and fused_block_f32_attend.cu, all six built side by
-// side.
+// fused_block_f32.cu and fused_block_f32_attend.cu, the shapes past
+// wgmma_shape_ok in fused_block_generic.cu, all seven built side by side.
 // Attention runs per slab of whole heads (at most 256 channels: 8 heads of
 // 32, 4 of 64, 2 of 96 or 128): a warp reads a row's slab as one run of 16
 // bytes a lane, the D / 8 lanes of a head sum a score by shuffles. Banded
@@ -103,10 +105,12 @@ using namespace avdd_k1;
 extern "C" {
 
 // Elements of the compute dtype a call's scratch holds: 3 B T C for bfloat16
-// (the q | k | v rows between its launches), f32_scratch_elems for float32;
-// -1 if the kernel does not take the shape (shape_ok).
+// (the q | k | v rows between its launches), f32_scratch_elems for float32,
+// generic_scratch_elems for a shape outside wgmma_shape_ok; -1 if the kernel
+// does not take the shape (shape_ok).
 long long avdd_fused_block_scratch(int B, int T, int c, int n_head, int dtype) {
   if (!shape_ok(c, n_head) || B <= 0 || T <= 0 || dtype < 0 || dtype > 1) return -1;
+  if (!wgmma_shape_ok(c, n_head)) return generic_scratch_elems(B, T, c);
   return dtype == 1 ? 3ll * B * T * c : f32_scratch_elems(B, T, c);
 }
 
@@ -125,6 +129,20 @@ int avdd_fused_block(const void* x, const void* xo, const void* mask,
   if (avdd_fused_block_scratch(B, T, c, n_head, dtype) < 0 || mode < 0 || mode > 3 || !kv)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!wgmma_shape_ok(c, n_head)) {
+    ParamsG g;
+    g.x = x; g.xo = xo ? xo : x;
+    g.mask = static_cast<const uint8_t*>(mask);
+    g.vecs = static_cast<const float*>(vecs);
+    g.fc1b = static_cast<const float*>(fc1b);
+    g.coefs = static_cast<const float*>(coefs);
+    const void* ws[6] = {wq, wk, wv, wp, wf1, wf2};
+    for (int i = 0; i < 6; ++i) g.wt[i] = ws[i];
+    g.out = out;
+    g.B = B; g.T = T; g.C = c; g.NH = n_head; g.D = c / n_head;
+    g.w = w > 0 ? w : 0; g.mode = mode;
+    return launch_generic(g, kv, dtype, s);
+  }
   if (dtype == 1) {
     ParamsW p;
     p.x = static_cast<const __nv_bfloat16*>(x);

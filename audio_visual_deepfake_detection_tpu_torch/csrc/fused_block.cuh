@@ -1,13 +1,14 @@
-// Fused localizer transformer block (K1 / K6) for Hopper: what the six
+// Fused localizer transformer block (K1 / K6) for Hopper: what the seven
 // translation units of its kernels share, so that they compile in parallel.
 // fused_block.cu holds the C entry points and the bfloat16 kernel instance
 // for the production block (C = 256, 4 heads of 64, its shape compile-time
 // constants), fused_block_any.cu and fused_block_any_qkv.cu the second and
-// the first launch of the bfloat16 instance for any shape of the domain,
+// the first launch of the bfloat16 instance for any shape of wgmma_shape_ok,
 // fused_block_attend.cu the bfloat16 attention launch on the tensor cores
 // (dense attention, and bands wider than MAX_W), fused_block_f32.cu and
-// fused_block_f32_attend.cu the float32 kernels. The design is described in
-// fused_block.cu (bf16) and fused_block_f32.cu (f32).
+// fused_block_f32_attend.cu the float32 kernels, fused_block_generic.cu
+// both dtypes at every other shape of shape_ok. The design is described in
+// fused_block.cu (bf16), fused_block_f32.cu (f32) and fused_block_generic.cu.
 
 #pragma once
 
@@ -17,7 +18,8 @@ namespace avdd_k1 {
 
 using namespace avdd;
 
-constexpr int MAX_C = 1024;     // widest block
+constexpr int MAX_C = 1024;     // widest block of the wgmma instances
+constexpr int MAX_C_ANY = 2048; // widest block (fused_block_generic.cu above MAX_C)
 constexpr int MAX_W = 16;       // largest half window of the bf16 tail's banded
                                 // step (attend_band); wider bands take the
                                 // tensor-core step
@@ -25,10 +27,19 @@ constexpr float LN_EPS = 1e-5f;
 constexpr float NEG_INF = -1e30f;
 constexpr float NEG_PENALTY = 1e4f;
 
-// The shapes the kernel takes (the Python wrapper's kernel_shape_ok): any
-// half window w, and dense attention (w <= 0), at any T.
+// The shapes the kernel takes (the Python wrapper's kernel_shape_ok): C a
+// multiple of 64 up to MAX_C_ANY, a head width D = C / n_head that is a
+// multiple of 8 from 8 to 512, any half window w, and dense attention
+// (w <= 0), at any T.
 inline bool shape_ok(int c, int n_head) {
-  if (c < 64 || c > MAX_C || c % 64 || n_head <= 0 || c % n_head) return false;
+  if (c < 64 || c > MAX_C_ANY || c % 64 || n_head <= 0 || c % n_head) return false;
+  const int d = c / n_head;
+  return d % 8 == 0 && d >= 8 && d <= 512;
+}
+// The shapes the wgmma instances take (both dtypes): C up to MAX_C, D of 32,
+// 64, 96 or 128. The rest of shape_ok runs fused_block_generic.cu.
+inline bool wgmma_shape_ok(int c, int n_head) {
+  if (!shape_ok(c, n_head) || c > MAX_C) return false;
   const int d = c / n_head;
   return d == 32 || d == 64 || d == 96 || d == 128;
 }
@@ -1112,5 +1123,20 @@ int launch_f32_attend(const ParamsF& p, cudaStream_t stream);
 
 // The instance for any width, compiled in fused_block_any.cu.
 int launch_wgmma_any(ParamsW& p, const void* const* w, cudaStream_t stream);
+
+// ---- the shapes of shape_ok outside wgmma_shape_ok, both dtypes -------------
+// fused_block_generic.cu: seven launches through a scratch of
+// generic_scratch_elems elements of the compute dtype; its design is there.
+struct ParamsG {
+  const void* x; const void* xo;        // (B, T, C) compute dtype
+  const uint8_t* mask; const float* vecs; const float* fc1b; const float* coefs;
+  const void* wt[6];                    // wq, wk, wv, wp, wf1, wf2: (out, in)
+  void* out;                            // (B, T, C); also holds y1 between proj and fc2
+  int B, T, C, NH, D, w, mode;          // w = 0: dense attention
+};
+inline long long generic_scratch_elems(long long B, long long T, long long C) {
+  return 7 * B * T * C;
+}
+int launch_generic(const ParamsG& p, void* scratch, int dtype, cudaStream_t stream);
 
 }  // namespace avdd_k1

@@ -142,8 +142,8 @@ __global__ void __launch_bounds__(A_NT, 1) attention_f32_kernel(const __grid_con
 #pragma unroll
       for (int x = 0; x < KEYS * WD / 4 / A_NT; ++x) {
         const int idx = tid + A_NT * x, r = idx / (WD / 4), c = idx % (WD / 4), key = KEYS * i + r;
-        const bool ok = key < T;
-        cp_async16_to(st + 16 * idx, src + (ok ? key : 0) * kst + 4 * c, ok ? 16 : 0);
+        const bool ok = key < T && 4 * c < d;     // zeros past T and past d
+        cp_async16_to(st + 16 * idx, src + (ok ? key : 0) * kst + (ok ? 4 * c : 0), ok ? 16 : 0);
       }
     }
     cp_commit();
@@ -485,6 +485,10 @@ int launch_wd(const AttnF32& p, int B, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// Every mode at head dims up to 128, each rounded up to a width of 32, 64,
+// 96 or 128 (every operand zero past d, so the scores and the first d
+// columns of the context are those of d; K8's raw k and v tiles are staged
+// with zeros past d too).
 template <int MODE>
 int launch_mode(const AttnF32& p, int B, cudaStream_t stream) {
   switch (f32_head_width(p.d)) {
@@ -492,16 +496,6 @@ int launch_mode(const AttnF32& p, int B, cudaStream_t stream) {
     case 64: return launch_wd<64, MODE>(p, B, stream);
     case 96: return launch_wd<96, MODE>(p, B, stream);
     default: return launch_wd<128, MODE>(p, B, stream);
-  }
-}
-
-// K8 takes head dims 32 and 64 only: no wider instance is built for it.
-template <>
-int launch_mode<M_FULL>(const AttnF32& p, int B, cudaStream_t stream) {
-  switch (f32_head_width(p.d)) {
-    case 32: return launch_wd<32, M_FULL>(p, B, stream);
-    case 64: return launch_wd<64, M_FULL>(p, B, stream);
-    default: return (int)cudaErrorInvalidValue;
   }
 }
 

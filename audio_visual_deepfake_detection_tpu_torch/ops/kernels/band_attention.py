@@ -17,10 +17,13 @@ kernel's forward follows the first, its backward differentiates the second.
 ``band_attention_kernel`` launches ``csrc/band_attention.cu`` for a CUDA
 tensor on an sm_90 card (replacing ``band_attention_pallas``,
 ``pallas_call`` at ``band_attention.py:105``) and runs
-``band_attention_plain`` for a CPU tensor. The kernel computes 8-row tiles
-of one sample across a 512-byte run of heads from k and v rows staged with
-their ±w halo (zeros outside the sequence); ``kernel_limits`` says which
-head widths and windows it takes. ``band_attention_fused`` is the
+``band_attention_plain`` for a CPU tensor. Up to ``MAX_W`` and head rows of
+``MAX_TILED_ROW_BYTES``, the kernel computes 8-row tiles of one sample
+across a 512-byte run of heads from k and v rows staged with their ±w halo
+(zeros outside the sequence); any wider window or head row (up to
+``MAX_HEAD_DIM``) runs ``band_any_kernel``, a warp a query row streaming the
+offsets in order in three passes; ``kernel_limits`` says which head widths
+and windows the kernel takes. ``band_attention_fused`` is the
 JAX ``band_attention_fused`` (``:124``, a ``custom_vjp``): forward = the
 kernel, backward = autograd through ``band_attention_xla`` recomputed from
 the saved q, k, v and mask. Neither package has a backward kernel.
@@ -36,8 +39,9 @@ import torch
 from ...core.runtime import use_kernel
 from ..attention import NEG_PENALTY, band_attention_xla, shift_time
 
-MAX_W = 16                  # largest half window the kernel takes
-MAX_ROW_BYTES = 512         # a head row: 16-byte pieces, at most a warp's 32 of them
+MAX_W = 16                  # largest half window of the tiled kernel
+MAX_TILED_ROW_BYTES = 512   # its widest head row: a warp's 32 16-byte pieces
+MAX_HEAD_DIM = 512          # the widest head the kernel takes (band_any_kernel)
 
 # kernel launches since the last reset (CPU calls and plain runs never count)
 LAUNCHES = 0
@@ -119,11 +123,18 @@ def _rows_ok(a):
 
 def kernel_shape_ok(head_dim: int, element_size: int, w_overlap: int) -> bool:
     """Whether the kernel takes a head width and window: a head row of whole
-    16-byte pieces, at most MAX_ROW_BYTES of them (bf16: head_dim 8, 16, ..,
-    256; f32: 4, 8, .., 128), and 0 <= w_overlap <= MAX_W. The same rule as
+    16-byte pieces, head_dim at most MAX_HEAD_DIM (bf16: 8, 16, .., 512;
+    f32: 4, 8, .., 512), and any w_overlap >= 0. The same rule as
     ``csrc/band_attention.cu::avdd_band_attention``'s check."""
     row = head_dim * element_size
-    return row > 0 and row % 16 == 0 and row <= MAX_ROW_BYTES and 0 <= w_overlap <= MAX_W
+    return row > 0 and row % 16 == 0 and head_dim <= MAX_HEAD_DIM and w_overlap >= 0
+
+
+def tiled(head_dim: int, element_size: int, w_overlap: int) -> bool:
+    """Whether a shape of ``kernel_shape_ok`` takes the tiled kernel (w up to
+    MAX_W, head rows up to MAX_TILED_ROW_BYTES); every other one runs
+    ``band_any_kernel``."""
+    return w_overlap <= MAX_W and head_dim * element_size <= MAX_TILED_ROW_BYTES
 
 
 def kernel_limits(q, w_overlap):
@@ -134,10 +145,9 @@ def kernel_limits(q, w_overlap):
         return
     if not kernel_shape_ok(d, size, 0):
         raise ValueError(
-            f"band attention kernel takes head rows of whole 16-byte pieces up to "
-            f"{MAX_ROW_BYTES} bytes ({q.dtype}: head_dim a multiple of {16 // size} up to "
-            f"{MAX_ROW_BYTES // size}), got head_dim {d}")
-    raise ValueError(f"band attention kernel takes w_overlap <= {MAX_W}, got {w_overlap}")
+            f"band attention kernel takes head rows of whole 16-byte pieces ({q.dtype}: "
+            f"head_dim a multiple of {16 // size} up to {MAX_HEAD_DIM}), got head_dim {d}")
+    raise ValueError(f"band attention kernel takes w_overlap >= 0, got {w_overlap}")
 
 
 def _launch(q, k, v, kv_valid, w_overlap):

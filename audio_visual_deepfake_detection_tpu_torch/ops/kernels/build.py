@@ -2,8 +2,9 @@
 
 Route: ``nvcc -gencode arch=compute_90a,code=sm_90a -shared`` over
 ``csrc/*.cu`` (K1 and K6 fused_block with fused_block_any,
-fused_block_any_qkv, fused_block_attend, fused_block_f32 and
-fused_block_f32_attend, six translation units over fused_block.cuh; K2 patch_embed, K3 mvit_attention
+fused_block_any_qkv, fused_block_attend, fused_block_f32,
+fused_block_f32_attend and fused_block_generic, seven translation units
+over fused_block.cuh; K2 patch_embed, K3 mvit_attention
 with its float32 route in mvit_attention_f32, K4 mvit_block with its
 attention step in mvit_attention and its float32 launches in
 mvit_block_f32, the two f32 units over mvit_f32.cuh; K5

@@ -49,7 +49,11 @@ import torch
 from ...core.runtime import use_kernel
 from ..mvit_math import fmatmul
 
-HEAD_DIMS = (32, 64)      # what the kernel is built and checked for
+# head dims the kernel takes: multiples of HEAD_DIM_STEP up to MAX_HEAD_DIM
+# (bf16: the wgmma kernel at widths 64 and 128; f32: the 3xTF32 kernel's
+# instances of 32, 64, 96 and 128, d rounded up to one)
+HEAD_DIM_STEP = 16
+MAX_HEAD_DIM = 128
 NEG = -1e30
 ROUTE_NAMES = ("wgmma bf16", "wgmma 3xTF32")
 
@@ -93,9 +97,17 @@ def full_mha(q, k, v, padding_mask: Optional[torch.Tensor] = None) -> torch.Tens
         raise ValueError(f"padding_mask must be ({b}, {t}) bool on {q.device}")
     if not use_kernel(q):
         return full_mha_math(q, k, v, padding_mask)
-    if d not in HEAD_DIMS:
-        raise ValueError(f"full attention kernel takes head_dim in {HEAD_DIMS}, got {d}")
+    if not head_dim_ok(d):
+        raise ValueError(f"full attention kernel takes head_dim a multiple of {HEAD_DIM_STEP} "
+                         f"up to {MAX_HEAD_DIM}, got {d}")
     return _launch(*(_rows_ok(a) for a in (q, k, v)), padding_mask)
+
+
+def head_dim_ok(d: int) -> bool:
+    """Whether the kernel takes head dim ``d``: a multiple of 16 from 16 to
+    128, both dtypes (``csrc/full_attention.cu::avdd_full_mha`` checks the
+    same)."""
+    return d % HEAD_DIM_STEP == 0 and HEAD_DIM_STEP <= d <= MAX_HEAD_DIM
 
 
 def _rows_ok(a):

@@ -8,8 +8,10 @@ sm_90 card they launch ``csrc/fused_block.cu`` (bf16) or
 kernel ``fused_transformer_block``, ``pallas_call`` at ``fused_block.py:535``,
 and through it ``fused_transformer_block_train``, ``:753``) at every block
 shape of ``kernel_shape_ok``, the Pallas kernel's per-shape domain cut at C
-<= 1024 and head widths 32 / 64 / 96 / 128, any window; for a CPU tensor
-they run ``block_math``. Nothing else routes between the two
+<= 2048 and head widths that are multiples of 8 up to 512, any window (C
+up to 1024 at head widths 32 / 64 / 96 / 128 on the ``wgmma`` designs, the
+rest on ``csrc/fused_block_generic.cu``); for a CPU tensor they run
+``block_math``. Nothing else routes between the two
 (``core/runtime.py::use_kernel``).
 
 K6 is K1's forward with per-sample droppath coefficients ``coefs`` (B, 2) in
@@ -64,10 +66,15 @@ NUM_VEC_ROWS = 22
 
 MODES = {"self": 0, "qv_k": 1, "kv": 2, "ds_self": 3}
 # the kernel's shape domain (csrc/fused_block.cuh::shape_ok): C a multiple of
-# 64 up to MAX_CHANNELS, a head width in HEAD_WIDTHS, any half window or
-# dense (w <= 0), at any T
-MAX_CHANNELS = 1024
-HEAD_WIDTHS = (32, 64, 96, 128)
+# 64 up to MAX_CHANNELS, a head width C / n_head that is a multiple of
+# HEAD_WIDTH_STEP up to MAX_HEAD_WIDTH, any half window or dense (w <= 0), at
+# any T; WGMMA_HEAD_WIDTHS up to WGMMA_CHANNELS take the wgmma designs
+# (wgmma_shape_ok), every other shape csrc/fused_block_generic.cu
+MAX_CHANNELS = 2048
+HEAD_WIDTH_STEP = 8
+MAX_HEAD_WIDTH = 512
+WGMMA_CHANNELS = 1024
+WGMMA_HEAD_WIDTHS = (32, 64, 96, 128)
 
 # kernel launches since the last reset (CPU calls and plain runs never
 # count): eval launches (K1) and training-forward launches (K6) apart
@@ -447,11 +454,23 @@ def fused_transformer_block(x, xo, mask, vecs, wq, wk, wv, wp, wf1, wf2, fc1b,
 def kernel_shape_ok(c: int, n_head: int, w_overlap: int) -> bool:
     """Whether the kernel takes a block of ``c`` channels, ``n_head`` heads
     and half window ``w_overlap`` (<= 0: dense attention): C a multiple of 64
-    from 64 to 1024 and C / n_head in {32, 64, 96, 128}, at any half window
-    and any length. The same rule as ``csrc/fused_block.cuh::shape_ok``;
-    ``w_overlap`` names the block and limits nothing."""
-    return (64 <= c <= MAX_CHANNELS and c % 64 == 0 and n_head > 0 and c % n_head == 0
-            and c // n_head in HEAD_WIDTHS)
+    from 64 to 2048 and C / n_head a multiple of 8 from 8 to 512, at any half
+    window and any length. The same rule as
+    ``csrc/fused_block.cuh::shape_ok``; ``w_overlap`` names the block and
+    limits nothing."""
+    if not (64 <= c <= MAX_CHANNELS and c % 64 == 0 and n_head > 0 and c % n_head == 0):
+        return False
+    d = c // n_head
+    return d % HEAD_WIDTH_STEP == 0 and HEAD_WIDTH_STEP <= d <= MAX_HEAD_WIDTH
+
+
+def wgmma_shape_ok(c: int, n_head: int) -> bool:
+    """Whether a shape of ``kernel_shape_ok`` takes the ``wgmma`` designs (C
+    up to 1024, head width 32 / 64 / 96 / 128; ``csrc/fused_block.cuh::
+    wgmma_shape_ok``); every other one runs ``csrc/fused_block_generic.cu``,
+    CUDA-core GEMMs and attention in both dtypes."""
+    return (kernel_shape_ok(c, n_head, 0) and c <= WGMMA_CHANNELS
+            and c // n_head in WGMMA_HEAD_WIDTHS)
 
 
 def _launch(x, xo, mask, vecs, wq, wk, wv, wp, wf1, wf2, fc1b, *, n_head,
@@ -464,16 +483,20 @@ def _launch(x, xo, mask, vecs, wq, wk, wv, wp, wf1, wf2, fc1b, *, n_head,
     eight launches with 3xTF32 products on ``wgmma`` (``split_matmul`` is
     their plain version) through a scratch of the split weights and
     operands: the streams' rows, the q|k|v GEMM, the attention (every
-    window), proj, LN, fc1, fc2. A shape outside ``kernel_shape_ok`` raises
-    ValueError: there is no plain fallback."""
+    window), proj, LN, fc1, fc2. A shape of ``kernel_shape_ok`` outside
+    ``wgmma_shape_ok`` runs seven launches of ``csrc/fused_block_generic.cu``
+    in either dtype (rows, q|k|v, attention, proj, LN, fc1, fc2 on the CUDA
+    cores) through a scratch of 7 B T C elements. A shape outside
+    ``kernel_shape_ok`` raises ValueError: there is no plain fallback."""
     global LAUNCHES, TRAIN_LAUNCHES
     from .build import load
 
     b, t, c = x.shape
     if not kernel_shape_ok(c, n_head, w_overlap):
         raise ValueError(
-            f"fused block kernel takes C a multiple of 64 up to {MAX_CHANNELS} and head "
-            f"width in {HEAD_WIDTHS}; got C={c}, {n_head} heads")
+            f"fused block kernel takes C a multiple of 64 up to {MAX_CHANNELS} and a head "
+            f"width that is a multiple of {HEAD_WIDTH_STEP} up to {MAX_HEAD_WIDTH}; got "
+            f"C={c}, {n_head} heads")
     w = max(w_overlap, 0)
     out = torch.empty_like(x)
     if b == 0 or t == 0:

@@ -72,7 +72,7 @@ Phases (any failure exits nonzero):
              K3's routes as in phase 7, and every video gets a detection;
 9b. media pipeline - raw media -> submission through the port's own
              MediaPipeline and its CLIs, with phase 9's encoders and localizer:
-             128 seeded 240-frame 96x96 videos with 16-bit 9.6 s wavs, in
+             64 seeded 240-frame 96x96 videos with 16-bit 9.6 s wavs, in
              memory at batch 16 and 64, and their wavs read from files on 4
              decode threads at 16 (warm runs timed: videos/s, the host
              stages' shares, peak memory, the chunks' copy to the card,
@@ -81,7 +81,7 @@ Phases (any failure exits nonzero):
              the pipeline's whole second), the wav route the in-memory
              route's; every run launches media_to_detections' kernels for
              its batches and no plain block; a preempted sweep resumed gives
-             the unbroken files. Where cv2 imports: 32 cv2-written 224x224
+             the unbroken files. Where cv2 imports: 16 cv2-written 224x224
              mp4s through run_media_pipeline (host resize, submission files
              and mAP), 8 of them through cli/extract_features.py (cache rows,
              bit-equal to extract_all; then again with no --dtype, f32 as
@@ -103,14 +103,14 @@ Phases (any failure exits nonzero):
              differentiable wrapper's gradients in f32 against the CPU;
 12. train  - configs_train/deepfake_exp10.yaml through the port's loader,
              full width and depth, seeded batches in collate_batch's format.
-             f32 with a deterministic forward, 2 steps at B=4, card against
+             f32 with a deterministic forward, 2 steps at B=2, card against
              CPU (losses rtol 1e-4, grad_norm rtol 1e-3). bf16 and f32,
-             stochastic, 6 steps at B=50 through train_one_epoch: finite
+             stochastic, 4 steps at B=50 through train_one_epoch: finite
              losses, K6 18 launches a step and K1 none, a mid-epoch
              checkpoint written and restored, the focal sum on the fixed
              batch falls. The same with dropout 0.1 (the unfused block; 4
              steps in f32): K7 17 launches a forward, K6 and K1 none, and
-             one f32 step at B=4 card against CPU with the same draws. ms
+             one f32 step at B=2 card against CPU with the same draws. ms
              per step, samples/s and peak GiB at B=50, a step's stages (CUDA
              events at train_step's stage hook; in the unfused step also
              around K7's forward and its backward through
@@ -148,12 +148,12 @@ Phases (any failure exits nonzero):
              and mAP through the port's CLIs (cli/inference.py,
              generate_results.py, validate.py) in this process:
              configs_test/deepfake_exp12_test.yaml in bf16, a seeded cache
-             of 256 videos of 4-16 s and one of 30 s at the streams' native
+             of 128 videos of 4-16 s and one of 30 s at the streams' native
              rates and widths, a checkpoint with EMA (classifier bias 0).
              Both routes cover the shard (host resample at B = 16 and 64,
              device resample at 16), K1 18 launches a forward and no plain
              block on the card, a preempted run resumed covers every video
-             once with the same detections, f32 card vs CPU over 32 videos
+             once with the same detections, f32 card vs CPU over 16 videos
              and host vs device resample (scores 1e-4, segments 1e-3, logit
              2e-4), the submission files, validate's mAP at four tIoUs and
              1.0 on the ground truth fed back; videos/s per route and batch,
@@ -190,11 +190,11 @@ Phases (any failure exits nonzero):
              beside it the card's step with deterministic cuDNN),
              K6 18 launches;
              cli/train.py in bf16 at the config's own batch (exp5 B=72 over
-             144 two-stream videos, 2 iterations; exp13 B=5 over 20 videos, 4
+             144 two-stream videos, 2 iterations; exp13 B=5 over 10 videos, 2
              iterations) in a one-process group: K6 18 a step and nothing
              else, finite losses, the variant's own loss logged, final_loss
              the sum without reco_seg_loss, rank 0's checkpoint; then
-             cli/validate.py with it over 32 labelled videos: K1 18 a forward,
+             cli/validate.py with it over 16 labelled videos: K1 18 a forward,
              a finite mAP. ms a step, samples/s, peak GiB and eval videos/s;
 17. legacy - the legacy localizer family, C3D and the small MViT-v2 sizes:
              configs_train/deepfake_exp10.yaml as AVLocPointTransformer
@@ -205,12 +205,12 @@ Phases (any failure exits nonzero):
              phase 14's rule; video_cls zeros: no video classifier), bf16 K1
              7 launches and held to the plain blocks on the card
              (check_bf16); cli/train.py in bf16 at B=50 over 100 seeded
-             videos (K6 7 a step, no reco_cls_loss), cli/validate.py over 32
+             videos (K6 7 a step, no reco_cls_loss), cli/validate.py over 16
              (K1 7 a forward, video_cls all zero, a finite mAP). The conv
              backbone with the FPN neck and the plain config with relative
              PE: a forward (f32 card vs CPU) and an f32 step at B=5, K1, K6
              and K7 at 0 (rel-PE: the step card vs CPU too). C3D through
-             cli/extract_features.py --video-encoder c3d over 16 cv2-written
+             cli/extract_features.py --video-encoder c3d over 8 cv2-written
              mp4s of 240 frames with 9.6 s wavs: bf16 and f32 caches of 240
              rows, f32 --video-chunk-bucketing within 1e-3 of the padded
              features, the production C3D f32 card vs CPU on 2 chunks of 16
@@ -233,7 +233,7 @@ Phases (any failure exits nonzero):
              else within 1.5x of plain vs f32): mvit_v2_b on 2 chunks of 512
              frames (K2 1, K3 3, K4 18), Emotion2Vec on 2 wavs of 9.6 s (K5 1,
              K8 the count its cfg implies); the loaded models through
-             FeatureExtractor.extract_to_cache over 16 cv2-written mp4s of 240
+             FeatureExtractor.extract_to_cache over 8 cv2-written mp4s of 240
              frames with 9.6 s wavs (rows = frames / BYOL-A / conv_output_length),
              videos/s and peak memory beside the seeded extractor's on the same
              files; a reference checkpoint of deepfake_exp12_test.yaml through
@@ -263,7 +263,7 @@ Phases (any failure exits nonzero):
              CPU (out_cls, out_offsets 1e-4; detections after multi-class
              soft-NMS, scores 1e-4, segments 1e-3, labels equal), bf16 K1 7
              launches and held to the plain blocks on the card, its forward
-             ms; cli/train.py in bf16 at B=2 over 6 seeded videos (K6 7 a
+             ms; cli/train.py in bf16 at B=2 over 4 seeded videos (K6 7 a
              step) and cli/inference.py with that checkpoint over 4 (K1 7 a
              batch), both under a one-class head (the deepfake dataset takes
              no other count); the pure-conv variant at scale_factor 3 (T
@@ -271,6 +271,24 @@ Phases (any failure exits nonzero):
              ConvTransformer at scale_factor 4 (arch (2, 2, 3), T 2304), an
              eval forward f32 card vs CPU, K1 2 launches (the stem) and K7 3
              (the unfused stride-4 blocks).
+20. block domain - K1 / K6, K7 and K8 across the rest of their domain
+             (csrc/fused_block_generic.cu, band_any_kernel, K8's 128-wide
+             instances): K1 and K6 at (C, heads, w) = (384, 8, 9), (256, 1,
+             18), (256, 16, 3), (128, 16, 3), (320, 4, dense), (1536, 12,
+             18), (2048, 16, 9) and (2048, 4, dense), T = 2304, 150 and 24,
+             B=2, the four modes, f32 (atol 1e-4) and bf16 (check_bf16)
+             against block_math; K7 at w = 17, 24, 48 and 100 with d = 256
+             and 512 (check_k7); K8 at d = 16, 48, 96 and 128 (12 heads, T
+             479, with and without the key mask; check_k8); each new shape's
+             device ms, plain ms, bound and the nearest SDPA call in both
+             dtypes. Then exp10-h1-w37 (deepfake_exp10.yaml, f32, one head
+             of 256, windows (37, 37, 37, 37, 37, -1), T 576): one train step
+             card vs CPU (losses rtol 1e-4; K6 18) and one at dropout 0.1
+             (K7 17), cli/train.py at B=4 over 8 seeded videos (K6 18 a
+             step), cli/inference.py with that checkpoint over 8 videos on
+             the card (K1 18 a batch) and on the CPU (scores 1e-4, segments
+             1e-3), and the same localizer at 16 heads: an eval forward in
+             f32 and bf16 against the plain blocks on the card.
 
 The card's name and power limit, then a JSON object with the kernels'
 launches, errors and times, are the two lines before the last; the last
@@ -2788,8 +2806,8 @@ def media_breakdown(ex, model, cfg, chunks, wavs, smi, n_frames=240, duration=9.
 
 # ------------------------------------------------------- media pipeline slice
 
-MEDIA_VIDEOS = 128                    # in-memory and wav-file routes
-MEDIA_MP4S = 32                       # cv2-written 224x224 mp4s (where cv2 imports)
+MEDIA_VIDEOS = 64                     # in-memory and wav-file routes
+MEDIA_MP4S = 16                       # cv2-written 224x224 mp4s (where cv2 imports)
 MEDIA_EXTRACT = 8                     # of them through cli/extract_features.py + cli/inference.py
 MEDIA_TOL = dict(scores=1e-4, segments=1e-3, video_cls=2e-4)   # the offline sweep's
 
@@ -4025,7 +4043,7 @@ def step_breakdown(state, step, hook, batch, smi, label, profile=True, band=Fals
     return out
 
 
-def phase_train(dev="cuda", b=TRAIN_B, cpu_b=4, n_steps=6, arch=None, smi="",
+def phase_train(dev="cuda", b=TRAIN_B, cpu_b=2, n_steps=4, arch=None, smi="",
                 timing=True):
     """The training slice's main path at full width and depth. (a) f32,
     deterministic forward, 2 steps at batch ``cpu_b``, card against CPU
@@ -4188,10 +4206,10 @@ def phase_train_kernel_timing(smi, dev="cuda", b=TRAIN_B):
 
 # ------------------------------------------------------ offline shard sweep
 
-OFFLINE_VIDEOS = 256                  # durations uniform in 4-16 s, plus one of 30 s
-OFFLINE_LABELLED = 64                 # of them with metadata JSONs (0-3 fake segments)
-OFFLINE_CPU_VIDEOS = 32               # the f32 card vs CPU shard
-OFFLINE_LONG_PASSES = 2               # the timing shard: the cache's videos this many times
+OFFLINE_VIDEOS = 128                  # durations uniform in 4-16 s, plus one of 30 s
+OFFLINE_LABELLED = 32                 # of them with metadata JSONs (0-3 fake segments)
+OFFLINE_CPU_VIDEOS = 16               # the f32 card vs CPU shard
+OFFLINE_LONG_PASSES = 1               # the timing shard: the cache's videos this many times
 OFFLINE_TOL = dict(scores=1e-4, segments=1e-3, video_cls=2e-4)
 
 
@@ -4943,7 +4961,7 @@ def phase_train_cli(dev="cuda", n_videos=TRAIN_CLI_VIDEOS, dims=(256, 2048, 768)
 # epoch at the config's own batch: exp5 2 iterations at B=72, exp13 4 at B=5)
 VARIANT_CONFIGS = (
     ("deepfake_exp5", ("video", "emotion"), (256, 768), 144),
-    ("deepfake_exp13", ("video", "byola", "emotion"), (256, 2048, 768), 20),
+    ("deepfake_exp13", ("video", "byola", "emotion"), (256, 2048, 768), 10),
 )
 VARIANT_LOSS = {"av_recovery": "reco_loss", "av_recovery_the": "reco_seg_loss"}
 VARIANT_OUT = {"av_recovery": ("reco",), "av_recovery_the": ("seg_scores",)}
@@ -5000,7 +5018,7 @@ def cat_levels(out, key):
 
 
 def phase_variants(dev="cuda", configs=VARIANT_CONFIGS, overrides=None, eval_b=16, step_b=5,
-                   n_val=32, smi=""):
+                   n_val=16, smi=""):
     """``av_recovery`` (exp5) and ``av_recovery_the`` (exp13) at full width
     and depth through the port's loader and entry points, seeded weights
     and features (phase 16 of the module docstring). ``overrides`` (a config
@@ -5311,7 +5329,7 @@ LEGACY_PLAIN = {"model_name": "AVLocPointTransformer",
 LEGACY_OTHERS = (("conv-fpn", {"model": {"backbone_type": "conv", "fpn_type": "fpn"}}),
                  ("rel-pe", {"model": {"use_rel_pe": True}}))
 LEGACY_VIDEOS = 100                   # cli/train.py: 2 iterations at the config's B=50
-C3D_MP4S = 16                         # cv2-written mp4s through cli/extract_features.py
+C3D_MP4S = 8                          # cv2-written mp4s through cli/extract_features.py
 C3D_BUCKET_TOL = 1e-3                 # tests/test_video_frontend.py's, f32
 MVIT_SMALL = ("mvit_v2_t", "mvit_v2_s")
 
@@ -5380,7 +5398,7 @@ def recorded_video_cls(module):
 
 
 def phase_legacy(dev="cuda", overrides=None, dims=(256, 2048, 768), eval_b=16, step_b=5,
-                 n_train=LEGACY_VIDEOS, n_val=32, n_mp4=C3D_MP4S, mp4_frames=240,
+                 n_train=LEGACY_VIDEOS, n_val=16, n_mp4=C3D_MP4S, mp4_frames=240,
                  mp4_size=128, wav_len=WAV_LEN, video_chunk=VIDEO_T, c3d_cpu_t=16,
                  mvit_t=VIDEO_T, mvit_cpu_t=32, smi=""):
     """The legacy localizer family, C3D and the small MViT-v2 sizes on the
@@ -5848,7 +5866,7 @@ def phase_legacy(dev="cuda", overrides=None, dims=(256, 2048, 768), eval_b=16, s
     return report
 
 
-RELEASED_MP4S = 16                    # cv2-written mp4s through FeatureExtractor.extract_to_cache
+RELEASED_MP4S = 8                     # cv2-written mp4s through FeatureExtractor.extract_to_cache
 # f32 card vs CPU on the loaded encoders, (atol, rtol): the port's CPU tests'
 # (tests/test_torch_mvit.py, test_torch_c3d.py, test_torch_audio_pipeline.py,
 # test_torch_emotion2vec.py)
@@ -6516,21 +6534,34 @@ def launch_us(run, calls=3, strict=True):
     return out, counts
 
 
-def attention_library(mask, heads, d, w):
+def attention_library(mask, heads, d, w, dtype=None):
     """The nearest PyTorch composition of a block's attention core on the
-    same (B, heads, T, d), not one call of the same function: SDPA over
-    seeded q, k, v with the key-padding mask of ``mask`` (B, T), and the band
-    |i - j| <= w beside it where w > 0. Returns the call."""
+    same (B, heads, T, d), not one call of the same function: sdpa_nearest
+    over seeded q, k, v of ``dtype`` (bf16 unless given) with the key mask
+    of ``mask`` (B, T) and the band |i - j| <= w where w > 0. Returns the
+    call."""
     import torch
-    import torch.nn.functional as F
 
     b, t = mask.shape
     g = torch.Generator().manual_seed(t + w)
-    q, k, v = (torch.randn((b, heads, t, d), generator=g).to(mask.device, torch.bfloat16)
+    q, k, v = (torch.randn((b, heads, t, d), generator=g).to(mask.device,
+                                                              dtype or torch.bfloat16)
                for _ in range(3))
-    keep = mask[:, None, None, :]
+    return sdpa_nearest(q, k, v, mask, w)
+
+
+def sdpa_nearest(q, k, v, valid, w):
+    """The nearest PyTorch call to an attention core on the same (B, H, T,
+    d) q, k, v: SDPA with the key mask of ``valid`` (B, T) and, where w > 0,
+    the band |i - j| <= w; not the same function (no -1e4 penalty, no
+    zeroed rows). Returns the call."""
+    import torch
+    import torch.nn.functional as F
+
+    t = q.shape[2]
+    keep = valid[:, None, None, :]
     if w > 0:
-        i = torch.arange(t, device=mask.device)
+        i = torch.arange(t, device=q.device)
         keep = keep & ((i[:, None] - i[None, :]).abs() <= w)[None, None]
     return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep)
 
@@ -6729,7 +6760,7 @@ WIDE_SHAPE = ("plain", "convTransformer", "identity", 2048, 512, 4, 2304, (2, 2,
 # the windows the localizer runs at: ActionFormer's THUMOS14 (19) and the
 # ConvTransformer backbone's default (-1, dense: models/backbones.py)
 WIDE_WINDOWS = (19, -1)
-WIDE_TRAIN_VIDEOS = 6                 # cli/train.py: 3 steps at B=2
+WIDE_TRAIN_VIDEOS = 4                 # cli/train.py: 2 steps at B=2
 WIDE_TEST_VIDEOS = 4                  # cli/inference.py: 2 batches at B=2
 # scale_factor 3 on the same localizer with the pure-conv backbone (the
 # only backbone whose stride-3 blocks build, in both packages): strides up
@@ -7045,6 +7076,355 @@ def phase_wide_blocks(dev="cuda", smi="", overrides=None, dims=WIDE_DIMS, b=2,
     return report
 
 
+# K1 / K6, K7 and K8 across the rest of their shape domain: the head widths,
+# windows and C that the wgmma designs do not take (csrc/fused_block_generic.cu,
+# band_attention.cu::band_any_kernel, K8's 128-wide instances). (C, heads,
+# w): head widths 48, 256, 16, 8, 80, 128 past C = 1024, and 512
+DOMAIN_SHAPES = ((384, 8, 9), (256, 1, 18), (256, 16, 3), (128, 16, 3), (320, 4, 0),
+                 (1536, 12, 18), (2048, 16, 9), (2048, 4, 0))
+DOMAIN_TS = (2304, 150, 24)
+DOMAIN_B = 2
+# K7 past w = 16 and 512-byte head rows: (B, H, T, D) at each half window
+DOMAIN_K7 = ((2, 2, 2304, 256), (5, 1, 150, 512))
+DOMAIN_K7_W = (17, 24, 48, 100)
+DOMAIN_K8_D = (16, 48, 96, 128)     # K8 head dims beside 32 / 64: 12 heads, T = E2V_T
+# exp10-h1-w37: configs_train/deepfake_exp10.yaml as shipped (f32, C 256,
+# arch (2, 2, 5), droppath 0.1) with one head of 256 and windows of 37 (w =
+# 18) below its dense last level, the shipped localizer at the corner of the
+# new domain; T cut from 768 to 576, the least length its windows' padding
+# rule takes (ArchConfig.max_div_factor in both packages: 768 is no multiple
+# of stride 16 x 36, so either package's cli/inference.py refuses it); and
+# the same localizer at 16 heads (d = 16)
+H1W37 = {"dataset": {"max_seq_len": 576},
+         "model": {"n_head": 1, "n_mha_win_size": [37, 37, 37, 37, 37, -1]}}
+H1W37_B = 4                           # cli/train.py and cli/inference.py batch
+H1W37_TRAIN_VIDEOS = 8                # cli/train.py: 2 steps
+H1W37_TEST_VIDEOS = 8                 # cli/inference.py: 2 batches, card and CPU
+H1W37_CPU_B = 2                       # the card-vs-CPU train steps
+
+
+def domain_kernel_times(dev, shapes, t, b, k7_shapes, k7_ws, k8_dims, smi):
+    """Per new shape, both dtypes: the kernel's device ms (CUDA-graph
+    replay) and ms through the wrapper (CUDA events), the plain version's
+    ms, the bound at the dtype's rate (bf16 989 TFLOP/s; f32 3xTF32's 165,
+    and 67, the CUDA cores' rate these routes run at, beside) and the
+    nearest library call (SDPA with the key mask and band). K1 at B = ``b``,
+    length ``t``, self mode; K7 at each shape and window; K8 at (b, 12,
+    E2V_T, d) with the key mask. Returns the rows."""
+    import torch
+
+    rows = []
+
+    def timing(run, plain, flops, moved, dtype, lib=None):
+        rec = {}
+        iters = 10 if cuda_ms(run, iters=1, warmup=1) < 10 else 3
+        rec["device_ms"] = device_ms(run, iters=iters)
+        rec["ms"] = cuda_ms(run, iters=3, warmup=1)
+        rec["plain_ms"] = cuda_ms(plain, iters=2, warmup=1)
+        peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_3XTF32
+        rec["bound_ms"], rec["bound_by"] = bound(flops, moved, peak)
+        rec["bound_f32_cores_ms"] = bound(flops, moved, PEAK_F32)[0]
+        rec["library_ms"] = device_ms(lib, iters=iters) if lib is not None else None
+        return rec
+
+    for c, nh, w in shapes:
+        window = 2 * w + 1 if w else -1
+        for dtype in (torch.float32, torch.bfloat16):
+            x, xo, mask, packed = block_case("self", t, window, b, dtype, dev, c, c=c, n_head=nh)
+            with torch.no_grad():
+                rec = timing(lambda: run_block("kernel", x, xo, mask, packed, "self", window, nh),
+                             lambda: run_block("plain", x, xo, mask, packed, "self", window, nh),
+                             *k1_work("self", t, window, b, c=c, nbytes=x.element_size()),
+                             dtype, attention_library(mask, nh, c // nh, w, dtype))
+            rec.update(kernel="K1", C=c, heads=nh, w=w, T=t, B=b, dtype=str(dtype)[6:])
+            rows.append(rec)
+            del x, xo, mask, packed
+    for bb, h, tt, d in k7_shapes:
+        for ww in k7_ws:
+            for dtype in (torch.float32, torch.bfloat16):
+                args = k7_case(bb, tt, dtype, dev, seed=ww, h=h, d=d)
+                with torch.no_grad():
+                    rec = timing(lambda: run_k7("kernel", *args, ww),
+                                 lambda: run_k7("plain", *args, ww),
+                                 *k7_work(bb, h, tt, d, ww, nbytes=args[0].element_size()),
+                                 dtype, sdpa_nearest(*args, ww))
+                rec.update(kernel="K7", shape=(bb, h, tt, d), w=ww, dtype=str(dtype)[6:])
+                rows.append(rec)
+                del args
+    for d in k8_dims:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, mask = k8_case(b, E2V_T, dtype, dev, True, seed=d, h=E2V_H, d=d)
+            with torch.no_grad():
+                rec = timing(lambda: run_k8("kernel", q, k, v, mask),
+                             lambda: run_k8("plain", q, k, v, mask),
+                             *k8_work(b, E2V_H, E2V_T, d, True, nbytes=q.element_size()),
+                             dtype, sdpa_nearest(q, k, v, ~mask, 0))
+            rec.update(kernel="K8", shape=(b, E2V_H, E2V_T, d), dtype=str(dtype)[6:])
+            rows.append(rec)
+            del q, k, v, mask
+    for r in rows:
+        what = (f"C={r['C']} heads={r['heads']} w={r['w']} B={r['B']} T={r['T']}"
+                if r["kernel"] == "K1" else f"{r['shape']}" + (f" w={r['w']}" if "w" in r else ""))
+        log(f"{r['kernel']} {what} {r['dtype']}: dev {r['device_ms']:.4f} ms (wrapper "
+            f"{r['ms']:.4f}), plain {r['plain_ms']:.3f}, bound {r['bound_ms']:.4f} by "
+            f"{r['bound_by']} ({r['bound_f32_cores_ms']:.4f} at 67 TFLOP/s), nearest library "
+            f"call {r['library_ms']:.4f} ({smi})")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def h1w37_path(root, dev="cuda", smi="", overrides=None, dims=(256, 2048, 768), b=H1W37_B,
+               n_train=H1W37_TRAIN_VIDEOS, n_test=H1W37_TEST_VIDEOS, cpu_b=H1W37_CPU_B):
+    """``exp10-h1-w37`` (H1W37 over configs_train/deepfake_exp10.yaml, read
+    through the port's loader, in its own dtype, f32) through the port's
+    entry points, under ``root``: (1) one deterministic train step at batch
+    ``cpu_b`` card vs CPU (losses rtol 1e-4, grad_norm 1e-3; K6 18 launches
+    at d = 256, w = 18 and dense); (2) one stochastic step at ``dropout:
+    0.1`` the same way (the unfused block: K7 17 launches at d = 256, w =
+    18, K6 none); (3) cli/train.py over ``n_train`` seeded videos at batch
+    ``b`` (K6 18 a step); (4) cli/inference.py with that checkpoint over
+    ``n_test`` videos on the card and on the CPU (K1 18 a batch; every
+    video's detections within the offline tolerances); (5) the same
+    localizer at 16 heads (d = 16): an eval forward in f32 and bf16, the
+    kernel against the plain blocks on the card (f32 1e-4; bf16
+    check_bf16). ``overrides`` (a config fragment) shrink it for a CPU
+    rehearsal. Returns the report."""
+    import copy
+    import dataclasses
+    import torch
+    import yaml
+    from audio_visual_deepfake_detection_tpu_torch.cli import inference
+    from audio_visual_deepfake_detection_tpu_torch.cli import train as train_cli
+    from audio_visual_deepfake_detection_tpu_torch.core.config import (
+        arch_config_from, load_config)
+    from audio_visual_deepfake_detection_tpu_torch.models import AVLocalizer, build_localizer
+    from audio_visual_deepfake_detection_tpu_torch.ops.kernels import fused_block as fb
+    from audio_visual_deepfake_detection_tpu_torch.tools import synth_cache
+
+    on_card = torch.device(dev).type == "cuda"
+    dev_args = [] if on_card else ["--device", dev]
+    label = "exp10-h1-w37"
+
+    def expect(counts, what, **want_on_card):
+        want = dict.fromkeys(counts, 0)
+        if on_card:
+            want.update(want_on_card)
+        if counts != want:
+            fail(f"{label} {what}: launches {counts}, expected {want}")
+
+    tree = synth_cache.merge(H1W37, overrides or {})
+    base = os.path.join(REPO, "configs_train", "deepfake_exp10.yaml")
+    path = os.path.join(root, "exp10_h1_w37.yaml")
+    with open(base) as f, open(path, "w") as g:
+        yaml.safe_dump(synth_cache.merge(yaml.safe_load(f), tree), g)
+    config = load_config(path)
+    cfg = arch_config_from(config)
+    n_blocks = 1 + cfg.arch[1] + 3 * cfg.arch[2]
+    n_band = n_blocks - (1 if cfg.mha_win_size[-1] == -1 else 0)
+    c, heads = cfg.embd_dim, cfg.n_head
+    if overrides is None and ((cfg.compute_dtype, c, heads, cfg.max_seq_len, cfg.arch,
+                               cfg.mha_win_size, cfg.droppath)
+                              != ("float32", 256, 1, 576, (2, 2, 5), (37,) * 5 + (-1,), 0.1)
+                              or fb.wgmma_shape_ok(c, heads) or n_blocks != 18):
+        fail(f"{label}: config {cfg}")
+    report = {"card": smi, "config": dict(C=c, heads=heads, T=cfg.max_seq_len,
+                                          windows=list(cfg.mha_win_size),
+                                          dtype=cfg.compute_dtype)}
+    arch = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+
+    # (1), (2): one step each, card vs CPU from the same seed, batch, draws
+    for key, dropout, det, k6, k7 in (("deterministic", 0.0, True, n_blocks, 0),
+                                       ("unfused", 0.1, False, 0, n_band)):
+        t0 = time.perf_counter()
+        gaps, counts, traj = steps_card_vs_cpu(dropout, det, dev, cpu_b, 1, arch)
+        expect(counts, f"{key} step", fused_transformer_block_train=k6, band_attention=k7)
+        if gaps["losses"] > 1e-4 or gaps["grad_norm"] > 1e-3:
+            fail(f"{label} {key} step f32 card vs CPU differ: {gaps}")
+        report[f"{key}_step_card_vs_cpu"] = dict(gaps, B=cpu_b, launches=counts,
+                                                 final_loss=traj[0]["final_loss"],
+                                                 seconds=time.perf_counter() - t0)
+        log(f"{label} {key} train step f32 B={cpu_b}, card vs CPU: losses rel "
+            f"{gaps['losses']:.2e} grad_norm rel {gaps['grad_norm']:.2e}, launches {counts}")
+
+    # (3) cli/train.py in the YAML's dtype (f32)
+    t0 = time.perf_counter()
+    cache = synth_cache.write_feature_cache(os.path.join(root, "train"), n_train, seed=31,
+                                            dims=dims, n_labelled=n_train, split="train")
+    run_tree = synth_cache.merge({"opt": {"early_stop_epochs": 1},
+                                  "loader": {"batch_size": b}}, overrides or {})
+    run_cfg = synth_cache.write_config(path, os.path.join(root, "run.yaml"), cache,
+                                       os.path.join(root, "runs"), run_tree)
+    open_one_process_group()
+    try:
+        reset_counts()
+        with plain_forward_blocks() as plain:
+            summary = train_cli.run(train_cli.build_parser().parse_args(
+                [run_cfg, "--output", "t", "-p", "1", "--ckpt-iter-freq", "0", *dev_args]))
+        counts = launch_counts()
+    finally:
+        close_one_process_group()
+    n_steps = sum(st["iters"] for st in summary["epochs"])
+    if n_steps != n_train // b:
+        fail(f"{label} cli/train.py: {n_steps} steps at B={b} over {n_train} videos")
+    expect(counts, "cli/train.py", fused_transformer_block_train=n_blocks * n_steps)
+    losses = summary["epochs"][-1]["losses"]
+    if plain["cuda"] or not all(math.isfinite(v) for v in losses.values()):
+        fail(f"{label} cli/train.py: losses {losses}, {plain['cuda']} plain blocks")
+    report["train_cli"] = dict(B=b, steps=n_steps, launches=counts, losses=losses,
+                               epochs=run_epochs_rates(summary, summary["global_batch"]),
+                               seconds=time.perf_counter() - t0)
+    log(f"{label} cli/train.py f32 B={b}: {n_steps} steps, launches {counts}, losses {losses}")
+    ckpt = os.path.join(summary["out_folder"], "epoch_001.pt")
+
+    # (4) cli/inference.py with that checkpoint, card and CPU
+    t0 = time.perf_counter()
+    test_cache = synth_cache.write_feature_cache(os.path.join(root, "test"), n_test, seed=37,
+                                                 dims=dims)
+    items = {}
+    for where in ("card", "cpu"):
+        infer_cfg = synth_cache.write_config(path, os.path.join(root, f"infer_{where}.yaml"),
+                                             test_cache, os.path.join(root, f"out_{where}"),
+                                             run_tree)
+        reset_counts()
+        with plain_block_calls() as plain:
+            summary = inference.run(inference.build_parser().parse_args(
+                [infer_cfg, "1", "--ckpt", ckpt, "--batch-size", str(b),
+                 *(dev_args if where == "card" else ["--device", "cpu"])]))
+        counts = launch_counts()
+        expect(counts, f"cli/inference.py ({where})", **(
+            {"fused_transformer_block": n_blocks * summary["stats"]["batches"]}
+            if where == "card" else {}))
+        items[where] = flush_items(summary["out_folder"])
+        if plain["cuda"] or sorted(it["video_id"] for it in items[where]) != sorted(
+                r["id"] for r in test_cache["records"]):
+            fail(f"{label} cli/inference.py ({where}): {len(items[where])} items of {n_test}, "
+                 f"{plain['cuda']} plain blocks")
+        if where == "card":
+            report["inference_cli"] = dict(videos=len(items[where]),
+                                           batches=summary["stats"]["batches"], launches=counts)
+    report["inference_cli"]["f32_card_vs_cpu"] = match_detections(items["card"], items["cpu"])
+    report["inference_cli"]["seconds"] = time.perf_counter() - t0
+    log(f"{label} cli/inference.py: {len(items['card'])} videos, launches "
+        f"{report['inference_cli']['launches']}; f32 card vs CPU "
+        f"{report['inference_cli']['f32_card_vs_cpu']}")
+
+    # (5) 16 heads of 16: an eval forward, kernel vs plain blocks on the card
+    t0 = time.perf_counter()
+    cfg16 = dataclasses.replace(cfg, n_head=16 if overrides is None else cfg.n_head * 2)
+    model = perturb(build_localizer(cfg16, seed=5, device="cpu"), 6)
+    rng = np.random.default_rng(41)
+    t = cfg16.max_seq_len
+    lens = np.array([t, int(rng.integers(t // 3, t))])
+    mask = np.arange(t)[None, :] < lens[:, None]
+    x = rng.standard_normal((2, t, cfg16.input_dim), dtype=np.float32) * mask[..., None]
+    xd, md = torch.from_numpy(x).to(dev), torch.from_numpy(mask).to(dev)
+    rec = {"heads": cfg16.n_head}
+    for dtype in ("float32", "bfloat16"):
+        m = AVLocalizer(dataclasses.replace(cfg16, compute_dtype=dtype))
+        m.load_state_dict(model.state_dict())
+        m = m.to(dev).eval()
+        reset_counts()
+        with torch.no_grad(), plain_block_calls() as plain:
+            got = m(xd, md)
+        sync(dev)
+        counts = launch_counts()
+        expect(counts, f"16 heads {dtype} forward", fused_transformer_block=n_blocks)
+        rec[f"{dtype}_launches"] = counts["fused_transformer_block"]
+        if plain["cuda"]:
+            fail(f"{label}: {plain['cuda']} plain blocks in the 16-head {dtype} forward")
+        with torch.no_grad(), plain_blocks_on_card():
+            ref = m(xd, md)
+        for key in ("out_cls", "out_offsets"):
+            g, r = cat_levels(got, key), cat_levels(ref, key)
+            if dtype == "float32":
+                err = (g - r).abs().max().item()
+                ok, rule = err <= VARIANT_F32_TOL[key], f"atol {VARIANT_F32_TOL[key]:g}"
+            else:
+                err, ok, rule = check_bf16(g.to(torch.bfloat16), r.to(torch.bfloat16))
+            rec[f"{dtype}_{key}"] = {"max_abs_err": err, "rule": rule}
+            if not ok:
+                fail(f"{label} 16 heads {dtype} {key} kernel vs plain {err:.3e} ({rule})")
+        del m, got, ref
+    rec["seconds"] = time.perf_counter() - t0
+    report["heads16_eval"] = rec
+    log(f"{label} at {cfg16.n_head} heads, eval forward B=2 T={t}, kernel vs plain blocks on "
+        f"the card: { {k: v['max_abs_err'] for k, v in rec.items() if isinstance(v, dict)} }")
+    return report
+
+
+def phase_block_domain(dev="cuda", smi="", shapes=DOMAIN_SHAPES, ts=DOMAIN_TS, b=DOMAIN_B,
+                       k7_shapes=DOMAIN_K7, k7_ws=DOMAIN_K7_W, k8_dims=DOMAIN_K8_D,
+                       path=None):
+    """K1 / K6, K7 and K8 across the rest of their domain. (1)
+    wide_kernel_grid at ``shapes`` (C, heads, w) x ``ts`` x the four modes x
+    both dtypes, K1 and K6 against block_math, and K7 at ``k7_shapes`` x
+    ``k7_ws`` against band_attention_plain, each shape's route checked (K1 /
+    K6: the generic route, no wgmma instance takes them; K7: band_any_kernel);
+    (2) K8 at each head dim of ``k8_dims`` (B = ``b``, 12 heads, T = E2V_T,
+    with and without the key mask) against full_mha_math (check_k8); (3) on
+    the card, domain_kernel_times; (4) h1w37_path (``path``: its keyword
+    arguments). Returns the report."""
+    import shutil
+    import tempfile
+    import torch
+    from audio_visual_deepfake_detection_tpu_torch.ops.kernels import band_attention as k7
+    from audio_visual_deepfake_detection_tpu_torch.ops.kernels import full_attention as k8
+    from audio_visual_deepfake_detection_tpu_torch.ops.kernels import fused_block as fb
+
+    on_card = torch.device(dev).type == "cuda"
+    for c, nh, w in shapes:
+        if not fb.kernel_shape_ok(c, nh, w) or fb.wgmma_shape_ok(c, nh):
+            fail(f"block domain: ({c}, {nh}, {w}) is not a shape of the generic route")
+    for _, _, _, d in k7_shapes:
+        for ww in k7_ws:
+            for size in (2, 4):
+                if not k7.kernel_shape_ok(d, size, ww) or k7.tiled(d, size, ww):
+                    fail(f"block domain: K7 d={d} w={ww} is not band_any_kernel's")
+    report = {"card": smi, "grid": wide_kernel_grid(dev, shapes=shapes, ts=ts, b=b,
+                                                    k7_shapes=k7_shapes, k7_ws=k7_ws, smi=smi,
+                                                    timing=False)}
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    rows = []
+    for d in k8_dims:
+        if not k8.head_dim_ok(d):
+            fail(f"block domain: K8 takes no head dim {d}")
+        for dtype in (torch.float32, torch.bfloat16):
+            for masked in (False, True):
+                name = str(dtype)[6:]
+                args = k8_case(b, E2V_T, dtype, dev, masked, seed=d, h=E2V_H, d=d)
+                k8.reset_launches()
+                with torch.no_grad():
+                    got, ref = run_k8("kernel", *args), run_k8("plain", *args)
+                sync(dev)
+                if k8.LAUNCHES != int(on_card):
+                    fail(f"block domain: K8 counted {k8.LAUNCHES} launches for one call")
+                err, ok, rule = check_k8(got, ref, *args)
+                worst[name] = max(worst[name], err)
+                rows.append(dict(d=d, dtype=name, masked=masked, max_abs_err=err, ok=ok,
+                                 rule=rule, routes=dict(k8.ROUTES)))
+                log(f"K8 vs plain ({b}, {E2V_H}, {E2V_T}, {d}) {name:8s} mask={masked}: "
+                    f"max|d|={err:.3e} [{rule}] {'ok' if ok else 'MISMATCH'}")
+                if not ok:
+                    REPORT["block_domain"] = dict(report, k8=rows)
+                    fail(f"block domain: K8 disagrees with its plain version at d={d} {name}")
+                del args, got, ref
+    report["k8"] = dict(worst=worst, rows=rows)
+    if on_card:
+        report["times"] = domain_kernel_times(dev, shapes, max(ts), b, k7_shapes, k7_ws,
+                                              k8_dims, smi)
+    build = os.path.join(REPO, "build")
+    os.makedirs(build, exist_ok=True)
+    root = tempfile.mkdtemp(dir=build)
+    try:
+        report["h1w37"] = h1w37_path(root, dev, smi, **(path or {}))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        if on_card:
+            torch.cuda.empty_cache()
+    REPORT["block_domain"] = report
+    return report
+
+
 def main_path_loss(kernels, k1_totals, k1_bounds, mvit_group, k4_table, audio_times, smi,
                    n_videos=64, group=32):
     """What each kernel of the main path costs one ``n_videos``-video media ->
@@ -7129,6 +7509,8 @@ def main():
     legacy = timed(phase_legacy, smi=smi)
     released = timed(phase_released_weights, smi=smi)
     wide = timed(phase_wide_blocks, smi=smi, grid=dict(launches=wide_launches))
+    domain = timed(phase_block_domain, smi=smi)
+    h1w37 = domain["h1w37"]
     for mod in ("jax", "audio_visual_deepfake_detection_tpu"):
         if mod in sys.modules:
             fail(f"{mod} was imported")
@@ -7161,7 +7543,7 @@ def main():
         "note": "ms = sum over the 18 blocks of one forward at B=16 bf16 (two CUDA launches "
                 "a block, counted once); f32 = the same in float32 (eight launches a block, "
                 "counted once), device ms, bound at 67 TFLOP/s; launches_offline_inference = "
-                "the offline sweep's 256 videos at B=16 through cli/inference.py",
+                f"the offline sweep's {OFFLINE_VIDEOS} videos at B=16 through cli/inference.py",
         "launches_offline_inference": offline["host_b16_warm"]["k1_launches"],
         "launches_variants": {
             name: {"eval_forward_bf16": rec["eval"]["launches"]["fused_transformer_block"],
@@ -7191,6 +7573,14 @@ def main():
         "wide_dense_forward_ms_b2": wide["dense"]["eval"].get("forward_ms_bf16"),
         "wide_dense_forward_device_ms_b2": wide["dense"]["eval"].get("forward_device_ms_bf16"),
         "sources_f32": [src + "fused_block_f32.cu", src + "fused_block_f32_attend.cu"],
+        "source_generic": src + "fused_block_generic.cu",
+        "max_abs_err_domain": domain["grid"]["worst"]["K1"],
+        "domain_times": [r for r in domain.get("times", []) if r["kernel"] == "K1"],
+        "launches_block_domain": {
+            "h1w37_inference_cli": h1w37["inference_cli"]["launches"]["fused_transformer_block"],
+            "h1w37_inference_cli_batches": h1w37["inference_cli"]["batches"],
+            "heads16_eval_forward_f32_and_bf16": h1w37["heads16_eval"]["float32_launches"]
+            + h1w37["heads16_eval"]["bfloat16_launches"]},
         "f32": {f"B{b}": {k: v for k, v in f32_times["K1"][str(b)].items() if k != "per_shape"}
                 for b in F32_BATCHES},
     }]
@@ -7268,6 +7658,8 @@ def main():
                     f"of 9.6 s, bf16",
             "f32": f32_front["K5" if name == "conv_extractor" else "K8"],
         })
+    kernels[-1].update(max_abs_err_domain=domain["k8"]["worst"],
+                       domain_times=[r for r in domain.get("times", []) if r["kernel"] == "K8"])
     kernels[-2].update(launch_table_b64=k5_table, sources_f32=[src + "conv_extractor.cu"],
                        routes_f32_audio=REPORT["audio"]["f32_routes"],
                        emotion2vec_f32_wavs_per_s={
@@ -7275,7 +7667,7 @@ def main():
                            for b in F32_AUDIO_BATCHES})
     for k in kernels:
         k["launches_media_to_detections"] = media_launched[k["name"]]
-        # MediaPipeline.run over 128 videos at batch 16: 8 x media_to_detections' 16
+        # MediaPipeline.run over MEDIA_VIDEOS at batch 16: 4 x media_to_detections' 16
         k["launches_media_pipeline"] = media_pipeline["routes"]["memory_b16"]["launches"][
             k["name"]]
     k6_ms, k6_plain, k6_bound, k6_dev = train_times["k6"]
@@ -7316,6 +7708,12 @@ def main():
             "train_cli": wide["dense"]["train_cli"]["launches"]["fused_transformer_block_train"],
             "train_cli_steps": wide["dense"]["train_cli"]["steps"]},
         "max_abs_err_wide": wide["grid"]["worst"]["K6"],
+        "max_abs_err_domain": domain["grid"]["worst"]["K6"],
+        "launches_block_domain": {
+            "h1w37_train_cli": h1w37["train_cli"]["launches"]["fused_transformer_block_train"],
+            "h1w37_train_cli_steps": h1w37["train_cli"]["steps"],
+            "h1w37_step_card_vs_cpu": h1w37["deterministic_step_card_vs_cpu"]["launches"][
+                "fused_transformer_block_train"]},
         "wide_train_cli_ms_per_step": wide["train_cli"]["epochs"][-1]["ms_per_step"],
         "launches_variants": {
             name: {"train_step_f32": rec["step"]["launches"]["fused_transformer_block_train"],
@@ -7361,6 +7759,10 @@ def main():
                                  for key in ("scale3", "scale4")},
         "max_abs_err_wide": wide["grid"]["worst"]["K7"],
         "wide_times": [r for r in wide["grid"]["times"] if r["kernel"] == "K7"],
+        "max_abs_err_domain": domain["grid"]["worst"]["K7"],
+        "domain_times": [r for r in domain.get("times", []) if r["kernel"] == "K7"],
+        "launches_block_domain": {"h1w37_unfused_step": h1w37["unfused_step_card_vs_cpu"][
+            "launches"]["band_attention"]},
         "f32": {f"B{TRAIN_B}": f32_times["K7"][str(TRAIN_B)]},
     })
     for k in kernels:

@@ -257,17 +257,22 @@ def test_quotient_from_reciprocal_rounds_as_division():
 @pytest.mark.parametrize("dtype,d,ok", [
     ("bfloat16", 64, True), ("bfloat16", 32, True), ("bfloat16", 128, True),
     ("bfloat16", 48, True), ("bfloat16", 256, True), ("bfloat16", 20, False),
-    ("bfloat16", 264, False), ("float32", 64, True), ("float32", 128, True),
-    ("float32", 6, False), ("float32", 160, False)])
+    ("bfloat16", 264, True), ("float32", 64, True), ("float32", 128, True),
+    ("float32", 6, False), ("float32", 160, True),
+    ("bfloat16", 512, True), ("float32", 512, True), ("bfloat16", 520, False),
+    ("float32", 1024, False), ("bfloat16", 4, False)])
 def test_kernel_limits_name_the_head_width(dtype, d, ok):
+    """Head widths up to 512 at any window (w past 16 too); a negative
+    window is refused by name."""
     q = torch.empty((1, 1, 1, d), dtype=getattr(torch, dtype))
     if ok:
         tband.kernel_limits(q, tband.MAX_W)
+        tband.kernel_limits(q, 4 * tband.MAX_W)
     else:
         with pytest.raises(ValueError, match="head_dim"):
             tband.kernel_limits(q, 3)
     with pytest.raises(ValueError, match="w_overlap"):
-        tband.kernel_limits(torch.empty((1, 1, 1, 64)), tband.MAX_W + 1)
+        tband.kernel_limits(torch.empty((1, 1, 1, 64)), -1)
 
 
 def test_rows_ok_copies_only_what_the_kernel_cannot_read():

@@ -383,23 +383,39 @@ def test_quotient_from_reciprocal_rounds_as_division_up_to_w16():
     (256, 4, 3, True), (512, 4, 9, True), (256, 8, 3, True), (384, 4, 16, True),
     (1024, 8, 0, True), (1024, 8, -1, True), (64, 2, 1, True), (1024, 32, 16, True),
     (960, 10, 5, True), (192, 2, 16, True),
-    (1088, 17, 3, False), (1088, 8, 3, False), (192, 4, 3, False), (256, 1, 3, False),
+    (1088, 17, 3, True), (1088, 8, 3, True), (192, 4, 3, True), (256, 1, 3, True),
     (256, 4, 17, True), (256, 4, 48, True), (96, 1, 3, False), (32, 1, 3, False),
-    (320, 4, 3, False), (256, 3, 3, False)])
+    (320, 4, 3, True), (256, 3, 3, False),
+    (2048, 16, 9, True), (2048, 4, 0, True), (1536, 12, 18, True), (128, 16, 3, True),
+    (512, 1, 3, True), (384, 8, 9, True),
+    (2112, 8, 3, False), (1024, 1, 3, False), (256, 64, 3, False), (384, 32, 3, False),
+    (352, 4, 3, False), (2176, 17, 0, False)])
 def test_fused_block_shape_rule(c, heads, w, ok):
     """Domain corners taken, at any window (w = 17 and 48: the tensor-core
-    attention); C = 1088, head width 48 or 256, C not a multiple of 64
-    refused. On the CPU a refused shape still runs the plain version: the
-    rule is the card's."""
+    attention): C a multiple of 64 up to 2048, head widths that are
+    multiples of 8 from 8 to 512 (48, 80, 136, 256 and 512 included); C =
+    2112, head width 1024, 4 or 12, C not a multiple of 64 refused. On the
+    CPU a refused shape still runs the plain version: the rule is the
+    card's."""
     assert tfb.kernel_shape_ok(c, heads, w) is ok
+    if ok:
+        wgmma = c <= 1024 and c // heads in (32, 64, 96, 128)
+        assert tfb.wgmma_shape_ok(c, heads) is wgmma
 
 
 @pytest.mark.parametrize("d,size,w,ok", [
     (64, 2, 16, True), (128, 2, 15, True), (32, 4, 16, True), (128, 4, 0, True),
-    (64, 2, 17, False), (6, 4, 3, False), (136, 4, 3, False), (264, 2, 3, False),
-    (64, 2, -1, False)])
+    (64, 2, 17, True), (6, 4, 3, False), (136, 4, 3, True), (264, 2, 3, True),
+    (64, 2, -1, False),
+    (512, 2, 40, True), (512, 4, 100, True), (256, 4, 18, True), (4, 4, 24, True),
+    (520, 2, 3, False), (1024, 4, 3, False), (4, 2, 3, False), (12, 2, 3, False)])
 def test_band_attention_shape_rule(d, size, w, ok):
+    """Any half window; head rows of whole 16-byte pieces up to head_dim 512
+    in either dtype (the tiled kernel up to w = 16 and 512-byte rows,
+    band_any_kernel beyond)."""
     assert tband.kernel_shape_ok(d, size, w) is ok
+    if ok:
+        assert tband.tiled(d, size, w) is (w <= 16 and d * size <= 512)
     q = torch.empty((1, 1, 1, d), dtype=torch.bfloat16 if size == 2 else torch.float32)
     if ok:
         tband.kernel_limits(q, w)

@@ -17,6 +17,10 @@ one call replayed as a CUDA graph, K5 (one call: the seven layers) on B =
 16 and 64 wavs of 9.6 s, and K8's 12 launches of one Emotion2Vec forward at
 (B, 12, 479, 64) with the key mask, B = 16 and 64.
 
+``--kernels k7``: in bf16 and float32, K7 at the unfused block's w = 3 on
+(50, 4, T, 64) head views at each ``chip_smoke.K7_TS`` length, device ms
+of one call replayed as a CUDA graph, and their sum.
+
 ``--kernels mvit``: in bf16 and float32, K4's 18 blocks of one mvit_v2_b
 forward at 32 chunks (each ``chip_smoke.MSBLOCK_SHAPES`` geometry, device ms
 of one call replayed as a CUDA graph, times its blocks), K3's three
@@ -49,7 +53,7 @@ at 2 and 32 chunks, against ``msblock_math`` /
 checks. Per shape it prints both trees' worst |d| from each and the ratio
 b / a.
 
-    python3 tools/k1_compare_trees.py PARENT_TREE CHANGED_TREE [--kernels k1|mvit|frontends]
+    python3 tools/k1_compare_trees.py PARENT_TREE CHANGED_TREE [--kernels k1|mvit|frontends|k7]
         [--dtype float32] [--wide 512,4,0 1024,8,0 ...] [--precision] [--out FILE]
 
 A tree is a checkout of the repository (``git archive`` of a commit unpacked
@@ -393,6 +397,32 @@ for cc, nh, w in c.WIDE_SHAPES:
 print("RESULT " + json.dumps({"card": smi, "rows": rows}))
 """
 
+K7_RUN = DIGEST + r"""
+import json, sys
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as c
+
+smi = c.phase_build()
+out = {"card": smi}
+digests = {}
+with torch.no_grad():
+    for dname in ("bfloat16", "float32"):
+        dt = getattr(torch, dname)
+        total = 0.0
+        for t in c.K7_TS:
+            args = c.k7_case(c.TRAIN_B, t, dt, "cuda", seed=t)
+            run = lambda: c.run_k7("kernel", *args, 3)
+            digests[f"K7 {dname} T={t}"] = digest(run())
+            ms = c.device_ms(run, iters=20)
+            out[f"K7 {dname} T={t}"] = ms
+            total += ms
+            del args
+        out[f"K7 {dname} the {len(c.K7_TS)} lengths"] = total
+out["digests"] = digests
+print("RESULT " + json.dumps(out))
+"""
+
 
 def run_tree(tree, code):
     proc = subprocess.run([sys.executable, "-c", code], cwd=tree, capture_output=True,
@@ -445,8 +475,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("a", help="the first tree (the parent)")
     ap.add_argument("b", help="the second tree (the change)")
-    ap.add_argument("--kernels", choices=("k1", "mvit", "frontends"), default="k1",
-                    help="K1 (one dtype), K3 and K4, or K2, K5 and K8 (both dtypes)")
+    ap.add_argument("--kernels", choices=("k1", "mvit", "frontends", "k7"), default="k1",
+                    help="K1 (one dtype), K3 and K4, K2, K5 and K8, or K7 (both dtypes)")
     ap.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16",
                     help="K1's dtype")
     ap.add_argument("--wide", nargs="*", default=[], metavar="C,HEADS,W",
@@ -455,13 +485,15 @@ def main(argv=None):
                     help="f32 worst |d| per shape from plain f32 and f64, no timing")
     ap.add_argument("--out", help="JSON file for the runs and means")
     args = ap.parse_args(argv)
+    if args.precision and args.kernels == "k7":
+        ap.error("--precision takes k1, mvit or frontends")
     if args.precision:
         return precision(args)
     wide = [tuple(int(v) for v in s.split(",")) for s in args.wide]
     code = {"k1": RUN % (args.dtype, BATCHES, wide), "mvit": MVIT_RUN,
-            "frontends": FRONT_RUN}[args.kernels]
+            "frontends": FRONT_RUN, "k7": K7_RUN}[args.kernels]
     label = {"k1": f"K1 {args.dtype}", "mvit": "K3 / K4",
-             "frontends": "K2 / K5 / K8"}[args.kernels]
+             "frontends": "K2 / K5 / K8", "k7": "K7"}[args.kernels]
     runs = []
     for name in ("a", "b", "b", "a"):
         tree = os.path.abspath(getattr(args, name))
