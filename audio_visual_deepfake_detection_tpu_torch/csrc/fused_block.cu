@@ -25,10 +25,13 @@
 // rule, for both dtypes): C a multiple of 64 from 64 to 2048, head width D =
 // C / n_head a multiple of 8 from 8 to 512, any half window w >= 1 or dense
 // attention, at any T: the Pallas kernel's domain (it is generated per
-// shape) cut at those C and D. The designs below take C up to 1024 and D in
-// {32, 64, 96, 128} (wgmma_shape_ok); every other shape of the domain runs
-// fused_block_generic.cu, a simple design on the CUDA cores, in both dtypes.
-//
+// shape) cut at those C and D. The bf16 two-launch design below takes C up
+// to 1024 and D in {32, 64, 96, 128} (wgmma_shape_ok); every other shape
+// runs the bf16 scratch route (fused_block_bf16.cu). The f32 launches take
+// every shape; past wgmma_shape_ok their attention runs the head width
+// padded to an instance's (D < 128) or in 128-column blocks (D > 128), and
+// their rows a block a row past C = 1024. All on the tensor cores.
+
 // What bounds it on this card: a row costs 12 C^2 multiply-adds (q, k, v,
 // proj 4 C^2, the MLP 8 C^2; 786k at C = 256) against a few KB of HBM
 // traffic, far above the H100's ridge: the tensor cores bound it once the six
@@ -78,8 +81,8 @@
 // count and the head sums a fixed lane pattern, as when the kernel took that
 // shape alone) and with the shape read at run time for every other one
 // (fused_block_any.cu and fused_block_any_qkv.cu); the f32 kernels are in
-// fused_block_f32.cu and fused_block_f32_attend.cu, the shapes past
-// wgmma_shape_ok in fused_block_generic.cu, all seven built side by side.
+// fused_block_f32.cu and fused_block_f32_attend.cu, the bf16 shapes past
+// wgmma_shape_ok in fused_block_bf16.cu, all seven built side by side.
 // Attention runs per slab of whole heads (at most 256 channels: 8 heads of
 // 32, 4 of 64, 2 of 96 or 128): a warp reads a row's slab as one run of 16
 // bytes a lane, the D / 8 lanes of a head sum a score by shuffles. Banded
@@ -104,17 +107,18 @@ using namespace avdd_k1;
 
 extern "C" {
 
-// Elements of the compute dtype a call's scratch holds: 3 B T C for bfloat16
-// (the q | k | v rows between its launches), f32_scratch_elems for float32,
-// generic_scratch_elems for a shape outside wgmma_shape_ok; -1 if the kernel
-// does not take the shape (shape_ok).
-long long avdd_fused_block_scratch(int B, int T, int c, int n_head, int dtype) {
+// Elements of the compute dtype a call's scratch holds at half window w (<=
+// 0: dense): 3 B T C for bfloat16 inside wgmma_shape_ok (the q | k | v rows
+// between its launches), bf16_scratch_elems past it, f32_scratch_elems for
+// float32; -1 if the kernel does not take the shape (shape_ok).
+long long avdd_fused_block_scratch(int B, int T, int c, int n_head, int w, int dtype) {
   if (!shape_ok(c, n_head) || B <= 0 || T <= 0 || dtype < 0 || dtype > 1) return -1;
-  if (!wgmma_shape_ok(c, n_head)) return generic_scratch_elems(B, T, c);
-  return dtype == 1 ? 3ll * B * T * c : f32_scratch_elems(B, T, c);
+  if (dtype == 0) return f32_scratch_elems(B, T, c, n_head, w);
+  return wgmma_shape_ok(c, n_head) ? 3ll * B * T * c : bf16_scratch_elems(B, T, c);
 }
 
-// Launch on `stream`; returns the first CUDA error (0 = launched).
+// Launch on `stream`; returns the first CUDA error (0 = launched) and, when
+// launched, the route it took into *route (ROUTE_*).
 // dtype: 0 float32, 1 bfloat16. mode: 0 self, 1 qv_k, 2 kv, 3 ds_self.
 // Dense weights: (out, in) row-major in the compute dtype (torch's Linear
 // layout), for both dtypes. coefs: (B, 2) f32 droppath coefficients of the
@@ -125,23 +129,28 @@ int avdd_fused_block(const void* x, const void* xo, const void* mask,
                      const void* wv, const void* wp, const void* wf1,
                      const void* wf2, const void* fc1b, void* out, void* kv,
                      const void* coefs, int B, int T, int c, int n_head, int w, int mode,
-                     int dtype, void* stream) {
-  if (avdd_fused_block_scratch(B, T, c, n_head, dtype) < 0 || mode < 0 || mode > 3 || !kv)
+                     int dtype, void* stream, int* route) {
+  if (avdd_fused_block_scratch(B, T, c, n_head, w, dtype) < 0 || mode < 0 || mode > 3 || !kv)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!wgmma_shape_ok(c, n_head)) {
-    ParamsG g;
-    g.x = x; g.xo = xo ? xo : x;
-    g.mask = static_cast<const uint8_t*>(mask);
-    g.vecs = static_cast<const float*>(vecs);
-    g.fc1b = static_cast<const float*>(fc1b);
-    g.coefs = static_cast<const float*>(coefs);
-    const void* ws[6] = {wq, wk, wv, wp, wf1, wf2};
-    for (int i = 0; i < 6; ++i) g.wt[i] = ws[i];
-    g.out = out;
-    g.B = B; g.T = T; g.C = c; g.NH = n_head; g.D = c / n_head;
-    g.w = w > 0 ? w : 0; g.mode = mode;
-    return launch_generic(g, kv, dtype, s);
+  const bool wgmma = wgmma_shape_ok(c, n_head);
+  const void* ws[6] = {wq, wk, wv, wp, wf1, wf2};
+  int e;
+  if (dtype == 1 && !wgmma) {
+    ParamsB p;
+    p.x = static_cast<const __nv_bfloat16*>(x);
+    p.xo = static_cast<const __nv_bfloat16*>(xo ? xo : x);
+    p.mask = static_cast<const uint8_t*>(mask);
+    p.vecs = static_cast<const float*>(vecs);
+    p.fc1b = static_cast<const float*>(fc1b);
+    p.coefs = static_cast<const float*>(coefs);
+    for (int i = 0; i < 6; ++i) p.wt[i] = static_cast<const __nv_bfloat16*>(ws[i]);
+    p.out = static_cast<__nv_bfloat16*>(out);
+    p.B = B; p.T = T; p.C = c; p.NH = n_head; p.D = c / n_head;
+    p.w = w > 0 ? w : 0; p.mode = mode;
+    e = launch_bf16(p, static_cast<__nv_bfloat16*>(kv), s);
+    if (!e && route) *route = ROUTE_BF16_DOMAIN;
+    return e;
   }
   if (dtype == 1) {
     ParamsW p;
@@ -163,8 +172,9 @@ int avdd_fused_block(const void* x, const void* xo, const void* mask,
     p.slab = (SLAB / p.D) * p.D;
     p.att_rows = p.w > 8 ? 16 : 32;
     p.attn = p.w == 0 || p.w > MAX_W ? ATT_SCRATCH : ATT_BAND;
-    const void* ws[6] = {wq, wk, wv, wp, wf1, wf2};
-    return c == 256 && n_head == 4 ? launch_wgmma<256>(p, ws, s) : launch_wgmma_any(p, ws, s);
+    e = c == 256 && n_head == 4 ? launch_wgmma<256>(p, ws, s) : launch_wgmma_any(p, ws, s);
+    if (!e && route) *route = ROUTE_BF16;
+    return e;
   }
   ParamsF p;
   p.x = static_cast<const float*>(x);
@@ -173,12 +183,13 @@ int avdd_fused_block(const void* x, const void* xo, const void* mask,
   p.vecs = static_cast<const float*>(vecs);
   p.fc1b = static_cast<const float*>(fc1b);
   p.coefs = static_cast<const float*>(coefs);
-  const void* ws[6] = {wq, wk, wv, wp, wf1, wf2};
   for (int i = 0; i < 6; ++i) p.wt[i] = static_cast<const float*>(ws[i]);
   p.out = static_cast<float*>(out);
   p.B = B; p.T = T; p.C = c; p.NH = n_head; p.D = c / n_head;
   p.w = w > 0 ? w : 0; p.mode = mode;
-  return launch_f32(p, static_cast<float*>(kv), s);
+  e = launch_f32(p, static_cast<float*>(kv), s);
+  if (!e && route) *route = wgmma ? ROUTE_F32 : ROUTE_F32_DOMAIN;
+  return e;
 }
 
 }  // extern "C"

@@ -5,10 +5,12 @@
 // constants), fused_block_any.cu and fused_block_any_qkv.cu the second and
 // the first launch of the bfloat16 instance for any shape of wgmma_shape_ok,
 // fused_block_attend.cu the bfloat16 attention launch on the tensor cores
-// (dense attention, and bands wider than MAX_W), fused_block_f32.cu and
-// fused_block_f32_attend.cu the float32 kernels, fused_block_generic.cu
-// both dtypes at every other shape of shape_ok. The design is described in
-// fused_block.cu (bf16), fused_block_f32.cu (f32) and fused_block_generic.cu.
+// (dense attention, bands wider than MAX_W, and every attention of the
+// bfloat16 scratch route), fused_block_f32.cu and fused_block_f32_attend.cu
+// the float32 kernels at every shape of shape_ok, fused_block_bf16.cu the
+// bfloat16 scratch route, which takes the shapes past wgmma_shape_ok. The
+// design is described in fused_block.cu (bf16), fused_block_f32.cu (f32)
+// and fused_block_bf16.cu (bf16 past wgmma_shape_ok).
 
 #pragma once
 
@@ -18,8 +20,8 @@ namespace avdd_k1 {
 
 using namespace avdd;
 
-constexpr int MAX_C = 1024;     // widest block of the wgmma instances
-constexpr int MAX_C_ANY = 2048; // widest block (fused_block_generic.cu above MAX_C)
+constexpr int MAX_C = 1024;     // widest block of the bf16 two-launch instances
+constexpr int MAX_C_ANY = 2048; // widest block of the kernel
 constexpr int MAX_W = 16;       // largest half window of the bf16 tail's banded
                                 // step (attend_band); wider bands take the
                                 // tensor-core step
@@ -36,8 +38,11 @@ inline bool shape_ok(int c, int n_head) {
   const int d = c / n_head;
   return d % 8 == 0 && d >= 8 && d <= 512;
 }
-// The shapes the wgmma instances take (both dtypes): C up to MAX_C, D of 32,
-// 64, 96 or 128. The rest of shape_ok runs fused_block_generic.cu.
+// The shapes of the bf16 two-launch instances and of the f32 attention's
+// own head widths: C up to MAX_C, D of 32, 64, 96 or 128. The rest of
+// shape_ok runs the scratch routes: f32's eight launches with the head
+// width padded to an instance's (D < 128) or in 128-column blocks (D >
+// 128), and bf16's eight launches of fused_block_bf16.cu.
 inline bool wgmma_shape_ok(int c, int n_head) {
   if (!shape_ok(c, n_head) || c > MAX_C) return false;
   const int d = c / n_head;
@@ -1086,12 +1091,19 @@ struct ParamsF {
   float* khi; float* klo;     // (R, C) k
   float* vthi; float* vtlo;   // (B, C, Tp) v transposed, keys past T zero
   float* chi; float* clo;     // (R, C) the attention context, later LN(y1)
+  float* s; float* slo;       // f32_scores_gemm: (B H, T, Tp) the scores, then P hi | P lo
 };
 
-// Floats of scratch a call needs; carves `scratch` into p's fields.
-inline long long f32_scratch_elems(long long B, long long T, long long C) {
+// Dense attention past head width 128 runs as two GEMMs through the scores
+// (fused_block_f32_attend.cu), which then take 2 B H T Tp floats more.
+__host__ __device__ inline bool f32_scores_gemm(int d, int w) { return d > 128 && w <= 0; }
+
+// Floats of scratch a call needs (H heads, half window w; w <= 0 dense);
+// carves `scratch` into p's fields.
+inline long long f32_scratch_elems(long long B, long long T, long long C, long long H, int w) {
   const long long R = B * T, Tp = (T + KEY_TILE - 1) / KEY_TILE * KEY_TILE;
-  return 24 * C * C + 13 * R * C + 2 * B * C * Tp;
+  const long long scores = f32_scores_gemm((int)(C / H), w) ? 2 * B * H * T * Tp : 0;
+  return 24 * C * C + 13 * R * C + 2 * B * C * Tp + scores;
 }
 inline void f32_carve(ParamsF& p, float* scratch) {
   const long long C = p.C, R = (long long)p.B * p.T;
@@ -1104,6 +1116,9 @@ inline void f32_carve(ParamsF& p, float* scratch) {
   p.khi = take(R * C); p.klo = take(R * C);
   p.vthi = take((long long)p.B * C * p.Tp); p.vtlo = take((long long)p.B * C * p.Tp);
   p.chi = take(R * C); p.clo = take(R * C);
+  const long long ns = f32_scores_gemm(p.D, p.w) ? (long long)p.B * p.NH * p.T * p.Tp : 0;
+  p.s = ns ? take(ns) : nullptr;
+  p.slo = ns ? take(ns) : nullptr;
 }
 
 // Two adjacent values a, b split into TF32 parts: hi[i], hi[i + 1] and lo[i],
@@ -1124,19 +1139,145 @@ int launch_f32_attend(const ParamsF& p, cudaStream_t stream);
 // The instance for any width, compiled in fused_block_any.cu.
 int launch_wgmma_any(ParamsW& p, const void* const* w, cudaStream_t stream);
 
-// ---- the shapes of shape_ok outside wgmma_shape_ok, both dtypes -------------
-// fused_block_generic.cu: seven launches through a scratch of
-// generic_scratch_elems elements of the compute dtype; its design is there.
-struct ParamsG {
-  const void* x; const void* xo;        // (B, T, C) compute dtype
+// ---- a row a block: the streams' rows and the LN of y1 at any C -----------
+// The f32 launches past C = 1024 (there a warp's three rows of C / 32
+// values a lane spill) and the bf16 scratch route at every C hold a row in a
+// block of RB_THREADS threads, channel tid + RB_THREADS j in value j.
+constexpr int RB_THREADS = 256;
+constexpr int RB_V = MAX_C_ANY / RB_THREADS;
+
+// Sum over the block of every thread's v; every thread gets it.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  v = warp_sum(v);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  __syncthreads();                      // red is free again
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  return warp_sum(lane < RB_THREADS / 32 ? red[lane] : 0.f);
+}
+
+// _ln_plain on a row held by the block: one-pass moments in bf16, two-pass
+// in f32; no affine.
+template <bool BF16>
+__device__ __forceinline__ void ln_block_row(float (&v)[RB_V], int C, float* red) {
+  float s1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < RB_V; ++j)
+    if (threadIdx.x + RB_THREADS * j < C) s1 += v[j];
+  const float mu = block_sum(s1, red) / C;
+  if (BF16) {
+    float s2 = 0.f;
+#pragma unroll
+    for (int j = 0; j < RB_V; ++j)
+      if (threadIdx.x + RB_THREADS * j < C) s2 = fmaf(v[j], v[j], s2);
+    const float m2 = block_sum(s2, red) / C;
+    const float rs = rsqrtf(fmaxf(__fsub_rn(m2, __fmul_rn(mu, mu)), 0.f) + LN_EPS);
+#pragma unroll
+    for (int j = 0; j < RB_V; ++j) v[j] = __fsub_rn(__fmul_rn(v[j], rs), __fmul_rn(mu, rs));
+  } else {
+    float s2 = 0.f;
+#pragma unroll
+    for (int j = 0; j < RB_V; ++j) {
+      v[j] = __fsub_rn(v[j], mu);
+      if (threadIdx.x + RB_THREADS * j < C) s2 = fmaf(v[j], v[j], s2);
+    }
+    const float rs = rsqrtf(block_sum(s2, red) / C + LN_EPS);
+#pragma unroll
+    for (int j = 0; j < RB_V; ++j) v[j] = __fmul_rn(v[j], rs);
+  }
+}
+
+// qkv_rows before its products, stream `which` (0 q, 1 k, 2 v) of row r =
+// b T + s, held by the block: the LN with the stream's affine of the input
+// rows the k3 depthwise conv reads (ds_self: odd s - 1, even s, odd s; else
+// s - 1, s, s + 1; zero outside the sequence), the conv, the mask, the plain
+// LN, rounded to T where block_math rounds. Into y.
+template <typename T>
+__device__ __forceinline__ void stream_row_block(const T* x, const T* xo, const uint8_t* mask,
+                                                 const float* vecs, int T_, int C, int mode,
+                                                 long long r, int which, float (&y)[RB_V],
+                                                 float* red) {
+  constexpr bool BF16 = sizeof(T) == 2;
+  const int b = (int)(r / T_), t = (int)(r % T_);
+  const T* xb = x + (size_t)b * T_ * C;
+  const T* ob = xo + (size_t)b * T_ * C;
+  const bool ds = mode == MODE_DS_SELF;
+  const T* src = xb;
+  int rw = ROW_LNQ_W;
+  if (mode == MODE_QV_K || mode == MODE_KV) {
+    if (which == 1) { rw = ROW_LNK_W; src = ob; }
+    if (which == 2) { rw = ROW_LNV_W; if (mode == MODE_KV) src = ob; }
+  }
+  const int tap = ROW_QCONV + 3 * which;
+#pragma unroll
+  for (int j = 0; j < RB_V; ++j) y[j] = 0.f;
+  for (int k = 0; k < 3; ++k) {
+    const T* base = ds ? (k == 1 ? xb : ob) : src;
+    const int s = ds ? (k == 0 ? t - 1 : t) : t - 1 + k;
+    if (s < 0 || s >= T_) continue;     // a zero row: adds exactly nothing
+    float l[RB_V];
+#pragma unroll
+    for (int j = 0; j < RB_V; ++j) {
+      const int c = threadIdx.x + RB_THREADS * j;
+      l[j] = c < C ? Num<T>::load(base, (size_t)s * C + c) : 0.f;
+    }
+    ln_block_row<BF16>(l, C, red);
+#pragma unroll
+    for (int j = 0; j < RB_V; ++j) {
+      const int c = threadIdx.x + RB_THREADS * j;
+      if (c < C) {
+        const float a = Num<T>::rnd(
+            __fadd_rn(__fmul_rn(l[j], vecs[rw * C + c]), vecs[(rw + 1) * C + c]));
+        y[j] = __fadd_rn(y[j], __fmul_rn(a, vecs[(tap + k) * C + c]));
+      }
+    }
+  }
+  const float mv = mask[r] ? 1.f : 0.f;
+#pragma unroll
+  for (int j = 0; j < RB_V; ++j) y[j] = Num<T>::rnd(__fmul_rn(y[j], mv));
+  ln_block_row<BF16>(y, C, red);
+}
+
+// ---- bfloat16 past wgmma_shape_ok: the scratch route ------------------------
+// fused_block_bf16.cu: eight launches through a scratch of bf16_scratch_elems
+// bf16 values; its design is there.
+struct ParamsB {
+  const __nv_bfloat16* x; const __nv_bfloat16* xo;  // as ParamsF's
   const uint8_t* mask; const float* vecs; const float* fc1b; const float* coefs;
-  const void* wt[6];                    // wq, wk, wv, wp, wf1, wf2: (out, in)
-  void* out;                            // (B, T, C); also holds y1 between proj and fc2
-  int B, T, C, NH, D, w, mode;          // w = 0: dense attention
+  const __nv_bfloat16* wt[6];   // wq, wk, wv, wp (C, C), wf1 (4C, C), wf2 (C, 4C): (out, in)
+  __nv_bfloat16* out;           // (B, T, C): y1 after proj, the block's output after fc2
+  int B, T, C, NH, D, w, mode;
+  // the scratch, carved by bf16_carve
+  __nv_bfloat16* a3;    // (R, 3C) the streams' rows; later (R, C) the context where
+                        // ctx_in_a3
+  __nv_bfloat16* qkv;   // (R, 3C) q (scaled) | k | v; the context over q unless ctx_in_a3
+  __nv_bfloat16* h;     // (R, C) LN(y1)
+  __nv_bfloat16* hid;   // (R, 4C) the GELU'd hidden units, over a3 and qkv
 };
-inline long long generic_scratch_elems(long long B, long long T, long long C) {
+// The attention launch writes the context over q, which only the block that
+// read it reads, at head widths up to 128; past 128 every 128-column block
+// of a head reads all of its q, so the context goes to a3 instead.
+__host__ __device__ inline bool ctx_in_a3(int d) { return d > 128; }
+
+inline long long bf16_scratch_elems(long long B, long long T, long long C) {
   return 7 * B * T * C;
 }
-int launch_generic(const ParamsG& p, void* scratch, int dtype, cudaStream_t stream);
+inline void bf16_carve(ParamsB& p, __nv_bfloat16* scratch) {
+  const long long RC = (long long)p.B * p.T * p.C;
+  p.a3 = scratch;
+  p.qkv = scratch + 3 * RC;
+  p.h = scratch + 6 * RC;
+  p.hid = scratch;
+}
+
+// The bf16 scratch route's launches (fused_block_bf16.cu) and its attention
+// launch (fused_block_attend.cu), which they call.
+int launch_bf16(ParamsB& p, __nv_bfloat16* scratch, cudaStream_t stream);
+int launch_attend_scratch(const ParamsB& p, cudaStream_t stream);
+
+// The route a launch took (avdd_fused_block's `route`; ROUTE_NAMES in
+// ops/kernels/fused_block.py): f32's eight launches and bf16's two-launch
+// instances inside wgmma_shape_ok, f32's and bf16's scratch routes past it.
+enum { ROUTE_F32 = 0, ROUTE_BF16 = 1, ROUTE_F32_DOMAIN = 2, ROUTE_BF16_DOMAIN = 3 };
 
 }  // namespace avdd_k1

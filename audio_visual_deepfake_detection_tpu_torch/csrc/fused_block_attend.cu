@@ -44,7 +44,10 @@
 // [r0 - w, r0 + 127 + w]. Each warp takes a tile's key mask from two ballots.
 // Head width WD (32, 64, 96, 128) is a template parameter: a staged row is
 // one or two 64-column halves, the P.V product max(64, WD) wide (head width
-// 32 runs it over zero-filled value columns and drops them).
+// 32 runs it over zero-filled value columns and drops them). The bf16
+// scratch route (fused_block_bf16.cu) runs every window here, a head
+// narrower than an instance on the next wider one with q, k and v zero past
+// its width (PAD), a head past 128 on the wide kernel below.
 
 #include "fused_block.cuh"
 
@@ -68,14 +71,18 @@ template <int WD> struct HeadDim {
 
 constexpr int smem_bytes(int tile) { return 1024 + NS * tile; }
 
-template <int WD, bool BAND>
+// PAD: the head's width D = p.D is below the instance's WD; q, k and v are
+// staged as zeros past D, which change no score and no context column, and
+// only the first D context columns are written.
+template <int WD, bool BAND, bool PAD>
 __global__ void __launch_bounds__(AT_NT, HeadDim<WD>::BLOCKS_PER_SM)
 fused_block_attend_kernel(const __grid_constant__ ParamsW p) {
   using HD = HeadDim<WD>;
   extern __shared__ __align__(1024) unsigned char smraw[];
   const uint32_t ring = (smem_u32(smraw) + 1023u) & ~1023u;
   const int T_ = p.T, C = p.C, w = p.w;
-  const int nrb = (T_ + AT_ROWS - 1) / AT_ROWS, H = C / WD;
+  const int D = PAD ? p.D : WD;
+  const int nrb = (T_ + AT_ROWS - 1) / AT_ROWS, H = C / D;
   // one grid axis, row blocks fastest: the blocks of a (sample, head) run
   // together and share its keys and values in L2
   const int bh = blockIdx.x / nrb, b = bh / H, h = bh % H, r0 = (blockIdx.x % nrb) * AT_ROWS;
@@ -83,7 +90,7 @@ fused_block_attend_kernel(const __grid_constant__ ParamsW p) {
   const int g = lane / 4, t = lane % 4;
   const int row0 = r0 + 64 * wg + 16 * warp + g, row1 = row0 + 8;
   const size_t ld = 3 * (size_t)C;
-  __nv_bfloat16* qh = p.qkv + (size_t)b * T_ * ld + h * WD;   // k at + C, v at + 2C
+  __nv_bfloat16* qh = p.qkv + (size_t)b * T_ * ld + h * D;    // k at + C, v at + 2C
   const uint8_t* mrow = p.mask + (size_t)b * T_;
   const bool live0 = row0 < T_ && mrow[row0], live1 = row1 < T_ && mrow[row1];
   int lo = 0, hi = (T_ - 1) / KT;            // the key tiles visited
@@ -104,7 +111,7 @@ fused_block_attend_kernel(const __grid_constant__ ParamsW p) {
 #pragma unroll
       for (int i = 0; i < KT * HD::LCH / AT_NT; ++i) {
         const int idx = tid + AT_NT * i, r = idx / HD::LCH, c = idx % HD::LCH, key = k0 + r;
-        const bool ok = key < T_ && c < HD::CH;   // past T or the head width: zeros
+        const bool ok = key < T_ && c < (PAD ? D / 8 : HD::CH);   // past T or the head: zeros
         cp_async16_to(dst + (c / 8) * (KT * 128) + swz(r, c % 8),
                       ok ? src + (size_t)key * ld + 8 * c : src, ok ? 16 : 0);
       }
@@ -120,10 +127,11 @@ fused_block_attend_kernel(const __grid_constant__ ParamsW p) {
 #pragma unroll
   for (int kk = 0; kk < HD::KS; ++kk) {
     const int c = 16 * kk + 2 * t;
-    qa[kk][0] = row0 < T_ ? ld_pair(qh + (size_t)row0 * ld + c) : 0u;
-    qa[kk][1] = row1 < T_ ? ld_pair(qh + (size_t)row1 * ld + c) : 0u;
-    qa[kk][2] = row0 < T_ ? ld_pair(qh + (size_t)row0 * ld + c + 8) : 0u;
-    qa[kk][3] = row1 < T_ ? ld_pair(qh + (size_t)row1 * ld + c + 8) : 0u;
+    const bool in0 = !PAD || c < D, in8 = !PAD || c + 8 < D;
+    qa[kk][0] = row0 < T_ && in0 ? ld_pair(qh + (size_t)row0 * ld + c) : 0u;
+    qa[kk][1] = row1 < T_ && in0 ? ld_pair(qh + (size_t)row1 * ld + c) : 0u;
+    qa[kk][2] = row0 < T_ && in8 ? ld_pair(qh + (size_t)row0 * ld + c + 8) : 0u;
+    qa[kk][3] = row1 < T_ && in8 ? ld_pair(qh + (size_t)row1 * ld + c + 8) : 0u;
   }
 
   float S[32], O[HD::PVN / 2];
@@ -259,7 +267,7 @@ fused_block_attend_kernel(const __grid_constant__ ParamsW p) {
 #pragma unroll
   for (int jj = 0; jj < HD::PVN / 8; ++jj) {
     const int c = 8 * jj + 2 * t;
-    if (8 * jj >= WD) break;
+    if (8 * jj >= D) break;
     if (row0 < T_)
       *reinterpret_cast<uint32_t*>(qh + (size_t)row0 * ld + c) =
           live0 ? pack_bf16(O[4 * jj], O[4 * jj + 1]) : 0u;
@@ -269,33 +277,286 @@ fused_block_attend_kernel(const __grid_constant__ ParamsW p) {
   }
 }
 
-template <int WD, bool BAND>
+
+// ---- head widths past 128 (the bf16 scratch route) -------------------------------
+// A block of two warpgroups owns 128 query rows of one (sample, head) and 128
+// of its context columns (a head's last block the rest, zero columns past
+// D): the blocks of a row block each recompute the scores for their own
+// columns. q is staged once into shared memory (D / 64 blocks of 128
+// swizzled rows, at most 128 KB: as registers it would be D / 4 a thread)
+// and is the A operand of m64n64k16 from there; k streams with each key tile
+// in 128-channel chunks, v in the block's 128 columns, through a ring of
+// four 16 KB stages. The steps: pass 1 a key tile's chunks, pass 2 its
+// chunks and then its values; the numerics are fused_block_attend_kernel's.
+// Every block of a head reads all of q, so the context goes to a3, not over
+// q.
+constexpr int WQ_BLOCK = AT_ROWS * 128;   // 64 channels of q: 128 rows of 128 bytes
+constexpr int WSTAGE = KT * 256;          // 128 channels of k (or columns of v) of 64 keys
+constexpr int WNS = 4;
+
+inline int wide_smem(int d) { return 1024 + (d + 63) / 64 * WQ_BLOCK + WNS * WSTAGE; }
+
+template <bool BAND>
+__global__ void __launch_bounds__(AT_NT, 1)
+fused_block_attend_wide_kernel(const __grid_constant__ ParamsB p) {
+  extern __shared__ __align__(1024) unsigned char smraw[];
+  const uint32_t qs = (smem_u32(smraw) + 1023u) & ~1023u;
+  const int T_ = p.T, C = p.C, w = p.w, D = p.D;
+  const int nqb = (D + 63) / 64, nk = (D + 127) / 128;   // q blocks; k chunks = column blocks
+  const uint32_t ring = qs + nqb * WQ_BLOCK;
+  const int nrb = (T_ + AT_ROWS - 1) / AT_ROWS, H = C / D;
+  // one grid axis, row blocks fastest, then column blocks: the blocks of a
+  // (sample, head) run together and share its q, k and v in L2
+  const int rest = blockIdx.x / nrb, cb = rest % nk, bh = rest / nk;
+  const int b = bh / H, h = bh % H, r0 = (blockIdx.x % nrb) * AT_ROWS, c0 = cb * 128;
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row0 = r0 + 64 * wg + 16 * warp + g, row1 = row0 + 8;
+  const size_t ld = 3 * (size_t)C;
+  const __nv_bfloat16* qh = p.qkv + (size_t)b * T_ * ld + h * D;   // k at + C, v at + 2C
+  const uint8_t* mrow = p.mask + (size_t)b * T_;
+  const bool live0 = row0 < T_ && mrow[row0], live1 = row1 < T_ && mrow[row1];
+  int lo = 0, hi = (T_ - 1) / KT;
+  if (BAND) {
+    lo = max(r0 - w, 0) / KT;
+    hi = min(r0 + AT_ROWS - 1 + w, T_ - 1) / KT;
+  }
+  const int nt = hi - lo + 1, n1 = nt * nk, ntot = n1 + nt * (nk + 1);
+  // step j: pass 1 chunk j % nk of tile lo + j / nk; pass 2 (i = j - n1)
+  // chunk i % (nk + 1) of tile lo + i / (nk + 1), its values at nk
+  auto tile_of = [&](int j) { return lo + (j < n1 ? j / nk : (j - n1) / (nk + 1)); };
+  auto sub_of = [&](int j) { return j < n1 ? j % nk : (j - n1) % (nk + 1); };
+
+  auto load_step = [&](int j) {
+    if (j < ntot) {
+      const int k0 = tile_of(j) * KT, sub = sub_of(j);
+      const bool v = sub == nk;
+      const int col0 = v ? c0 : 128 * sub;          // the head's columns staged
+      const __nv_bfloat16* src = qh + (v ? 2 : 1) * C + col0;
+      const uint32_t dst = ring + (j % WNS) * WSTAGE;
+#pragma unroll
+      for (int i = 0; i < KT * 16 / AT_NT; ++i) {
+        const int idx = tid + AT_NT * i, r = idx / 16, c = idx % 16, key = k0 + r;
+        const bool ok = key < T_ && col0 + 8 * c < D;
+        cp_async16_to(dst + (c / 8) * (KT * 128) + swz(r, c % 8),
+                      ok ? src + (size_t)key * ld + 8 * c : src, ok ? 16 : 0);
+      }
+    }
+    cp_commit();
+  };
+  // q of the block's rows (zeros past T and D): its own group, first
+  for (int i = tid; i < AT_ROWS * nqb * 8; i += AT_NT) {
+    const int r = i / (nqb * 8), c = i % (nqb * 8), row = r0 + r;
+    const bool ok = row < T_ && 8 * c < D;
+    cp_async16_to(qs + (c / 8) * WQ_BLOCK + swz(r, c % 8),
+                  ok ? qh + (size_t)row * ld + 8 * c : qh, ok ? 16 : 0);
+  }
+  cp_commit();
+#pragma unroll
+  for (int j = 0; j < WNS - 1; ++j) load_step(j);
+
+  float S[32], O[64];
+  uint32_t pa[4][4] = {};
+  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F, z0 = 0.f, z1 = 0.f, inv0 = 0.f, inv1 = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) S[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) O[i] = 0.f;
+  const float fill = rnd16(NEG_INF), pen = rnd16(-NEG_PENALTY);
+  const uint32_t qw = qs + wg * (64 * 128);        // this warpgroup's 64 rows of each q block
+
+  auto merge = [&](float& m, float& z) {
+#pragma unroll
+    for (int o = 1; o <= 2; o <<= 1) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m, o), zo = __shfl_xor_sync(0xffffffffu, z, o);
+      const float mn = fmaxf(m, mo);
+      z = (m == -CUDART_INF_F ? 0.f : z * __expf(m - mn)) +
+          (mo == -CUDART_INF_F ? 0.f : zo * __expf(mo - mn));
+      m = mn;
+    }
+  };
+
+#pragma unroll 1
+  for (int j = 0; j < ntot; ++j) {
+    cp_wait<WNS - 2>();
+    fence_async_shared();
+    __syncthreads();
+    load_step(j + WNS - 1);
+    const uint32_t tile = ring + (j % WNS) * WSTAGE;
+    const int sub = sub_of(j);
+    if (sub == nk) {              // O += P V over the block's 128 columns
+      fence_regs(O);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        WgmmaRS<128, 1>::run(O, pa[kk], tile_desc(tile + kk * 2048, KT * 128), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(O);
+      continue;
+    }
+    // this chunk's share of the scores: 128 channels (fewer in the last)
+    fence_regs(S);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const int ch = 128 * sub + 16 * kk;
+      if (ch >= D) break;
+      WgmmaSS<64>::run(S, tile_desc(qw + (ch / 64) * WQ_BLOCK + (kk % 4) * 32),
+                       tile_desc(tile + (kk / 4) * (KT * 128) + (kk % 4) * 32), ch > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(S);
+    if (sub < nk - 1) continue;
+    const int k0 = tile_of(j) * KT;
+    const bool va = k0 + lane < T_ && mrow[k0 + lane];
+    const bool vb = k0 + 32 + lane < T_ && mrow[k0 + 32 + lane];
+    const uint32_t vlo = __ballot_sync(0xffffffffu, va), vhi = __ballot_sync(0xffffffffu, vb);
+    const bool full = !BAND && (vlo & vhi) == 0xffffffffu;
+    if (full) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) S[i] = rnd16(S[i]);
+    } else {
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 8 * jj + 2 * t + (e & 1), key = k0 + col;
+          const bool valid = ((jj < 4 ? vlo >> col : vhi >> (col - 32)) & 1u) != 0;
+          float s = rnd16(S[4 * jj + e]);
+          if (BAND) {
+            if (!valid) s = rnd16(s + pen);
+            const int dk = key - (e < 2 ? row0 : row1);
+            if (key >= T_ || dk < -w || dk > w) s = NEG_INF;
+          } else if (!valid) {
+            s = key < T_ ? fill : -CUDART_INF_F;
+          }
+          S[4 * jj + e] = s;
+        }
+      }
+    }
+    if (j < n1) {                 // pass 1: maxima and denominators
+      float tm0 = -CUDART_INF_F, tm1 = -CUDART_INF_F;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        tm0 = fmaxf(tm0, fmaxf(S[4 * jj], S[4 * jj + 1]));
+        tm1 = fmaxf(tm1, fmaxf(S[4 * jj + 2], S[4 * jj + 3]));
+      }
+      const float mn0 = fmaxf(m0, tm0), mn1 = fmaxf(m1, tm1);
+      float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        s0 += __expf(S[4 * jj] - mn0) + __expf(S[4 * jj + 1] - mn0);
+        s1 += __expf(S[4 * jj + 2] - mn1) + __expf(S[4 * jj + 3] - mn1);
+      }
+      if (mn0 != -CUDART_INF_F) {
+        z0 = z0 * __expf(m0 - mn0) + s0;
+        m0 = mn0;
+      }
+      if (mn1 != -CUDART_INF_F) {
+        z1 = z1 * __expf(m1 - mn1) + s1;
+        m1 = mn1;
+      }
+      if (j == n1 - 1) {
+        merge(m0, z0);
+        merge(m1, z1);
+        inv0 = 1.f / z0;
+        inv1 = 1.f / z1;
+      }
+      continue;
+    }
+    // pass 2: p rounded to bf16 into the A operand of P.V
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      float pr[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * jj + 2 * t + (e & 1);
+        const bool valid = ((jj < 4 ? vlo >> col : vhi >> (col - 32)) & 1u) != 0;
+        pr[e] = __expf(S[4 * jj + e] - (e < 2 ? m0 : m1)) * (e < 2 ? inv0 : inv1);
+        if (!BAND && !full && !valid) pr[e] = 0.f;
+      }
+      pa[jj / 2][2 * (jj % 2)] = pack_bf16(pr[0], pr[1]);
+      pa[jj / 2][2 * (jj % 2) + 1] = pack_bf16(pr[2], pr[3]);
+    }
+  }
+  cp_wait<0>();
+  // the context into a3 (R, C) (invalid rows zero)
+  __nv_bfloat16* out = p.a3 + (size_t)b * T_ * C + h * D + c0;
+#pragma unroll
+  for (int jj = 0; jj < 16; ++jj) {
+    const int c = 8 * jj + 2 * t;
+    if (c0 + 8 * jj >= D) break;
+    if (row0 < T_)
+      *reinterpret_cast<uint32_t*>(out + (size_t)row0 * C + c) =
+          live0 ? pack_bf16(O[4 * jj], O[4 * jj + 1]) : 0u;
+    if (row1 < T_)
+      *reinterpret_cast<uint32_t*>(out + (size_t)row1 * C + c) =
+          live1 ? pack_bf16(O[4 * jj + 2], O[4 * jj + 3]) : 0u;
+  }
+}
+
+template <int WD, bool BAND, bool PAD>
 int launch_wd(const ParamsW& p, cudaStream_t stream) {
   static int configured = 0;
   constexpr int bytes = smem_bytes(HeadDim<WD>::TILE);
-  if (int e = set_smem(fused_block_attend_kernel<WD, BAND>, bytes, configured)) return e;
+  if (int e = set_smem(fused_block_attend_kernel<WD, BAND, PAD>, bytes, configured)) return e;
   const long long b = p.tiles / ((p.T + WG_ROWS - 1) / WG_ROWS);
-  const long long blocks = b * (p.C / WD) * ((p.T + AT_ROWS - 1) / AT_ROWS);
+  const long long blocks = b * (p.C / p.D) * ((p.T + AT_ROWS - 1) / AT_ROWS);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  fused_block_attend_kernel<WD, BAND><<<(unsigned)blocks, AT_NT, bytes, stream>>>(p);
+  fused_block_attend_kernel<WD, BAND, PAD><<<(unsigned)blocks, AT_NT, bytes, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
+// Head widths 32 / 64 / 96 / 128 run their instance, narrower ones the next
+// wider instance padded with zeros (the scratch route only).
 template <bool BAND>
 int launch_band(const ParamsW& p, cudaStream_t stream) {
   switch (p.D) {
-    case 32: return launch_wd<32, BAND>(p, stream);
-    case 64: return launch_wd<64, BAND>(p, stream);
-    case 96: return launch_wd<96, BAND>(p, stream);
-    case 128: return launch_wd<128, BAND>(p, stream);
-    default: return (int)cudaErrorInvalidValue;
+    case 32: return launch_wd<32, BAND, false>(p, stream);
+    case 64: return launch_wd<64, BAND, false>(p, stream);
+    case 96: return launch_wd<96, BAND, false>(p, stream);
+    case 128: return launch_wd<128, BAND, false>(p, stream);
+    default: break;
   }
+  if (p.D < 32) return launch_wd<32, BAND, true>(p, stream);
+  if (p.D < 64) return launch_wd<64, BAND, true>(p, stream);
+  if (p.D < 96) return launch_wd<96, BAND, true>(p, stream);
+  if (p.D < 128) return launch_wd<128, BAND, true>(p, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <bool BAND>
+int launch_wide(const ParamsB& p, cudaStream_t stream) {
+  static int configured = 0;
+  const int bytes = wide_smem(p.D);
+  if (int e = set_smem(fused_block_attend_wide_kernel<BAND>, bytes, configured)) return e;
+  const long long blocks = (long long)p.B * (p.C / p.D) * ((p.D + 127) / 128) *
+                           ((p.T + AT_ROWS - 1) / AT_ROWS);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  fused_block_attend_wide_kernel<BAND><<<(unsigned)blocks, AT_NT, bytes, stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 int launch_attend(const ParamsW& p, cudaStream_t stream) {
   return p.w > 0 ? launch_band<true>(p, stream) : launch_band<false>(p, stream);
+}
+
+int launch_attend_scratch(const ParamsB& pb, cudaStream_t stream) {
+  if (ctx_in_a3(pb.D))
+    return pb.w > 0 ? launch_wide<true>(pb, stream) : launch_wide<false>(pb, stream);
+  ParamsW p{};
+  p.qkv = pb.qkv;
+  p.mask = pb.mask;
+  p.T = pb.T;
+  p.w = pb.w;
+  p.C = pb.C;
+  p.D = pb.D;
+  p.tiles = pb.B * ((pb.T + WG_ROWS - 1) / WG_ROWS);
+  return launch_attend(p, stream);
 }
 
 }  // namespace avdd_k1

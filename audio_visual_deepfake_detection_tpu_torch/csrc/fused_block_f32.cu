@@ -29,15 +29,18 @@
 // product a GEMM whose operands arrive split:
 //   1. prep: the six weights split into hi / lo (12 C^2 each), and the key
 //      columns of the transposed v past T zeroed;
-//   2. streams: per (row, stream), a warp LNs the three input rows the k3
-//      conv reads, convolves, LNs, and writes the row split (R, 3C);
+//   2. streams: per (row, stream), a warp (a block past C = 1024, where a
+//      lane's share of three rows would spill) LNs the three input rows the
+//      k3 conv reads, convolves, LNs, and writes the row split (R, 3C);
 //   3. qkv GEMM (N = 3C, K = C; each output tile reads its stream's input
 //      columns): bias, q scaled -> q (R, C) as it is, k split (R, C), v
 //      split and transposed (B, C, Tp), the layouts the attention reads;
-//   4. attention (fused_block_f32_attend.cu) -> the context split (R, C);
+//   4. attention (fused_block_f32_attend.cu; head widths other than 32 /
+//      64 / 96 / 128 padded with zeros to the next, past 128 in 128-column
+//      blocks) -> the context split (R, C);
 //   5. proj GEMM: bias, masked skip (ds_self: the max-pool of the odd rows
 //      around), layer-scaled residual -> y1 in the output rows;
-//   6. LN of y1 -> split (R, C);
+//   6. LN of y1 (a warp a row, a block past C = 1024) -> split (R, C);
 //   7. fc1 GEMM: bias, exact GELU -> the hidden units split (R, 4C);
 //   8. fc2 GEMM (K = 4C): bias, masked, layer-scaled onto y1 -> the output.
 // The GEMM is wgmma.cuh's Tf32Gemm mainloop (K4's f32 products share it):
@@ -200,6 +203,50 @@ __global__ void __launch_bounds__(256) f32_ln_kernel(const __grid_constant__ Par
   }
 }
 
+// ---- 2 and 6 past C = 1024: a block a row (stream_row_block, ln_block_row) ----
+// There a warp's three rows of C / 32 values a lane would spill.
+__global__ void __launch_bounds__(RB_THREADS) f32_streams_block_kernel(
+    const __grid_constant__ ParamsF p) {
+  __shared__ float red[RB_THREADS / 32];
+  const long long m = blockIdx.x;
+  const int which = blockIdx.y, C = p.C;
+  float y[RB_V];
+  stream_row_block<float>(p.x, p.xo, p.mask, p.vecs, p.T, C, p.mode, m, which, y, red);
+  float* hi = p.xhi + (size_t)m * 3 * C + which * C;
+  float* lo = p.xlo + (size_t)m * 3 * C + which * C;
+#pragma unroll
+  for (int j = 0; j < RB_V; ++j) {
+    const int c = threadIdx.x + RB_THREADS * j;
+    if (c >= C) continue;
+    uint32_t h, q;
+    tf32_split(y[j], h, q);
+    hi[c] = __uint_as_float(h);
+    lo[c] = __uint_as_float(q);
+  }
+}
+
+__global__ void __launch_bounds__(RB_THREADS) f32_ln_block_kernel(const __grid_constant__ ParamsF p) {
+  __shared__ float red[RB_THREADS / 32];
+  const size_t m = blockIdx.x;
+  const int C = p.C;
+  float y[RB_V];
+#pragma unroll
+  for (int j = 0; j < RB_V; ++j) {
+    const int c = threadIdx.x + RB_THREADS * j;
+    y[j] = c < C ? p.out[m * C + c] : 0.f;
+  }
+  ln_block_row<false>(y, C, red);
+#pragma unroll
+  for (int j = 0; j < RB_V; ++j) {
+    const int c = threadIdx.x + RB_THREADS * j;
+    if (c >= C) continue;
+    uint32_t h, q;
+    tf32_split(y[j], h, q);
+    p.chi[m * C + c] = __uint_as_float(h);
+    p.clo[m * C + c] = __uint_as_float(q);
+  }
+}
+
 // ---- 3, 5, 7, 8: the 3xTF32 GEMM and its epilogues -----------------------------
 // out[m, n] = sum_k A[m, k] W[n, k] over k < K for the block's 128 rows and
 // BN columns; A's columns start at the output tile's stream (EPI_QKV: the
@@ -334,6 +381,25 @@ int launch_ln(const ParamsF& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// The streams' rows (2) and the LN (6): a warp a row up to C = 1024, a
+// block a row past it.
+int launch_rows_any(const ParamsF& p, cudaStream_t stream) {
+  const int C = p.C;
+  if (C <= 1024)
+    return C <= 256 ? launch_rows<8>(p, stream)
+                    : (C <= 512 ? launch_rows<16>(p, stream) : launch_rows<32>(p, stream));
+  f32_streams_block_kernel<<<dim3((unsigned)((long long)p.B * p.T), 3), RB_THREADS, 0, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+int launch_ln_any(const ParamsF& p, cudaStream_t stream) {
+  const int C = p.C;
+  if (C <= 1024)
+    return C <= 256 ? launch_ln<8>(p, stream)
+                    : (C <= 512 ? launch_ln<16>(p, stream) : launch_ln<32>(p, stream));
+  f32_ln_block_kernel<<<(unsigned)((long long)p.B * p.T), RB_THREADS, 0, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 int launch_f32(ParamsF& p, float* scratch, cudaStream_t stream) {
@@ -342,8 +408,7 @@ int launch_f32(ParamsF& p, float* scratch, cudaStream_t stream) {
   const long long C2 = (long long)C * C;
   f32_prep_kernel<<<264, 256, 0, stream>>>(p);
   if (int e = (int)cudaGetLastError()) return e;
-  int e = C <= 256 ? launch_rows<8>(p, stream)
-                   : (C <= 512 ? launch_rows<16>(p, stream) : launch_rows<32>(p, stream));
+  int e = launch_rows_any(p, stream);
   if (e) return e;
   if ((e = launch_gemm<EPI_QKV>(p, p.xhi, p.xlo, 3 * C, p.whi, p.wlo, 3 * C, C, stream)))
     return e;
@@ -351,9 +416,7 @@ int launch_f32(ParamsF& p, float* scratch, cudaStream_t stream) {
   if ((e = launch_gemm<EPI_PROJ>(p, p.chi, p.clo, C, p.whi + 3 * C2, p.wlo + 3 * C2, C, C,
                                  stream)))
     return e;
-  e = C <= 256 ? launch_ln<8>(p, stream)
-               : (C <= 512 ? launch_ln<16>(p, stream) : launch_ln<32>(p, stream));
-  if (e) return e;
+  if ((e = launch_ln_any(p, stream))) return e;
   if ((e = launch_gemm<EPI_FC1>(p, p.chi, p.clo, C, p.whi + 4 * C2, p.wlo + 4 * C2, 4 * C, C,
                                 stream)))
     return e;

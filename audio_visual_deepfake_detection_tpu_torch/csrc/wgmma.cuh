@@ -764,7 +764,7 @@ __device__ __forceinline__ void bar_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
 }
 
-// ---- the float32 GEMM mainloop: 3xTF32 on wgmma (K1, K4 and K5 in f32) ------
+// ---- the GEMM mainloop: 3xTF32 on wgmma (K1, K4 and K5 in f32; bf16 K1's) ----
 // A block of two consumer warpgroups (64 rows each, so 128 rows) and a
 // producer warp (THREADS = 288) sums A[m, k] W[n, k] over k for a 128 x BN
 // tile, f32 operands split into a TF32 high part and residual (hi.hi +
@@ -785,11 +785,20 @@ __device__ __forceinline__ void bar_sync(int id, int n) {
 // consumers of all CL blocks have read it (2 CL arrivals on each block's
 // empty barrier), and a persistent caller names the ring position `it` at
 // which a tile's first slice arrives; the producer is then the caller's.
-template <int BN, int STAGES, bool A_SPLIT, int CL = 1>
+// PROD = PROD_BF16 (K1's bf16 scratch route): the same ring, warps and
+// per-stage sums over bf16 operands as they are, a stage one 64-deep slice
+// of A and of W (one 128-byte swizzled row per operand row) and one
+// m64nBNk16 product per k16 step (A_SPLIT then says only that A arrives
+// ready, with no prep).
+enum { PROD_3XTF32 = 0, PROD_BF16 = 1 };
+template <int BN, int STAGES, bool A_SPLIT, int CL = 1, int PROD = PROD_3XTF32>
 struct Tf32Gemm {
-  static constexpr int ROWS = 128, KS = 32, THREADS = 288;
+  static constexpr bool BF = PROD == PROD_BF16;
+  static_assert(!BF || A_SPLIT, "bf16 operands take no split");
+  static constexpr int ROWS = 128, KS = BF ? 64 : 32, THREADS = 288;
   static constexpr int A_BYTES = ROWS * 128, W_BYTES = BN * 128;
-  static constexpr int STAGE = (A_SPLIT ? 2 : 1) * A_BYTES + 2 * W_BYTES;
+  static constexpr int NA = BF ? 1 : (A_SPLIT ? 2 : 1), NW = BF ? 1 : 2;   // tiles a stage
+  static constexpr int STAGE = NA * A_BYTES + NW * W_BYTES;
   static constexpr int LO = A_SPLIT ? 0 : 2 * 64 * 128;   // the consumers' A lo tiles
   static constexpr int SMEM = 1024 + STAGES * STAGE + LO + 16 * STAGES;
   static_assert(SMEM <= SMEM_MAX, "shared memory");
@@ -823,12 +832,12 @@ struct Tf32Gemm {
       const int s = kb % STAGES;
       if (kb >= STAGES) mbar_wait(empty(base) + 8 * s, (kb / STAGES - 1) & 1);
       const uint32_t st = base + s * STAGE, bar = full(base) + 8 * s;
-      const uint32_t w = st + (A_SPLIT ? 2 : 1) * A_BYTES;
+      const uint32_t w = st + NA * A_BYTES;
       mbar_expect_tx(bar, STAGE);
       tma_load_2d(st, a, acol + kb * KS, m0, bar);
-      if (A_SPLIT) tma_load_2d(st + A_BYTES, alo, acol + kb * KS, m0, bar);
+      if (A_SPLIT && !BF) tma_load_2d(st + A_BYTES, alo, acol + kb * KS, m0, bar);
       tma_load_2d(w, whi, kb * KS, n0, bar);
-      tma_load_2d(w + W_BYTES, wlo, kb * KS, n0, bar);
+      if (!BF) tma_load_2d(w + W_BYTES, wlo, kb * KS, n0, bar);
     }
   }
 
@@ -854,20 +863,26 @@ struct Tf32Gemm {
         fence_async_shared();
         bar_sync(1 + wg, 128);         // this warpgroup's hi and lo tiles are whole
       }
-      const uint32_t wh = base + s * STAGE + (A_SPLIT ? 2 : 1) * A_BYTES, wl = wh + W_BYTES;
+      const uint32_t wh = base + s * STAGE + NA * A_BYTES, wl = wh + W_BYTES;
       fence_regs(part);
       wgmma_fence();
-      // the small products first, while the sum is small: each step's
-      // truncation is an ulp of the sum so far
+      if constexpr (BF) {
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        WgmmaTf32SS<BN>::run(part, tile_desc(ah + 32 * kk), tile_desc(wl + 32 * kk), kk > 0);
+        for (int kk = 0; kk < 4; ++kk)
+          WgmmaSS<BN>::run(part, tile_desc(ah + 32 * kk), tile_desc(wh + 32 * kk), kk > 0);
+      } else {
+        // the small products first, while the sum is small: each step's
+        // truncation is an ulp of the sum so far
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        WgmmaTf32SS<BN>::run(part, tile_desc(al + 32 * kk), tile_desc(wh + 32 * kk), 1);
+        for (int kk = 0; kk < 4; ++kk)
+          WgmmaTf32SS<BN>::run(part, tile_desc(ah + 32 * kk), tile_desc(wl + 32 * kk), kk > 0);
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        WgmmaTf32SS<BN>::run(part, tile_desc(ah + 32 * kk), tile_desc(wh + 32 * kk), 1);
+        for (int kk = 0; kk < 4; ++kk)
+          WgmmaTf32SS<BN>::run(part, tile_desc(al + 32 * kk), tile_desc(wh + 32 * kk), 1);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          WgmmaTf32SS<BN>::run(part, tile_desc(ah + 32 * kk), tile_desc(wh + 32 * kk), 1);
+      }
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(part);

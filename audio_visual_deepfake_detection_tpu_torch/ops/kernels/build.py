@@ -3,7 +3,7 @@
 Route: ``nvcc -gencode arch=compute_90a,code=sm_90a -shared`` over
 ``csrc/*.cu`` (K1 and K6 fused_block with fused_block_any,
 fused_block_any_qkv, fused_block_attend, fused_block_f32,
-fused_block_f32_attend and fused_block_generic, seven translation units
+fused_block_f32_attend and fused_block_bf16, seven translation units
 over fused_block.cuh; K2 patch_embed, K3 mvit_attention
 with its float32 route in mvit_attention_f32, K4 mvit_block with its
 attention step in mvit_attention and its float32 launches in
@@ -107,13 +107,13 @@ def load() -> ctypes.CDLL:
             lib.avdd_fused_block.restype = i
             lib.avdd_fused_block.argtypes = [
                 p, p, p, p, p, p, p, p, p, p, p, p,   # tensors + out
-                p,                                     # q|k|v (bf16) / k|v (f32) scratch
+                p,                                     # the scratch
                 p,                                     # droppath coefs or null
                 i, i, i, i, i, i, i,                   # B T C H w mode dtype
-                p,                                     # stream
+                p, ctypes.POINTER(i),                  # stream, route taken
             ]
             lib.avdd_fused_block_scratch.restype = ctypes.c_longlong
-            lib.avdd_fused_block_scratch.argtypes = [i, i, i, i, i]   # B T C H dtype
+            lib.avdd_fused_block_scratch.argtypes = [i, i, i, i, i, i]   # B T C H w dtype
             lib.avdd_patch_embed.restype = i
             lib.avdd_patch_embed.argtypes = [p, p, p, p, p, i, i, i, i, i, p, ctypes.POINTER(i)]
             q = ctypes.c_longlong

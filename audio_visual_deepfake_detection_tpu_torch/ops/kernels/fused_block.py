@@ -8,11 +8,15 @@ sm_90 card they launch ``csrc/fused_block.cu`` (bf16) or
 kernel ``fused_transformer_block``, ``pallas_call`` at ``fused_block.py:535``,
 and through it ``fused_transformer_block_train``, ``:753``) at every block
 shape of ``kernel_shape_ok``, the Pallas kernel's per-shape domain cut at C
-<= 2048 and head widths that are multiples of 8 up to 512, any window (C
-up to 1024 at head widths 32 / 64 / 96 / 128 on the ``wgmma`` designs, the
-rest on ``csrc/fused_block_generic.cu``); for a CPU tensor they run
-``block_math``. Nothing else routes between the two
-(``core/runtime.py::use_kernel``).
+<= 2048 and head widths that are multiples of 8 up to 512, any window, all
+on the tensor cores: bf16 at C up to 1024 and head widths 32 / 64 / 96 /
+128 (``wgmma_shape_ok``) on its two-launch design, past that on the eight
+launches of ``csrc/fused_block_bf16.cu``; f32 on its eight launches
+everywhere, the attention at other head widths padded to an instance's or
+in 128-column blocks. For a CPU tensor they run ``block_math``. Nothing
+else routes between the two (``core/runtime.py::use_kernel``); ``ROUTES``
+counts the launches by the route the C entry reports it took
+(``ROUTE_NAMES``, ``route_of``).
 
 K6 is K1's forward with per-sample droppath coefficients ``coefs`` (B, 2) in
 {0, 1/keep} (or 1) multiplied into the two layer scales, inside a
@@ -43,6 +47,7 @@ are not ported: both were measured neutral or slower on the TPU.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 
@@ -68,24 +73,33 @@ MODES = {"self": 0, "qv_k": 1, "kv": 2, "ds_self": 3}
 # the kernel's shape domain (csrc/fused_block.cuh::shape_ok): C a multiple of
 # 64 up to MAX_CHANNELS, a head width C / n_head that is a multiple of
 # HEAD_WIDTH_STEP up to MAX_HEAD_WIDTH, any half window or dense (w <= 0), at
-# any T; WGMMA_HEAD_WIDTHS up to WGMMA_CHANNELS take the wgmma designs
-# (wgmma_shape_ok), every other shape csrc/fused_block_generic.cu
+# any T; WGMMA_HEAD_WIDTHS up to WGMMA_CHANNELS take the bf16 two-launch
+# design (wgmma_shape_ok), every other shape the bf16 scratch route
 MAX_CHANNELS = 2048
 HEAD_WIDTH_STEP = 8
 MAX_HEAD_WIDTH = 512
 WGMMA_CHANNELS = 1024
 WGMMA_HEAD_WIDTHS = (32, 64, 96, 128)
 
+# the routes of the C entry (csrc/fused_block.cuh::ROUTE_*): f32's eight
+# launches and bf16's two-launch design inside wgmma_shape_ok, f32's and
+# bf16's scratch routes past it
+ROUTE_NAMES = ("wgmma 3xTF32", "wgmma bf16", "wgmma 3xTF32 past wgmma_shape_ok",
+               "wgmma bf16 past wgmma_shape_ok")
+
 # kernel launches since the last reset (CPU calls and plain runs never
-# count): eval launches (K1) and training-forward launches (K6) apart
+# count): eval launches (K1) and training-forward launches (K6) apart, and
+# both together by the route the C entry reports it took (ROUTE_NAMES)
 LAUNCHES = 0
 TRAIN_LAUNCHES = 0
+ROUTES = collections.Counter()
 
 
 def reset_launches() -> None:
     global LAUNCHES, TRAIN_LAUNCHES
     LAUNCHES = 0
     TRAIN_LAUNCHES = 0
+    ROUTES.clear()
 
 
 # --------------------------------------------------------------- plain math
@@ -465,12 +479,19 @@ def kernel_shape_ok(c: int, n_head: int, w_overlap: int) -> bool:
 
 
 def wgmma_shape_ok(c: int, n_head: int) -> bool:
-    """Whether a shape of ``kernel_shape_ok`` takes the ``wgmma`` designs (C
-    up to 1024, head width 32 / 64 / 96 / 128; ``csrc/fused_block.cuh::
-    wgmma_shape_ok``); every other one runs ``csrc/fused_block_generic.cu``,
-    CUDA-core GEMMs and attention in both dtypes."""
+    """Whether a shape of ``kernel_shape_ok`` takes the bf16 two-launch design
+    and the f32 attention at its own head width (C up to 1024, head width 32
+    / 64 / 96 / 128; ``csrc/fused_block.cuh::wgmma_shape_ok``); every other
+    one runs the scratch routes, on the tensor cores too."""
     return (kernel_shape_ok(c, n_head, 0) and c <= WGMMA_CHANNELS
             and c // n_head in WGMMA_HEAD_WIDTHS)
+
+
+def route_of(c: int, n_head: int, dtype) -> str:
+    """The ``ROUTE_NAMES`` entry a launch at a shape of ``kernel_shape_ok``
+    takes in ``dtype``."""
+    return ROUTE_NAMES[(0 if dtype == torch.float32 else 1)
+                       + (0 if wgmma_shape_ok(c, n_head) else 2)]
 
 
 def _launch(x, xo, mask, vecs, wq, wk, wv, wp, wf1, wf2, fc1b, *, n_head,
@@ -483,10 +504,13 @@ def _launch(x, xo, mask, vecs, wq, wk, wv, wp, wf1, wf2, fc1b, *, n_head,
     eight launches with 3xTF32 products on ``wgmma`` (``split_matmul`` is
     their plain version) through a scratch of the split weights and
     operands: the streams' rows, the q|k|v GEMM, the attention (every
-    window), proj, LN, fc1, fc2. A shape of ``kernel_shape_ok`` outside
-    ``wgmma_shape_ok`` runs seven launches of ``csrc/fused_block_generic.cu``
-    in either dtype (rows, q|k|v, attention, proj, LN, fc1, fc2 on the CUDA
-    cores) through a scratch of 7 B T C elements. A shape outside
+    window; head widths other than 32 / 64 / 96 / 128 padded with zeros to
+    the next or, past 128, in 128-column blocks, or, dense, as two GEMMs
+    through the scores), proj, LN, fc1, fc2. A
+    bf16 shape of ``kernel_shape_ok`` outside ``wgmma_shape_ok`` runs the
+    same eight launches in bf16 (``csrc/fused_block_bf16.cu``: bf16
+    products on ``wgmma`` with block_math's rounding points, the tensor-core
+    attention launch) through a scratch of 7 B T C values. A shape outside
     ``kernel_shape_ok`` raises ValueError: there is no plain fallback."""
     global LAUNCHES, TRAIN_LAUNCHES
     from .build import load
@@ -503,13 +527,16 @@ def _launch(x, xo, mask, vecs, wq, wk, wv, wp, wf1, wf2, fc1b, *, n_head,
         return out
     lib = load()
     dcode = 0 if x.dtype == torch.float32 else 1
-    # bf16: the (B, T, 3C) q|k|v rows between the kernel's launches; f32: the
-    # split weights and the operands its launches pass on (f32_scratch_elems)
-    n = lib.avdd_fused_block_scratch(b, t, c, n_head, dcode)
+    # bf16: the (B, T, 3C) q|k|v rows between the kernel's launches, 7 B T C
+    # past wgmma_shape_ok; f32: the split weights and the operands its
+    # launches pass on (f32_scratch_elems: ~0.97 GB at C = 2048, B T = 4608),
+    # dense past head width 128 also the scores, 2 B H T Tp floats
+    n = lib.avdd_fused_block_scratch(b, t, c, n_head, w, dcode)
     if n < 0:
         raise ValueError(f"fused block kernel refused C={c}, {n_head} heads, w={w}, T={t}")
     kv = torch.empty(n, dtype=x.dtype, device=x.device)
     ptr = lambda a: ctypes.c_void_p(a.data_ptr())  # noqa: E731
+    route = ctypes.c_int(-1)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.avdd_fused_block(
@@ -518,13 +545,14 @@ def _launch(x, xo, mask, vecs, wq, wk, wv, wp, wf1, wf2, fc1b, *, n_head,
             ptr(kv),
             ctypes.c_void_p(0 if coefs is None else coefs.data_ptr()),
             b, t, c, n_head, w, MODES[mode], dcode,
-            ctypes.c_void_p(stream))
+            ctypes.c_void_p(stream), ctypes.byref(route))
     if err != 0:
         raise RuntimeError(f"fused block kernel launch failed: CUDA error {err}")
     if coefs is None:
         LAUNCHES += 1
     else:
         TRAIN_LAUNCHES += 1
+    ROUTES[ROUTE_NAMES[route.value]] += 1
     return out
 
 

@@ -272,7 +272,8 @@ Phases (any failure exits nonzero):
              eval forward f32 card vs CPU, K1 2 launches (the stem) and K7 3
              (the unfused stride-4 blocks).
 20. block domain - K1 / K6, K7 and K8 across the rest of their domain
-             (csrc/fused_block_generic.cu, band_any_kernel, K8's 128-wide
+             (K1 / K6's scratch routes on the tensor cores, every launch's
+             route by fused_block.ROUTES; band_any_kernel; K8's 128-wide
              instances): K1 and K6 at (C, heads, w) = (384, 8, 9), (256, 1,
              18), (256, 16, 3), (128, 16, 3), (320, 4, dense), (1536, 12,
              18), (2048, 16, 9) and (2048, 4, dense), T = 2304, 150 and 24,
@@ -298,6 +299,7 @@ build/chip_smoke_report.json.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import math
@@ -6590,6 +6592,7 @@ def wide_kernel_grid(dev="cuda", shapes=WIDE_SHAPES, ts=WIDE_TS, b=WIDE_B, k7_sh
     dtypes = (torch.float32, torch.bfloat16)
     worst = {k: {"float32": 0.0, "bfloat16": 0.0} for k in ("K1", "K6", "K7")}
     rows = []
+    routes = collections.Counter()      # K1 / K6 launches by the route the C entry took
     for c, nh, w in shapes:
         window = 2 * w + 1 if w else -1
         for t in ts:
@@ -6612,6 +6615,11 @@ def wide_kernel_grid(dev="cuda", shapes=WIDE_SHAPES, ts=WIDE_TS, b=WIDE_B, k7_sh
                     if (fb.LAUNCHES, fb.TRAIN_LAUNCHES) != ((1, 1) if on_card else (0, 0)):
                         fail(f"wide blocks: K1 {fb.LAUNCHES} and K6 {fb.TRAIN_LAUNCHES} launches "
                              f"for one call each")
+                    route = fb.route_of(c, nh, dtype)
+                    if on_card and dict(fb.ROUTES) != {route: 2}:
+                        fail(f"wide blocks: K1 / K6 at C={c} {nh} heads {name} took the routes "
+                             f"{dict(fb.ROUTES)}, not {route!r} twice")
+                    routes.update(fb.ROUTES)
                     for kname, (got, ref) in out.items():
                         if dtype == torch.float32:
                             err, ok, _ = compare(got, ref)
@@ -6651,7 +6659,7 @@ def wide_kernel_grid(dev="cuda", shapes=WIDE_SHAPES, ts=WIDE_TS, b=WIDE_B, k7_sh
                     fail(f"wide blocks: K7 disagrees with its plain version at ({bb}, {h}, {t}, "
                          f"{d}) w={ww} {name}")
                 del args, got, ref
-    report = {"card": smi, "worst": worst, "rows": rows, "times": []}
+    report = {"card": smi, "worst": worst, "rows": rows, "times": [], "routes": dict(routes)}
     if timing and on_card:
         t = max(ts)
         # the shapes whose attention ran on the tensor cores: those whose
@@ -7077,8 +7085,9 @@ def phase_wide_blocks(dev="cuda", smi="", overrides=None, dims=WIDE_DIMS, b=2,
 
 
 # K1 / K6, K7 and K8 across the rest of their shape domain: the head widths,
-# windows and C that the wgmma designs do not take (csrc/fused_block_generic.cu,
-# band_attention.cu::band_any_kernel, K8's 128-wide instances). (C, heads,
+# windows and C past fused_block.wgmma_shape_ok (K1 / K6's scratch routes,
+# csrc/fused_block_bf16.cu and fused_block_f32*.cu), band_attention.cu::
+# band_any_kernel, K8's 128-wide instances. (C, heads,
 # w): head widths 48, 256, 16, 8, 80, 128 past C = 1024, and 512
 DOMAIN_SHAPES = ((384, 8, 9), (256, 1, 18), (256, 16, 3), (128, 16, 3), (320, 4, 0),
                  (1536, 12, 18), (2048, 16, 9), (2048, 4, 0))
@@ -7359,7 +7368,8 @@ def phase_block_domain(dev="cuda", smi="", shapes=DOMAIN_SHAPES, ts=DOMAIN_TS, b
     wide_kernel_grid at ``shapes`` (C, heads, w) x ``ts`` x the four modes x
     both dtypes, K1 and K6 against block_math, and K7 at ``k7_shapes`` x
     ``k7_ws`` against band_attention_plain, each shape's route checked (K1 /
-    K6: the generic route, no wgmma instance takes them; K7: band_any_kernel);
+    K6: a scratch route in either dtype, by every launch's ROUTES; K7:
+    band_any_kernel);
     (2) K8 at each head dim of ``k8_dims`` (B = ``b``, 12 heads, T = E2V_T,
     with and without the key mask) against full_mha_math (check_k8); (3) on
     the card, domain_kernel_times; (4) h1w37_path (``path``: its keyword
@@ -7372,9 +7382,11 @@ def phase_block_domain(dev="cuda", smi="", shapes=DOMAIN_SHAPES, ts=DOMAIN_TS, b
     from audio_visual_deepfake_detection_tpu_torch.ops.kernels import fused_block as fb
 
     on_card = torch.device(dev).type == "cuda"
+    scratch = {fb.ROUTE_NAMES[2], fb.ROUTE_NAMES[3]}
     for c, nh, w in shapes:
-        if not fb.kernel_shape_ok(c, nh, w) or fb.wgmma_shape_ok(c, nh):
-            fail(f"block domain: ({c}, {nh}, {w}) is not a shape of the generic route")
+        if not fb.kernel_shape_ok(c, nh, w) or {fb.route_of(c, nh, dt) for dt in (
+                torch.float32, torch.bfloat16)} != scratch:
+            fail(f"block domain: ({c}, {nh}, {w}) is not a shape of the scratch routes")
     for _, _, _, d in k7_shapes:
         for ww in k7_ws:
             for size in (2, 4):
@@ -7383,6 +7395,12 @@ def phase_block_domain(dev="cuda", smi="", shapes=DOMAIN_SHAPES, ts=DOMAIN_TS, b
     report = {"card": smi, "grid": wide_kernel_grid(dev, shapes=shapes, ts=ts, b=b,
                                                     k7_shapes=k7_shapes, k7_ws=k7_ws, smi=smi,
                                                     timing=False)}
+    # every K1 / K6 launch of the grid took a scratch route (by ROUTES)
+    n_cases = len(shapes) * len(ts) * len(fb.MODES)
+    want = {name: 2 * n_cases for name in scratch} if on_card else {}
+    if report["grid"]["routes"] != want:
+        fail(f"block domain: K1 / K6 routes {report['grid']['routes']}, expected {want}")
+    log(f"block domain: K1 / K6 launches by route {report['grid']['routes']}")
     worst = {"float32": 0.0, "bfloat16": 0.0}
     rows = []
     for d in k8_dims:
@@ -7573,7 +7591,8 @@ def main():
         "wide_dense_forward_ms_b2": wide["dense"]["eval"].get("forward_ms_bf16"),
         "wide_dense_forward_device_ms_b2": wide["dense"]["eval"].get("forward_device_ms_bf16"),
         "sources_f32": [src + "fused_block_f32.cu", src + "fused_block_f32_attend.cu"],
-        "source_generic": src + "fused_block_generic.cu",
+        "source_bf16_scratch": src + "fused_block_bf16.cu",
+        "routes_domain": domain["grid"]["routes"],
         "max_abs_err_domain": domain["grid"]["worst"]["K1"],
         "domain_times": [r for r in domain.get("times", []) if r["kernel"] == "K1"],
         "launches_block_domain": {

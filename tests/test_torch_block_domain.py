@@ -3,7 +3,7 @@ domain beyond the wgmma designs, against the JAX package on the CPU.
 
 The fused block kernel takes C a multiple of 64 up to 2048 and head widths
 that are multiples of 8 from 8 to 512 (``fused_block.kernel_shape_ok``;
-``csrc/fused_block_generic.cu`` runs what ``wgmma_shape_ok`` leaves), the
+the scratch routes run what ``wgmma_shape_ok`` leaves), the
 band kernel any half window and head rows up to 512 wide
 (``band_attention.kernel_shape_ok``; ``band_any_kernel`` past w = 16 or 512
 bytes), K8 head dims that are multiples of 16 up to 128. On the CPU each
@@ -24,10 +24,13 @@ the blocks built on them to the JAX package at those shapes:
 - the shipped localizer of ``configs_train/deepfake_exp10.yaml`` with one
   head of 256 and windows of 37 (``exp10-h1-w37``) at T = 576 against the
   JAX package: the outputs;
-- torch renderings of the new kernels' tilings against the plain versions:
-  the generic block attention's 32-row / 32-key tiles, lane-wise running
-  softmax and offset-ordered context; K7's streamed offsets; K8's head dims
-  padded to its instances' widths and its context in 64-column halves."""
+- torch renderings of the kernels' tilings against the plain versions: the
+  scratch routes' attention at head widths padded with zeros to an
+  instance's or, past 128, in 128-channel score chunks and 128-column
+  blocks (f32 in the tensor-core model of ``tests/tf32_model.py``, and
+  bf16); the bf16 GEMM mainloop's per-slice f32 sums at K = 8192 against
+  ``cdot``; K7's streamed offsets; K8's head dims padded to its instances'
+  widths and its context in 64-column halves."""
 
 import torch_one_thread  # noqa: F401
 
@@ -61,6 +64,7 @@ from test_torch_full_attention import TOL as K8_TOL, _case as k8_case  # noqa: E
 from test_torch_wide_blocks import (  # noqa: E402
     BF16_TOL, CROSS, F32_TOL, _jax_block_math, _kernel_args, _setup, _t, _torch_layout)
 from test_torch_variants import assert_close, localizer_params, ragged  # noqa: E402
+from tf32_model import tc_k8, tc_matmul  # noqa: E402
 
 # (C, heads, window, T, mode): every new head width at w = 9, 18 and dense,
 # each mode at least once
@@ -337,86 +341,250 @@ def test_k8_padded_head_width_leaves_the_softmax_unchanged(rng, d):
                                        atol=1e-6, rtol=0)
 
 
-# ------------------------------- the generic block attention's tiling
+# ------------------------- the scratch routes' attention tilings and sums
 
-AR, AK = 32, 32          # csrc/fused_block_generic.cu: query rows a block, keys a tile
+F_ROWS, F_KEYS = 64, 32      # csrc/fused_block_f32_attend.cu: query rows a block, keys a tile
+B_ROWS, B_KEYS = 128, 64     # csrc/fused_block_attend.cu
+COLS = 128                   # context columns a block past head width 128 (both)
+INSTANCES = (32, 64, 96, 128)
 
 
-def _generic_attend(q, k, v, valid, n_head, w):
-    """``attend_kernel`` of csrc/fused_block_generic.cu in torch on (B, T, C)
-    q (scaled), k, v of the compute dtype and a (B, T) bool mask: per
-    (sample, head, 32 query rows) the 32-key tiles from the block's first
-    key to its last (all keys when dense); scores as block_math forms them
-    (dense: f32 sums rounded, rnd(-1e30) on masked keys; banded: products
-    rounded, summed, rounded, plus the rounded penalty); pass 1 each lane's
-    (key index mod 32) running maximum and rescaled sum of exps over its
-    keys, merged; pass 2 the weights rnd(e / sum) (dense) or rnd(e x (1 /
-    sum)) (banded), the context in f32 rounded once (dense) or rounded at
-    every key in key order (banded); rows past the mask zero."""
-    dt = q.dtype
-    rnd = lambda x: x.to(dt).float()  # noqa: E731
+def _width(d):
+    """The attention instance a head width runs on: the next of 32 / 64 /
+    96 / 128 (zeros past d), or, past 128, d itself in 128-column blocks."""
+    return next((x for x in INSTANCES if x >= d), d)
+
+
+def _pad(a, width):
+    return torch.nn.functional.pad(a, (0, width - a.shape[-1]))
+
+
+def _tiles(t, rows, keys, w):
+    """(query rows, visited key-tile indices) per block of ``rows`` rows."""
+    for r0 in range(0, t, rows):
+        lo, hi = 0, (t - 1) // keys
+        if w > 0:
+            lo, hi = max(r0 - w, 0) // keys, min(r0 + rows - 1 + w, t - 1) // keys
+        yield torch.arange(r0, min(r0 + rows, t)), range(lo, hi + 1)
+
+
+def _f32_scores_gemm(q, k, v, valid, n_head):
+    """The dense f32 attention past head width 128 (csrc/
+    fused_block_f32_attend.cu's scores GEMMs) in the tensor-core model: per
+    (sample, head) the T x T scores over d (``tc_matmul``, 32-channel
+    stages; q and k zero to d rounded up to 32 add nothing), masked keys
+    -1e30, an f32 softmax of the whole row (e / sum, masked keys' p zero),
+    P.V over the keys padded to 32 (``tc_matmul``, 32-key stages); invalid
+    rows zero. Returns f64 holding f32 values (B, T, C)."""
     b, t, c = q.shape
     d = c // n_head
-    fill = rnd(torch.tensor(tfb.NEG_INF))
-    out = torch.zeros(b, t, c, dtype=dt)
+    tp = (t + 31) // 32 * 32
+    out = torch.zeros(b, t, c, dtype=torch.float64)
     for bi in range(b):
-        pen = rnd((valid[bi].float() - 1.0) * -tfb.NEG_PENALTY)
         for h in range(n_head):
             sl = slice(h * d, (h + 1) * d)
-            qq, kk, vv = (a[bi, :, sl].float() for a in (q, k, v))
-            if w <= 0:
-                vv = vv * valid[bi][:, None]
-            for r0 in range(0, t, AR):
-                rows = torch.arange(r0, min(r0 + AR, t))
-                lo, hi = (0, t) if w <= 0 else (max(r0 - w, 0), min(r0 + AR + w, t))
-                keys = torch.arange(lo, hi)
-                if w <= 0:
-                    s = rnd(qq[rows] @ kk[keys].T)
-                    s = torch.where(valid[bi, keys][None], s, fill)
-                else:
-                    s = rnd(rnd(qq[rows][:, None, :] * kk[keys][None]).sum(-1))
-                    s = rnd(s + pen[keys][None])
-                    far = (keys[None] - rows[:, None]).abs() > w
-                    s = torch.where(far, -math.inf, s)
-                lane = (keys - lo) % AK
-                m = torch.full((len(rows), AK), -math.inf)
-                z = torch.zeros(len(rows), AK)
-                for j in range(len(keys)):      # lane-wise running softmax, key by key
-                    sj, ln = s[:, j], lane[j]
-                    up = sj > m[:, ln]
-                    z[:, ln] = torch.where(sj == -math.inf, z[:, ln], torch.where(
-                        up, z[:, ln] * torch.exp(m[:, ln] - sj) + 1.0,
-                        z[:, ln] + torch.exp(sj - m[:, ln])))
-                    m[:, ln] = torch.where(up, sj, m[:, ln])
-                mx = m.amax(1)
-                tot = torch.where(m == -math.inf, 0.0, z * torch.exp(m - mx[:, None])).sum(1)
-                e = torch.exp(s - mx[:, None])
-                if w <= 0:
-                    p = rnd(e / tot[:, None])
-                    ctx = rnd(p @ vv[keys])
-                else:
-                    p = rnd(e * (1.0 / tot)[:, None])
-                    ctx = torch.zeros(len(rows), d)
-                    for j in range(len(keys)):
-                        ctx = rnd(ctx + rnd(p[:, j:j + 1] * vv[keys[j]][None]))
-                out[bi, rows, sl] = (ctx * valid[bi, rows][:, None]).to(dt)
+            s = tc_matmul(q[bi, :, sl], k[bi, :, sl], 32).float()
+            s = torch.where(valid[bi][None], s, torch.tensor(tfb.NEG_INF))
+            e = torch.exp(s - s.amax(1, keepdim=True))
+            pr = torch.where(valid[bi][None], e / e.sum(1, keepdim=True), 0.0)
+            vt = torch.nn.functional.pad(v[bi, :, sl].t(), (0, tp - t)).contiguous()
+            ctx = tc_matmul(torch.nn.functional.pad(pr, (0, tp - t)), vt, 32)
+            out[bi, :, sl] = ctx * valid[bi][:, None]
+    return out
+
+
+def _f32_scratch_attend(q, k, v, valid, n_head, w, pad=True):
+    """csrc/fused_block_f32_attend.cu at a head width of the scratch route,
+    in torch over the tensor-core model of tests/tf32_model.py: each head's
+    q, k, v zero past d to its instance's width (``pad``; d > 128: none),
+    per (sample, head, 64 query rows, 128 context columns past d = 128: a
+    block each, every block recomputing the scores) the 32-key tiles it
+    visits; scores per 32 channels in 3xTF32 (``tc_matmul``, stage 32, each
+    block's sum added in f32: the wide kernel's 64-channel steps hold two
+    such blocks and skip those past d), the masks, an online softmax, P.V
+    the same way, the context divided at the end; invalid rows zero. Dense
+    past d = 128: ``_f32_scores_gemm``. Returns f64 holding f32 values (B,
+    T, C)."""
+    b, t, c = q.shape
+    d = c // n_head
+    if d > 128 and w <= 0:
+        return _f32_scores_gemm(q, k, v, valid, n_head)
+    width = _width(d) if pad else d
+    cols = [slice(0, width)] if width <= 128 else [slice(c0, min(c0 + COLS, width))
+                                                   for c0 in range(0, width, COLS)]
+    out = torch.zeros(b, t, c, dtype=torch.float64)
+    for bi in range(b):
+        for h in range(n_head):
+            sl = slice(h * d, (h + 1) * d)
+            qq, kk, vv = (_pad(a[bi, :, sl], width) for a in (q, k, v))
+            for rows, key_tiles in _tiles(t, F_ROWS, F_KEYS, w):
+                for cs in cols:
+                    m = torch.full((len(rows),), -math.inf, dtype=torch.float64)
+                    z = torch.zeros(len(rows), dtype=torch.float64)
+                    o = torch.zeros(len(rows), cs.stop - cs.start, dtype=torch.float64)
+                    for j in key_tiles:
+                        keys = torch.arange(j * F_KEYS, (j + 1) * F_KEYS)
+                        inseq = keys < t
+                        at = keys.clamp(max=t - 1)
+                        ok = inseq & valid[bi, at]
+                        s = tc_matmul(qq[rows], kk[at] * inseq[:, None], 32)
+                        if w > 0:
+                            s = torch.where(ok[None], s, (s + tfb.NEG_PENALTY).float().double())
+                            far = (keys[None] - rows[:, None]).abs() > w
+                            s = torch.where(far | ~inseq[None], -math.inf, s)
+                        else:
+                            s = torch.where(ok[None], s,
+                                            torch.where(inseq[None], tfb.NEG_INF, -math.inf))
+                        s = s.float()
+                        mn = torch.maximum(m.float(), s.amax(1))
+                        mu = torch.where(mn == -math.inf, 0.0, mn)
+                        sc = torch.exp(m.float() - mu)
+                        e = torch.exp(s - mu[:, None])
+                        z = (z.float() * sc + e.sum(1)).double()
+                        if w <= 0:
+                            e = e * ok[None]
+                        pv = tc_matmul(e, (vv[at, cs] * inseq[:, None]).t().contiguous(), 32)
+                        o = (o.float() * sc[:, None] + pv.float()).double()
+                        m = mn.double()
+                    ctx = (o.float() / z.float()[:, None]) * valid[bi, rows][:, None]
+                    keep = min(cs.stop, d) - cs.start
+                    if keep > 0:
+                        out[bi, rows, h * d + cs.start:h * d + cs.start + keep] = \
+                            ctx[:, :keep].double()
+    return out
+
+
+def _bf16_scratch_attend(q, k, v, valid, n_head, w):
+    """csrc/fused_block_attend.cu at a head width of the bf16 scratch route,
+    in torch (bf16 (B, T, C) q (scaled), k, v; (B, T) bool mask): q, k, v
+    zero past d to the instance's width (d <= 128), or past d = 128 per
+    block of 128 context columns, the scores recomputed in each, f32 sums
+    over 128-channel chunks of q and k; per (sample, head, 128 query rows)
+    the 64-key tiles it visits, the scores rounded and masked as block_math
+    forms them, pass 1 a running maximum and denominator, pass 2 p =
+    rnd16(e * (1 / den)) (dense: 0 on invalid keys), P.V in f32, rounded;
+    invalid rows zero."""
+    bf = torch.bfloat16
+    b, t, c = q.shape
+    d = c // n_head
+    width = _width(d)
+    cols = [slice(0, width)] if width <= 128 else [slice(c0, min(c0 + COLS, width))
+                                                   for c0 in range(0, width, COLS)]
+    fill = torch.tensor(tfb.NEG_INF, dtype=bf).float()
+    pen = torch.tensor(tfb.NEG_PENALTY, dtype=bf)
+    out = torch.zeros_like(q)
+    for bi in range(b):
+        for h in range(n_head):
+            sl = slice(h * d, (h + 1) * d)
+            qq, kk, vv = (_pad(a[bi, :, sl].float(), width) for a in (q, k, v))
+            for rows, key_tiles in _tiles(t, B_ROWS, B_KEYS, w):
+
+                def tile(j):
+                    keys = torch.arange(j * B_KEYS, (j + 1) * B_KEYS)
+                    inseq = keys < t
+                    at = keys.clamp(max=t - 1)
+                    kt = kk[at] * inseq[:, None]
+                    sc = torch.zeros(len(rows), B_KEYS)
+                    for c0 in range(0, width, 128):      # the chunks, summed in f32
+                        sc = sc + qq[rows, c0:c0 + 128] @ kt[:, c0:c0 + 128].T
+                    sc = sc.to(bf)
+                    ok = inseq & valid[bi, at]
+                    if w > 0:
+                        sc = torch.where(ok[None], sc, sc + pen).float()
+                        far = (keys[None] - rows[:, None]).abs() > w
+                        sc = torch.where(far | ~inseq[None], tfb.NEG_INF, sc)
+                    else:
+                        sc = torch.where(ok[None], sc.float(),
+                                         torch.where(inseq[None], fill, -math.inf))
+                    return sc, ok, vv[at] * inseq[:, None]
+
+                for cs in cols:
+                    m = torch.full((len(rows),), -math.inf)
+                    z = torch.zeros(len(rows))
+                    for j in key_tiles:
+                        sc, _, _ = tile(j)
+                        mn = torch.maximum(m, sc.amax(1))
+                        z = z * torch.exp(m - mn) + torch.exp(sc - mn[:, None]).sum(1)
+                        m = mn
+                    inv = 1.0 / z
+                    acc = torch.zeros(len(rows), cs.stop - cs.start)
+                    for j in key_tiles:
+                        sc, ok, vt = tile(j)
+                        pr = (torch.exp(sc - m[:, None]) * inv[:, None]).to(bf).float()
+                        if w <= 0:
+                            pr = pr * ok[None]
+                        acc += pr @ vt[:, cs]
+                    keep = min(cs.stop, d) - cs.start
+                    if keep > 0:
+                        out[bi, rows, h * d + cs.start:h * d + cs.start + keep] = (
+                            acc[:, :keep].to(bf) * valid[bi, rows][:, None])
     return out
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("t,heads,d,w", [(70, 2, 48, 0), (40, 1, 256, 18), (33, 4, 8, 3),
-                                         (50, 2, 80, 9), (24, 1, 512, 0), (20, 2, 16, 40)])
-def test_generic_attention_tiling_matches_plain(rng, dtype, t, heads, d, w):
-    """The generic block attention's tiling (torch rendering) against the
-    plain ``attention_ctx``, dense and banded, at ragged T: a padded tail, a
-    fully padded sample, a band wider than T (f32 1e-6; bf16 2e-2, the bf16
-    block tolerance, where f32 sums in another order move a rounding)."""
+                                         (50, 2, 80, 9), (24, 1, 512, 0), (20, 2, 16, 40),
+                                         (40, 1, 512, 5), (33, 1, 136, 0)])
+def test_scratch_attention_tiling_matches_plain(rng, dtype, t, heads, d, w):
+    """The scratch routes' attention (torch renderings of the launches at
+    head widths past the instances: padded with zeros to 32 / 64 / 96 / 128,
+    or past 128 in 128-channel score chunks and 128-column blocks that each
+    recompute the scores, f32 dense past 128 the scores GEMMs and a row
+    softmax) against the plain ``attention_ctx``, dense and
+    banded, at ragged T: a padded tail, a fully padded sample, a band wider
+    than T. f32 in the tensor-core model: the padded rendering is the
+    unpadded one to 1e-6 (zeros add nothing to a model sum) and both are
+    ``attention_ctx`` within the f32 tiling's 2e-5; bf16 ``BF16_TOL``."""
     tdt = getattr(torch, dtype)
     c = heads * d
     valid = _t(np.arange(t)[None, :] < np.asarray([t, (3 * t) // 4, 0])[:, None])
     q, k, v = (_t(rng.standard_normal((3, t, c)).astype(np.float32), tdt) for _ in range(3))
     q = (q.float() * d ** -0.5).to(tdt)
-    got = _generic_attend(q, k, v, valid, heads, w)
     ref = tfb.attention_ctx(q, k, v, valid.float()[..., None], n_head=heads, w_overlap=w)
-    tol = dict(rtol=1e-6, atol=1e-6) if dtype == "float32" else BF16_TOL
-    np.testing.assert_allclose(got.float().numpy(), ref.float().numpy(), **tol)
+    if dtype == "float32":
+        got = _f32_scratch_attend(q, k, v, valid, heads, w)
+        if _width(d) != d:
+            bare = _f32_scratch_attend(q, k, v, valid, heads, w, pad=False)
+            np.testing.assert_allclose(got.numpy(), bare.numpy(), rtol=0, atol=1e-6)
+        np.testing.assert_allclose(got.numpy(), ref.double().numpy(), rtol=2e-5, atol=2e-5)
+    else:
+        got = _bf16_scratch_attend(q, k, v, valid, heads, w)
+        np.testing.assert_allclose(got.float().numpy(), ref.float().numpy(), **BF16_TOL)
+
+
+def _bf16_slice_sums(a, m, depth=64):
+    """a @ m.T as the bf16 scratch route's GEMM forms it (the PROD_BF16
+    mainloop of csrc/wgmma.cuh): per 64-deep slice, four k16 steps summed
+    by the tensor cores (each modelled as ``tc_k8`` on 16 exact products:
+    aligned to the largest term and cut toward zero), the slice's sum added
+    into an f32 accumulator rounding to nearest, the whole rounded once to
+    bf16."""
+    a64, m64 = a.double(), m.double()
+    acc = torch.zeros(a.shape[0], m.shape[0], dtype=torch.float64)
+    for k0 in range(0, a.shape[1], depth):
+        part = torch.zeros_like(acc)
+        for s in range(k0, k0 + depth, 16):
+            part = tc_k8(part, a64[:, s:s + 16], m64[:, s:s + 16])
+        acc = (acc + part).float().double()
+    return acc.float().to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("kind", ["fc2", "gelu_rows"])
+def test_bf16_mainloop_slice_sums_match_cdot_at_c2048(rng, kind):
+    """fc2 at C = 2048 (K = 4C = 8192: 128 slices) on a few rows: the bf16
+    mainloop's per-slice f32 sums, rounded once, against ``_cdot`` (one f32
+    sum, rounded once): every output within one bf16 ulp of it, and nearly
+    all equal (the two f32 sums differ by f32 rounding only, which moves a
+    bf16 rounding only near a tie). ``gelu_rows`` draws the hidden units as
+    fc2 sees them (GELU'd, mostly positive), ``fc2`` standard normal."""
+    k = 4 * 2048
+    a = rng.standard_normal((4, k)).astype(np.float32)
+    if kind == "gelu_rows":
+        a = np.asarray(tfb._gelu_cheap(torch.from_numpy(a)))
+    a = _t(a, torch.bfloat16)
+    m = _t((rng.standard_normal((16, k)) * k ** -0.5).astype(np.float32), torch.bfloat16)
+    got = _bf16_slice_sums(a, m).float()
+    ref = tfb._cdot(a, m).float()
+    ulp = torch.ldexp(torch.ones_like(ref), torch.frexp(ref.abs())[1] - 8)
+    assert bool(((got - ref).abs() <= ulp).all())
+    assert float((got == ref).float().mean()) >= 0.9

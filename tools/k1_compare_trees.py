@@ -47,7 +47,9 @@ shape ``chip_smoke.py`` checks them at (K1:
 the 18 production blocks' 13 shapes at B = 16 and 64 and the B = 512
 full-length block; K6: the 13 at B = 50 with droppath coefficients; both at
 every (C, heads, w) x T x mode of ``chip_smoke.WIDE_SHAPES`` / ``WIDE_TS``
-at B = 2) against ``block_math``; K4 at each geometry and K3 at each shape,
+at B = 2, and with ``--wide`` each listed shape at every
+``chip_smoke.DOMAIN_TS`` length, K1 in the four modes and K6 in self mode)
+against ``block_math``; K4 at each geometry and K3 at each shape,
 at 2 and 32 chunks, against ``msblock_math`` /
 ``pooled_attention_table_math``; each on the cases and seeds of those
 checks. Per shape it prints both trees' worst |d| from each and the ratio
@@ -394,6 +396,14 @@ for cc, nh, w in c.WIDE_SHAPES:
             for kernel in ("K1", "K6"):
                 one(kernel, c.WIDE_B, mode, t, 2 * w + 1 if w else -1, cc + t + w, cc, nh,
                     group="wide")
+# --wide: each shape at every length of chip_smoke.DOMAIN_TS, K1 in the four
+# modes, K6 in self mode
+for cc, nh, w in %r:
+    for t in c.DOMAIN_TS:
+        for mode in ("self", "qv_k", "kv", "ds_self"):
+            for kernel in ("K1", "K6") if mode == "self" else ("K1",):
+                one(kernel, c.DOMAIN_B, mode, t, 2 * w + 1 if w else -1, cc + t + w, cc, nh,
+                    group="domain")
 print("RESULT " + json.dumps({"card": smi, "rows": rows}))
 """
 
@@ -435,7 +445,8 @@ def run_tree(tree, code):
 
 
 def precision(args):
-    code = {"k1": PREC, "mvit": MVIT_PREC, "frontends": FRONT_PREC}[args.kernels]
+    wide = [tuple(int(v) for v in w.split(",")) for w in args.wide]
+    code = {"k1": PREC % (wide,), "mvit": MVIT_PREC, "frontends": FRONT_PREC}[args.kernels]
     res = {name: run_tree(os.path.abspath(getattr(args, name)), code) for name in ("a", "b")}
     print(f"f32 worst |d| per shape, a -> b (b / a), from plain f32 and from plain f64 "
           f"({res['b']['card']})")
