@@ -57,12 +57,29 @@
 //   so an SM runs three such blocks (launch bounds) and not six.
 // - One grid axis over (sample, row tile, head slab): no cap on B x H.
 // The TPU kernel's whole-(T, D) VMEM tiles and 128-lane padding are not
-// carried over. The rest of the Pallas kernel's domain, half windows above
-// MAX_W and head rows over 512 bytes (head widths up to 512), runs
-// band_any_kernel below, a simple design: a warp a row, the offsets
-// streamed in order.
+// carried over.
+//
+// The rest of the Pallas kernel's domain, half windows above MAX_W and head
+// rows over 512 bytes (head widths up to 512), runs two other routes
+// (route_of):
+// - float32 heads up to 128 wide on the tensor cores, on K1's attention
+//   kernel (band_attend.cuh): 64 query rows a block with their q split in
+//   shared memory visit only the 32-key tiles that meet the band, scores and
+//   P.V in 3xTF32 on wgmma after a launch that splits k and v into TF32
+//   parts, an online f32 softmax. Past 128 K1's kernel re-stages q with
+//   every key tile and recomputes the scores for each 128 context columns,
+//   and ran slower than band_rows_kernel at head widths 256 and 512.
+// - bfloat16, and float32 past 128, band_rows_kernel below: the plain
+//   version's steps in its order, bf16 scores on mma.sync. A bf16 route
+//   that sums the context in f32 on the tensor cores is nearer the f32
+//   function, but the plain version's running bf16 sums drift from it by
+//   up to ~7e-2, so such a route leaves check_k7's per-element bound
+//   against the plain version (atol = rtol = 2e-2) at wide windows
+//   (tools/k7_bf16_order.py); tracking those sums takes them one offset at
+//   a time, in order.
 
 #include "common.cuh"
+#include "band_attend.cuh"
 
 namespace {
 
@@ -261,91 +278,6 @@ __global__ void __launch_bounds__(NT, W > 8 ? 3 : 6) band_attention_kernel(const
     *reinterpret_cast<uint4*>(p.out + b * p.so.b + h * p.so.h + r * p.so.t + c * VB) = acc;
 }
 
-// Every other window and head width of the domain: half windows above
-// MAX_W and head rows of whole 16-byte pieces up to ANY_ROW bytes. A warp
-// a query row of one (sample, head), its lane l the row's 16-byte pieces
-// l, l + 32, ..; the offsets stream in order, three passes over them (the
-// row maximum, the sum of the exps, the context), each recomputing a
-// score from the k row (read through L1, which the neighbouring rows'
-// warps share) and summing it over the warp. No score is kept, so nothing
-// limits w. The arithmetic and its order are band_attention_plain's, in
-// the input dtype: products, score, penalty, s - max, exp, the running sum
-// of the exps, the quotient (a division, as the plain version's), the
-// products with v and the running context each rounded where it rounds
-// them; offsets outside the sequence are skipped (their exp is exactly 0).
-constexpr int ANY_PIECES = 4;                      // 16-byte pieces a lane holds
-constexpr int ANY_ROW = 32 * ANY_PIECES * 16;      // bytes of the widest head row
-
-template <typename T>
-__global__ void __launch_bounds__(NT) band_any_kernel(const Params p, int w, long long rows) {
-  using V = Vec<T>;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long id = (long long)blockIdx.x * NW + warp;    // (b, h, i), i fastest
-  if (id >= rows) return;
-  const int i = (int)(id % p.T);
-  const long long bh = id / p.T;
-  const int h = (int)(bh % p.H), b = (int)(bh / p.H);
-  const char* kb = p.k + b * p.sk.b + h * p.sk.h;
-  const char* vb = p.v + b * p.sv.b + h * p.sv.h;
-  const char* qr = p.q + b * p.sq.b + h * p.sq.h + i * p.sq.t;
-  uint4 q[ANY_PIECES];
-#pragma unroll
-  for (int j = 0; j < ANY_PIECES; ++j) {
-    const int c = lane + 32 * j;
-    q[j] = c < p.chunks ? ldg16(qr + 16 * c) : make_uint4(0u, 0u, 0u, 0u);
-  }
-  const uint8_t* mrow = p.valid + (size_t)b * p.T;
-  const int lo = max(-w, -i), hi = min(w, p.T - 1 - i);
-  const float pen = V::rnd(PENALTY);
-  auto score = [&](int d) {
-    const char* kr = kb + (i + d) * p.sk.t;
-    float s = 0.f;
-#pragma unroll
-    for (int j = 0; j < ANY_PIECES; ++j) {
-      const int c = lane + 32 * j;
-      if (c < p.chunks) s += V::dot(q[j], ldg16(kr + 16 * c));
-    }
-    s = V::rnd(warp_sum(s));
-    return mrow[i + d] ? s : V::rnd(s + pen);
-  };
-  float mx = -CUDART_INF_F;
-  for (int d = lo; d <= hi; ++d) mx = fmaxf(mx, score(d));
-  float den = 0.f;
-  for (int d = lo; d <= hi; ++d) {
-    const float e = V::rnd(expf(V::rnd(score(d) - mx)));
-    den = d == lo ? e : V::rnd(den + e);
-  }
-  uint4 acc[ANY_PIECES];
-#pragma unroll
-  for (int j = 0; j < ANY_PIECES; ++j) acc[j] = make_uint4(0u, 0u, 0u, 0u);
-  for (int d = lo; d <= hi; ++d) {
-    const float e = V::rnd(expf(V::rnd(score(d) - mx)));
-    const float pq = e / den;                      // rounded to the dtype by axpy
-    const char* vr = vb + (i + d) * p.sv.t;
-#pragma unroll
-    for (int j = 0; j < ANY_PIECES; ++j) {
-      const int c = lane + 32 * j;
-      if (c < p.chunks) V::axpy(acc[j], pq, ldg16(vr + 16 * c));
-    }
-  }
-  char* orow = p.out + b * p.so.b + h * p.so.h + i * p.so.t;
-  const bool own = mrow[i] != 0;                   // own key slot masked: zero
-#pragma unroll
-  for (int j = 0; j < ANY_PIECES; ++j) {
-    const int c = lane + 32 * j;
-    if (c < p.chunks)
-      *reinterpret_cast<uint4*>(orow + 16 * c) = own ? acc[j] : make_uint4(0u, 0u, 0u, 0u);
-  }
-}
-
-template <typename T>
-int launch_any(const Params& p, int w, long long rows, cudaStream_t stream) {
-  const long long blocks = (rows + NW - 1) / NW;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  band_any_kernel<T><<<(unsigned)blocks, NT, 0, stream>>>(p, w, rows);
-  return (int)cudaGetLastError();
-}
-
 template <typename T, int W, int P>
 int launch_p(const Params& p, cudaStream_t stream) {
   static int configured = 0;
@@ -373,6 +305,387 @@ int launch(const Params& p, int w, int lanes, cudaStream_t s) {
   return (int)cudaErrorInvalidValue;
 }
 
+// ---- past the tiled kernel: band_rows_kernel ----------------------------------
+// A block owns NW x RPW query rows of one (sample, head), a warp RPW of them
+// (2, or 1 where blocks of 16 rows would not give every SM two), its lanes
+// the head row's 16-byte pieces (CPL a lane). The keys the block's bands
+// meet, [r0 - w, r0 + rows - 1 + w] in the sequence, stream through two
+// shared stages of KTB = 32 rows (cp.async, zeros past them and the head,
+// rows 16 bytes apart in banks) twice: k, then v. Each warp visits only the
+// keys its own rows' bands meet.
+// - Scores. bf16: 16 (row, key) pairs an mma.sync m16n8k16, its A rows the
+//   pairs' products rounded to bf16 (mul.rn.bf16x2, as torch rounds them),
+//   B ones, so the tensor cores sum each pair's products in f32 (two
+//   chains of steps, added at the end); q in registers in the A layout.
+//   f32: each lane's part of the RPW x KPS dot products (Vec::dot), summed
+//   over the warp by halving exchanges (31 shuffles, each lane left one
+//   total). Rounded, penalised where the key is masked, and kept at (row,
+//   offset) in shared memory (a scratch in device memory where the block's
+//   (rows, 2w + 1) do not fit), with each row's maximum.
+// - Per row, in offset order: the exps, rounded as the plain version rounds
+//   them, and their running sum, a shuffle per offset, the warp's rows
+//   interleaved; then p = e / sum, rounded, over the scores.
+// - Context: per key in order, p v into each row's running sum (Vec::axpy:
+//   in bf16 the product and the sum each rounded), v's piece read from the
+//   stage once for the warp's rows; a row's p outside its band is 0, which
+//   adds nothing, so the rows' sums interleave without a branch.
+// Offsets outside the sequence are skipped: their exps are exactly 0. So
+// this takes band_attention_plain's steps in its order, and differs from it
+// only by the f32 order of each score's sum (and in f32 the context's fused
+// multiply-adds).
+constexpr int KTB = 32;           // keys a stage
+constexpr int SCORES_SMEM = 96 * 1024;   // shared memory the scores may take
+constexpr unsigned FULL = 0xffffffffu;
+
+struct RowsParams {
+  const char* q;
+  const char* k;
+  const char* v;
+  const uint8_t* valid;
+  char* out;
+  Strides sq, sk, sv, so;          // in bytes
+  void* s;                         // (B, H, T, 2w + 1) scores where they do not fit on chip
+  int H, T, w;                     // w < T
+  int chunks;                      // 16-byte pieces of a head row
+  int rblocks;                     // row blocks of a (sample, head)
+};
+
+__device__ __forceinline__ void cp_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Blocks an SM holds (the register cap): bf16's q in mma.sync's layout is
+// 32 registers per 256 values of a head row; f32's q and context 8 per
+// piece and row.
+template <typename T, int CPL, int RPW>
+constexpr int rows_blocks_per_sm() {
+  return sizeof(T) == 2 ? (CPL == 1 ? 3 : 2) : (CPL * RPW <= 4 ? 3 : 2);
+}
+
+template <typename T, int CPL, int RPW>
+__global__ void __launch_bounds__(NT, rows_blocks_per_sm<T, CPL, RPW>())
+band_rows_kernel(const __grid_constant__ RowsParams p) {
+  using V = Vec<T>;
+  constexpr bool BF16 = sizeof(T) == 2;
+  constexpr int RB = NW * RPW;                     // query rows a block
+  constexpr int KPS = BF16 ? 16 / RPW : 32 / RPW;  // keys a score step
+  constexpr int ROWB = CPL * 512 + 16;             // bytes of a staged key row (+16: banks)
+  constexpr int TILE = KTB * ROWB;
+  extern __shared__ __align__(16) char smem[];     // two stages, then the scores
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bh = blockIdx.x / p.rblocks, r0 = (blockIdx.x - bh * p.rblocks) * RB;
+  const int b = bh / p.H, h = bh - b * p.H;
+  const int Tn = p.T, w = p.w, K = 2 * w + 1;
+  const int rw = r0 + RPW * warp;                  // the warp's rows rw .. rw + RPW - 1
+  const int lo = max(r0 - w, 0), hi = min(r0 + RB - 1 + w, Tn - 1);
+  const int nt = (hi - lo) / KTB + 1;
+  const uint8_t* mrow = p.valid + (size_t)b * Tn;
+  // row r's offset d at sb[(r - r0) K + d]: shared memory, or the scratch
+  T* sb = (p.s ? static_cast<T*>(p.s) + ((size_t)bh * Tn + r0) * K
+               : reinterpret_cast<T*>(smem + 2 * TILE)) + w;
+  const char* kb = p.k + b * p.sk.b + h * p.sk.h;
+  const char* vb = p.v + b * p.sv.b + h * p.sv.h;
+  // the keys the band of some row of the warp meets: wlo .. whi
+  const int wlo = max(rw - w, lo), whi = rw < Tn ? min(rw + RPW - 1 + w, hi) : wlo - 1;
+  auto in_band = [&](int r, int key) { return r < Tn && key >= r - w && key <= r + w; };
+
+  // key rows k0 .. k0 + KTB - 1 of x into stage st, zeros past hi and the head
+  auto stage = [&](const char* x, long long step, int k0, int st) {
+    for (int i = threadIdx.x; i < KTB * 32 * CPL; i += NT) {
+      const int r = i / (32 * CPL), c = i % (32 * CPL), key = k0 + r;
+      const bool in = key <= hi && c < p.chunks;
+      cp_async16(smem + st * TILE + r * ROWB + c * 16, in ? x + key * step + c * 16 : x,
+                 in ? 16 : 0);
+    }
+    cp_commit();
+  };
+  // tile t + 1 into the stage tile t - 1 left; then tile t has landed, for
+  // everyone
+  auto next = [&](const char* x, long long step, int t) {
+    if (t + 1 < nt) stage(x, step, lo + (t + 1) * KTB, (t + 1) & 1);
+    else cp_commit();
+    cp_wait1();
+    __syncthreads();
+  };
+
+  // scores; each lane keeps the running maximum of one row's scores
+  const float pen = V::rnd(PENALTY);
+  float mx = -CUDART_INF_F;
+  // a score: rounded, penalised where the key is masked, kept
+  auto keep = [&](int r, int key, float total) {
+    if (key > hi || !in_band(r, key)) return;
+    float s = V::rnd(total);
+    if (!mrow[key]) s = V::rnd(s + pen);
+    sb[(r - r0) * K + key - r] = static_cast<T>(s);   // bf16: a bf16 value, exact
+    mx = fmaxf(mx, s);
+  };
+  const int gq = lane >> 2, tq = lane & 3;         // mma.sync's thread coordinates
+  // bf16: q of row rw + gq % RPW in mma.sync's A layout, channels 16 s +
+  // 2 tq (+ 1) in qa[s][0] and + 8 in qa[s][1]; f32: q[rr][j] the lane's
+  // pieces lane + 32 j of row rw + rr
+  constexpr int NQA = BF16 ? 16 * CPL : 1;
+  uint32_t qa[NQA][2];
+  uint4 q[BF16 ? 1 : RPW][BF16 ? 1 : CPL];
+  const char* qrow = p.q + b * p.sq.b + h * p.sq.h;
+  if constexpr (BF16) {
+    const int r = rw + gq % RPW;
+#pragma unroll
+    for (int st = 0; st < NQA; ++st)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int c = 16 * st + 8 * u + 2 * tq;    // channels c, c + 1 (D is even)
+        qa[st][u] = r < Tn && c < 8 * p.chunks
+                        ? __ldg(reinterpret_cast<const unsigned*>(qrow + r * p.sq.t + 2 * c))
+                        : 0u;
+      }
+  } else {
+#pragma unroll
+    for (int rr = 0; rr < RPW; ++rr)
+#pragma unroll
+      for (int j = 0; j < CPL; ++j) {
+        const int r = rw + rr, c = lane + 32 * j;
+        q[rr][j] = r < Tn && c < p.chunks ? ldg16(qrow + r * p.sq.t + c * 16)
+                                          : make_uint4(0u, 0u, 0u, 0u);
+      }
+  }
+  const int nsteps = (p.chunks + 1) / 2;           // 16-channel steps of a bf16 head row
+  stage(kb, p.sk.t, lo, 0);
+  for (int t = 0; t < nt; ++t) {
+    next(kb, p.sk.t, t);
+    const char* tile = smem + (t & 1) * TILE;
+    const int k0 = lo + t * KTB;
+    const int g0 = max(wlo - k0, 0) / KPS * KPS, g1 = min(whi - k0, KTB - 1);
+#pragma unroll 1
+    for (int g = g0; g <= g1; g += KPS) {               // the groups of keys the warp meets
+      const int ka = k0 + g;
+      if constexpr (BF16) {
+        // 16 (row, key) pairs on mma.sync: pair m is row m % RPW, key m /
+        // RPW; its A row holds the products rounded to bf16 (mul.rn.bf16x2),
+        // B is ones, so every column of C is the pair's f32 sum. Thread (gq,
+        // tq) forms pairs gq and gq + 8: one row, keys kg and kg + 8 / RPW.
+        const int kg = gq / RPW;
+        const char* k0p = tile + (g + kg) * ROWB + 4 * tq;
+        const char* k1p = k0p + (8 / RPW) * ROWB;
+        constexpr uint32_t ONES = 0x3f803f80u;     // bf16 1.0, twice
+        float c[2][4] = {};                        // even and odd steps: two chains
+#pragma unroll
+        for (int st = 0; st < NQA; ++st) {
+          if (st >= nsteps) break;
+          const uint32_t a[4] = {
+              bf16x2_mul(qa[st][0], *reinterpret_cast<const uint32_t*>(k0p + 32 * st)),
+              bf16x2_mul(qa[st][0], *reinterpret_cast<const uint32_t*>(k1p + 32 * st)),
+              bf16x2_mul(qa[st][1], *reinterpret_cast<const uint32_t*>(k0p + 32 * st + 16)),
+              bf16x2_mul(qa[st][1], *reinterpret_cast<const uint32_t*>(k1p + 32 * st + 16))};
+          mma_bf16(c[st & 1], a, ONES, ONES);
+        }
+        if (tq < 2)
+          keep(rw + gq % RPW, ka + kg + tq * (8 / RPW),
+               tq ? c[0][2] + c[1][2] : c[0][0] + c[1][0]);
+      } else {
+        // each lane's part of the RPW x KPS dot products, summed over the
+        // warp by halving exchanges: lane l ends with the total of value l,
+        // (row rr, key kk) at rr KPS + kk
+        float part[32];
+#pragma unroll
+        for (int kk = 0; kk < KPS; ++kk) {
+          uint4 kc[CPL];
+#pragma unroll
+          for (int j = 0; j < CPL; ++j)
+            kc[j] = *reinterpret_cast<const uint4*>(tile + (g + kk) * ROWB + j * 512 + lane * 16);
+#pragma unroll
+          for (int rr = 0; rr < RPW; ++rr) {
+            float sum = V::dot(q[rr][0], kc[0]);
+#pragma unroll
+            for (int j = 1; j < CPL; ++j) sum += V::dot(q[rr][j], kc[j]);
+            part[rr * KPS + kk] = sum;
+          }
+        }
+#pragma unroll
+        for (int lv = 1; lv <= 5; ++lv) {
+          const int half = 32 >> lv;
+          const bool upper = lane & half;
+#pragma unroll
+          for (int m = 0; m < 16; ++m) {
+            if (m < half) {
+              const float give = upper ? part[m] : part[m + half];
+              part[m] = (upper ? part[m + half] : part[m]) + __shfl_xor_sync(FULL, give, half);
+            }
+          }
+        }
+        keep(rw + lane / KPS, ka + lane % KPS, part[0]);
+      }
+    }
+    __syncthreads();                               // tile t consumed
+  }
+  // each row's maximum over the lanes that kept its scores: bf16 lanes
+  // with one gq % RPW, f32 lanes with one lane / KPS
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const bool other_row = BF16 ? (o >= 4 && o < 4 * RPW) : o >= KPS;
+    if (!other_row) mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, o));
+  }
+  __syncwarp();                                    // the warp's scores are visible to it
+
+  // per row, in offset order, the warp's rows interleaved: the exps' running
+  // sum, then p over the scores. An offset outside the sequence adds 0.
+  float m[RPW], den[RPW];
+  int olo[RPW], ohi[RPW];
+#pragma unroll
+  for (int rr = 0; rr < RPW; ++rr) {
+    const int r = rw + rr;
+    m[rr] = __shfl_sync(FULL, mx, BF16 ? 4 * rr : rr * KPS);   // finite for a row in T
+    olo[rr] = max(-w, -r);
+    ohi[rr] = r < Tn ? min(w, Tn - 1 - r) : -w - 1;
+    den[rr] = 0.f;
+  }
+  auto ex = [&](int rr, int o) {
+    const float s = static_cast<float>(sb[(rw + rr - r0) * K + o]);
+    return V::rnd(expf(V::rnd(s - m[rr])));
+  };
+#pragma unroll 1
+  for (int o0 = -w; o0 <= w; o0 += 32) {
+    float e[RPW];
+#pragma unroll
+    for (int rr = 0; rr < RPW; ++rr) {
+      const int o = o0 + lane;
+      e[rr] = o >= olo[rr] && o <= ohi[rr] ? ex(rr, o) : 0.f;
+    }
+    const int n = min(32, w - o0 + 1);
+#pragma unroll 4
+    for (int i = 0; i < n; ++i)
+#pragma unroll
+      for (int rr = 0; rr < RPW; ++rr) den[rr] = V::rnd(den[rr] + __shfl_sync(FULL, e[rr], i));
+  }
+#pragma unroll
+  for (int rr = 0; rr < RPW; ++rr)
+#pragma unroll 1
+    for (int o = olo[rr] + lane; o <= ohi[rr]; o += 32)
+      sb[(rw + rr - r0) * K + o] = static_cast<T>(V::rnd(ex(rr, o) / den[rr]));
+  __syncwarp();                                    // p is visible to the warp
+
+  // the context: per key in order, p v into each row's running sum
+  uint4 acc[RPW][CPL];
+#pragma unroll
+  for (int rr = 0; rr < RPW; ++rr)
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) acc[rr][j] = make_uint4(0u, 0u, 0u, 0u);
+  stage(vb, p.sv.t, lo, 0);
+  for (int t = 0; t < nt; ++t) {
+    next(vb, p.sv.t, t);
+    const char* tile = smem + (t & 1) * TILE;
+    const int k0 = lo + t * KTB;
+    float pr[RPW];                                 // lane l: p of key k0 + l, each row
+#pragma unroll
+    for (int rr = 0; rr < RPW; ++rr) {
+      const int r = rw + rr, key = k0 + lane;
+      pr[rr] = key <= hi && in_band(r, key) ? static_cast<float>(sb[(r - r0) * K + key - r])
+                                            : 0.f;
+    }
+    // the keys of the tile the warp meets; a row's p of a key outside its
+    // band is 0, whose product adds nothing (acc + 0 v is acc, bit for bit)
+    const int kk0 = max(wlo - k0, 0), kk1 = min(whi - k0, KTB - 1);
+#pragma unroll 4
+    for (int kk = kk0; kk <= kk1; ++kk) {
+      uint4 vc[CPL];
+#pragma unroll
+      for (int j = 0; j < CPL; ++j)
+        vc[j] = *reinterpret_cast<const uint4*>(tile + kk * ROWB + j * 512 + lane * 16);
+#pragma unroll
+      for (int rr = 0; rr < RPW; ++rr) {
+        const float pv = __shfl_sync(FULL, pr[rr], kk);
+#pragma unroll
+        for (int j = 0; j < CPL; ++j) V::axpy(acc[rr][j], pv, vc[j]);
+      }
+    }
+    __syncthreads();                               // tile t consumed
+  }
+  cp_wait_all();
+#pragma unroll
+  for (int rr = 0; rr < RPW; ++rr) {
+    const int r = rw + rr;
+    if (r >= Tn) break;
+    const bool own = mrow[r] != 0;                 // own key slot masked: zero
+#pragma unroll
+    for (int j = 0; j < CPL; ++j) {
+      const int c = lane + 32 * j;
+      if (c < p.chunks)
+        *reinterpret_cast<uint4*>(p.out + b * p.so.b + h * p.so.h + r * p.so.t + c * 16) =
+            own ? acc[rr][j] : make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+}
+
+// The rows a warp takes: 2, or 1 where fewer than two blocks of NW x 2
+// rows an SM (132 on an H100) would run.
+constexpr int RPW_WIDE = 2;
+int rows_per_warp(long long bh, int T) {
+  return bh * ((T + NW * RPW_WIDE - 1) / (NW * RPW_WIDE)) >= 2 * 132 ? RPW_WIDE : 1;
+}
+
+// Bytes of shared memory a launch takes, and whether the scores fit in it.
+int rows_smem(int cpl, int rpw, int w, int es, bool& scores_on_chip) {
+  const long long scores = (long long)NW * rpw * (2 * w + 1) * es;
+  scores_on_chip = scores <= SCORES_SMEM;
+  return 2 * KTB * (cpl * 512 + 16) + (scores_on_chip ? (int)scores : 0);
+}
+
+template <typename T, int CPL, int RPW>
+int launch_rows(RowsParams p, void* scratch, long long bh, cudaStream_t stream) {
+  static int configured = 0;
+  bool on_chip;
+  const int smem = rows_smem(CPL, RPW, p.w, (int)sizeof(T), on_chip);
+  p.s = on_chip ? nullptr : scratch;
+  if (!p.s && !on_chip) return (int)cudaErrorInvalidValue;
+  p.rblocks = (p.T + NW * RPW - 1) / (NW * RPW);
+  const long long blocks = bh * p.rblocks;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (int e = set_smem(band_rows_kernel<T, CPL, RPW>, smem, configured)) return e;
+  band_rows_kernel<T, CPL, RPW><<<(unsigned)blocks, NT, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// CPL pieces a lane: up to 32, 64 or 128 pieces of a head row (bf16 1 or 2,
+// f32 2 or 4); RPW as rows_per_warp says.
+template <typename T>
+int launch_rows_for(const RowsParams& p, void* scratch, long long bh, cudaStream_t s) {
+  const bool wide = rows_per_warp(bh, p.T) == RPW_WIDE;
+  if constexpr (sizeof(T) == 2) {                  // bf16 head rows up to 1024 bytes
+    if (p.chunks <= 32)
+      return wide ? launch_rows<T, 1, 2>(p, scratch, bh, s) : launch_rows<T, 1, 1>(p, scratch, bh, s);
+    return wide ? launch_rows<T, 2, 2>(p, scratch, bh, s) : launch_rows<T, 2, 1>(p, scratch, bh, s);
+  } else {                                         // f32 past head width 128
+    if (p.chunks <= 64)
+      return wide ? launch_rows<T, 2, 2>(p, scratch, bh, s) : launch_rows<T, 2, 1>(p, scratch, bh, s);
+    return wide ? launch_rows<T, 4, 2>(p, scratch, bh, s) : launch_rows<T, 4, 1>(p, scratch, bh, s);
+  }
+}
+
+// The route a launch takes (BandArgs::route; ROUTE_NAMES and route_of in
+// ops/kernels/band_attention.py): the tiled kernel up to MAX_W and 512-byte
+// head rows; past it band_rows_kernel in bf16, K1's f32 attention on the
+// tensor cores in f32 up to head width 128 (where it holds q split on chip),
+// band_rows_kernel in f32 past 128.
+enum { ROUTE_TILED = 0, ROUTE_ROWS_BF16 = 1, ROUTE_F32_WGMMA = 2, ROUTE_ROWS_F32 = 3 };
+constexpr int F32_WGMMA_MAX_D = 128;
+int route_of(int D, int es, int w) {
+  if (w <= MAX_W && D * es <= SLAB) return ROUTE_TILED;
+  if (es == 2) return ROUTE_ROWS_BF16;
+  return D <= F32_WGMMA_MAX_D ? ROUTE_F32_WGMMA : ROUTE_ROWS_F32;
+}
+
+// Bytes of scratch a call past the tiled kernel takes (w capped at T - 1):
+// K1's f32 attention k and v split; band_rows_kernel the scores of every
+// (row, offset) where a block's do not fit in shared memory, else none.
+long long scratch_bytes(int B, int H, int T, int D, int w, int es) {
+  const long long wc = w < T ? w : T - 1;
+  if (route_of(D, es, w) == ROUTE_F32_WGMMA)
+    return 4 * avdd_k1::band_f32_scratch_elems(B, H, T, D);
+  const int chunks = D * es / 16, cpl = chunks <= 32 ? 1 : chunks <= 64 ? 2 : 4;
+  bool on_chip;
+  rows_smem(cpl, rows_per_warp((long long)B * H, T), (int)wc, es, on_chip);
+  return on_chip ? 0 : (long long)B * H * T * (2 * wc + 1) * es;
+}
+
 }  // namespace
 
 extern "C" {
@@ -386,35 +699,84 @@ struct BandArgs {
   const void* valid;
   void* out;
   void* stream;
+  void* scratch;                 // past the tiled kernel: avdd_band_attention_scratch bytes
+  int* route;                    // set to the ROUTE_* the launch took
   long long strides[12];         // q, k, v, out: (batch, head, row), in elements
   int B, H, T, D, w, dtype;
 };
+
+// Bytes of scratch a launch at this shape takes (0: none).
+long long avdd_band_attention_scratch(int B, int H, int T, int D, int w, int dtype) {
+  const int es = dtype == 0 ? 4 : 2;
+  if (B <= 0 || H <= 0 || T <= 0 || w < 0 || route_of(D, es, w) == ROUTE_TILED) return 0;
+  return scratch_bytes(B, H, T, D, w, es);
+}
 
 // Launch on `stream`; returns cudaGetLastError() (0 = launched).
 // q, k, v, out: (B, H, T, D) through element strides (batch, head, row), the
 // D values of a row contiguous, every row 16-byte aligned (the stride of a
 // dimension of size 1 is never used); valid: (B, T) bool, contiguous. D x
-// element size a multiple of 16 bytes, D at most 512 (rows up to ANY_ROW
-// bytes); any w >= 0 (the tiled kernel up to MAX_W and rows of
-// 512 bytes, band_any_kernel beyond); dtype: 0 float32, 1 bfloat16.
+// element size a multiple of 16 bytes, D at most 512; any w >= 0 (route_of);
+// scratch: avdd_band_attention_scratch bytes; dtype: 0 float32, 1 bfloat16.
 int avdd_band_attention(const BandArgs* a) {
   const int B = a->B, H = a->H, T = a->T, D = a->D, w = a->w, dtype = a->dtype;
   if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   const long long es = dtype == 0 ? 4 : 2;
   const long long row = D * es;
-  if (B <= 0 || H <= 0 || T <= 0 || w < 0 || D > 512 || row % 16 || row > ANY_ROW)
+  if (B <= 0 || H <= 0 || T <= 0 || w < 0 || D > 512 || row % 16)
     return (int)cudaErrorInvalidValue;
-  const bool tiled = w <= MAX_W && row <= SLAB;    // else band_any_kernel
-  // in bytes; a stride steps a dimension only where its size exceeds 1
-  Strides st[4];
+  const int route = route_of(D, (int)es, w);
+  // in elements; a stride steps a dimension only where its size exceeds 1
+  long long el[4][3];
+  Strides st[4];                                   // in bytes
   for (int i = 0; i < 4; ++i) {
     const long long* e = a->strides + 3 * i;
-    st[i] = {B > 1 ? e[0] * es : 0, H > 1 ? e[1] * es : 0, T > 1 ? e[2] * es : 0};
+    el[i][0] = B > 1 ? e[0] : 0;
+    el[i][1] = H > 1 ? e[1] : 0;
+    el[i][2] = T > 1 ? e[2] : 0;
+    st[i] = {el[i][0] * es, el[i][1] * es, el[i][2] * es};
     if ((st[i].b | st[i].h | st[i].t) % 16) return (int)cudaErrorInvalidValue;
   }
   const uintptr_t addr = reinterpret_cast<uintptr_t>(a->q) | reinterpret_cast<uintptr_t>(a->k) |
                          reinterpret_cast<uintptr_t>(a->v) | reinterpret_cast<uintptr_t>(a->out);
   if (addr % 16) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(a->stream);
+  const int wc = w < T ? w : T - 1;                // the band capped at the sequence
+  *a->route = route;
+  if (route == ROUTE_F32_WGMMA) {                  // K1's f32 attention on the operands
+    if (!a->scratch) return (int)cudaErrorInvalidValue;
+    avdd_k1::BandParams p{};
+    p.mask = static_cast<const uint8_t*>(a->valid);
+    p.B = B;
+    p.T = T;
+    p.C = H * D;
+    p.D = D;
+    p.w = wc;
+    p.io = {a->q, a->k, a->v, a->out,
+            {el[0][0], el[0][1], el[0][2]}, {el[1][0], el[1][1], el[1][2]},
+            {el[2][0], el[2][1], el[2][2]}, {el[3][0], el[3][1], el[3][2]}};
+    return avdd_k1::launch_band_f32(p, static_cast<float*>(a->scratch), s);
+  }
+  if (route != ROUTE_TILED) {
+    RowsParams p;
+    p.q = static_cast<const char*>(a->q);
+    p.k = static_cast<const char*>(a->k);
+    p.v = static_cast<const char*>(a->v);
+    p.valid = static_cast<const uint8_t*>(a->valid);
+    p.out = static_cast<char*>(a->out);
+    p.sq = st[0];
+    p.sk = st[1];
+    p.sv = st[2];
+    p.so = st[3];
+    p.s = nullptr;
+    p.H = H;
+    p.T = T;
+    p.w = wc;
+    p.chunks = (int)(row / 16);
+    const long long bh = (long long)B * H;
+    return dtype == 0 ? launch_rows_for<float>(p, a->scratch, bh, s)
+                      : launch_rows_for<__nv_bfloat16>(p, a->scratch, bh, s);
+  }
   Params p;
   p.q = static_cast<const char*>(a->q);
   p.k = static_cast<const char*>(a->k);
@@ -429,12 +791,6 @@ int avdd_band_attention(const BandArgs* a) {
   p.T = T;
   p.tiles = (T + ROWS - 1) / ROWS;
   p.chunks = (int)(row / 16);
-  cudaStream_t s = static_cast<cudaStream_t>(a->stream);
-  if (!tiled) {
-    const long long rows = (long long)B * H * T;
-    return dtype == 0 ? launch_any<float>(p, w, rows, s)
-                      : launch_any<__nv_bfloat16>(p, w, rows, s);
-  }
   int lanes = 8;                                   // lanes a head: a power of 2, >= chunks
   while (lanes < p.chunks) lanes *= 2;
   p.slabs = (H + 32 / lanes - 1) / (32 / lanes);

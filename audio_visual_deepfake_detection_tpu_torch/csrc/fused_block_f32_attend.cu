@@ -35,12 +35,34 @@
 // visits only the key tiles that meet [r0 - w, r0 + 63 + w]. The instances
 // are the head widths 32, 64, 96 and 128; a narrower head runs the next
 // wider one with q, k and v zero past its width (PAD), a head past 128 the
-// wide kernel below.
+// wide kernel below. K7 past its tiled kernel runs the banded instances up
+// to head width 128 on its own operands (band_attend.cuh, launch_band_f32
+// below): k and v split into the same layouts first, q read in place
+// through its strides, the context written unsplit.
 
 #include "fused_block.cuh"
+#include "band_attend.cuh"
 
 namespace avdd_k1 {
 namespace {
+
+template <class P> constexpr bool IS_BAND = false;    // K7's operands
+template <> constexpr bool IS_BAND<BandParams> = true;
+
+// K7: the context of rows row0, row1 of (sample b, head h), columns c, c + 1
+// (c < D), divided by the rows' denominators (invalid rows zero).
+__device__ __forceinline__ void band_store(const BandParams& p, int b, int h, int row0, int c,
+                                           const float* o, bool live0, bool live1, float z0,
+                                           float z1) {
+  float* out = static_cast<float*>(p.io.out) + b * p.io.so[0] + h * p.io.so[1] + c;
+  const size_t ls = (size_t)p.io.so[2];
+  if (row0 < p.T)
+    *reinterpret_cast<float2*>(out + row0 * ls) =
+        live0 ? make_float2(o[0] / z0, o[1] / z0) : make_float2(0.f, 0.f);
+  if (row0 + 8 < p.T)
+    *reinterpret_cast<float2*>(out + (row0 + 8) * ls) =
+        live1 ? make_float2(o[2] / z1, o[3] / z1) : make_float2(0.f, 0.f);
+}
 
 constexpr int FA_ROWS = 64;     // query rows a block: one warpgroup
 constexpr int FA_NT = 128;
@@ -63,10 +85,12 @@ __device__ __forceinline__ void st_shared8(uint32_t a, uint32_t x, uint32_t y) {
 
 // PAD: the head's width D = p.D is below the instance's WD; q, k and v are
 // staged as zeros past D, which change no score and no context column, and
-// only the first D context columns are written.
-template <int WD, bool BAND, bool PAD>
+// only the first D context columns are written. P: ParamsF (K1) or
+// BandParams (K7, whose D may be 4 mod 8: a column pair lies wholly inside
+// or outside the head).
+template <int WD, bool BAND, bool PAD, class P>
 __global__ void __launch_bounds__(FA_NT, F32Head<WD>::BLOCKS_PER_SM)
-f32_attend_kernel(const __grid_constant__ ParamsF p) {
+f32_attend_kernel(const __grid_constant__ P p) {
   using HD = F32Head<WD>;
   extern __shared__ __align__(1024) unsigned char smraw[];
   const uint32_t qhi = (smem_u32(smraw) + 1023u) & ~1023u, qlo = qhi + HD::QPART;
@@ -123,8 +147,14 @@ f32_attend_kernel(const __grid_constant__ ParamsF p) {
   for (int i = tid; i < FA_ROWS * WD / 4; i += FA_NT) {
     const int r = i / (WD / 4), c = i % (WD / 4), row = r0 + r;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row < T_ && (!PAD || 4 * c < D))
-      v = *reinterpret_cast<const float4*>(p.q + (rb + row) * C + h * D + 4 * c);
+    if (row < T_ && (!PAD || 4 * c < D)) {
+      if constexpr (IS_BAND<P>)
+        v = *reinterpret_cast<const float4*>(static_cast<const float*>(p.io.q) +
+                                             b * p.io.sq[0] + h * p.io.sq[1] +
+                                             row * p.io.sq[2] + 4 * c);
+      else
+        v = *reinterpret_cast<const float4*>(p.q + (rb + row) * C + h * D + 4 * c);
+    }
     const float vv[4] = {v.x, v.y, v.z, v.w};
     uint32_t hi[4], lo[4];
 #pragma unroll
@@ -265,13 +295,18 @@ f32_attend_kernel(const __grid_constant__ ParamsF p) {
 #pragma unroll
   for (int jj = 0; jj < WD / 8; ++jj) {
     if (PAD && 8 * jj >= D) break;
-    const size_t c = (size_t)h * D + 8 * jj + 2 * t;
-    if (row0 < T_)
-      store_split2(p.chi, p.clo, (rb + row0) * C + c, live0 ? O[4 * jj] / z0 : 0.f,
-                   live0 ? O[4 * jj + 1] / z0 : 0.f);
-    if (row1 < T_)
-      store_split2(p.chi, p.clo, (rb + row1) * C + c, live1 ? O[4 * jj + 2] / z1 : 0.f,
-                   live1 ? O[4 * jj + 3] / z1 : 0.f);
+    if constexpr (IS_BAND<P>) {
+      if (!PAD || 8 * jj + 2 * t < D)
+        band_store(p, b, h, row0, 8 * jj + 2 * t, O + 4 * jj, live0, live1, z0, z1);
+    } else {
+      const size_t c = (size_t)h * D + 8 * jj + 2 * t;
+      if (row0 < T_)
+        store_split2(p.chi, p.clo, (rb + row0) * C + c, live0 ? O[4 * jj] / z0 : 0.f,
+                     live0 ? O[4 * jj + 1] / z0 : 0.f);
+      if (row1 < T_)
+        store_split2(p.chi, p.clo, (rb + row1) * C + c, live1 ? O[4 * jj + 2] / z1 : 0.f,
+                     live1 ? O[4 * jj + 3] / z1 : 0.f);
+    }
   }
 }
 
@@ -667,14 +702,14 @@ int launch_scores_gemm(const ParamsF& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <int WD, bool BAND, bool PAD>
-int launch_wd(const ParamsF& p, cudaStream_t stream) {
+template <int WD, bool BAND, bool PAD, class P>
+int launch_wd(const P& p, cudaStream_t stream) {
   static int configured = 0;
   constexpr int bytes = F32Head<WD>::SMEM;
-  if (int e = set_smem(f32_attend_kernel<WD, BAND, PAD>, bytes, configured)) return e;
+  if (int e = set_smem(f32_attend_kernel<WD, BAND, PAD, P>, bytes, configured)) return e;
   const long long blocks = (long long)p.B * (p.C / p.D) * ((p.T + FA_ROWS - 1) / FA_ROWS);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  f32_attend_kernel<WD, BAND, PAD><<<(unsigned)blocks, FA_NT, bytes, stream>>>(p);
+  f32_attend_kernel<WD, BAND, PAD, P><<<(unsigned)blocks, FA_NT, bytes, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -690,11 +725,52 @@ int launch_wide(const ParamsF& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// K7's k and v into the f32 kernel's layouts, a block a (sample, head, 32
+// keys, 32 channels) tile, keys to Tp and channels to D rounded up to 32,
+// each value split into its TF32 parts: k into (B T, C), v transposed
+// through shared memory into (B, C, Tp), keys past T zero.
+__global__ void __launch_bounds__(256) band_f32_prep_kernel(const __grid_constant__ BandParams p) {
+  __shared__ float tile[32][33];
+  const int D = p.D, H = p.C / D, T_ = p.T;
+  const int nc = (D + 31) / 32, nk = p.Tp / 32;
+  const int c0 = 32 * (blockIdx.x % nc), k0 = 32 * ((blockIdx.x / nc) % nk);
+  const int bh = blockIdx.x / (nc * nk), b = bh / H, h = bh % H;
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+  const BandIO& io = p.io;
+  const float* k = static_cast<const float*>(io.k) + b * io.sk[0] + h * io.sk[1];
+  const float* v = static_cast<const float*>(io.v) + b * io.sv[0] + h * io.sv[1];
+  const int c = c0 + tx;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {       // rows key, channels c: v into the tile, k out
+    const int key = k0 + ty + 8 * i;
+    const bool in = key < T_ && c < D;
+    tile[ty + 8 * i][tx] = in ? v[key * io.sv[2] + c] : 0.f;
+    if (in) {
+      const size_t at = ((size_t)b * T_ + key) * p.C + h * D + c;
+      uint32_t hi, lo;
+      tf32_split(k[key * io.sk[2] + c], hi, lo);
+      p.khi[at] = __uint_as_float(hi);
+      p.klo[at] = __uint_as_float(lo);
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {       // rows channel, keys k0 + tx: v^T
+    const int ch = c0 + ty + 8 * i;
+    if (ch >= D) continue;
+    uint32_t hi, lo;
+    tf32_split(tile[tx][ty + 8 * i], hi, lo);
+    const size_t at = ((size_t)b * p.C + h * D + ch) * p.Tp + k0 + tx;
+    p.vthi[at] = __uint_as_float(hi);
+    p.vtlo[at] = __uint_as_float(lo);
+  }
+}
+
 // Head widths 32 / 64 / 96 / 128 run their instance, narrower ones the next
-// wider instance padded with zeros, wider ones the wide kernel (banded) or
-// the scores GEMMs (dense).
-template <bool BAND>
-int launch_band(const ParamsF& p, cudaStream_t stream) {
+// wider instance padded with zeros, wider ones (K1 only) the wide kernel
+// (banded) or the scores GEMMs (dense).
+template <bool BAND, class P>
+int launch_band(const P& p, cudaStream_t stream) {
   switch (p.D) {
     case 32: return launch_wd<32, BAND, false>(p, stream);
     case 64: return launch_wd<64, BAND, false>(p, stream);
@@ -706,7 +782,8 @@ int launch_band(const ParamsF& p, cudaStream_t stream) {
   if (p.D < 64) return launch_wd<64, BAND, true>(p, stream);
   if (p.D < 96) return launch_wd<96, BAND, true>(p, stream);
   if (p.D < 128) return launch_wd<128, BAND, true>(p, stream);
-  if constexpr (BAND) return launch_wide(p, stream);
+  if constexpr (IS_BAND<P>) return (int)cudaErrorInvalidValue;
+  else if constexpr (BAND) return launch_wide(p, stream);
   else return launch_scores_gemm(p, stream);
 }
 
@@ -714,6 +791,25 @@ int launch_band(const ParamsF& p, cudaStream_t stream) {
 
 int launch_f32_attend(const ParamsF& p, cudaStream_t stream) {
   return p.w > 0 ? launch_band<true>(p, stream) : launch_band<false>(p, stream);
+}
+
+// K7 (head widths up to 128): the prep launch, then always banded (w = 0
+// attends the row's own key only).
+int launch_band_f32(BandParams p, float* scratch, cudaStream_t stream) {
+  if (p.D > 128) return (int)cudaErrorInvalidValue;
+  const long long R = (long long)p.B * p.T, H = p.C / p.D;
+  p.Tp = (p.T + KEY_TILE - 1) / KEY_TILE * KEY_TILE;
+  float* f = scratch;
+  auto take = [&](long long n) { float* r = f; f += n; return r; };
+  p.khi = take(R * p.C);
+  p.klo = take(R * p.C);
+  p.vthi = take((long long)p.B * p.C * p.Tp);
+  p.vtlo = take((long long)p.B * p.C * p.Tp);
+  const long long blocks = (long long)p.B * H * (p.Tp / 32) * ((p.D + 31) / 32);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  band_f32_prep_kernel<<<(unsigned)blocks, 256, 0, stream>>>(p);
+  if (int e = (int)cudaGetLastError()) return e;
+  return launch_band<true>(p, stream);
 }
 
 }  // namespace avdd_k1

@@ -21,9 +21,17 @@ tensor on an sm_90 card (replacing ``band_attention_pallas``,
 ``MAX_TILED_ROW_BYTES``, the kernel computes 8-row tiles of one sample
 across a 512-byte run of heads from k and v rows staged with their ±w halo
 (zeros outside the sequence); any wider window or head row (up to
-``MAX_HEAD_DIM``) runs ``band_any_kernel``, a warp a query row streaming the
-offsets in order in three passes; ``kernel_limits`` says which head widths
-and windows the kernel takes. ``band_attention_fused`` is the
+``MAX_HEAD_DIM``) runs ``band_rows_kernel`` (bf16, and f32 past head width
+``MAX_F32_WGMMA_HEAD_DIM``: 16 query rows a block, k then v staged by key
+tiles, bf16 scores summed on ``mma.sync``, then the plain version's steps
+in its order: a context summed in f32 drifts from the plain version's
+running bf16 sums past the bf16 check's bound at wide windows) or, f32 up
+to that width, K1's banded attention on the tensor cores
+(``csrc/band_attend.cuh``: 3xTF32 on ``wgmma`` after a launch that splits k
+and v into TF32 parts). ``kernel_limits`` says which head widths and
+windows the kernel takes, ``route_of`` which route a shape takes, and
+``ROUTES`` counts the launches by the route the C entry reports it took
+(``ROUTE_NAMES``). ``band_attention_fused`` is the
 JAX ``band_attention_fused`` (``:124``, a ``custom_vjp``): forward = the
 kernel, backward = autograd through ``band_attention_xla`` recomputed from
 the saved q, k, v and mask. Neither package has a backward kernel.
@@ -31,7 +39,9 @@ the saved q, k, v and mask. Neither package has a backward kernel.
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import ctypes
 import struct
 
 import torch
@@ -41,19 +51,30 @@ from ..attention import NEG_PENALTY, band_attention_xla, shift_time
 
 MAX_W = 16                  # largest half window of the tiled kernel
 MAX_TILED_ROW_BYTES = 512   # its widest head row: a warp's 32 16-byte pieces
-MAX_HEAD_DIM = 512          # the widest head the kernel takes (band_any_kernel)
+MAX_HEAD_DIM = 512          # the widest head the kernel takes
+MAX_F32_WGMMA_HEAD_DIM = 128   # past the tiled kernel, f32 on the tensor cores up to it
+# csrc/band_attention.cu's ROUTE_*: the tiled kernel; past it
+# band_rows_kernel in bf16, K1's banded attention on the tensor cores in
+# f32, band_rows_kernel in f32
+ROUTE_NAMES = ("tiled", "staged rows bf16", "wgmma 3xTF32", "staged rows f32")
 
-# kernel launches since the last reset (CPU calls and plain runs never count)
+# kernel launches since the last reset (CPU calls and plain runs never count),
+# all together and by the route the C entry reports it took (ROUTE_NAMES)
 LAUNCHES = 0
+ROUTES = collections.Counter()
 _SAME_DEVICE = contextlib.nullcontext()     # the launch's device is already current
-# csrc/band_attention.cu::BandArgs: q, k, v, valid, out, stream; 12 strides;
-# B, H, T, D, w, dtype (one packed argument: the host's cost of a launch)
-_ARGS = struct.Struct("<6Q12q6i")
+# csrc/band_attention.cu::BandArgs: q, k, v, valid, out, stream, scratch,
+# route; 12 strides; B, H, T, D, w, dtype (one packed argument: the host's
+# cost of a launch)
+_ARGS = struct.Struct("<8Q12q6i")
+_ROUTE = ctypes.c_int(-1)                   # the C entry writes the route here
+_ROUTE_AT = ctypes.addressof(_ROUTE)
 
 
 def reset_launches() -> None:
     global LAUNCHES
     LAUNCHES = 0
+    ROUTES.clear()
 
 
 def band_attention_plain(q, k, v, kv_valid, w_overlap: int) -> torch.Tensor:
@@ -132,9 +153,20 @@ def kernel_shape_ok(head_dim: int, element_size: int, w_overlap: int) -> bool:
 
 def tiled(head_dim: int, element_size: int, w_overlap: int) -> bool:
     """Whether a shape of ``kernel_shape_ok`` takes the tiled kernel (w up to
-    MAX_W, head rows up to MAX_TILED_ROW_BYTES); every other one runs
-    ``band_any_kernel``."""
+    MAX_W, head rows up to MAX_TILED_ROW_BYTES); every other one takes a route past it
+    (``route_of``)."""
     return w_overlap <= MAX_W and head_dim * element_size <= MAX_TILED_ROW_BYTES
+
+
+def route_of(head_dim: int, dtype, w_overlap: int) -> str:
+    """The ``ROUTE_NAMES`` entry a launch at a shape of ``kernel_shape_ok``
+    takes."""
+    size = torch.empty((), dtype=dtype).element_size()
+    if tiled(head_dim, size, w_overlap):
+        return ROUTE_NAMES[0]
+    if dtype == torch.bfloat16:
+        return ROUTE_NAMES[1]
+    return ROUTE_NAMES[2 if head_dim <= MAX_F32_WGMMA_HEAD_DIM else 3]
 
 
 def kernel_limits(q, w_overlap):
@@ -163,15 +195,22 @@ def _launch(q, k, v, kv_valid, w_overlap):
     q, k, v = _rows_ok(q), _rows_ok(k), _rows_ok(v)
     kv_valid = kv_valid.contiguous()
     dev = q.device.index
+    dtype = 0 if q.dtype == torch.float32 else 1
+    lib = load()
+    scratch = None          # past the tiled kernel: k, v split (wgmma) or scores off chip
+    if not tiled(d, q.element_size(), w_overlap):
+        n = lib.avdd_band_attention_scratch(b, h, t, d, w_overlap, dtype)
+        scratch = torch.empty(n, dtype=torch.uint8, device=q.device) if n else None
     with torch.cuda.device(dev) if dev != torch.cuda.current_device() else _SAME_DEVICE:
-        err = load().avdd_band_attention(_ARGS.pack(
+        err = lib.avdd_band_attention(_ARGS.pack(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_valid.data_ptr(), out.data_ptr(),
-            torch._C._cuda_getCurrentRawStream(dev), *q.stride()[:3], *k.stride()[:3],
-            *v.stride()[:3], t * h * d, d, h * d, b, h, t, d, w_overlap,
-            0 if q.dtype == torch.float32 else 1))
+            torch._C._cuda_getCurrentRawStream(dev),
+            0 if scratch is None else scratch.data_ptr(), _ROUTE_AT, *q.stride()[:3],
+            *k.stride()[:3], *v.stride()[:3], t * h * d, d, h * d, b, h, t, d, w_overlap, dtype))
     if err != 0:
         raise RuntimeError(f"band attention kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
+    ROUTES[ROUTE_NAMES[_ROUTE.value]] += 1
     return out
 
 

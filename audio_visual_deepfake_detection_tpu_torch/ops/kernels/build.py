@@ -8,7 +8,8 @@ over fused_block.cuh; K2 patch_embed, K3 mvit_attention
 with its float32 route in mvit_attention_f32, K4 mvit_block with its
 attention step in mvit_attention and its float32 launches in
 mvit_block_f32, the two f32 units over mvit_f32.cuh; K5
-conv_extractor, K7 band_attention, K8 full_attention; headers common.cuh
+conv_extractor, K7 band_attention (past its tiled kernel on K1's attention
+kernels through band_attend.cuh), K8 full_attention; headers common.cuh
 and, for the wgmma kernels of K1 (both dtypes), K2, K3, K4, K5 and K8,
 wgmma.cuh) into one shared library with a plain C interface (no PyTorch headers, so a build takes seconds). The
 library lands in ``build/kernels/`` at the repository root, in a file named
@@ -136,5 +137,7 @@ def load() -> ctypes.CDLL:
             lib.avdd_full_mha.argtypes = [p] * 5 + [i] * 4 + [q] * 12 + [i, p, ctypes.POINTER(i)]
             lib.avdd_band_attention.restype = i
             lib.avdd_band_attention.argtypes = [ctypes.c_char_p]   # a packed BandArgs
+            lib.avdd_band_attention_scratch.restype = q
+            lib.avdd_band_attention_scratch.argtypes = [i] * 6     # B H T D w dtype
             _lib = lib
     return _lib

@@ -273,13 +273,16 @@ Phases (any failure exits nonzero):
              (the unfused stride-4 blocks).
 20. block domain - K1 / K6, K7 and K8 across the rest of their domain
              (K1 / K6's scratch routes on the tensor cores, every launch's
-             route by fused_block.ROUTES; band_any_kernel; K8's 128-wide
-             instances): K1 and K6 at (C, heads, w) = (384, 8, 9), (256, 1,
+             route by fused_block.ROUTES; K7 past its tiled kernel:
+             band_rows_kernel in bf16 and in f32 past head width 128, K1's
+             3xTF32 attention in f32 up to 128, each call's route by
+             band_attention.ROUTES; K8's 128-wide instances): K1 and K6 at (C, heads, w) = (384, 8, 9), (256, 1,
              18), (256, 16, 3), (128, 16, 3), (320, 4, dense), (1536, 12,
              18), (2048, 16, 9) and (2048, 4, dense), T = 2304, 150 and 24,
              B=2, the four modes, f32 (atol 1e-4) and bf16 (check_bf16)
              against block_math; K7 at w = 17, 24, 48 and 100 with d = 256
-             and 512 (check_k7); K8 at d = 16, 48, 96 and 128 (12 heads, T
+             and 512 and at DOMAIN_K7_ROUTE's narrower heads, w = 0 and heads
+             of 4 mod 8 (check_k7); K8 at d = 16, 48, 96 and 128 (12 heads, T
              479, with and without the key mask; check_k8); each new shape's
              device ms, plain ms, bound and the nearest SDPA call in both
              dtypes. Then exp10-h1-w37 (deepfake_exp10.yaml, f32, one head
@@ -899,18 +902,20 @@ def k1_f32_times(smi, dev="cuda", batches=F32_BATCHES, train_b=None):
                 f"{fma[0]:.3f} ms ({fma[1]}), {100 * fma[0] / k_tot:.1f}% ({smi})")
         # K7: the 17 launches of the unfused f32 forward that dropout > 0 takes
         calls = {768: 8, 384: 2, 192: 2, 96: 2, 48: 2, 24: 1}
-        k_tot = p_tot = 0.0
+        k_tot = p_tot = lib_tot = 0.0
         for t in K7_TS:
             q, k, v, valid = k7_case(train_b, t, torch.float32, dev, seed=t)
             k_tot += calls[t] * device_ms(lambda: run_k7("kernel", q, k, v, valid))
             p_tot += calls[t] * cuda_ms(lambda: run_k7("plain", q, k, v, valid), 5, warmup=1)
+            lib_tot += calls[t] * device_ms(sdpa_nearest(q, k, v, valid, 3))
             del q, k, v, valid
         bnd = bound_sum([(*k7_work(train_b, 4, t, 64, 3, nbytes=4), calls[t]) for t in K7_TS],
                         PEAK_F32)
-        out["K7"] = {str(train_b): dict(device_ms=k_tot, plain_ms=p_tot,
+        out["K7"] = {str(train_b): dict(device_ms=k_tot, plain_ms=p_tot, library_device_ms=lib_tot,
                                         bound_ms=bnd[0], bound_by=bnd[1])}
         log(f"time K7 f32 B={train_b}: the 17 launches of one unfused forward, kernels alone "
-            f"{k_tot:.3f} ms, plain {p_tot:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]}) ({smi})")
+            f"{k_tot:.3f} ms, plain {p_tot:.3f} ms, nearest library call (SDPA + band mask, "
+            f"dev) {lib_tot:.3f} ms, bound {bnd[0]:.3f} ms ({bnd[1]}) ({smi})")
     REPORT["k1_f32_times"] = out
     return out
 
@@ -3643,7 +3648,9 @@ def k7_variants(smi, b=TRAIN_B, variants=K7_VARIANTS, rounds=3):
     built beside the source under build/k7_variants/, checked against the
     plain version at T = 768 and
     timed (device time, CUDA-graph replay, the variants in turns) at the
-    unfused forward's lengths, bf16. The first variant is the source's own."""
+    unfused forward's lengths, bf16. The first variant is the source's own.
+    The variants' libraries resolve the routes past the tiled kernel (K1's
+    f32 attention) from the package's library, loaded for all first."""
     import ctypes
     import torch
     from audio_visual_deepfake_detection_tpu_torch.ops.kernels import band_attention as k7
@@ -3670,6 +3677,7 @@ def k7_variants(smi, b=TRAIN_B, variants=K7_VARIANTS, rounds=3):
             [build.nvcc_path(), *build.ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-shared",
              "-I", str(build.CSRC), "-o", path[:-3] + ".so", path],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    ctypes.CDLL(str(build.build()), mode=ctypes.RTLD_GLOBAL)
     fns = {}
     for name, proc in procs.items():
         log_text = proc.communicate()[0]
@@ -3684,9 +3692,9 @@ def k7_variants(smi, b=TRAIN_B, variants=K7_VARIANTS, rounds=3):
         out = torch.empty_strided((bb, h, t, d), (t * h * d, d, h * d, 1), dtype=q.dtype,
                                   device=q.device)
         err = fn(k7._ARGS.pack(q.data_ptr(), k.data_ptr(), v.data_ptr(), valid.data_ptr(),
-                               out.data_ptr(), torch.cuda.current_stream().cuda_stream,
-                               *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], t * h * d, d,
-                               h * d, bb, h, t, d, 3, 1))
+                               out.data_ptr(), torch.cuda.current_stream().cuda_stream, 0,
+                               k7._ROUTE_AT, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                               t * h * d, d, h * d, bb, h, t, d, 3, 1))
         if err:
             fail(f"k7_variants: launch failed, CUDA error {err}")
         return out
@@ -6568,6 +6576,38 @@ def sdpa_nearest(q, k, v, valid, w):
     return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=keep)
 
 
+def check_k7_case(dev, shape, w, dtype, seed, rows, routes):
+    """K7 at (B, H, T, D) ``shape``, half window ``w``: one call against
+    band_attention_plain (check_k7), k7_case's ragged masks from ``seed``;
+    on the card one launch, on the route ``route_of`` names (counted into
+    ``routes``). Appends its row to ``rows``; returns max |d|."""
+    import torch
+    from audio_visual_deepfake_detection_tpu_torch.ops.kernels import band_attention as k7
+
+    on_card = torch.device(dev).type == "cuda"
+    bb, h, t, d = shape
+    name = str(dtype).split(".")[-1]
+    args = k7_case(bb, t, dtype, dev, seed=seed, h=h, d=d)
+    k7.reset_launches()
+    with torch.no_grad():
+        got, ref = run_k7("kernel", *args, w), run_k7("plain", *args, w)
+    sync(dev)
+    route = k7.route_of(d, dtype, w)
+    if k7.LAUNCHES != int(on_card) or dict(k7.ROUTES) != ({route: 1} if on_card else {}):
+        fail(f"K7 at {shape} w={w} {name}: {k7.LAUNCHES} launches, routes {dict(k7.ROUTES)}, "
+             f"expected one on {route!r}")
+    routes.update(k7.ROUTES)
+    err, ok, rule = check_k7(got, ref, *args, w)
+    rows.append(dict(kernel="K7", shape=shape, w=w, dtype=name, route=route, max_abs_err=err,
+                     ok=ok, rule=rule))
+    log(f"K7 vs plain {shape} w={w:2d} {name:8s} ({route}) max|d|={err:.3e} [{rule}] "
+        f"{'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        REPORT["k7_cases"] = rows
+        fail(f"K7 disagrees with its plain version at {shape} w={w} {name}")
+    return err
+
+
 def wide_kernel_grid(dev="cuda", shapes=WIDE_SHAPES, ts=WIDE_TS, b=WIDE_B, k7_shapes=K7_WIDE,
                      k7_ws=K7_WIDE_W, smi="", timing=True, launches=None):
     """K1 and K6 (the same call given droppath coefficients) at every
@@ -6593,6 +6633,7 @@ def wide_kernel_grid(dev="cuda", shapes=WIDE_SHAPES, ts=WIDE_TS, b=WIDE_B, k7_sh
     worst = {k: {"float32": 0.0, "bfloat16": 0.0} for k in ("K1", "K6", "K7")}
     rows = []
     routes = collections.Counter()      # K1 / K6 launches by the route the C entry took
+    k7_routes = collections.Counter()   # K7's the same
     for c, nh, w in shapes:
         window = 2 * w + 1 if w else -1
         for t in ts:
@@ -6640,26 +6681,11 @@ def wide_kernel_grid(dev="cuda", shapes=WIDE_SHAPES, ts=WIDE_TS, b=WIDE_B, k7_sh
     for bb, h, t, d in k7_shapes:
         for ww in k7_ws:
             for dtype in dtypes:
+                err = check_k7_case(dev, (bb, h, t, d), ww, dtype, t + ww, rows, k7_routes)
                 name = str(dtype).split(".")[-1]
-                args = k7_case(bb, t, dtype, dev, seed=t + ww, h=h, d=d)
-                k7.reset_launches()
-                with torch.no_grad():
-                    got, ref = run_k7("kernel", *args, ww), run_k7("plain", *args, ww)
-                sync(dev)
-                if k7.LAUNCHES != int(on_card):
-                    fail(f"wide blocks: K7 counted {k7.LAUNCHES} launches for one call")
-                err, ok, rule = check_k7(got, ref, *args, ww)
                 worst["K7"][name] = max(worst["K7"][name], err)
-                rows.append(dict(kernel="K7", shape=(bb, h, t, d), w=ww, dtype=name,
-                                 max_abs_err=err, ok=ok, rule=rule))
-                log(f"K7 vs plain ({bb}, {h}, {t}, {d}) w={ww:2d} {name:8s} max|d|={err:.3e} "
-                    f"[{rule}] {'ok' if ok else 'MISMATCH'}")
-                if not ok:
-                    REPORT["wide_grid"] = rows
-                    fail(f"wide blocks: K7 disagrees with its plain version at ({bb}, {h}, {t}, "
-                         f"{d}) w={ww} {name}")
-                del args, got, ref
-    report = {"card": smi, "worst": worst, "rows": rows, "times": [], "routes": dict(routes)}
+    report = {"card": smi, "worst": worst, "rows": rows, "times": [], "routes": dict(routes),
+              "k7_routes": dict(k7_routes)}
     if timing and on_card:
         t = max(ts)
         # the shapes whose attention ran on the tensor cores: those whose
@@ -7096,6 +7122,27 @@ DOMAIN_B = 2
 # K7 past w = 16 and 512-byte head rows: (B, H, T, D) at each half window
 DOMAIN_K7 = ((2, 2, 2304, 256), (5, 1, 150, 512))
 DOMAIN_K7_W = (17, 24, 48, 100)
+# and the rest of those routes' shapes, checked only: ((B, H, T, D), w,
+# dtypes): f32 heads up to 128 (K1's attention) padded to its instances
+# (48, 24, 20: 4 mod 8) and unpadded (64, 128), past 128 at 4 mod 8 (132);
+# bf16 at those widths, at 264 and 512; a window past T; w = 0 and 3 where
+# the head row alone leaves the tiled kernel
+DOMAIN_K7_ROUTE = (((5, 4, 300, 64), 40, ("float32", "bfloat16")),
+                   ((3, 2, 150, 24), 17, ("float32", "bfloat16")),
+                   ((5, 2, 90, 20), 100, ("float32",)),
+                   ((2, 2, 200, 128), 33, ("float32", "bfloat16")),
+                   ((2, 3, 130, 48), 20, ("float32", "bfloat16")),
+                   ((3, 1, 130, 132), 3, ("float32",)),
+                   ((2, 2, 100, 264), 3, ("bfloat16",)),
+                   ((5, 1, 100, 512), 0, ("float32", "bfloat16")))
+# band_any_kernel, the route the domain's K7 cases took before
+# band_rows_kernel: its device ms (H100 80GB HBM3, 700 W; the K7 (domain)
+# row of PERF.md), printed beside this run's, kept out of the report
+K7_BAND_ANY_MS = {
+    ((2, 2, 2304, 256), "float32"): (0.158, 0.225, 0.454, 0.931),
+    ((2, 2, 2304, 256), "bfloat16"): (0.171, 0.238, 0.493, 1.058),
+    ((5, 1, 150, 512), "float32"): (0.048, 0.068, 0.149, 0.245),
+    ((5, 1, 150, 512), "bfloat16"): (0.067, 0.094, 0.182, 0.301)}
 DOMAIN_K8_D = (16, 48, 96, 128)     # K8 head dims beside 32 / 64: 12 heads, T = E2V_T
 # exp10-h1-w37: configs_train/deepfake_exp10.yaml as shipped (f32, C 256,
 # arch (2, 2, 5), droppath 0.1) with one head of 256 and windows of 37 (w =
@@ -7118,9 +7165,11 @@ def domain_kernel_times(dev, shapes, t, b, k7_shapes, k7_ws, k8_dims, smi):
     ms, the bound at the dtype's rate (bf16 989 TFLOP/s; f32 3xTF32's 165,
     and 67, the CUDA cores' rate these routes run at, beside) and the
     nearest library call (SDPA with the key mask and band). K1 at B = ``b``,
-    length ``t``, self mode; K7 at each shape and window; K8 at (b, 12,
-    E2V_T, d) with the key mask. Returns the rows."""
+    length ``t``, self mode; K7 at each shape and window, its route (the log
+    line also gives K7_BAND_ANY_MS's time of the route it replaced); K8
+    at (b, 12, E2V_T, d) with the key mask. Returns the rows."""
     import torch
+    from audio_visual_deepfake_detection_tpu_torch.ops.kernels import band_attention as k7
 
     rows = []
 
@@ -7157,7 +7206,8 @@ def domain_kernel_times(dev, shapes, t, b, k7_shapes, k7_ws, k8_dims, smi):
                                  lambda: run_k7("plain", *args, ww),
                                  *k7_work(bb, h, tt, d, ww, nbytes=args[0].element_size()),
                                  dtype, sdpa_nearest(*args, ww))
-                rec.update(kernel="K7", shape=(bb, h, tt, d), w=ww, dtype=str(dtype)[6:])
+                rec.update(kernel="K7", shape=(bb, h, tt, d), w=ww, dtype=str(dtype)[6:],
+                           route=k7.route_of(d, dtype, ww))
                 rows.append(rec)
                 del args
     for d in k8_dims:
@@ -7174,10 +7224,14 @@ def domain_kernel_times(dev, shapes, t, b, k7_shapes, k7_ws, k8_dims, smi):
     for r in rows:
         what = (f"C={r['C']} heads={r['heads']} w={r['w']} B={r['B']} T={r['T']}"
                 if r["kernel"] == "K1" else f"{r['shape']}" + (f" w={r['w']}" if "w" in r else ""))
-        log(f"{r['kernel']} {what} {r['dtype']}: dev {r['device_ms']:.4f} ms (wrapper "
-            f"{r['ms']:.4f}), plain {r['plain_ms']:.3f}, bound {r['bound_ms']:.4f} by "
-            f"{r['bound_by']} ({r['bound_f32_cores_ms']:.4f} at 67 TFLOP/s), nearest library "
-            f"call {r['library_ms']:.4f} ({smi})")
+        old = K7_BAND_ANY_MS.get((r.get("shape"), r["dtype"]))
+        old = old[DOMAIN_K7_W.index(r["w"])] if old and r.get("w") in DOMAIN_K7_W else None
+        log(f"{r['kernel']} {what} {r['dtype']}" + (f" ({r['route']})" if "route" in r else "")
+            + f": dev {r['device_ms']:.4f} ms (wrapper {r['ms']:.4f}), plain "
+            f"{r['plain_ms']:.3f}, bound {r['bound_ms']:.4f} by {r['bound_by']} "
+            f"({r['bound_f32_cores_ms']:.4f} at 67 TFLOP/s), nearest library call "
+            f"{r['library_ms']:.4f}" + (f", band_any_kernel {old:.3f} (recorded, not this run)"
+                                        if old else "") + f" ({smi})")
     torch.cuda.empty_cache()
     return rows
 
@@ -7362,14 +7416,15 @@ def h1w37_path(root, dev="cuda", smi="", overrides=None, dims=(256, 2048, 768), 
 
 
 def phase_block_domain(dev="cuda", smi="", shapes=DOMAIN_SHAPES, ts=DOMAIN_TS, b=DOMAIN_B,
-                       k7_shapes=DOMAIN_K7, k7_ws=DOMAIN_K7_W, k8_dims=DOMAIN_K8_D,
-                       path=None):
+                       k7_shapes=DOMAIN_K7, k7_ws=DOMAIN_K7_W, k7_route=DOMAIN_K7_ROUTE,
+                       k8_dims=DOMAIN_K8_D, path=None):
     """K1 / K6, K7 and K8 across the rest of their domain. (1)
     wide_kernel_grid at ``shapes`` (C, heads, w) x ``ts`` x the four modes x
     both dtypes, K1 and K6 against block_math, and K7 at ``k7_shapes`` x
-    ``k7_ws`` against band_attention_plain, each shape's route checked (K1 /
-    K6: a scratch route in either dtype, by every launch's ROUTES; K7:
-    band_any_kernel);
+    ``k7_ws`` against band_attention_plain, and at ``k7_route``'s cases
+    (check_k7_case), each shape's route checked (K1 / K6: a scratch route
+    in either dtype, by every launch's ROUTES; K7: past the tiled kernel,
+    route_of's, by every call's ROUTES);
     (2) K8 at each head dim of ``k8_dims`` (B = ``b``, 12 heads, T = E2V_T,
     with and without the key mask) against full_mha_math (check_k8); (3) on
     the card, domain_kernel_times; (4) h1w37_path (``path``: its keyword
@@ -7387,11 +7442,13 @@ def phase_block_domain(dev="cuda", smi="", shapes=DOMAIN_SHAPES, ts=DOMAIN_TS, b
         if not fb.kernel_shape_ok(c, nh, w) or {fb.route_of(c, nh, dt) for dt in (
                 torch.float32, torch.bfloat16)} != scratch:
             fail(f"block domain: ({c}, {nh}, {w}) is not a shape of the scratch routes")
-    for _, _, _, d in k7_shapes:
-        for ww in k7_ws:
-            for size in (2, 4):
-                if not k7.kernel_shape_ok(d, size, ww) or k7.tiled(d, size, ww):
-                    fail(f"block domain: K7 d={d} w={ww} is not band_any_kernel's")
+    k7_cases = [(shape, ww, dt) for shape in k7_shapes for ww in k7_ws
+                for dt in ("float32", "bfloat16")] + [
+        (shape, ww, dt) for shape, ww, dts in k7_route for dt in dts]
+    for (_, _, _, d), ww, dt in k7_cases:
+        size = getattr(torch, dt).itemsize
+        if not k7.kernel_shape_ok(d, size, ww) or k7.tiled(d, size, ww):
+            fail(f"block domain: K7 d={d} w={ww} {dt} does not run past the tiled kernel")
     report = {"card": smi, "grid": wide_kernel_grid(dev, shapes=shapes, ts=ts, b=b,
                                                     k7_shapes=k7_shapes, k7_ws=k7_ws, smi=smi,
                                                     timing=False)}
@@ -7401,6 +7458,21 @@ def phase_block_domain(dev="cuda", smi="", shapes=DOMAIN_SHAPES, ts=DOMAIN_TS, b
     if report["grid"]["routes"] != want:
         fail(f"block domain: K1 / K6 routes {report['grid']['routes']}, expected {want}")
     log(f"block domain: K1 / K6 launches by route {report['grid']['routes']}")
+    # K7: the route's other shapes; every call past the tiled kernel (by ROUTES)
+    k7_routes = collections.Counter(report["grid"]["k7_routes"])
+    k7_rows = []
+    for shape, ww, dts in k7_route:
+        for dt in dts:
+            err = check_k7_case(dev, shape, ww, getattr(torch, dt), sum(shape) + ww, k7_rows,
+                                k7_routes)
+            report["grid"]["worst"]["K7"][dt] = max(report["grid"]["worst"]["K7"][dt], err)
+    want = collections.Counter(k7.route_of(d, getattr(torch, dt), ww)
+                               for (_, _, _, d), ww, dt in k7_cases) if on_card else {}
+    if dict(k7_routes) != dict(want):
+        fail(f"block domain: K7 routes {dict(k7_routes)}, expected {dict(want)}")
+    report["k7_routes"] = dict(k7_routes)
+    report["k7_route_cases"] = k7_rows
+    log(f"block domain: K7 calls by route {dict(k7_routes)}")
     worst = {"float32": 0.0, "bfloat16": 0.0}
     rows = []
     for d in k8_dims:
@@ -7763,7 +7835,11 @@ def main():
         "library_device_ms": k7_lib_dev,
         "device_share_t768": k7_share,
         "redesigned": "8-row tiles across a 512-byte run of heads, k / v and their halo "
-                      "staged by cp.async, a warp a row, w a template parameter, one grid axis",
+                      "staged by cp.async, a warp a row, w a template parameter, one grid axis; "
+                      "past w = 16 or 512-byte head rows band_rows_kernel (bf16, and f32 past "
+                      "head width 128: 16 rows a block, k then v staged by key tiles, bf16 "
+                      "scores on mma.sync, the plain version's steps in its order) and K1's "
+                      "3xTF32 attention (f32 up to 128, band_attend.cuh)",
         "note": f"launches = {train_report['unfused-K7-bfloat16']['steps']} bf16 training steps "
                 f"with dropout 0.1 at B={TRAIN_B}; ms = the 17 launches of one unfused forward "
                 f"at B={TRAIN_B} bf16 through the wrapper (device_ms: the kernels alone); "
@@ -7780,6 +7856,7 @@ def main():
         "wide_times": [r for r in wide["grid"]["times"] if r["kernel"] == "K7"],
         "max_abs_err_domain": domain["grid"]["worst"]["K7"],
         "domain_times": [r for r in domain.get("times", []) if r["kernel"] == "K7"],
+        "routes_block_domain": domain["k7_routes"],
         "launches_block_domain": {"h1w37_unfused_step": h1w37["unfused_step_card_vs_cpu"][
             "launches"]["band_attention"]},
         "f32": {f"B{TRAIN_B}": f32_times["K7"][str(TRAIN_B)]},

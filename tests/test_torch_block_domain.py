@@ -5,8 +5,9 @@ The fused block kernel takes C a multiple of 64 up to 2048 and head widths
 that are multiples of 8 from 8 to 512 (``fused_block.kernel_shape_ok``;
 the scratch routes run what ``wgmma_shape_ok`` leaves), the
 band kernel any half window and head rows up to 512 wide
-(``band_attention.kernel_shape_ok``; ``band_any_kernel`` past w = 16 or 512
-bytes), K8 head dims that are multiples of 16 up to 128. On the CPU each
+(``band_attention.kernel_shape_ok``; past w = 16 or 512-byte head rows
+``band_rows_kernel``, or K1's f32 attention up to head width 128), K8 head
+dims that are multiples of 16 up to 128. On the CPU each
 wrapper runs its plain version, so these tests hold the plain versions and
 the blocks built on them to the JAX package at those shapes:
 
@@ -29,8 +30,10 @@ the blocks built on them to the JAX package at those shapes:
   instance's or, past 128, in 128-channel score chunks and 128-column
   blocks (f32 in the tensor-core model of ``tests/tf32_model.py``, and
   bf16); the bf16 GEMM mainloop's per-slice f32 sums at K = 8192 against
-  ``cdot``; K7's streamed offsets; K8's head dims padded to its instances'
-  widths and its context in 64-column halves."""
+  ``cdot``; K7 past its tiled kernel (``band_rows_kernel``'s steps, K1's
+  f32 attention on K7's operands) against ``band_attention_plain`` under ``chip_smoke.check_k7``'s rule,
+  and the route every K7 shape takes; K8's head dims padded to its
+  instances' widths and its context in 64-column halves."""
 
 import torch_one_thread  # noqa: F401
 
@@ -261,50 +264,6 @@ def _band_case_vs_pallas(rng, t, lens, h, d, w, dtype):
     np.testing.assert_allclose(got.float().numpy(), np.asarray(ref, np.float32), **tol)
 
 
-def _band_any(q, k, v, valid, w):
-    """``band_any_kernel`` (csrc/band_attention.cu) in torch: per query row,
-    the offsets inside the sequence streamed in order in three passes (the
-    maximum; the exps, rounded, summed from the first in-range offset; the
-    quotients e / den rounded and the context summed offset by offset), every
-    step rounded to the input dtype where the kernel rounds it."""
-    dt = q.dtype
-    b, h, t, d = q.shape
-    rnd = lambda x: x.to(dt).float()  # noqa: E731
-    pen = rnd(torch.tensor(tband.NEG_PENALTY))
-    out = torch.zeros(b, h, t, d, dtype=dt)
-    for i in range(t):
-        lo, hi = max(-w, -i), min(w, t - 1 - i)
-        offs = range(lo, hi + 1)
-        keys = [i + o for o in offs]
-        s = [rnd((q[:, :, i] * k[:, :, j]).float().sum(-1)) for j in keys]
-        s = [torch.where(valid[:, j][:, None], sj, rnd(sj + pen)) for j, sj in zip(keys, s)]
-        mx = torch.stack(s).amax(0)
-        e = [rnd(torch.exp(rnd(sj - mx))) for sj in s]
-        den = e[0]
-        for ej in e[1:]:
-            den = rnd(den + ej)
-        acc = torch.zeros(b, h, d)
-        for ej, j in zip(e, keys):
-            acc = rnd(acc + rnd(rnd(ej / den)[..., None] * v[:, :, j].float()))
-        out[:, :, i] = (acc * valid[:, i][:, None, None]).to(dt)
-    return out
-
-
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("t,w", [(40, 17), (30, 100), (64, 24)])
-def test_band_streamed_offsets_match_plain(rng, dtype, t, w):
-    """K7's streamed offsets (torch rendering) equal ``band_attention_plain``
-    bit for bit: skipping offsets outside the sequence and starting the sum
-    of the exps at the first one in range change nothing (their exps are 0),
-    at windows wider than T too."""
-    tdt = getattr(torch, dtype)
-    q, k, v = (_t(rng.standard_normal((2, 2, t, 24)).astype(np.float32), tdt) for _ in range(3))
-    valid = _t(np.arange(t)[None, :] < np.asarray([t, t // 3])[:, None])
-    got = _band_any(q, k, v, valid, w)
-    ref = tband.band_attention_plain(q, k, v, valid, w)
-    assert torch.equal(got, ref)
-
-
 # ------------------------------------------------------------ K8
 
 @pytest.mark.parametrize("masked", [False, True], ids=["nomask", "mask"])
@@ -359,11 +318,11 @@ def _pad(a, width):
     return torch.nn.functional.pad(a, (0, width - a.shape[-1]))
 
 
-def _tiles(t, rows, keys, w):
+def _tiles(t, rows, keys, w, band):
     """(query rows, visited key-tile indices) per block of ``rows`` rows."""
     for r0 in range(0, t, rows):
         lo, hi = 0, (t - 1) // keys
-        if w > 0:
+        if band:
             lo, hi = max(r0 - w, 0) // keys, min(r0 + rows - 1 + w, t - 1) // keys
         yield torch.arange(r0, min(r0 + rows, t)), range(lo, hi + 1)
 
@@ -393,7 +352,7 @@ def _f32_scores_gemm(q, k, v, valid, n_head):
     return out
 
 
-def _f32_scratch_attend(q, k, v, valid, n_head, w, pad=True):
+def _f32_scratch_attend(q, k, v, valid, n_head, w, pad=True, band=None):
     """csrc/fused_block_f32_attend.cu at a head width of the scratch route,
     in torch over the tensor-core model of tests/tf32_model.py: each head's
     q, k, v zero past d to its instance's width (``pad``; d > 128: none),
@@ -403,11 +362,12 @@ def _f32_scratch_attend(q, k, v, valid, n_head, w, pad=True):
     block's sum added in f32: the wide kernel's 64-channel steps hold two
     such blocks and skip those past d), the masks, an online softmax, P.V
     the same way, the context divided at the end; invalid rows zero. Dense
-    past d = 128: ``_f32_scores_gemm``. Returns f64 holding f32 values (B,
-    T, C)."""
+    past d = 128: ``_f32_scores_gemm``. ``band``: banded (K1: w > 0; K7:
+    always, w = 0 its own key). Returns f64 holding f32 values (B, T, C)."""
     b, t, c = q.shape
     d = c // n_head
-    if d > 128 and w <= 0:
+    band = w > 0 if band is None else band
+    if d > 128 and not band:
         return _f32_scores_gemm(q, k, v, valid, n_head)
     width = _width(d) if pad else d
     cols = [slice(0, width)] if width <= 128 else [slice(c0, min(c0 + COLS, width))
@@ -417,7 +377,7 @@ def _f32_scratch_attend(q, k, v, valid, n_head, w, pad=True):
         for h in range(n_head):
             sl = slice(h * d, (h + 1) * d)
             qq, kk, vv = (_pad(a[bi, :, sl], width) for a in (q, k, v))
-            for rows, key_tiles in _tiles(t, F_ROWS, F_KEYS, w):
+            for rows, key_tiles in _tiles(t, F_ROWS, F_KEYS, w, band):
                 for cs in cols:
                     m = torch.full((len(rows),), -math.inf, dtype=torch.float64)
                     z = torch.zeros(len(rows), dtype=torch.float64)
@@ -428,7 +388,7 @@ def _f32_scratch_attend(q, k, v, valid, n_head, w, pad=True):
                         at = keys.clamp(max=t - 1)
                         ok = inseq & valid[bi, at]
                         s = tc_matmul(qq[rows], kk[at] * inseq[:, None], 32)
-                        if w > 0:
+                        if band:
                             s = torch.where(ok[None], s, (s + tfb.NEG_PENALTY).float().double())
                             far = (keys[None] - rows[:, None]).abs() > w
                             s = torch.where(far | ~inseq[None], -math.inf, s)
@@ -441,7 +401,7 @@ def _f32_scratch_attend(q, k, v, valid, n_head, w, pad=True):
                         sc = torch.exp(m.float() - mu)
                         e = torch.exp(s - mu[:, None])
                         z = (z.float() * sc + e.sum(1)).double()
-                        if w <= 0:
+                        if not band:
                             e = e * ok[None]
                         pv = tc_matmul(e, (vv[at, cs] * inseq[:, None]).t().contiguous(), 32)
                         o = (o.float() * sc[:, None] + pv.float()).double()
@@ -467,6 +427,7 @@ def _bf16_scratch_attend(q, k, v, valid, n_head, w):
     bf = torch.bfloat16
     b, t, c = q.shape
     d = c // n_head
+    band = w > 0
     width = _width(d)
     cols = [slice(0, width)] if width <= 128 else [slice(c0, min(c0 + COLS, width))
                                                    for c0 in range(0, width, COLS)]
@@ -477,7 +438,7 @@ def _bf16_scratch_attend(q, k, v, valid, n_head, w):
         for h in range(n_head):
             sl = slice(h * d, (h + 1) * d)
             qq, kk, vv = (_pad(a[bi, :, sl].float(), width) for a in (q, k, v))
-            for rows, key_tiles in _tiles(t, B_ROWS, B_KEYS, w):
+            for rows, key_tiles in _tiles(t, B_ROWS, B_KEYS, w, band):
 
                 def tile(j):
                     keys = torch.arange(j * B_KEYS, (j + 1) * B_KEYS)
@@ -489,7 +450,7 @@ def _bf16_scratch_attend(q, k, v, valid, n_head, w):
                         sc = sc + qq[rows, c0:c0 + 128] @ kt[:, c0:c0 + 128].T
                     sc = sc.to(bf)
                     ok = inseq & valid[bi, at]
-                    if w > 0:
+                    if band:
                         sc = torch.where(ok[None], sc, sc + pen).float()
                         far = (keys[None] - rows[:, None]).abs() > w
                         sc = torch.where(far | ~inseq[None], tfb.NEG_INF, sc)
@@ -511,7 +472,7 @@ def _bf16_scratch_attend(q, k, v, valid, n_head, w):
                     for j in key_tiles:
                         sc, ok, vt = tile(j)
                         pr = (torch.exp(sc - m[:, None]) * inv[:, None]).to(bf).float()
-                        if w <= 0:
+                        if not band:
                             pr = pr * ok[None]
                         acc += pr @ vt[:, cs]
                     keep = min(cs.stop, d) - cs.start
@@ -550,6 +511,145 @@ def test_scratch_attention_tiling_matches_plain(rng, dtype, t, heads, d, w):
     else:
         got = _bf16_scratch_attend(q, k, v, valid, heads, w)
         np.testing.assert_allclose(got.float().numpy(), ref.float().numpy(), **BF16_TOL)
+
+
+# ------------------------- K7 past its tiled kernel: K1's attention kernels
+
+def _k7_rows(q, k, v, valid, w):
+    """csrc/band_attention.cu::band_rows_kernel in torch ((B, H, T, D) q
+    (scaled), k, v; (B, T) bool mask). A score: bf16 the products rounded
+    to bf16 (mul.rn.bf16x2) summed by the tensor cores (mma.sync against
+    ones) in f32; f32 each lane's fused multiply-adds over its pieces, then
+    the lanes' sums; here both are the exact sum rounded to f32, which the
+    kernel's order moves by an f32 rounding or so. Then in the input dtype,
+    per row in offset order, the plain version's steps: the score rounded,
+    the penalty added where the key is masked (rounded), the exps rounded,
+    their running sum rounded, p = e / sum rounded, p v into the running
+    context (bf16: product and sum each rounded; f32: one fused
+    multiply-add); offsets outside the sequence skipped (their exps are 0);
+    rows whose own key is masked zero. The kernel's row blocks and key
+    stages change no sum's order, so this runs offset by offset, the band
+    capped at the sequence."""
+    dt = q.dtype
+    b, h, t, d = q.shape
+    w = min(w, t - 1)
+    rnd = lambda x: x.to(dt).float()  # noqa: E731
+    pen = torch.tensor(tband.NEG_PENALTY, dtype=dt).float()
+    rows = torch.arange(t)
+    scores = []
+    for o in range(-w, w + 1):
+        keys = rows + o
+        inseq = (keys >= 0) & (keys < t)
+        at = keys.clamp(0, t - 1)
+        s = rnd((q * k[:, :, at]).double().sum(-1).float())
+        s = torch.where(valid[:, at][:, None], s, rnd(s + pen))
+        scores.append((torch.where(inseq, s, -math.inf), inseq, at))
+    m = torch.stack([s for s, _, _ in scores]).amax(0)
+    exps = [torch.where(inseq, rnd(torch.exp(rnd(s - m))), 0.0) for s, inseq, _ in scores]
+    den = torch.zeros_like(m)
+    for e in exps:
+        den = rnd(den + e)
+    acc = torch.zeros(b, h, t, d)
+    for e, (_, inseq, at) in zip(exps, scores):
+        p = rnd(e / den)[..., None]
+        vv = v[:, :, at].float()
+        step = rnd(acc + rnd(p * vv)) if dt == torch.bfloat16 else \
+            (acc.double() + p.double() * vv.double()).float()
+        acc = torch.where(inseq[:, None], step, acc)
+    return (acc * valid[:, None, :, None]).to(dt)
+
+
+def _k7_past_tiled(q, k, v, valid, w, pad=True):
+    """K7's route past its tiled kernel in torch. f32 up to head width 128:
+    K1's banded attention (csrc/band_attend.cuh) on its (B, H, T, D)
+    operands, which are the (B, T, H D) rows K1's kernels read
+    (``_f32_scratch_attend`` in the tensor-core model), always banded, the
+    band capped at the sequence (w >= T is w = T - 1); bf16, and f32 past
+    128: ``_k7_rows``."""
+    b, h, t, d = q.shape
+    if tband.route_of(d, q.dtype, w) != "wgmma 3xTF32":
+        return _k7_rows(q, k, v, valid, w)
+    flat = lambda a: a.transpose(1, 2).reshape(b, t, h * d)  # noqa: E731
+    got = _f32_scratch_attend(flat(q), flat(k), flat(v), valid, h, min(w, t - 1), pad=pad,
+                              band=True).float()
+    return got.reshape(b, t, h, d).transpose(1, 2)
+
+
+# (dtype, T, heads, D, w): windows 17 / 40 / 100 with T above and below 2w +
+# 1 (and below w), heads padded to an instance (f32 also at widths 4 mod 8),
+# past 128 in 128-column blocks, small windows and w = 0 where the head row
+# alone (over 512 bytes) leaves the tiled kernel
+K7_ROUTE_CASES = [("float32", 40, 1, 24, 17), ("bfloat16", 40, 1, 24, 17),
+                  ("float32", 30, 2, 20, 40), ("bfloat16", 30, 2, 16, 40),
+                  ("float32", 150, 1, 64, 100), ("bfloat16", 150, 1, 48, 100),
+                  ("float32", 24, 1, 132, 3), ("bfloat16", 40, 1, 264, 17),
+                  ("float32", 40, 1, 256, 0), ("bfloat16", 30, 1, 512, 0)]
+
+
+@pytest.mark.parametrize("dtype,t,heads,d,w", K7_ROUTE_CASES,
+                         ids=[f"{c[0][:4]}-T{c[1]}-h{c[2]}-d{c[3]}-w{c[4]}"
+                              for c in K7_ROUTE_CASES])
+def test_band_past_tiled_kernel_matches_plain(rng, dtype, t, heads, d, w):
+    """K7 past its tiled kernel (torch renderings of its routes: bf16, and
+    f32 past head width 128, ``band_rows_kernel``'s steps in the plain
+    version's order; f32 up to 128 K1's banded attention on K7's operands,
+    64 query rows a block, the 32-key tiles that meet the band, an f32
+    online softmax, heads padded with zeros to an instance's width) against
+    ``band_attention_plain`` under ``chip_smoke.check_k7``'s rule (f32
+    atol 1e-5; bf16 atol = rtol = 2e-2 and no further than 1.5x the plain
+    version from the f32 function), masks full, partial, one row and none.
+    On the CPU the wrapper runs the plain version and counts nothing."""
+    import chip_smoke
+
+    tdt = getattr(torch, dtype)
+    assert tband.kernel_shape_ok(d, tdt.itemsize, w) and not tband.tiled(d, tdt.itemsize, w)
+    assert tband.route_of(d, tdt, w) == (
+        "staged rows bf16" if dtype == "bfloat16" else "wgmma 3xTF32" if d <= 128
+        else "staged rows f32")
+    valid = _t(np.arange(t)[None, :] < np.asarray([t, (2 * t) // 3, 1, 0])[:, None])
+    q, k, v = (_t(rng.standard_normal((4, t, heads * d)).astype(np.float32))
+               .reshape(4, t, heads, d).transpose(1, 2) for _ in range(3))
+    q, k, v = (q * d ** -0.5).to(tdt), k.to(tdt), v.to(tdt)
+    tband.reset_launches()
+    ref = tband.band_attention_kernel(q, k, v, valid, w)
+    assert tband.LAUNCHES == 0 and not tband.ROUTES
+    assert torch.equal(ref, tband.band_attention_plain(q, k, v, valid, w))
+    got = _k7_past_tiled(q, k, v, valid, w).to(tdt)
+    err, ok, rule = chip_smoke.check_k7(got, ref, q, k, v, valid, w)
+    assert ok, f"max|d| {err:.3e} ({rule})"
+    assert torch.count_nonzero(got[3]) == 0          # no valid key: every row's own is masked
+    if tband.route_of(d, tdt, w) == "wgmma 3xTF32" and d % 32:   # zeros past d add nothing
+        bare = _k7_past_tiled(q, k, v, valid, w, pad=False)
+        np.testing.assert_allclose(got.numpy(), bare.numpy(), rtol=0, atol=1e-6)
+
+
+def test_band_every_shape_takes_one_route():
+    """Every head width and window ``kernel_shape_ok`` takes goes to one
+    route: the tiled kernel (w <= 16, head rows <= 512 bytes); past it bf16
+    ``band_rows_kernel``, f32 K1's attention on the tensor cores up to head
+    width 128 (its instances 32 / 64 / 96 / 128, narrower heads padded with
+    zeros) and ``band_rows_kernel`` past 128, up to 512. Every route is
+    some shape's."""
+    counts = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        size = dtype.itemsize
+        for d in range(1, tband.MAX_HEAD_DIM + 9):
+            for w in (0, 1, 8, 16, 17, 33, 100, 10 ** 6):
+                if not tband.kernel_shape_ok(d, size, w):
+                    assert d * size % 16 or d > tband.MAX_HEAD_DIM
+                    continue
+                route = tband.route_of(d, dtype, w)
+                if w <= tband.MAX_W and d * size <= tband.MAX_TILED_ROW_BYTES:
+                    assert route == "tiled" and tband.tiled(d, size, w)
+                elif dtype == torch.bfloat16:
+                    assert route == "staged rows bf16" and not tband.tiled(d, size, w)
+                elif d <= 128:
+                    assert route == "wgmma 3xTF32" and _width(d) in INSTANCES
+                else:
+                    assert route == "staged rows f32"
+                counts[route] = counts.get(route, 0) + 1
+    assert set(counts) == set(tband.ROUTE_NAMES)
+    assert not tband.kernel_shape_ok(64, 2, -1)
 
 
 def _bf16_slice_sums(a, m, depth=64):

@@ -412,7 +412,7 @@ def test_fused_block_shape_rule(c, heads, w, ok):
 def test_band_attention_shape_rule(d, size, w, ok):
     """Any half window; head rows of whole 16-byte pieces up to head_dim 512
     in either dtype (the tiled kernel up to w = 16 and 512-byte rows,
-    band_any_kernel beyond)."""
+    ``route_of``'s routes beyond)."""
     assert tband.kernel_shape_ok(d, size, w) is ok
     if ok:
         assert tband.tiled(d, size, w) is (w <= 16 and d * size <= 512)

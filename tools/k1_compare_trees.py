@@ -19,7 +19,10 @@ one call replayed as a CUDA graph, K5 (one call: the seven layers) on B =
 
 ``--kernels k7``: in bf16 and float32, K7 at the unfused block's w = 3 on
 (50, 4, T, 64) head views at each ``chip_smoke.K7_TS`` length, device ms
-of one call replayed as a CUDA graph, and their sum.
+of one call replayed as a CUDA graph, and their sum; and at every
+``chip_smoke.DOMAIN_K7`` shape and ``DOMAIN_K7_W`` window (the route past
+the tiled kernel), each beside the nearest library call's device ms
+(``chip_smoke.sdpa_nearest``: SDPA with the key mask and band).
 
 ``--kernels mvit``: in bf16 and float32, K4's 18 blocks of one mvit_v2_b
 forward at 32 chunks (each ``chip_smoke.MSBLOCK_SHAPES`` geometry, device ms
@@ -429,6 +432,15 @@ with torch.no_grad():
             total += ms
             del args
         out[f"K7 {dname} the {len(c.K7_TS)} lengths"] = total
+        for bb, h, t, d in c.DOMAIN_K7:
+            for ww in c.DOMAIN_K7_W:
+                args = c.k7_case(bb, t, dt, "cuda", seed=ww, h=h, d=d)
+                run = lambda: c.run_k7("kernel", *args, ww)
+                key = f"K7 {dname} {bb}x{h}x{t}x{d} w={ww}"
+                digests[key] = digest(run())
+                out[key] = c.device_ms(run, iters=10)
+                out[key + " SDPA"] = c.device_ms(c.sdpa_nearest(*args, ww), iters=10)
+                del args
 out["digests"] = digests
 print("RESULT " + json.dumps(out))
 """
